@@ -1,0 +1,71 @@
+"""PyTorch/CUDA port of the seamless-clone (Poisson image editing) engine.
+
+A second package beside the JAX one (``seamlesscloneoptimization_tpu``,
+which stays the reference): the same public surface, with every TPU Pallas
+kernel on the ported path replaced by a kernel written by hand in CUDA C++
+for Hopper (``csrc/``, built with nvcc on first use, bound through ctypes).
+
+The port imports torch and numpy only. Its entry points run on ``cuda``
+unless the caller passes ``device="cpu"``, which runs the plain PyTorch
+twins of the kernels; without a card and without ``device="cpu"`` they
+raise rather than quietly fall back.
+
+What runs (ROADMAP slice 1): ``CloneConfig()`` for patches below the
+``auto`` crossover — the unfolded DST-GEMM serve path of
+``SeamlessClone.run`` / ``timed_serve`` and ``seamless_clone``, in the
+NORMAL, MIXED and MONOCHROME modes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NORMAL_CLONE = 1
+MIXED_CLONE = 2
+MONOCHROME_TRANSFER = 3
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "NORMAL_CLONE",
+    "MIXED_CLONE",
+    "MONOCHROME_TRANSFER",
+    "CloneConfig",
+    "SeamlessClone",
+    "seamless_clone",
+    "resolve_device",
+]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` by default.
+
+    Raises RuntimeError when CUDA is asked for (explicitly or by default)
+    and is not available — the port never silently runs on the CPU; pass
+    ``device="cpu"`` for the plain PyTorch versions.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions of the kernels on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def __getattr__(name):
+    # lazy: the engine modules import this one for resolve_device
+    if name == "CloneConfig":
+        from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
+
+        return CloneConfig
+    if name == "SeamlessClone":
+        from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone
+
+        return SeamlessClone
+    if name == "seamless_clone":
+        from seamlesscloneoptimization_tpu_torch.api import seamless_clone
+
+        return seamless_clone
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

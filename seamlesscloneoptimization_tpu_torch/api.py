@@ -1,0 +1,62 @@
+"""Functional API mirroring OpenCV's signature.
+
+Port of ``seamlesscloneoptimization_tpu/api.py``: ``seamless_clone(src, dst,
+mask, center, flags)`` is a drop-in for ``cv2.seamlessClone`` (returns u8
+HWC). A small LRU of engines keeps the device-resident DST bases across
+calls (ref lazy instance creation, SeamlessClone.cpp:108-118). The batch
+and edit functions come with later ROADMAP slices.
+"""
+
+from __future__ import annotations
+
+from seamlesscloneoptimization_tpu_torch import resolve_device
+from seamlesscloneoptimization_tpu_torch.core.config import (
+    MIXED_CLONE,
+    MONOCHROME_TRANSFER,
+    NORMAL_CLONE,
+    CloneConfig,
+)
+from seamlesscloneoptimization_tpu_torch.core.engine import BoundedCache, SeamlessClone
+
+_engines: dict = BoundedCache(maxsize=16)
+
+
+def _engine(solver: str, tol: float, device) -> SeamlessClone:
+    dev = resolve_device(device)
+    key = (solver, tol, str(dev))
+    eng = _engines.get(key)
+    if eng is None:
+        eng = SeamlessClone(CloneConfig(solver=solver, tol=tol), device=dev)
+        _engines[key] = eng
+    return eng
+
+
+def seamless_clone(
+    src,
+    dst,
+    mask,
+    center: tuple[int, int],
+    flags: int = NORMAL_CLONE,
+    *,
+    solver: str = "auto",
+    tol: float = 1e-4,
+    to_numpy: bool = True,
+    device=None,
+):
+    """Seamlessly clone ``src`` (under ``mask``) into ``dst`` centred at ``center``.
+
+    Arguments mirror cv2.seamlessClone; ``solver`` selects the Poisson
+    solver and ``device`` where it runs (default ``cuda``; ``"cpu"`` runs
+    the plain PyTorch twins). Returns u8 HWC: numpy if ``to_numpy``, else
+    the device tensor.
+    """
+    out = _engine(solver, tol, device).run(src, dst, mask, center, flags)
+    return out.cpu().numpy() if to_numpy else out
+
+
+__all__ = [
+    "seamless_clone",
+    "NORMAL_CLONE",
+    "MIXED_CLONE",
+    "MONOCHROME_TRANSFER",
+]

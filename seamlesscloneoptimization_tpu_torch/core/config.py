@@ -1,0 +1,85 @@
+"""Runtime configuration: a field-for-field mirror of the JAX ``CloneConfig``.
+
+Same fields, same defaults (``seamlesscloneoptimization_tpu/core/config.py``),
+so a configuration carries across with ``config_from_jax``. This system has
+no weights: the only other carried state is the DST basis, which the port
+rebuilds bit-equal on the host (``solvers/dst_gemm.py``).
+
+What the port runs of it (ROADMAP slice 1): ``solver`` "auto" below the
+crossover or "dst_gemm", every ``flags`` mode and ``mixed_rule``,
+``precision`` "high"/"highest" (both FP32 on the card, TF32 off), and
+``donate_dst``. ``dst_folded=True`` is accepted and runs the unfolded chain
+(``solvers/dst_gemm.py:fold_pays``). The engine raises NotImplementedError
+for what a later slice brings (``solvers/__init__.py``, ``core/engine.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+_DEFAULT_CACHE_DIR = os.environ.get(
+    "SCL_TPU_CACHE_DIR",
+    os.path.join(os.path.expanduser("~"), ".cache", "seamlessclone_tpu", "jax"),
+)
+
+NORMAL_CLONE = 1
+MIXED_CLONE = 2
+MONOCHROME_TRANSFER = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class CloneConfig:
+    """Configuration for a SeamlessClone engine instance."""
+
+    solver: str = "auto"  # auto | dst_gemm (ported) | dst_fft | jacobi | multigrid
+    precision: str = "high"  # "high" and "highest" both run FP32 GEMMs (TF32 off)
+    dst_folded: bool = True  # accepted; runs the unfolded chain until the
+    # folded pair chain is ported (fold_pays is False)
+    flags: int = NORMAL_CLONE
+    mixed_rule: str = "opencv"  # MIXED_CLONE comparison: "opencv" | "norm"
+    tol: float = 1e-4  # relative residual tolerance (iterative solvers)
+    max_iters: int = 10000  # jacobi sweep cap
+    max_cycles: int = 60  # multigrid V-cycle cap
+    mg_cycles: int | None = None  # fixed-work multigrid cycles
+    # The next four fields and compilation_cache_dir only mean something on
+    # a TPU. They are kept so that configs carry across; they select nothing
+    # on the card (the kernels always run there).
+    use_pallas_smoother: bool = True
+    mg_padded: bool | str = "q"
+    use_pallas_preprocess: bool = True
+    use_pallas_postprocess: bool = True
+    debug_dump: bool = False  # per-stage dumps: not ported yet (raises)
+    debug_dir: str = "/tmp/scl_debug"
+    donate_dst: bool = False  # run() updates a caller's device tensor in place
+    bbox_bucket: int = 0  # bbox rounding: not ported yet (> 0 raises)
+    bucket_exact: bool = False
+    compilation_cache_dir: str | None = _DEFAULT_CACHE_DIR
+
+    def solver_kwargs(self) -> dict:
+        if self.solver == "jacobi":
+            return {"tol": self.tol, "max_iters": self.max_iters,
+                    "use_pallas": self.use_pallas_smoother}
+        if self.solver == "multigrid":
+            return {"tol": self.tol, "max_cycles": self.max_cycles,
+                    "use_pallas": self.use_pallas_smoother,
+                    "cycles": self.mg_cycles, "padded": self.mg_padded}
+        if self.solver == "dst_gemm":
+            return {"precision": self.precision, "folded": self.dst_folded}
+        if self.solver == "auto":
+            return {"precision": self.precision, "tol": self.tol,
+                    "folded": self.dst_folded, "padded": self.mg_padded,
+                    "cycles": self.mg_cycles}
+        return {}
+
+
+def config_from_jax(fields: dict) -> CloneConfig:
+    """The port's CloneConfig from ``dataclasses.asdict()`` of a JAX one.
+
+    Raises ValueError on a field the port does not know.
+    """
+    known = {f.name for f in dataclasses.fields(CloneConfig)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"unknown CloneConfig fields: {unknown}")
+    return CloneConfig(**fields)

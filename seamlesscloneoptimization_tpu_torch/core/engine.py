@@ -1,0 +1,344 @@
+"""SeamlessClone engine: a reusable instance whose destination stays on the
+device from frame to frame.
+
+Port of ``seamlesscloneoptimization_tpu/core/engine.py`` (ref instance
+lifecycle ``seamlessClone_imp_create_instance/run/destroy/sync``,
+seamlessClone-CUDA/seamlessClone_imp.cu:239-370):
+
+- ``run(...)`` is asynchronous on the current CUDA stream; ``sync()``
+  blocks. It writes a copy of the destination unless ``donate_dst=True``
+  and the destination is already a device tensor, which is then updated in
+  place.
+- ``timed_serve`` uploads once and chains frames in place on a planar
+  buffer it owns, timed with CUDA events after one warm-up frame.
+- The padded DST bases live on the device, cached per shape, so a frame
+  uploads nothing.
+
+Not ported here (TPU-only or a later slice; see ROADMAP): the layout pin
+and self-heal, the sync-overhead subtraction, ``profile`` and
+``dump_stages``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import weakref
+from typing import Any
+
+import numpy as np
+import torch
+
+from seamlesscloneoptimization_tpu_torch import resolve_device
+from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
+from seamlesscloneoptimization_tpu_torch.core.reference import mask_bounding_box, zero_mask_border
+from seamlesscloneoptimization_tpu_torch.models.pipeline import clone_pipeline
+from seamlesscloneoptimization_tpu_torch.ops.kernels import ru128
+from seamlesscloneoptimization_tpu_torch.solvers import (
+    AUTO_CROSSOVER_PIXELS,
+    SERVE_CROSSOVER_PIXELS,
+    auto_solver_name,
+    get_solver,
+    not_ported,
+)
+from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import check_precision, dst_bases
+
+
+class BoundedCache(dict):
+    """Recency-ordered dict evicting the least-recently-used entry past
+    ``maxsize``."""
+
+    def __init__(self, maxsize: int = 32):
+        super().__init__()
+        self.maxsize = maxsize
+
+    def get(self, key, default=None):
+        if key in self:
+            val = super().pop(key)
+            super().__setitem__(key, val)  # refresh recency
+            return val
+        return default
+
+    def __setitem__(self, key, value):
+        if key in self:
+            super().pop(key)
+        elif len(self) >= self.maxsize:
+            super().pop(next(iter(self)))  # least recently used
+        super().__setitem__(key, value)
+
+
+def prepare_inputs(mask: np.ndarray, src_shape, dst_shape, center, bucket: int = 0,
+                   return_tight: bool = False):
+    """Host-side mask prep: binarize + border-zero + bbox + ROI placement.
+
+    Returns None for an empty mask, else (prepared_mask, (x0, y0),
+    (left, top), (bh, bw)) — plus, with ``return_tight``, (dy, dx,
+    tight_bh, tight_bw): the tight bbox inside the returned ROI. bucket > 0
+    rounds the ROI up to a multiple, placing the tight bbox inside it from
+    the feasibility interval (bucket inside src AND its paste target inside
+    dst, paste position preserved), or keeps the exact bbox when that
+    interval is empty.
+    """
+    if bucket < 0:
+        raise ValueError(f"bbox_bucket must be >= 0, got {bucket}")
+    mask = np.asarray(mask)
+    if mask.ndim == 3:
+        mask = mask[..., 0]
+    if mask.shape != tuple(src_shape[:2]):
+        raise ValueError(f"mask shape {mask.shape} != source {tuple(src_shape[:2])}")
+    m = zero_mask_border(np.where(mask != 0, np.uint8(255), np.uint8(0)))
+    x0, y0, bw, bh = mask_bounding_box(m)
+    if bw == 0 or bh == 0:
+        return None
+    cx, cy = center
+    left, top = cx - bw // 2, cy - bh // 2
+    if left < 0 or top < 0 or left + bw > dst_shape[1] or top + bh > dst_shape[0]:
+        raise ValueError(
+            f"patch ROI ({left},{top})+({bw}x{bh}) outside destination {dst_shape[:2]}"
+        )
+    if bucket:
+        tb = min(-(-bh // bucket) * bucket, src_shape[0], dst_shape[0])
+        tw = min(-(-bw // bucket) * bucket, src_shape[1], dst_shape[1])
+        lo_y = max(0, y0 - (src_shape[0] - tb), top - (dst_shape[0] - tb))
+        hi_y = min(y0, top, tb - bh)
+        lo_x = max(0, x0 - (src_shape[1] - tw), left - (dst_shape[1] - tw))
+        hi_x = min(x0, left, tw - bw)
+        if lo_y <= hi_y and lo_x <= hi_x:
+            dy = min(max((tb - bh) // 2, lo_y), hi_y)
+            dx = min(max((tw - bw) // 2, lo_x), hi_x)
+            out = m, (x0 - dx, y0 - dy), (left - dx, top - dy), (tb, tw)
+            return out + ((dy, dx, bh, bw),) if return_tight else out
+    out = m, (x0, y0), (left, top), (bh, bw)
+    return out + ((0, 0, bh, bw),) if return_tight else out
+
+
+def _effective_solver(solver: str, bbox_hw, planar_dst: bool) -> str:
+    """Resolve "auto" for one geometry: dst_gemm below the crossover (the
+    serve crossover for the planar serve loop), else NotImplementedError."""
+    if solver != "auto":
+        return solver
+    crossover = SERVE_CROSSOVER_PIXELS if planar_dst else AUTO_CROSSOVER_PIXELS
+    name = auto_solver_name((3, bbox_hw[0] - 2, bbox_hw[1] - 2), crossover)
+    if name != "dst_gemm":
+        raise not_ported(name, f" (auto above {crossover} pixels)")
+    return name
+
+
+def _is_uint8(img) -> bool:
+    if isinstance(img, torch.Tensor):
+        return img.dtype == torch.uint8
+    return np.dtype(img.dtype) == np.uint8
+
+
+class SeamlessClone:
+    """Reusable seamless-clone instance.
+
+        engine = SeamlessClone(CloneConfig())             # runs on cuda
+        out = engine.run(src, dst, mask, (800, 150))      # async
+        engine.sync()
+        out_np = out.cpu().numpy()
+
+    ``device="cpu"`` runs the plain PyTorch twins of the kernels.
+    """
+
+    def __init__(self, config: CloneConfig | None = None, device=None):
+        self.config = config or CloneConfig()
+        cfg = self.config
+        if cfg.solver != "auto":  # "auto" is resolved per geometry at run time
+            get_solver(cfg.solver)  # NotImplementedError / ValueError if unknown
+        check_precision(cfg.precision)
+        if cfg.bbox_bucket:
+            raise NotImplementedError(
+                "bbox_bucket > 0 is not ported yet: ROADMAP slice 5 (bucketed serving)")
+        if cfg.debug_dump:
+            raise NotImplementedError(
+                "debug_dump is not ported yet: ROADMAP slice 5 (stage dumps)")
+        if cfg.flags not in (1, 2, 3):
+            raise ValueError(f"unknown clone flags={cfg.flags}")
+        if cfg.mixed_rule not in ("opencv", "norm"):
+            raise ValueError(f"unknown mixed_rule {cfg.mixed_rule!r}")
+        self.device = resolve_device(device)
+        self._bases = BoundedCache(maxsize=8)
+        self._held: dict[int, Any] = {}  # id -> weakref of tensors THIS engine made
+        self._last_out: torch.Tensor | None = None
+        self.metrics: dict[str, Any] = {}
+
+    def _track(self, x: torch.Tensor) -> torch.Tensor:
+        """Count a device tensor in this instance's memory accounting."""
+        self._held[id(x)] = weakref.ref(x)
+        return x
+
+    def _upload(self, x) -> torch.Tensor:
+        """A device copy of a host array (a copy on the CPU too: the
+        pipeline writes in place and must never touch the caller's array)."""
+        return self._track(
+            torch.from_numpy(np.ascontiguousarray(x)).to(self.device, copy=True))
+
+    def _device_bases(self, h2: int, w2: int):
+        key = (h2, w2)
+        b = self._bases.get(key)
+        if b is None:
+            b = tuple(self._track(t) for t in dst_bases(
+                h2, w2, ru128(h2), ru128(w2), self.device))
+            self._bases[key] = b
+        return b
+
+    @staticmethod
+    def _validate(src, dst):
+        """3-channel uint8 images, dst area >= src area (the reference's
+        asserts, imp.cpp:432-436, as exceptions)."""
+        for name, img in (("src", src), ("dst", dst)):
+            if getattr(img, "ndim", None) != 3 or img.shape[2] != 3:
+                raise ValueError(f"{name} must be (H, W, 3), got {getattr(img, 'shape', None)}")
+            if not _is_uint8(img):
+                raise TypeError(f"{name} must be uint8, got {img.dtype}")
+        if dst.shape[0] * dst.shape[1] < src.shape[0] * src.shape[1]:
+            raise ValueError(
+                f"destination area {tuple(dst.shape[:2])} smaller than source "
+                f"{tuple(src.shape[:2])}")
+
+    def _prepare(self, mask, src, dst, center):
+        if mask is None:
+            mask = np.full(tuple(src.shape[:2]), 255, np.uint8)
+        elif isinstance(mask, torch.Tensor):
+            mask = mask.cpu().numpy()
+        return prepare_inputs(mask, tuple(src.shape), tuple(dst.shape), center)
+
+    def _pipeline_kwargs(self, bbox_hw, flags: int, planar_dst: bool) -> dict:
+        eff = _effective_solver(self.config.solver, bbox_hw, planar_dst)
+        self.metrics["solver_resolved"] = eff
+        cfg = dataclasses.replace(self.config, solver=eff)
+        return dict(bbox_hw=bbox_hw, flags=flags, solver=get_solver(eff),
+                    solver_kwargs=cfg.solver_kwargs(), mixed_rule=cfg.mixed_rule,
+                    bases=self._device_bases(bbox_hw[0] - 2, bbox_hw[1] - 2))
+
+    def _to_device(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x if x.device == self.device else self._track(x.to(self.device))
+        return self._upload(x)
+
+    # -- public API -----------------------------------------------------------
+
+    def run(self, src, dst, mask, center, flags: int | None = None) -> torch.Tensor:
+        """Dispatch one clone; returns the (H, W, 3) u8 device tensor (async).
+
+        ``src``/``dst`` may be host numpy arrays or tensors; a device tensor
+        is used without a host round trip. The caller's ``dst`` tensor is left
+        unmodified unless ``donate_dst=True``.
+        """
+        t0 = time.perf_counter()
+        flags = self.config.flags if flags is None else flags
+        self._validate(src, dst)
+        prep = self._prepare(mask, src, dst, center)
+        if prep is None:
+            self._last_out = self._to_device(dst)
+            return self._last_out
+        m, (x0, y0), (left, top), (bh, bw) = prep
+        if bh < 3 or bw < 3:  # no interior pixel to solve for
+            self._last_out = self._to_device(dst)
+            return self._last_out
+        kw = self._pipeline_kwargs((bh, bw), flags, planar_dst=False)
+        src_d = self._to_device(src)
+        dst_d = self._to_device(dst)
+        if dst_d is dst and not self.config.donate_dst:
+            dst_d = self._track(dst_d.clone())
+        out = clone_pipeline(src_d, dst_d, self._upload(m), (x0, y0), (left, top),
+                             **kw)
+        self._last_out = out
+        self.metrics["dispatch_ms"] = (time.perf_counter() - t0) * 1e3
+        self.metrics["bbox"] = (x0, y0, bw, bh)
+        self.metrics["left_top"] = (left, top)
+        return out
+
+    def sync(self):
+        """Block until the last dispatched clone is done (ref: _sync)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def device_memory_bytes(self, process_wide: bool = False) -> int:
+        """Live device bytes of tensors THIS instance created (ref:
+        SCImage::mOccupy, imp.cu:346); ``process_wide=True`` gives the
+        caching allocator's allocated bytes on the device instead."""
+        if process_wide:
+            if self.device.type == "cuda":
+                return int(torch.cuda.memory_allocated(self.device))
+            return 0
+        total = 0
+        for k, ref in list(self._held.items()):
+            x = ref()
+            if x is None:
+                del self._held[k]
+                continue
+            total += x.numel() * x.element_size()
+        return total
+
+    def _timer(self):
+        """(start, stop -> ms) on the device's clock: CUDA events on the
+        card, the host clock for the CPU twins."""
+        if self.device.type == "cuda":
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+
+            def stop():
+                e.record()
+                e.synchronize()
+                return s.elapsed_time(e)
+
+            s.record()
+            return stop
+        t0 = time.perf_counter()
+        return lambda: (time.perf_counter() - t0) * 1e3
+
+    def timed_run(self, src, dst, mask, center, loops: int = 10, warmup: int = 1):
+        """Warm-up + ``loops`` timed single-shot runs (each re-uploads the
+        host inputs, like the reference's per-call H2D copies). Returns
+        (out, mean_ms)."""
+        for _ in range(warmup):
+            self.run(src, dst, mask, center)
+        self.sync()
+        stop = self._timer()
+        for _ in range(loops):
+            out = self.run(src, dst, mask, center)
+        mean_ms = stop() / loops
+        self.metrics["compute_ms"] = mean_ms
+        self.metrics["device_memory_bytes"] = self.device_memory_bytes()
+        return out, mean_ms
+
+    def timed_serve(self, src, dst, mask, center, loops: int = 20,
+                    flags: int | None = None):
+        """Steady-state serve: upload once, chain ``loops`` frames in place.
+
+        Each frame's output is the next frame's destination, kept planar
+        (C, H, W) on the device; one warm-up frame runs outside the timed
+        window. Returns ((H, W, 3) u8 device tensor, mean ms per frame).
+        """
+        flags = self.config.flags if flags is None else flags
+        self._validate(src, dst)
+        prep = self._prepare(mask, src, dst, center)
+        if prep is None:
+            raise ValueError("empty mask")
+        m, (x0, y0), (left, top), (bh, bw) = prep
+        if bh < 3 or bw < 3:
+            raise ValueError(f"mask bbox {bh}x{bw} has no interior")
+        kw = self._pipeline_kwargs((bh, bw), flags, planar_dst=True)
+        src_d = self._to_device(src)
+        buf = self._track(self._to_device(dst).permute(2, 0, 1).contiguous())
+        m_d = self._upload(m)
+
+        def frame():
+            clone_pipeline(src_d, buf, m_d, (x0, y0), (left, top),
+                           planar_dst=True, **kw)
+
+        frame()  # warm-up: kernel build/load, allocator, cuBLAS handles
+        self.sync()
+        stop = self._timer()
+        for _ in range(loops):
+            frame()
+        mean_ms = stop() / max(loops, 1)
+        out = self._track(buf.permute(1, 2, 0).contiguous())
+        self._last_out = out
+        self.metrics["compute_ms"] = mean_ms
+        self.metrics["bbox"] = (x0, y0, bw, bh)
+        self.metrics["left_top"] = (left, top)
+        self.metrics["device_memory_bytes"] = self.device_memory_bytes()
+        return out, mean_ms

@@ -1,0 +1,151 @@
+"""The seamless-clone pipeline: ROI slicing, the kernel chain, the paste.
+
+Port of ``seamlesscloneoptimization_tpu/models/pipeline.py`` (ref
+``SeamlessClone::run``, seamlessClone_imp.cpp:2105-2135). The bbox is
+computed on the host before the call (``core/engine.py:prepare_inputs``),
+so offsets and sizes are plain ints and the ROI is a strided view: nothing
+outside it is converted or copied.
+
+The kernel branch of ``clone_roi`` is the serve path, one frame being
+
+    erode3 -> preprocess_rhs_t -> GEMM -> transpose -> GEMM -> transpose(÷)
+    -> GEMM -> transpose -> GEMM -> clamp_cast_paste
+
+with the interior written in place into the destination at (top+1, left+1).
+On CPU tensors each kernel wrapper runs its plain twin. Everything runs on
+the current stream, in order: the next chained frame's preprocess reads the
+ROI this frame's paste wrote.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from seamlesscloneoptimization_tpu_torch.ops.guidance import (
+    MONOCHROME_TRANSFER,
+    bgr_to_gray_u8,
+    guidance_field,
+)
+from seamlesscloneoptimization_tpu_torch.ops.kernels import (
+    clamp_cast_paste,
+    erode3,
+    preprocess_rhs_t,
+)
+from seamlesscloneoptimization_tpu_torch.ops.mask import binarize_mask, erode3x3
+from seamlesscloneoptimization_tpu_torch.ops.postprocess import postprocess_roi
+from seamlesscloneoptimization_tpu_torch.ops.rhs import poisson_rhs
+from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import solve_dst_gemm_pl
+
+
+def clone_roi(
+    dest_roi_u8: torch.Tensor,
+    patch_u8: torch.Tensor,
+    mask_roi: torch.Tensor,
+    flags: int,
+    solver: Callable[..., torch.Tensor] | None = None,
+    solver_kwargs: dict[str, Any] | None = None,
+    return_stages: bool = False,
+    mixed_rule: str = "opencv",
+    out: torch.Tensor | None = None,
+    out_offset: tuple[int, int] | None = None,
+    bases=None,
+):
+    """Clone on a pre-cropped ROI. Planar (C, H, W) u8 images, (H, W) u8 mask.
+
+    ``patch_u8`` must already be zeroed outside the (pre-erosion) mask.
+
+    Kernel branch (the default): the DST-GEMM serve chain. It ignores
+    ``solver`` (the chain is the dst_gemm solve; ``solver_kwargs`` gives
+    ``precision`` and ``folded``), and ``bases`` are
+    the device-resident padded DST bases (``dst_bases``), or None. With
+    ``out`` (a (C, Hd, Wd) u8 destination view) and ``out_offset`` =
+    (top1, left1), the solved interior is pasted in place there and ``out``
+    is returned; else a new blended (C, H, W) ROI is returned.
+
+    Plain branch (``return_stages``): erode3x3 -> guidance_field ->
+    poisson_rhs -> ``solver`` -> postprocess_roi; returns (blended, stages).
+    """
+    solver_kwargs = dict(solver_kwargs or {})
+    c, h, w = dest_roi_u8.shape
+    if not return_stages:
+        h2, w2 = h - 2, w - 2
+        me = erode3((mask_roi != 0).to(torch.uint8))
+        if flags == MONOCHROME_TRANSFER:
+            # integer gray in [0, 255]: as u8, broadcast by a stride-0 view
+            gray = bgr_to_gray_u8(patch_u8).to(torch.uint8)
+            patch_in = gray[None].expand(c, h, w)
+            kflags = 1
+        else:
+            patch_in, kflags = patch_u8, flags
+        g_tp = preprocess_rhs_t(dest_roi_u8, patch_in, me, kflags, mixed_rule)
+        u = solve_dst_gemm_pl(g_tp, h2=h2, w2=w2,
+                              precision=solver_kwargs.get("precision", "highest"),
+                              folded=solver_kwargs.get("folded", False),
+                              bases=bases)
+        if out is None:
+            out, out_offset = dest_roi_u8.clone(), (1, 1)
+        return clamp_cast_paste(u, out, out_offset[0], out_offset[1], h2, w2)
+    dest_f = dest_roi_u8.to(torch.float32)
+    patch_f = patch_u8.to(torch.float32)
+    mask_eroded = erode3x3(binarize_mask(mask_roi))
+    gx, gy = guidance_field(dest_f, patch_f, mask_eroded, flags, mixed_rule)
+    g = poisson_rhs(gx, gy, dest_f)
+    u = solver(g, **solver_kwargs)
+    return postprocess_roi(u, dest_roi_u8), {
+        "mask_eroded": mask_eroded, "gx": gx, "gy": gy, "rhs": g, "u": u}
+
+
+def clone_pipeline(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: torch.Tensor,
+    bbox_xy: tuple[int, int],
+    left_top: tuple[int, int],
+    *,
+    bbox_hw: tuple[int, int],
+    flags: int,
+    solver: Callable[..., torch.Tensor] | None = None,
+    solver_kwargs: dict[str, Any] | None = None,
+    mixed_rule: str = "opencv",
+    planar_dst: bool = False,
+    bases=None,
+) -> torch.Tensor:
+    """Full-image clone, IN PLACE into ``dst``; returns ``dst``.
+
+    src: (hs, ws, C) u8 interleaved. dst: (hd, wd, C) u8 interleaved, or
+    with ``planar_dst=True`` (C, hd, wd) planar (the serve loop's chained
+    buffer). mask: (hs, ws) u8. bbox_xy = (x0, y0) of the mask bbox,
+    left_top = (left, top) of the paste in dst, bbox_hw = (bh, bw).
+    Only the ROI interior of dst, (top+1 .. top+bh-2, left+1 .. left+bw-2),
+    is written.
+    """
+    bh, bw = bbox_hw
+    c = src.shape[2]
+    x0, y0 = bbox_xy
+    left, top = left_top
+    # ROI-first: strided views, no full-image conversion
+    src_p = src[y0 : y0 + bh, x0 : x0 + bw, :].permute(2, 0, 1)
+    dst_chw = dst if planar_dst else dst.permute(2, 0, 1)
+    dest_p = dst_chw[:, top : top + bh, left : left + bw]
+
+    # binarize + 1-px frame-zero of the mask (ref setMaskBoundaryToConstant),
+    # on the ROI slice in global coordinates — the host prep usually did this
+    # already; re-applying keeps raw-mask callers right at ROI cost
+    hs, ws = mask.shape
+    mask_roi = binarize_mask(mask[y0 : y0 + bh, x0 : x0 + bw])
+    if y0 == 0:
+        mask_roi[0, :] = 0
+    if y0 + bh == hs:
+        mask_roi[-1, :] = 0
+    if x0 == 0:
+        mask_roi[:, 0] = 0
+    if x0 + bw == ws:
+        mask_roi[:, -1] = 0
+    patch = torch.where(mask_roi[None] != 0, src_p, 0).to(torch.uint8)
+
+    clone_roi(dest_p, patch, mask_roi, flags, solver, solver_kwargs,
+              mixed_rule=mixed_rule, out=dst_chw, out_offset=(top + 1, left + 1),
+              bases=bases)
+    return dst

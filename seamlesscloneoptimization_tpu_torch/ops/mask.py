@@ -1,0 +1,35 @@
+"""Mask pipeline: binarize, 3x3 erosion with a zero border (plain torch).
+
+Port of ``seamlesscloneoptimization_tpu/ops/mask.py`` (ref
+``setMaskBoundaryToConstant`` and ``myErode`` x3, seamlessClone_imp.cpp:
+892-976). The serve path erodes with the ``erode3`` kernel
+(``ops/kernels.py``); these are the plain stages it is held against.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def binarize_mask(mask: torch.Tensor) -> torch.Tensor:
+    """uint8 mask -> {0,255} uint8 (nonzero -> 255)."""
+    return torch.where(mask != 0, 255, 0).to(torch.uint8)
+
+
+def erode3x3(mask: torch.Tensor, iterations: int = 3) -> torch.Tensor:
+    """Binary 3x3 erosion with a ZERO border, ``iterations`` times.
+
+    mask: (H, W) uint8. The zero border erodes the mask inward from the
+    bbox edge, matching the reference ``myErode`` (border forced 0).
+    """
+    m = mask
+    h, w = m.shape
+    for _ in range(iterations):
+        p = F.pad(m, (1, 1, 1, 1))
+        out = p[0:h, 0:w]
+        for dy in range(3):
+            for dx in range(3):
+                out = torch.minimum(out, p[dy:dy + h, dx:dx + w])
+        m = out
+    return m

@@ -1,0 +1,343 @@
+"""The port's pipeline, engine and API against the JAX package on the CPU.
+
+The JAX side runs its full-Pallas serve path with every Pallas kernel in
+interpret mode (the mocks of tests/test_pallas_kernels.py) and
+``dst_folded=False``, the unfolded chain the port runs. The two GEMM chains
+sum in different orders, so the u8 results may differ by 1 where the
+truncation flips: diff_max <= 1. The images are numpy-seeded or the
+in-repo docs/assets pair, so no external fixture is needed.
+"""
+
+import ast
+import contextlib
+import dataclasses
+from pathlib import Path
+from unittest import mock
+
+import cv2
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seamlesscloneoptimization_tpu.core.config import CloneConfig as JConfig
+from seamlesscloneoptimization_tpu.core.engine import SeamlessClone as JEngine
+from seamlesscloneoptimization_tpu.models import pipeline as JP
+from seamlesscloneoptimization_tpu.ops import pallas_kernels as PK
+from seamlesscloneoptimization_tpu.solvers import solve_dst_gemm as j_solve_dst_gemm
+from seamlesscloneoptimization_tpu_torch import resolve_device
+from seamlesscloneoptimization_tpu_torch.api import seamless_clone
+from seamlesscloneoptimization_tpu_torch.core import engine as TE
+from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig, config_from_jax
+from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone, prepare_inputs
+from seamlesscloneoptimization_tpu_torch.models import pipeline as TP
+from seamlesscloneoptimization_tpu_torch.solvers import solve_dst_gemm
+
+REPO = Path(__file__).resolve().parent.parent
+ASSETS = REPO / "docs" / "assets"
+CENTER = (80, 60)
+
+
+@contextlib.contextmanager
+def jax_full_pallas():
+    """Every Pallas kernel of the JAX serve chain in interpret mode, and the
+    pipeline's backend gate open (as tests/test_pallas_kernels.py does)."""
+
+    def force_interp(orig):
+        return lambda *a, **k: orig(*a, **{**k, "interpret": True})
+
+    with contextlib.ExitStack() as es:
+        for name in ("preprocess_rhs_transposed_pallas", "erode3_pallas",
+                     "transpose_pallas", "clamp_cast_pallas",
+                     "clamp_cast_guarded_pallas", "paste_interior_pallas",
+                     "fold_minor_pallas", "unfold_minor_pallas",
+                     "transpose_pair_pallas", "unfold_transpose_pallas",
+                     "unfold_clamp_guarded_pallas"):
+            es.enter_context(mock.patch.object(PK, name, force_interp(getattr(PK, name))))
+        es.enter_context(mock.patch.object(JP, "_pallas_backend_available", lambda: True))
+        yield
+
+
+def _images(seed=0, src_hw=(60, 90), dst_hw=(120, 160)):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, 256, src_hw + (3,)).astype(np.uint8)
+    dst = rng.integers(0, 256, dst_hw + (3,)).astype(np.uint8)
+    h, w = src_hw
+    yy, xx = np.mgrid[:h, :w]
+    mask = (((yy - h // 2) ** 2 + (xx - w // 2) ** 2 < (h // 3) ** 2)
+            | ((yy > h // 5) & (yy < h // 2) & (xx > 4) & (xx < w - 6)))
+    return src, dst, mask.astype(np.uint8) * 255
+
+
+def _diff_max(a, b):
+    return int(np.abs(np.asarray(a).astype(np.int16) - np.asarray(b)).max())
+
+
+def _interior(shape, prep):
+    _, _, (left, top), (bh, bw) = prep
+    inside = np.zeros(shape[:2], bool)
+    inside[top + 1 : top + bh - 1, left + 1 : left + bw - 1] = True
+    return inside
+
+
+@pytest.mark.parametrize("mode", [(1, "opencv"), (2, "opencv"), (2, "norm"), (3, "opencv")])
+def test_engine_run_matches_jax_full_pallas(mode):
+    flags, rule = mode
+    src, dst, mask = _images(flags)
+    with jax_full_pallas():
+        want = np.asarray(JEngine(JConfig(dst_folded=False, mixed_rule=rule)).run(
+            src, dst, mask, CENTER, flags))
+    eng = SeamlessClone(CloneConfig(mixed_rule=rule), device="cpu")
+    got = eng.run(src, dst, mask, CENTER, flags).numpy()
+    assert got.shape == dst.shape and got.dtype == np.uint8
+    assert _diff_max(got, want) <= 1
+    inside = _interior(dst.shape, prepare_inputs(mask, src.shape, dst.shape, CENTER))
+    assert np.array_equal(got[~inside], dst[~inside])
+    assert not np.array_equal(got[inside], dst[inside])
+    assert eng.metrics["solver_resolved"] == "dst_gemm"
+
+
+@pytest.mark.parametrize("flags", [1, 2, 3])
+def test_planar_serve_step_matches_jax(flags):
+    """One chained serve frame (planar destination, in-place paste) of the
+    port against one JAX serve-program step with the guarded Pallas paste."""
+    src, dst, mask = _images(10 + flags, src_hw=(70, 150), dst_hw=(140, 220))
+    center = (110, 70)
+    m, xy, lt, hw = prepare_inputs(mask, src.shape, dst.shape, center)
+    dst_p = np.ascontiguousarray(dst.transpose(2, 0, 1))
+    with jax_full_pallas():
+        want = np.asarray(JP.clone_pipeline(
+            jnp.asarray(src), jnp.asarray(dst_p), jnp.asarray(m), jnp.asarray(xy, jnp.int32),
+            jnp.asarray(lt, jnp.int32), bbox_hw=hw, flags=flags, solver=j_solve_dst_gemm,
+            solver_kwargs={"precision": "high", "folded": False}, use_pallas_pre=True,
+            use_pallas_post=True, planar_dst=True, solver_name="dst_gemm"))
+    buf = torch.from_numpy(dst_p.copy())
+    out = TP.clone_pipeline(torch.from_numpy(src), buf, torch.from_numpy(m), xy, lt,
+                            bbox_hw=hw, flags=flags, solver_kwargs={"precision": "high"},
+                            planar_dst=True)
+    assert out is buf
+    assert _diff_max(out.numpy(), want) <= 1
+    inside = _interior(dst.shape, (m, xy, lt, hw))
+    assert np.array_equal(out.numpy()[:, ~inside], dst_p[:, ~inside])
+
+
+def test_clone_roi_kernel_branch_matches_jax_full_pallas():
+    """clone_roi's standalone contract: the whole ROI, border ring = dest."""
+    rng = np.random.default_rng(3)
+    dest = rng.integers(0, 256, (3, 48, 70)).astype(np.uint8)
+    src = rng.integers(0, 256, (3, 48, 70)).astype(np.uint8)
+    mask = np.zeros((48, 70), np.uint8)
+    mask[4:44, 6:66] = 255
+    patch = np.where(mask[None] != 0, src, 0).astype(np.uint8)
+    with jax_full_pallas():
+        want = np.asarray(JP.clone_roi(jnp.asarray(dest), jnp.asarray(patch),
+                                       jnp.asarray(mask), 1, j_solve_dst_gemm,
+                                       use_pallas_pre=True, use_pallas_post=True))
+    got = TP.clone_roi(torch.from_numpy(dest), torch.from_numpy(patch),
+                       torch.from_numpy(mask), 1).numpy()
+    assert _diff_max(got, want) <= 1
+    ring = np.ones((48, 70), bool)
+    ring[1:-1, 1:-1] = False
+    assert np.array_equal(got[:, ring], dest[:, ring])
+
+
+def test_clone_roi_plain_branch_stages_match_jax():
+    rng = np.random.default_rng(4)
+    dest = rng.integers(0, 256, (3, 40, 57)).astype(np.uint8)
+    patch = rng.integers(0, 256, (3, 40, 57)).astype(np.uint8)
+    mask = np.full((40, 57), 255, np.uint8)
+    jb, js = JP.clone_roi(jnp.asarray(dest), jnp.asarray(patch), jnp.asarray(mask), 2,
+                          j_solve_dst_gemm, return_stages=True)
+    tb, ts = TP.clone_roi(torch.from_numpy(dest), torch.from_numpy(patch),
+                          torch.from_numpy(mask), 2, solve_dst_gemm, return_stages=True)
+    for k in ("mask_eroded", "gx", "gy", "rhs"):
+        assert np.array_equal(np.asarray(js[k]), ts[k].numpy()), k
+    u = np.asarray(js["u"])
+    assert np.abs(ts["u"].numpy() - u).max() / np.abs(u).max() < 1e-5
+    assert _diff_max(tb.numpy(), jb) <= 1
+    # the plain branch and the kernel branch agree
+    tk = TP.clone_roi(torch.from_numpy(dest), torch.from_numpy(patch),
+                      torch.from_numpy(mask), 2)
+    assert _diff_max(tk.numpy(), tb.numpy()) <= 1
+
+
+def test_timed_serve_chains_frames_in_place():
+    src, dst, mask = _images(5)
+    eng = SeamlessClone(CloneConfig(), device="cpu")
+    out, ms = eng.timed_serve(src, dst, mask, CENTER, loops=2)
+    assert ms > 0 and eng.metrics["compute_ms"] == ms
+    assert eng.metrics["device_memory_bytes"] > 0
+    # the same three frames (warm-up + 2) chained by hand
+    m, xy, lt, hw = prepare_inputs(mask, src.shape, dst.shape, CENTER)
+    buf = torch.from_numpy(np.ascontiguousarray(dst.transpose(2, 0, 1)))
+    for _ in range(3):
+        TP.clone_pipeline(torch.from_numpy(src), buf, torch.from_numpy(m), xy, lt,
+                          bbox_hw=hw, flags=1, solver_kwargs={"precision": "high"},
+                          planar_dst=True)
+    assert np.array_equal(out.numpy(), buf.permute(1, 2, 0).numpy())
+
+
+def test_timed_run_reuploads_and_matches_run():
+    src, dst, mask = _images(7)
+    eng = SeamlessClone(CloneConfig(), device="cpu")
+    out, ms = eng.timed_run(src, dst, mask, CENTER, loops=2)
+    assert ms > 0 and eng.metrics["compute_ms"] == ms
+    _, (x0, y0), _, (bh, bw) = prepare_inputs(mask, src.shape, dst.shape, CENTER)
+    assert eng.metrics["bbox"] == (x0, y0, bw, bh)
+    # every loop starts from the caller's dst again: equal to one run
+    assert np.array_equal(out.numpy(), eng.run(src, dst, mask, CENTER).numpy())
+    assert not np.array_equal(out.numpy(), dst)
+
+
+def _assets():
+    src = cv2.imread(str(ASSETS / "input_src.jpg"))
+    dst = cv2.imread(str(ASSETS / "input_dst.jpg"))
+    assert src is not None and dst is not None
+    full = np.full(src.shape[:2], 255, np.uint8)
+    irregular = np.zeros(src.shape[:2], np.uint8)
+    cv2.circle(irregular, (150, 97), 80, 255, -1)
+    cv2.rectangle(irregular, (40, 30), (260, 120), 255, -1)
+    return src, dst, {"full": full, "irregular": irregular}
+
+
+@pytest.mark.parametrize("mask_name", ["full", "irregular"])
+@pytest.mark.parametrize("flags", [1, 2, 3])
+def test_seamless_clone_vs_cv2_no_worse_than_jax(mask_name, flags):
+    src, dst, masks = _assets()
+    mask = masks[mask_name]
+    golden = cv2.seamlessClone(src, dst, mask.copy(), (400, 200), flags)
+    jax_out = np.asarray(JEngine(JConfig()).run(src, dst, mask, (400, 200), flags))
+    port = seamless_clone(src, dst, mask, (400, 200), flags, device="cpu")
+    assert port.shape == dst.shape and port.dtype == np.uint8
+    assert _diff_max(port, golden) <= max(_diff_max(jax_out, golden), 1)
+
+
+def test_config_from_jax_round_trips():
+    for jcfg in (JConfig(), JConfig(solver="dst_gemm", flags=2, mixed_rule="norm",
+                                    precision="highest", dst_folded=False, donate_dst=True,
+                                    compilation_cache_dir=None)):
+        fields = dataclasses.asdict(jcfg)
+        cfg = config_from_jax(fields)
+        assert isinstance(cfg, CloneConfig)
+        assert dataclasses.asdict(cfg) == fields
+    with pytest.raises(ValueError, match="unknown CloneConfig fields"):
+        config_from_jax({**dataclasses.asdict(JConfig()), "mesh_shape": (2, 2)})
+
+
+class TestValidation:
+    """The JAX engine's input errors (tests/test_jax_pipeline.py TestValidation)."""
+
+    def test_wrong_channel_count_raises(self):
+        src, dst, _ = _images()
+        with pytest.raises(ValueError, match="must be"):
+            SeamlessClone(device="cpu").run(src[..., 0], dst, None, CENTER)
+
+    def test_wrong_dtype_raises(self):
+        src, dst, _ = _images()
+        with pytest.raises(TypeError, match="uint8"):
+            SeamlessClone(device="cpu").run(src.astype(np.float32), dst, None, CENTER)
+
+    def test_dst_smaller_than_src_raises(self):
+        src, dst, _ = _images()
+        with pytest.raises(ValueError, match="smaller"):
+            SeamlessClone(device="cpu").run(dst, src, None, (40, 30))
+
+    def test_wide_src_into_tall_dst_allowed(self):
+        rng = np.random.default_rng(0)
+        src = rng.integers(0, 256, (40, 200, 3)).astype(np.uint8)
+        dst = rng.integers(0, 256, (400, 100, 3)).astype(np.uint8)
+        mask = np.zeros(src.shape[:2], np.uint8)
+        mask[10:30, 80:120] = 255
+        out = SeamlessClone(device="cpu").run(src, dst, mask, (50, 200)).numpy()
+        assert out.shape == dst.shape
+        assert not np.array_equal(out, dst)
+
+    def test_mask_shape_mismatch_raises(self):
+        src, dst, _ = _images()
+        with pytest.raises(ValueError, match="mask shape"):
+            SeamlessClone(device="cpu").run(src, dst, np.full((10, 10), 255, np.uint8), CENTER)
+
+    def test_out_of_bounds_roi_raises(self):
+        src, dst, mask = _images()
+        with pytest.raises(ValueError, match="outside destination"):
+            SeamlessClone(device="cpu").run(src, dst, mask, (5, 5))
+
+    def test_mask_without_interior_returns_dst(self):
+        """A 2-row bbox has no interior pixel (the JAX engine raises an
+        IndexError there, cv2 an assertion): the port returns dst."""
+        src, dst, _ = _images()
+        mask = np.zeros(src.shape[:2], np.uint8)
+        mask[10:12, 20:40] = 255
+        out = SeamlessClone(device="cpu").run(src, dst, mask, CENTER)
+        assert np.array_equal(out.numpy(), dst)
+
+    def test_empty_mask_returns_dst(self):
+        src, dst, _ = _images()
+        out = SeamlessClone(device="cpu").run(src, dst, np.zeros(src.shape[:2], np.uint8),
+                                              CENTER)
+        assert np.array_equal(out.numpy(), dst)
+
+
+def test_run_leaves_callers_tensor_unless_donated():
+    src, dst, mask = _images(6)
+    dst_t = torch.from_numpy(dst.copy())
+    out = SeamlessClone(device="cpu").run(src, dst_t, mask, CENTER)
+    assert np.array_equal(dst_t.numpy(), dst) and not np.array_equal(out.numpy(), dst)
+    donated = SeamlessClone(CloneConfig(donate_dst=True), device="cpu").run(
+        src, dst_t, mask, CENTER)
+    assert donated is dst_t and np.array_equal(dst_t.numpy(), out.numpy())
+
+
+def test_no_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SeamlessClone()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    src, dst, mask = _images()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        seamless_clone(src, dst, mask, CENTER)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("cfg, match", [
+    (CloneConfig(solver="multigrid"), "slice 3"),
+    (CloneConfig(solver="jacobi"), "slice 4"),
+    (CloneConfig(solver="dst_fft"), "slice 4"),
+    (CloneConfig(bbox_bucket=64), "slice 5"),
+    (CloneConfig(debug_dump=True), "slice 5"),
+])
+def test_unported_configs_raise(cfg, match):
+    with pytest.raises(NotImplementedError, match=match):
+        SeamlessClone(cfg, device="cpu")
+
+
+def test_auto_above_crossover_raises(monkeypatch):
+    monkeypatch.setattr(TE, "AUTO_CROSSOVER_PIXELS", 100)
+    monkeypatch.setattr(TE, "SERVE_CROSSOVER_PIXELS", 100)
+    src, dst, mask = _images()
+    eng = SeamlessClone(device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        eng.run(src, dst, mask, CENTER)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        eng.timed_serve(src, dst, mask, CENTER, loops=1)
+
+
+def test_port_imports_no_jax():
+    """No file of the port, and not chip_smoke.py, imports jax or the JAX
+    package, not even its JAX-free modules."""
+    banned = ("jax", "jaxlib", "seamlesscloneoptimization_tpu")
+    files = sorted((REPO / "seamlesscloneoptimization_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert not any(name == b or name.startswith(b + ".") for b in banned), (
+                    f"{path.relative_to(REPO)} imports {name}")
