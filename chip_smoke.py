@@ -6,29 +6,35 @@
 1. Prints the card (nvidia-smi name and power limit), builds the kernels
    from ``seamlesscloneoptimization_tpu_torch/csrc`` and prints the build
    time, ptxas's resource report and both TF32 flags.
-2. Holds each kernel against its plain PyTorch twin on the card, at the
-   shapes of the headline serve frame (a 2400x1552 full-mask patch into a
-   4800x2694 destination, bench.py's geometry): every kernel bit-exact
-   (``transpose`` with the fused divide too: the twin's divide is IEEE on
-   the card as well). Times kernel, twin and, where one PyTorch call
-   computes the same function, that call (``library_ms``; the port never
-   calls it), each launch cold in L2.
-3. Drives the serve path, ``SeamlessClone(CloneConfig(), device="cuda")
-   .timed_serve(...)``, for 20 chained frames with the launch counters set
-   to 0 just before, and checks that every kernel ran its per-frame count,
-   that nothing outside the ROI interior changed, and the Poisson residual;
-   then profiles 5 serve frames (device time by kernel, idle share).
-4. Drives the single-shot path, ``SeamlessClone.run`` into the interleaved
-   destination, once at the headline geometry with the launch counters set
-   to 0 just before, checks its per-frame counts and the untouched
-   outside, and holds it against the same port on the CPU (the plain
-   twins); then two serve frames, and ``seamless_clone`` on a small
-   irregular mask in all three modes, card against CPU, diff_max <= 1.
+2. Holds each of the nine kernels against its plain PyTorch twin on the
+   card, at the shapes of the headline serve frame (a 2400x1552 full-mask
+   patch into a 4800x2694 destination, bench.py's geometry): every kernel
+   bit-exact over its whole output (the divides too: the twin's divide is
+   IEEE on the card as well). The slice-1 kernels run on the unfolded
+   chain's tensors, the folded chain's kernels on the pair chain's. Times
+   kernel, twin and, where one PyTorch call computes the same function,
+   that call (``library_ms``; the port never calls it), each launch cold in
+   L2; and one GEMM of each chain.
+3. Drives each path through the entry points with the launch counters set
+   to 0 just before and read just after, and checks every kernel's
+   per-frame count (``PATHS``), that nothing outside the ROI interior
+   changed, and the card against the same port on the CPU (the plain
+   twins), diff_max <= 1:
+   - ``pair``: ``CloneConfig()`` (``dst_folded=True``) at the headline,
+     20 chained ``timed_serve`` frames and one single-shot ``run`` into the
+     interleaved destination; the Poisson residual of one folded
+     ``solve_dst_gemm_pl``; a profile of the serve frame (device time by
+     kernel and group, GEMMs per frame, idle share);
+   - ``unfolded``: ``CloneConfig(dst_folded=False)`` at the headline, the
+     same, with its own profile;
+   - ``per_axis``: the default config on a 126x2400 and a 2400x126 strip
+     (only the long side folds);
+   then ``seamless_clone`` on a small irregular mask in all three modes.
 
-Prints the kernel table as one JSON line (one entry per kernel and path:
-``clamp_cast_paste_interleaved`` is the same kernel on the single-shot
-path's interleaved destination; ``run_launches`` are the single-shot
-path's counts), then, as the last line,
+Prints the kernel table as one JSON line (one entry per kernel; the
+``*_interleaved`` entries are the same kernel on the single-shot path's
+interleaved destination; ``launches`` is the count of the path that runs
+the kernel, ``launches_by_path`` every path's), then, as the last line,
 ``{"ok": true, "device": {...}}``. Every phase raises on failure; the
 script exits non-zero, printing no result, when there is no CUDA card or
 the port's package is missing. Images are synthetic, made from a seed.
@@ -44,21 +50,46 @@ from pathlib import Path
 SEED = 0
 SRC_HW = (1552, 2400)
 DST_HW = (2694, 4800)
+STRIPS = ((126, 2400), (2400, 126))  # per-axis branch: one side does not fold
 SERVE_LOOPS = 20
+STRIP_LOOPS = 5
 REPS = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak HBM3 bandwidth
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-PER_FRAME = {"erode3": 1, "preprocess_rhs_t": 1, "transpose": 3, "clamp_cast_paste": 1}
-REPLACES = {
-    "erode3": ["seamlesscloneoptimization_tpu/ops/pallas_kernels.py:1164"],
-    "preprocess_rhs_t": ["seamlesscloneoptimization_tpu/ops/pallas_kernels.py:1288"],
-    "transpose": ["seamlesscloneoptimization_tpu/ops/pallas_kernels.py:1557"],
-    "clamp_cast_paste": ["seamlesscloneoptimization_tpu/ops/pallas_kernels.py:1785",
-                         "seamlesscloneoptimization_tpu/ops/pallas_kernels.py:1656"],
-    "clamp_cast_paste_interleaved": [
-        "seamlesscloneoptimization_tpu/ops/pallas_kernels.py:1614"],
+KERNELS = ("erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste", "fold_minor",
+           "unfold_minor", "transpose_pair", "unfold_transpose", "unfold_clamp_paste")
+
+
+def _per_frame(**counts):
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
+PATHS = {
+    "pair": _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=2, transpose_pair=3,
+                       unfold_transpose=2, unfold_clamp_paste=1),
+    "unfolded": _per_frame(erode3=1, preprocess_rhs_t=1, transpose=3, clamp_cast_paste=1),
+    "per_axis": _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=1, unfold_minor=1,
+                           transpose=3, clamp_cast_paste=1),
 }
-SOURCE = {"clamp_cast_paste_interleaved": "clamp_cast_paste"}
+# the path whose serve run gives each kernel's "launches"
+HOME_PATH = {"transpose": "unfolded", "clamp_cast_paste": "unfolded",
+             "unfold_minor": "per_axis"}
+_PK = "seamlesscloneoptimization_tpu/ops/pallas_kernels.py"
+REPLACES = {
+    "erode3": [f"{_PK}:1164"],
+    "preprocess_rhs_t": [f"{_PK}:1288"],
+    "transpose": [f"{_PK}:1557"],
+    "clamp_cast_paste": [f"{_PK}:1785", f"{_PK}:1656"],
+    "clamp_cast_paste_interleaved": [f"{_PK}:1614"],
+    "fold_minor": [f"{_PK}:1914"],
+    "unfold_minor": [f"{_PK}:1958"],
+    "transpose_pair": [f"{_PK}:2011"],
+    "unfold_transpose": [f"{_PK}:2089"],
+    "unfold_clamp_paste": [f"{_PK}:2130", f"{_PK}:1785"],
+    "unfold_clamp_paste_interleaved": [f"{_PK}:2130", f"{_PK}:1958", f"{_PK}:1614"],
+}
+SOURCE = {"clamp_cast_paste_interleaved": "clamp_cast_paste",
+          "unfold_clamp_paste_interleaved": "unfold_clamp_paste"}
 
 
 def synthetic_image(rng, hw, cell=48):
@@ -72,10 +103,10 @@ def synthetic_image(rng, hw, cell=48):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def check_counts(path: str, launches: dict, frames: int) -> None:
-    for name, per in PER_FRAME.items():
+def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
+    for name, per in PATHS[path].items():
         if launches[name] != per * frames:
-            raise AssertionError(f"{path} path launched {name} {launches[name]} times, "
+            raise AssertionError(f"{path} {what} launched {name} {launches[name]} times, "
                                  f"expected {per} x {frames} frames")
 
 
@@ -99,11 +130,12 @@ def diff_max(a, b) -> int:
     return int(np.abs(np.asarray(a).astype(np.int16) - np.asarray(b)).max())
 
 
-def profile_frames(clone_pipeline, kwargs, frames: int = 5) -> None:
+def profile_frames(label, clone_pipeline, kwargs, frames: int = 5) -> int:
     """Where a serve frame's device time goes: torch.profiler over
     ``frames`` chained frames of the serve pipeline, kernel time per frame
-    by name and by group, and the busy share of the device's span (CUDA
-    events around the window). Prints; measures nothing the checks use."""
+    by name and by group, the busy share of the device's span (CUDA events
+    around the window), and the GEMM launches per frame, which it returns
+    (-1 when the profiler recorded no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -118,29 +150,37 @@ def profile_frames(clone_pipeline, kwargs, frames: int = 5) -> None:
         e.record()
         e.synchronize()
     span_us = s.elapsed_time(e) * 1e3 / frames
-    per_kernel = {}
+    per_kernel, calls = {}, {}
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             t = getattr(ev, "self_device_time_total", None)
             if t is None:
                 t = getattr(ev, "self_cuda_time_total", 0.0)
             per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + t / frames
+            calls[ev.key] = calls.get(ev.key, 0) + ev.count
     busy = sum(per_kernel.values())
     if busy == 0:
-        print(f"profile: no device time recorded; frame span {span_us:.1f} us")
-        return
-    ours = ("erode3", "preprocess_rhs_t", "transpose_kernel", "clamp_cast_paste")
+        print(f"profile {label}: no device time recorded; frame span {span_us:.1f} us")
+        return -1
+    ours = ("erode3", "preprocess_rhs_t", "transpose_kernel", "clamp_cast_paste",
+            "fold_minor", "unfold_minor", "transpose_pair", "unfold_transpose",
+            "unfold_clamp_paste")
     groups = {"gemm": 0.0, "port kernels": 0.0, "other": 0.0}
+    gemm_calls = 0
     for k, t in per_kernel.items():
-        g = ("gemm" if "gemm" in k.lower() or "cutlass" in k.lower()
-             else "port kernels" if any(o in k for o in ours) else "other")
+        is_gemm = any(g in k.lower() for g in ("gemm", "cutlass", "xmma"))
+        g = "gemm" if is_gemm else "port kernels" if any(o in k for o in ours) else "other"
         groups[g] += t
-    print(f"profile ({frames} frames, profiler on): device span {span_us:.1f} us/frame, "
-          f"kernels busy {busy:.1f} us/frame, idle share {1 - busy / span_us:.3f}")
+        gemm_calls += calls[k] if is_gemm else 0
+    gemms = gemm_calls // frames
+    print(f"profile {label} ({frames} frames, profiler on): device span {span_us:.1f} "
+          f"us/frame, kernels busy {busy:.1f} us/frame, idle share {1 - busy / span_us:.3f}, "
+          f"GEMM launches {gemm_calls / frames:g} per frame")
     for g, t in groups.items():
-        print(f"profile group {g}: {t:.1f} us/frame ({t / busy:.3f} of busy)")
-    for k, t in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"profile kernel {t:9.1f} us/frame  {k[:110]}")
+        print(f"profile {label} group {g}: {t:.1f} us/frame ({t / busy:.3f} of busy)")
+    for k, t in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:14]:
+        print(f"profile {label} kernel {t:9.1f} us/frame x{calls[k] / frames:g}  {k[:100]}")
+    return gemms
 
 
 def main() -> int:
@@ -160,7 +200,11 @@ def main() -> int:
     from seamlesscloneoptimization_tpu_torch.ops import kernels as K
     from seamlesscloneoptimization_tpu_torch.ops.guidance import bgr_to_gray_u8
     from seamlesscloneoptimization_tpu_torch.ops.kernels import ru128
-    from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import dst_bases
+    from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
+        dst_bases,
+        pair_chain_applies,
+        solve_dst_gemm_pl,
+    )
 
     dev = torch.device("cuda")
 
@@ -187,14 +231,25 @@ def main() -> int:
     h2, w2 = bh - 2, bw - 2
     hp, wp = ru128(h2), ru128(w2)
     c = 3
+    if not pair_chain_applies(h2, w2):
+        raise AssertionError(f"the headline interior {h2}x{w2} does not fold")
     dst_p = torch.from_numpy(dst).to(dev).permute(2, 0, 1).contiguous()
     dest_roi = dst_p[:, top : top + bh, left : left + bw]
     src_roi = torch.from_numpy(src).to(dev)[y0 : y0 + bh, x0 : x0 + bw].permute(2, 0, 1)
     mask_roi = torch.from_numpy(m[y0 : y0 + bh, x0 : x0 + bw]).to(dev)
     patch = torch.where(mask_roi[None] != 0, src_roi, 0).to(torch.uint8)
     m01 = (mask_roi != 0).to(torch.uint8)
-    vh, vw, lam_h, lam_w = dst_bases(h2, w2, hp, wp, dev)
-    print(f"geometry: roi {bh}x{bw}, interior {h2}x{w2}, slab ({c}, {wp}, {hp})")
+    plain_b = dst_bases(h2, w2, hp, wp, dev)
+    fold_b = dst_bases(h2, w2, hp, wp, dev, folded=True)
+    (vh,), lam_h = plain_b[0].mats, plain_b[0].lam
+    (vw,), lam_w = plain_b[1].mats, plain_b[1].lam
+    vep_h, vop_h, ve2p_h, vo2p_h = fold_b[0].mats
+    vep_w, vop_w, ve2p_w, vo2p_w = fold_b[1].mats
+    ep_h, op_h, ep_w, op_w = (vep_h.shape[0], vop_h.shape[0], vep_w.shape[0],
+                              vop_w.shape[0])
+    he_h, he_w, ho_h, ho_w = (h2 + 1) // 2, (w2 + 1) // 2, h2 // 2, w2 // 2
+    print(f"geometry: roi {bh}x{bw}, interior {h2}x{w2}, slab ({c}, {wp}, {hp}); "
+          f"folded halves h {ep_h}+{op_h}, w {ep_w}+{op_w}")
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
 
@@ -221,7 +276,7 @@ def main() -> int:
 
     def require_equal(name, got, want):
         """Bit-exact or raise; records the kernel's max |kernel - twin|."""
-        err = (got.double() - want.double()).abs().max().item()
+        err = (got.double() - want.double()).abs().max().item() if got.numel() else 0.0
         kernel = name.split()[0]
         errs[kernel] = max(errs.get(kernel, 0.0), err)
         if not torch.equal(got, want):
@@ -240,7 +295,14 @@ def main() -> int:
         if len(REPLACES[name]) > 1:
             rows[name]["also_replaces"] = REPLACES[name][1:]
 
-    # -- 2. every kernel against its twin, on the card ---------------------------
+    def gemm_line(what, a, v):
+        ms = time_ms(lambda: torch.matmul(a, v))
+        flops = 2 * a.numel() * v.shape[1]
+        print(f"one FP32 GEMM of the {what} chain ({'x'.join(map(str, a.shape))} @ "
+              f"{v.shape[0]}x{v.shape[1]}, {flops / 1e9:.1f} GFLOP): {ms:.4f} ms = "
+              f"{flops / ms / 1e9:.1f} TFLOP/s")
+
+    # -- 2a. the slice-1 kernels, on the unfolded chain's tensors ---------------
     me = K.erode3(m01)
     require_equal("erode3", me, K.erode3_plain(m01))
     row("erode3", 2 * bh * bw, 12 * bh * bw,
@@ -288,71 +350,180 @@ def main() -> int:
                                            h2, w2)),
         time_ms(lambda: K.clamp_cast_paste_plain(u, i_p.permute(2, 0, 1), top + 1,
                                                  left + 1, h2, w2)))
-    gemm_ms = time_ms(lambda: torch.matmul(g_tp, vh))
-    del s1, s2, tr2, tr2_plain, u, d_k, d_p, i_k, i_p, flush
-    print(f"one FP32 GEMM of the chain ({c}x{wp}x{hp} @ {hp}x{hp}): {gemm_ms:.4f} ms")
+    gemm_line("unfolded", g_tp, vh)
+    del s1, s2, tr2, tr2_plain, u
 
-    # -- 3. the serve path through the kernels ------------------------------------
-    eng = SeamlessClone(CloneConfig(), device="cuda")
-    K.reset_launches()
-    out, serve_ms = eng.timed_serve(src, dst, mask, center, loops=SERVE_LOOPS)
-    torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
-    check_counts("serve", launches, SERVE_LOOPS + 1)  # warm-up + timed frames
-    for name in PER_FRAME:
-        rows[name]["launches"] = launches[name]
-    if eng.metrics["solver_resolved"] != "dst_gemm":
-        raise AssertionError(f"solver resolved to {eng.metrics['solver_resolved']}")
-    out_np = out.cpu().numpy()
-    if out_np.shape != dst.shape or out_np.dtype != np.uint8:
-        raise AssertionError(f"serve output {out_np.shape} {out_np.dtype}")
-    check_outside(out_np, dst, (top + 1, left + 1, h2, w2))
-    mps = SRC_HW[0] * SRC_HW[1] / (serve_ms * 1e3)
-    print(f"serve: {serve_ms:.4f} ms/frame, {mps:.1f} MP/s over {SERVE_LOOPS} chained "
-          f"frames at {SRC_HW[1]}x{SRC_HW[0]} into {DST_HW[1]}x{DST_HW[0]} "
-          f"({card}); device memory {eng.metrics['device_memory_bytes']} B")
+    # -- 2b. the folded chain's kernels, on the pair chain's tensors ------------
+    s, d = K.fold_minor(g_tp, h2)
+    ws, wd = K.fold_minor_plain(g_tp, h2)
+    require_equal("fold_minor (h, s)", s, ws)
+    require_equal("fold_minor (h, d)", d, wd)
+    fe, fo = torch.matmul(s, vep_h), torch.matmul(d, vop_h)
+    tr1 = K.transpose_pair(fe, fo)
+    require_equal("transpose_pair", tr1, K.transpose_pair_plain(fe, fo))
+    s2, d2 = K.fold_minor(tr1, w2)
+    ws2, wd2 = K.fold_minor_plain(tr1, w2)
+    require_equal("fold_minor (w, s)", s2, ws2)
+    require_equal("fold_minor (w, d)", d2, wd2)
+    ge, go = torch.matmul(s2, vep_w), torch.matmul(d2, vop_w)
+    lam_gw, lam_gh = fold_b[1].lam, fold_b[0].lam
+    wins_h = ((0, ep_h), (ep_h, op_h))
+    tr2w = [K.transpose_pair(ge, go, lam_gw, lam_gh, rs, rc) for rs, rc in wins_h]
+    for (rs, rc), t in zip(wins_h, tr2w):
+        require_equal(f"transpose_pair (divide, rows {rs}+{rc})", t,
+                      K.transpose_pair_plain(ge, go, lam_gw, lam_gh, rs, rc))
+    e_h, o_h = torch.matmul(tr2w[0], ve2p_h), torch.matmul(tr2w[1], vo2p_h)
+    wins_w = ((0, ep_w), (ep_w, op_w))
+    t3 = [K.unfold_transpose(e_h, o_h, h2, hp, rs, rc) for rs, rc in wins_w]
+    for (rs, rc), t in zip(wins_w, t3):
+        require_equal(f"unfold_transpose (rows {rs}+{rc})", t,
+                      K.unfold_transpose_plain(e_h, o_h, h2, hp, rs, rc))
+    e_w, o_w = torch.matmul(t3[0], ve2p_w), torch.matmul(t3[1], vo2p_w)
+    require_equal("unfold_minor", K.unfold_minor(e_w, o_w, w2, wp),
+                  K.unfold_minor_plain(e_w, o_w, w2, wp))
+    d_k, d_p = dst_p.clone(), dst_p.clone()
+    K.unfold_clamp_paste(e_w, o_w, d_k, top + 1, left + 1, h2, w2)
+    K.unfold_clamp_paste_plain(e_w, o_w, d_p, top + 1, left + 1, h2, w2)
+    require_equal("unfold_clamp_paste (planar)", d_k, d_p)
+    i_k = torch.from_numpy(dst).to(dev)
+    i_p = i_k.clone()
+    K.unfold_clamp_paste(e_w, o_w, i_k.permute(2, 0, 1), top + 1, left + 1, h2, w2)
+    K.unfold_clamp_paste_plain(e_w, o_w, i_p.permute(2, 0, 1), top + 1, left + 1, h2, w2)
+    require_equal("unfold_clamp_paste_interleaved", i_k, i_p)
 
-    # Poisson residual of one card solve, in float64: A u = g on the interior
-    g = K.preprocess_rhs_t(dest_roi, patch, me)[:, :w2, :h2].transpose(1, 2).double()
-    u = torch.matmul(K.transpose(torch.matmul(K.transpose(torch.matmul(
-        K.transpose(torch.matmul(g_tp, vh)), vw), lam_h, lam_w), vh)), vw)
+    row("fold_minor", 4 * c * wp * (h2 + ep_h + op_h), 2 * c * wp * ho_h,
+        time_ms(lambda: K.fold_minor(g_tp, h2)), time_ms(lambda: K.fold_minor_plain(g_tp, h2)),
+        shape=f"({c},{wp},{hp}) n={h2} -> ({c},{wp},{ep_h}) + ({c},{wp},{op_h})",
+        w_ms=time_ms(lambda: K.fold_minor(tr1, w2)),
+        w_plain_ms=time_ms(lambda: K.fold_minor_plain(tr1, w2)),
+        w_bound_ms=bound(4 * c * (ep_h + op_h) * (w2 + ep_w + op_w),
+                         2 * c * (ep_h + op_h) * ho_w)[0])
+    gh, gw = ep_h + op_h, ep_w + op_w
+    row("transpose_pair", 8 * c * wp * gh, 0,
+        time_ms(lambda: K.transpose_pair(fe, fo)),
+        time_ms(lambda: K.transpose_pair_plain(fe, fo)),
+        shape=f"({c},{wp},{ep_h}) + ({c},{wp},{op_h}) -> ({c},{gh},{wp})",
+        divide_ms=time_ms(lambda: K.transpose_pair(ge, go, lam_gw, lam_gh, 0, ep_h)),
+        divide_plain_ms=time_ms(lambda: K.transpose_pair_plain(ge, go, lam_gw, lam_gh,
+                                                               0, ep_h)),
+        divide_bound_ms=bound(8 * c * ep_h * gw + 4 * (gw + ep_h), 2 * c * ep_h * gw)[0],
+        divide_shape=f"({c},{gh},{ep_w}) + ({c},{gh},{op_w}) rows 0+{ep_h} -> "
+                     f"({c},{gw},{ep_h})")
+    row("unfold_transpose", 4 * c * ep_w * (2 * he_h + hp), c * ep_w * h2,
+        time_ms(lambda: K.unfold_transpose(e_h, o_h, h2, hp, 0, ep_w)),
+        time_ms(lambda: K.unfold_transpose_plain(e_h, o_h, h2, hp, 0, ep_w)),
+        shape=f"2x ({c},{gw},{ep_h}) rows 0+{ep_w}, n={h2} -> ({c},{hp},{ep_w})")
+    row("unfold_minor", 4 * c * hp * (2 * he_w + wp), c * hp * w2,
+        time_ms(lambda: K.unfold_minor(e_w, o_w, w2, wp)),
+        time_ms(lambda: K.unfold_minor_plain(e_w, o_w, w2, wp)),
+        shape=f"2x ({c},{hp},{ep_w}), n={w2} -> ({c},{hp},{wp})")
+    ucp_bytes, ucp_ops = 8 * c * h2 * he_w + c * h2 * w2, 3 * c * h2 * w2
+    row("unfold_clamp_paste", ucp_bytes, ucp_ops,
+        time_ms(lambda: K.unfold_clamp_paste(e_w, o_w, d_k, top + 1, left + 1, h2, w2)),
+        time_ms(lambda: K.unfold_clamp_paste_plain(e_w, o_w, d_p, top + 1, left + 1,
+                                                   h2, w2)),
+        shape=f"2x ({c},{hp},{ep_w}) -> u8 ({c},{h2},{w2}) planar")
+    row("unfold_clamp_paste_interleaved", ucp_bytes, ucp_ops,
+        time_ms(lambda: K.unfold_clamp_paste(e_w, o_w, i_k.permute(2, 0, 1), top + 1,
+                                             left + 1, h2, w2)),
+        time_ms(lambda: K.unfold_clamp_paste_plain(e_w, o_w, i_p.permute(2, 0, 1), top + 1,
+                                                   left + 1, h2, w2)),
+        shape=f"2x ({c},{hp},{ep_w}) -> u8 ({c},{h2},{w2}) interleaved")
+    gemm_line("pair", s, vep_h)
+    gemm_line("pair", s2, vep_w)
+    del (s, d, ws, wd, fe, fo, tr1, s2, d2, ws2, wd2, ge, go, tr2w, e_h, o_h, t3, e_w, o_w,
+         d_k, d_p, i_k, i_p, flush)
+
+    # -- 3. every path through the entry points ---------------------------------
+    path_launches = {}
+    cpu_diffs = {}
+
+    def drive(path, cfg, s_img, mask_, loops, label, d_img=dst, profile=False):
+        """timed_serve (warm-up + loops frames) and one single-shot run, each
+        with the counters set to 0 just before and read just after; the card
+        against the CPU twins (run, and a 2-frame serve)."""
+        eng = SeamlessClone(cfg, device="cuda")
+        ctr = (d_img.shape[1] // 2, d_img.shape[0] // 2)
+        prep = prepare_inputs(mask_, s_img.shape, d_img.shape, ctr)
+        _, _, (lft, tp), (rh, rw) = prep
+        interior = (tp + 1, lft + 1, rh - 2, rw - 2)
+        K.reset_launches()
+        out, ms = eng.timed_serve(s_img, d_img, mask_, ctr, loops=loops)
+        torch.cuda.synchronize()
+        serve = dict(K.LAUNCHES)
+        check_counts(path, f"serve ({label})", serve, loops + 1)
+        if eng.metrics["solver_resolved"] != "dst_gemm":
+            raise AssertionError(f"solver resolved to {eng.metrics['solver_resolved']}")
+        out_np = out.cpu().numpy()
+        if out_np.shape != d_img.shape or out_np.dtype != np.uint8:
+            raise AssertionError(f"serve output {out_np.shape} {out_np.dtype}")
+        check_outside(out_np, d_img, interior)
+        mps = s_img.shape[0] * s_img.shape[1] / (ms * 1e3)
+        print(f"serve {path} ({label}): {ms:.4f} ms/frame, {mps:.1f} MP/s over {loops} "
+              f"chained frames, interior {rh - 2}x{rw - 2} ({card}); "
+              f"device memory {eng.metrics['device_memory_bytes']} B")
+        K.reset_launches()
+        run_out = eng.run(s_img, d_img, mask_, ctr)
+        eng.sync()
+        run = dict(K.LAUNCHES)
+        check_counts(path, f"single-shot run ({label})", run, 1)
+        run_np = run_out.cpu().numpy()
+        check_outside(run_np, d_img, interior)
+        print(f"single-shot run {path} ({label}): launches {json.dumps(run)}")
+        path_launches.setdefault(path, (serve, run))
+        cpu = SeamlessClone(cfg, device="cpu")
+        d_run = diff_max(run_np, cpu.run(s_img, d_img, mask_, ctr).numpy())
+        a, _ = eng.timed_serve(s_img, d_img, mask_, ctr, loops=1)
+        b, _ = cpu.timed_serve(s_img, d_img, mask_, ctr, loops=1)
+        d_serve = diff_max(a.cpu().numpy(), b.numpy())
+        print(f"card vs cpu, {path} ({label}): run diff_max {d_run}, 2-frame serve "
+              f"diff_max {d_serve}")
+        if d_run > 1 or d_serve > 1:
+            raise AssertionError(f"{path} ({label}): card and CPU disagree by more than 1")
+        cpu_diffs[f"{path} ({label})"] = max(d_run, d_serve)
+        return eng, ms
+
+    eng, pair_ms = drive("pair", CloneConfig(), src, mask, SERVE_LOOPS,
+                         f"{SRC_HW[1]}x{SRC_HW[0]}")
+
+    # Poisson residual of one folded card solve, in float64: A u = g on the interior
+    g = g_tp[:, :w2, :h2].transpose(1, 2).double()
+    u = solve_dst_gemm_pl(g_tp, h2, w2, folded=True, bases=fold_b)
     up = torch.nn.functional.pad(u[:, :h2, :w2].double(), (1, 1, 1, 1))
     lap = (up[:, :-2, 1:-1] + up[:, 2:, 1:-1] + up[:, 1:-1, :-2] + up[:, 1:-1, 2:]
            - 4 * up[:, 1:-1, 1:-1])
     rel_res = ((lap - g).abs().max() / g.abs().max()).item()
-    print(f"solve: max |A u - g| / max |g| = {rel_res:.3e}")
-    if not rel_res < 1e-2:
-        raise AssertionError(f"Poisson residual {rel_res} too large")
-    del g, u, up, lap
-    profile_frames(clone_pipeline, dict(
-        src=torch.from_numpy(src).to(dev), dst=dst_p.clone(),
-        mask=torch.from_numpy(m).to(dev), bbox_xy=(x0, y0), left_top=(left, top),
-        bbox_hw=(bh, bw), flags=1, solver_kwargs={"precision": "high", "folded": True},
-        bases=(vh, vw, lam_h, lam_w), planar_dst=True))
+    pad = u.clone()
+    pad[:, :h2, :w2] = 0
+    pad_rel = (pad.abs().max() / u.abs().max()).item()
+    print(f"folded solve: max |A u - g| / max |g| = {rel_res:.3e}, "
+          f"max |padding| / max |u| = {pad_rel:.3e}")
+    if not (rel_res < 1e-2 and pad_rel < 1e-4 and torch.isfinite(u).all()):
+        raise AssertionError(f"folded solve: residual {rel_res}, padding {pad_rel}")
+    del g, u, up, lap, pad
 
-    # -- 4. the single-shot path through the kernels, and the card against the CPU
-    K.reset_launches()
-    run_out = eng.run(src, dst, mask, center)
-    eng.sync()
-    run_launches = dict(K.LAUNCHES)
-    check_counts("single-shot", run_launches, 1)
-    for name in PER_FRAME:
-        rows[name]["run_launches"] = run_launches[name]
-    rows["clamp_cast_paste_interleaved"]["launches"] = run_launches["clamp_cast_paste"]
-    if eng.metrics["solver_resolved"] != "dst_gemm":
-        raise AssertionError(f"solver resolved to {eng.metrics['solver_resolved']}")
-    run_np = run_out.cpu().numpy()
-    check_outside(run_np, dst, (top + 1, left + 1, h2, w2))
-    print(f"single-shot run: launches {json.dumps(run_launches)}")
-    cpu = SeamlessClone(CloneConfig(), device="cpu")
-    d_run = diff_max(run_np, cpu.run(src, dst, mask, center).numpy())
-    a, _ = eng.timed_serve(src, dst, mask, center, loops=1)
-    b, _ = cpu.timed_serve(src, dst, mask, center, loops=1)
-    d_serve = diff_max(a.cpu().numpy(), b.numpy())
-    print(f"card vs cpu at {SRC_HW[1]}x{SRC_HW[0]}: run diff_max {d_run}, "
-          f"2-frame serve diff_max {d_serve}")
-    if d_run > 1 or d_serve > 1:
-        raise AssertionError("card and CPU disagree by more than 1")
+    prof_kw = dict(src=torch.from_numpy(src).to(dev), dst=dst_p.clone(),
+                   mask=torch.from_numpy(m).to(dev), bbox_xy=(x0, y0),
+                   left_top=(left, top), bbox_hw=(bh, bw), flags=1, planar_dst=True)
+    gemms = profile_frames("pair", clone_pipeline, dict(
+        prof_kw, solver_kwargs={"precision": "high", "folded": True}, bases=fold_b))
+    if gemms not in (-1, 8):
+        raise AssertionError(f"the pair chain ran {gemms} GEMMs a frame, expected 8")
+    gemms_u = profile_frames("unfolded", clone_pipeline, dict(
+        prof_kw, solver_kwargs={"precision": "high", "folded": False}, bases=plain_b))
+    if gemms_u not in (-1, 4):
+        raise AssertionError(f"the unfolded chain ran {gemms_u} GEMMs a frame, expected 4")
+    del prof_kw
+
+    _, unfolded_ms = drive("unfolded", CloneConfig(dst_folded=False), src, mask, SERVE_LOOPS,
+                           f"{SRC_HW[1]}x{SRC_HW[0]}")
+    print(f"serve at {SRC_HW[1]}x{SRC_HW[0]}: pair chain {pair_ms:.4f} ms/frame, unfolded "
+          f"chain {unfolded_ms:.4f} ms/frame, ratio {pair_ms / unfolded_ms:.3f} ({card})")
+    for hw in STRIPS:
+        s_src = synthetic_image(rng, hw)
+        drive("per_axis", CloneConfig(), s_src, np.full(hw, 255, np.uint8), STRIP_LOOPS,
+              f"{hw[1]}x{hw[0]} strip")
+
     s_src = synthetic_image(rng, (194, 300))
     s_dst = synthetic_image(rng, (449, 800))
     yy, xx = np.mgrid[:194, :300]
@@ -365,6 +536,23 @@ def main() -> int:
         if dm > 1:
             raise AssertionError(f"flags={flags}: card and CPU disagree by {dm}")
 
+    # -- the kernel table: launches of each kernel's own path ---------------------
+    for name in KERNELS:
+        home = HOME_PATH.get(name, "pair")
+        rows[name]["launches"] = path_launches[home][0][name]
+        rows[name]["path"] = home
+        rows[name]["launches_by_path"] = {p: path_launches[p][0][name] for p in PATHS}
+        rows[name]["run_launches_by_path"] = {p: path_launches[p][1][name] for p in PATHS}
+    rows["clamp_cast_paste_interleaved"]["launches"] = path_launches["unfolded"][1][
+        "clamp_cast_paste"]
+    rows["clamp_cast_paste_interleaved"]["path"] = "unfolded single-shot run"
+    rows["unfold_clamp_paste_interleaved"]["launches"] = path_launches["pair"][1][
+        "unfold_clamp_paste"]
+    rows["unfold_clamp_paste_interleaved"]["path"] = "pair single-shot run"
+    for name, r in rows.items():
+        if not r["launches"]:
+            raise AssertionError(f"{name} was launched no time on its path")
+    print(f"card vs cpu diff_max by path: {json.dumps(cpu_diffs)}")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,13 @@ unless the caller passes ``device="cpu"``, which runs the plain PyTorch
 twins of the kernels; without a card and without ``device="cpu"`` they
 raise rather than quietly fall back.
 
-What runs (ROADMAP slice 1): ``CloneConfig()`` for patches below the
-``auto`` crossover — the unfolded DST-GEMM serve path of
-``SeamlessClone.run`` / ``timed_serve`` and ``seamless_clone``, in the
-NORMAL, MIXED and MONOCHROME modes.
+What runs (ROADMAP slices 1 and 2): ``CloneConfig()`` for patches below
+the ``auto`` crossover — the DST-GEMM serve path of ``SeamlessClone.run`` /
+``timed_serve`` and ``seamless_clone``, in the NORMAL, MIXED and
+MONOCHROME modes. With the default ``dst_folded=True`` it runs the folded
+pair chain where both interior sides exceed 128 px, folds the one side
+that does otherwise, and runs the unfolded chain on small patches or with
+``dst_folded=False``.
 """
 
 from __future__ import annotations

@@ -5,12 +5,14 @@ so a configuration carries across with ``config_from_jax``. This system has
 no weights: the only other carried state is the DST basis, which the port
 rebuilds bit-equal on the host (``solvers/dst_gemm.py``).
 
-What the port runs of it (ROADMAP slice 1): ``solver`` "auto" below the
-crossover or "dst_gemm", every ``flags`` mode and ``mixed_rule``,
-``precision`` "high"/"highest" (both FP32 on the card, TF32 off), and
-``donate_dst``. ``dst_folded=True`` is accepted and runs the unfolded chain
-(``solvers/dst_gemm.py:fold_pays``). The engine raises NotImplementedError
-for what a later slice brings (``solvers/__init__.py``, ``core/engine.py``).
+What the port runs of it (ROADMAP slices 1 and 2): ``solver`` "auto" below
+the crossover or "dst_gemm", every ``flags`` mode and ``mixed_rule``,
+``precision`` "high"/"highest" (both FP32 on the card, TF32 off),
+``dst_folded`` and ``donate_dst``. ``dst_folded=True`` folds each axis
+where the JAX package does (``solvers/dst_gemm.py:fold_pays``, every side
+above 128 px): the folded pair chain when both sides fold, the per-axis
+branch when one does. The engine raises NotImplementedError for what a
+later slice brings (``solvers/__init__.py``, ``core/engine.py``).
 """
 
 from __future__ import annotations
@@ -34,8 +36,7 @@ class CloneConfig:
 
     solver: str = "auto"  # auto | dst_gemm (ported) | dst_fft | jacobi | multigrid
     precision: str = "high"  # "high" and "highest" both run FP32 GEMMs (TF32 off)
-    dst_folded: bool = True  # accepted; runs the unfolded chain until the
-    # folded pair chain is ported (fold_pays is False)
+    dst_folded: bool = True  # even/odd-folded DST GEMMs where fold_pays(n)
     flags: int = NORMAL_CLONE
     mixed_rule: str = "opencv"  # MIXED_CLONE comparison: "opencv" | "norm"
     tol: float = 1e-4  # relative residual tolerance (iterative solvers)

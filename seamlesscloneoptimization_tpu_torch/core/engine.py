@@ -11,8 +11,10 @@ seamlessClone-CUDA/seamlessClone_imp.cu:239-370):
   place.
 - ``timed_serve`` uploads once and chains frames in place on a planar
   buffer it owns, timed with CUDA events after one warm-up frame.
-- The padded DST bases live on the device, cached per shape, so a frame
-  uploads nothing.
+- The DST bases live on the device, cached per shape, so a frame uploads
+  nothing: the padded matrix and eigenvalues of an axis that stays plain,
+  the four folded factors and the grouped eigenvalues of an axis that
+  folds (``dst_folded and fold_pays(n)``).
 
 Not ported here (TPU-only or a later slice; see ROADMAP): the layout pin
 and self-heal, the sync-overhead subtraction, ``profile`` and
@@ -178,8 +180,11 @@ class SeamlessClone:
         key = (h2, w2)
         b = self._bases.get(key)
         if b is None:
-            b = tuple(self._track(t) for t in dst_bases(
-                h2, w2, ru128(h2), ru128(w2), self.device))
+            b = dst_bases(h2, w2, ru128(h2), ru128(w2), self.device,
+                          self.config.dst_folded)
+            for axis in b:
+                for t in axis.tensors():
+                    self._track(t)
             self._bases[key] = b
         return b
 

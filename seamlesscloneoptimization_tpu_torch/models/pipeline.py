@@ -6,12 +6,23 @@ computed on the host before the call (``core/engine.py:prepare_inputs``),
 so offsets and sizes are plain ints and the ROI is a strided view: nothing
 outside it is converted or copied.
 
-The kernel branch of ``clone_roi`` is the serve path, one frame being
+The kernel branch of ``clone_roi`` is the serve path. With ``folded`` (the
+config's default ``dst_folded=True``) and both interior sides folding
+(``pair_chain_applies``: every side above 128 px), one frame is
+
+    erode3 -> preprocess_rhs_t -> fold_minor -> 2 GEMMs -> transpose_pair
+    -> fold_minor -> 2 GEMMs -> transpose_pair(÷) x2 -> 2 GEMMs
+    -> unfold_transpose x2 -> 2 GEMMs -> unfold_clamp_paste
+
+and otherwise
 
     erode3 -> preprocess_rhs_t -> GEMM -> transpose -> GEMM -> transpose(÷)
     -> GEMM -> transpose -> GEMM -> clamp_cast_paste
 
-with the interior written in place into the destination at (top+1, left+1).
+where an axis that folds (``folded and fold_pays(n)``) runs fold_minor ->
+2 half-GEMMs for its forward GEMM and 2 half-GEMMs -> unfold_minor for its
+inverse. Either way the interior is written in place into the destination
+at (top+1, left+1), planar or interleaved, by one strided kernel.
 On CPU tensors each kernel wrapper runs its plain twin. Everything runs on
 the current stream, in order: the next chained frame's preprocess reads the
 ROI this frame's paste wrote.
@@ -32,11 +43,15 @@ from seamlesscloneoptimization_tpu_torch.ops.kernels import (
     clamp_cast_paste,
     erode3,
     preprocess_rhs_t,
+    unfold_clamp_paste,
 )
 from seamlesscloneoptimization_tpu_torch.ops.mask import binarize_mask, erode3x3
 from seamlesscloneoptimization_tpu_torch.ops.postprocess import postprocess_roi
 from seamlesscloneoptimization_tpu_torch.ops.rhs import poisson_rhs
-from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import solve_dst_gemm_pl
+from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
+    pair_chain_applies,
+    solve_dst_gemm_pl,
+)
 
 
 def clone_roi(
@@ -58,8 +73,9 @@ def clone_roi(
 
     Kernel branch (the default): the DST-GEMM serve chain. It ignores
     ``solver`` (the chain is the dst_gemm solve; ``solver_kwargs`` gives
-    ``precision`` and ``folded``), and ``bases`` are
-    the device-resident padded DST bases (``dst_bases``), or None. With
+    ``precision`` and ``folded``), and ``bases`` are the device-resident
+    DST bases (``dst_bases`` with the same ``folded``), or None. On the
+    pair chain the last unfold is fused into ``unfold_clamp_paste``. With
     ``out`` (a (C, Hd, Wd) u8 destination view) and ``out_offset`` =
     (top1, left1), the solved interior is pasted in place there and ``out``
     is returned; else a new blended (C, H, W) ROI is returned.
@@ -80,12 +96,15 @@ def clone_roi(
         else:
             patch_in, kflags = patch_u8, flags
         g_tp = preprocess_rhs_t(dest_roi_u8, patch_in, me, kflags, mixed_rule)
+        folded = bool(solver_kwargs.get("folded", False))
+        pair_chain = folded and pair_chain_applies(h2, w2)
         u = solve_dst_gemm_pl(g_tp, h2=h2, w2=w2,
                               precision=solver_kwargs.get("precision", "highest"),
-                              folded=solver_kwargs.get("folded", False),
-                              bases=bases)
+                              folded=folded, bases=bases, return_parts=pair_chain)
         if out is None:
             out, out_offset = dest_roi_u8.clone(), (1, 1)
+        if pair_chain:
+            return unfold_clamp_paste(*u, out, out_offset[0], out_offset[1], h2, w2)
         return clamp_cast_paste(u, out, out_offset[0], out_offset[1], h2, w2)
     dest_f = dest_roi_u8.to(torch.float32)
     patch_f = patch_u8.to(torch.float32)

@@ -9,9 +9,10 @@ own shared library with a plain C interface:
 and is loaded through ctypes (seconds, against minutes for a source that
 includes PyTorch's headers). No ``--use_fast_math``: the divide and the
 casts stay IEEE, so the kernels are bit-equal to their plain twins. The file
-name carries a hash of the source and the flags, so an edited source
-rebuilds; ptxas's register and shared-memory report is kept beside each
-library as ``lib<name>_<hash>.log``. Nothing is built when a module is
+name carries a hash of the source, of every shared header (``csrc/*.cuh``)
+and of the flags, so an edited source or header rebuilds; ptxas's register
+and shared-memory report is kept beside each library as
+``lib<name>_<hash>.log``. Nothing is built when a module is
 imported: the first kernel launch (or ``build_all()``) builds.
 """
 
@@ -46,6 +47,14 @@ SIGNATURES = {
     "transpose": ("transpose_launch", (_P, _P, _P, _P, _I, _I, _I, _P)),
     "clamp_cast_paste": ("clamp_cast_paste_launch",
                          (_P, _I, _I, _I, _P, _L, _L, _L, _I, _I, _I, _I, _P)),
+    "fold_minor": ("fold_minor_launch", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "unfold_minor": ("unfold_minor_launch", (_P, _P, _P, _I, _I, _I, _I, _P)),
+    "transpose_pair": ("transpose_pair_launch",
+                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "unfold_transpose": ("unfold_transpose_launch",
+                         (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "unfold_clamp_paste": ("unfold_clamp_paste_launch",
+                           (_P, _P, _I, _I, _I, _P, _L, _L, _L, _I, _I, _I, _I, _P)),
 }
 
 _lock = threading.Lock()
@@ -68,6 +77,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared headers: an edit rebuilds
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

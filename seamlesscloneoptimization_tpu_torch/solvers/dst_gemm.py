@@ -10,22 +10,35 @@ The GEMMs are plain ``torch.matmul`` in FP32: the port sets neither
 ``allow_tf32`` nor ``set_float32_matmul_precision``. ``precision="high"``
 (bf16_3x on the TPU) and ``"highest"`` both map to FP32 here.
 
-Folding: the JAX package's even/odd-folded transforms (half the GEMM FLOPs)
-are ROADMAP slice 2. An axis folds where ``folded and fold_pays(n)``
-(``check_fold``); until slice 2 the port's ``fold_pays`` is False, so
-``folded=True`` runs the unfolded chain — exactly what the JAX package runs
-wherever its own ``fold_pays`` is false; the results agree within float32
-rounding.
+Folding (half the GEMM FLOPs per axis): the DST-I matrix has the reflection
+symmetry V[n-1-j, i] = (-1)^i V[j, i], so every even output depends only on
+s_j = x_j + x_{n-1-j} and every odd one only on d_j = x_j - x_{n-1-j}. One
+n x n GEMM becomes two half-size GEMMs around an elementwise fold; the
+inverse combines out_x = E_x + O_x, out_{n-1-x} = E_x - O_x. The spectral
+axis stays in grouped order (even block, then odd block) between forward
+and inverse, so only the eigenvalue vector changes. An axis of size n folds
+where ``folded and fold_pays(n)`` (the JAX package's rule, 128-padding
+aware), so both packages take the same branch at every geometry.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from seamlesscloneoptimization_tpu_torch.ops.kernels import transpose
+from seamlesscloneoptimization_tpu_torch.ops.kernels import (
+    fold_halves,
+    fold_minor,
+    ru128,
+    transpose,
+    transpose_pair,
+    unfold_minor,
+    unfold_transpose,
+)
 
 PRECISIONS = ("highest", "high")  # both FP32 on the card
 
@@ -35,13 +48,15 @@ def _frozen(a: np.ndarray) -> np.ndarray:
     return a
 
 
+def _dst_f64(n: int) -> np.ndarray:
+    i = np.arange(1, n + 1, dtype=np.float64)
+    return np.sin(np.outer(i, i) * (np.pi / (n + 1))) * np.sqrt(2.0 / (n + 1))
+
+
 @lru_cache(maxsize=64)
 def dst_matrix(n: int) -> np.ndarray:
     """Orthonormal DST-I matrix, (n, n) f32, computed in f64 on the host."""
-    i = np.arange(1, n + 1, dtype=np.float64)
-    return _frozen((np.sin(np.outer(i, i) * (np.pi / (n + 1))) * np.sqrt(2.0 / (n + 1))).astype(
-        np.float32
-    ))
+    return _frozen(_dst_f64(n).astype(np.float32))
 
 
 @lru_cache(maxsize=256)
@@ -70,21 +85,53 @@ def dst_eigenvalues_padded(n: int, n_pad: int) -> np.ndarray:
 
 
 def fold_pays(n: int) -> bool:
-    """Whether the folded transform runs for axis size n: never, until the
-    folded pair chain is ported (ROADMAP slice 2)."""
-    return False
+    """Whether axis size n folds: two half-size 128-padded GEMMs against
+    one full-size one (the port pads its slabs to 128 as well)."""
+    _, _, ep, op = fold_halves(n)
+    return ep * ep + op * op < ru128(n) ** 2
 
 
-def check_fold(folded: bool, *sizes: int) -> None:
-    """The per-axis fold decision of the JAX package's ``axis_ops``: an axis
-    of size n folds where ``folded and fold_pays(n)``. The folded transforms
-    are ROADMAP slice 2, so such an axis raises; every other axis runs the
-    unfolded transform."""
-    for n in sizes:
-        if folded and fold_pays(n):
-            raise NotImplementedError(
-                f"the folded DST transform (axis size {n}) is not ported yet: "
-                "ROADMAP slice 2")
+def pair_chain_applies(h2: int, w2: int) -> bool:
+    """Whether ``solve_dst_gemm_pl(folded=True)`` runs the folded pair chain
+    (both axes fold): the one gate shared with the pipeline, whose fused
+    unfold-clamp-paste tail needs that chain's ``return_parts``."""
+    return fold_pays(h2) and fold_pays(w2)
+
+
+@lru_cache(maxsize=64)
+def dst_matrices_folded(n: int):
+    """Padded folded DST-I factors (Vep, Vop, Ve2p, Vo2p) f32, from f64.
+
+    he = ceil(n/2), ho = n//2, ep/op their 128-roundups:
+    Vep (ep, ep)[j, r] = V[j, 2r] (forward even; for odd n row he-1 is the
+    self-paired middle element, counted once in the fold),
+    Vop (op, op)[j, r] = V[j, 2r+1] (forward odd),
+    Ve2p (ep, ep)[r, x] = V[2r, x] (inverse even, x < he),
+    Vo2p (op, ep)[r, x] = V[2r+1, x] (inverse odd). Zero elsewhere.
+    """
+    v = _dst_f64(n)
+    he, ho, ep, op = fold_halves(n)
+    vep = np.zeros((ep, ep), np.float32)
+    vep[:he, :he] = v[:he, 0::2]
+    vop = np.zeros((op, op), np.float32)
+    vop[:ho, :ho] = v[:ho, 1::2]
+    ve2p = np.zeros((ep, ep), np.float32)
+    ve2p[:he, :he] = v[0::2, :he]
+    vo2p = np.zeros((op, ep), np.float32)
+    vo2p[:ho, :he] = v[1::2, :he]
+    return tuple(_frozen(m) for m in (vep, vop, ve2p, vo2p))
+
+
+@lru_cache(maxsize=256)
+def dst_eigenvalues_grouped(n: int) -> np.ndarray:
+    """dst_eigenvalues(n) in grouped spectral order:
+    [even-index eigenvalues | 1e9 to ep | odd-index | 1e9 to op]."""
+    he, ho, ep, op = fold_halves(n)
+    lam = dst_eigenvalues(n)
+    out = np.full(ep + op, 1e9, np.float32)
+    out[:he] = lam[0::2]
+    out[ep : ep + ho] = lam[1::2]
+    return _frozen(out)
 
 
 def check_precision(precision: str) -> None:
@@ -97,42 +144,201 @@ def _t(a: np.ndarray, device) -> torch.Tensor:
     return torch.tensor(a, device=device)
 
 
-def dst_bases(h2: int, w2: int, hp: int, wp: int, device):
-    """Device copies (Vh, Vw, lam_h, lam_w) of the padded bases for an
-    (h2, w2) interior on an (hp, wp) slab. The engine caches them per shape,
-    so a serve frame uploads nothing."""
-    return (_t(dst_matrix_padded(h2, hp), device), _t(dst_matrix_padded(w2, wp), device),
-            _t(dst_eigenvalues_padded(h2, hp), device),
-            _t(dst_eigenvalues_padded(w2, wp), device))
+@dataclass(frozen=True)
+class AxisBasis:
+    """Device factors of one axis: size n on an n_pad slab. ``mats`` is
+    (Vp,) for the plain transform or (Vep, Vop, Ve2p, Vo2p) where the axis
+    folds; ``lam`` the padded, or grouped, eigenvalues."""
+
+    n: int
+    n_pad: int
+    mats: tuple
+    lam: torch.Tensor
+
+    @property
+    def folded(self) -> bool:
+        return len(self.mats) == 4
+
+    def tensors(self) -> tuple:
+        return (*self.mats, self.lam)
+
+
+def axis_basis(n: int, n_pad: int, fold: bool, device) -> AxisBasis:
+    if fold:
+        return AxisBasis(n, n_pad, tuple(_t(m, device) for m in dst_matrices_folded(n)),
+                         _t(dst_eigenvalues_grouped(n), device))
+    return AxisBasis(n, n_pad, (_t(dst_matrix_padded(n, n_pad), device),),
+                     _t(dst_eigenvalues_padded(n, n_pad), device))
+
+
+def dst_bases(h2: int, w2: int, hp: int, wp: int, device, folded: bool = False):
+    """(h, w) AxisBasis of an (h2, w2) interior on an (hp, wp) slab, each
+    folded where ``folded and fold_pays(n)``. The engine caches them per
+    shape, so a serve frame uploads nothing."""
+    return (axis_basis(h2, hp, folded and fold_pays(h2), device),
+            axis_basis(w2, wp, folded and fold_pays(w2), device))
+
+
+def _fwd(a: torch.Tensor, b: AxisBasis) -> torch.Tensor:
+    """Forward transform along the minor axis (grouped where folded)."""
+    if not b.folded:
+        return torch.matmul(a, b.mats[0])
+    vep, vop, _, _ = b.mats
+    s, d = fold_minor(a, b.n)
+    return torch.cat([torch.matmul(s, vep), torch.matmul(d, vop)], dim=-1)
+
+
+def _inv(a: torch.Tensor, b: AxisBasis) -> torch.Tensor:
+    """Inverse transform along the minor axis, natural order out (n_pad)."""
+    if not b.folded:
+        return torch.matmul(a, b.mats[0])
+    _, _, ve2p, vo2p = b.mats
+    ep = ve2p.shape[0]
+    return unfold_minor(torch.matmul(a[..., :ep], ve2p), torch.matmul(a[..., ep:], vo2p),
+                        b.n, b.n_pad)
 
 
 def solve_dst_gemm_pl(g_tp: torch.Tensor, h2: int, w2: int,
                       precision: str = "highest", folded: bool = False,
-                      bases=None) -> torch.Tensor:
-    """DST solve in PADDED space with the ``transpose`` kernel between GEMMs.
+                      bases=None, return_parts: bool = False):
+    """DST solve in PADDED space with kernels between the GEMMs.
 
     In: g_tp (C, WP, HP) f32, the transposed RHS at the origin of a slab
     that is exactly zero elsewhere (``preprocess_rhs_t``). Out: (C, HP, WP)
     f32, the natural-orientation solution at the origin; the padding comes
     out (near) zero. Each GEMM is a right-multiply of the slab by a
-    zero-padded V, so nothing is sliced or re-padded between stages; the
-    middle transpose divides by the 1e9-padded eigenvalue sums.
-    ``folded``: fold the axes where ``fold_pays`` (``check_fold``); until
-    slice 2 that is none, and this unfolded chain runs.
-    ``bases``: ``dst_bases(h2, w2, HP, WP, device)``, or None to build them.
+    zero-padded factor, so nothing is sliced or re-padded between stages.
+
+    Three branches, as in the JAX function:
+    - ``folded and pair_chain_applies(h2, w2)``: the pair chain,
+      fold_minor -> 2 GEMMs -> transpose_pair -> fold_minor -> 2 GEMMs ->
+      transpose_pair(÷) x2 (row windows) -> 2 GEMMs -> unfold_transpose x2
+      -> 2 GEMMs -> unfold_minor. With ``return_parts`` it stops before the
+      last unfold and returns (e_w, o_w), each (C, HP, ep_w), for
+      ``unfold_clamp_paste``.
+    - otherwise per axis: an axis folds where ``folded and fold_pays(n)``
+      (fold_minor / unfold_minor around its half-GEMMs), else plain; three
+      ``transpose`` launches, the middle one dividing.
+    ``bases``: ``dst_bases(h2, w2, HP, WP, device, folded)``, or None to
+    build them.
     """
     check_precision(precision)
-    check_fold(folded, h2, w2)
     c, wp, hp = g_tp.shape
-    vh, vw, lam_h, lam_w = bases if bases is not None else dst_bases(
-        h2, w2, hp, wp, g_tp.device)
-    s1 = torch.matmul(g_tp, vh)                    # (C,WP,HP) = (Vh G)^T
-    tr1 = transpose(s1)                            # (C,HP,WP) = Vh G
-    s2 = torch.matmul(tr1, vw)                     # (C,HP,WP) = ghat
-    tr2 = transpose(s2, lam_a=lam_h, lam_b=lam_w)  # (C,WP,HP) = uhat^T
-    s4 = torch.matmul(tr2, vh)                     # (C,WP,HP) = (Vh uhat)^T
-    tr3 = transpose(s4)                            # (C,HP,WP) = Vh uhat
-    return torch.matmul(tr3, vw)                   # (C,HP,WP) = u (padded)
+    bh, bw = bases if bases is not None else dst_bases(h2, w2, hp, wp, g_tp.device, folded)
+    want = (h2, hp, folded and fold_pays(h2), w2, wp, folded and fold_pays(w2))
+    if (bh.n, bh.n_pad, bh.folded, bw.n, bw.n_pad, bw.folded) != want:
+        raise ValueError(f"bases do not match (h2, hp, fold_h, w2, wp, fold_w) = {want}")
+
+    if bh.folded and bw.folded:
+        vep_h, vop_h, ve2p_h, vo2p_h = bh.mats
+        vep_w, vop_w, ve2p_w, vo2p_w = bw.mats
+        ep_h, op_h = vep_h.shape[0], vop_h.shape[0]
+        ep_w, op_w = vep_w.shape[0], vop_w.shape[0]
+        # forward h: fold the minor (H) axis, two half-GEMMs, pair transpose
+        s, d = fold_minor(g_tp, h2)
+        tr1 = transpose_pair(torch.matmul(s, vep_h), torch.matmul(d, vop_h))  # (C,GH,WP)
+        # forward w on the transposed slab
+        s, d = fold_minor(tr1, w2)
+        ge, go = torch.matmul(s, vep_w), torch.matmul(d, vop_w)   # (C,GH,ep_w|op_w)
+        # spectral divide fused into the transposes back, one per h window
+        e_h = torch.matmul(transpose_pair(ge, go, bw.lam, bh.lam, 0, ep_h), ve2p_h)
+        o_h = torch.matmul(transpose_pair(ge, go, bw.lam, bh.lam, ep_h, op_h), vo2p_h)
+        # unfold along h fused into the transposes back, one per w window
+        e_w = torch.matmul(unfold_transpose(e_h, o_h, h2, hp, 0, ep_w), ve2p_w)
+        o_w = torch.matmul(unfold_transpose(e_h, o_h, h2, hp, ep_w, op_w), vo2p_w)
+        if return_parts:
+            return e_w, o_w
+        return unfold_minor(e_w, o_w, w2, wp)
+
+    if return_parts:
+        raise ValueError(f"return_parts needs the pair chain: folded=True and "
+                         f"pair_chain_applies({h2}, {w2})")
+    s1 = _fwd(g_tp, bh)                             # (C,WP,HG) = (Vh G)^T
+    tr1 = transpose(s1)                             # (C,HG,WP) = Vh G
+    s2 = _fwd(tr1, bw)                              # (C,HG,WG) = ghat
+    tr2 = transpose(s2, lam_a=bh.lam, lam_b=bw.lam)  # (C,WG,HG) = uhat^T
+    s4 = _inv(tr2, bh)                              # (C,WG,HP) = (Vh uhat)^T
+    tr3 = transpose(s4)                             # (C,HP,WG) = Vh uhat
+    return _inv(tr3, bw)                            # (C,HP,WP) = u (padded)
+
+
+# ---------------------------------------------------------------------------
+# The plain folded forms (solve_dst_gemm, the plain pipeline branch)
+# ---------------------------------------------------------------------------
+
+
+def _folded_mats(n: int, device):
+    return tuple(_t(m, device) for m in dst_matrices_folded(n))
+
+
+def dst_fwd_folded_minor(a: torch.Tensor, n: int) -> torch.Tensor:
+    """Folded DST along the minor axis: (..., KP >= n, zero beyond n) ->
+    (..., ep + op) spectral in grouped even/odd order (zero-padded)."""
+    he, ho, ep, op = fold_halves(n)
+    vep, vop, _, _ = _folded_mats(n, a.device)
+    head = a[..., :ho]
+    tail = torch.flip(a[..., n - ho : n], (-1,))  # a_{n-1-j}, j = 0..ho-1
+    s, d = head + tail, head - tail
+    if n % 2:
+        s = torch.cat([s, a[..., ho : ho + 1]], dim=-1)
+    s = F.pad(s, (0, ep - he))
+    d = F.pad(d, (0, op - ho))
+    return torch.cat([torch.matmul(s, vep), torch.matmul(d, vop)], dim=-1)
+
+
+def dst_inv_folded_minor(a: torch.Tensor, n: int, out_pad: int) -> torch.Tensor:
+    """Inverse folded DST along the minor axis: grouped spectral (..., ep+op)
+    -> natural (..., out_pad) with exact zeros beyond n."""
+    he, ho, ep, op = fold_halves(n)
+    _, _, ve2p, vo2p = _folded_mats(n, a.device)
+    e = torch.matmul(a[..., :ep], ve2p)
+    o = torch.matmul(a[..., ep : ep + op], vo2p)
+    first = (e + o)[..., :he]                                # out_x,       x < he
+    second = torch.flip((e - o)[..., :ho], (-1,))            # out_{n-1-x}, x = ho-1..0
+    return F.pad(torch.cat([first, second], dim=-1), (0, out_pad - n))
+
+
+def dst_fwd_folded_rows(a: torch.Tensor, n: int) -> torch.Tensor:
+    """Folded DST along axis -2 (left-multiply): (..., n, M) ->
+    (..., ep + op, M) spectral in grouped even/odd order."""
+    he, ho, ep, op = fold_halves(n)
+    vep, vop, _, _ = _folded_mats(n, a.device)
+    head = a[..., :ho, :]
+    tail = torch.flip(a[..., n - ho : n, :], (-2,))
+    s, d = head + tail, head - tail
+    if n % 2:
+        s = torch.cat([s, a[..., ho : ho + 1, :]], dim=-2)
+    s = F.pad(s, (0, 0, 0, ep - he))
+    d = F.pad(d, (0, 0, 0, op - ho))
+    return torch.cat([torch.matmul(vep.T, s), torch.matmul(vop.T, d)], dim=-2)
+
+
+def dst_inv_folded_rows(a: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse folded DST along axis -2: grouped spectral (..., ep+op, M) ->
+    natural (..., n, M)."""
+    he, ho, ep, op = fold_halves(n)
+    _, _, ve2p, vo2p = _folded_mats(n, a.device)
+    e = torch.matmul(ve2p.T, a[..., :ep, :])
+    o = torch.matmul(vo2p.T, a[..., ep : ep + op, :])
+    first = (e + o)[..., :he, :]
+    second = torch.flip((e - o)[..., :ho, :], (-2,))
+    return torch.cat([first, second], dim=-2)
+
+
+def _solve_folded(g2: torch.Tensor, nr: int, nc: int) -> torch.Tensor:
+    """Folded solve of the (C, nr, nc) system, each axis folded where
+    ``fold_pays``: rows through the left-multiply folds, columns through
+    the minor-axis folds, grouped eigenvalues on each folded axis."""
+    dev = g2.device
+    fr, fc = fold_pays(nr), fold_pays(nc)
+    x = dst_fwd_folded_rows(g2, nr) if fr else torch.matmul(_t(dst_matrix(nr), dev), g2)
+    x = dst_fwd_folded_minor(x, nc) if fc else torch.matmul(x, _t(dst_matrix(nc), dev))
+    lr = dst_eigenvalues_grouped(nr) if fr else dst_eigenvalues(nr)
+    lc = dst_eigenvalues_grouped(nc) if fc else dst_eigenvalues(nc)
+    x = x / _t(lr[:, None] + lc[None, :], dev)
+    x = dst_inv_folded_rows(x, nr) if fr else torch.matmul(_t(dst_matrix(nr), dev), x)
+    return (dst_inv_folded_minor(x, nc, nc) if fc
+            else torch.matmul(x, _t(dst_matrix(nc), dev)))
 
 
 def solve_dst_gemm(
@@ -143,27 +349,28 @@ def solve_dst_gemm(
     transposed_input: bool = False,
     folded: bool = False,
 ) -> torch.Tensor:
-    """Solve A u = g for g: (C, H, W) f32 via 4 batched GEMMs (plain torch).
+    """Solve A u = g for g: (C, H, W) f32 via batched GEMMs (plain torch).
 
     ``transposed_input=True``: g arrives as (C, W, H) and the output is
     transposed too. ``transposed_output=True``: the output is (C, W, H).
-    ``transform_only`` returns the spectrum Vh g Vw. ``folded``: fold the
-    axes where ``fold_pays`` (``check_fold``; ignored for the natural-order
-    spectrum of ``transform_only``, as in the JAX package).
+    ``transform_only`` returns the spectrum Vh g Vw. ``folded``: fold each
+    axis where ``fold_pays`` (ignored for the natural-order spectrum of
+    ``transform_only``, as in the JAX package).
     """
     check_precision(precision)
-    transposed = transposed_input or transposed_output
-    if transposed or not transform_only:
-        check_fold(folded, *g.shape[1:])
     dev = g.device
-    if transposed:
+    if transposed_input or transposed_output:
         g_t = g if transposed_input else g.transpose(1, 2)
         _, w, h = g_t.shape
+        if folded:
+            return _solve_folded(g_t, w, h)
         vh, vw = _t(dst_matrix(h), dev), _t(dst_matrix(w), dev)
         lam_t = _t(dst_eigenvalues(w)[:, None] + dst_eigenvalues(h)[None, :], dev)
         ghat_t = torch.matmul(torch.matmul(vw, g_t), vh)
         return torch.matmul(torch.matmul(vw, ghat_t / lam_t), vh)
     _, h, w = g.shape
+    if folded and not transform_only:
+        return _solve_folded(g, h, w)
     vh, vw = _t(dst_matrix(h), dev), _t(dst_matrix(w), dev)
     ghat = torch.matmul(torch.matmul(vh, g), vw)
     if transform_only:

@@ -16,7 +16,10 @@ import torch
 from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
 from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
-from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import dst_eigenvalues_padded
+from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
+    dst_eigenvalues_grouped,
+    dst_eigenvalues_padded,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -111,18 +114,129 @@ def test_engine_card_matches_cpu(cuda, flags):
     assert np.abs(got.astype(np.int16) - want).max() <= 1
 
 
-def test_serve_goes_through_every_kernel(cuda):
-    rng = np.random.default_rng(9)
-    src = _u8(rng, (70, 100, 3))
-    dst = _u8(rng, (150, 180, 3))
-    mask = np.full(src.shape[:2], 255, np.uint8)
-    eng = SeamlessClone(CloneConfig(), device=cuda)
+def _halves(n):
+    he, ho = (n + 1) // 2, n // 2
+    return he, ho, K.ru128(he), K.ru128(ho)
+
+
+def _eo(rng, c, rows, n, scale=1.0):
+    """Inverse half-GEMM outputs: data on lanes [0, he), zeros beyond."""
+    he, _, ep, _ = _halves(n)
+    e = np.zeros((c, rows, ep), np.float32)
+    o = np.zeros((c, rows, ep), np.float32)
+    e[..., :he] = rng.normal(size=(c, rows, he)) * scale
+    o[..., :he] = rng.normal(size=(c, rows, he)) * scale
+    return torch.from_numpy(e), torch.from_numpy(o)
+
+
+@pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 301, 775, 1548])
+def test_fold_minor_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    # lanes >= n hold data too: the kernel must not read them
+    x = torch.from_numpy(rng.normal(size=(3, 70, K.ru128(n))).astype(np.float32) * 50)
+    s, d = K.fold_minor(x.to(cuda), n)
+    ws, wd = K.fold_minor_plain(x, n)
+    torch.cuda.synchronize()
+    # bit-exact over the whole buffer: the zero lanes come from torch.empty
+    assert torch.equal(s.cpu(), ws) and torch.equal(d.cpu(), wd)
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 300, 775])
+def test_unfold_minor_matches_plain(cuda, n):
+    e, o = _eo(np.random.default_rng(n), 3, 50, n)
+    out_pad = K.ru128(n) + 128
+    got = K.unfold_minor(e.to(cuda), o.to(cuda), n, out_pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), K.unfold_minor_plain(e, o, n, out_pad))
+
+
+@pytest.mark.parametrize("pab", [(128, 128), (896, 896), (100, 37)])
+def test_transpose_pair_matches_plain(cuda, pab):
+    pa, pb = pab
+    rng = np.random.default_rng(pa)
+    m = 300
+    a = torch.from_numpy(rng.normal(size=(3, m, pa)).astype(np.float32) * 40).to(cuda)
+    b = torch.from_numpy(rng.normal(size=(3, m, pb)).astype(np.float32) * 40).to(cuda)
+    lam_p = torch.from_numpy(dst_eigenvalues_padded(pa + pb - 9, pa + pb).copy()).to(cuda)
+    lam_r = torch.from_numpy(dst_eigenvalues_grouped(2 * m - 300)[:m].copy()).to(cuda)
+    assert torch.equal(K.transpose_pair(a, b), K.transpose_pair_plain(a, b))
+    for rs, rc in ((0, 131), (131, m - 131)):  # two windows: every row once
+        assert torch.equal(K.transpose_pair(a, b, row_start=rs, row_count=rc),
+                           K.transpose_pair_plain(a, b, row_start=rs, row_count=rc))
+        # the twin on the card: the same sum, then an IEEE divide
+        assert torch.equal(K.transpose_pair(a, b, lam_p, lam_r, rs, rc),
+                           K.transpose_pair_plain(a, b, lam_p, lam_r, rs, rc))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [127, 300, 1548])
+def test_unfold_transpose_matches_plain(cuda, n):
+    e, o = _eo(np.random.default_rng(n), 3, 256, n)
+    e, o = e.to(cuda), o.to(cuda)
+    out_pad = K.ru128(n)
+    for rs, rc in ((0, 128), (128, 128), (0, 256), (37, 101)):
+        assert torch.equal(K.unfold_transpose(e, o, n, out_pad, rs, rc),
+                           K.unfold_transpose_plain(e, o, n, out_pad, rs, rc))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("n, off", [(259, (1, 1)), (260, (7, 127)), (301, (55, 201))])
+def test_unfold_clamp_paste_matches_plain(cuda, planar, n, off):
+    top1, left1 = off
+    h2 = 130
+    rng = np.random.default_rng(n)
+    e, o = _eo(rng, 3, 256, n, scale=160)
+    base = _u8(rng, (3, 300, 520) if planar else (300, 520, 3))
+    want = torch.from_numpy(base.copy())
+    want_v = want if planar else want.permute(2, 0, 1)
+    K.unfold_clamp_paste_plain(e, o, want_v, top1, left1, h2, n)
+    got = torch.from_numpy(base.copy()).to(cuda)
+    got_v = got if planar else got.permute(2, 0, 1)
+    K.unfold_clamp_paste(e.to(cuda), o.to(cuda), got_v, top1, left1, h2, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+PAIR_CHAIN = {"erode3": 1, "preprocess_rhs_t": 1, "fold_minor": 2, "transpose_pair": 3,
+              "unfold_transpose": 2, "unfold_clamp_paste": 1, "transpose": 0,
+              "clamp_cast_paste": 0, "unfold_minor": 0}
+UNFOLDED = {"erode3": 1, "preprocess_rhs_t": 1, "transpose": 3, "clamp_cast_paste": 1,
+            "fold_minor": 0, "transpose_pair": 0, "unfold_transpose": 0,
+            "unfold_clamp_paste": 0, "unfold_minor": 0}
+PER_AXIS = {"erode3": 1, "preprocess_rhs_t": 1, "fold_minor": 1, "unfold_minor": 1,
+            "transpose": 3, "clamp_cast_paste": 1, "transpose_pair": 0,
+            "unfold_transpose": 0, "unfold_clamp_paste": 0}
+
+
+def _serve_counts(cuda, cfg, src_hw, per_frame):
+    """Serve 1 warm-up + 3 frames of a full-mask patch: launch counts per
+    frame as given, and the card within 1 of the CPU."""
+    rng = np.random.default_rng(sum(src_hw))
+    src = _u8(rng, src_hw + (3,))
+    dst = _u8(rng, (src_hw[0] + 60, src_hw[1] + 80, 3))
+    mask = np.full(src_hw, 255, np.uint8)
+    center = (dst.shape[1] // 2, dst.shape[0] // 2)
     K.reset_launches()
-    out, ms = eng.timed_serve(src, dst, mask, (90, 75), loops=3)
-    frames = 1 + 3  # warm-up + timed
-    assert K.LAUNCHES == {"erode3": frames, "preprocess_rhs_t": frames,
-                          "transpose": 3 * frames, "clamp_cast_paste": frames}
+    out, ms = SeamlessClone(cfg, device=cuda).timed_serve(src, dst, mask, center, loops=3)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {k: v * 4 for k, v in per_frame.items()}
     assert ms > 0
-    ref = SeamlessClone(CloneConfig(), device="cpu")
-    want, _ = ref.timed_serve(src, dst, mask, (90, 75), loops=3)
+    want, _ = SeamlessClone(cfg, device="cpu").timed_serve(src, dst, mask, center, loops=3)
     assert np.abs(out.cpu().numpy().astype(np.int16) - want.numpy()).max() <= 1
+
+
+def test_serve_goes_through_every_kernel(cuda):
+    """The default config on a patch whose interior folds on both sides
+    (146 x 196): the pair chain."""
+    _serve_counts(cuda, CloneConfig(), (150, 200), PAIR_CHAIN)
+
+
+def test_serve_unfolded_chain(cuda):
+    _serve_counts(cuda, CloneConfig(dst_folded=False), (150, 200), UNFOLDED)
+
+
+@pytest.mark.parametrize("src_hw", [(60, 200), (200, 60)])
+def test_serve_per_axis_strip(cuda, src_hw):
+    """A strip whose short side does not fold: one fold and one unfold."""
+    _serve_counts(cuda, CloneConfig(), src_hw, PER_AXIS)

@@ -122,6 +122,14 @@ def test_cpu_twins_do_not_count_launches():
                            torch.from_numpy(_u8(3, (3, 20, 30))), me)
     K.clamp_cast_paste(K.transpose(K.transpose(g)), torch.zeros((3, 20, 30), dtype=torch.uint8),
                        1, 1, 18, 28)
+    s, d = K.fold_minor(g, 20)
+    tp = K.transpose_pair(s, d)
+    e = K.unfold_transpose(tp[:, :128].contiguous(), tp[:, 128:].contiguous(), 20, 128)
+    K.unfold_clamp_paste(e, K.unfold_minor(e, e, 20, 128), torch.zeros((3, 20, 30),
+                         dtype=torch.uint8), 1, 1, 18, 20)
+    assert set(K.LAUNCHES) == {"erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste",
+                               "fold_minor", "unfold_minor", "transpose_pair",
+                               "unfold_transpose", "unfold_clamp_paste"}
     assert set(K.LAUNCHES.values()) == {0}
 
 

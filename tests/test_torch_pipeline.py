@@ -1,11 +1,13 @@
 """The port's pipeline, engine and API against the JAX package on the CPU.
 
 The JAX side runs its full-Pallas serve path with every Pallas kernel in
-interpret mode (the mocks of tests/test_pallas_kernels.py) and
-``dst_folded=False``, the unfolded chain the port runs. The two GEMM chains
-sum in different orders, so the u8 results may differ by 1 where the
-truncation flips: diff_max <= 1. The images are numpy-seeded or the
-in-repo docs/assets pair, so no external fixture is needed.
+interpret mode (the mocks of tests/test_pallas_kernels.py), with the same
+``dst_folded`` as the port. The engine and serve comparisons use a patch
+whose interior exceeds 128 px on both sides, so ``dst_folded=True`` runs
+the folded pair chain on both sides. The GEMM chains may sum in different
+orders, so the u8 results may differ by 1 where the truncation flips:
+diff_max <= 1. The images are numpy-seeded or the in-repo docs/assets
+pair, so no external fixture is needed.
 """
 
 import ast
@@ -80,45 +82,86 @@ def _interior(shape, prep):
     return inside
 
 
-@pytest.mark.parametrize("mode", [(1, "opencv"), (2, "opencv"), (2, "norm"), (3, "opencv")])
-def test_engine_run_matches_jax_full_pallas(mode):
+MODES = [(1, "opencv"), (2, "opencv"), (2, "norm"), (3, "opencv")]
+# a patch whose mask bbox is 139 x 169: interior 137 x 167, both sides fold
+BIG_SRC, BIG_DST, BIG_CENTER = (210, 180), (260, 240), (120, 130)
+
+
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_engine_run_matches_jax_full_pallas(mode, folded):
     flags, rule = mode
-    src, dst, mask = _images(flags)
+    src, dst, mask = _images(flags, src_hw=BIG_SRC, dst_hw=BIG_DST)
+    prep = prepare_inputs(mask, src.shape, dst.shape, BIG_CENTER)
+    assert min(prep[3]) - 2 > 128
     with jax_full_pallas():
-        want = np.asarray(JEngine(JConfig(dst_folded=False, mixed_rule=rule)).run(
-            src, dst, mask, CENTER, flags))
-    eng = SeamlessClone(CloneConfig(mixed_rule=rule), device="cpu")
-    got = eng.run(src, dst, mask, CENTER, flags).numpy()
+        want = np.asarray(JEngine(JConfig(dst_folded=folded, mixed_rule=rule)).run(
+            src, dst, mask, BIG_CENTER, flags))
+    eng = SeamlessClone(CloneConfig(dst_folded=folded, mixed_rule=rule), device="cpu")
+    got = eng.run(src, dst, mask, BIG_CENTER, flags).numpy()
     assert got.shape == dst.shape and got.dtype == np.uint8
     assert _diff_max(got, want) <= 1
-    inside = _interior(dst.shape, prepare_inputs(mask, src.shape, dst.shape, CENTER))
+    inside = _interior(dst.shape, prep)
     assert np.array_equal(got[~inside], dst[~inside])
     assert not np.array_equal(got[inside], dst[inside])
     assert eng.metrics["solver_resolved"] == "dst_gemm"
 
 
-@pytest.mark.parametrize("flags", [1, 2, 3])
-def test_planar_serve_step_matches_jax(flags):
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_planar_serve_step_matches_jax(mode, folded):
     """One chained serve frame (planar destination, in-place paste) of the
-    port against one JAX serve-program step with the guarded Pallas paste."""
-    src, dst, mask = _images(10 + flags, src_hw=(70, 150), dst_hw=(140, 220))
-    center = (110, 70)
-    m, xy, lt, hw = prepare_inputs(mask, src.shape, dst.shape, center)
+    port against one JAX serve-program step with the guarded Pallas paste
+    (with ``folded``, the fused unfold + guarded clamp)."""
+    flags, rule = mode
+    src, dst, mask = _images(10 + flags, src_hw=BIG_SRC, dst_hw=BIG_DST)
+    m, xy, lt, hw = prepare_inputs(mask, src.shape, dst.shape, BIG_CENTER)
+    assert min(hw) - 2 > 128
     dst_p = np.ascontiguousarray(dst.transpose(2, 0, 1))
+    kw = {"precision": "high", "folded": folded}
     with jax_full_pallas():
         want = np.asarray(JP.clone_pipeline(
             jnp.asarray(src), jnp.asarray(dst_p), jnp.asarray(m), jnp.asarray(xy, jnp.int32),
             jnp.asarray(lt, jnp.int32), bbox_hw=hw, flags=flags, solver=j_solve_dst_gemm,
-            solver_kwargs={"precision": "high", "folded": False}, use_pallas_pre=True,
-            use_pallas_post=True, planar_dst=True, solver_name="dst_gemm"))
+            solver_kwargs=kw, use_pallas_pre=True, use_pallas_post=True, planar_dst=True,
+            solver_name="dst_gemm", mixed_rule=rule))
     buf = torch.from_numpy(dst_p.copy())
     out = TP.clone_pipeline(torch.from_numpy(src), buf, torch.from_numpy(m), xy, lt,
-                            bbox_hw=hw, flags=flags, solver_kwargs={"precision": "high"},
-                            planar_dst=True)
+                            bbox_hw=hw, flags=flags, solver_kwargs=kw, planar_dst=True,
+                            mixed_rule=rule)
     assert out is buf
     assert _diff_max(out.numpy(), want) <= 1
     inside = _interior(dst.shape, (m, xy, lt, hw))
     assert np.array_equal(out.numpy()[:, ~inside], dst_p[:, ~inside])
+
+
+def test_clone_roi_pair_chain_matches_jax_full_pallas():
+    """clone_roi's standalone contract on the pair chain (140 x 170 ROI):
+    the fused unfold_clamp_paste into a copy of the ROI, border ring = dest;
+    JAX ends in unfold_minor + clamp_cast there."""
+    rng = np.random.default_rng(8)
+    dest = rng.integers(0, 256, (3, 140, 170)).astype(np.uint8)
+    src = rng.integers(0, 256, (3, 140, 170)).astype(np.uint8)
+    mask = np.zeros((140, 170), np.uint8)
+    mask[5:133, 7:160] = 255
+    patch = np.where(mask[None] != 0, src, 0).astype(np.uint8)
+    kw = {"precision": "high", "folded": True}
+    with jax_full_pallas():
+        want = np.asarray(JP.clone_roi(jnp.asarray(dest), jnp.asarray(patch),
+                                       jnp.asarray(mask), 1, j_solve_dst_gemm,
+                                       solver_kwargs=kw, use_pallas_pre=True,
+                                       use_pallas_post=True))
+    got = TP.clone_roi(torch.from_numpy(dest), torch.from_numpy(patch),
+                       torch.from_numpy(mask), 1, solver_kwargs=kw).numpy()
+    assert _diff_max(got, want) <= 1
+    ring = np.ones((140, 170), bool)
+    ring[1:-1, 1:-1] = False
+    assert np.array_equal(got[:, ring], dest[:, ring])
+    # the plain branch (solve_dst_gemm folded) agrees
+    tb, _ = TP.clone_roi(torch.from_numpy(dest), torch.from_numpy(patch),
+                         torch.from_numpy(mask), 1, solve_dst_gemm, solver_kwargs=kw,
+                         return_stages=True)
+    assert _diff_max(got, tb.numpy()) <= 1
 
 
 def test_clone_roi_kernel_branch_matches_jax_full_pallas():

@@ -9,6 +9,7 @@ import torch
 
 from seamlesscloneoptimization_tpu.solvers import dst_gemm as JD
 from seamlesscloneoptimization_tpu_torch import solvers as TS
+from seamlesscloneoptimization_tpu_torch.ops import kernels as K
 from seamlesscloneoptimization_tpu_torch.solvers import dst_gemm as TD
 
 
@@ -28,31 +29,62 @@ def test_dst_bases_bit_equal(n):
 
 
 def test_bases_on_device_equal_host():
-    vh, vw, lh, lw = TD.dst_bases(61, 93, 128, 128, torch.device("cpu"))
-    assert np.array_equal(vh.numpy(), JD.dst_matrix_padded(61, 128))
-    assert np.array_equal(lw.numpy(), JD.dst_eigenvalues_padded(93, 128))
+    bh, bw = TD.dst_bases(61, 93, 128, 128, torch.device("cpu"))
+    assert np.array_equal(bh.mats[0].numpy(), JD.dst_matrix_padded(61, 128))
+    assert np.array_equal(bw.lam.numpy(), JD.dst_eigenvalues_padded(93, 128))
 
 
 def test_fold_pays_is_false_until_the_pair_chain():
-    assert not any(TD.fold_pays(n) for n in (127, 1548, 2396, 4000))
+    """fold_pays is False up to 128 px and True above, where the folded
+    chains begin; the pair chain needs both sides above 128."""
+    assert not any(TD.fold_pays(n) for n in (1, 61, 127, 128))
+    assert all(TD.fold_pays(n) for n in (129, 130, 1548, 2396, 4000))
+    assert TD.pair_chain_applies(1548, 2396)
+    assert not TD.pair_chain_applies(124, 2398) and not TD.pair_chain_applies(2398, 124)
 
 
-def test_folded_axes_follow_fold_pays(monkeypatch):
-    # where fold_pays holds and folded=True the folded transform would run:
-    # not ported yet, so it raises; folded=False or transform_only never asks
-    monkeypatch.setattr(TD, "fold_pays", lambda n: n == 8)
-    g = torch.ones((3, 8, 6))
-    g_tp = torch.zeros((3, 128, 128))
-    with pytest.raises(NotImplementedError, match="axis size 8.*slice 2"):
-        TD.solve_dst_gemm(g, folded=True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        TD.solve_dst_gemm(g, folded=True, transposed_output=True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        TD.solve_dst_gemm_pl(g_tp, 8, 6, folded=True)
-    assert TD.solve_dst_gemm(g, folded=True, transform_only=True).shape == (3, 8, 6)
-    assert TD.solve_dst_gemm(g, folded=False).shape == (3, 8, 6)
-    assert TD.solve_dst_gemm_pl(g_tp, 8, 6, folded=False).shape == (3, 128, 128)
-    assert TD.solve_dst_gemm_pl(g_tp, 6, 7, folded=True).shape == (3, 128, 128)
+@pytest.mark.parametrize("hw, calls", [
+    ((61, 93), {}),                                           # neither axis folds
+    ((130, 61), {"fold_minor": 1, "unfold_minor": 1}),        # h only
+    ((61, 130), {"fold_minor": 1, "unfold_minor": 1}),        # w only
+    ((200, 300), {"fold_minor": 2, "transpose_pair": 3,       # the pair chain
+                  "unfold_transpose": 2, "unfold_minor": 1}),
+])
+def test_folded_axes_follow_fold_pays(monkeypatch, hw, calls):
+    """solve_dst_gemm_pl folds exactly the axes where folded and fold_pays:
+    the pair chain when both fold, else per axis with three transposes;
+    folded=False never folds."""
+    seen = {}
+
+    def counting(name):
+        orig = getattr(TD, name)
+
+        def f(*a, **k):
+            seen[name] = seen.get(name, 0) + 1
+            return orig(*a, **k)
+        return f
+
+    for name in ("fold_minor", "unfold_minor", "transpose_pair", "unfold_transpose",
+                 "transpose"):
+        monkeypatch.setattr(TD, name, counting(name))
+    h2, w2 = hw
+    g_tp = torch.zeros((3, K.ru128(w2), K.ru128(h2)))
+    assert TD.solve_dst_gemm_pl(g_tp, h2, w2, folded=True).shape == (3, K.ru128(h2),
+                                                                      K.ru128(w2))
+    want = dict(calls)
+    if "transpose_pair" not in calls:
+        want["transpose"] = 3
+    assert seen == want
+    seen.clear()
+    TD.solve_dst_gemm_pl(g_tp, h2, w2, folded=False)
+    assert seen == {"transpose": 3}
+    if "transpose_pair" not in calls:  # return_parts exists only on the pair chain
+        with pytest.raises(ValueError, match="pair chain"):
+            TD.solve_dst_gemm_pl(g_tp, h2, w2, folded=True, return_parts=True)
+    if calls:  # unfolded bases cannot drive an axis that folds
+        with pytest.raises(ValueError, match="bases do not match"):
+            TD.solve_dst_gemm_pl(g_tp, h2, w2, folded=True,
+                                 bases=TD.dst_bases(h2, w2, K.ru128(h2), K.ru128(w2), "cpu"))
 
 
 @pytest.mark.parametrize("hw", [(61, 93), (130, 61)])
@@ -72,13 +104,57 @@ def test_solve_dst_gemm_pl_matches_jax(hw):
     pad = np.ones(got.shape, bool)
     pad[:, :h2, :w2] = False
     assert np.abs(got[pad]).max() < 1e-4 * scale
-    # folded=True runs the same unfolded chain: the same output
+    # folded=True (h folds at 130) solves the same system within rounding
     folded = TD.solve_dst_gemm_pl(torch.from_numpy(g_tp), h2, w2, precision="high",
                                   folded=True).numpy()
-    assert np.array_equal(folded, got)
+    assert _rel(folded[:, :h2, :w2], got[:, :h2, :w2]) < 1e-5
+    assert np.abs(folded[pad]).max() < 1e-4 * scale
     # and it solves the same system as the plain solver
     plain = TD.solve_dst_gemm(torch.from_numpy(g)).numpy()
     assert _rel(got[:, :h2, :w2], plain) < 1e-5
+
+
+@pytest.mark.parametrize("hw", [(61, 93), (130, 61), (61, 130), (200, 300), (257, 301)])
+def test_solve_dst_gemm_pl_folded_matches_jax(hw):
+    """The folded chain against JAX's Pallas-fold chain in interpret mode:
+    neither axis, h only, w only, the pair chain, the pair chain odd."""
+    h2, w2 = hw
+    hp, wp = K.ru128(h2), K.ru128(w2)
+    g_tp = np.zeros((3, wp, hp), np.float32)
+    g_tp[:, :w2, :h2] = np.random.default_rng(h2 + w2).normal(
+        size=(3, w2, h2)).astype(np.float32) * 50
+    want = np.asarray(JD.solve_dst_gemm_pl(jnp.asarray(g_tp), h2=h2, w2=w2, folded=True,
+                                           pallas_fold=True, interpret=True))
+    got = TD.solve_dst_gemm_pl(torch.from_numpy(g_tp), h2, w2, folded=True).numpy()
+    assert got.shape == want.shape == (3, hp, wp)
+    scale = np.abs(want).max()
+    assert _rel(got[:, :h2, :w2], want[:, :h2, :w2]) < 1e-5
+    pad = np.ones(got.shape, bool)
+    pad[:, :h2, :w2] = False
+    assert np.abs(got[pad]).max() < 1e-4 * scale
+    if TD.pair_chain_applies(h2, w2):
+        want_p = JD.solve_dst_gemm_pl(jnp.asarray(g_tp), h2=h2, w2=w2, folded=True,
+                                      pallas_fold=True, interpret=True, return_parts=True)
+        got_p = TD.solve_dst_gemm_pl(torch.from_numpy(g_tp), h2, w2, folded=True,
+                                     return_parts=True)
+        for g_, w_ in zip(got_p, want_p):
+            assert g_.shape == w_.shape == (3, hp, K.ru128((w2 + 1) // 2))
+            assert _rel(g_.numpy(), w_) < 1e-5
+
+
+@pytest.mark.parametrize("kw", [{"folded": True}, {"folded": True, "transposed_output": True},
+                                {"folded": True, "transposed_input": True},
+                                {"folded": True, "transform_only": True}])
+def test_solve_dst_gemm_folded_matches_jax(kw):
+    """The plain folded solver where both axes fold (140 x 261), in all three
+    orientations; transform_only keeps the natural-order spectrum."""
+    g = np.random.default_rng(5).normal(size=(3, 140, 261)).astype(np.float32) * 50
+    if kw.get("transposed_input"):
+        g = np.ascontiguousarray(g.transpose(0, 2, 1))
+    want = np.asarray(JD.solve_dst_gemm(jnp.asarray(g), **kw))
+    got = TD.solve_dst_gemm(torch.from_numpy(g), **kw).numpy()
+    assert got.shape == want.shape
+    assert _rel(got, want) < 1e-5
 
 
 @pytest.mark.parametrize("kw", [{}, {"transposed_output": True}, {"transposed_input": True},
