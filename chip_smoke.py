@@ -6,15 +6,20 @@
 1. Prints the card (nvidia-smi name and power limit), builds the kernels
    from ``seamlesscloneoptimization_tpu_torch/csrc`` and prints the build
    time, ptxas's resource report and both TF32 flags.
-2. Holds each of the nine kernels against its plain PyTorch twin on the
-   card, at the shapes of the headline serve frame (a 2400x1552 full-mask
-   patch into a 4800x2694 destination, bench.py's geometry): every kernel
-   bit-exact over its whole output (the divides too: the twin's divide is
-   IEEE on the card as well). The slice-1 kernels run on the unfolded
-   chain's tensors, the folded chain's kernels on the pair chain's. Times
-   kernel, twin and, where one PyTorch call computes the same function,
-   that call (``library_ms``; the port never calls it), each launch cold in
-   L2; and one GEMM of each chain.
+2. Holds each of the fourteen kernels against its plain PyTorch twin on the
+   card: every kernel bit-exact over its whole output (the divides too: the
+   twin's divide is IEEE on the card as well; the kernels are built with
+   -fmad=false, so the multigrid's float arithmetic rounds as the twin's
+   separate ops do). The DST kernels run at the shapes of the headline
+   serve frame (a 2400x1552 full-mask patch into a 4800x2694 destination,
+   bench.py's geometry): the slice-1 kernels on the unfolded chain's
+   tensors, the folded chain's kernels on the pair chain's. The multigrid
+   kernels run at the 8K frame's (a 3802x2802 full-mask patch into a
+   7680x4320 destination: interior 2798x3798, 10.6 MP): the fine level
+   (3, 2816, 3840) and the first transposed coarse level (3, 1920, 1408,
+   betas 1.5, known-zero guess). Times kernel, twin and, where one PyTorch
+   call computes the same function, that call (``library_ms``; the port
+   never calls it), each launch cold in L2; and one GEMM of each chain.
 3. Drives each path through the entry points with the launch counters set
    to 0 just before and read just after, and checks every kernel's
    per-frame count (``PATHS``), that nothing outside the ROI interior
@@ -29,6 +34,18 @@
      same, with its own profile;
    - ``per_axis``: the default config on a 126x2400 and a 2400x126 strip
      (only the long side folds);
+   - ``mg_t``: ``CloneConfig(mg_padded="t")`` at 8K, where ``auto``
+     resolves to multigrid: 10 chained frames and one single-shot run in
+     tolerance mode (1e-4; every V-cycle kernel a multiple of the 4 fused
+     levels, and the single run's quotient equal to the cycles that
+     ``solve_multigrid(return_info=True)`` reports on the same RHS, whose
+     relative residual must be <= tol), then with ``mg_cycles=4`` (each
+     V-cycle kernel 4 levels x 4 cycles a frame); a profile of the serve
+     frame; no CPU comparison at this size;
+   - ``mg_t_headline``: ``solver="multigrid", mg_padded="t"`` at the
+     headline (3 fused levels), with the card against the CPU;
+   - the serve times of the pair chain and of the ``"t"`` multigrid at the
+     headline and at 8K, the first H100 data on the auto crossover;
    then ``seamless_clone`` on a small irregular mask in all three modes.
 
 Prints the kernel table as one JSON line (one entry per kernel; the
@@ -50,18 +67,29 @@ from pathlib import Path
 SEED = 0
 SRC_HW = (1552, 2400)
 DST_HW = (2694, 4800)
+SRC_8K = (2802, 3802)  # full mask: ROI 2800x3800, interior 2798x3798
+DST_8K = (4320, 7680)
 STRIPS = ((126, 2400), (2400, 126))  # per-axis branch: one side does not fold
 SERVE_LOOPS = 20
+MG_LOOPS = 10
 STRIP_LOOPS = 5
 REPS = 10
+TOL = 1e-4  # CloneConfig's default
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak HBM3 bandwidth
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 KERNELS = ("erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste", "fold_minor",
-           "unfold_minor", "transpose_pair", "unfold_transpose", "unfold_clamp_paste")
+           "unfold_minor", "transpose_pair", "unfold_transpose", "unfold_clamp_paste",
+           "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t")
+MG_KERNELS = ("mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t")
 
 
 def _per_frame(**counts):
     return {k: counts.get(k, 0) for k in KERNELS}
+
+
+def _mg_per_frame(levels: int, cycles: int):
+    return _per_frame(erode3=1, preprocess_rhs_p=1, clamp_cast_paste=1,
+                      **{k: levels * cycles for k in MG_KERNELS})
 
 
 PATHS = {
@@ -70,10 +98,17 @@ PATHS = {
     "unfolded": _per_frame(erode3=1, preprocess_rhs_t=1, transpose=3, clamp_cast_paste=1),
     "per_axis": _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=1, unfold_minor=1,
                            transpose=3, clamp_cast_paste=1),
+    # tolerance mode: the V-cycle kernels' counts depend on the data (see
+    # check_mg_counts); fixed mode (mg_cycles=4) at 8K has 4 fused levels
+    "mg_t": None,
+    "mg_t_fixed": _mg_per_frame(4, 4),
+    "mg_t_headline": None,
 }
+MG_LEVELS = {"mg_t": 4, "mg_t_headline": 3}
 # the path whose serve run gives each kernel's "launches"
 HOME_PATH = {"transpose": "unfolded", "clamp_cast_paste": "unfolded",
-             "unfold_minor": "per_axis"}
+             "unfold_minor": "per_axis", "preprocess_rhs_p": "mg_t", "mg_down": "mg_t",
+             "mg_up": "mg_t", "mg_restrict_t": "mg_t", "mg_prolong_t": "mg_t"}
 _PK = "seamlesscloneoptimization_tpu/ops/pallas_kernels.py"
 REPLACES = {
     "erode3": [f"{_PK}:1164"],
@@ -87,6 +122,11 @@ REPLACES = {
     "unfold_transpose": [f"{_PK}:2089"],
     "unfold_clamp_paste": [f"{_PK}:2130", f"{_PK}:1785"],
     "unfold_clamp_paste_interleaved": [f"{_PK}:2130", f"{_PK}:1958", f"{_PK}:1614"],
+    "preprocess_rhs_p": [f"{_PK}:1358", f"{_PK}:1077"],
+    "mg_down": [f"{_PK}:595"],
+    "mg_up": [f"{_PK}:805"],
+    "mg_restrict_t": [f"{_PK}:933"],
+    "mg_prolong_t": [f"{_PK}:986"],
 }
 SOURCE = {"clamp_cast_paste_interleaved": "clamp_cast_paste",
           "unfold_clamp_paste_interleaved": "unfold_clamp_paste"}
@@ -104,10 +144,28 @@ def synthetic_image(rng, hw, cell=48):
 
 
 def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
+    if PATHS[path] is None:
+        check_mg_counts(path, what, launches, frames)
+        return
     for name, per in PATHS[path].items():
         if launches[name] != per * frames:
             raise AssertionError(f"{path} {what} launched {name} {launches[name]} times, "
                                  f"expected {per} x {frames} frames")
+
+
+def check_mg_counts(path: str, what: str, launches: dict, frames: int) -> int:
+    """Tolerance-mode multigrid counts: erode3, preprocess_rhs_p and
+    clamp_cast_paste once a frame, the four V-cycle kernels equally often,
+    a multiple of the fused levels, nothing else. Returns the cycles run."""
+    levels = MG_LEVELS[path]
+    n = launches["mg_down"]
+    want = _mg_per_frame(1, 0)
+    want = {k: v * frames for k, v in want.items()}
+    want.update({k: n for k in MG_KERNELS})
+    if launches != want or n == 0 or n % levels:
+        raise AssertionError(f"{path} {what}: launches {launches}, expected V-cycle kernels "
+                             f"equal, a multiple of {levels} levels, and {frames} frames")
+    return n // levels
 
 
 def check_outside(out, dst, interior) -> None:
@@ -164,7 +222,8 @@ def profile_frames(label, clone_pipeline, kwargs, frames: int = 5) -> int:
         return -1
     ours = ("erode3", "preprocess_rhs_t", "transpose_kernel", "clamp_cast_paste",
             "fold_minor", "unfold_minor", "transpose_pair", "unfold_transpose",
-            "unfold_clamp_paste")
+            "unfold_clamp_paste", "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t",
+            "mg_prolong_t")
     groups = {"gemm": 0.0, "port kernels": 0.0, "other": 0.0}
     gemm_calls = 0
     for k, t in per_kernel.items():
@@ -200,6 +259,7 @@ def main() -> int:
     from seamlesscloneoptimization_tpu_torch.ops import kernels as K
     from seamlesscloneoptimization_tpu_torch.ops.guidance import bgr_to_gray_u8
     from seamlesscloneoptimization_tpu_torch.ops.kernels import ru128
+    from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
     from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
         dst_bases,
         pair_chain_applies,
@@ -432,16 +492,115 @@ def main() -> int:
     gemm_line("pair", s, vep_h)
     gemm_line("pair", s2, vep_w)
     del (s, d, ws, wd, fe, fo, tr1, s2, d2, ws2, wd2, ge, go, tr2w, e_h, o_h, t3, e_w, o_w,
-         d_k, d_p, i_k, i_p, flush)
+         d_k, d_p, i_k, i_p)
+
+    # -- 2c. the multigrid kernels, at the 8K frame's fine level and its first
+    #    transposed coarse level -------------------------------------------------
+    src8 = synthetic_image(rng, SRC_8K)
+    dst8 = synthetic_image(rng, DST_8K)
+    mask8 = np.full(SRC_8K, 255, np.uint8)
+    ctr8 = (DST_8K[1] // 2, DST_8K[0] // 2)
+    m8, (x8, y8), (left8, top8), (bh8, bw8) = prepare_inputs(mask8, src8.shape, dst8.shape,
+                                                             ctr8)
+    h8, w8 = bh8 - 2, bw8 - 2
+    _, hp8, wp8, hp28 = K.mg_geometry_t(h8, w8)
+    dst8_p = torch.from_numpy(dst8).to(dev).permute(2, 0, 1).contiguous()
+    dest8 = dst8_p[:, top8 : top8 + bh8, left8 : left8 + bw8]
+    src8_roi = torch.from_numpy(src8).to(dev)[y8 : y8 + bh8, x8 : x8 + bw8].permute(2, 0, 1)
+    mask8_roi = torch.from_numpy(m8[y8 : y8 + bh8, x8 : x8 + bw8]).to(dev)
+    patch8 = torch.where(mask8_roi[None] != 0, src8_roi, 0).to(torch.uint8)
+    me8 = K.erode3((mask8_roi != 0).to(torch.uint8))
+    print(f"8K geometry: roi {bh8}x{bw8}, interior {h8}x{w8} ({h8 * w8 / 1e6:.1f} MP), "
+          f"level-0 slab ({c}, {hp8}, {wp8}), rh rows {hp28}")
+    gray8 = bgr_to_gray_u8(patch8).to(torch.uint8)[None].expand(c, bh8, bw8)
+    for flags, rule, p_in in ((1, "opencv", patch8), (2, "opencv", patch8),
+                              (2, "norm", patch8), (1, "opencv", gray8)):
+        for ohw in ((hp8, wp8), (h8, w8)):
+            require_equal(f"preprocess_rhs_p flags={flags} {rule} {ohw}",
+                          K.preprocess_rhs_p(dest8, p_in, me8, ohw, flags, rule),
+                          K.preprocess_rhs_p_plain(dest8, p_in, me8, ohw, flags, rule))
+    g8 = K.preprocess_rhs_p(dest8, patch8, me8, (hp8, wp8))
+    row("preprocess_rhs_p", 2 * c * bh8 * bw8 + bh8 * bw8 + 4 * c * hp8 * wp8,
+        30 * c * bh8 * bw8,
+        time_ms(lambda: K.preprocess_rhs_p(dest8, patch8, me8, (hp8, wp8))),
+        time_ms(lambda: K.preprocess_rhs_p_plain(dest8, patch8, me8, (hp8, wp8))),
+        shape=f"u8 ({c},{bh8},{bw8}) -> ({c},{hp8},{wp8})")
+
+    def mg_level_checks(label, g, u, h, w, bh, bw, rh_rows):
+        """mg_down (known-zero and given guess), mg_restrict_t, mg_prolong_t
+        and mg_up of one level against their twins; returns the tensors."""
+        hc, wc = (h - 1) // 2, (w - 1) // 2
+        cgeom = K.mg_geometry_t(wc, hc, wp_min=rh_rows)
+        u0, rh0 = K.mg_down(None, g, 1, h, w, bh, bw, rh_rows)
+        w0, wrh0 = K.mg_down_plain(None, g, 1, h, w, bh, bw, rh_rows)
+        require_equal(f"mg_down {label} (known-zero guess) u", u0, w0)
+        require_equal(f"mg_down {label} (known-zero guess) rh", rh0, wrh0)
+        if u is not None:
+            u1, rh1 = K.mg_down(u, g, 1, h, w, bh, bw, rh_rows)
+            w1, wrh1 = K.mg_down_plain(u, g, 1, h, w, bh, bw, rh_rows)
+            require_equal(f"mg_down {label} u", u1, w1)
+            require_equal(f"mg_down {label} rh", rh1, wrh1)
+        rc = K.mg_restrict_t(rh0, h, w, bw, cgeom[1])
+        require_equal(f"mg_restrict_t {label}", rc, K.mg_restrict_t_plain(rh0, h, w, bw,
+                                                                            cgeom[1]))
+        # the coarse RHS stands in for a coarse solution: same shape, same zeros
+        e = K.mg_prolong_t(rc, w, bw, rh_rows, g.shape[2])
+        require_equal(f"mg_prolong_t {label}", e,
+                      K.mg_prolong_t_plain(rc, w, bw, rh_rows, g.shape[2]))
+        up = K.mg_up(u0, g, e, 2, h, w, bh, bw)
+        require_equal(f"mg_up {label}", up, K.mg_up_plain(u0, g, e, 2, h, w, bh, bw))
+        return u0, rh0, rc, e, cgeom
+
+    u8, rh8, rc8, e8, cgeom8 = mg_level_checks("8K level 0", g8, None, h8, w8, 1.0, 1.0, hp28)
+    hc8, wc8 = (h8 - 1) // 2, (w8 - 1) // 2
+    _, bh1 = TM._coarsen(h8, 1.0)
+    _, bw1 = TM._coarsen(w8, 1.0)
+    # the child level: logical (wc, hc), transposed, betas swapped
+    _, _, rc1, _, _ = mg_level_checks("8K level 1", rc8, None, wc8, hc8, bw1, bh1, cgeom8[3])
+    mg_level_checks("8K level 0 (second cycle)", g8, u8, h8, w8, 1.0, 1.0, hp28)
+    print(f"8K level 1: ({c}, {cgeom8[1]}, {cgeom8[2]}), logical {wc8}x{hc8}, betas "
+          f"({bw1}, {bh1}); level 2 RHS {tuple(rc1.shape)}")
+    lvl = (f"coarse level 1 ({c},{cgeom8[1]},{cgeom8[2]}) logical {wc8}x{hc8} "
+           f"beta ({bw1},{bh1})")
+    u1c, rh1c = K.mg_down(None, rc8, 1, wc8, hc8, bw1, bh1, cgeom8[3])
+    e1c = K.mg_prolong_t(rc1, hc8, bh1, cgeom8[3], cgeom8[2])
+    row("mg_down", 4 * c * (3 * hp8 * wp8 + hp28 * wp8), c * h8 * w8 * 11 + c * hc8 * w8 * 5,
+        time_ms(lambda: K.mg_down(u8, g8, 1, h8, w8, 1.0, 1.0, hp28)),
+        time_ms(lambda: K.mg_down_plain(u8, g8, 1, h8, w8, 1.0, 1.0, hp28)),
+        shape=f"u, g ({c},{hp8},{wp8}), nu1=1 -> u, rh ({c},{hp28},{wp8})",
+        zero_guess_ms=time_ms(lambda: K.mg_down(None, g8, 1, h8, w8, 1.0, 1.0, hp28)),
+        coarse_ms=time_ms(lambda: K.mg_down(None, rc8, 1, wc8, hc8, bw1, bh1, cgeom8[3])),
+        coarse_shape=lvl)
+    row("mg_up", 4 * c * (3 * hp8 * wp8 + hc8 * wp8), c * h8 * w8 * 12,
+        time_ms(lambda: K.mg_up(u8, g8, e8, 2, h8, w8)),
+        time_ms(lambda: K.mg_up_plain(u8, g8, e8, 2, h8, w8)),
+        shape=f"u, g ({c},{hp8},{wp8}) + e ({c},{hp28},{wp8}), nu2=2 -> ({c},{hp8},{wp8})",
+        coarse_ms=time_ms(lambda: K.mg_up(u1c, rc8, e1c, 2, wc8, hc8, bw1, bh1)),
+        coarse_shape=lvl)
+    row("mg_restrict_t", 4 * c * (hc8 * wp8 + cgeom8[1] * hp28), 3 * c * hc8 * wc8,
+        time_ms(lambda: K.mg_restrict_t(rh8, h8, w8, 1.0, cgeom8[1])),
+        time_ms(lambda: K.mg_restrict_t_plain(rh8, h8, w8, 1.0, cgeom8[1])),
+        shape=f"({c},{hp28},{wp8}) -> ({c},{cgeom8[1]},{hp28})",
+        coarse_ms=time_ms(lambda: K.mg_restrict_t(rh1c, wc8, hc8, bh1, rc1.shape[1])),
+        coarse_shape=lvl)
+    row("mg_prolong_t", 4 * c * (wc8 * hp28 + hp28 * wp8), 2 * c * hp28 * w8,
+        time_ms(lambda: K.mg_prolong_t(rc8, w8, 1.0, hp28, wp8)),
+        time_ms(lambda: K.mg_prolong_t_plain(rc8, w8, 1.0, hp28, wp8)),
+        shape=f"({c},{cgeom8[1]},{cgeom8[2]}) -> ({c},{hp28},{wp8})",
+        coarse_ms=time_ms(lambda: K.mg_prolong_t(rc1, hc8, bh1, cgeom8[3], cgeom8[2])),
+        coarse_shape=lvl)
+    del (u8, rh8, rc8, e8, rc1, u1c, rh1c, e1c, gray8, flush)
 
     # -- 3. every path through the entry points ---------------------------------
     path_launches = {}
     cpu_diffs = {}
 
-    def drive(path, cfg, s_img, mask_, loops, label, d_img=dst, profile=False):
+    def drive(path, cfg, s_img, mask_, loops, label, d_img=dst, cpu="run+serve",
+              solver="dst_gemm"):
         """timed_serve (warm-up + loops frames) and one single-shot run, each
         with the counters set to 0 just before and read just after; the card
-        against the CPU twins (run, and a 2-frame serve)."""
+        against the CPU twins (``cpu``: "run+serve" the run and a 2-frame
+        serve, "run" the run only, None no comparison)."""
         eng = SeamlessClone(cfg, device="cuda")
         ctr = (d_img.shape[1] // 2, d_img.shape[0] // 2)
         prep = prepare_inputs(mask_, s_img.shape, d_img.shape, ctr)
@@ -452,8 +611,9 @@ def main() -> int:
         torch.cuda.synchronize()
         serve = dict(K.LAUNCHES)
         check_counts(path, f"serve ({label})", serve, loops + 1)
-        if eng.metrics["solver_resolved"] != "dst_gemm":
-            raise AssertionError(f"solver resolved to {eng.metrics['solver_resolved']}")
+        if eng.metrics["solver_resolved"] != solver:
+            raise AssertionError(f"solver resolved to {eng.metrics['solver_resolved']}, "
+                                 f"expected {solver}")
         out_np = out.cpu().numpy()
         if out_np.shape != d_img.shape or out_np.dtype != np.uint8:
             raise AssertionError(f"serve output {out_np.shape} {out_np.dtype}")
@@ -471,13 +631,17 @@ def main() -> int:
         check_outside(run_np, d_img, interior)
         print(f"single-shot run {path} ({label}): launches {json.dumps(run)}")
         path_launches.setdefault(path, (serve, run))
-        cpu = SeamlessClone(cfg, device="cpu")
-        d_run = diff_max(run_np, cpu.run(s_img, d_img, mask_, ctr).numpy())
-        a, _ = eng.timed_serve(s_img, d_img, mask_, ctr, loops=1)
-        b, _ = cpu.timed_serve(s_img, d_img, mask_, ctr, loops=1)
-        d_serve = diff_max(a.cpu().numpy(), b.numpy())
-        print(f"card vs cpu, {path} ({label}): run diff_max {d_run}, 2-frame serve "
-              f"diff_max {d_serve}")
+        if cpu is None:
+            return eng, ms
+        cpu_eng = SeamlessClone(cfg, device="cpu")
+        d_run = diff_max(run_np, cpu_eng.run(s_img, d_img, mask_, ctr).numpy())
+        d_serve = 0
+        if cpu == "run+serve":
+            a, _ = eng.timed_serve(s_img, d_img, mask_, ctr, loops=1)
+            b, _ = cpu_eng.timed_serve(s_img, d_img, mask_, ctr, loops=1)
+            d_serve = diff_max(a.cpu().numpy(), b.numpy())
+        print(f"card vs cpu, {path} ({label}): run diff_max {d_run}"
+              + (f", 2-frame serve diff_max {d_serve}" if cpu == "run+serve" else ""))
         if d_run > 1 or d_serve > 1:
             raise AssertionError(f"{path} ({label}): card and CPU disagree by more than 1")
         cpu_diffs[f"{path} ({label})"] = max(d_run, d_serve)
@@ -523,6 +687,56 @@ def main() -> int:
         s_src = synthetic_image(rng, hw)
         drive("per_axis", CloneConfig(), s_src, np.full(hw, 255, np.uint8), STRIP_LOOPS,
               f"{hw[1]}x{hw[0]} strip")
+
+    # -- the transpose-fused multigrid: 8K through auto, then the headline ------
+    levels8 = 0
+    lh, lw = h8, w8
+    while TM._fused_level(lh, lw, 1, 2, True, TM.FUSE_MIN if levels8 == 0 else TM.FUSE_MIN_T):
+        levels8, (lh, lw) = levels8 + 1, ((lw - 1) // 2, (lh - 1) // 2)
+    if levels8 != MG_LEVELS["mg_t"]:
+        raise AssertionError(f"8K has {levels8} fused levels, expected {MG_LEVELS['mg_t']}")
+    print(f"8K multigrid: {levels8} fused levels, coarsest {lh}x{lw} solved exactly")
+    eng8, mg8_ms = drive("mg_t", CloneConfig(mg_padded="t"), src8, mask8, MG_LOOPS, "8K",
+                         d_img=dst8, cpu=None, solver="multigrid")
+    run_cycles = check_mg_counts("mg_t", "single-shot run (8K)", path_launches["mg_t"][1], 1)
+    serve_cycles = path_launches["mg_t"][0]["mg_down"] // levels8
+    # the single run's RHS (the original destination), solved with the report
+    g8 = K.preprocess_rhs_p(dest8, patch8, me8, (hp8, wp8))
+    u_chk, info = TM.solve_multigrid(g8, true_hw=(h8, w8), padded="t", use_pallas=True,
+                                     tol=TOL, return_info=True)
+    gmax = g8.abs().max().item()
+    rel_res = info["residual"] / gmax
+    print(f"8K tolerance mode: single run {run_cycles} cycles, solve_multigrid reports "
+          f"{info['cycles']} cycles, relative residual {rel_res:.3e} (tol {TOL}); "
+          f"serve {serve_cycles} cycles over {MG_LOOPS + 1} frames")
+    if info["cycles"] != run_cycles or not rel_res <= TOL or not torch.isfinite(u_chk).all():
+        raise AssertionError(f"8K multigrid: {run_cycles} cycles run, {info} reported")
+    del u_chk
+    _, mg8_fixed_ms = drive("mg_t_fixed", CloneConfig(mg_padded="t", mg_cycles=4), src8, mask8,
+                            MG_LOOPS, "8K, mg_cycles=4", d_img=dst8, cpu=None,
+                            solver="multigrid")
+    print(f"8K serve ({card}): tolerance mode {mg8_ms:.4f} ms/frame "
+          f"({serve_cycles / (MG_LOOPS + 1):g} cycles a frame), mg_cycles=4 "
+          f"{mg8_fixed_ms:.4f} ms/frame")
+    prof8 = dict(src=torch.from_numpy(src8).to(dev), dst=dst8_p.clone(),
+                 mask=torch.from_numpy(m8).to(dev), bbox_xy=(x8, y8), left_top=(left8, top8),
+                 bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver=TM.solve_multigrid,
+                 bases={}, solver_name="multigrid")
+    for label, cyc in (("mg_t 8K tolerance", None), ("mg_t 8K mg_cycles=4", 4)):
+        kw = CloneConfig(solver="multigrid", mg_padded="t", mg_cycles=cyc).solver_kwargs()
+        profile_frames(label, clone_pipeline, dict(prof8, solver_kwargs=kw), frames=3)
+    del prof8, eng8
+    dst8_eng = SeamlessClone(CloneConfig(solver="dst_gemm"), device="cuda")
+    _, dst8_ms = dst8_eng.timed_serve(src8, dst8, mask8, ctr8, loops=5)
+    del dst8_eng
+    _, mg_head_ms = drive("mg_t_headline", CloneConfig(solver="multigrid", mg_padded="t"),
+                          src, mask, MG_LOOPS, f"{SRC_HW[1]}x{SRC_HW[0]}", cpu="run",
+                          solver="multigrid")
+    head_cycles = path_launches["mg_t_headline"][0]["mg_down"] // MG_LEVELS["mg_t_headline"]
+    print(f"crossover data ({card}), serve ms/frame, dst_gemm pair chain vs multigrid "
+          f"mg_padded='t' tol {TOL}: {h2 * w2 / 1e6:.1f} MP {pair_ms:.4f} vs {mg_head_ms:.4f} "
+          f"({head_cycles / (MG_LOOPS + 1):g} cycles a frame); {h8 * w8 / 1e6:.1f} MP "
+          f"{dst8_ms:.4f} vs {mg8_ms:.4f}")
 
     s_src = synthetic_image(rng, (194, 300))
     s_dst = synthetic_image(rng, (449, 800))

@@ -10,13 +10,21 @@ unless the caller passes ``device="cpu"``, which runs the plain PyTorch
 twins of the kernels; without a card and without ``device="cpu"`` they
 raise rather than quietly fall back.
 
-What runs (ROADMAP slices 1 and 2): ``CloneConfig()`` for patches below
-the ``auto`` crossover — the DST-GEMM serve path of ``SeamlessClone.run`` /
+What runs (ROADMAP slices 1 to 3), through ``SeamlessClone.run`` /
 ``timed_serve`` and ``seamless_clone``, in the NORMAL, MIXED and
-MONOCHROME modes. With the default ``dst_folded=True`` it runs the folded
-pair chain where both interior sides exceed 128 px, folds the one side
-that does otherwise, and runs the unfolded chain on small patches or with
-``dst_folded=False``.
+MONOCHROME modes:
+
+- ``CloneConfig()`` for patches up to the ``auto`` crossover: the DST-GEMM
+  serve path. With the default ``dst_folded=True`` it runs the folded pair
+  chain where both interior sides exceed 128 px, folds the one side that
+  does otherwise, and runs the unfolded chain on small patches or with
+  ``dst_folded=False``.
+- ``CloneConfig(mg_padded="t")`` above the crossover, and
+  ``CloneConfig(solver="multigrid", mg_padded="t")`` at any size: the
+  transpose-fused multigrid (``vcycle_t``) in tolerance or fixed-cycle
+  mode; small interiors run its plain element path. The default
+  ``mg_padded="q"`` (the quarter-plane finest level) raises there until
+  ROADMAP slice 3b.
 """
 
 from __future__ import annotations

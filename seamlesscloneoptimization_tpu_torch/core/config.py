@@ -5,14 +5,18 @@ so a configuration carries across with ``config_from_jax``. This system has
 no weights: the only other carried state is the DST basis, which the port
 rebuilds bit-equal on the host (``solvers/dst_gemm.py``).
 
-What the port runs of it (ROADMAP slices 1 and 2): ``solver`` "auto" below
-the crossover or "dst_gemm", every ``flags`` mode and ``mixed_rule``,
+What the port runs of it (ROADMAP slices 1 to 3): ``solver`` "auto",
+"dst_gemm" or "multigrid", every ``flags`` mode and ``mixed_rule``,
 ``precision`` "high"/"highest" (both FP32 on the card, TF32 off),
-``dst_folded`` and ``donate_dst``. ``dst_folded=True`` folds each axis
-where the JAX package does (``solvers/dst_gemm.py:fold_pays``, every side
-above 128 px): the folded pair chain when both sides fold, the per-axis
-branch when one does. The engine raises NotImplementedError for what a
-later slice brings (``solvers/__init__.py``, ``core/engine.py``).
+``dst_folded``, ``donate_dst``, and for multigrid ``tol``, ``max_cycles``,
+``mg_cycles``, ``use_pallas_smoother`` and ``mg_padded="t"``.
+``dst_folded=True`` folds each axis where the JAX package does
+(``solvers/dst_gemm.py:fold_pays``, every side above 128 px): the folded
+pair chain when both sides fold, the per-axis branch when one does. "auto"
+picks multigrid above the crossover, as in the JAX package; there, and for
+``solver="multigrid"``, ``mg_padded`` other than "t" raises
+NotImplementedError naming its ROADMAP slice, as does what a later slice
+brings (``solvers/__init__.py``, ``core/engine.py``).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ MONOCHROME_TRANSFER = 3
 class CloneConfig:
     """Configuration for a SeamlessClone engine instance."""
 
-    solver: str = "auto"  # auto | dst_gemm (ported) | dst_fft | jacobi | multigrid
+    solver: str = "auto"  # auto | dst_gemm | multigrid (ported) | dst_fft | jacobi
     precision: str = "high"  # "high" and "highest" both run FP32 GEMMs (TF32 off)
     dst_folded: bool = True  # even/odd-folded DST GEMMs where fold_pays(n)
     flags: int = NORMAL_CLONE
@@ -43,11 +47,16 @@ class CloneConfig:
     max_iters: int = 10000  # jacobi sweep cap
     max_cycles: int = 60  # multigrid V-cycle cap
     mg_cycles: int | None = None  # fixed-work multigrid cycles
-    # The next four fields and compilation_cache_dir only mean something on
-    # a TPU. They are kept so that configs carry across; they select nothing
-    # on the card (the kernels always run there).
+    # For multigrid these two select the chain, as in the JAX package:
+    # use_pallas_smoother=True and mg_padded="t" run the transpose-fused
+    # V-cycle kernels on grids of at least 2^18 points (smaller grids, or
+    # use_pallas_smoother=False, run the plain element path); "q" (the
+    # default), True and False raise there until their ROADMAP slice.
     use_pallas_smoother: bool = True
     mg_padded: bool | str = "q"
+    # These two and compilation_cache_dir only mean something on a TPU. They
+    # are kept so that configs carry across; they select nothing on the card
+    # (the kernels always run there).
     use_pallas_preprocess: bool = True
     use_pallas_postprocess: bool = True
     debug_dump: bool = False  # per-stage dumps: not ported yet (raises)

@@ -14,7 +14,12 @@ seamlessClone-CUDA/seamlessClone_imp.cu:239-370):
 - The DST bases live on the device, cached per shape, so a frame uploads
   nothing: the padded matrix and eigenvalues of an axis that stays plain,
   the four folded factors and the grouped eigenvalues of an axis that
-  folds (``dst_folded and fold_pays(n)``).
+  folds (``dst_folded and fold_pays(n)``). A multigrid engine builds none
+  of them; it caches the coarsest level's eigenbasis per geometry instead
+  (``solvers/multigrid.py:coarse_solve``).
+- ``solver="auto"`` resolves per geometry: dst_gemm up to the crossover,
+  multigrid above it (``mg_padded="t"``; the default ``"q"`` raises there
+  until ROADMAP slice 3b).
 
 Not ported here (TPU-only or a later slice; see ROADMAP): the layout pin
 and self-heal, the sync-overhead subtraction, ``profile`` and
@@ -38,10 +43,11 @@ from seamlesscloneoptimization_tpu_torch.models.pipeline import clone_pipeline
 from seamlesscloneoptimization_tpu_torch.ops.kernels import ru128
 from seamlesscloneoptimization_tpu_torch.solvers import (
     AUTO_CROSSOVER_PIXELS,
+    MG_PADDED_NOT_PORTED,
     SERVE_CROSSOVER_PIXELS,
     auto_solver_name,
     get_solver,
-    not_ported,
+    mg_padded_not_ported,
 )
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import check_precision, dst_bases
 
@@ -114,15 +120,16 @@ def prepare_inputs(mask: np.ndarray, src_shape, dst_shape, center, bucket: int =
     return out + ((0, 0, bh, bw),) if return_tight else out
 
 
-def _effective_solver(solver: str, bbox_hw, planar_dst: bool) -> str:
-    """Resolve "auto" for one geometry: dst_gemm below the crossover (the
-    serve crossover for the planar serve loop), else NotImplementedError."""
+def _effective_solver(solver: str, bbox_hw, planar_dst: bool, mg_padded) -> str:
+    """Resolve "auto" for one geometry: dst_gemm up to the crossover (the
+    serve crossover for the planar serve loop), multigrid above it — which
+    raises NotImplementedError unless ``mg_padded == "t"``."""
     if solver != "auto":
         return solver
     crossover = SERVE_CROSSOVER_PIXELS if planar_dst else AUTO_CROSSOVER_PIXELS
     name = auto_solver_name((3, bbox_hw[0] - 2, bbox_hw[1] - 2), crossover)
-    if name != "dst_gemm":
-        raise not_ported(name, f" (auto above {crossover} pixels)")
+    if name == "multigrid" and mg_padded in MG_PADDED_NOT_PORTED:
+        raise mg_padded_not_ported(mg_padded, f" (auto above {crossover} pixels)")
     return name
 
 
@@ -148,6 +155,10 @@ class SeamlessClone:
         cfg = self.config
         if cfg.solver != "auto":  # "auto" is resolved per geometry at run time
             get_solver(cfg.solver)  # NotImplementedError / ValueError if unknown
+        if cfg.mg_padded not in ("t", *MG_PADDED_NOT_PORTED):
+            raise ValueError(f"unknown mg_padded {cfg.mg_padded!r}")
+        if cfg.solver == "multigrid" and cfg.mg_padded in MG_PADDED_NOT_PORTED:
+            raise mg_padded_not_ported(cfg.mg_padded)
         check_precision(cfg.precision)
         if cfg.bbox_bucket:
             raise NotImplementedError(
@@ -161,6 +172,7 @@ class SeamlessClone:
             raise ValueError(f"unknown mixed_rule {cfg.mixed_rule!r}")
         self.device = resolve_device(device)
         self._bases = BoundedCache(maxsize=8)
+        self._eig_cache = BoundedCache(maxsize=8)  # multigrid coarsest-level bases
         self._held: dict[int, Any] = {}  # id -> weakref of tensors THIS engine made
         self._last_out: torch.Tensor | None = None
         self.metrics: dict[str, Any] = {}
@@ -210,12 +222,15 @@ class SeamlessClone:
         return prepare_inputs(mask, tuple(src.shape), tuple(dst.shape), center)
 
     def _pipeline_kwargs(self, bbox_hw, flags: int, planar_dst: bool) -> dict:
-        eff = _effective_solver(self.config.solver, bbox_hw, planar_dst)
+        eff = _effective_solver(self.config.solver, bbox_hw, planar_dst,
+                                self.config.mg_padded)
         self.metrics["solver_resolved"] = eff
         cfg = dataclasses.replace(self.config, solver=eff)
+        bases = (self._eig_cache if eff == "multigrid"
+                 else self._device_bases(bbox_hw[0] - 2, bbox_hw[1] - 2))
         return dict(bbox_hw=bbox_hw, flags=flags, solver=get_solver(eff),
                     solver_kwargs=cfg.solver_kwargs(), mixed_rule=cfg.mixed_rule,
-                    bases=self._device_bases(bbox_hw[0] - 2, bbox_hw[1] - 2))
+                    bases=bases, solver_name=eff)
 
     def _to_device(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):

@@ -21,8 +21,17 @@ and otherwise
 
 where an axis that folds (``folded and fold_pays(n)``) runs fold_minor ->
 2 half-GEMMs for its forward GEMM and 2 half-GEMMs -> unfold_minor for its
-inverse. Either way the interior is written in place into the destination
-at (top+1, left+1), planar or interleaved, by one strided kernel.
+inverse. With ``solver_name="multigrid"`` (the multigrid serve tail, ref
+``pipeline.py:152-237``, ``"t"`` branch) a frame is
+
+    erode3 -> preprocess_rhs_p -> solve_multigrid(padded_output=True)
+    -> clamp_cast_paste
+
+where, on a grid the ``"t"`` chain takes (``t_chain_applies``), the RHS is
+born in the level geometry's (hp, wp) slab and each V-cycle level runs
+mg_down -> mg_restrict_t -> (coarser level) -> mg_prolong_t -> mg_up.
+Either way the interior is written in place into the destination at
+(top+1, left+1), planar or interleaved, by one strided kernel.
 On CPU tensors each kernel wrapper runs its plain twin. Everything runs on
 the current stream, in order: the next chained frame's preprocess reads the
 ROI this frame's paste wrote.
@@ -42,6 +51,8 @@ from seamlesscloneoptimization_tpu_torch.ops.guidance import (
 from seamlesscloneoptimization_tpu_torch.ops.kernels import (
     clamp_cast_paste,
     erode3,
+    mg_geometry_t,
+    preprocess_rhs_p,
     preprocess_rhs_t,
     unfold_clamp_paste,
 )
@@ -52,6 +63,7 @@ from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
     pair_chain_applies,
     solve_dst_gemm_pl,
 )
+from seamlesscloneoptimization_tpu_torch.solvers.multigrid import t_chain_applies
 
 
 def clone_roi(
@@ -66,13 +78,17 @@ def clone_roi(
     out: torch.Tensor | None = None,
     out_offset: tuple[int, int] | None = None,
     bases=None,
+    solver_name: str | None = None,
 ):
     """Clone on a pre-cropped ROI. Planar (C, H, W) u8 images, (H, W) u8 mask.
 
     ``patch_u8`` must already be zeroed outside the (pre-erosion) mask.
 
-    Kernel branch (the default): the DST-GEMM serve chain. It ignores
-    ``solver`` (the chain is the dst_gemm solve; ``solver_kwargs`` gives
+    Kernel branch (the default): with ``solver_name="multigrid"`` the
+    multigrid serve tail, ``solver`` being ``solve_multigrid`` with
+    ``solver_kwargs`` (``CloneConfig.solver_kwargs()``) and ``bases`` the
+    engine's coarse-basis cache (a dict, or None). Otherwise the DST-GEMM
+    serve chain, which ignores ``solver`` (``solver_kwargs`` gives
     ``precision`` and ``folded``), and ``bases`` are the device-resident
     DST bases (``dst_bases`` with the same ``folded``), or None. On the
     pair chain the last unfold is fused into ``unfold_clamp_paste``. With
@@ -95,14 +111,28 @@ def clone_roi(
             kflags = 1
         else:
             patch_in, kflags = patch_u8, flags
+        if out is None:
+            out, out_offset = dest_roi_u8.clone(), (1, 1)
+        if solver_name == "multigrid":
+            kw = dict(solver_kwargs)
+            if kw.get("padded") == "t" and t_chain_applies(
+                    h2, w2, use_pallas=kw.get("use_pallas", False)):
+                # the RHS is born in the fine level's slab: no pad pass
+                _, hp, wp, _ = mg_geometry_t(h2, w2)
+                g = preprocess_rhs_p(dest_roi_u8, patch_in, me, (hp, wp), kflags,
+                                     mixed_rule)
+                kw["true_hw"] = (h2, w2)
+            else:
+                g = preprocess_rhs_p(dest_roi_u8, patch_in, me, (h2, w2), kflags,
+                                     mixed_rule)
+            u = solver(g, padded_output=True, eig_cache=bases, **kw)
+            return clamp_cast_paste(u, out, out_offset[0], out_offset[1], h2, w2)
         g_tp = preprocess_rhs_t(dest_roi_u8, patch_in, me, kflags, mixed_rule)
         folded = bool(solver_kwargs.get("folded", False))
         pair_chain = folded and pair_chain_applies(h2, w2)
         u = solve_dst_gemm_pl(g_tp, h2=h2, w2=w2,
                               precision=solver_kwargs.get("precision", "highest"),
                               folded=folded, bases=bases, return_parts=pair_chain)
-        if out is None:
-            out, out_offset = dest_roi_u8.clone(), (1, 1)
         if pair_chain:
             return unfold_clamp_paste(*u, out, out_offset[0], out_offset[1], h2, w2)
         return clamp_cast_paste(u, out, out_offset[0], out_offset[1], h2, w2)
@@ -130,6 +160,7 @@ def clone_pipeline(
     mixed_rule: str = "opencv",
     planar_dst: bool = False,
     bases=None,
+    solver_name: str | None = None,
 ) -> torch.Tensor:
     """Full-image clone, IN PLACE into ``dst``; returns ``dst``.
 
@@ -166,5 +197,5 @@ def clone_pipeline(
 
     clone_roi(dest_p, patch, mask_roi, flags, solver, solver_kwargs,
               mixed_rule=mixed_rule, out=dst_chw, out_offset=(top + 1, left + 1),
-              bases=bases)
+              bases=bases, solver_name=solver_name)
     return dst

@@ -3,12 +3,14 @@
 Each source compiles with nvcc, all of them at once in parallel, into its
 own shared library with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas=-v -o _build/lib<name>_<hash>.so csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
+         -shared -Xcompiler -fPIC -Xptxas=-v -o _build/lib<name>_<hash>.so csrc/<name>.cu
 
 and is loaded through ctypes (seconds, against minutes for a source that
 includes PyTorch's headers). No ``--use_fast_math``: the divide and the
-casts stay IEEE, so the kernels are bit-equal to their plain twins. The file
+casts stay IEEE. ``-fmad=false``: no multiply is fused into an add, so each
+float operation rounds once, as in the plain twin's separate torch ops, and
+the kernels are bit-equal to their twins. The file
 name carries a hash of the source, of every shared header (``csrc/*.cuh``)
 and of the flags, so an edited source or header rebuilds; ptxas's register
 and shared-memory report is kept beside each library as
@@ -32,11 +34,12 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # kernel name -> (C symbol, argtypes); every pointer and the stream is c_void_p
 SIGNATURES = {
@@ -55,6 +58,13 @@ SIGNATURES = {
                          (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "unfold_clamp_paste": ("unfold_clamp_paste_launch",
                            (_P, _P, _I, _I, _I, _P, _L, _L, _L, _I, _I, _I, _I, _P)),
+    "preprocess_rhs_p": ("preprocess_rhs_p_launch",
+                         (_P, _L, _L, _L, _P, _L, _L, _L, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _P)),
+    "mg_down": ("mg_down_launch", (_P,) * 4 + (_I,) * 8 + (_F,) * 6 + (_P,)),
+    "mg_up": ("mg_up_launch", (_P,) * 4 + (_I,) * 8 + (_F,) * 6 + (_P,)),
+    "mg_restrict_t": ("mg_restrict_t_launch", (_P, _P) + (_I,) * 6 + (_F, _F, _P)),
+    "mg_prolong_t": ("mg_prolong_t_launch", (_P, _P) + (_I,) * 6 + (_F, _F, _P)),
 }
 
 _lock = threading.Lock()

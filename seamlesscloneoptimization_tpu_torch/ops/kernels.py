@@ -17,6 +17,12 @@ wrapper                       replaces (pallas_kernels.py)
 ``transpose_pair``            ``transpose_pair_pallas`` (with the divide)
 ``unfold_transpose``          ``unfold_transpose_pallas``
 ``unfold_clamp_paste``        ``unfold_clamp_guarded_pallas`` + the paste
+``preprocess_rhs_p``          ``preprocess_rhs_padded_pallas`` (and the
+                              role of ``preprocess_rhs_pallas``)
+``mg_down``                   ``mg_down_pallas`` (padded_io form)
+``mg_up``                     ``mg_up_pallas`` (padded_io form)
+``mg_restrict_t``             ``mg_restrict_t_pallas``
+``mg_prolong_t``              ``mg_prolong_t_pallas``
 ============================  =============================================
 
 Each wrapper checks device, dtype, shape and layout, allocates its output
@@ -26,12 +32,14 @@ launch returns a non-zero ``cudaError_t``. Given a CPU tensor it runs its
 raises, never falls back. ``LAUNCHES[name]`` counts kernel launches (the
 twins do not count), so a run can show that it went through the kernels.
 The sources are ``csrc/<name>.cu`` (the three unfold kernels share
-``csrc/fold.cuh``), built by ``ops/_build.py``.
+``csrc/fold.cuh``, the two RHS kernels ``csrc/rhs_tile.cuh``, the two
+multigrid level kernels ``csrc/mg_level.cuh``), built by ``ops/_build.py``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from seamlesscloneoptimization_tpu_torch.ops._build import kernel_function
 from seamlesscloneoptimization_tpu_torch.ops.guidance import guidance_field
@@ -41,7 +49,9 @@ from seamlesscloneoptimization_tpu_torch.ops.rhs import poisson_rhs
 
 LAUNCHES = {"erode3": 0, "preprocess_rhs_t": 0, "transpose": 0,
             "clamp_cast_paste": 0, "fold_minor": 0, "unfold_minor": 0,
-            "transpose_pair": 0, "unfold_transpose": 0, "unfold_clamp_paste": 0}
+            "transpose_pair": 0, "unfold_transpose": 0, "unfold_clamp_paste": 0,
+            "preprocess_rhs_p": 0, "mg_down": 0, "mg_up": 0, "mg_restrict_t": 0,
+            "mg_prolong_t": 0}
 
 _MIXED_RULES = {"opencv": 0, "norm": 1}
 
@@ -111,19 +121,44 @@ def erode3(mask01: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _rhs_plain(dest, patch, mask_eroded, flags, mixed_rule) -> torch.Tensor:
+    """guidance_field -> poisson_rhs: the (C, H-2, W-2) interior RHS."""
+    dest_f = dest.to(torch.float32)
+    gx, gy = guidance_field(dest_f, patch.to(torch.float32), mask_eroded * 255,
+                            flags, mixed_rule)
+    return poisson_rhs(gx, gy, dest_f)
+
+
 def preprocess_rhs_t_plain(dest: torch.Tensor, patch: torch.Tensor,
                            mask_eroded: torch.Tensor, flags: int = 1,
                            mixed_rule: str = "opencv") -> torch.Tensor:
     """guidance_field -> poisson_rhs, transposed to the origin of a zero slab."""
     c, h, w = dest.shape
-    dest_f = dest.to(torch.float32)
-    gx, gy = guidance_field(dest_f, patch.to(torch.float32), mask_eroded * 255,
-                            flags, mixed_rule)
-    g = poisson_rhs(gx, gy, dest_f)
     out = torch.zeros((c, ru128(w - 2), ru128(h - 2)), dtype=torch.float32,
                       device=dest.device)
-    out[:, : w - 2, : h - 2] = g.transpose(1, 2)
+    out[:, : w - 2, : h - 2] = _rhs_plain(dest, patch, mask_eroded, flags,
+                                          mixed_rule).transpose(1, 2)
     return out
+
+
+def _check_rhs_inputs(dest, patch, mask_eroded, flags, mixed_rule) -> None:
+    """The input contract shared by preprocess_rhs_t and preprocess_rhs_p."""
+    _require(dest, "dest", torch.uint8, 3, contiguous=False)
+    _require(patch, "patch", torch.uint8, 3, contiguous=False)
+    _require(mask_eroded, "mask_eroded", torch.uint8, 2)
+    _same_device(dest, patch, mask_eroded)
+    _, h, w = dest.shape
+    if patch.shape != dest.shape or mask_eroded.shape != (h, w):
+        raise ValueError(f"shape mismatch: dest {tuple(dest.shape)}, patch "
+                         f"{tuple(patch.shape)}, mask {tuple(mask_eroded.shape)}")
+    if h < 3 or w < 3:
+        raise ValueError(f"ROI {h}x{w} has no interior")
+    if flags not in (1, 2):
+        raise ValueError(f"kernel flags must be 1 or 2, got {flags}")
+    if mixed_rule not in _MIXED_RULES:
+        raise ValueError(f"unknown mixed_rule {mixed_rule!r}")
+    if min(dest.stride()) < 0 or min(patch.stride()) < 0:
+        raise ValueError("negative strides are not supported")
 
 
 def preprocess_rhs_t(dest: torch.Tensor, patch: torch.Tensor,
@@ -137,29 +172,57 @@ def preprocess_rhs_t(dest: torch.Tensor, patch: torch.Tensor,
     with flags 1). Returns (C, ru128(W-2), ru128(H-2)) f32: the transposed
     interior RHS at the origin, exact zeros elsewhere.
     """
-    _require(dest, "dest", torch.uint8, 3, contiguous=False)
-    _require(patch, "patch", torch.uint8, 3, contiguous=False)
-    _require(mask_eroded, "mask_eroded", torch.uint8, 2)
-    _same_device(dest, patch, mask_eroded)
-    c, h, w = dest.shape
-    if patch.shape != dest.shape or mask_eroded.shape != (h, w):
-        raise ValueError(f"shape mismatch: dest {tuple(dest.shape)}, patch "
-                         f"{tuple(patch.shape)}, mask {tuple(mask_eroded.shape)}")
-    if h < 3 or w < 3:
-        raise ValueError(f"ROI {h}x{w} has no interior")
-    if flags not in (1, 2):
-        raise ValueError(f"kernel flags must be 1 or 2, got {flags}")
-    if mixed_rule not in _MIXED_RULES:
-        raise ValueError(f"unknown mixed_rule {mixed_rule!r}")
-    if min(dest.stride()) < 0 or min(patch.stride()) < 0:
-        raise ValueError("negative strides are not supported")
+    _check_rhs_inputs(dest, patch, mask_eroded, flags, mixed_rule)
     if dest.device.type == "cpu":
         return preprocess_rhs_t_plain(dest, patch, mask_eroded, flags, mixed_rule)
+    c, h, w = dest.shape
     wpo, hpo = ru128(w - 2), ru128(h - 2)
     out = torch.empty((c, wpo, hpo), dtype=torch.float32, device=dest.device)
     _launch("preprocess_rhs_t", dest,
             dest.data_ptr(), *dest.stride(), patch.data_ptr(), *patch.stride(),
             mask_eroded.data_ptr(), out.data_ptr(), c, h, w, wpo, hpo, flags,
+            _MIXED_RULES[mixed_rule])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# preprocess_rhs_p
+# ---------------------------------------------------------------------------
+
+
+def preprocess_rhs_p_plain(dest: torch.Tensor, patch: torch.Tensor,
+                           mask_eroded: torch.Tensor, out_hw: tuple[int, int],
+                           flags: int = 1, mixed_rule: str = "opencv") -> torch.Tensor:
+    """guidance_field -> poisson_rhs at the origin of a zero (C, *out_hw) slab."""
+    c, h, w = dest.shape
+    out = torch.zeros((c, *out_hw), dtype=torch.float32, device=dest.device)
+    out[:, : h - 2, : w - 2] = _rhs_plain(dest, patch, mask_eroded, flags, mixed_rule)
+    return out
+
+
+def preprocess_rhs_p(dest: torch.Tensor, patch: torch.Tensor,
+                     mask_eroded: torch.Tensor, out_hw: tuple[int, int],
+                     flags: int = 1, mixed_rule: str = "opencv") -> torch.Tensor:
+    """Fused guidance + divergence + Dirichlet fold, NATURAL orientation.
+
+    Inputs as ``preprocess_rhs_t``. Returns (C, HPo, WPo) f32 with
+    (HPo, WPo) = ``out_hw`` >= (H-2, W-2): the interior RHS at the origin,
+    exact zeros elsewhere. ``out_hw = (H-2, W-2)`` gives the exact RHS
+    (``preprocess_rhs_pallas``'s result); the multigrid serve tail asks for
+    the level geometry's (hp, wp) slab, which the solver then starts from.
+    """
+    _check_rhs_inputs(dest, patch, mask_eroded, flags, mixed_rule)
+    c, h, w = dest.shape
+    hpo, wpo = int(out_hw[0]), int(out_hw[1])
+    if hpo < h - 2 or wpo < w - 2:
+        raise ValueError(f"out_hw {out_hw} smaller than the interior {(h - 2, w - 2)}")
+    if dest.device.type == "cpu":
+        return preprocess_rhs_p_plain(dest, patch, mask_eroded, (hpo, wpo), flags,
+                                      mixed_rule)
+    out = torch.empty((c, hpo, wpo), dtype=torch.float32, device=dest.device)
+    _launch("preprocess_rhs_p", dest,
+            dest.data_ptr(), *dest.stride(), patch.data_ptr(), *patch.stride(),
+            mask_eroded.data_ptr(), out.data_ptr(), c, h, w, hpo, wpo, flags,
             _MIXED_RULES[mixed_rule])
     return out
 
@@ -438,3 +501,312 @@ def unfold_clamp_paste(e: torch.Tensor, o: torch.Tensor, dst: torch.Tensor,
     _launch("unfold_clamp_paste", e, e.data_ptr(), o.data_ptr(), c, hu, ep,
             dst.data_ptr(), *dst.stride(), top1, left1, h2, w2)
     return dst
+
+
+# ---------------------------------------------------------------------------
+# The transpose-fused multigrid chain: mg_down, mg_up, mg_restrict_t,
+# mg_prolong_t (solvers/multigrid.py:vcycle_t)
+# ---------------------------------------------------------------------------
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def mg_geometry_t(h: int, w: int, wp_min: int = 0,
+                  th: int | None = None) -> tuple[int, int, int, int]:
+    """(th, hp, wp, hp2) of one level of the transpose-fused chain.
+
+    A level of true size (h, w) lives in a (C, hp, wp) slab: hp = h rounded
+    up to the strip height th (a power of two in [16, 256], 128 unless the
+    level is shorter), wp = w rounded up to 128, raised to ``wp_min`` (the
+    coarse level inherits the fine level's hp2 as its width, so the
+    transposed transfers read and write whole slabs). hp2 = hp // 2 rounded
+    up to 128 is the row extent of the half-height arrays (rh, e_lane).
+    """
+    wp = max(_round_up(w, 128), wp_min)
+    if th is None:
+        th = min(128, _round_up(max(h, 16), 16))
+        if th & (th - 1):  # the height clamp broke the power of two
+            th = 1 << (th.bit_length() - 1)
+        th = max(16, th)
+    if th not in (16, 32, 64, 128, 256):
+        raise ValueError(f"strip height {th} not a power of two in [16, 256]")
+    hp = _round_up(h, th)
+    return th, hp, wp, _round_up(hp // 2, 128)
+
+
+def _f32(x: float) -> float:
+    """A Python double rounded once to float32 (the JAX package rounds its
+    double-precision beta coefficients once, as weak-typed constants)."""
+    return torch.tensor(x, dtype=torch.float32).item()
+
+
+def _level_consts(bh: float, bw: float) -> tuple[bool, float, float, float, float]:
+    """(uniform, cuh, cuw, dh, dw) of a level operator: the Shortley-Weller
+    last-row / last-column neighbour weights 2/(1+beta) - 1 and diagonal
+    halves 2/beta, each rounded once to f32; uniform when both betas are 1."""
+    return (bh == 1.0 and bw == 1.0, _f32(2.0 / (1.0 + bh) - 1.0),
+            _f32(2.0 / (1.0 + bw) - 1.0), _f32(2.0 / bh), _f32(2.0 / bw))
+
+
+def _level_ops(hp: int, wp: int, h: int, w: int, bh: float, bw: float, device):
+    """(nsum, inv_d, diag, red, black) of the level operator on a (hp, wp)
+    slab whose true domain is (h, w): the plain twin of csrc/mg_level.cuh.
+    Neighbours beyond the slab are zero; red/black are the colours inside
+    the domain."""
+    uniform, cuh, cuw, dh, dw = _level_consts(bh, bw)
+    rows = torch.arange(hp, device=device)[:, None]
+    cols = torch.arange(wp, device=device)[None, :]
+    in_dom = (rows < h) & (cols < w)
+    par = (rows + cols) % 2 == 0
+    red, black = par & in_dom, ~par & in_dom
+
+    def shifts(x):
+        xp = F.pad(x, (1, 1, 1, 1))
+        return xp[:, :-2, 1:-1], xp[:, 2:, 1:-1], xp[:, 1:-1, :-2], xp[:, 1:-1, 2:]
+
+    if uniform:
+        def nsum(x):
+            up, dn, lf, rt = shifts(x)
+            return up + dn + lf + rt
+        return nsum, 0.25, 4.0, red, black
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+
+    def full(v):
+        return torch.full((), v, dtype=torch.float32, device=device)
+
+    lrow = torch.where(rows == h - 1, full(cuh), zero)
+    lcol = torch.where(cols == w - 1, full(cuw), zero)
+    diag = (torch.where(rows == h - 1, full(dh), full(2.0))
+            + torch.where(cols == w - 1, full(dw), full(2.0)))
+
+    def nsum(x):
+        up, dn, lf, rt = shifts(x)
+        return up + dn + lf + rt + lrow * up + lcol * lf
+
+    return nsum, 1.0 / diag, diag, red, black
+
+
+def _rb_sweeps(u, g, n, nsum, inv_d, red, black, u_zero=False):
+    """n red-black sweeps in the select form; ``u_zero``: u is known zero,
+    so the first red half-sweep is (0 - g) * inv_d."""
+    for s in range(n):
+        upd = (0.0 - g) * inv_d if (s == 0 and u_zero) else (nsum(u) - g) * inv_d
+        u = torch.where(red, upd, u)
+        u = torch.where(black, (nsum(u) - g) * inv_d, u)
+    return u
+
+
+def _check_level(name: str, x: torch.Tensor, c: int, hp: int, wp: int) -> None:
+    _require(x, name, torch.float32, 3)
+    if tuple(x.shape) != (c, hp, wp):
+        raise ValueError(f"{name} {tuple(x.shape)} != {(c, hp, wp)}")
+
+
+def _check_hw(h: int, w: int, hp: int, wp: int) -> tuple[int, int]:
+    h, w = int(h), int(w)
+    if not (3 <= h <= hp and 3 <= w <= wp):
+        raise ValueError(f"true size {(h, w)} outside [3, {(hp, wp)}]")
+    if hp % 2:
+        raise ValueError(f"slab height {hp} is odd")
+    return h, w
+
+
+def mg_down_plain(u: torch.Tensor | None, g: torch.Tensor, nu1: int, h: int, w: int,
+                  bh: float = 1.0, bw: float = 1.0, rh_rows: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    c, hp, wp = g.shape
+    rh_rows = hp // 2 if rh_rows is None else rh_rows
+    nsum, inv_d, diag, red, black = _level_ops(hp, wp, h, w, bh, bw, g.device)
+    u_zero = u is None
+    u = _rb_sweeps(torch.zeros_like(g) if u_zero else u, g, nu1, nsum, inv_d, red, black,
+                   u_zero)
+    r = torch.where(red | black, g - (nsum(u) - diag * u), 0.0)
+    rp = F.pad(r, (0, 0, 0, 2))               # r rows hp, hp+1: zero
+    a, b, a1 = rp[:, 0:hp:2], rp[:, 1:hp:2], rp[:, 2 : hp + 1 : 2]
+    rh = 0.25 * a + 0.5 * b + 0.25 * a1       # (C, hp//2, wp)
+    hc = (h - 1) // 2
+    if h % 2 == 0:
+        # the last coarse row takes the transpose of the beta-gap edge
+        # prolongation: top up fine h-2 to wA/2 and add wB/2 of fine h-1
+        gap = 2.0 + bh
+        j = hc - 1
+        edge = (rh[:, j] + _f32((1.0 + bh) / gap * 0.5 - 0.25) * rp[:, 2 * j + 2]
+                + _f32(bh / gap * 0.5) * rp[:, 2 * j + 3])
+        rh = rh.clone()
+        rh[:, j] = edge
+    return u, F.pad(rh, (0, 0, 0, rh_rows - hp // 2))
+
+
+def mg_down(u: torch.Tensor | None, g: torch.Tensor, nu1: int, h: int, w: int,
+            bh: float = 1.0, bw: float = 1.0, rh_rows: int | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """V-cycle descent on one level: ``nu1`` red-black sweeps, the residual
+    and its (1/4, 1/2, 1/4) row restriction, in one pass.
+
+    g, u: (C, hp, wp) f32 slabs, true domain (h, w) at the origin, exact
+    zeros elsewhere; ``u=None`` is a known-zero guess (every coarse level),
+    which the kernel synthesizes instead of reading. bh, bw: the level's
+    boundary-gap parameters (Shortley-Weller last row / column when != 1).
+    Returns (swept u (C, hp, wp), rh (C, rh_rows, wp)): rh rows [0, hc)
+    hold the row-restricted residual (hc = (h-1)//2; an even h puts the
+    beta-gap weights on row hc-1), rows from hp//2 on are exact zeros.
+    """
+    _require(g, "g", torch.float32, 3)
+    c, hp, wp = g.shape
+    if u is not None:
+        _check_level("u", u, c, hp, wp)
+        _same_device(g, u)
+    h, w = _check_hw(h, w, hp, wp)
+    nu1 = int(nu1)
+    if not 0 <= nu1 <= 2:
+        raise ValueError(f"nu1={nu1} outside [0, 2] (the halo's staleness budget)")
+    rh_rows = hp // 2 if rh_rows is None else int(rh_rows)
+    if rh_rows < hp // 2:
+        raise ValueError(f"rh_rows {rh_rows} < hp // 2 = {hp // 2}")
+    if g.device.type == "cpu":
+        return mg_down_plain(u, g, nu1, h, w, bh, bw, rh_rows)
+    uniform, cuh, cuw, dh, dw = _level_consts(bh, bw)
+    gap = 2.0 + bh
+    u_out = torch.empty_like(g)
+    rh = torch.empty((c, rh_rows, wp), dtype=torch.float32, device=g.device)
+    _launch("mg_down", g, None if u is None else u.data_ptr(), g.data_ptr(),
+            u_out.data_ptr(), rh.data_ptr(), c, hp, wp, rh_rows, h, w, nu1, int(uniform),
+            cuh, cuw, dh, dw, _f32((1.0 + bh) / gap * 0.5 - 0.25), _f32(bh / gap * 0.5))
+    return u_out, rh
+
+
+def mg_up_plain(u: torch.Tensor, g: torch.Tensor, e_lane: torch.Tensor, nu2: int,
+                h: int, w: int, bh: float = 1.0, bw: float = 1.0) -> torch.Tensor:
+    c, hp, wp = u.shape
+    hc = (h - 1) // 2
+    # E[k + 1] = e_lane[k] for k < hc, zero elsewhere (E[0] is e[-1] = 0)
+    ez = u.new_zeros((c, hp // 2 + 2, wp))
+    ez[:, 1 : hc + 1] = e_lane[:, :hc]
+    mids = 0.5 * (ez[:, : hp // 2 + 1] + ez[:, 1 : hp // 2 + 2])  # 0.5 (e[q-1] + e[q])
+    corr = torch.stack([mids[:, : hp // 2], ez[:, 1 : hp // 2 + 1]], dim=2).reshape(c, hp, wp)
+    if h % 2 == 0:
+        # fine rows h-2, h-1 take (wA, wB) of the last coarse row: rescale
+        # row h-2 and give row h-1 its own share of the same mid value
+        gap = 2.0 + bh
+        corr = corr.clone()
+        corr[:, h - 2] = corr[:, h - 2] * _f32(2.0 * (1.0 + bh) / gap)
+        corr[:, h - 1] = mids[:, hc] * _f32(2.0 * bh / gap)
+    nsum, inv_d, _, red, black = _level_ops(hp, wp, h, w, bh, bw, u.device)
+    u = torch.where(red | black, u + corr, u)
+    return _rb_sweeps(u, g, nu2, nsum, inv_d, red, black)
+
+
+def mg_up(u: torch.Tensor, g: torch.Tensor, e_lane: torch.Tensor, nu2: int, h: int,
+          w: int, bh: float = 1.0, bw: float = 1.0) -> torch.Tensor:
+    """V-cycle ascent on one level: the row prolongation of the
+    lane-prolonged coarse correction ``e_lane`` (C, >= hp//2, wp) (rows
+    [0, hc) used, the rest taken as zero), added inside the domain, then
+    ``nu2`` red-black sweeps. u, g: (C, hp, wp) as for ``mg_down``.
+    Returns the swept (C, hp, wp) u, exact zeros outside the domain."""
+    _require(u, "u", torch.float32, 3)
+    c, hp, wp = u.shape
+    _check_level("g", g, c, hp, wp)
+    _require(e_lane, "e_lane", torch.float32, 3)
+    _same_device(u, g, e_lane)
+    h, w = _check_hw(h, w, hp, wp)
+    if e_lane.shape[0] != c or e_lane.shape[2] != wp or e_lane.shape[1] < hp // 2:
+        raise ValueError(f"e_lane {tuple(e_lane.shape)} does not cover {(c, hp // 2, wp)}")
+    nu2 = int(nu2)
+    if not 0 <= nu2 <= 4:
+        raise ValueError(f"nu2={nu2} outside [0, 4] (the halo's staleness budget)")
+    if u.device.type == "cpu":
+        return mg_up_plain(u, g, e_lane, nu2, h, w, bh, bw)
+    uniform, cuh, cuw, dh, dw = _level_consts(bh, bw)
+    gap = 2.0 + bh
+    out = torch.empty_like(u)
+    _launch("mg_up", u, u.data_ptr(), g.data_ptr(), e_lane.data_ptr(), out.data_ptr(),
+            c, hp, wp, e_lane.shape[1], h, w, nu2, int(uniform), cuh, cuw, dh, dw,
+            _f32(2.0 * (1.0 + bh) / gap), _f32(2.0 * bh / gap))
+    return out
+
+
+def mg_restrict_t_plain(rh: torch.Tensor, h: int, w: int, bw: float,
+                        out_rows: int) -> torch.Tensor:
+    c, hp2, wp = rh.shape
+    hc, wc = (h - 1) // 2, (w - 1) // 2
+    a, b = rh[:, :, 0 : 2 * wc + 2 : 2], rh[:, :, 1 : 2 * wc + 2 : 2]  # (C, hp2, wc+1)
+    out = (a[..., :wc] + 2.0 * b[..., :wc]) + a[..., 1 : wc + 1]
+    if w % 2 == 0:
+        gap = 2.0 + bw
+        edge = (((a[..., wc - 1] + 2.0 * b[..., wc - 1])
+                 + _f32(2.0 * (1.0 + bw) / gap) * a[..., wc])
+                + _f32(2.0 * bw / gap) * b[..., wc])
+        out = torch.cat([out[..., : wc - 1], edge[..., None]], dim=-1)
+    lanes = torch.arange(hp2, device=rh.device)[:, None]
+    out = torch.where(lanes < hc, out, 0.0)  # rh rows >= hc: leftovers, zeroed
+    return F.pad(out.transpose(1, 2), (0, 0, 0, out_rows - wc))
+
+
+def mg_restrict_t(rh: torch.Tensor, h: int, w: int, bw: float, out_rows: int) -> torch.Tensor:
+    """4x lane restriction of the row-restricted residual, emitted TRANSPOSED.
+
+    rh: (C, hp2, wp) from ``mg_down(rh_rows=hp2)``, rows [0, hc) valid.
+    Returns (C, out_rows, hp2): out[c, j, l] = 4 * restrict_w(rh)[c, l, j]
+    for j < wc, l < hc — the x4 folded into the (1, 2, 1) weights, the
+    beta-gap edge on column wc-1 for even w — and exact zeros elsewhere:
+    the RHS of the coarse level, which lives transposed.
+    """
+    _require(rh, "rh", torch.float32, 3)
+    c, hp2, wp = rh.shape
+    h, w, out_rows = int(h), int(w), int(out_rows)
+    hc, wc = (h - 1) // 2, (w - 1) // 2
+    if hc < 1 or wc < 1 or wp < 2 * wc + 2 or hp2 < hc or out_rows < wc:
+        raise ValueError(f"rh {tuple(rh.shape)} cannot restrict true size {(h, w)} "
+                         f"into {out_rows} rows")
+    if rh.device.type == "cpu":
+        return mg_restrict_t_plain(rh, h, w, bw, out_rows)
+    gap = 2.0 + bw
+    out = torch.empty((c, out_rows, hp2), dtype=torch.float32, device=rh.device)
+    _launch("mg_restrict_t", rh, rh.data_ptr(), out.data_ptr(), c, hp2, wp, out_rows, h, w,
+            _f32(2.0 * (1.0 + bw) / gap), _f32(2.0 * bw / gap))
+    return out
+
+
+def mg_prolong_t_plain(ec_t: torch.Tensor, w: int, bw: float, out_rows: int,
+                       wp: int) -> torch.Tensor:
+    c, hp_c, _ = ec_t.shape
+    wc = (w - 1) // 2
+    e = ec_t[:, :, :out_rows]                    # (C, hp_c, L): rows = coarse w
+    ep = F.pad(e, (0, 0, 1, 1))                  # zero Dirichlet rows
+    mids = 0.5 * (ep[:, : wc + 1] + ep[:, 1 : wc + 2])
+    pairs = torch.stack([mids[:, :wc], e[:, :wc]], dim=2).reshape(c, 2 * wc, out_rows)
+    if w % 2:
+        res = torch.cat([pairs, mids[:, wc : wc + 1]], dim=1)
+    else:
+        gap = 2.0 + bw
+        last = e[:, wc - 1 : wc]
+        res = torch.cat([pairs[:, : w - 2], last * _f32((1.0 + bw) / gap),
+                         last * _f32(bw / gap)], dim=1)
+    return F.pad(res, (0, 0, 0, wp - w)).transpose(1, 2).contiguous()
+
+
+def mg_prolong_t(ec_t: torch.Tensor, w: int, bw: float, out_rows: int,
+                 wp: int) -> torch.Tensor:
+    """Lane prolongation of the TRANSPOSED coarse correction, back to natural.
+
+    ec_t: (C, hp_c, lanes) f32, the coarse solution (wc, hc) at the origin,
+    exact zeros elsewhere. Returns (C, out_rows, wp): the bilinear
+    prolongation along the fine w axis (the beta-gap (wA, wB) on the last
+    two columns for even w), columns >= w exact zeros — ``mg_up``'s
+    e_lane."""
+    _require(ec_t, "ec_t", torch.float32, 3)
+    c, hp_c, lanes = ec_t.shape
+    w, out_rows, wp = int(w), int(out_rows), int(wp)
+    wc = (w - 1) // 2
+    if wc < 1 or hp_c < wc or lanes < out_rows or wp < w:
+        raise ValueError(f"ec_t {tuple(ec_t.shape)} cannot prolong to w={w}, "
+                         f"({out_rows}, {wp})")
+    if ec_t.device.type == "cpu":
+        return mg_prolong_t_plain(ec_t, w, bw, out_rows, wp)
+    gap = 2.0 + bw
+    out = torch.empty((c, out_rows, wp), dtype=torch.float32, device=ec_t.device)
+    _launch("mg_prolong_t", ec_t, ec_t.data_ptr(), out.data_ptr(), c, hp_c, lanes, out_rows,
+            wp, w, _f32((1.0 + bw) / gap), _f32(bw / gap))
+    return out

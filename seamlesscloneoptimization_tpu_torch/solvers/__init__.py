@@ -1,22 +1,29 @@
 """Poisson solvers on the interior grid: ``solve(g: f32[C, H, W]) -> f32[C, H, W]``
 for the 5-point Dirichlet system (boundary values folded into g).
 
-Ported: ``dst_gemm`` (exact direct solve, DST eigenbasis as GEMMs). The
-others raise NotImplementedError naming the ROADMAP slice that brings them.
+Ported: ``dst_gemm`` (exact direct solve, DST eigenbasis as GEMMs) and
+``multigrid`` with ``padded="t"`` (the transpose-fused V-cycles) or on its
+element path; its other fused modes raise NotImplementedError naming their
+ROADMAP slice (``solvers/multigrid.py``). The other solvers raise likewise.
 ``auto`` is not a solver here: the engine resolves it per geometry with
 ``auto_solver_name`` (``core/engine.py:_effective_solver``).
 """
 
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import solve_dst_gemm
+from seamlesscloneoptimization_tpu_torch.solvers.multigrid import (
+    MG_PADDED_NOT_PORTED,
+    mg_padded_not_ported,
+    solve_multigrid,
+)
 
 # Size-based selection between the direct DST-GEMM solve and the O(N)
-# multigrid. Both constants were measured on a TPU v5e and are unmeasured on
-# H100: 7 MP for a single-shot solve, 9 MP for the chained serve programs.
+# multigrid. Both constants were measured on a TPU v5e: 7 MP for a
+# single-shot solve, 9 MP for the chained serve programs. PERF.md has the
+# first H100 data points; the constants stay until slice 3b re-measures.
 AUTO_CROSSOVER_PIXELS = 7_000_000
 SERVE_CROSSOVER_PIXELS = 9_000_000
 
 NOT_PORTED = {
-    "multigrid": "ROADMAP slice 3 (quarter-plane multigrid)",
     "jacobi": "ROADMAP slice 4 (red-black solver)",
     "dst_fft": "ROADMAP slice 4 (DST-FFT solver)",
 }
@@ -35,6 +42,7 @@ def not_ported(name: str, why: str = "") -> NotImplementedError:
 
 SOLVERS = {
     "dst_gemm": solve_dst_gemm,
+    "multigrid": solve_multigrid,
 }
 
 
@@ -48,10 +56,13 @@ def get_solver(name: str):
 
 
 __all__ = [
+    "MG_PADDED_NOT_PORTED",
     "SOLVERS",
     "AUTO_CROSSOVER_PIXELS",
     "SERVE_CROSSOVER_PIXELS",
     "auto_solver_name",
     "get_solver",
+    "mg_padded_not_ported",
     "solve_dst_gemm",
+    "solve_multigrid",
 ]

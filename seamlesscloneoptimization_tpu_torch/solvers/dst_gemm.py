@@ -341,6 +341,67 @@ def _solve_folded(g2: torch.Tensor, nr: int, nc: int) -> torch.Tensor:
             else torch.matmul(x, _t(dst_matrix(nc), dev)))
 
 
+@lru_cache(maxsize=64)
+def beta_eigenbasis(n: int, beta: float):
+    """Eigenbasis of the 1-D Dirichlet tridiagonal with a short last gap.
+
+    The multigrid coarse levels (``solvers/multigrid.py``) put the right
+    wall ``beta * h`` beyond the last point (Shortley-Weller): row n-1 has
+    the left coefficient 2/(1+beta) and the diagonal -2/beta instead of
+    (1, -2). That T is similar to a symmetric tridiagonal through a
+    diagonal scaling, so host float64 ``eigh`` of the symmetric form is
+    exact. Returns (lam (n,), V (n, n), Vi (n, n)) f32 with
+    T = V diag(lam) Vi; beta == 1 gives the DST (V = Vi = dst_matrix(n)).
+    """
+    if beta == 1.0:
+        return dst_eigenvalues(n), dst_matrix(n), dst_matrix(n)
+    a_last = 2.0 / (1.0 + beta)
+    d = np.full(n, -2.0)
+    d[-1] = -2.0 / beta
+    # D T D^-1 with delta_{n-1} = sqrt((1+beta)/2) makes the off-diagonal
+    # sqrt(a_last) symmetric
+    off = np.ones(n - 1)
+    off[-1] = np.sqrt(a_last)
+    s = np.diag(d) + np.diag(off, 1) + np.diag(off, -1)
+    lam, q = np.linalg.eigh(s)
+    delta = np.ones(n)
+    delta[-1] = np.sqrt((1.0 + beta) / 2.0)
+    v = q / delta[:, None]       # V = D^-1 Q
+    vi = q.T * delta[None, :]    # V^-1 = Q^T D
+    return tuple(_frozen(a.astype(np.float32)) for a in (lam, v, vi))
+
+
+def sep_eig_basis(h: int, w: int, bh: float, bw: float, device) -> tuple:
+    """Device operands of ``solve_sep_eig`` on an (h, w) grid:
+    (Vh^-1, Vw^-T, lam_h[:, None] + lam_w[None, :], Vh, Vw^T)."""
+    lh, vh, vhi = beta_eigenbasis(h, round(bh, 9))
+    lw, vw, vwi = beta_eigenbasis(w, round(bw, 9))
+    return tuple(_t(np.ascontiguousarray(a), device)
+                 for a in (vhi, vwi.T, lh[:, None] + lw[None, :], vh, vw.T))
+
+
+def solve_sep_eig(g: torch.Tensor, bh: float = 1.0, bw: float = 1.0,
+                  precision: str = "highest", basis: tuple | None = None) -> torch.Tensor:
+    """Exact solve of the beta-modified separable Poisson operator.
+
+    A = Th (x) I + I (x) Tw with Th, Tw from ``beta_eigenbasis``: per
+    channel U = Vh ((Vh^-1 G Vw^-T) / (lam_h_i + lam_w_j)) Vw^T, four FP32
+    GEMMs and a divide (the multigrid's coarsest level). ``basis`` is
+    ``sep_eig_basis(h, w, bh, bw, device)`` (the engine caches it on the
+    device per geometry), or None: then beta == 1 goes through
+    ``solve_dst_gemm`` and any other beta builds the basis.
+    """
+    check_precision(precision)
+    _, h, w = g.shape
+    if basis is None:
+        if bh == 1.0 and bw == 1.0:
+            return solve_dst_gemm(g, precision=precision)
+        basis = sep_eig_basis(h, w, bh, bw, g.device)
+    vhi, vwi_t, lam, vh, vw_t = basis
+    x = torch.matmul(torch.matmul(vhi, g), vwi_t) / lam
+    return torch.matmul(torch.matmul(vh, x), vw_t)
+
+
 def solve_dst_gemm(
     g: torch.Tensor,
     transform_only: bool = False,

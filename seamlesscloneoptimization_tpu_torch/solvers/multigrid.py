@@ -1,0 +1,427 @@
+"""Geometric multigrid V-cycles for the 5-point Dirichlet Laplacian.
+
+Port of ``seamlesscloneoptimization_tpu/solvers/multigrid.py`` for
+``padded="t"``, the transpose-fused chain, and the element path.
+
+Scheme (vertex-centred, unscaled operators, boundary-consistent hierarchy):
+red-black Gauss-Seidel smoothing; separable full-weighting restriction to
+the odd fine points, coarse size (n-1)//2, the coarse RHS scaled by 4;
+bilinear prolongation, its transpose. Every level tracks a boundary-gap
+parameter beta per axis (``_coarsen``): the right / bottom wall sits
+beta * h beyond the last line, and the coarse operator, smoother and the
+edge transfer weights use the Shortley-Weller coefficients of that gap,
+which keeps the contraction near 0.1 per cycle at every size. The coarsest
+level is solved exactly in the beta-modified separable eigenbasis
+(``dst_gemm.solve_sep_eig``: four FP32 GEMMs).
+
+Two chains:
+
+- ``vcycle_t`` (``padded="t"``, fine grids with ``use_pallas``): every
+  level lives in a zero-padded slab (``ops/kernels.py:mg_geometry_t``) and
+  runs as two kernels, ``mg_down`` (sweeps + residual + row restriction)
+  and ``mg_up`` (row prolongation + correction + sweeps); the lane half of
+  each transfer is ``mg_restrict_t`` / ``mg_prolong_t``, which transpose,
+  so each coarser level lives transposed (the operator is symmetric under
+  transposition with bh and bw swapped). Levels below 2^16 points solve
+  exactly with ``solve_sep_eig``.
+- ``vcycle`` (the element path: small grids, or ``use_pallas=False``):
+  plain PyTorch sweeps and transfers on exact-size arrays, as XLA ran them.
+
+``solve_multigrid`` drives either, in tolerance mode (check-free burst,
+then a residual check before each further cycle) or fixed-work mode
+(``cycles``). The tolerance check reads max |residual| to the host once per
+check. Not ported (NotImplementedError naming the ROADMAP slice): the
+quarter-plane finest level (``padded="q"``, slice 3b) and the dense
+rounded modes (``padded`` True / False) on grids where they would fuse,
+the ``rb_sweeps`` kernel on large element levels on the card, ``pcg``,
+``fmg_start`` and ``u0`` (slice 4). The JAX package's ``SCL_MG_*``
+environment knobs are constants here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from seamlesscloneoptimization_tpu_torch.ops import kernels as K
+from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import sep_eig_basis, solve_sep_eig
+from seamlesscloneoptimization_tpu_torch.solvers.jacobi import (
+    checkerboard,
+    redblack_sweep,
+    residual,
+)
+
+FUSE_MIN = 1 << 18    # a fine level runs fused from this many points
+FUSE_MIN_T = 1 << 16  # vcycle_t's coarse levels run fused from this many
+
+# the CloneConfig.mg_padded modes whose fused chain is not ported yet
+MG_PADDED_NOT_PORTED = {
+    "q": "ROADMAP slice 3b (quarter-plane multigrid)",
+    True: "ROADMAP slice 4 (dense multigrid modes)",
+    False: "ROADMAP slice 4 (dense multigrid modes)",
+}
+
+
+def _not_ported(what: str, where: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP {where}")
+
+
+def mg_padded_not_ported(padded, why: str = "") -> NotImplementedError:
+    return NotImplementedError(
+        f"multigrid with mg_padded={padded!r}{why} is not ported yet: "
+        f"{MG_PADDED_NOT_PORTED[padded]}")
+
+
+def _coarsen(m: int, beta: float) -> tuple[int, float]:
+    """Coarse size and boundary-gap parameter of one axis: mc = (m-1)//2
+    (the odd fine points), gap (m - 2 mc + beta) / 2 coarse spacings."""
+    mc = (m - 1) // 2
+    return mc, (m - 2 * mc + beta) / 2.0
+
+
+def _restrict_axis(r: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    """1-D full weighting along the last axis: (..., n) -> (..., (n-1)//2),
+    out[j] = r[2j]/4 + r[2j+1]/2 + r[2j+2]/4; for even n the last coarse
+    point is the transpose of the beta-gap edge prolongation."""
+    n = r.shape[-1]
+    nc = (n - 1) // 2
+    m = 2 * nc + 2
+    rp = F.pad(r, (0, m - n)) if m != n else r
+    pairs = rp.reshape(r.shape[:-1] + (nc + 1, 2))
+    a, b = pairs[..., 0], pairs[..., 1]
+    out = 0.25 * a[..., :nc] + 0.5 * b[..., :nc] + 0.25 * a[..., 1 : nc + 1]
+    if n % 2 == 0:
+        gap = 2.0 + beta
+        edge = (0.25 * a[..., nc - 1] + 0.5 * b[..., nc - 1]
+                + ((1.0 + beta) / gap * 0.5) * a[..., nc] + (beta / gap * 0.5) * b[..., nc])
+        out = torch.cat([out[..., : nc - 1], edge[..., None]], dim=-1)
+    return out
+
+
+def _restrict_rows(r: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    """The same 1-D full weighting along axis -2."""
+    n = r.shape[-2]
+    nc = (n - 1) // 2
+    out = (0.25 * r[..., 0 : 2 * nc - 1 : 2, :] + 0.5 * r[..., 1 : 2 * nc : 2, :]
+           + 0.25 * r[..., 2 : 2 * nc + 1 : 2, :])
+    if n % 2 == 0:
+        gap = 2.0 + beta
+        edge = (0.25 * r[..., n - 4, :] + 0.5 * r[..., n - 3, :]
+                + ((1.0 + beta) / gap * 0.5) * r[..., n - 2, :]
+                + (beta / gap * 0.5) * r[..., n - 1, :])
+        out = torch.cat([out[..., : nc - 1, :], edge[..., None, :]], dim=-2)
+    return out
+
+
+def restrict_fw(r: torch.Tensor, bh: float = 1.0, bw: float = 1.0) -> torch.Tensor:
+    """Full-weighting restriction (C, h, w) -> (C, (h-1)//2, (w-1)//2):
+    columns, then rows (1/4 of the transpose of ``prolong_bilinear``)."""
+    return _restrict_rows(_restrict_axis(r, bw), bh)
+
+
+def _prolong_axis(e: torch.Tensor, n: int, beta: float = 1.0) -> torch.Tensor:
+    """Bilinear prolongation along the last axis: (..., nc) -> (..., n).
+    Fine 2j takes the mean of its coarse neighbours, fine 2j+1 coarse j; for
+    even n the last two fine points take the beta-gap weights of the last
+    coarse point."""
+    nc = e.shape[-1]
+    ep = F.pad(e, (1, 1))  # zero Dirichlet pad
+    mids = 0.5 * (ep[..., : nc + 1] + ep[..., 1 : nc + 2])
+    pairs = torch.stack([mids[..., :nc], e], dim=-1).reshape(e.shape[:-1] + (2 * nc,))
+    if n % 2 == 1:
+        return torch.cat([pairs, mids[..., nc:]], dim=-1)
+    gap = 2.0 + beta
+    last = e[..., nc - 1 :]
+    return torch.cat([pairs[..., : n - 2], last * ((1.0 + beta) / gap),
+                      last * (beta / gap)], dim=-1)
+
+
+def _prolong_rows(e: torch.Tensor, n: int, beta: float = 1.0) -> torch.Tensor:
+    """Bilinear prolongation along axis -2: (..., nc, w) -> (..., n, w)."""
+    nc = e.shape[-2]
+    ep = F.pad(e, (0, 0, 1, 1))
+    mids = 0.5 * (ep[..., : nc + 1, :] + ep[..., 1 : nc + 2, :])
+    pairs = torch.stack([mids[..., :nc, :], e], dim=-2).reshape(
+        e.shape[:-2] + (2 * nc,) + e.shape[-1:])
+    if n % 2 == 1:
+        return torch.cat([pairs, mids[..., nc:, :]], dim=-2)
+    gap = 2.0 + beta
+    last = e[..., nc - 1 :, :]
+    return torch.cat([pairs[..., : n - 2, :], last * ((1.0 + beta) / gap),
+                      last * (beta / gap)], dim=-2)
+
+
+def prolong_bilinear(e: torch.Tensor, h: int, w: int,
+                     bh: float = 1.0, bw: float = 1.0) -> torch.Tensor:
+    """Bilinear prolongation (C, hc, wc) -> (C, h, w): columns, then rows."""
+    return _prolong_rows(_prolong_axis(e, w, bw), h, bh)
+
+
+def _ops_b(h: int, w: int, bh: float, bw: float, device):
+    """Neighbour sum and inverse diagonal of a beta-level operator: the
+    5-point stencil with the Shortley-Weller last row / column (up / left
+    neighbour 2/(1+beta), diagonal half 2/beta)."""
+    rows = torch.arange(h, device=device)[:, None]
+    cols = torch.arange(w, device=device)[None, :]
+    f32 = torch.float32
+    dh = torch.where(rows == h - 1, torch.tensor(2.0 / bh, dtype=f32, device=device),
+                     torch.tensor(2.0, dtype=f32, device=device))
+    dw = torch.where(cols == w - 1, torch.tensor(2.0 / bw, dtype=f32, device=device),
+                     torch.tensor(2.0, dtype=f32, device=device))
+    inv_d = (1.0 / (dh + dw))[None]
+    lrow = (rows == h - 1).to(f32)[None] * (2.0 / (1.0 + bh) - 1.0)
+    lcol = (cols == w - 1).to(f32)[None] * (2.0 / (1.0 + bw) - 1.0)
+
+    def nsum(x):
+        xp = F.pad(x, (1, 1, 1, 1))
+        up, dn = xp[:, :-2, 1:-1], xp[:, 2:, 1:-1]
+        lf, rt = xp[:, 1:-1, :-2], xp[:, 1:-1, 2:]
+        return up + dn + lf + rt + lrow * up + lcol * lf
+
+    return nsum, inv_d
+
+
+def _sweeps_b(u: torch.Tensor, g: torch.Tensor, n: int, bh: float, bw: float) -> torch.Tensor:
+    """n red-black sweeps of the beta-level operator (small coarse grids)."""
+    _, h, w = u.shape
+    nsum, inv_d = _ops_b(h, w, bh, bw, u.device)
+    red = checkerboard(h, w, u.device)[None]
+    for _ in range(n):
+        u = torch.where(red, (nsum(u) - g) * inv_d, u)
+        u = torch.where(red, u, (nsum(u) - g) * inv_d)
+    return u
+
+
+def _residual_b(u: torch.Tensor, g: torch.Tensor, bh: float, bw: float) -> torch.Tensor:
+    """g - A_beta u for the beta-level operator."""
+    _, h, w = u.shape
+    nsum, inv_d = _ops_b(h, w, bh, bw, u.device)
+    return g - (nsum(u) - u / inv_d)
+
+
+def _sweeps(u: torch.Tensor, g: torch.Tensor, n: int, use_pallas: bool = False) -> torch.Tensor:
+    """n red-black sweeps. On the TPU a fine burst (n > 1, >= 2^18 points)
+    went through the rb_sweeps kernel, which is not ported: on the card that
+    case raises rather than run the plain sweeps."""
+    if (use_pallas and n > 1 and u.shape[-1] * u.shape[-2] >= FUSE_MIN
+            and u.device.type == "cuda"):
+        raise _not_ported("the rb_sweeps kernel (element-path sweeps of a "
+                          f"{u.shape[-2]}x{u.shape[-1]} level)", "slice 4")
+    for _ in range(n):
+        u = redblack_sweep(u, g)
+    return u
+
+
+def _fused_level(h: int, w: int, nu1: int, nu2: int, use_pallas: bool,
+                 fuse_min: int = FUSE_MIN) -> bool:
+    """Whether this level runs as the fused level kernels."""
+    return bool(use_pallas) and h * w >= fuse_min and nu1 <= 2 and nu2 <= 4
+
+
+def _small(h: int, w: int, coarsest: int) -> bool:
+    return min(h, w) <= coarsest or min((h - 1) // 2, (w - 1) // 2) < 1
+
+
+def t_chain_applies(h: int, w: int, nu1: int = 1, nu2: int = 2, coarsest: int = 63,
+                    use_pallas: bool = True) -> bool:
+    """Whether ``solve_multigrid(padded="t")`` runs ``vcycle_t`` on an (h, w)
+    grid: the one gate shared with the pipeline, which then makes the RHS
+    in the fine level's slab."""
+    return not _small(h, w, coarsest) and _fused_level(h, w, nu1, nu2, use_pallas)
+
+
+def _tol_burst(tol: float, max_cycles: int, nu1: int = 1, nu2: int = 2) -> int:
+    """Check-free V-cycles before the first residual check (zero start).
+
+    From a zero start the first checks cannot pass: assuming a conservative
+    0.15 contraction per cycle, the first that can is after
+    ceil(log tol / log 0.15) cycles; the burst runs two fewer. Halved for
+    weaker smoothing (nu1 + nu2 < 3). The loop re-checks from wherever the
+    burst lands, so the tolerance contract holds either way.
+    """
+    if not 0.0 < tol < 0.15:
+        return 0
+    pred = math.ceil(math.log(tol) / math.log(0.15))
+    burst = max(0, min(max_cycles, pred - 2))
+    if nu1 + nu2 < 3:
+        burst //= 2
+    return burst
+
+
+def _pad_to(x: torch.Tensor, shape) -> torch.Tensor:
+    return F.pad(x, (0, shape[-1] - x.shape[-1], 0, shape[-2] - x.shape[-2]))
+
+
+def coarse_solve(g: torch.Tensor, bh: float, bw: float, eig_cache=None) -> torch.Tensor:
+    """Exact solve of a coarsest level (``solve_sep_eig``). ``eig_cache``: a
+    dict holding each geometry's device basis (the engine keeps one), or
+    None."""
+    bh, bw = round(bh, 9), round(bw, 9)
+    if eig_cache is None:
+        return solve_sep_eig(g, bh, bw)
+    _, h, w = g.shape
+    key = (h, w, bh, bw, str(g.device))
+    basis = eig_cache.get(key)
+    if basis is None:
+        basis = sep_eig_basis(h, w, bh, bw, g.device)
+        eig_cache[key] = basis
+    return solve_sep_eig(g, bh, bw, basis=basis)
+
+
+def vcycle(u: torch.Tensor, g: torch.Tensor, nu1: int = 2, nu2: int = 2, coarsest: int = 63,
+           use_pallas: bool = False, bh: float = 1.0, bw: float = 1.0,
+           eig_cache=None) -> torch.Tensor:
+    """One V-cycle on exact-size (C, h, w) arrays (the element path)."""
+    _, h, w = u.shape
+    if _small(h, w, coarsest):
+        return coarse_solve(g, bh, bw, eig_cache)
+    if _fused_level(h, w, nu1, nu2, use_pallas):
+        raise _not_ported(f"the unpadded fused level ({h}x{w}, mg_padded=False)", "slice 4")
+    hc, bh_c = _coarsen(h, bh)
+    wc, bw_c = _coarsen(w, bw)
+    if bh == 1.0 and bw == 1.0:
+        u = _sweeps(u, g, nu1, use_pallas)
+        r = residual(u, g)
+    else:
+        u = _sweeps_b(u, g, nu1, bh, bw)
+        r = _residual_b(u, g, bh, bw)
+    rc = 4.0 * restrict_fw(r, bh, bw)
+    ec = vcycle(torch.zeros_like(rc), rc, nu1, nu2, coarsest, use_pallas, bh_c, bw_c,
+                eig_cache)
+    u = u + prolong_bilinear(ec, h, w, bh, bw)
+    if bh == 1.0 and bw == 1.0:
+        return _sweeps(u, g, nu2, use_pallas)
+    return _sweeps_b(u, g, nu2, bh, bw)
+
+
+def vcycle_t(u_p: torch.Tensor | None, g_p: torch.Tensor, h: int, w: int, nu1: int = 1,
+             nu2: int = 2, coarsest: int = 63, bh: float = 1.0, bw: float = 1.0,
+             geom: tuple[int, int, int, int] | None = None, eig_cache=None) -> torch.Tensor:
+    """One V-cycle in alternating-orientation padded space.
+
+    g_p, u_p: (C, hp, wp) per ``mg_geometry_t(h, w)`` (or ``geom``), the
+    true (h, w) domain at the origin, exact zeros elsewhere; ``u_p=None`` is
+    a known-zero guess (every coarse level). Per level: ``mg_down`` ->
+    ``mg_restrict_t`` -> the transposed child level (logical (wc, hc), betas
+    swapped, its width the parent's hp2) -> ``mg_prolong_t`` -> ``mg_up``.
+    A level below the fused gate solves exactly (``coarse_solve``). Returns
+    (C, hp, wp) with the same zero invariant.
+    """
+    c = g_p.shape[0]
+    th, hp, wp, hp2 = geom if geom is not None else K.mg_geometry_t(h, w)
+    if _small(h, w, coarsest) or not _fused_level(h, w, nu1, nu2, True, FUSE_MIN_T):
+        # only a coarse level lands here (solve_multigrid takes this chain
+        # when the fine level fuses), and it always starts from zero: the
+        # exact solve replaces the correction
+        if u_p is None:
+            u = coarse_solve(g_p[:, :h, :w], bh, bw, eig_cache)
+        else:
+            u = vcycle(u_p[:, :h, :w], g_p[:, :h, :w], nu1, nu2, coarsest, True, bh, bw,
+                       eig_cache)
+        return _pad_to(u, g_p.shape)
+    hc, bh_c = _coarsen(h, bh)
+    wc, bw_c = _coarsen(w, bw)
+    u_s, rh = K.mg_down(u_p, g_p, nu1, h, w, bh, bw, rh_rows=hp2)
+    cgeom = K.mg_geometry_t(wc, hc, wp_min=hp2)
+    rc_t = K.mg_restrict_t(rh, h, w, bw, out_rows=cgeom[1])
+    ec_t = vcycle_t(None, rc_t, wc, hc, nu1, nu2, coarsest, bw_c, bh_c, cgeom, eig_cache)
+    e_lane = K.mg_prolong_t(ec_t, w, bw, out_rows=hp2, wp=wp)
+    return K.mg_up(u_s, g_p, e_lane, nu2, h, w, bh, bw)
+
+
+def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int = 60,
+                    nu1: int = 1, nu2: int = 2, return_info: bool = False,
+                    use_pallas: bool = False, cycles: int | None = None, pcg: bool = False,
+                    coarsest: int = 63, fmg_start: bool = False, padded: bool | str = "q",
+                    padded_output: bool = False, true_hw: tuple[int, int] | None = None,
+                    eig_cache=None):
+    """V-cycles until max |r| <= tol * max |g| (or ``cycles`` of them).
+
+    g: (C, h, w) f32, or with ``true_hw=(h, w)`` the (C, hp, wp) slab of
+    ``mg_geometry_t(h, w)`` with the RHS at the origin and exact zeros
+    elsewhere (``preprocess_rhs_p``'s output), which the ``"t"`` chain
+    starts from with no pad. ``padded="t"`` with ``use_pallas`` on a grid of
+    at least 2^18 points runs ``vcycle_t``; small grids, and any grid with
+    ``use_pallas=False``, run the element path (as in the JAX package,
+    whatever ``padded`` says). ``cycles=k``: fixed work, k cycles, no
+    checks. Else the tolerance loop: ``_tol_burst`` check-free cycles, then
+    a residual check (one host read) before each further cycle, up to
+    ``max_cycles``. ``padded_output``: the ``"t"`` chain returns its
+    (C, hp, wp) slab (zeros outside the domain); the element path returns
+    the exact size either way. ``return_info`` (exclusive with
+    ``padded_output``) adds {"cycles": int, "residual": max |g - A u|}.
+    ``eig_cache``: see ``coarse_solve``.
+    """
+    tol = float(tol)
+    if padded_output and return_info:
+        raise ValueError("padded_output is exclusive with return_info")
+    for flag, what in ((u0 is not None, "u0 (a warm start)"), (fmg_start, "fmg_start"),
+                       (pcg, "pcg")):
+        if flag:
+            raise _not_ported(f"solve_multigrid {what}", "slice 4 (dense multigrid modes)")
+    c = g.shape[0]
+    if true_hw is not None:
+        if padded != "t":
+            raise ValueError("true_hw (a pre-padded g) needs padded='t' in the port")
+        h, w = (int(x) for x in true_hw)
+        _, hp, wp, _ = K.mg_geometry_t(h, w)
+        if tuple(g.shape[1:]) != (hp, wp):
+            raise ValueError(f"pre-padded g {tuple(g.shape)} does not match the level "
+                             f"geometry {(hp, wp)} for true_hw={(h, w)}")
+        g_p, g = g, g[:, :h, :w]
+    else:
+        _, h, w = g.shape
+        g_p = None
+    small = _small(h, w, coarsest)
+    fused = t_chain_applies(h, w, nu1, nu2, coarsest, use_pallas)
+    if fused and padded != "t":
+        raise mg_padded_not_ported(padded, f" on a {h}x{w} grid")
+    if fused:
+        geom = K.mg_geometry_t(h, w)
+        if g_p is None:
+            g_p = _pad_to(g, (c, geom[1], geom[2]))
+
+        def cycle(u):
+            return vcycle_t(u, g_p, h, w, nu1, nu2, coarsest, geom=geom, eig_cache=eig_cache)
+
+        def crop(u):
+            return u[:, :h, :w]
+    else:
+        g = g.contiguous()
+
+        def cycle(u):
+            return vcycle(torch.zeros_like(g) if u is None else u, g, nu1, nu2, coarsest,
+                          use_pallas, eig_cache=eig_cache)
+
+        def crop(u):
+            return u
+
+    u = None  # a known-zero start
+    if cycles is not None:
+        it = int(cycles)
+        for _ in range(it):
+            u = cycle(u)
+    else:
+        gnorm = torch.clamp(g.abs().max(), min=1e-30)
+        thresh = tol * gnorm
+        burst = _tol_burst(tol, max_cycles, nu1, nu2)
+        if small:
+            burst = min(burst, 1)
+        for _ in range(burst):
+            u = cycle(u)
+        it = burst
+        while it < max_cycles:
+            r = g if u is None else residual(crop(u), g)
+            if not bool(r.abs().max() > thresh):  # one host read per check
+                break
+            u = cycle(u)
+            it += 1
+    if u is None:
+        u = torch.zeros_like(g_p if fused else g)
+    out = u if (fused and padded_output) else crop(u)
+    if return_info:
+        rmax = residual(crop(u), g).abs().max().item()
+        return out, {"cycles": it, "residual": rmax}
+    return out

@@ -198,15 +198,16 @@ def test_unfold_clamp_paste_matches_plain(cuda, planar, n, off):
     assert torch.equal(got.cpu(), want)
 
 
-PAIR_CHAIN = {"erode3": 1, "preprocess_rhs_t": 1, "fold_minor": 2, "transpose_pair": 3,
-              "unfold_transpose": 2, "unfold_clamp_paste": 1, "transpose": 0,
-              "clamp_cast_paste": 0, "unfold_minor": 0}
-UNFOLDED = {"erode3": 1, "preprocess_rhs_t": 1, "transpose": 3, "clamp_cast_paste": 1,
-            "fold_minor": 0, "transpose_pair": 0, "unfold_transpose": 0,
-            "unfold_clamp_paste": 0, "unfold_minor": 0}
-PER_AXIS = {"erode3": 1, "preprocess_rhs_t": 1, "fold_minor": 1, "unfold_minor": 1,
-            "transpose": 3, "clamp_cast_paste": 1, "transpose_pair": 0,
-            "unfold_transpose": 0, "unfold_clamp_paste": 0}
+def _per_frame(**counts):
+    """Per-frame launches of every kernel: those given, 0 for the rest."""
+    return {k: counts.get(k, 0) for k in K.LAUNCHES}
+
+
+PAIR_CHAIN = _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=2, transpose_pair=3,
+                        unfold_transpose=2, unfold_clamp_paste=1)
+UNFOLDED = _per_frame(erode3=1, preprocess_rhs_t=1, transpose=3, clamp_cast_paste=1)
+PER_AXIS = _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=1, unfold_minor=1,
+                      transpose=3, clamp_cast_paste=1)
 
 
 def _serve_counts(cuda, cfg, src_hw, per_frame):
@@ -240,3 +241,127 @@ def test_serve_unfolded_chain(cuda):
 def test_serve_per_axis_strip(cuda, src_hw):
     """A strip whose short side does not fold: one fold and one unfold."""
     _serve_counts(cuda, CloneConfig(), src_hw, PER_AXIS)
+
+
+# ---------------------------------------------------------------------------
+# the transpose-fused multigrid chain
+# ---------------------------------------------------------------------------
+
+MG_CASES = [
+    ((64, 130), (1.0, 1.0)),
+    ((63, 127), (1.5, 1.25)),
+    ((70, 200), (1.0, 2.0)),
+    ((129, 257), (2.0, 1.0)),
+    ((40, 256), (1.0, 1.5)),
+    ((518, 526), (1.0, 1.0)),     # many tiles each way
+    ((263, 259), (1.9375, 1.4375)),  # an 8K coarse level's betas
+]
+
+
+def _level_slab(rng, h, w, hp, wp, scale=50.0):
+    x = np.zeros((3, hp, wp), np.float32)
+    x[:, :h, :w] = rng.normal(size=(3, h, w)) * scale
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("th", [None, 16])
+@pytest.mark.parametrize("hw,beta", MG_CASES)
+def test_mg_down_matches_plain(cuda, hw, beta, th):
+    (h, w), (bh, bw) = hw, beta
+    _, hp, wp, hp2 = K.mg_geometry_t(h, w, th=th)
+    rng = np.random.default_rng(h * w)
+    g = _level_slab(rng, h, w, hp, wp)
+    u = _level_slab(rng, h, w, hp, wp, 10.0)
+    for nu1 in (0, 1, 2):
+        for uz in (False, True):
+            u_in = None if uz else u
+            wu, wrh = K.mg_down_plain(u_in, g, nu1, h, w, bh, bw, hp2)
+            gu, grh = K.mg_down(None if uz else u.to(cuda), g.to(cuda), nu1, h, w, bh, bw,
+                                hp2)
+            torch.cuda.synchronize()
+            # every element: the kernel writes rh's rows past hp // 2 as zeros
+            assert torch.equal(gu.cpu(), wu) and torch.equal(grh.cpu(), wrh), (nu1, uz)
+
+
+@pytest.mark.parametrize("hw,beta", MG_CASES)
+def test_mg_up_matches_plain(cuda, hw, beta):
+    (h, w), (bh, bw) = hw, beta
+    _, hp, wp, hp2 = K.mg_geometry_t(h, w)
+    hc = (h - 1) // 2
+    rng = np.random.default_rng(h + w)
+    g = _level_slab(rng, h, w, hp, wp)
+    u = _level_slab(rng, h, w, hp, wp, 10.0)
+    e = _level_slab(rng, hc, w, hp2, wp, 5.0)
+    for nu2 in (0, 2, 4):
+        got = K.mg_up(u.to(cuda), g.to(cuda), e.to(cuda), nu2, h, w, bh, bw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), K.mg_up_plain(u, g, e, nu2, h, w, bh, bw)), nu2
+
+
+@pytest.mark.parametrize("hw,beta", MG_CASES)
+def test_mg_transfers_match_plain(cuda, hw, beta):
+    (h, w), (_, bw) = hw, beta
+    _, hp, wp, hp2 = K.mg_geometry_t(h, w)
+    hc, wc = (h - 1) // 2, (w - 1) // 2
+    _, chp, cwp, _ = K.mg_geometry_t(wc, hc, wp_min=hp2)
+    rng = np.random.default_rng(h * 3 + w)
+    rh = _level_slab(rng, hp // 2, w, hp2, wp)  # leftovers past hc: masked
+    got = K.mg_restrict_t(rh.to(cuda), h, w, bw, chp)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), K.mg_restrict_t_plain(rh, h, w, bw, chp))
+    ec = _level_slab(rng, wc, hc, chp, cwp, 5.0)
+    got = K.mg_prolong_t(ec.to(cuda), w, bw, hp2, wp)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), K.mg_prolong_t_plain(ec, w, bw, hp2, wp))
+
+
+@pytest.mark.parametrize("hw", [(3, 3), (40, 57), (131, 260)])
+@pytest.mark.parametrize("mode", [(1, "opencv"), (2, "opencv"), (2, "norm"), (3, "opencv")])
+def test_preprocess_rhs_p_matches_plain(cuda, hw, mode):
+    flags, rule = mode
+    h, w = hw
+    rng = np.random.default_rng(h * w + 1)
+    img = torch.from_numpy(_u8(rng, (h + 4, w + 6, 3)))
+    dest = img[2 : 2 + h, 3 : 3 + w, :].permute(2, 0, 1)
+    patch = torch.from_numpy(_u8(rng, (3, h, w)))
+    kflags = flags
+    if flags == 3:
+        patch = patch[0][None].expand(3, h, w)
+        kflags = 1
+    me = torch.from_numpy((rng.random((h, w)) < 0.7).astype(np.uint8))
+    for out_hw in ((h - 2, w - 2), (h + 30, w + 131)):
+        want = K.preprocess_rhs_p_plain(dest, patch, me, out_hw, kflags, rule)
+        got = K.preprocess_rhs_p(dest.to(cuda), patch.to(cuda), me.to(cuda), out_hw, kflags,
+                                 rule)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+MG_T_FIXED = _per_frame(erode3=1, preprocess_rhs_p=1, clamp_cast_paste=1, mg_down=4, mg_up=4,
+                        mg_restrict_t=4, mg_prolong_t=4)
+
+
+def test_serve_mg_t_fixed_counts(cuda):
+    """mg_padded="t", 2 fixed cycles, interior 518 x 526: 2 fused levels,
+    so each V-cycle kernel runs 2 x 2 times a frame."""
+    _serve_counts(cuda, CloneConfig(solver="multigrid", mg_padded="t", mg_cycles=2),
+                  (520, 528), MG_T_FIXED)
+
+
+def test_serve_mg_t_tol_counts(cuda):
+    """Tolerance mode: every V-cycle kernel a multiple of the 2 levels, the
+    same for all four, and the card within 1 of the CPU."""
+    rng = np.random.default_rng(0)
+    src = _u8(rng, (520, 528, 3))
+    dst = _u8(rng, (580, 600, 3))
+    mask = np.full((520, 528), 255, np.uint8)
+    cfg = CloneConfig(solver="multigrid", mg_padded="t")
+    K.reset_launches()
+    out = SeamlessClone(cfg, device=cuda).run(src, dst, mask, (300, 290)).cpu().numpy()
+    torch.cuda.synchronize()
+    n = K.LAUNCHES["mg_down"]
+    assert n > 0 and n % 2 == 0
+    assert all(K.LAUNCHES[k] == n for k in ("mg_up", "mg_restrict_t", "mg_prolong_t"))
+    assert K.LAUNCHES["preprocess_rhs_p"] == K.LAUNCHES["clamp_cast_paste"] == 1
+    want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (300, 290)).numpy()
+    assert np.abs(out.astype(np.int16) - want).max() <= 1

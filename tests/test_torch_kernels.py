@@ -127,9 +127,15 @@ def test_cpu_twins_do_not_count_launches():
     e = K.unfold_transpose(tp[:, :128].contiguous(), tp[:, 128:].contiguous(), 20, 128)
     K.unfold_clamp_paste(e, K.unfold_minor(e, e, 20, 128), torch.zeros((3, 20, 30),
                          dtype=torch.uint8), 1, 1, 18, 20)
+    gp = K.preprocess_rhs_p(torch.from_numpy(_u8(2, (3, 20, 30))),
+                            torch.from_numpy(_u8(3, (3, 20, 30))), me, (32, 128))
+    u, rh = K.mg_down(None, gp, 1, 18, 28, rh_rows=128)
+    ec = K.mg_restrict_t(rh, 18, 28, 1.0, 16)
+    K.mg_up(u, gp, K.mg_prolong_t(ec, 28, 1.0, 128, 128), 2, 18, 28)
     assert set(K.LAUNCHES) == {"erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste",
                                "fold_minor", "unfold_minor", "transpose_pair",
-                               "unfold_transpose", "unfold_clamp_paste"}
+                               "unfold_transpose", "unfold_clamp_paste", "preprocess_rhs_p",
+                               "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t"}
     assert set(K.LAUNCHES.values()) == {0}
 
 

@@ -1,0 +1,194 @@
+"""The port's multigrid serve path (``mg_padded="t"``) against the JAX
+package and cv2 on the CPU.
+
+The JAX side runs its multigrid serve tail (``pipeline.py:152-237``) with
+every Pallas kernel in interpret mode: the mocks of
+``tests/test_mg_serve_tail.py``, the backend gate open, and the solver
+called with ``interpret=True``. The ROI interiors are above the 2^18-point
+gate, so both sides run the transpose-fused V-cycles. The solves differ by
+f32 rounding (XLA's FMA contraction, the GEMM summation order), so the u8
+results may differ by 1 where the truncation flips: diff_max <= 1. Images
+are numpy-seeded.
+"""
+
+import contextlib
+import functools
+from unittest import mock
+
+import cv2
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seamlesscloneoptimization_tpu.core import engine as JE
+from seamlesscloneoptimization_tpu.core.config import CloneConfig as JConfig
+from seamlesscloneoptimization_tpu.models import pipeline as JP
+from seamlesscloneoptimization_tpu.ops import pallas_kernels as PK
+from seamlesscloneoptimization_tpu.solvers import multigrid as JM
+from seamlesscloneoptimization_tpu_torch.core import engine as TE
+from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
+from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone
+from seamlesscloneoptimization_tpu_torch.models import pipeline as TP
+from seamlesscloneoptimization_tpu_torch.ops import kernels as K
+from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
+
+ROI = (522, 530)   # interior 520 x 528: 274,560 points, above the 2^18 gate
+MODES = [(1, "opencv"), (2, "opencv"), (2, "norm"), (3, "opencv")]
+
+
+@contextlib.contextmanager
+def jax_mg_interpret():
+    """The JAX multigrid serve tail with its Pallas kernels interpreted."""
+
+    def force_interp(orig):
+        return lambda *a, **k: orig(*a, **{**k, "interpret": True})
+
+    with contextlib.ExitStack() as es:
+        for name in ("preprocess_rhs_pallas", "erode3_pallas", "clamp_cast_pallas",
+                     "clamp_cast_guarded_pallas", "paste_interior_pallas"):
+            es.enter_context(mock.patch.object(PK, name, force_interp(getattr(PK, name))))
+        es.enter_context(mock.patch.object(JP, "_pallas_backend_available", lambda: True))
+        es.enter_context(mock.patch.dict(
+            JE.SOLVERS, {"multigrid": functools.partial(JM.solve_multigrid, interpret=True)}))
+        yield
+
+
+def _roi_inputs(seed):
+    rng = np.random.default_rng(seed)
+    h, w = ROI
+    yy, xx = np.mgrid[:h, :w]
+    base = (np.sin(yy / 37.0)[..., None] * 60 + np.cos(xx / 23.0)[..., None] * 50 + 128)
+    dest = np.clip(base + rng.normal(0, 8, (h, w, 3)), 0, 255).astype(np.uint8)
+    src = np.clip(255 - base + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+    mask = (((yy - h / 2) ** 2 / (h / 2.4) ** 2 + (xx - w / 2) ** 2 / (w / 2.6) ** 2) < 1)
+    mask = mask.astype(np.uint8) * 255
+    mask[[0, -1], :] = 0
+    mask[:, [0, -1]] = 0
+    return (np.ascontiguousarray(dest.transpose(2, 0, 1)),
+            np.ascontiguousarray(src.transpose(2, 0, 1)), mask)
+
+
+def _diff_max(a, b):
+    return int(np.abs(np.asarray(a).astype(np.int16) - np.asarray(b)).max())
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("cycles", [None, 2])
+def test_clone_roi_matches_jax(mode, cycles):
+    flags, rule = mode
+    dest, src, mask = _roi_inputs(flags)
+    patch = np.where(mask[None] != 0, src, 0).astype(np.uint8)
+    cfg = CloneConfig(solver="multigrid", mg_padded="t", mg_cycles=cycles, flags=flags,
+                      mixed_rule=rule)
+    kw = cfg.solver_kwargs()
+    with jax_mg_interpret():
+        want = np.asarray(JP.clone_roi(
+            jnp.asarray(dest), jnp.asarray(patch), jnp.asarray(mask), flags,
+            JM.solve_multigrid, {**kw, "interpret": True}, use_pallas_pre=True,
+            use_pallas_post=True, mixed_rule=rule, solver_name="multigrid"))
+    got = TP.clone_roi(torch.from_numpy(dest), torch.from_numpy(patch),
+                       torch.from_numpy(mask), flags, TM.solve_multigrid, kw,
+                       mixed_rule=rule, solver_name="multigrid").numpy()
+    assert got.shape == want.shape == dest.shape
+    assert _diff_max(got, want) <= 1
+    assert np.array_equal(got[:, [0, -1]], dest[:, [0, -1]])  # the frame is dst's
+
+
+def _images(seed):
+    """A 522x530 source with a full mask (ROI 520x528 after the border
+    zeroing: interior 518x526, above the gate) and a 600x640 destination."""
+    rng = np.random.default_rng(seed)
+    _, src, _ = _roi_inputs(seed)
+    dst = rng.integers(0, 256, (600, 640, 3)).astype(np.uint8)
+    dst = cv2.GaussianBlur(dst, (0, 0), 6)
+    return np.ascontiguousarray(src.transpose(1, 2, 0)), dst, np.full(ROI, 255, np.uint8)
+
+
+@pytest.mark.parametrize("flags", [1, 2, 3])
+def test_engine_matches_jax_and_cv2(flags):
+    """Port engine vs JAX engine (both mg_padded="t"), each against
+    cv2.seamlessClone: the port no further from cv2 than the JAX engine,
+    and within 1 of it."""
+    src, dst, mask = _images(10 + flags)
+    center = (320, 300)
+    cfg = dict(solver="multigrid", mg_padded="t", flags=flags)
+    eng = SeamlessClone(CloneConfig(**cfg), device="cpu")
+    got = eng.run(src, dst, mask, center).numpy()
+    assert eng.metrics["solver_resolved"] == "multigrid"
+    with jax_mg_interpret():
+        want = np.asarray(JE.SeamlessClone(JConfig(**cfg)).run(src, dst, mask.copy(), center))
+    golden = cv2.seamlessClone(src, dst, mask.copy(), center, flags)
+    assert _diff_max(got, want) <= 1
+    assert _diff_max(got, golden) <= max(_diff_max(want, golden), 1)
+
+
+def test_serve_matches_run():
+    """timed_serve's chained planar frames land where a single run does
+    (one frame: the same solve of the same destination)."""
+    src, dst, mask = _images(20)
+    eng = SeamlessClone(CloneConfig(solver="multigrid", mg_padded="t", mg_cycles=3),
+                        device="cpu")
+    run = eng.run(src, dst, mask, (320, 300)).numpy()
+    served, ms = eng.timed_serve(src, dst, mask, (320, 300), loops=0)
+    assert ms >= 0.0
+    assert np.array_equal(served.numpy(), run)
+
+
+def test_launch_counts_on_the_t_path(monkeypatch):
+    """A CPU rehearsal of the card's per-frame counts: each outermost twin
+    call stands for a kernel launch. Fixed mode, 2 cycles, 2 fused levels
+    at this size: every V-cycle kernel twice per level and cycle."""
+    counts = {}
+    for name in ("erode3", "preprocess_rhs_p", "clamp_cast_paste", "mg_down", "mg_up",
+                 "mg_restrict_t", "mg_prolong_t"):
+        orig = getattr(K, f"{name}_plain")
+
+        def counted(*a, _orig=orig, _name=name, **k):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(K, f"{name}_plain", counted)
+    src, dst, mask = _images(30)
+    eng = SeamlessClone(CloneConfig(solver="multigrid", mg_padded="t", mg_cycles=2),
+                        device="cpu")
+    eng.run(src, dst, mask, (320, 300))
+    _, _, bw, bh = eng.metrics["bbox"]
+    levels, (h, w) = 0, (bh - 2, bw - 2)
+    while TM._fused_level(h, w, 1, 2, True, TM.FUSE_MIN if levels == 0 else TM.FUSE_MIN_T):
+        levels, (h, w) = levels + 1, ((w - 1) // 2, (h - 1) // 2)
+    assert levels == 2
+    assert counts == {"erode3": 1, "preprocess_rhs_p": 1, "clamp_cast_paste": 1,
+                      "mg_down": 2 * levels, "mg_up": 2 * levels,
+                      "mg_restrict_t": 2 * levels, "mg_prolong_t": 2 * levels}
+
+
+def test_auto_above_crossover_runs_multigrid(monkeypatch):
+    monkeypatch.setattr(TE, "AUTO_CROSSOVER_PIXELS", 100)
+    monkeypatch.setattr(TE, "SERVE_CROSSOVER_PIXELS", 100)
+    src, dst, mask = _images(40)
+    small_src, small_mask = src[:90, :120].copy(), np.full((90, 120), 255, np.uint8)
+    eng = SeamlessClone(CloneConfig(mg_padded="t"), device="cpu")
+    got = eng.run(small_src, dst, small_mask, (320, 300)).numpy()
+    assert eng.metrics["solver_resolved"] == "multigrid"
+    want = SeamlessClone(CloneConfig(solver="multigrid", mg_padded="t"), device="cpu").run(
+        small_src, dst, small_mask, (320, 300)).numpy()
+    assert np.array_equal(got, want)
+    out, _ = eng.timed_serve(small_src, dst, small_mask, (320, 300), loops=1)
+    assert eng.metrics["solver_resolved"] == "multigrid"
+    assert out.shape == dst.shape
+    for padded, match in (("q", "slice 3b"), (True, "slice 4"), (False, "slice 4")):
+        with pytest.raises(NotImplementedError, match=match):
+            SeamlessClone(CloneConfig(mg_padded=padded), device="cpu").run(
+                small_src, dst, small_mask, (320, 300))
+
+
+def test_multigrid_engine_builds_no_dst_bases():
+    src, dst, mask = _images(50)
+    eng = SeamlessClone(CloneConfig(solver="multigrid", mg_padded="t", mg_cycles=1),
+                        device="cpu")
+    eng.run(src, dst, mask, (320, 300))
+    assert len(eng._bases) == 0
+    assert len(eng._eig_cache) == 1  # the coarsest level's basis, cached once
+    with pytest.raises(ValueError, match="mg_padded"):
+        SeamlessClone(CloneConfig(mg_padded="x"), device="cpu")

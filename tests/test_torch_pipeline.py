@@ -344,7 +344,7 @@ def test_no_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("cfg, match", [
-    (CloneConfig(solver="multigrid"), "slice 3"),
+    (CloneConfig(solver="multigrid"), "slice 3b"),  # the default mg_padded="q"
     (CloneConfig(solver="jacobi"), "slice 4"),
     (CloneConfig(solver="dst_fft"), "slice 4"),
     (CloneConfig(bbox_bucket=64), "slice 5"),
@@ -359,10 +359,10 @@ def test_auto_above_crossover_raises(monkeypatch):
     monkeypatch.setattr(TE, "AUTO_CROSSOVER_PIXELS", 100)
     monkeypatch.setattr(TE, "SERVE_CROSSOVER_PIXELS", 100)
     src, dst, mask = _images()
-    eng = SeamlessClone(device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    eng = SeamlessClone(device="cpu")  # the default mg_padded="q" above the crossover
+    with pytest.raises(NotImplementedError, match="slice 3b"):
         eng.run(src, dst, mask, CENTER)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 3b"):
         eng.timed_serve(src, dst, mask, CENTER, loops=1)
 
 
