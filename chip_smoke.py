@@ -6,7 +6,7 @@
 1. Prints the card (nvidia-smi name and power limit), builds the kernels
    from ``seamlesscloneoptimization_tpu_torch/csrc`` and prints the build
    time, ptxas's resource report and both TF32 flags.
-2. Holds each of the fourteen kernels against its plain PyTorch twin on the
+2. Holds each of the twenty kernels against its plain PyTorch twin on the
    card: every kernel bit-exact over its whole output (the divides too: the
    twin's divide is IEEE on the card as well; the kernels are built with
    -fmad=false, so the multigrid's float arithmetic rounds as the twin's
@@ -17,7 +17,9 @@
    kernels run at the 8K frame's (a 3802x2802 full-mask patch into a
    7680x4320 destination: interior 2798x3798, 10.6 MP): the fine level
    (3, 2816, 3840) and the first transposed coarse level (3, 1920, 1408,
-   betas 1.5, known-zero guess). Times kernel, twin and, where one PyTorch
+   betas 1.5, known-zero guess); the quarter-plane kernels at its quarter
+   planes (3, 4, 1408, 1920) and transposed coarse RHS (3, 1920, 1408).
+   Times kernel, twin and, where one PyTorch
    call computes the same function, that call (``library_ms``; the port
    never calls it), each launch cold in L2; and one GEMM of each chain.
 3. Drives each path through the entry points with the launch counters set
@@ -46,6 +48,14 @@
      headline (3 fused levels), with the card against the CPU;
    - the serve times of the pair chain and of the ``"t"`` multigrid at the
      headline and at 8K, the first H100 data on the auto crossover;
+   - ``mg_q``: ``CloneConfig()`` at 8K, where ``auto`` resolves to the
+     default quarter-plane multigrid (3 fused coarse levels): tolerance
+     mode, the single run's cycles (its mg_ud_q launches) equal to those of
+     ``solve_multigrid`` on the same quartered RHS, whose dense relative
+     residual must be <= tol; ``mg_q_fixed`` the same with ``mg_cycles=4``;
+     profiles of both; ``mg_q_headline``: ``solver="multigrid"`` at the
+     headline with the card against the CPU, its profile, and the host's
+     issue time of a 4-cycle solve against the card's time for it;
    then ``seamless_clone`` on a small irregular mask in all three modes.
 
 Prints the kernel table as one JSON line (one entry per kernel; the
@@ -62,6 +72,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 SEED = 0
@@ -79,7 +90,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak HBM3 bandwidth
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 KERNELS = ("erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste", "fold_minor",
            "unfold_minor", "transpose_pair", "unfold_transpose", "unfold_clamp_paste",
-           "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t")
+           "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t",
+           "preprocess_rhs_q", "mg_down_q", "mg_up_q", "mg_ud_q", "mg_prolong_tq",
+           "clamp_cast_paste_q")
 MG_KERNELS = ("mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t")
 
 
@@ -89,6 +102,13 @@ def _per_frame(**counts):
 
 def _mg_per_frame(levels: int, cycles: int):
     return _per_frame(erode3=1, preprocess_rhs_p=1, clamp_cast_paste=1,
+                      **{k: levels * cycles for k in MG_KERNELS})
+
+
+def _mg_q_per_frame(levels: int, cycles: int):
+    """The quarter-plane chain, fixed mode: ``levels`` fused coarse levels."""
+    return _per_frame(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1, mg_down_q=1,
+                      mg_ud_q=cycles - 1, mg_up_q=1, mg_prolong_tq=cycles,
                       **{k: levels * cycles for k in MG_KERNELS})
 
 
@@ -103,13 +123,23 @@ PATHS = {
     "mg_t": None,
     "mg_t_fixed": _mg_per_frame(4, 4),
     "mg_t_headline": None,
+    # the quarter-plane chain (the default mg_padded="q"): its finest level
+    # in quarter planes, 3 fused "t" coarse levels at 8K, 2 at the headline
+    "mg_q": None,
+    "mg_q_fixed": _mg_q_per_frame(3, 4),
+    "mg_q_headline": None,
 }
-MG_LEVELS = {"mg_t": 4, "mg_t_headline": 3}
+MG_Q_PATHS = ("mg_q", "mg_q_fixed", "mg_q_headline")
+# fused levels of the "t" chain; fused coarse levels below the quarter level
+MG_LEVELS = {"mg_t": 4, "mg_t_headline": 3, "mg_q": 3, "mg_q_headline": 2}
 # the path whose serve run gives each kernel's "launches"
 HOME_PATH = {"transpose": "unfolded", "clamp_cast_paste": "unfolded",
              "unfold_minor": "per_axis", "preprocess_rhs_p": "mg_t", "mg_down": "mg_t",
-             "mg_up": "mg_t", "mg_restrict_t": "mg_t", "mg_prolong_t": "mg_t"}
+             "mg_up": "mg_t", "mg_restrict_t": "mg_t", "mg_prolong_t": "mg_t",
+             "preprocess_rhs_q": "mg_q", "mg_down_q": "mg_q", "mg_ud_q": "mg_q",
+             "mg_up_q": "mg_q_fixed", "mg_prolong_tq": "mg_q", "clamp_cast_paste_q": "mg_q"}
 _PK = "seamlesscloneoptimization_tpu/ops/pallas_kernels.py"
+_MQ = "seamlesscloneoptimization_tpu/ops/pallas_mg_quarter.py"
 REPLACES = {
     "erode3": [f"{_PK}:1164"],
     "preprocess_rhs_t": [f"{_PK}:1288"],
@@ -127,9 +157,17 @@ REPLACES = {
     "mg_up": [f"{_PK}:805"],
     "mg_restrict_t": [f"{_PK}:933"],
     "mg_prolong_t": [f"{_PK}:986"],
+    "preprocess_rhs_q": [f"{_PK}:1434"],
+    "mg_down_q": [f"{_MQ}:414"],
+    "mg_up_q": [f"{_MQ}:675"],
+    "mg_ud_q": [f"{_MQ}:784"],
+    "mg_prolong_tq": [f"{_MQ}:561"],
+    "clamp_cast_paste_q": [f"{_PK}:1695", f"{_PK}:1785"],
+    "clamp_cast_paste_q_interleaved": [f"{_PK}:1695", f"{_MQ}:158", f"{_PK}:1614"],
 }
 SOURCE = {"clamp_cast_paste_interleaved": "clamp_cast_paste",
-          "unfold_clamp_paste_interleaved": "unfold_clamp_paste"}
+          "unfold_clamp_paste_interleaved": "unfold_clamp_paste",
+          "clamp_cast_paste_q_interleaved": "clamp_cast_paste_q"}
 
 
 def synthetic_image(rng, hw, cell=48):
@@ -145,7 +183,8 @@ def synthetic_image(rng, hw, cell=48):
 
 def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
     if PATHS[path] is None:
-        check_mg_counts(path, what, launches, frames)
+        check = check_mg_q_counts if path in MG_Q_PATHS else check_mg_counts
+        check(path, what, launches, frames)
         return
     for name, per in PATHS[path].items():
         if launches[name] != per * frames:
@@ -166,6 +205,21 @@ def check_mg_counts(path: str, what: str, launches: dict, frames: int) -> int:
         raise AssertionError(f"{path} {what}: launches {launches}, expected V-cycle kernels "
                              f"equal, a multiple of {levels} levels, and {frames} frames")
     return n // levels
+
+
+def check_mg_q_counts(path: str, what: str, launches: dict, frames: int) -> int:
+    """Tolerance-mode quarter-plane counts: erode3, preprocess_rhs_q,
+    mg_down_q and clamp_cast_paste_q once a frame, one mg_ud_q and one
+    mg_prolong_tq per cycle, each coarse-level kernel once per cycle and
+    fused coarse level, no mg_up_q, nothing else. Returns the cycles run."""
+    levels = MG_LEVELS[path]
+    n = launches["mg_ud_q"]
+    want = _per_frame(erode3=frames, preprocess_rhs_q=frames, clamp_cast_paste_q=frames,
+                      mg_down_q=frames, mg_ud_q=n, mg_prolong_tq=n,
+                      **{k: n * levels for k in MG_KERNELS})
+    if launches != want or n < frames:
+        raise AssertionError(f"{path} {what}: launches {launches}, expected {want}")
+    return n
 
 
 def check_outside(out, dst, interior) -> None:
@@ -223,7 +277,7 @@ def profile_frames(label, clone_pipeline, kwargs, frames: int = 5) -> int:
     ours = ("erode3", "preprocess_rhs_t", "transpose_kernel", "clamp_cast_paste",
             "fold_minor", "unfold_minor", "transpose_pair", "unfold_transpose",
             "unfold_clamp_paste", "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t",
-            "mg_prolong_t")
+            "mg_prolong_t", "preprocess_rhs_q", "level_q_kernel")
     groups = {"gemm": 0.0, "port kernels": 0.0, "other": 0.0}
     gemm_calls = 0
     for k, t in per_kernel.items():
@@ -397,7 +451,7 @@ def main() -> int:
     K.clamp_cast_paste(u, d_k, top + 1, left + 1, h2, w2)
     K.clamp_cast_paste_plain(u, d_p, top + 1, left + 1, h2, w2)
     require_equal("clamp_cast_paste (planar)", d_k, d_p)
-    i_k = torch.from_numpy(dst).to(dev)
+    i_k = torch.from_numpy(dst.copy()).to(dev)
     i_p = i_k.clone()
     K.clamp_cast_paste(u, i_k.permute(2, 0, 1), top + 1, left + 1, h2, w2)
     K.clamp_cast_paste_plain(u, i_p.permute(2, 0, 1), top + 1, left + 1, h2, w2)
@@ -445,7 +499,7 @@ def main() -> int:
     K.unfold_clamp_paste(e_w, o_w, d_k, top + 1, left + 1, h2, w2)
     K.unfold_clamp_paste_plain(e_w, o_w, d_p, top + 1, left + 1, h2, w2)
     require_equal("unfold_clamp_paste (planar)", d_k, d_p)
-    i_k = torch.from_numpy(dst).to(dev)
+    i_k = torch.from_numpy(dst.copy()).to(dev)
     i_p = i_k.clone()
     K.unfold_clamp_paste(e_w, o_w, i_k.permute(2, 0, 1), top + 1, left + 1, h2, w2)
     K.unfold_clamp_paste_plain(e_w, o_w, i_p.permute(2, 0, 1), top + 1, left + 1, h2, w2)
@@ -589,7 +643,89 @@ def main() -> int:
         shape=f"({c},{cgeom8[1]},{cgeom8[2]}) -> ({c},{hp28},{wp8})",
         coarse_ms=time_ms(lambda: K.mg_prolong_t(rc1, hc8, bh1, cgeom8[3], cgeom8[2])),
         coarse_shape=lvl)
-    del (u8, rh8, rc8, e8, rc1, u1c, rh1c, e1c, gray8, flush)
+    del u8, rh8, rc8, e8, rc1, u1c, rh1c, e1c
+
+    # -- 2d. the quarter-plane kernels, at the 8K frame's quarter planes -------
+    _, hq8, wq28, hp2q8 = K.mg_geometry_q(h8, w8)
+    chp8 = K.mg_geometry_t(wc8, hc8, wp_min=hp2q8)[1]
+    qhw8 = (2 * hq8, 2 * wq28)
+    for flags, rule, p_in in ((1, "opencv", patch8), (2, "opencv", patch8),
+                              (2, "norm", patch8), (1, "opencv", gray8)):
+        require_equal(f"preprocess_rhs_q flags={flags} {rule}",
+                      K.preprocess_rhs_q(dest8, p_in, me8, qhw8, flags, rule),
+                      K.preprocess_rhs_q_plain(dest8, p_in, me8, qhw8, flags, rule))
+    gq8 = K.preprocess_rhs_q(dest8, patch8, me8, qhw8)
+    qplanes, qhalf, rct = c * 4 * hq8 * wq28, c * hq8 * wq28, c * chp8 * hq8
+    qshape = f"({c},4,{hq8},{wq28})"
+    print(f"8K quarter level: planes {qshape}, coarse RHS ({c},{chp8},{hq8}) transposed")
+    row("preprocess_rhs_q", 2 * c * bh8 * bw8 + bh8 * bw8 + 4 * qplanes, 30 * c * bh8 * bw8,
+        time_ms(lambda: K.preprocess_rhs_q(dest8, patch8, me8, qhw8)),
+        time_ms(lambda: K.preprocess_rhs_q_plain(dest8, patch8, me8, qhw8)),
+        shape=f"u8 ({c},{bh8},{bw8}) -> {qshape}")
+    uq0, rcq0 = K.mg_down_q(None, gq8, 1, h8, w8, chp8)
+    for got, want, what in zip((uq0, rcq0), K.mg_down_q_plain(None, gq8, 1, h8, w8, chp8),
+                               ("u", "rc_t")):
+        require_equal(f"mg_down_q 8K (known-zero guess) {what}", got, want)
+    for got, want, what in zip(K.mg_down_q(uq0, gq8, 1, h8, w8, chp8),
+                               K.mg_down_q_plain(uq0, gq8, 1, h8, w8, chp8), ("u", "rc_t")):
+        require_equal(f"mg_down_q 8K {what}", got, want)
+    # the coarse RHS stands in for a coarse solution: same shape, same zeros
+    e_q = K.mg_prolong_tq(rcq0, w8, hp2q8, wq28)
+    for got, want, what in zip(e_q, K.mg_prolong_tq_plain(rcq0, w8, hp2q8, wq28),
+                               ("even", "odd")):
+        require_equal(f"mg_prolong_tq 8K {what}", got, want)
+    require_equal("mg_up_q 8K", K.mg_up_q(uq0, gq8, *e_q, 2, h8, w8),
+                  K.mg_up_q_plain(uq0, gq8, *e_q, 2, h8, w8))
+    for wr in (False, True):
+        for got, want, what in zip(K.mg_ud_q(uq0, gq8, *e_q, 2, 1, h8, w8, chp8, wr),
+                                   K.mg_ud_q_plain(uq0, gq8, *e_q, 2, 1, h8, w8, chp8, wr),
+                                   ("u", "rc_t", "rmax")):
+            require_equal(f"mg_ud_q 8K {what}" + (" (with_residual)" if wr else ""), got,
+                          want)
+    uq_paste = uq0 * 40.0 + 100.0  # values across [0, 255] and beyond
+    d_k, d_p = dst8_p.clone(), dst8_p.clone()
+    K.clamp_cast_paste_q(uq_paste, d_k, top8 + 1, left8 + 1, h8, w8)
+    K.clamp_cast_paste_q_plain(uq_paste, d_p, top8 + 1, left8 + 1, h8, w8)
+    require_equal("clamp_cast_paste_q (planar)", d_k, d_p)
+    i_k = torch.from_numpy(dst8.copy()).to(dev)
+    i_p = i_k.clone()
+    K.clamp_cast_paste_q(uq_paste, i_k.permute(2, 0, 1), top8 + 1, left8 + 1, h8, w8)
+    K.clamp_cast_paste_q_plain(uq_paste, i_p.permute(2, 0, 1), top8 + 1, left8 + 1, h8, w8)
+    require_equal("clamp_cast_paste_q_interleaved", i_k, i_p)
+    pts8 = c * h8 * w8
+    row("mg_down_q", 4 * (3 * qplanes + rct), 11 * pts8,
+        time_ms(lambda: K.mg_down_q(uq0, gq8, 1, h8, w8, chp8)),
+        time_ms(lambda: K.mg_down_q_plain(uq0, gq8, 1, h8, w8, chp8)),
+        shape=f"u, g {qshape}, nu1=1 -> u, rc_t ({c},{chp8},{hq8})",
+        zero_guess_ms=time_ms(lambda: K.mg_down_q(None, gq8, 1, h8, w8, chp8)),
+        zero_guess_bound_ms=bound(4 * (2 * qplanes + rct), 11 * pts8)[0])
+    row("mg_up_q", 4 * (3 * qplanes + 2 * qhalf), 14 * pts8,
+        time_ms(lambda: K.mg_up_q(uq0, gq8, *e_q, 2, h8, w8)),
+        time_ms(lambda: K.mg_up_q_plain(uq0, gq8, *e_q, 2, h8, w8)),
+        shape=f"u, g {qshape} + e_even, e_odd ({c},{hq8},{wq28}), nu2=2 -> u")
+    row("mg_ud_q", 4 * (3 * qplanes + 2 * qhalf + rct), 25 * pts8,
+        time_ms(lambda: K.mg_ud_q(uq0, gq8, *e_q, 2, 1, h8, w8, chp8)),
+        time_ms(lambda: K.mg_ud_q_plain(uq0, gq8, *e_q, 2, 1, h8, w8, chp8)),
+        shape=f"u, g {qshape} + e_even, e_odd, nu2=2, nu1=1 -> u, rc_t ({c},{chp8},{hq8})",
+        with_residual_ms=time_ms(lambda: K.mg_ud_q(uq0, gq8, *e_q, 2, 1, h8, w8, chp8, True)),
+        with_residual_plain_ms=time_ms(
+            lambda: K.mg_ud_q_plain(uq0, gq8, *e_q, 2, 1, h8, w8, chp8, True)))
+    row("mg_prolong_tq", 4 * (rct + 2 * qhalf), 2 * qhalf,
+        time_ms(lambda: K.mg_prolong_tq(rcq0, w8, hp2q8, wq28)),
+        time_ms(lambda: K.mg_prolong_tq_plain(rcq0, w8, hp2q8, wq28)),
+        shape=f"({c},{chp8},{hq8}) -> 2x ({c},{hq8},{wq28})")
+    row("clamp_cast_paste_q", 5 * pts8, 2 * pts8,
+        time_ms(lambda: K.clamp_cast_paste_q(uq_paste, d_k, top8 + 1, left8 + 1, h8, w8)),
+        time_ms(lambda: K.clamp_cast_paste_q_plain(uq_paste, d_p, top8 + 1, left8 + 1, h8,
+                                                   w8)),
+        shape=f"{qshape} -> u8 ({c},{h8},{w8}) planar")
+    row("clamp_cast_paste_q_interleaved", 5 * pts8, 2 * pts8,
+        time_ms(lambda: K.clamp_cast_paste_q(uq_paste, i_k.permute(2, 0, 1), top8 + 1,
+                                             left8 + 1, h8, w8)),
+        time_ms(lambda: K.clamp_cast_paste_q_plain(uq_paste, i_p.permute(2, 0, 1), top8 + 1,
+                                                   left8 + 1, h8, w8)),
+        shape=f"{qshape} -> u8 ({c},{h8},{w8}) interleaved")
+    del uq0, rcq0, e_q, uq_paste, d_k, d_p, i_k, i_p, gray8, flush
 
     # -- 3. every path through the entry points ---------------------------------
     path_launches = {}
@@ -738,6 +874,100 @@ def main() -> int:
           f"({head_cycles / (MG_LOOPS + 1):g} cycles a frame); {h8 * w8 / 1e6:.1f} MP "
           f"{dst8_ms:.4f} vs {mg8_ms:.4f}")
 
+    # -- the quarter-plane multigrid (the default): 8K through auto, then the
+    #    headline ---------------------------------------------------------------
+    def coarse_levels(h, w):
+        n, (lh, lw) = 0, ((w - 1) // 2, (h - 1) // 2)  # the first coarse level, transposed
+        while TM._fused_level(lh, lw, 1, 2, True, TM.FUSE_MIN_T):
+            n, (lh, lw) = n + 1, ((lw - 1) // 2, (lh - 1) // 2)
+        return n
+
+    for path, (lh, lw) in (("mg_q", (h8, w8)), ("mg_q_headline", (h2, w2))):
+        if not TM.quarter_path_applies(lh, lw) or coarse_levels(lh, lw) != MG_LEVELS[path]:
+            raise AssertionError(f"{path}: {lh}x{lw} is not a quarter-plane grid with "
+                                 f"{MG_LEVELS[path]} fused coarse levels")
+    eng8, q8_ms = drive("mg_q", CloneConfig(), src8, mask8, MG_LOOPS, "8K", d_img=dst8,
+                        cpu=None, solver="multigrid")
+    q_run_cycles = check_mg_q_counts("mg_q", "single-shot run (8K)", path_launches["mg_q"][1],
+                                     1)
+    q_serve_cycles = path_launches["mg_q"][0]["mg_ud_q"]
+    # the single run's RHS through the solver: its cycles are its mg_ud_q
+    # launches; the residual of the card's solution, dense, in float64
+    gq8 = K.preprocess_rhs_q(dest8, patch8, me8, qhw8)
+    K.reset_launches()
+    uq8 = TM.solve_multigrid(gq8, true_hw=(h8, w8), padded="q", use_pallas=True, tol=TOL,
+                             padded_output="quarters")
+    torch.cuda.synchronize()
+    solve_cycles = K.LAUNCHES["mg_ud_q"]
+    u8d = K.from_quarters(uq8)[:, :h8, :w8].double()
+    g8d = K.from_quarters(gq8)[:, :h8, :w8].double()
+    up8 = torch.nn.functional.pad(u8d, (1, 1, 1, 1))
+    lap8 = (up8[:, :-2, 1:-1] + up8[:, 2:, 1:-1] + up8[:, 1:-1, :-2] + up8[:, 1:-1, 2:]
+            - 4 * up8[:, 1:-1, 1:-1])
+    q_rel = ((lap8 - g8d).abs().max() / g8d.abs().max()).item()
+    print(f"8K quarter-plane tolerance mode: single run {q_run_cycles} cycles (mg_ud_q "
+          f"launches), the solve of its RHS {solve_cycles}, relative residual {q_rel:.3e} "
+          f"(tol {TOL}); serve {q_serve_cycles} cycles over {MG_LOOPS + 1} frames")
+    if solve_cycles != q_run_cycles or not q_rel <= TOL or not torch.isfinite(uq8).all():
+        raise AssertionError(f"8K quarter-plane multigrid: {q_run_cycles} cycles run, "
+                             f"{solve_cycles} in the solve, residual {q_rel}")
+    del uq8, u8d, g8d, up8, lap8, eng8
+    _, q8_fixed_ms = drive("mg_q_fixed", CloneConfig(mg_cycles=4), src8, mask8, MG_LOOPS,
+                           "8K, mg_cycles=4", d_img=dst8, cpu=None, solver="multigrid")
+    print(f"8K serve ({card}), quarter-plane multigrid: tolerance mode {q8_ms:.4f} ms/frame "
+          f"({q_serve_cycles / (MG_LOOPS + 1):g} cycles a frame), mg_cycles=4 "
+          f"{q8_fixed_ms:.4f} ms/frame; the 't' chain {mg8_ms:.4f} and {mg8_fixed_ms:.4f}")
+    for label, cyc in (("mg_q 8K tolerance", None), ("mg_q 8K mg_cycles=4", 4)):
+        kw = CloneConfig(solver="multigrid", mg_cycles=cyc).solver_kwargs()
+        profile_frames(label, clone_pipeline, dict(
+            src=torch.from_numpy(src8).to(dev), dst=dst8_p.clone(),
+            mask=torch.from_numpy(m8).to(dev), bbox_xy=(x8, y8), left_top=(left8, top8),
+            bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver=TM.solve_multigrid,
+            bases={}, solver_name="multigrid", solver_kwargs=kw), frames=3)
+    _, q_head_ms = drive("mg_q_headline", CloneConfig(solver="multigrid"), src, mask,
+                         MG_LOOPS, f"{SRC_HW[1]}x{SRC_HW[0]}", cpu="run", solver="multigrid")
+    q_head_cycles = path_launches["mg_q_headline"][0]["mg_ud_q"]
+    # The host's issue time of a 4-cycle quarter solve at the headline against
+    # the card's time for it: a spin kernel holds the card while the host
+    # queues the solve, so the events time the device work alone.
+    _, hqh, wq2h, _ = K.mg_geometry_q(h2, w2)
+    gqh = K.preprocess_rhs_q(dest_roi, patch, K.erode3(m01), (2 * hqh, 2 * wq2h))
+    eig_h: dict = {}
+
+    def solve4():
+        return TM.solve_multigrid(gqh, true_hw=(h2, w2), padded="q", use_pallas=True,
+                                  cycles=4, padded_output="quarters", eig_cache=eig_h)
+
+    solve4()
+    issue, device_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)  # ~50 ms of spinning at the card's clock
+        t0 = time.perf_counter()
+        s.record()
+        solve4()
+        e.record()
+        issue.append((time.perf_counter() - t0) * 1e3)
+        e.synchronize()
+        device_ms.append(s.elapsed_time(e))
+    print(f"host issue vs device, 4-cycle quarter solve at the headline ({card}): host "
+          f"{min(issue):.4f}-{max(issue):.4f} ms, device {min(device_ms):.4f}-"
+          f"{max(device_ms):.4f} ms")
+    if max(issue) > 40.0:
+        raise AssertionError("the host issue outlasted the spin: the device time is not "
+                             "the solve's alone")
+    del gqh, eig_h
+    profile_frames("mg_q headline tolerance", clone_pipeline, dict(
+        src=torch.from_numpy(src).to(dev), dst=dst_p.clone(), mask=torch.from_numpy(m).to(dev),
+        bbox_xy=(x0, y0), left_top=(left, top), bbox_hw=(bh, bw), flags=1, planar_dst=True,
+        solver=TM.solve_multigrid, bases={}, solver_name="multigrid",
+        solver_kwargs=CloneConfig(solver="multigrid").solver_kwargs()), frames=3)
+    print(f"crossover data ({card}), serve ms/frame, dst_gemm pair chain vs multigrid "
+          f"mg_padded='q' tol {TOL}: {h2 * w2 / 1e6:.1f} MP {pair_ms:.4f} vs {q_head_ms:.4f} "
+          f"({q_head_cycles / (MG_LOOPS + 1):g} cycles a frame); {h8 * w8 / 1e6:.1f} MP "
+          f"{dst8_ms:.4f} vs {q8_ms:.4f}")
+
     s_src = synthetic_image(rng, (194, 300))
     s_dst = synthetic_image(rng, (449, 800))
     yy, xx = np.mgrid[:194, :300]
@@ -763,6 +993,9 @@ def main() -> int:
     rows["unfold_clamp_paste_interleaved"]["launches"] = path_launches["pair"][1][
         "unfold_clamp_paste"]
     rows["unfold_clamp_paste_interleaved"]["path"] = "pair single-shot run"
+    rows["clamp_cast_paste_q_interleaved"]["launches"] = path_launches["mg_q"][1][
+        "clamp_cast_paste_q"]
+    rows["clamp_cast_paste_q_interleaved"]["path"] = "mg_q single-shot run"
     for name, r in rows.items():
         if not r["launches"]:
             raise AssertionError(f"{name} was launched no time on its path")

@@ -10,7 +10,7 @@ unless the caller passes ``device="cpu"``, which runs the plain PyTorch
 twins of the kernels; without a card and without ``device="cpu"`` they
 raise rather than quietly fall back.
 
-What runs (ROADMAP slices 1 to 3), through ``SeamlessClone.run`` /
+What runs (ROADMAP slices 1 to 3b), through ``SeamlessClone.run`` /
 ``timed_serve`` and ``seamless_clone``, in the NORMAL, MIXED and
 MONOCHROME modes:
 
@@ -19,12 +19,13 @@ MONOCHROME modes:
   chain where both interior sides exceed 128 px, folds the one side that
   does otherwise, and runs the unfolded chain on small patches or with
   ``dst_folded=False``.
-- ``CloneConfig(mg_padded="t")`` above the crossover, and
-  ``CloneConfig(solver="multigrid", mg_padded="t")`` at any size: the
-  transpose-fused multigrid (``vcycle_t``) in tolerance or fixed-cycle
-  mode; small interiors run its plain element path. The default
-  ``mg_padded="q"`` (the quarter-plane finest level) raises there until
-  ROADMAP slice 3b.
+- ``CloneConfig()`` above the crossover, and ``CloneConfig(solver=
+  "multigrid")`` at any size: the multigrid with its finest level in
+  quarter planes (``mg_padded="q"``, the default) and transpose-fused
+  coarse levels, in tolerance or fixed-cycle mode; ``mg_padded="t"`` runs
+  the transpose-fused V-cycle on every level. Small interiors run the
+  plain element path. The dense modes ``mg_padded`` True / False raise
+  until ROADMAP slice 4.
 """
 
 from __future__ import annotations

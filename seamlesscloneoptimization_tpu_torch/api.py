@@ -5,8 +5,9 @@ mask, center, flags)`` is a drop-in for ``cv2.seamlessClone`` (returns u8
 HWC). A small LRU of engines keeps the device-resident DST bases across
 calls (ref lazy instance creation, SeamlessClone.cpp:108-118). Each engine
 has the default ``CloneConfig`` (``dst_folded=True``), so a patch whose
-interior exceeds 128 px on both sides runs the folded pair chain. The batch
-and edit functions come with later ROADMAP slices.
+interior exceeds 128 px on both sides runs the folded pair chain, and one
+above the 7 MP crossover the quarter-plane multigrid (``mg_padded="q"``).
+The batch and edit functions come with later ROADMAP slices.
 """
 
 from __future__ import annotations

@@ -5,16 +5,17 @@ so a configuration carries across with ``config_from_jax``. This system has
 no weights: the only other carried state is the DST basis, which the port
 rebuilds bit-equal on the host (``solvers/dst_gemm.py``).
 
-What the port runs of it (ROADMAP slices 1 to 3): ``solver`` "auto",
+What the port runs of it (ROADMAP slices 1 to 3b): ``solver`` "auto",
 "dst_gemm" or "multigrid", every ``flags`` mode and ``mixed_rule``,
 ``precision`` "high"/"highest" (both FP32 on the card, TF32 off),
 ``dst_folded``, ``donate_dst``, and for multigrid ``tol``, ``max_cycles``,
-``mg_cycles``, ``use_pallas_smoother`` and ``mg_padded="t"``.
+``mg_cycles``, ``use_pallas_smoother`` and ``mg_padded`` "q" (the default,
+the quarter-plane finest level) or "t".
 ``dst_folded=True`` folds each axis where the JAX package does
 (``solvers/dst_gemm.py:fold_pays``, every side above 128 px): the folded
 pair chain when both sides fold, the per-axis branch when one does. "auto"
 picks multigrid above the crossover, as in the JAX package; there, and for
-``solver="multigrid"``, ``mg_padded`` other than "t" raises
+``solver="multigrid"``, ``mg_padded`` True / False raises
 NotImplementedError naming its ROADMAP slice, as does what a later slice
 brings (``solvers/__init__.py``, ``core/engine.py``).
 """
@@ -48,10 +49,11 @@ class CloneConfig:
     max_cycles: int = 60  # multigrid V-cycle cap
     mg_cycles: int | None = None  # fixed-work multigrid cycles
     # For multigrid these two select the chain, as in the JAX package:
-    # use_pallas_smoother=True and mg_padded="t" run the transpose-fused
-    # V-cycle kernels on grids of at least 2^18 points (smaller grids, or
-    # use_pallas_smoother=False, run the plain element path); "q" (the
-    # default), True and False raise there until their ROADMAP slice.
+    # use_pallas_smoother=True with mg_padded="q" (the quarter-plane finest
+    # level) or "t" (the transpose-fused V-cycle) runs the fused kernels on
+    # grids of at least 2^18 points (smaller grids, or
+    # use_pallas_smoother=False, run the plain element path); True and
+    # False raise there until their ROADMAP slice.
     use_pallas_smoother: bool = True
     mg_padded: bool | str = "q"
     # These two and compilation_cache_dir only mean something on a TPU. They

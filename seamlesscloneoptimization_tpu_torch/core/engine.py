@@ -18,8 +18,8 @@ seamlessClone-CUDA/seamlessClone_imp.cu:239-370):
   of them; it caches the coarsest level's eigenbasis per geometry instead
   (``solvers/multigrid.py:coarse_solve``).
 - ``solver="auto"`` resolves per geometry: dst_gemm up to the crossover,
-  multigrid above it (``mg_padded="t"``; the default ``"q"`` raises there
-  until ROADMAP slice 3b).
+  multigrid above it (the default ``mg_padded="q"``, or ``"t"``; the dense
+  modes True / False raise there until ROADMAP slice 4).
 
 Not ported here (TPU-only or a later slice; see ROADMAP): the layout pin
 and self-heal, the sync-overhead subtraction, ``profile`` and
@@ -123,7 +123,7 @@ def prepare_inputs(mask: np.ndarray, src_shape, dst_shape, center, bucket: int =
 def _effective_solver(solver: str, bbox_hw, planar_dst: bool, mg_padded) -> str:
     """Resolve "auto" for one geometry: dst_gemm up to the crossover (the
     serve crossover for the planar serve loop), multigrid above it — which
-    raises NotImplementedError unless ``mg_padded == "t"``."""
+    raises NotImplementedError for the dense ``mg_padded`` True / False."""
     if solver != "auto":
         return solver
     crossover = SERVE_CROSSOVER_PIXELS if planar_dst else AUTO_CROSSOVER_PIXELS
@@ -155,7 +155,7 @@ class SeamlessClone:
         cfg = self.config
         if cfg.solver != "auto":  # "auto" is resolved per geometry at run time
             get_solver(cfg.solver)  # NotImplementedError / ValueError if unknown
-        if cfg.mg_padded not in ("t", *MG_PADDED_NOT_PORTED):
+        if cfg.mg_padded not in ("q", "t", *MG_PADDED_NOT_PORTED):
             raise ValueError(f"unknown mg_padded {cfg.mg_padded!r}")
         if cfg.solver == "multigrid" and cfg.mg_padded in MG_PADDED_NOT_PORTED:
             raise mg_padded_not_ported(cfg.mg_padded)

@@ -22,16 +22,26 @@ and otherwise
 where an axis that folds (``folded and fold_pays(n)``) runs fold_minor ->
 2 half-GEMMs for its forward GEMM and 2 half-GEMMs -> unfold_minor for its
 inverse. With ``solver_name="multigrid"`` (the multigrid serve tail, ref
-``pipeline.py:152-237``, ``"t"`` branch) a frame is
+``pipeline.py:152-237``) and ``mg_padded="q"`` (the default) on a grid the
+quarter-plane chain takes (``quarter_path_applies``), a frame is
+
+    erode3 -> preprocess_rhs_q -> mg_down_q -> [coarse -> mg_ud_q] x k
+    -> coarse (-> mg_up_q in fixed mode) -> clamp_cast_paste_q
+
+with the RHS born as the finest level's four quarter planes and "coarse"
+the transposed ``vcycle_t`` levels, then mg_prolong_tq. With
+``mg_padded="t"`` on a grid the ``"t"`` chain takes (``t_chain_applies``)
+it is
 
     erode3 -> preprocess_rhs_p -> solve_multigrid(padded_output=True)
     -> clamp_cast_paste
 
-where, on a grid the ``"t"`` chain takes (``t_chain_applies``), the RHS is
-born in the level geometry's (hp, wp) slab and each V-cycle level runs
-mg_down -> mg_restrict_t -> (coarser level) -> mg_prolong_t -> mg_up.
-Either way the interior is written in place into the destination at
-(top+1, left+1), planar or interleaved, by one strided kernel.
+with the RHS born in the level geometry's (hp, wp) slab and each V-cycle
+level mg_down -> mg_restrict_t -> (coarser level) -> mg_prolong_t ->
+mg_up; smaller grids take the same tail on the exact-size RHS and the
+element path. Either way the interior is written in place into the
+destination at (top+1, left+1), planar or interleaved, by one strided
+kernel.
 On CPU tensors each kernel wrapper runs its plain twin. Everything runs on
 the current stream, in order: the next chained frame's preprocess reads the
 ROI this frame's paste wrote.
@@ -50,9 +60,12 @@ from seamlesscloneoptimization_tpu_torch.ops.guidance import (
 )
 from seamlesscloneoptimization_tpu_torch.ops.kernels import (
     clamp_cast_paste,
+    clamp_cast_paste_q,
     erode3,
+    mg_geometry_q,
     mg_geometry_t,
     preprocess_rhs_p,
+    preprocess_rhs_q,
     preprocess_rhs_t,
     unfold_clamp_paste,
 )
@@ -63,7 +76,10 @@ from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
     pair_chain_applies,
     solve_dst_gemm_pl,
 )
-from seamlesscloneoptimization_tpu_torch.solvers.multigrid import t_chain_applies
+from seamlesscloneoptimization_tpu_torch.solvers.multigrid import (
+    quarter_path_applies,
+    t_chain_applies,
+)
 
 
 def clone_roi(
@@ -115,8 +131,18 @@ def clone_roi(
             out, out_offset = dest_roi_u8.clone(), (1, 1)
         if solver_name == "multigrid":
             kw = dict(solver_kwargs)
-            if kw.get("padded") == "t" and t_chain_applies(
-                    h2, w2, use_pallas=kw.get("use_pallas", False)):
+            use_pallas = kw.get("use_pallas", False)
+            if kw.get("padded") == "q" and quarter_path_applies(h2, w2,
+                                                                use_pallas=use_pallas):
+                # the RHS is born as quarter planes, the solve stays in them
+                # and the paste interleaves them: no conversion pass
+                _, hq, wq2, _ = mg_geometry_q(h2, w2)
+                g = preprocess_rhs_q(dest_roi_u8, patch_in, me, (2 * hq, 2 * wq2), kflags,
+                                     mixed_rule)
+                uq = solver(g, padded_output="quarters", true_hw=(h2, w2), eig_cache=bases,
+                            **kw)
+                return clamp_cast_paste_q(uq, out, out_offset[0], out_offset[1], h2, w2)
+            if kw.get("padded") == "t" and t_chain_applies(h2, w2, use_pallas=use_pallas):
                 # the RHS is born in the fine level's slab: no pad pass
                 _, hp, wp, _ = mg_geometry_t(h2, w2)
                 g = preprocess_rhs_p(dest_roi_u8, patch_in, me, (hp, wp), kflags,

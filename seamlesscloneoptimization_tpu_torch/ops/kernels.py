@@ -1,8 +1,8 @@
-"""The hand-written CUDA kernels of the DST-GEMM serve path, with their
-plain PyTorch twins and launch counters.
+"""The port's hand-written CUDA kernels, with their plain PyTorch twins and
+launch counters.
 
 The port's counterpart of ``seamlesscloneoptimization_tpu/ops/pallas_kernels.py``
-for ROADMAP slices 1 and 2:
+and ``pallas_mg_quarter.py`` for ROADMAP slices 1 to 3b:
 
 ============================  =============================================
 wrapper                       replaces (pallas_kernels.py)
@@ -23,6 +23,13 @@ wrapper                       replaces (pallas_kernels.py)
 ``mg_up``                     ``mg_up_pallas`` (padded_io form)
 ``mg_restrict_t``             ``mg_restrict_t_pallas``
 ``mg_prolong_t``              ``mg_prolong_t_pallas``
+``preprocess_rhs_q``          ``preprocess_rhs_quarters_pallas``
+``mg_down_q``                 ``mg_down_q_pallas`` (fused-restrict form)
+``mg_up_q``                   ``mg_up_q_pallas``
+``mg_ud_q``                   ``mg_ud_q_pallas`` (fused-restrict form)
+``mg_prolong_tq``             ``mg_prolong_tq_pallas``
+``clamp_cast_paste_q``        ``clamp_cast_guarded_quarters_pallas`` + the
+                              paste
 ============================  =============================================
 
 Each wrapper checks device, dtype, shape and layout, allocates its output
@@ -32,8 +39,9 @@ launch returns a non-zero ``cudaError_t``. Given a CPU tensor it runs its
 raises, never falls back. ``LAUNCHES[name]`` counts kernel launches (the
 twins do not count), so a run can show that it went through the kernels.
 The sources are ``csrc/<name>.cu`` (the three unfold kernels share
-``csrc/fold.cuh``, the two RHS kernels ``csrc/rhs_tile.cuh``, the two
-multigrid level kernels ``csrc/mg_level.cuh``), built by ``ops/_build.py``.
+``csrc/fold.cuh``, the three RHS kernels ``csrc/rhs_tile.cuh``, the two
+dense multigrid level kernels ``csrc/mg_level.cuh``, the three quarter-plane
+ones ``csrc/mg_level_q.cuh``), built by ``ops/_build.py``.
 """
 
 from __future__ import annotations
@@ -51,7 +59,8 @@ LAUNCHES = {"erode3": 0, "preprocess_rhs_t": 0, "transpose": 0,
             "clamp_cast_paste": 0, "fold_minor": 0, "unfold_minor": 0,
             "transpose_pair": 0, "unfold_transpose": 0, "unfold_clamp_paste": 0,
             "preprocess_rhs_p": 0, "mg_down": 0, "mg_up": 0, "mg_restrict_t": 0,
-            "mg_prolong_t": 0}
+            "mg_prolong_t": 0, "preprocess_rhs_q": 0, "mg_down_q": 0, "mg_up_q": 0,
+            "mg_ud_q": 0, "mg_prolong_tq": 0, "clamp_cast_paste_q": 0}
 
 _MIXED_RULES = {"opencv": 0, "norm": 1}
 
@@ -293,13 +302,15 @@ def clamp_cast_paste(u: torch.Tensor, dst: torch.Tensor, top1: int, left1: int,
     return dst
 
 
-def _check_paste(u: torch.Tensor, dst: torch.Tensor, top1, left1, h2, w2):
-    """The paste contract shared by clamp_cast_paste and unfold_clamp_paste:
-    ``dst`` a (C, H, W) u8 view with positive strides, u's channels and rows
-    cover (C, h2), the interior lies inside ``dst``. Returns the ints."""
+def _check_paste(u: torch.Tensor, dst: torch.Tensor, top1, left1, h2, w2,
+                 rows: int | None = None):
+    """The paste contract shared by the paste kernels: ``dst`` a (C, H, W)
+    u8 view with positive strides, u's channels and rows (``rows``, or
+    u.shape[1]) cover (C, h2), the interior lies inside ``dst``. Returns
+    the ints."""
     _require(dst, "dst", torch.uint8, 3, contiguous=False)
     _same_device(u, dst)
-    c, hu = u.shape[:2]
+    c, hu = u.shape[0], u.shape[1] if rows is None else rows
     cd, hd, wd = dst.shape
     top1, left1, h2, w2 = int(top1), int(left1), int(h2), int(w2)
     if cd != c or h2 > hu or h2 < 0 or w2 < 0:
@@ -604,6 +615,13 @@ def _check_level(name: str, x: torch.Tensor, c: int, hp: int, wp: int) -> None:
         raise ValueError(f"{name} {tuple(x.shape)} != {(c, hp, wp)}")
 
 
+def _check_nu(nu: int, lo: int, hi: int, what: str) -> int:
+    nu = int(nu)
+    if not lo <= nu <= hi:
+        raise ValueError(f"{what}={nu} outside [{lo}, {hi}] (the halo's staleness budget)")
+    return nu
+
+
 def _check_hw(h: int, w: int, hp: int, wp: int) -> tuple[int, int]:
     h, w = int(h), int(w)
     if not (3 <= h <= hp and 3 <= w <= wp):
@@ -659,9 +677,7 @@ def mg_down(u: torch.Tensor | None, g: torch.Tensor, nu1: int, h: int, w: int,
         _check_level("u", u, c, hp, wp)
         _same_device(g, u)
     h, w = _check_hw(h, w, hp, wp)
-    nu1 = int(nu1)
-    if not 0 <= nu1 <= 2:
-        raise ValueError(f"nu1={nu1} outside [0, 2] (the halo's staleness budget)")
+    nu1 = _check_nu(nu1, 0, 2, "nu1")
     rh_rows = hp // 2 if rh_rows is None else int(rh_rows)
     if rh_rows < hp // 2:
         raise ValueError(f"rh_rows {rh_rows} < hp // 2 = {hp // 2}")
@@ -713,9 +729,7 @@ def mg_up(u: torch.Tensor, g: torch.Tensor, e_lane: torch.Tensor, nu2: int, h: i
     h, w = _check_hw(h, w, hp, wp)
     if e_lane.shape[0] != c or e_lane.shape[2] != wp or e_lane.shape[1] < hp // 2:
         raise ValueError(f"e_lane {tuple(e_lane.shape)} does not cover {(c, hp // 2, wp)}")
-    nu2 = int(nu2)
-    if not 0 <= nu2 <= 4:
-        raise ValueError(f"nu2={nu2} outside [0, 4] (the halo's staleness budget)")
+    nu2 = _check_nu(nu2, 0, 4, "nu2")
     if u.device.type == "cpu":
         return mg_up_plain(u, g, e_lane, nu2, h, w, bh, bw)
     uniform, cuh, cuw, dh, dw = _level_consts(bh, bw)
@@ -810,3 +824,404 @@ def mg_prolong_t(ec_t: torch.Tensor, w: int, bw: float, out_rows: int,
     _launch("mg_prolong_t", ec_t, ec_t.data_ptr(), out.data_ptr(), c, hp_c, lanes, out_rows,
             wp, w, _f32((1.0 + bw) / gap), _f32(bw / gap))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The quarter-plane finest level: preprocess_rhs_q, mg_down_q, mg_ud_q,
+# mg_up_q, mg_prolong_tq, clamp_cast_paste_q (solvers/multigrid.py's "q"
+# path). A dense (C, 2 hq, 2 wq2) level lives as four quarter planes
+# (C, 4, hq, wq2): plane 2 rp + cp holds dense (2 i + rp, 2 j + cp) at (i, j)
+# (csrc/mg_level_q.cuh).
+# ---------------------------------------------------------------------------
+
+Q_GHOST = 8  # quarter cells of ring the fused level's staleness may use
+
+
+def mg_geometry_q(h: int, w: int) -> tuple[int, int, int, int]:
+    """(th, hq, wq2, hp2) of the quarter-plane finest level of a true (h, w)
+    grid: th = 128 (the TPU strip height, so the fused restriction owns
+    whole 128-lane blocks of the coarse RHS), hq and wq2 = ceil(h/2) and
+    ceil(w/2) rounded up to 128, hp2 = hq (the coarse level's width)."""
+    hq = _round_up((h + 1) // 2, 128)
+    return 128, hq, _round_up((w + 1) // 2, 128), _round_up(hq, 128)
+
+
+def to_quarters(x: torch.Tensor) -> torch.Tensor:
+    """(C, 2 HQ, 2 WQ) dense -> (C, 4, HQ, WQ) quarter planes."""
+    c, hp, wp = x.shape
+    q = x.reshape(c, hp // 2, 2, wp // 2, 2)
+    return q.permute(0, 2, 4, 1, 3).reshape(c, 4, hp // 2, wp // 2)
+
+
+def from_quarters(uq: torch.Tensor) -> torch.Tensor:
+    """(C, 4, HQ, WQ) quarter planes -> (C, 2 HQ, 2 WQ) dense."""
+    c, _, hq, wq = uq.shape
+    return uq.reshape(c, 2, 2, hq, wq).permute(0, 3, 1, 4, 2).reshape(c, 2 * hq, 2 * wq)
+
+
+def preprocess_rhs_q_plain(dest: torch.Tensor, patch: torch.Tensor,
+                           mask_eroded: torch.Tensor, out_hw: tuple[int, int],
+                           flags: int = 1, mixed_rule: str = "opencv") -> torch.Tensor:
+    c, h, w = dest.shape
+    out = torch.zeros((c, *out_hw), dtype=torch.float32, device=dest.device)
+    out[:, : h - 2, : w - 2] = _rhs_plain(dest, patch, mask_eroded, flags, mixed_rule)
+    return to_quarters(out)
+
+
+def preprocess_rhs_q(dest: torch.Tensor, patch: torch.Tensor,
+                     mask_eroded: torch.Tensor, out_hw: tuple[int, int],
+                     flags: int = 1, mixed_rule: str = "opencv") -> torch.Tensor:
+    """Fused guidance + divergence + Dirichlet fold, born as quarter planes.
+
+    Inputs as ``preprocess_rhs_p``; ``out_hw`` = (HPo, WPo), both even, is
+    the dense footprint (2 hq, 2 wq2) of ``mg_geometry_q``. Returns
+    (C, 4, HPo/2, WPo/2) f32: ``to_quarters`` of ``preprocess_rhs_p``'s slab
+    (the interior RHS at each plane's origin, exact zeros elsewhere), which
+    ``solve_multigrid(padded="q", true_hw=(H-2, W-2))`` starts from.
+    """
+    _check_rhs_inputs(dest, patch, mask_eroded, flags, mixed_rule)
+    c, h, w = dest.shape
+    hpo, wpo = int(out_hw[0]), int(out_hw[1])
+    if hpo < h - 2 or wpo < w - 2 or hpo % 2 or wpo % 2:
+        raise ValueError(f"out_hw {out_hw} is odd or smaller than the interior "
+                         f"{(h - 2, w - 2)}")
+    if dest.device.type == "cpu":
+        return preprocess_rhs_q_plain(dest, patch, mask_eroded, (hpo, wpo), flags,
+                                      mixed_rule)
+    out = torch.empty((c, 4, hpo // 2, wpo // 2), dtype=torch.float32, device=dest.device)
+    _launch("preprocess_rhs_q", dest,
+            dest.data_ptr(), *dest.stride(), patch.data_ptr(), *patch.stride(),
+            mask_eroded.data_ptr(), out.data_ptr(), c, h, w, hpo, wpo, flags,
+            _MIXED_RULES[mixed_rule])
+    return out
+
+
+# -- the plain twins of csrc/mg_level_q.cuh --------------------------------------
+
+
+def _q_weights() -> dict:
+    """The finest level's edge weights (beta = 1), each rounded once to f32:
+    the even-h ascent rows (up_a, up_b), the even-h descent row (dn_e,
+    dn_o), the even-w lane restriction column (rc_a, rc_b) and the even-w
+    lane prolongation column (pr_a, pr_b)."""
+    gap = 3.0
+    return dict(up_a=_f32(2.0 * 2.0 / gap), up_b=_f32(2.0 / gap),
+                dn_e=_f32(2.0 / gap * 0.5), dn_o=_f32(1.0 / gap * 0.5),
+                rc_a=_f32(2.0 * 2.0 / gap), rc_b=_f32(2.0 / gap),
+                pr_a=_f32(2.0 / gap), pr_b=_f32(1.0 / gap))
+
+
+def _sh(x: torch.Tensor, di: int, dj: int) -> torch.Tensor:
+    """y[..., i, j] = x[..., i + di, j + dj], 0 beyond the array (|di|, |dj| <= 1)."""
+    hq, wq = x.shape[-2:]
+    return F.pad(x, (1, 1, 1, 1))[..., 1 + di : 1 + di + hq, 1 + dj : 1 + dj + wq]
+
+
+def _q_doms(hq: int, wq: int, h: int, w: int, device) -> list[torch.Tensor]:
+    """The four planes' domain masks, EE, EO, OE, OO."""
+    i = torch.arange(hq, device=device)[:, None]
+    j = torch.arange(wq, device=device)[None, :]
+    return [(2 * i + rp < h) & (2 * j + cp < w) for rp in (0, 1) for cp in (0, 1)]
+
+
+def _q_sweeps(planes, gq, doms, n: int, u_zero: bool = False):
+    """n red-black sweeps on the quarter planes (EE, EO, OE, OO); ``u_zero``:
+    the planes are known zero, so the first red half-sweep is (0 - g) * 0.25."""
+    ee, eo, oe, oo = planes
+    gee, geo, goe, goo = gq
+    dee, deo, doe, doo = doms
+    for s in range(n):
+        if s == 0 and u_zero:
+            ee = torch.where(dee, (0.0 - gee) * 0.25, ee)
+            oo = torch.where(doo, (0.0 - goo) * 0.25, oo)
+        else:
+            ns = ((_sh(oe, -1, 0) + oe) + _sh(eo, 0, -1)) + eo
+            ee = torch.where(dee, (ns - gee) * 0.25, ee)
+            ns = ((eo + _sh(eo, 1, 0)) + oe) + _sh(oe, 0, 1)
+            oo = torch.where(doo, (ns - goo) * 0.25, oo)
+        ns = ((_sh(oo, -1, 0) + oo) + ee) + _sh(ee, 0, 1)
+        eo = torch.where(deo, (ns - geo) * 0.25, eo)
+        ns = ((ee + _sh(ee, 1, 0)) + _sh(oo, 0, -1)) + oo
+        oe = torch.where(doe, (ns - goe) * 0.25, oe)
+    return ee, eo, oe, oo
+
+
+def _q_residual(planes, gq, doms):
+    """The red cells' residual g - (ns - 4 u), 0 outside the domain."""
+    ee, eo, oe, oo = planes
+    ns = ((_sh(oe, -1, 0) + oe) + _sh(eo, 0, -1)) + eo
+    ree = torch.where(doms[0], gq[0] - (ns - 4.0 * ee), 0.0)
+    ns = ((eo + _sh(eo, 1, 0)) + oe) + _sh(oe, 0, 1)
+    roo = torch.where(doms[3], gq[3] - (ns - 4.0 * oo), 0.0)
+    return ree, roo
+
+
+def _q_rct(ree, roo, h: int, w: int, chp: int) -> torch.Tensor:
+    """Row restriction of the red residual (split into the even / odd dense
+    columns rh_e, rh_o) and the transposed x4 lane restriction:
+    (C, chp, hq), zeros for rows >= wc and lanes >= hc."""
+    wt = _q_weights()
+    c, hq, _ = ree.shape
+    hc, wc = (h - 1) // 2, (w - 1) // 2
+    ree_dn, roo_dn = _sh(ree, 1, 0), _sh(roo, 1, 0)
+    if h % 2 == 0:  # coarse row hc-1 takes the beta-gap weights of fine h-2, h-1
+        w_e = torch.full((hq, 1), 0.25, device=ree.device)
+        w_o = torch.zeros((hq, 1), device=ree.device)
+        w_e[hc - 1], w_o[hc - 1] = wt["dn_e"], wt["dn_o"]
+        rh_e = 0.25 * ree + w_e * ree_dn
+        rh_o = 0.5 * roo + w_o * roo_dn
+    else:
+        rh_e = 0.25 * ree + 0.25 * ree_dn
+        rh_o = 0.5 * roo
+    out = (rh_e[..., :wc] + 2.0 * rh_o[..., :wc]) + rh_e[..., 1 : wc + 1]
+    if w % 2 == 0:
+        edge = (((rh_e[..., wc - 1] + 2.0 * rh_o[..., wc - 1]) + wt["rc_a"] * rh_e[..., wc])
+                + wt["rc_b"] * rh_o[..., wc])
+        out = torch.cat([out[..., : wc - 1], edge[..., None]], dim=-1)
+    out = torch.where((torch.arange(hq, device=ree.device) < hc)[:, None], out, 0.0)
+    return F.pad(out.transpose(1, 2), (0, 0, 0, chp - wc)).contiguous()
+
+
+def _q_correct(planes, e_even, e_odd, doms, h: int):
+    """The ascent's correction: dense row 2q += 0.5 (E(q-1) + E(q)), row 2q+1
+    += E(q), E = the split planes' rows [0, hc) and 0 beyond; for even h,
+    quarter row hc takes mids * up_a and mids * up_b."""
+    wt = _q_weights()
+    hq = planes[0].shape[1]
+    hc = (h - 1) // 2
+    rows = torch.arange(hq, device=e_even.device)[:, None]
+    e0 = torch.where(rows < hc, e_even[:, :hq], 0.0)
+    o0 = torch.where(rows < hc, e_odd[:, :hq], 0.0)
+    mid_e = 0.5 * (_sh(e0, -1, 0) + e0)
+    mid_o = 0.5 * (_sh(o0, -1, 0) + o0)
+    corr = [mid_e, mid_o, e0, o0]
+    if h % 2 == 0:
+        edge = rows == hc
+        corr = [torch.where(edge, mid_e * wt["up_a"], mid_e),
+                torch.where(edge, mid_o * wt["up_a"], mid_o),
+                torch.where(edge, mid_e * wt["up_b"], e0),
+                torch.where(edge, mid_o * wt["up_b"], o0)]
+    return tuple(torch.where(d, p + cq, p) for p, cq, d in zip(planes, corr, doms))
+
+
+def _q_down(planes, gq, doms, nu1, h, w, chp, u_zero=False):
+    planes = _q_sweeps(planes, gq, doms, nu1, u_zero)
+    ree, roo = _q_residual(planes, gq, doms)
+    return planes, _q_rct(ree, roo, h, w, chp), ree, roo
+
+
+def mg_down_q_plain(uq: torch.Tensor | None, gq: torch.Tensor, nu1: int, h: int, w: int,
+                    rct_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    _, _, hq, wq2 = gq.shape
+    doms = _q_doms(hq, wq2, h, w, gq.device)
+    planes = tuple(gq.new_zeros(gq.shape[:1] + gq.shape[2:]) for _ in range(4)) \
+        if uq is None else uq.unbind(1)
+    planes, rc_t, _, _ = _q_down(planes, gq.unbind(1), doms, nu1, h, w, rct_rows,
+                                 uq is None)
+    return torch.stack(planes, 1), rc_t
+
+
+def mg_up_q_plain(uq: torch.Tensor, gq: torch.Tensor, e_even: torch.Tensor,
+                  e_odd: torch.Tensor, nu2: int, h: int, w: int) -> torch.Tensor:
+    _, _, hq, wq2 = gq.shape
+    doms = _q_doms(hq, wq2, h, w, gq.device)
+    planes = _q_correct(uq.unbind(1), e_even, e_odd, doms, h)
+    return torch.stack(_q_sweeps(planes, gq.unbind(1), doms, nu2), 1)
+
+
+def mg_ud_q_plain(uq: torch.Tensor, gq: torch.Tensor, e_even: torch.Tensor,
+                  e_odd: torch.Tensor, nu2: int, nu1: int, h: int, w: int, rct_rows: int,
+                  with_residual: bool = False):
+    _, _, hq, wq2 = gq.shape
+    g4 = gq.unbind(1)
+    doms = _q_doms(hq, wq2, h, w, gq.device)
+    planes = _q_sweeps(_q_correct(uq.unbind(1), e_even, e_odd, doms, h), g4, doms, nu2)
+    planes, rc_t, ree, roo = _q_down(planes, g4, doms, nu1, h, w, rct_rows)
+    out = (torch.stack(planes, 1), rc_t)
+    if with_residual:
+        return out + (torch.maximum(ree.abs().amax(), roo.abs().amax()),)
+    return out
+
+
+def _check_q(name: str, x: torch.Tensor, shape: tuple[int, ...]) -> None:
+    _require(x, name, torch.float32, len(shape))
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} {tuple(x.shape)} != {shape}")
+
+
+def _check_q_level(gq: torch.Tensor, h: int, w: int) -> tuple[int, int, int, int, int]:
+    """(c, hq, wq2, h, w) of a quarter level: g (C, 4, hq, wq2) with hq and
+    wq2 multiples of 128 covering the true (h, w) domain."""
+    _require(gq, "gq", torch.float32, 4)
+    c, four, hq, wq2 = gq.shape
+    h, w = int(h), int(w)
+    if four != 4 or hq % 128 or wq2 % 128:
+        raise ValueError(f"gq {tuple(gq.shape)} is not (C, 4, 128k, 128m) quarter planes")
+    if not (3 <= h <= 2 * hq and 3 <= w <= 2 * wq2):
+        raise ValueError(f"true size {(h, w)} outside [3, {(2 * hq, 2 * wq2)}]")
+    return c, hq, wq2, h, w
+
+
+def _check_rct(rct_rows: int, w: int, wq2: int) -> int:
+    rct_rows = int(rct_rows)
+    if not (w - 1) // 2 <= rct_rows <= wq2:
+        raise ValueError(f"rct_rows {rct_rows} outside [wc, wq2] = [{(w - 1) // 2}, {wq2}]")
+    return rct_rows
+
+
+def mg_down_q(uq: torch.Tensor | None, gq: torch.Tensor, nu1: int, h: int, w: int,
+              rct_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quarter-plane descent at the finest level (beta = 1): ``nu1``
+    red-black sweeps, the red-cell residual, its row restriction and the
+    transposed x4 lane restriction, in one pass.
+
+    gq, uq: (C, 4, hq, wq2) per ``mg_geometry_q(h, w)``, exact zeros outside
+    the true (h, w) domain; ``uq=None`` is a known-zero guess. rct_rows: the
+    coarse level's row extent chp (``mg_geometry_t(wc, hc, wp_min=hq)[1]``).
+    Returns (swept uq, rc_t (C, chp, hq)): the coarse RHS of the (wc, hc)
+    level in transposed orientation, exact zeros outside it.
+    """
+    c, hq, wq2, h, w = _check_q_level(gq, h, w)
+    if uq is not None:
+        _check_q("uq", uq, (c, 4, hq, wq2))
+        _same_device(gq, uq)
+    nu1 = _check_nu(nu1, 1, 2, "nu1")
+    rct_rows = _check_rct(rct_rows, w, wq2)
+    if gq.device.type == "cpu":
+        return mg_down_q_plain(uq, gq, nu1, h, w, rct_rows)
+    wt = _q_weights()
+    u_out = torch.empty_like(gq)
+    rc_t = torch.empty((c, rct_rows, hq), dtype=torch.float32, device=gq.device)
+    _launch("mg_down_q", gq, None if uq is None else uq.data_ptr(), gq.data_ptr(),
+            u_out.data_ptr(), rc_t.data_ptr(), c, hq, wq2, rct_rows, h, w, nu1,
+            wt["dn_e"], wt["dn_o"], wt["rc_a"], wt["rc_b"])
+    return u_out, rc_t
+
+
+def _check_up_inputs(uq, gq, e_even, e_odd, h, w):
+    c, hq, wq2, h, w = _check_q_level(gq, h, w)
+    _check_q("uq", uq, (c, 4, hq, wq2))
+    _check_q("e_even", e_even, (c, hq, wq2))
+    _check_q("e_odd", e_odd, (c, hq, wq2))
+    _same_device(gq, uq, e_even, e_odd)
+    return c, hq, wq2, h, w
+
+
+def mg_up_q(uq: torch.Tensor, gq: torch.Tensor, e_even: torch.Tensor, e_odd: torch.Tensor,
+            nu2: int, h: int, w: int) -> torch.Tensor:
+    """Quarter-plane ascent at the finest level: the row prolongation of the
+    split coarse correction (``mg_prolong_tq``'s e_even, e_odd (C, hq, wq2),
+    rows [0, hc) used), added inside the domain, then ``nu2`` red-black
+    sweeps. uq, gq as for ``mg_down_q``. Returns the swept uq."""
+    c, hq, wq2, h, w = _check_up_inputs(uq, gq, e_even, e_odd, h, w)
+    nu2 = _check_nu(nu2, 0, 4, "nu2")
+    if gq.device.type == "cpu":
+        return mg_up_q_plain(uq, gq, e_even, e_odd, nu2, h, w)
+    wt = _q_weights()
+    u_out = torch.empty_like(gq)
+    _launch("mg_up_q", gq, uq.data_ptr(), gq.data_ptr(), e_even.data_ptr(), e_odd.data_ptr(),
+            u_out.data_ptr(), c, hq, wq2, h, w, nu2, wt["up_a"], wt["up_b"])
+    return u_out
+
+
+def mg_ud_q(uq: torch.Tensor, gq: torch.Tensor, e_even: torch.Tensor, e_odd: torch.Tensor,
+            nu2: int, nu1: int, h: int, w: int, rct_rows: int, with_residual: bool = False):
+    """One V-cycle boundary in one pass: ``mg_up_q`` (cycle k's ascent), then
+    ``mg_down_q`` (cycle k+1's descent) on the same tile, the post-ascent
+    state never leaving shared memory. Inputs as ``mg_up_q``, outputs as
+    ``mg_down_q``: (swept uq, rc_t); ``with_residual`` appends max |g - A u|
+    of the returned uq as a 0-dim device tensor (the red cells' residual
+    that the restriction already computes; black cells are 0)."""
+    c, hq, wq2, h, w = _check_up_inputs(uq, gq, e_even, e_odd, h, w)
+    nu2 = _check_nu(nu2, 0, 4, "nu2")
+    nu1 = _check_nu(nu1, 1, Q_GHOST - 2 - nu2, "nu1")
+    rct_rows = _check_rct(rct_rows, w, wq2)
+    if gq.device.type == "cpu":
+        return mg_ud_q_plain(uq, gq, e_even, e_odd, nu2, nu1, h, w, rct_rows, with_residual)
+    wt = _q_weights()
+    u_out = torch.empty_like(gq)
+    rc_t = torch.empty((c, rct_rows, hq), dtype=torch.float32, device=gq.device)
+    tiles = torch.empty((c * (hq // 32) * (wq2 // 32),), dtype=torch.float32,
+                        device=gq.device) if with_residual else None
+    _launch("mg_ud_q", gq, uq.data_ptr(), gq.data_ptr(), e_even.data_ptr(), e_odd.data_ptr(),
+            u_out.data_ptr(), rc_t.data_ptr(), None if tiles is None else tiles.data_ptr(),
+            c, hq, wq2, rct_rows, h, w, nu2, nu1, wt["up_a"], wt["up_b"], wt["dn_e"],
+            wt["dn_o"], wt["rc_a"], wt["rc_b"])
+    if with_residual:
+        return u_out, rc_t, tiles.amax()
+    return u_out, rc_t
+
+
+def mg_prolong_tq_plain(ec_t: torch.Tensor, w: int, out_rows: int,
+                        wq2: int) -> tuple[torch.Tensor, torch.Tensor]:
+    wt = _q_weights()
+    c, hp_c, _ = ec_t.shape
+    wc = (w - 1) // 2
+    e = ec_t[:, :, :out_rows]                     # (C, hp_c, L): rows = coarse w
+    ep = F.pad(e, (0, 0, 1, 1))                   # zero Dirichlet rows
+    mids = 0.5 * (ep[:, : wc + 1] + ep[:, 1 : wc + 2])
+    if w % 2:
+        ev, od = mids[:, : wc + 1], e[:, :wc]
+    else:
+        last = e[:, wc - 1 : wc]
+        ev = torch.cat([mids[:, :wc], last * wt["pr_a"]], dim=1)
+        od = torch.cat([e[:, :wc], last * wt["pr_b"]], dim=1)
+
+    def plane(x):
+        return F.pad(x, (0, 0, 0, wq2 - x.shape[1])).transpose(1, 2).contiguous()
+
+    return plane(ev), plane(od)
+
+
+def mg_prolong_tq(ec_t: torch.Tensor, w: int, out_rows: int,
+                  wq2: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lane prolongation of the TRANSPOSED coarse correction, split form.
+
+    ec_t: (C, hp_c, lanes) f32, the coarse solution ((wc, hc) at the origin,
+    exact zeros elsewhere). Returns (e_even, e_odd), each (C, out_rows, wq2):
+    the even / odd dense-column planes of the bilinear prolongation along
+    the fine w axis (the beta-gap weights on column wc for even w), every
+    other element an exact 0 — ``mg_up_q``'s correction operands.
+    """
+    _require(ec_t, "ec_t", torch.float32, 3)
+    c, hp_c, lanes = ec_t.shape
+    w, out_rows, wq2 = int(w), int(out_rows), int(wq2)
+    wc = (w - 1) // 2
+    if wc < 1 or hp_c < wc or lanes < out_rows or wq2 < (w + 1) // 2:
+        raise ValueError(f"ec_t {tuple(ec_t.shape)} cannot prolong to w={w}, "
+                         f"({out_rows}, {wq2})")
+    if ec_t.device.type == "cpu":
+        return mg_prolong_tq_plain(ec_t, w, out_rows, wq2)
+    wt = _q_weights()
+    e_e = torch.empty((c, out_rows, wq2), dtype=torch.float32, device=ec_t.device)
+    e_o = torch.empty_like(e_e)
+    _launch("mg_prolong_tq", ec_t, ec_t.data_ptr(), e_e.data_ptr(), e_o.data_ptr(), c, hp_c,
+            lanes, out_rows, wq2, w, wt["pr_a"], wt["pr_b"])
+    return e_e, e_o
+
+
+def clamp_cast_paste_q_plain(uq: torch.Tensor, dst: torch.Tensor, top1: int, left1: int,
+                             h2: int, w2: int) -> torch.Tensor:
+    u = from_quarters(uq)[:, :h2, :w2]
+    dst[:, top1 : top1 + h2, left1 : left1 + w2] = clamp_truncate_u8(u)
+    return dst
+
+
+def clamp_cast_paste_q(uq: torch.Tensor, dst: torch.Tensor, top1: int, left1: int,
+                       h2: int, w2: int) -> torch.Tensor:
+    """``clamp_cast_paste`` straight from quarter planes: uq (C, 4, hq, wq2),
+    the dense interior (h2, w2) at the origin of ``from_quarters(uq)``,
+    clamped, truncated to u8 and written in place into ``dst`` at (top1,
+    left1); ``dst`` as for ``clamp_cast_paste``. Returns ``dst``."""
+    _require(uq, "uq", torch.float32, 4)
+    c, four, hq, wq2 = uq.shape
+    if four != 4:
+        raise ValueError(f"uq {tuple(uq.shape)} is not (C, 4, hq, wq2) quarter planes")
+    top1, left1, h2, w2 = _check_paste(uq, dst, top1, left1, h2, w2, rows=2 * hq)
+    if w2 > 2 * wq2:
+        raise ValueError(f"uq {tuple(uq.shape)} cannot fill ({c}, {h2}, {w2})")
+    if uq.device.type == "cpu":
+        return clamp_cast_paste_q_plain(uq, dst, top1, left1, h2, w2)
+    _launch("clamp_cast_paste_q", uq, uq.data_ptr(), c, hq, wq2, dst.data_ptr(),
+            *dst.stride(), top1, left1, h2, w2)
+    return dst

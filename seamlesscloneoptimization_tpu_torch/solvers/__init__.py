@@ -2,9 +2,10 @@
 for the 5-point Dirichlet system (boundary values folded into g).
 
 Ported: ``dst_gemm`` (exact direct solve, DST eigenbasis as GEMMs) and
-``multigrid`` with ``padded="t"`` (the transpose-fused V-cycles) or on its
-element path; its other fused modes raise NotImplementedError naming their
-ROADMAP slice (``solvers/multigrid.py``). The other solvers raise likewise.
+``multigrid`` with ``padded="q"`` (the quarter-plane finest level) or
+``padded="t"`` (the transpose-fused V-cycles), or on its element path; its
+dense fused modes raise NotImplementedError naming their ROADMAP slice
+(``solvers/multigrid.py``). The other solvers raise likewise.
 ``auto`` is not a solver here: the engine resolves it per geometry with
 ``auto_solver_name`` (``core/engine.py:_effective_solver``).
 """
@@ -19,7 +20,7 @@ from seamlesscloneoptimization_tpu_torch.solvers.multigrid import (
 # Size-based selection between the direct DST-GEMM solve and the O(N)
 # multigrid. Both constants were measured on a TPU v5e: 7 MP for a
 # single-shot solve, 9 MP for the chained serve programs. PERF.md has the
-# first H100 data points; the constants stay until slice 3b re-measures.
+# H100 data points beside them; the constants stay as the JAX package has them.
 AUTO_CROSSOVER_PIXELS = 7_000_000
 SERVE_CROSSOVER_PIXELS = 9_000_000
 

@@ -1,7 +1,8 @@
 """Geometric multigrid V-cycles for the 5-point Dirichlet Laplacian.
 
 Port of ``seamlesscloneoptimization_tpu/solvers/multigrid.py`` for
-``padded="t"``, the transpose-fused chain, and the element path.
+``padded="q"`` (the quarter-plane finest level), ``padded="t"`` (the
+transpose-fused chain) and the element path.
 
 Scheme (vertex-centred, unscaled operators, boundary-consistent hierarchy):
 red-black Gauss-Seidel smoothing; separable full-weighting restriction to
@@ -14,8 +15,18 @@ which keeps the contraction near 0.1 per cycle at every size. The coarsest
 level is solved exactly in the beta-modified separable eigenbasis
 (``dst_gemm.solve_sep_eig``: four FP32 GEMMs).
 
-Two chains:
+Three chains:
 
+- the quarter-plane chain (``padded="q"``, the default, fine grids with
+  ``use_pallas``): the finest level lives as four quarter planes (C, 4, hq,
+  wq2) (``ops/kernels.py:mg_geometry_q``), the RHS born so by the pipeline
+  (``preprocess_rhs_q``). One launch per cycle boundary, ``mg_ud_q``:
+  cycle k's ascent and cycle k+1's descent, with the transposed restriction
+  into the coarse RHS fused in; ``mg_down_q`` opens the solve and
+  ``mg_up_q`` closes a fixed-cycle one. The coarse levels are ``vcycle_t``'s,
+  whose correction ``mg_prolong_tq`` splits back into the even / odd
+  column planes. In tolerance mode the boundary launch also returns the
+  residual max of the state it writes, so a check costs one host read.
 - ``vcycle_t`` (``padded="t"``, fine grids with ``use_pallas``): every
   level lives in a zero-padded slab (``ops/kernels.py:mg_geometry_t``) and
   runs as two kernels, ``mg_down`` (sweeps + residual + row restriction)
@@ -27,14 +38,15 @@ Two chains:
 - ``vcycle`` (the element path: small grids, or ``use_pallas=False``):
   plain PyTorch sweeps and transfers on exact-size arrays, as XLA ran them.
 
-``solve_multigrid`` drives either, in tolerance mode (check-free burst,
-then a residual check before each further cycle) or fixed-work mode
-(``cycles``). The tolerance check reads max |residual| to the host once per
-check. Not ported (NotImplementedError naming the ROADMAP slice): the
-quarter-plane finest level (``padded="q"``, slice 3b) and the dense
-rounded modes (``padded`` True / False) on grids where they would fuse,
-the ``rb_sweeps`` kernel on large element levels on the card, ``pcg``,
-``fmg_start`` and ``u0`` (slice 4). The JAX package's ``SCL_MG_*``
+``solve_multigrid`` drives each, in tolerance mode (check-free burst,
+then a residual check per further cycle) or fixed-work mode (``cycles``).
+The tolerance check reads max |residual| to the host once per check. Not
+ported (NotImplementedError naming the ROADMAP slice): on the quarter
+path, a dense g, a dense result or ``return_info`` (the to/from-quarters
+kernels) and the check-first loop of a zero burst (tol >= 0.0225), slice
+3c; the dense rounded modes (``padded`` True / False) on grids where they
+would fuse, the ``rb_sweeps`` kernel on large element levels on the card,
+``pcg``, ``fmg_start`` and ``u0`` (slice 4). The JAX package's ``SCL_MG_*``
 environment knobs are constants here.
 """
 
@@ -58,7 +70,6 @@ FUSE_MIN_T = 1 << 16  # vcycle_t's coarse levels run fused from this many
 
 # the CloneConfig.mg_padded modes whose fused chain is not ported yet
 MG_PADDED_NOT_PORTED = {
-    "q": "ROADMAP slice 3b (quarter-plane multigrid)",
     True: "ROADMAP slice 4 (dense multigrid modes)",
     False: "ROADMAP slice 4 (dense multigrid modes)",
 }
@@ -69,9 +80,11 @@ def _not_ported(what: str, where: str) -> NotImplementedError:
 
 
 def mg_padded_not_ported(padded, why: str = "") -> NotImplementedError:
+    """True / False, and "q" with nu1 = 0, where the JAX package runs the
+    dense rounded chain."""
     return NotImplementedError(
         f"multigrid with mg_padded={padded!r}{why} is not ported yet: "
-        f"{MG_PADDED_NOT_PORTED[padded]}")
+        f"{MG_PADDED_NOT_PORTED.get(padded, MG_PADDED_NOT_PORTED[True])}")
 
 
 def _coarsen(m: int, beta: float) -> tuple[int, float]:
@@ -232,6 +245,15 @@ def t_chain_applies(h: int, w: int, nu1: int = 1, nu2: int = 2, coarsest: int = 
     return not _small(h, w, coarsest) and _fused_level(h, w, nu1, nu2, use_pallas)
 
 
+def quarter_path_applies(h: int, w: int, nu1: int = 1, nu2: int = 2, coarsest: int = 63,
+                         use_pallas: bool = True) -> bool:
+    """Whether ``solve_multigrid(padded="q")`` runs the quarter-plane chain on
+    an (h, w) grid: the one gate shared with the pipeline, which then makes
+    the RHS as quarter planes. The quarter descent restricts the red cells'
+    residual only, exact after a black half-sweep: nu1 >= 1."""
+    return nu1 >= 1 and t_chain_applies(h, w, nu1, nu2, coarsest, use_pallas)
+
+
 def _tol_burst(tol: float, max_cycles: int, nu1: int = 1, nu2: int = 2) -> int:
     """Check-free V-cycles before the first residual check (zero start).
 
@@ -331,49 +353,133 @@ def vcycle_t(u_p: torch.Tensor | None, g_p: torch.Tensor, h: int, w: int, nu1: i
     return K.mg_up(u_s, g_p, e_lane, nu2, h, w, bh, bw)
 
 
+def _coarse_q(rc_t: torch.Tensor, h: int, w: int, nu1: int, nu2: int, coarsest: int,
+              qgeom, cgeom, eig_cache) -> tuple[torch.Tensor, torch.Tensor]:
+    """The coarse side of one quarter-plane V-cycle: ``vcycle_t`` on the
+    transposed (wc, hc) level from the fused restriction's rc_t (a known-zero
+    guess, betas swapped), then ``mg_prolong_tq`` back to the even / odd
+    column planes that the next ascent adds."""
+    hc, bh_c = _coarsen(h, 1.0)
+    wc, bw_c = _coarsen(w, 1.0)
+    ec_t = vcycle_t(None, rc_t, wc, hc, nu1, nu2, coarsest, bw_c, bh_c, cgeom, eig_cache)
+    return K.mg_prolong_tq(ec_t, w, out_rows=qgeom[3], wq2=qgeom[2])
+
+
+def _solve_q(g_q: torch.Tensor, h: int, w: int, nu1: int, nu2: int, coarsest: int,
+             cycles: int | None, tol: float, max_cycles: int,
+             eig_cache=None) -> tuple[torch.Tensor, int]:
+    """The quarter-plane solve from a zero start, every cycle boundary one
+    ``mg_ud_q`` launch. Returns (uq, V-cycles run).
+
+    Fixed mode: down -> (cycles-1) x [coarse -> ud] -> coarse -> up.
+    Tolerance mode: down -> (burst-1) x [coarse -> ud], then [coarse -> ud
+    with the residual] while max |r| > thresh and fewer than ``max_cycles``
+    ascents. The threshold is shaved, gnorm * min(tol * 0.995, tol - 4e-7),
+    so that the in-kernel red-cell check implies the dense residual meets
+    tol (the JAX package's rule); the result has already had the next
+    descent's nu1 sweeps, and the count is of completed ascents.
+    """
+    qgeom = K.mg_geometry_q(h, w)
+    cgeom = K.mg_geometry_t((w - 1) // 2, (h - 1) // 2, wp_min=qgeom[3])
+    chp = cgeom[1]
+
+    def coarse(rc_t):
+        return _coarse_q(rc_t, h, w, nu1, nu2, coarsest, qgeom, cgeom, eig_cache)
+
+    if cycles is not None:
+        if cycles < 1:
+            return torch.zeros_like(g_q), 0
+        u, rc_t = K.mg_down_q(None, g_q, nu1, h, w, chp)
+        for _ in range(cycles - 1):
+            u, rc_t = K.mg_ud_q(u, g_q, *coarse(rc_t), nu2, nu1, h, w, chp)
+        return K.mg_up_q(u, g_q, *coarse(rc_t), nu2, h, w), cycles
+    burst = _tol_burst(tol, max_cycles, nu1, nu2)
+    if burst < 1:
+        raise _not_ported(f"the check-first quarter-plane loop (tol={tol}, max_cycles="
+                          f"{max_cycles}: no check-free cycle)", "slice 3c")
+    gnorm = torch.clamp(torch.linalg.vector_norm(g_q, float("inf")), min=1e-30)  # one pass
+    thresh = gnorm * min(tol * 0.995, tol - 4.0e-7)
+    u, rc_t = K.mg_down_q(None, g_q, nu1, h, w, chp)
+    for _ in range(burst - 1):
+        u, rc_t = K.mg_ud_q(u, g_q, *coarse(rc_t), nu2, nu1, h, w, chp)
+    it = burst - 1
+    while True:
+        u, rc_t, rmax = K.mg_ud_q(u, g_q, *coarse(rc_t), nu2, nu1, h, w, chp,
+                                  with_residual=True)
+        it += 1
+        if not (bool(rmax > thresh) and it < max_cycles):  # one host read per check
+            return u, it
+
+
 def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int = 60,
                     nu1: int = 1, nu2: int = 2, return_info: bool = False,
                     use_pallas: bool = False, cycles: int | None = None, pcg: bool = False,
                     coarsest: int = 63, fmg_start: bool = False, padded: bool | str = "q",
-                    padded_output: bool = False, true_hw: tuple[int, int] | None = None,
-                    eig_cache=None):
+                    padded_output: bool | str = False,
+                    true_hw: tuple[int, int] | None = None, eig_cache=None):
     """V-cycles until max |r| <= tol * max |g| (or ``cycles`` of them).
 
-    g: (C, h, w) f32, or with ``true_hw=(h, w)`` the (C, hp, wp) slab of
-    ``mg_geometry_t(h, w)`` with the RHS at the origin and exact zeros
-    elsewhere (``preprocess_rhs_p``'s output), which the ``"t"`` chain
-    starts from with no pad. ``padded="t"`` with ``use_pallas`` on a grid of
-    at least 2^18 points runs ``vcycle_t``; small grids, and any grid with
-    ``use_pallas=False``, run the element path (as in the JAX package,
-    whatever ``padded`` says). ``cycles=k``: fixed work, k cycles, no
-    checks. Else the tolerance loop: ``_tol_burst`` check-free cycles, then
-    a residual check (one host read) before each further cycle, up to
+    g: (C, h, w) f32, or with ``true_hw=(h, w)`` pre-padded: for
+    ``padded="t"`` the (C, hp, wp) slab of ``mg_geometry_t(h, w)``
+    (``preprocess_rhs_p``'s output); for ``padded="q"`` the born-quartered
+    (C, 4, hq, wq2) planes of ``mg_geometry_q(h, w)`` (``preprocess_rhs_q``'s
+    output) or the dense (C, 2 hq, 2 wq2) slab; the RHS at the origin, exact
+    zeros elsewhere. With ``use_pallas`` on a grid of at least 2^18 points,
+    ``padded="q"`` runs the quarter-plane chain (``_solve_q``; it takes a
+    quartered g and returns the quarter planes: ``padded_output=
+    "quarters"``) and ``padded="t"`` runs ``vcycle_t``; small grids, and any
+    grid with ``use_pallas=False``, run the element path (as in the JAX
+    package, whatever ``padded`` says). ``cycles=k``: fixed work, k cycles,
+    no checks. Else the tolerance loop: ``_tol_burst`` check-free cycles,
+    then a residual check (one host read) per further cycle, up to
     ``max_cycles``. ``padded_output``: the ``"t"`` chain returns its
     (C, hp, wp) slab (zeros outside the domain); the element path returns
     the exact size either way. ``return_info`` (exclusive with
-    ``padded_output``) adds {"cycles": int, "residual": max |g - A u|}.
-    ``eig_cache``: see ``coarse_solve``.
+    ``padded_output``; not with a quartered g) adds {"cycles": int,
+    "residual": max |g - A u|}. ``eig_cache``: see ``coarse_solve``.
     """
     tol = float(tol)
     if padded_output and return_info:
         raise ValueError("padded_output is exclusive with return_info")
+    quartered = true_hw is not None and g.dim() == 4
+    if quartered and (u0 is not None or fmg_start or pcg or return_info):
+        raise ValueError("a quartered g supports only the zero-start padded='q' modes "
+                         "(no u0/fmg_start/pcg/return_info)")
     for flag, what in ((u0 is not None, "u0 (a warm start)"), (fmg_start, "fmg_start"),
                        (pcg, "pcg")):
         if flag:
             raise _not_ported(f"solve_multigrid {what}", "slice 4 (dense multigrid modes)")
     c = g.shape[0]
     if true_hw is not None:
-        if padded != "t":
-            raise ValueError("true_hw (a pre-padded g) needs padded='t' in the port")
         h, w = (int(x) for x in true_hw)
-        _, hp, wp, _ = K.mg_geometry_t(h, w)
-        if tuple(g.shape[1:]) != (hp, wp):
+        if padded == "q":
+            _, hq, wq2, _ = K.mg_geometry_q(h, w)
+            want = (4, hq, wq2) if quartered else (2 * hq, 2 * wq2)
+        elif padded == "t" and not quartered:
+            want = K.mg_geometry_t(h, w)[1:3]
+        else:
+            raise ValueError("true_hw (a pre-padded g) needs padded='t' or 'q', and a "
+                             "quartered g padded='q'")
+        if tuple(g.shape[1:]) != tuple(want):
             raise ValueError(f"pre-padded g {tuple(g.shape)} does not match the level "
-                             f"geometry {(hp, wp)} for true_hw={(h, w)}")
-        g_p, g = g, g[:, :h, :w]
+                             f"geometry {tuple(want)} for true_hw={(h, w)}")
+        g_pre, g = g, (None if quartered else g[:, :h, :w])
     else:
         _, h, w = g.shape
-        g_p = None
+        g_pre = None
+    if padded == "q" and quarter_path_applies(h, w, nu1, nu2, coarsest, use_pallas):
+        if not quartered:
+            raise _not_ported("the quarter-plane solve of a dense g (the to_quarters "
+                              "kernel)", "slice 3c")
+        if padded_output != "quarters":
+            raise _not_ported("a dense result of the quarter-plane solve (the "
+                              "from_quarters kernel)", "slice 3c")
+        return _solve_q(g_pre, h, w, nu1, nu2, coarsest, cycles, tol, max_cycles,
+                        eig_cache)[0]
+    if quartered:
+        raise _not_ported(f"a quartered g on a {h}x{w} grid that the quarter-plane chain "
+                          "does not take (the from_quarters kernel)", "slice 3c")
+    g_p = g_pre if padded == "t" else None  # the "t" chain's own slab
     small = _small(h, w, coarsest)
     fused = t_chain_applies(h, w, nu1, nu2, coarsest, use_pallas)
     if fused and padded != "t":

@@ -365,3 +365,144 @@ def test_serve_mg_t_tol_counts(cuda):
     assert K.LAUNCHES["preprocess_rhs_p"] == K.LAUNCHES["clamp_cast_paste"] == 1
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (300, 290)).numpy()
     assert np.abs(out.astype(np.int16) - want).max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# the quarter-plane finest level (mg_padded="q")
+# ---------------------------------------------------------------------------
+
+# (h, w): even/even, odd/odd, even/odd, odd/even, two strips, many tiles; the
+# rc_t of (250, 129) and (300, 257) has fewer rows (chp) than the planes'
+# width (wq2), so tiles past chp write no coarse RHS
+Q_CASES = [(200, 230), (201, 231), (250, 129), (129, 300), (300, 257), (518, 526)]
+
+
+def _q_planes(rng, h, w, scale=50.0):
+    _, hq, wq2, _ = K.mg_geometry_q(h, w)
+    x = np.zeros((3, 2 * hq, 2 * wq2), np.float32)
+    x[:, :h, :w] = rng.normal(size=(3, h, w)) * scale
+    return K.to_quarters(torch.from_numpy(x))
+
+
+def _q_corr(rng, h, w):
+    _, hq, wq2, _ = K.mg_geometry_q(h, w)
+    hc = (h - 1) // 2
+    ee = np.zeros((3, hq, wq2), np.float32)
+    eo = np.zeros((3, hq, wq2), np.float32)
+    ee[:, :hc, : (w + 1) // 2] = rng.normal(size=(3, hc, (w + 1) // 2)) * 5
+    eo[:, :hc, : w // 2] = rng.normal(size=(3, hc, w // 2)) * 5
+    return torch.from_numpy(ee), torch.from_numpy(eo)
+
+
+@pytest.mark.parametrize("hw", Q_CASES)
+def test_mg_q_level_kernels_match_plain(cuda, hw):
+    """mg_down_q (both forms), mg_up_q, mg_ud_q (with and without its
+    residual) and mg_prolong_tq, bit-exact over every output element."""
+    h, w = hw
+    _, hq, wq2, hp2 = K.mg_geometry_q(h, w)
+    hc, wc = (h - 1) // 2, (w - 1) // 2
+    _, chp, cwp, _ = K.mg_geometry_t(wc, hc, wp_min=hp2)
+    rng = np.random.default_rng(h * w + 7)
+    g, u = _q_planes(rng, h, w), _q_planes(rng, h, w, 10.0)
+    ee, eo = _q_corr(rng, h, w)
+    gd, ud, eed, eod = (x.to(cuda) for x in (g, u, ee, eo))
+    for nu1 in (1, 2):
+        for uz in (True, False):
+            want = K.mg_down_q_plain(None if uz else u, g, nu1, h, w, chp)
+            got = K.mg_down_q(None if uz else ud, gd, nu1, h, w, chp)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), (nu1, uz)
+    for nu2 in (0, 2, 4):
+        got = K.mg_up_q(ud, gd, eed, eod, nu2, h, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), K.mg_up_q_plain(u, g, ee, eo, nu2, h, w)), nu2
+    for nu2, nu1 in ((2, 1), (4, 2), (0, 1)):
+        for with_residual in (False, True):
+            want = K.mg_ud_q_plain(u, g, ee, eo, nu2, nu1, h, w, chp, with_residual)
+            got = K.mg_ud_q(ud, gd, eed, eod, nu2, nu1, h, w, chp, with_residual)
+            torch.cuda.synchronize()
+            assert len(got) == len(want) == 2 + with_residual
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), (nu2, nu1)
+    ec = np.zeros((3, chp, cwp), np.float32)
+    ec[:, :wc, :hc] = rng.normal(size=(3, wc, hc)) * 5
+    ec = torch.from_numpy(ec)
+    got = K.mg_prolong_tq(ec.to(cuda), w, hp2, wq2)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, K.mg_prolong_tq_plain(ec, w, hp2,
+                                                                                    wq2)))
+
+
+@pytest.mark.parametrize("hw", [(3, 3), (40, 57), (131, 260)])
+@pytest.mark.parametrize("mode", [(1, "opencv"), (2, "opencv"), (2, "norm"), (3, "opencv")])
+def test_preprocess_rhs_q_matches_plain(cuda, hw, mode):
+    flags, rule = mode
+    h, w = hw
+    rng = np.random.default_rng(h * w + 2)
+    img = torch.from_numpy(_u8(rng, (h + 4, w + 6, 3)))
+    dest = img[2 : 2 + h, 3 : 3 + w, :].permute(2, 0, 1)
+    patch = torch.from_numpy(_u8(rng, (3, h, w)))
+    kflags = flags
+    if flags == 3:
+        patch = patch[0][None].expand(3, h, w)
+        kflags = 1
+    me = torch.from_numpy((rng.random((h, w)) < 0.7).astype(np.uint8))
+    _, hq, wq2, _ = K.mg_geometry_q(max(h - 2, 1), max(w - 2, 1))
+    for out_hw in ((2 * hq, 2 * wq2), (h + (h % 2), w + 130 + (w % 2))):
+        want = K.preprocess_rhs_q_plain(dest, patch, me, out_hw, kflags, rule)
+        got = K.preprocess_rhs_q(dest.to(cuda), patch.to(cuda), me.to(cuda), out_hw, kflags,
+                                 rule)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("off, hw", [((1, 1), (255, 256)), ((7, 127), (130, 259)),
+                                     ((55, 201), (200, 311))])
+def test_clamp_cast_paste_q_matches_plain(cuda, planar, off, hw):
+    top1, left1 = off
+    h2, w2 = hw
+    _, hq, wq2, _ = K.mg_geometry_q(h2, w2)
+    rng = np.random.default_rng(top1)
+    uq = torch.from_numpy(rng.normal(size=(3, 4, hq, wq2)).astype(np.float32) * 160 + 90)
+    base = _u8(rng, (3, 300, 520) if planar else (300, 520, 3))
+    want = torch.from_numpy(base.copy())
+    K.clamp_cast_paste_q_plain(uq, want if planar else want.permute(2, 0, 1), top1, left1,
+                               h2, w2)
+    got = torch.from_numpy(base.copy()).to(cuda)
+    K.clamp_cast_paste_q(uq.to(cuda), got if planar else got.permute(2, 0, 1), top1, left1,
+                         h2, w2)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+MG_Q_FIXED = _per_frame(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1, mg_down_q=1,
+                        mg_ud_q=1, mg_up_q=1, mg_prolong_tq=2, mg_down=2, mg_up=2,
+                        mg_restrict_t=2, mg_prolong_t=2)
+
+
+def test_serve_mg_q_fixed_counts(cuda):
+    """The default mg_padded="q", 2 fixed cycles, interior 518 x 526 (one
+    fused coarse level): a frame is mg_down_q, one mg_ud_q, mg_up_q, and per
+    cycle mg_prolong_tq and the coarse level's four kernels."""
+    _serve_counts(cuda, CloneConfig(solver="multigrid", mg_cycles=2), (520, 528), MG_Q_FIXED)
+
+
+def test_serve_mg_q_tol_counts(cuda):
+    """Tolerance mode: mg_ud_q once per cycle (the burst of 3 and each
+    checked cycle), mg_prolong_tq and each coarse kernel as often, one
+    mg_down_q, no mg_up_q; the card within 1 of the CPU."""
+    rng = np.random.default_rng(1)
+    src = _u8(rng, (520, 528, 3))
+    dst = _u8(rng, (580, 600, 3))
+    mask = np.full((520, 528), 255, np.uint8)
+    cfg = CloneConfig(solver="multigrid")
+    K.reset_launches()
+    out = SeamlessClone(cfg, device=cuda).run(src, dst, mask, (300, 290)).cpu().numpy()
+    torch.cuda.synchronize()
+    n = K.LAUNCHES["mg_ud_q"]
+    assert n >= 3
+    assert K.LAUNCHES == _per_frame(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1,
+                                    mg_down_q=1, mg_ud_q=n, mg_prolong_tq=n, mg_down=n,
+                                    mg_up=n, mg_restrict_t=n, mg_prolong_t=n)
+    want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (300, 290)).numpy()
+    assert np.abs(out.astype(np.int16) - want).max() <= 1

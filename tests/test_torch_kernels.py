@@ -132,10 +132,19 @@ def test_cpu_twins_do_not_count_launches():
     u, rh = K.mg_down(None, gp, 1, 18, 28, rh_rows=128)
     ec = K.mg_restrict_t(rh, 18, 28, 1.0, 16)
     K.mg_up(u, gp, K.mg_prolong_t(ec, 28, 1.0, 128, 128), 2, 18, 28)
+    gq = K.preprocess_rhs_q(torch.from_numpy(_u8(2, (3, 20, 30))),
+                            torch.from_numpy(_u8(3, (3, 20, 30))), me, (256, 256))
+    uq, rc_t = K.mg_down_q(None, gq, 1, 18, 28, 128)
+    e_even, e_odd = K.mg_prolong_tq(rc_t, 28, 128, 128)
+    uq = K.mg_ud_q(uq, gq, e_even, e_odd, 2, 1, 18, 28, 128, with_residual=True)[0]
+    uq = K.mg_up_q(uq, gq, e_even, e_odd, 2, 18, 28)
+    K.clamp_cast_paste_q(uq, torch.zeros((3, 20, 30), dtype=torch.uint8), 1, 1, 18, 28)
     assert set(K.LAUNCHES) == {"erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste",
                                "fold_minor", "unfold_minor", "transpose_pair",
                                "unfold_transpose", "unfold_clamp_paste", "preprocess_rhs_p",
-                               "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t"}
+                               "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t",
+                               "preprocess_rhs_q", "mg_down_q", "mg_up_q", "mg_ud_q",
+                               "mg_prolong_tq", "clamp_cast_paste_q"}
     assert set(K.LAUNCHES.values()) == {0}
 
 

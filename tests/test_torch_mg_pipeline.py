@@ -1,11 +1,12 @@
-"""The port's multigrid serve path (``mg_padded="t"``) against the JAX
-package and cv2 on the CPU.
+"""The port's multigrid serve path (``mg_padded`` "q" and "t") against the
+JAX package and cv2 on the CPU.
 
 The JAX side runs its multigrid serve tail (``pipeline.py:152-237``) with
 every Pallas kernel in interpret mode: the mocks of
 ``tests/test_mg_serve_tail.py``, the backend gate open, and the solver
 called with ``interpret=True``. The ROI interiors are above the 2^18-point
-gate, so both sides run the transpose-fused V-cycles. The solves differ by
+gate, so both sides run the quarter-plane chain ("q", the default) or the
+transpose-fused V-cycles ("t"). The solves differ by
 f32 rounding (XLA's FMA contraction, the GEMM summation order), so the u8
 results may differ by 1 where the truncation flips: diff_max <= 1. Images
 are numpy-seeded.
@@ -46,7 +47,8 @@ def jax_mg_interpret():
 
     with contextlib.ExitStack() as es:
         for name in ("preprocess_rhs_pallas", "erode3_pallas", "clamp_cast_pallas",
-                     "clamp_cast_guarded_pallas", "paste_interior_pallas"):
+                     "clamp_cast_guarded_pallas", "paste_interior_pallas",
+                     "preprocess_rhs_quarters_pallas", "clamp_cast_guarded_quarters_pallas"):
             es.enter_context(mock.patch.object(PK, name, force_interp(getattr(PK, name))))
         es.enter_context(mock.patch.object(JP, "_pallas_backend_available", lambda: True))
         es.enter_context(mock.patch.dict(
@@ -177,10 +179,13 @@ def test_auto_above_crossover_runs_multigrid(monkeypatch):
     out, _ = eng.timed_serve(small_src, dst, small_mask, (320, 300), loops=1)
     assert eng.metrics["solver_resolved"] == "multigrid"
     assert out.shape == dst.shape
-    for padded, match in (("q", "slice 3b"), (True, "slice 4"), (False, "slice 4")):
+    # a zero check-free burst on a grid the quarter chain takes: slice 3c
+    for cfg, s_img, m_img, match in (
+            (CloneConfig(tol=0.05), src, mask, "slice 3c"),
+            (CloneConfig(mg_padded=True), small_src, small_mask, "slice 4"),
+            (CloneConfig(mg_padded=False), small_src, small_mask, "slice 4")):
         with pytest.raises(NotImplementedError, match=match):
-            SeamlessClone(CloneConfig(mg_padded=padded), device="cpu").run(
-                small_src, dst, small_mask, (320, 300))
+            SeamlessClone(cfg, device="cpu").run(s_img, dst, m_img, (320, 300))
 
 
 def test_multigrid_engine_builds_no_dst_bases():
@@ -192,3 +197,117 @@ def test_multigrid_engine_builds_no_dst_bases():
     assert len(eng._eig_cache) == 1  # the coarsest level's basis, cached once
     with pytest.raises(ValueError, match="mg_padded"):
         SeamlessClone(CloneConfig(mg_padded="x"), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the quarter-plane chain (mg_padded="q", the default)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("cycles", [None, 2])
+def test_clone_roi_q_matches_jax(mode, cycles):
+    """The "q" tail: preprocess_rhs_q -> the quarter-plane solve ->
+    clamp_cast_paste_q, against JAX's interpreted "q" tail."""
+    flags, rule = mode
+    dest, src, mask = _roi_inputs(flags + 4)
+    patch = np.where(mask[None] != 0, src, 0).astype(np.uint8)
+    cfg = CloneConfig(solver="multigrid", mg_cycles=cycles, flags=flags, mixed_rule=rule)
+    kw = cfg.solver_kwargs()
+    assert kw["padded"] == "q" and TM.quarter_path_applies(ROI[0] - 2, ROI[1] - 2)
+    with jax_mg_interpret():
+        want = np.asarray(JP.clone_roi(
+            jnp.asarray(dest), jnp.asarray(patch), jnp.asarray(mask), flags,
+            JM.solve_multigrid, {**kw, "interpret": True}, use_pallas_pre=True,
+            use_pallas_post=True, mixed_rule=rule, solver_name="multigrid"))
+    got = TP.clone_roi(torch.from_numpy(dest), torch.from_numpy(patch),
+                       torch.from_numpy(mask), flags, TM.solve_multigrid, kw,
+                       mixed_rule=rule, solver_name="multigrid").numpy()
+    assert got.shape == want.shape == dest.shape
+    assert _diff_max(got, want) <= 1
+    assert np.array_equal(got[:, [0, -1]], dest[:, [0, -1]])
+
+
+@pytest.mark.parametrize("flags", [1, 2, 3])
+def test_default_engine_q_matches_jax_and_cv2(flags, monkeypatch):
+    """CloneConfig() with the crossover patched low: auto -> multigrid "q" on
+    both sides, the port within 1 of the JAX engine and no further from
+    cv2.seamlessClone than it."""
+    import seamlesscloneoptimization_tpu.solvers as JS
+
+    for mod in (TE, JS):
+        monkeypatch.setattr(mod, "AUTO_CROSSOVER_PIXELS", 100)
+        monkeypatch.setattr(mod, "SERVE_CROSSOVER_PIXELS", 100)
+    src, dst, mask = _images(60 + flags)
+    center = (320, 300)
+    eng = SeamlessClone(CloneConfig(flags=flags), device="cpu")
+    got = eng.run(src, dst, mask, center).numpy()
+    assert eng.metrics["solver_resolved"] == "multigrid"
+    with jax_mg_interpret():
+        want = np.asarray(JE.SeamlessClone(JConfig(flags=flags)).run(src, dst, mask.copy(),
+                                                                     center))
+    golden = cv2.seamlessClone(src, dst, mask.copy(), center, flags)
+    assert _diff_max(got, want) <= 1
+    assert _diff_max(got, golden) <= max(_diff_max(want, golden), 1)
+
+
+@pytest.mark.parametrize("cycles", [None, 3])
+def test_serve_matches_run_q(cycles):
+    src, dst, mask = _images(70)
+    eng = SeamlessClone(CloneConfig(solver="multigrid", mg_cycles=cycles), device="cpu")
+    run = eng.run(src, dst, mask, (320, 300)).numpy()
+    served, _ = eng.timed_serve(src, dst, mask, (320, 300), loops=0)
+    assert np.array_equal(served.numpy(), run)
+    assert np.array_equal(eng.run(src, dst, mask, (320, 300)).numpy(), run)  # a second run
+
+
+Q_KERNELS = ("erode3", "preprocess_rhs_q", "mg_down_q", "mg_ud_q", "mg_up_q",
+             "mg_prolong_tq", "clamp_cast_paste_q", "preprocess_rhs_p", "clamp_cast_paste",
+             "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t")
+
+
+@pytest.mark.parametrize("cycles", [None, 3])
+def test_launch_counts_on_the_q_path(cycles, monkeypatch):
+    """A CPU rehearsal of the card's per-frame counts (each twin call stands
+    for a launch). Interior 518 x 526: one fused coarse level (262 x 258,
+    transposed), then the exact solve. Fixed mode, k cycles: mg_down_q 1,
+    mg_ud_q k-1, mg_prolong_tq k, mg_up_q 1, each coarse-level kernel k.
+    Tolerance mode: mg_down_q 1, mg_ud_q = mg_prolong_tq = the cycles run,
+    which is what the JAX package reports for the same RHS."""
+    counts = dict.fromkeys(Q_KERNELS, 0)
+    for name in Q_KERNELS:
+        orig = getattr(K, f"{name}_plain")
+
+        def counted(*a, _orig=orig, _name=name, **k):
+            counts[_name] += 1
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(K, f"{name}_plain", counted)
+    src, dst, mask = _images(80)
+    eng = SeamlessClone(CloneConfig(solver="multigrid", mg_cycles=cycles), device="cpu")
+    eng.run(src, dst, mask, (320, 300))
+    frame = dict(counts)  # the frame's launches, before the checks below
+    _, _, bw, bh = eng.metrics["bbox"]
+    h, w = bh - 2, bw - 2
+    assert TM._fused_level((w - 1) // 2, (h - 1) // 2, 1, 2, True, TM.FUSE_MIN_T)
+    assert not TM._fused_level(((h - 1) // 2 - 1) // 2, ((w - 1) // 2 - 1) // 2, 1, 2, True,
+                               TM.FUSE_MIN_T)
+    k = cycles if cycles is not None else frame["mg_ud_q"]
+    want = dict.fromkeys(Q_KERNELS, 0)
+    want.update(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1, mg_down_q=1,
+                mg_prolong_tq=k, mg_down=k, mg_up=k, mg_restrict_t=k, mg_prolong_t=k)
+    if cycles is None:
+        want.update(mg_ud_q=k)
+        # the frame's RHS, dense, through the JAX solve's report
+        m, (x0, y0), (left, top), _ = TE.prepare_inputs(mask, src.shape, dst.shape, (320, 300))
+        dest = torch.from_numpy(dst[top : top + bh, left : left + bw].transpose(2, 0, 1).copy())
+        m01 = torch.from_numpy((m[y0 : y0 + bh, x0 : x0 + bw] != 0).astype(np.uint8))
+        patch = torch.from_numpy(src[y0 : y0 + bh, x0 : x0 + bw].transpose(2, 0, 1).copy())
+        patch = torch.where(m01[None] != 0, patch, 0).to(torch.uint8)
+        g = K.preprocess_rhs_p_plain(dest, patch, K.erode3_plain(m01), (h, w))
+        _, info = JM.solve_multigrid(jnp.asarray(g.numpy()), padded="q", use_pallas=True,
+                                     interpret=True, return_info=True)
+        assert k == int(info["cycles"]) >= 3
+    else:
+        want.update(mg_ud_q=k - 1, mg_up_q=1)
+    assert frame == want

@@ -316,7 +316,7 @@ def test_padded_output_and_true_hw():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(padded="q"), "slice 3b"),
+    (dict(padded="q"), "slice 3c"),  # a dense g on the quarter path
     (dict(padded=True), "slice 4"),
     (dict(padded=False), "slice 4"),
     (dict(padded="t", pcg=True), "slice 4"),

@@ -344,7 +344,7 @@ def test_no_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("cfg, match", [
-    (CloneConfig(solver="multigrid"), "slice 3b"),  # the default mg_padded="q"
+    (CloneConfig(solver="multigrid", mg_padded=True), "slice 4"),  # a dense mode
     (CloneConfig(solver="jacobi"), "slice 4"),
     (CloneConfig(solver="dst_fft"), "slice 4"),
     (CloneConfig(bbox_bucket=64), "slice 5"),
@@ -356,14 +356,22 @@ def test_unported_configs_raise(cfg, match):
 
 
 def test_auto_above_crossover_raises(monkeypatch):
+    """Above the crossover the default mg_padded="q" runs (tests/
+    test_torch_mg_pipeline.py); what still raises there: a tolerance whose
+    check-free burst is 0 on a grid the quarter chain takes (slice 3c), and
+    the dense modes (slice 4)."""
     monkeypatch.setattr(TE, "AUTO_CROSSOVER_PIXELS", 100)
     monkeypatch.setattr(TE, "SERVE_CROSSOVER_PIXELS", 100)
-    src, dst, mask = _images()
-    eng = SeamlessClone(device="cpu")  # the default mg_padded="q" above the crossover
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        eng.run(src, dst, mask, CENTER)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        eng.timed_serve(src, dst, mask, CENTER, loops=1)
+    src, dst, _ = _images(src_hw=(522, 530), dst_hw=(560, 600))
+    mask = np.full(src.shape[:2], 255, np.uint8)  # interior 518 x 526, above 2^18
+    center = (300, 280)
+    for cfg, match in ((CloneConfig(tol=0.05), "slice 3c"),
+                       (CloneConfig(mg_padded=True), "slice 4")):
+        eng = SeamlessClone(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match=match):
+            eng.run(src, dst, mask, center)
+        with pytest.raises(NotImplementedError, match=match):
+            eng.timed_serve(src, dst, mask, center, loops=1)
 
 
 def test_port_imports_no_jax():

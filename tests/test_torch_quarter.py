@@ -1,0 +1,364 @@
+"""The port's quarter-plane multigrid level against the JAX package on the CPU.
+
+Each kernel twin of the ``"q"`` chain (``ops/kernels.py``) against its
+Pallas kernel run with ``interpret=True``: the descent in both forms, the
+fused cycle boundary with and without its residual, the ascent and the
+split-plane prolongation at odd and even sides and with two strips; the
+quarter RHS and the quarters-consuming paste; the geometry and the path
+gate; and ``solve_multigrid(padded="q")`` from a born-quartered RHS.
+
+Tolerances: the RHS and the paste are integer-valued or casts, bit-exact.
+The level twins run the same float operations in the same order as the
+Pallas kernels, but XLA on the CPU may contract a multiply and an add into
+one FMA (the even-h edge weights, 1/3 and 1/6, are not powers of two), so
+they agree to rtol 3e-6 with an absolute floor of 1e-6 max |ref|, as in
+``tests/test_torch_multigrid.py``. The whole solve: two fixed cycles agree
+to rel 1e-5; the tolerance-mode solve (4 cycles) to 5e-5, because the
+coarse corrections amplify rounding: a one-ulp change of g moves the
+4-cycle result of either implementation by about 1e-5 of max |u|, so two
+implementations that round differently cannot agree closer. Its cycle
+count must be equal.
+Inputs are numpy-seeded.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seamlesscloneoptimization_tpu.ops import pallas_kernels as PK
+from seamlesscloneoptimization_tpu.ops import pallas_mg_quarter as MQ
+from seamlesscloneoptimization_tpu.solvers import multigrid as JM
+from seamlesscloneoptimization_tpu_torch.ops import kernels as K
+from seamlesscloneoptimization_tpu_torch.ops.guidance import bgr_to_gray_u8
+from seamlesscloneoptimization_tpu_torch.solvers import jacobi as TJ
+from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
+
+# (h, w): even/even, odd/odd, even/odd, odd/even, and two 128-row strips
+CASES = [(200, 230), (201, 231), (250, 129), (129, 300), (300, 257)]
+
+
+def _rand(shape, seed, scale=50.0):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32) * scale
+
+
+def _close(got, want, rtol=3e-6):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-6 * np.abs(want).max())
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _level(h, w, seed):
+    """(geom, chp, g, u): quarter planes of a random RHS and guess, exact zeros
+    outside the (h, w) domain."""
+    geom = K.mg_geometry_q(h, w)
+    _, hq, wq2, hp2 = geom
+    chp = K.mg_geometry_t((w - 1) // 2, (h - 1) // 2, wp_min=hp2)[1]
+    dense = []
+    for k, scale in ((0, 50.0), (1, 10.0)):
+        x = np.zeros((3, 2 * hq, 2 * wq2), np.float32)
+        x[:, :h, :w] = _rand((3, h, w), seed + k, scale)
+        dense.append(K.to_quarters(_t(x)))
+    return geom, chp, dense[0], dense[1]
+
+
+def _split_corr(h, w, hp2, wq2, seed):
+    """e_even, e_odd as mg_prolong_tq leaves them: rows [0, hc) and the
+    domain's even / odd columns hold data, zeros elsewhere."""
+    hc = (h - 1) // 2
+    ee = np.zeros((3, hp2, wq2), np.float32)
+    eo = np.zeros((3, hp2, wq2), np.float32)
+    ee[:, :hc, : (w + 1) // 2] = _rand((3, hc, (w + 1) // 2), seed, 5.0)
+    eo[:, :hc, : w // 2] = _rand((3, hc, w // 2), seed + 1, 5.0)
+    return _t(ee), _t(eo)
+
+
+def _zero_outside(uq, h, w):
+    d = K.from_quarters(uq).numpy()
+    return not d[:, h:].any() and not d[:, :, w:].any()
+
+
+# ---------------------------------------------------------------------------
+# geometry, gate and the plain conversions
+# ---------------------------------------------------------------------------
+
+
+def test_geometry_and_gate_match_jax():
+    for h in (3, 64, 127, 128, 255, 256, 257, 511, 512, 1548, 2798):
+        for w in (3, 100, 255, 256, 257, 520, 2396, 3798):
+            assert K.mg_geometry_q(h, w) == MQ.mg_geometry_q(h, w)
+            for nu in ((1, 2), (0, 2), (2, 4), (2, 5), (3, 1)):
+                for use_pallas in (True, False):
+                    assert (TM.quarter_path_applies(h, w, *nu, use_pallas=use_pallas)
+                            == JM.quarter_path_applies(h, w, *nu, use_pallas=use_pallas))
+    assert TM.quarter_path_applies(512, 520) and not TM.quarter_path_applies(500, 500)
+
+
+@pytest.mark.parametrize("hq, wq", [(128, 128), (256, 384)])
+def test_to_and_from_quarters_match_jax(hq, wq):
+    x = _rand((3, 2 * hq, 2 * wq), 1)
+    q = K.to_quarters(_t(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(MQ.to_quarters(jnp.asarray(x))))
+    np.testing.assert_array_equal(K.from_quarters(q).numpy(), x)
+    assert np.array_equal(q[:, 1, :, :].numpy(), x[:, 0::2, 1::2])  # EO: even rows, odd cols
+
+
+# ---------------------------------------------------------------------------
+# the level twins against their Pallas kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hw", CASES)
+def test_mg_down_q_matches_pallas(hw):
+    h, w = hw
+    geom, chp, g, u = _level(h, w, h + w)
+    hc, wc = (h - 1) // 2, (w - 1) // 2
+    for u_zero in (True, False):
+        ju, jrc = MQ.mg_down_q_pallas(None if u_zero else jnp.asarray(u.numpy()),
+                                      jnp.asarray(g.numpy()), 1, (h, w), geom,
+                                      u_zero=u_zero, interpret=True, rct_rows=chp)
+        tu, trc = K.mg_down_q(None if u_zero else u, g, 1, h, w, chp)
+        assert tu.shape == g.shape and trc.shape == (3, chp, geom[1])
+        _close(tu, ju)
+        _close(trc, jrc)
+        assert _zero_outside(tu, h, w)
+        assert not trc[:, wc:].any() and not trc[:, :, hc:].any()
+
+
+@pytest.mark.parametrize("hw", CASES)
+def test_mg_up_q_matches_pallas(hw):
+    h, w = hw
+    geom, _, g, u = _level(h, w, 3 * h + w)
+    ee, eo = _split_corr(h, w, geom[3], geom[2], h)
+    ju = MQ.mg_up_q_pallas(*(jnp.asarray(x.numpy()) for x in (u, g, ee, eo)), 2, (h, w),
+                           geom, interpret=True)
+    tu = K.mg_up_q(u, g, ee, eo, 2, h, w)
+    _close(tu, ju)
+    assert _zero_outside(tu, h, w)
+
+
+@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.mark.parametrize("hw", CASES)
+def test_mg_ud_q_matches_pallas(hw, with_residual):
+    h, w = hw
+    geom, chp, g, u = _level(h, w, h * w)
+    ee, eo = _split_corr(h, w, geom[3], geom[2], w)
+    want = MQ.mg_ud_q_pallas(*(jnp.asarray(x.numpy()) for x in (u, g, ee, eo)), 2, 1,
+                             (h, w), geom, interpret=True, rct_rows=chp,
+                             with_residual=with_residual)
+    got = K.mg_ud_q(u, g, ee, eo, 2, 1, h, w, chp, with_residual=with_residual)
+    assert len(got) == len(want) == 2 + with_residual
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+    if with_residual:
+        rmax, jmax = float(got[2]), float(want[2])
+        assert got[2].dim() == 0 and abs(rmax - jmax) <= 3e-6 * jmax
+        # the red-cell max is the dense residual's (black cells are 0 up to rounding)
+        dense = K.from_quarters(got[0])[:, :h, :w]
+        r = TJ.residual(dense, K.from_quarters(g)[:, :h, :w]).abs().max().item()
+        assert abs(rmax - r) <= 1e-5 * r
+
+
+@pytest.mark.parametrize("hw", CASES)
+def test_mg_prolong_tq_matches_pallas(hw):
+    h, w = hw
+    _, hq, wq2, hp2 = K.mg_geometry_q(h, w)
+    hc, wc = (h - 1) // 2, (w - 1) // 2
+    _, chp, cwp, _ = K.mg_geometry_t(wc, hc, wp_min=hp2)
+    ec = np.zeros((3, chp, cwp), np.float32)
+    ec[:, :wc, :hc] = _rand((3, wc, hc), 22, 5.0)
+    je, jo = MQ.mg_prolong_tq_pallas(jnp.asarray(ec), h, w, 1.0, out_rows=hp2, wq2=wq2,
+                                     interpret=True)
+    te, to = K.mg_prolong_tq(_t(ec), w, hp2, wq2)
+    assert te.shape == to.shape == (3, hp2, wq2)
+    _close(te, je)
+    _close(to, jo)
+    assert not te[:, hc:].any() and not te[:, :, wc + 1 :].any()
+    assert not to[:, hc:].any() and not to[:, :, w // 2 :].any()
+
+
+# ---------------------------------------------------------------------------
+# the quarter RHS and the quarters-consuming paste
+# ---------------------------------------------------------------------------
+
+
+def _rhs_inputs(h, w, seed):
+    rng = np.random.default_rng(seed)
+    dest = rng.integers(0, 256, (3, h, w)).astype(np.uint8)
+    patch = rng.integers(0, 256, (3, h, w)).astype(np.uint8)
+    mask = ((rng.random((h, w)) < 0.85) * 255).astype(np.uint8)
+    mask[: h // 3, : w // 4] = 0
+    return dest, patch, mask
+
+
+@pytest.mark.parametrize("hw", [(40, 57), (131, 260)])
+@pytest.mark.parametrize("mode", [(1, "opencv"), (2, "opencv"), (2, "norm"), (3, "opencv")])
+def test_preprocess_rhs_q_matches_pallas(hw, mode):
+    """Bit-exact against preprocess_rhs_quarters_pallas over all four planes;
+    MONOCHROME passes its gray patch with flags 1, as the pipeline does."""
+    flags, rule = mode
+    h, w = hw
+    dest, patch, mask = _rhs_inputs(h, w, h + flags)
+    kflags = flags
+    if flags == 3:
+        gray = bgr_to_gray_u8(_t(patch)).numpy().astype(np.uint8)
+        patch = np.broadcast_to(gray[None], patch.shape).copy()
+        kflags = 1
+    _, hq, wq2, _ = K.mg_geometry_q(h - 2, w - 2)
+    out_hw = (2 * hq, 2 * wq2)
+    me = K.erode3((_t(mask) != 0).to(torch.uint8))
+    got = K.preprocess_rhs_q(_t(dest), _t(patch), me, out_hw, kflags, rule)
+    want = np.asarray(PK.preprocess_rhs_quarters_pallas(
+        jnp.asarray(dest), jnp.asarray(patch), jnp.asarray(mask), out_hw, kflags, rule,
+        interpret=True))
+    assert got.shape == (3, 4, hq, wq2)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("hw", [(255, 256), (200, 311)])
+def test_clamp_cast_paste_q_matches_pallas(hw, planar):
+    """The pasted interior equals clamp_cast_guarded_quarters_pallas's data
+    region (row ring 256, column ring 512) and clamp_cast_paste of the dense
+    solution, in a planar and an interleaved destination; nothing else of
+    the destination changes."""
+    h2, w2 = hw
+    _, hq, wq2, _ = K.mg_geometry_q(h2, w2)
+    uq = _t(_rand((3, 4, hq, wq2), 9, 160.0) + 90.0)
+    slab = np.asarray(PK.clamp_cast_guarded_quarters_pallas(jnp.asarray(uq.numpy()),
+                                                            interpret=True))
+    rng = np.random.default_rng(h2)
+    base = rng.integers(0, 256, (3, 300, 400) if planar else (300, 400, 3)).astype(np.uint8)
+    top1, left1 = 7, 61
+    got = torch.from_numpy(base.copy())
+    got_v = got if planar else got.permute(2, 0, 1)
+    assert K.clamp_cast_paste_q(uq, got_v, top1, left1, h2, w2) is got_v
+    want = torch.from_numpy(base.copy())
+    want_v = want if planar else want.permute(2, 0, 1)
+    K.clamp_cast_paste(K.from_quarters(uq).contiguous(), want_v, top1, left1, h2, w2)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got_v[:, top1 : top1 + h2, left1 : left1 + w2].numpy(),
+                                  slab[:, 256 : 256 + h2, 512 : 512 + w2])
+
+
+# ---------------------------------------------------------------------------
+# the solver
+# ---------------------------------------------------------------------------
+
+
+def _quartered(g):
+    c, h, w = g.shape
+    _, hq, wq2, _ = K.mg_geometry_q(h, w)
+    gd = np.zeros((c, 2 * hq, 2 * wq2), np.float32)
+    gd[:, :h, :w] = g
+    return K.to_quarters(_t(gd))
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 520), (3, 511, 517)])
+@pytest.mark.parametrize("mode", ["cycles", "tol"])
+def test_solve_multigrid_q_matches_jax(shape, mode, monkeypatch):
+    """The born-quartered solve against JAX's interpreted one; tolerance
+    mode: the cycles run (mg_ud_q launches) equal to the cycles JAX reports
+    for the dense RHS, and the relative residual within tol."""
+    _, h, w = shape
+    g = _rand(shape, 16)
+    gq = _quartered(g)
+    kw = dict(cycles=2) if mode == "cycles" else dict(tol=1e-4)
+    want = np.asarray(JM.solve_multigrid(jnp.asarray(gq.numpy()), true_hw=(h, w), padded="q",
+                                         use_pallas=True, interpret=True,
+                                         padded_output="quarters", **kw))
+    launches = []
+    orig = K.mg_ud_q_plain
+    monkeypatch.setattr(K, "mg_ud_q_plain", lambda *a, **k: launches.append(1) or orig(*a, **k))
+    got = TM.solve_multigrid(gq, true_hw=(h, w), padded="q", use_pallas=True,
+                             padded_output="quarters", **kw)
+    assert got.shape == gq.shape and _zero_outside(got, h, w)
+    rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    if mode == "cycles":
+        assert len(launches) == 1 and rel <= 1e-5
+        return
+    _, info = JM.solve_multigrid(jnp.asarray(g), padded="q", use_pallas=True, interpret=True,
+                                 tol=1e-4, return_info=True)
+    assert len(launches) == int(info["cycles"])
+    assert rel <= 5e-5
+    u = K.from_quarters(got)[:, :h, :w]
+    assert TJ.residual(u, _t(g)).abs().max().item() <= 1e-4 * np.abs(g).max()
+
+
+def test_solve_multigrid_q_zero_cycles_and_small_grids():
+    gq = _quartered(_rand((1, 512, 520), 3))
+    z = TM.solve_multigrid(gq, true_hw=(512, 520), padded="q", use_pallas=True,
+                           padded_output="quarters", cycles=0)
+    assert z.shape == gq.shape and not z.any()
+    # below the gate a dense pre-padded g runs the element path on its view
+    g = _rand((1, 90, 100), 4)
+    dense = K.from_quarters(_quartered(g))
+    want = TM.solve_multigrid(_t(g), cycles=2, use_pallas=True, padded="t")
+    got = TM.solve_multigrid(dense, cycles=2, use_pallas=True, padded="q", true_hw=(90, 100))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("what", ["dense g", "dense result", "burst 0", "small grid"])
+def test_quarter_path_gaps_raise_slice_3c(what):
+    """What needs the slice-3c kernels (to_quarters, from_quarters, the
+    check-first loop) raises, on the CPU as on the card."""
+    gq = _quartered(_rand((1, 512, 520), 5))
+    kw = dict(padded="q", use_pallas=True, true_hw=(512, 520), padded_output="quarters")
+    if what == "dense g":
+        g, kw = torch.zeros((1, 512, 520)), dict(padded="q", use_pallas=True, cycles=1)
+    elif what == "dense result":
+        g, kw = gq, dict(kw, padded_output=True, cycles=1)
+    elif what == "burst 0":
+        g, kw = gq, dict(kw, tol=0.05)
+    else:
+        g, kw = _quartered(_rand((1, 90, 100), 6)), dict(kw, true_hw=(90, 100), cycles=1)
+    with pytest.raises(NotImplementedError, match="slice 3c"):
+        TM.solve_multigrid(g, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(return_info=True), dict(u0=torch.zeros(1)),
+                                dict(fmg_start=True), dict(pcg=True)])
+def test_quartered_g_rejects_other_modes(kw):
+    """As in the JAX package: a quartered g runs only the zero-start modes."""
+    gq = _quartered(_rand((1, 512, 520), 7))
+    with pytest.raises(ValueError, match="quartered g"):
+        TM.solve_multigrid(gq, padded="q", use_pallas=True, true_hw=(512, 520), **kw)
+
+
+def _bad_call(what):
+    g = torch.zeros((3, 4, 128, 128))
+    e = torch.zeros((3, 128, 128))
+    u8 = torch.zeros((3, 20, 30), dtype=torch.uint8)
+    me = torch.zeros((20, 30), dtype=torch.uint8)
+    return {
+        "odd out_hw": lambda: K.preprocess_rhs_q(u8, u8, me, (255, 256)),
+        "small out_hw": lambda: K.preprocess_rhs_q(u8, u8, me, (16, 256)),
+        "not 4 planes": lambda: K.mg_down_q(None, torch.zeros((3, 2, 128, 128)), 1, 200, 200,
+                                            128),
+        "domain too large": lambda: K.mg_down_q(None, g, 1, 257, 200, 128),
+        "nu1 0": lambda: K.mg_down_q(None, g, 0, 200, 200, 128),
+        "rct_rows": lambda: K.mg_down_q(None, g, 1, 200, 200, 64),
+        "guess shape": lambda: K.mg_down_q(g[:, :, :64], g, 1, 200, 200, 128),
+        "nu2 5": lambda: K.mg_up_q(g, g, e, e, 5, 200, 200),
+        "staleness": lambda: K.mg_ud_q(g, g, e, e, 4, 3, 200, 200, 128),
+        "correction shape": lambda: K.mg_ud_q(g, g, e[:, :64], e, 2, 1, 200, 200, 128),
+        "prolong w": lambda: K.mg_prolong_tq(torch.zeros((3, 128, 128)), 2, 128, 128),
+        "paste planes": lambda: K.clamp_cast_paste_q(torch.zeros((3, 2, 128, 128)), u8, 1, 1,
+                                                     18, 28),
+        "paste outside": lambda: K.clamp_cast_paste_q(g, u8, 3, 3, 18, 28),
+    }[what]
+
+
+@pytest.mark.parametrize("what", ["odd out_hw", "small out_hw", "not 4 planes",
+                                  "domain too large", "nu1 0", "rct_rows", "guess shape",
+                                  "nu2 5", "staleness", "correction shape", "prolong w",
+                                  "paste planes", "paste outside"])
+def test_quarter_wrappers_validate_inputs(what):
+    """Each wrapper refuses what its kernel cannot run, on the CPU as on the
+    card (the checks run before the device dispatch)."""
+    with pytest.raises(ValueError):
+        _bad_call(what)()
