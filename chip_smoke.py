@@ -6,8 +6,8 @@
 1. Prints the card (nvidia-smi name and power limit), builds the kernels
    from ``seamlesscloneoptimization_tpu_torch/csrc`` and prints the build
    time, ptxas's resource report and both TF32 flags.
-2. Holds each of the twenty kernels against its plain PyTorch twin on the
-   card: every kernel bit-exact over its whole output (the divides too: the
+2. Holds each of the twenty-three kernels against its plain PyTorch twin on
+   the card: every kernel bit-exact over its whole output (the divides too: the
    twin's divide is IEEE on the card as well; the kernels are built with
    -fmad=false, so the multigrid's float arithmetic rounds as the twin's
    separate ops do). The DST kernels run at the shapes of the headline
@@ -18,7 +18,10 @@
    7680x4320 destination: interior 2798x3798, 10.6 MP): the fine level
    (3, 2816, 3840) and the first transposed coarse level (3, 1920, 1408,
    betas 1.5, known-zero guess); the quarter-plane kernels at its quarter
-   planes (3, 4, 1408, 1920) and transposed coarse RHS (3, 1920, 1408).
+   planes (3, 4, 1408, 1920) and transposed coarse RHS (3, 1920, 1408):
+   the dense <-> quarter conversions at the footprint (3, 2816, 3840), the
+   descent in its fused and split forms, the split form's restriction
+   (equal to the fused rc_t), the ascent with and without its residual.
    Times kernel, twin and, where one PyTorch
    call computes the same function, that call (``library_ms``; the port
    never calls it), each launch cold in L2; and one GEMM of each chain.
@@ -56,12 +59,26 @@
      profiles of both; ``mg_q_headline``: ``solver="multigrid"`` at the
      headline with the card against the CPU, its profile, and the host's
      issue time of a 4-cycle solve against the card's time for it;
+   - ``mg_q_coarse``: ``CloneConfig(tol=0.05)`` at 8K, where no check-free
+     cycle comes first and the check-first loop runs (per cycle the split
+     mg_down_q, mg_restrict_tq, the coarse levels, mg_prolong_tq and
+     mg_up_q with its residual), its single run's cycles equal to those
+     ``solve_multigrid`` reports for the dense RHS (relative residual <=
+     0.05), its profile; ``mg_q_coarse_headline``: ``solver="multigrid",
+     tol=0.05`` at the headline with the card against the CPU, its profile;
+   - ``mg_dense``: ``solve_multigrid`` on the dense 8K RHS (to_quarters in,
+     from_quarters out) at tol 1e-4 with ``return_info`` (its cycles those
+     of the born-quartered solve), ``padded_output=True`` (exact zeros
+     outside the domain), and warm-started from the tol 0.05 solution
+     (to_quarters twice, fewer cycles);
    then ``seamless_clone`` on a small irregular mask in all three modes.
 
 Prints the kernel table as one JSON line (one entry per kernel; the
 ``*_interleaved`` entries are the same kernel on the single-shot path's
 interleaved destination; ``launches`` is the count of the path that runs
-the kernel, ``launches_by_path`` every path's), then, as the last line,
+the kernel, ``launches_by_path`` every path's; for ``mg_dense`` the first
+count is the tol 1e-4 solve's, the second the warm start's), then, as the
+last line,
 ``{"ok": true, "device": {...}}``. Every phase raises on failure; the
 script exits non-zero, printing no result, when there is no CUDA card or
 the port's package is missing. Images are synthetic, made from a seed.
@@ -86,14 +103,17 @@ MG_LOOPS = 10
 STRIP_LOOPS = 5
 REPS = 10
 TOL = 1e-4  # CloneConfig's default
+COARSE_TOL = 0.05  # a draft-quality tolerance: no check-free cycle (_tol_burst 0)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak HBM3 bandwidth
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 KERNELS = ("erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste", "fold_minor",
            "unfold_minor", "transpose_pair", "unfold_transpose", "unfold_clamp_paste",
            "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t",
            "preprocess_rhs_q", "mg_down_q", "mg_up_q", "mg_ud_q", "mg_prolong_tq",
-           "clamp_cast_paste_q")
+           "clamp_cast_paste_q", "to_quarters", "from_quarters", "mg_restrict_tq")
 MG_KERNELS = ("mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t")
+# a cycle of the check-first loop: each of these once
+Q_CHECK_FIRST = ("mg_down_q", "mg_restrict_tq", "mg_prolong_tq", "mg_up_q")
 
 
 def _per_frame(**counts):
@@ -128,16 +148,25 @@ PATHS = {
     "mg_q": None,
     "mg_q_fixed": _mg_q_per_frame(3, 4),
     "mg_q_headline": None,
+    # tol 0.05: the check-first loop, its cycles data-dependent
+    "mg_q_coarse": None,
+    "mg_q_coarse_headline": None,
+    # solve_multigrid on a dense RHS (no serve frame: the solves' counts)
+    "mg_dense": None,
 }
 MG_Q_PATHS = ("mg_q", "mg_q_fixed", "mg_q_headline")
+MG_Q_COARSE_PATHS = ("mg_q_coarse", "mg_q_coarse_headline")
 # fused levels of the "t" chain; fused coarse levels below the quarter level
-MG_LEVELS = {"mg_t": 4, "mg_t_headline": 3, "mg_q": 3, "mg_q_headline": 2}
+MG_LEVELS = {"mg_t": 4, "mg_t_headline": 3, "mg_q": 3, "mg_q_headline": 2, "mg_q_coarse": 3,
+             "mg_q_coarse_headline": 2}
 # the path whose serve run gives each kernel's "launches"
 HOME_PATH = {"transpose": "unfolded", "clamp_cast_paste": "unfolded",
              "unfold_minor": "per_axis", "preprocess_rhs_p": "mg_t", "mg_down": "mg_t",
              "mg_up": "mg_t", "mg_restrict_t": "mg_t", "mg_prolong_t": "mg_t",
              "preprocess_rhs_q": "mg_q", "mg_down_q": "mg_q", "mg_ud_q": "mg_q",
-             "mg_up_q": "mg_q_fixed", "mg_prolong_tq": "mg_q", "clamp_cast_paste_q": "mg_q"}
+             "mg_up_q": "mg_q_fixed", "mg_prolong_tq": "mg_q", "clamp_cast_paste_q": "mg_q",
+             "to_quarters": "mg_dense", "from_quarters": "mg_dense",
+             "mg_restrict_tq": "mg_q_coarse"}
 _PK = "seamlesscloneoptimization_tpu/ops/pallas_kernels.py"
 _MQ = "seamlesscloneoptimization_tpu/ops/pallas_mg_quarter.py"
 REPLACES = {
@@ -164,6 +193,9 @@ REPLACES = {
     "mg_prolong_tq": [f"{_MQ}:561"],
     "clamp_cast_paste_q": [f"{_PK}:1695", f"{_PK}:1785"],
     "clamp_cast_paste_q_interleaved": [f"{_PK}:1695", f"{_MQ}:158", f"{_PK}:1614"],
+    "to_quarters": [f"{_MQ}:120"],
+    "from_quarters": [f"{_MQ}:158"],
+    "mg_restrict_tq": [f"{_MQ}:511"],
 }
 SOURCE = {"clamp_cast_paste_interleaved": "clamp_cast_paste",
           "unfold_clamp_paste_interleaved": "unfold_clamp_paste",
@@ -183,7 +215,8 @@ def synthetic_image(rng, hw, cell=48):
 
 def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
     if PATHS[path] is None:
-        check = check_mg_q_counts if path in MG_Q_PATHS else check_mg_counts
+        check = (check_mg_q_counts if path in MG_Q_PATHS else
+                 check_mg_q_coarse_counts if path in MG_Q_COARSE_PATHS else check_mg_counts)
         check(path, what, launches, frames)
         return
     for name, per in PATHS[path].items():
@@ -217,6 +250,21 @@ def check_mg_q_counts(path: str, what: str, launches: dict, frames: int) -> int:
     want = _per_frame(erode3=frames, preprocess_rhs_q=frames, clamp_cast_paste_q=frames,
                       mg_down_q=frames, mg_ud_q=n, mg_prolong_tq=n,
                       **{k: n * levels for k in MG_KERNELS})
+    if launches != want or n < frames:
+        raise AssertionError(f"{path} {what}: launches {launches}, expected {want}")
+    return n
+
+
+def check_mg_q_coarse_counts(path: str, what: str, launches: dict, frames: int) -> int:
+    """Check-first quarter-plane counts (no check-free cycle): erode3,
+    preprocess_rhs_q and clamp_cast_paste_q once a frame; per cycle the
+    split mg_down_q, mg_restrict_tq, mg_prolong_tq and mg_up_q once, each
+    coarse-level kernel once per fused coarse level; no mg_ud_q, no
+    conversion, nothing else. Returns the cycles run."""
+    levels = MG_LEVELS[path]
+    n = launches["mg_up_q"]
+    want = _per_frame(erode3=frames, preprocess_rhs_q=frames, clamp_cast_paste_q=frames,
+                      **{k: n for k in Q_CHECK_FIRST}, **{k: n * levels for k in MG_KERNELS})
     if launches != want or n < frames:
         raise AssertionError(f"{path} {what}: launches {launches}, expected {want}")
     return n
@@ -277,7 +325,8 @@ def profile_frames(label, clone_pipeline, kwargs, frames: int = 5) -> int:
     ours = ("erode3", "preprocess_rhs_t", "transpose_kernel", "clamp_cast_paste",
             "fold_minor", "unfold_minor", "transpose_pair", "unfold_transpose",
             "unfold_clamp_paste", "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t",
-            "mg_prolong_t", "preprocess_rhs_q", "level_q_kernel")
+            "mg_prolong_t", "preprocess_rhs_q", "level_q_kernel", "to_quarters",
+            "from_quarters")
     groups = {"gemm": 0.0, "port kernels": 0.0, "other": 0.0}
     gemm_calls = 0
     for k, t in per_kernel.items():
@@ -682,6 +731,28 @@ def main() -> int:
                                    ("u", "rc_t", "rmax")):
             require_equal(f"mg_ud_q 8K {what}" + (" (with_residual)" if wr else ""), got,
                           want)
+    # the check-first loop's forms: the split descent, its restriction (equal
+    # to the fused rc_t), the ascent with its residual
+    for guess, label in ((None, " (known-zero guess)"), (uq0, "")):
+        split = K.mg_down_q(guess, gq8, 1, h8, w8)
+        for got, want, what in zip(split, K.mg_down_q_plain(guess, gq8, 1, h8, w8),
+                                   ("u", "rh_e", "rh_o")):
+            require_equal(f"mg_down_q 8K split{label} {what}", got, want)
+    rh_q = K.mg_down_q(None, gq8, 1, h8, w8)[1:]
+    rct_s = K.mg_restrict_tq(*rh_q, h8, w8, chp8)
+    require_equal("mg_restrict_tq 8K", rct_s, K.mg_restrict_tq_plain(*rh_q, h8, w8, chp8))
+    require_equal("mg_restrict_tq 8K (the fused descent's rc_t)", rct_s, rcq0)
+    for got, want, what in zip(K.mg_up_q(uq0, gq8, *e_q, 2, h8, w8, with_residual=True),
+                               K.mg_up_q_plain(uq0, gq8, *e_q, 2, h8, w8, True),
+                               ("u", "rmax")):
+        require_equal(f"mg_up_q 8K (with_residual) {what}", got, want)
+    # the conversions over the whole footprint, padding included
+    xd8 = torch.randn((c, 2 * hq8, 2 * wq28), generator=torch.Generator(dev).manual_seed(SEED),
+                      device=dev)
+    xq8 = K.to_quarters(xd8)
+    require_equal("to_quarters 8K", xq8, K.to_quarters_plain(xd8))
+    require_equal("from_quarters 8K", K.from_quarters(xq8), K.from_quarters_plain(xq8))
+    require_equal("from_quarters 8K (the inverse)", K.from_quarters(xq8), xd8)
     uq_paste = uq0 * 40.0 + 100.0  # values across [0, 255] and beyond
     d_k, d_p = dst8_p.clone(), dst8_p.clone()
     K.clamp_cast_paste_q(uq_paste, d_k, top8 + 1, left8 + 1, h8, w8)
@@ -698,11 +769,34 @@ def main() -> int:
         time_ms(lambda: K.mg_down_q_plain(uq0, gq8, 1, h8, w8, chp8)),
         shape=f"u, g {qshape}, nu1=1 -> u, rc_t ({c},{chp8},{hq8})",
         zero_guess_ms=time_ms(lambda: K.mg_down_q(None, gq8, 1, h8, w8, chp8)),
-        zero_guess_bound_ms=bound(4 * (2 * qplanes + rct), 11 * pts8)[0])
+        zero_guess_bound_ms=bound(4 * (2 * qplanes + rct), 11 * pts8)[0],
+        split_shape=f"u, g {qshape}, nu1=1 -> u, rh_e, rh_o 2x ({c},{hq8},{wq28})",
+        split_ms=time_ms(lambda: K.mg_down_q(uq0, gq8, 1, h8, w8)),
+        split_plain_ms=time_ms(lambda: K.mg_down_q_plain(uq0, gq8, 1, h8, w8)),
+        split_bound_ms=bound(4 * (3 * qplanes + 2 * qhalf), 11 * pts8)[0],
+        split_zero_guess_ms=time_ms(lambda: K.mg_down_q(None, gq8, 1, h8, w8)),
+        split_zero_guess_bound_ms=bound(4 * (2 * qplanes + 2 * qhalf), 11 * pts8)[0])
     row("mg_up_q", 4 * (3 * qplanes + 2 * qhalf), 14 * pts8,
         time_ms(lambda: K.mg_up_q(uq0, gq8, *e_q, 2, h8, w8)),
         time_ms(lambda: K.mg_up_q_plain(uq0, gq8, *e_q, 2, h8, w8)),
-        shape=f"u, g {qshape} + e_even, e_odd ({c},{hq8},{wq28}), nu2=2 -> u")
+        shape=f"u, g {qshape} + e_even, e_odd ({c},{hq8},{wq28}), nu2=2 -> u",
+        with_residual_ms=time_ms(lambda: K.mg_up_q(uq0, gq8, *e_q, 2, h8, w8, True)),
+        with_residual_plain_ms=time_ms(lambda: K.mg_up_q_plain(uq0, gq8, *e_q, 2, h8, w8,
+                                                               True)),
+        with_residual_bound_ms=bound(4 * (3 * qplanes + 2 * qhalf), 19 * pts8)[0])
+    row("mg_restrict_tq", 4 * (2 * qhalf + rct), 3 * c * hc8 * wc8,
+        time_ms(lambda: K.mg_restrict_tq(*rh_q, h8, w8, chp8)),
+        time_ms(lambda: K.mg_restrict_tq_plain(*rh_q, h8, w8, chp8)),
+        shape=f"rh_e, rh_o 2x ({c},{hq8},{wq28}) -> ({c},{chp8},{hq8})")
+    dshape = f"({c},{2 * hq8},{2 * wq28})"
+    row("to_quarters", 8 * qplanes, 0, time_ms(lambda: K.to_quarters(xd8)),
+        time_ms(lambda: K.to_quarters_plain(xd8)),
+        time_ms(lambda: xd8.view(c, hq8, 2, wq28, 2).permute(0, 2, 4, 1, 3).contiguous()),
+        shape=f"{dshape} -> {qshape}")
+    row("from_quarters", 8 * qplanes, 0, time_ms(lambda: K.from_quarters(xq8)),
+        time_ms(lambda: K.from_quarters_plain(xq8)),
+        time_ms(lambda: xq8.view(c, 2, 2, hq8, wq28).permute(0, 3, 1, 4, 2).contiguous()),
+        shape=f"{qshape} -> {dshape}")
     row("mg_ud_q", 4 * (3 * qplanes + 2 * qhalf + rct), 25 * pts8,
         time_ms(lambda: K.mg_ud_q(uq0, gq8, *e_q, 2, 1, h8, w8, chp8)),
         time_ms(lambda: K.mg_ud_q_plain(uq0, gq8, *e_q, 2, 1, h8, w8, chp8)),
@@ -725,7 +819,7 @@ def main() -> int:
         time_ms(lambda: K.clamp_cast_paste_q_plain(uq_paste, i_p.permute(2, 0, 1), top8 + 1,
                                                    left8 + 1, h8, w8)),
         shape=f"{qshape} -> u8 ({c},{h8},{w8}) interleaved")
-    del uq0, rcq0, e_q, uq_paste, d_k, d_p, i_k, i_p, gray8, flush
+    del uq0, rcq0, e_q, uq_paste, d_k, d_p, i_k, i_p, gray8, flush, rh_q, rct_s, split, xd8, xq8
 
     # -- 3. every path through the entry points ---------------------------------
     path_launches = {}
@@ -967,6 +1061,78 @@ def main() -> int:
           f"mg_padded='q' tol {TOL}: {h2 * w2 / 1e6:.1f} MP {pair_ms:.4f} vs {q_head_ms:.4f} "
           f"({q_head_cycles / (MG_LOOPS + 1):g} cycles a frame); {h8 * w8 / 1e6:.1f} MP "
           f"{dst8_ms:.4f} vs {q8_ms:.4f}")
+
+    # -- a coarse tolerance (no check-free cycle: the check-first loop) at 8K
+    #    through auto, then at the headline -----------------------------------
+    if TM._tol_burst(COARSE_TOL, CloneConfig().max_cycles) != 0:
+        raise AssertionError(f"tol {COARSE_TOL} has a check-free burst")
+    _, qc8_ms = drive("mg_q_coarse", CloneConfig(tol=COARSE_TOL), src8, mask8, MG_LOOPS,
+                      f"8K, tol {COARSE_TOL}", d_img=dst8, cpu=None, solver="multigrid")
+    qc_run_cycles = check_mg_q_coarse_counts("mg_q_coarse", "single-shot run (8K)",
+                                             path_launches["mg_q_coarse"][1], 1)
+    qc_serve_cycles = path_launches["mg_q_coarse"][0]["mg_up_q"]
+    # the single run's RHS, dense and true-size, through the solver's report
+    g8d = K.preprocess_rhs_p(dest8, patch8, me8, (h8, w8))
+    g8max = g8d.abs().max().item()
+    u_coarse, info_c = TM.solve_multigrid(g8d, use_pallas=True, tol=COARSE_TOL,
+                                          return_info=True)
+    print(f"8K tol {COARSE_TOL} (check-first loop): single run {qc_run_cycles} cycles, "
+          f"solve_multigrid reports {info_c['cycles']}, relative residual "
+          f"{info_c['residual'] / g8max:.3e}; serve {qc_serve_cycles} cycles over "
+          f"{MG_LOOPS + 1} frames, {qc8_ms:.4f} ms/frame ({card})")
+    if info_c["cycles"] != qc_run_cycles or not info_c["residual"] <= COARSE_TOL * g8max:
+        raise AssertionError(f"8K tol {COARSE_TOL}: {qc_run_cycles} cycles run, {info_c}")
+    profile_frames(f"mg_q 8K tol {COARSE_TOL}", clone_pipeline, dict(
+        src=torch.from_numpy(src8).to(dev), dst=dst8_p.clone(),
+        mask=torch.from_numpy(m8).to(dev), bbox_xy=(x8, y8), left_top=(left8, top8),
+        bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver=TM.solve_multigrid, bases={},
+        solver_name="multigrid",
+        solver_kwargs=CloneConfig(solver="multigrid", tol=COARSE_TOL).solver_kwargs()),
+        frames=3)
+    _, qc_head_ms = drive("mg_q_coarse_headline", CloneConfig(solver="multigrid", tol=COARSE_TOL),
+                          src, mask, MG_LOOPS, f"{SRC_HW[1]}x{SRC_HW[0]}, tol {COARSE_TOL}",
+                          cpu="run", solver="multigrid")
+    profile_frames(f"mg_q headline tol {COARSE_TOL}", clone_pipeline, dict(
+        src=torch.from_numpy(src).to(dev), dst=dst_p.clone(), mask=torch.from_numpy(m).to(dev),
+        bbox_xy=(x0, y0), left_top=(left, top), bbox_hw=(bh, bw), flags=1, planar_dst=True,
+        solver=TM.solve_multigrid, bases={}, solver_name="multigrid",
+        solver_kwargs=CloneConfig(solver="multigrid", tol=COARSE_TOL).solver_kwargs()),
+        frames=3)
+    print(f"serve, quarter-plane multigrid tol {COARSE_TOL} ({card}): 8K {qc8_ms:.4f} "
+          f"ms/frame, headline {qc_head_ms:.4f} ms/frame "
+          f"({path_launches['mg_q_coarse_headline'][0]['mg_up_q'] / (MG_LOOPS + 1):g} "
+          f"cycles a frame)")
+
+    # -- solve_multigrid on the dense 8K RHS: to_quarters in, from_quarters out
+    K.reset_launches()
+    u_d, info_d = TM.solve_multigrid(g8d, use_pallas=True, tol=TOL, return_info=True)
+    torch.cuda.synchronize()
+    dense_launches = dict(K.LAUNCHES)
+    if (dense_launches["to_quarters"], dense_launches["from_quarters"]) != (1, 1):
+        raise AssertionError(f"the dense 8K solve launched {dense_launches}")
+    print(f"dense 8K solve, tol {TOL}: {info_d['cycles']} cycles (the born-quartered solve "
+          f"{solve_cycles}), relative residual {info_d['residual'] / g8max:.3e}")
+    if (info_d["cycles"] != solve_cycles or not info_d["residual"] <= TOL * g8max
+            or tuple(u_d.shape) != (c, h8, w8) or not torch.isfinite(u_d).all()):
+        raise AssertionError(f"the dense 8K solve: {info_d}, shape {tuple(u_d.shape)}")
+    slab = TM.solve_multigrid(g8d, use_pallas=True, tol=TOL, padded_output=True)
+    if (tuple(slab.shape) != (c, 2 * hq8, 2 * wq28) or slab[:, h8:].any()
+            or slab[:, :, w8:].any() or not torch.equal(slab[:, :h8, :w8], u_d)):
+        raise AssertionError(f"padded_output=True: {tuple(slab.shape)}, not the solve with "
+                             "exact zeros outside the domain")
+    K.reset_launches()
+    u_w, info_w = TM.solve_multigrid(g8d, u0=u_coarse, use_pallas=True, tol=TOL,
+                                     return_info=True)
+    torch.cuda.synchronize()
+    warm_launches = dict(K.LAUNCHES)
+    print(f"dense 8K solve, tol {TOL}, warm start from the tol {COARSE_TOL} solution: "
+          f"{info_w['cycles']} cycles against {info_d['cycles']} from zero, relative residual "
+          f"{info_w['residual'] / g8max:.3e}; launches {json.dumps(warm_launches)}")
+    if (warm_launches["to_quarters"] != 2 or warm_launches["from_quarters"] != 1
+            or not info_w["cycles"] < info_d["cycles"] or not info_w["residual"] <= TOL * g8max):
+        raise AssertionError(f"the warm-started 8K solve: {info_w}, launches {warm_launches}")
+    path_launches["mg_dense"] = (dense_launches, warm_launches)
+    del g8d, u_coarse, u_d, slab, u_w
 
     s_src = synthetic_image(rng, (194, 300))
     s_dst = synthetic_image(rng, (449, 800))

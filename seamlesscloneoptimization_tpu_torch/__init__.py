@@ -10,7 +10,7 @@ unless the caller passes ``device="cpu"``, which runs the plain PyTorch
 twins of the kernels; without a card and without ``device="cpu"`` they
 raise rather than quietly fall back.
 
-What runs (ROADMAP slices 1 to 3b), through ``SeamlessClone.run`` /
+What runs (ROADMAP slices 1 to 3c), through ``SeamlessClone.run`` /
 ``timed_serve`` and ``seamless_clone``, in the NORMAL, MIXED and
 MONOCHROME modes:
 
@@ -22,10 +22,13 @@ MONOCHROME modes:
 - ``CloneConfig()`` above the crossover, and ``CloneConfig(solver=
   "multigrid")`` at any size: the multigrid with its finest level in
   quarter planes (``mg_padded="q"``, the default) and transpose-fused
-  coarse levels, in tolerance or fixed-cycle mode; ``mg_padded="t"`` runs
-  the transpose-fused V-cycle on every level. Small interiors run the
-  plain element path. The dense modes ``mg_padded`` True / False raise
-  until ROADMAP slice 4.
+  coarse levels, in tolerance mode at any ``tol`` (a coarse one runs the
+  check-first loop) or fixed-cycle mode; ``mg_padded="t"`` runs the
+  transpose-fused V-cycle on every level. Small interiors run the plain
+  element path. ``solvers.multigrid.solve_multigrid`` also takes a dense
+  RHS, returns dense results and ``return_info``, and starts warm from
+  ``u0``. The dense modes ``mg_padded`` True / False, ``fmg_start`` and
+  ``pcg`` raise until ROADMAP slice 4.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ so a configuration carries across with ``config_from_jax``. This system has
 no weights: the only other carried state is the DST basis, which the port
 rebuilds bit-equal on the host (``solvers/dst_gemm.py``).
 
-What the port runs of it (ROADMAP slices 1 to 3b): ``solver`` "auto",
+What the port runs of it (ROADMAP slices 1 to 3c): ``solver`` "auto",
 "dst_gemm" or "multigrid", every ``flags`` mode and ``mixed_rule``,
 ``precision`` "high"/"highest" (both FP32 on the card, TF32 off),
 ``dst_folded``, ``donate_dst``, and for multigrid ``tol``, ``max_cycles``,
@@ -50,8 +50,9 @@ class CloneConfig:
     mg_cycles: int | None = None  # fixed-work multigrid cycles
     # For multigrid these two select the chain, as in the JAX package:
     # use_pallas_smoother=True with mg_padded="q" (the quarter-plane finest
-    # level) or "t" (the transpose-fused V-cycle) runs the fused kernels on
-    # grids of at least 2^18 points (smaller grids, or
+    # level, at any tol: one with no check-free cycle, >= 0.0225, runs the
+    # check-first loop) or "t" (the transpose-fused V-cycle) runs the fused
+    # kernels on grids of at least 2^18 points (smaller grids, or
     # use_pallas_smoother=False, run the plain element path); True and
     # False raise there until their ROADMAP slice.
     use_pallas_smoother: bool = True

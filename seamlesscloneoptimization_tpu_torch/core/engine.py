@@ -18,8 +18,8 @@ seamlessClone-CUDA/seamlessClone_imp.cu:239-370):
   of them; it caches the coarsest level's eigenbasis per geometry instead
   (``solvers/multigrid.py:coarse_solve``).
 - ``solver="auto"`` resolves per geometry: dst_gemm up to the crossover,
-  multigrid above it (the default ``mg_padded="q"``, or ``"t"``; the dense
-  modes True / False raise there until ROADMAP slice 4).
+  multigrid above it (the default ``mg_padded="q"`` at any ``tol``, or
+  ``"t"``; the dense modes True / False raise there until ROADMAP slice 4).
 
 Not ported here (TPU-only or a later slice; see ROADMAP): the layout pin
 and self-heal, the sync-overhead subtraction, ``profile`` and

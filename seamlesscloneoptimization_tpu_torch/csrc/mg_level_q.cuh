@@ -1,6 +1,8 @@
 // mg_level_q.cuh: the quarter-plane finest multigrid level on a shared-memory
 // tile, shared by mg_down_q.cu, mg_up_q.cu and mg_ud_q.cu (one kernel
-// template, three instantiations, as mg_level.cuh serves mg_down and mg_up).
+// template, four instantiations: the descent in its fused-restrict and its
+// split form, the ascent, the fused boundary; as mg_level.cuh serves mg_down
+// and mg_up).
 //
 // Layout. The dense (C, 2 hq, 2 wq2) level is stored as four quarter planes,
 // (C, 4, hq, wq2): plane p = 2 rp + cp holds dense (2 i + rp, 2 j + cp) at
@@ -251,6 +253,32 @@ __device__ __forceinline__ void store_rct(Res* re, Res* ro, const Geo& G,
   }
 }
 
+// The split form of the row restriction (no lane restriction): the tile's
+// rh_e(jc, j) and rh_o(jc, j) of store_rct for jc = r0 + rr < hc, exact zeros
+// for jc >= hc, written along the planes' rows into rh_e / rh_o (channel
+// bases, (hq, wq2)).
+__device__ __forceinline__ void store_rh(Res* re, Res* ro, const Geo& G,
+                                         const Weights& W, float* __restrict__ rh_e,
+                                         float* __restrict__ rh_o, int r0, int c0) {
+  const int hc = (G.h - 1) / 2;
+  const bool h_even = G.h % 2 == 0;
+  for (int i = threadIdx.x; i < kTH * kTW; i += kThreads) {
+    const int rr = i / kTW, cc = i % kTW;
+    const int jc = r0 + rr;
+    float he = 0.0f, ho = 0.0f;
+    if (jc < hc) {
+      const bool last = h_even && jc == hc - 1;
+      const float wd = last ? W.dn_e : 0.25f;
+      const float wo = last ? W.dn_o : 0.0f;
+      he = 0.25f * re[rr][cc] + wd * re[rr + 1][cc];
+      ho = h_even ? 0.5f * ro[rr][cc] + wo * ro[rr + 1][cc] : 0.5f * ro[rr][cc];
+    }
+    const size_t k = (size_t)jc * G.wq2 + c0 + cc;
+    rh_e[k] = he;
+    rh_o[k] = ho;
+  }
+}
+
 // Write the owned tile of the four planes into x (a channel base).
 __device__ __forceinline__ void store(Plane* s, float* __restrict__ x, const Geo& G,
                                       int r0, int c0) {
@@ -262,14 +290,17 @@ __device__ __forceinline__ void store(Plane* s, float* __restrict__ x, const Geo
 }
 
 // One block per (channel, kTH x kTW quarter tile). kAscend: the correction
-// and nu2 sweeps (mg_up_q); kDescend: nu1 sweeps, the residual, the fused
-// restriction into rc_t (C, chp, hq) and, with rmax, the tile's max |r|
-// (mg_down_q; u == nullptr is a known-zero guess). Both: mg_ud_q.
-template <bool kAscend, bool kDescend>
+// and nu2 sweeps (mg_up_q; with rmax, also the tile's max |r| of the swept
+// state); kDescend: nu1 sweeps, the residual, the fused restriction into
+// rc_t (C, chp, hq) or, with kSplit, the split row restriction into rh_e,
+// rh_o (C, hq, wq2), and, with rmax, the tile's max |r| (mg_down_q; u ==
+// nullptr is a known-zero guess). Both: mg_ud_q.
+template <bool kAscend, bool kDescend, bool kSplit = false>
 __global__ void __launch_bounds__(kThreads)
 level_q_kernel(const float* __restrict__ u, const float* __restrict__ g,
                const float* __restrict__ e_even, const float* __restrict__ e_odd,
                float* __restrict__ u_out, float* __restrict__ rc_t,
+               float* __restrict__ rh_e, float* __restrict__ rh_o,
                float* __restrict__ rmax, Geo G, int nu2, int nu1, int chp, Weights W) {
   extern __shared__ float smem[];
   Plane* su = reinterpret_cast<Plane*>(smem);
@@ -286,33 +317,38 @@ level_q_kernel(const float* __restrict__ u, const float* __restrict__ g,
     correct(su, e_even + c * eplane, e_odd + c * eplane, G, W, gr0, gc0);
     sweeps(su, sg, G, gr0, gc0, nu2, false);
   }
-  if (kDescend) {
-    sweeps(su, sg, G, gr0, gc0, nu1, u == nullptr);
+  if (kDescend) sweeps(su, sg, G, gr0, gc0, nu1, u == nullptr);
+  if (kDescend || rmax != nullptr) {
     Res* re = reinterpret_cast<Res*>(&sg[EO][0][0]);
     Res* ro = reinterpret_cast<Res*>(&sg[OE][0][0]);
     residual(su, sg, G, gr0, gc0, re, ro);
     if (rmax != nullptr)
       store_max(re, ro, rmax + ((size_t)c * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x);
-    store_rct(re, ro, G, W, rc_t + (size_t)c * chp * G.hq, chp, r0, c0);
+    if (kDescend && kSplit) {
+      const size_t plane = (size_t)G.hq * G.wq2;
+      store_rh(re, ro, G, W, rh_e + c * plane, rh_o + c * plane, r0, c0);
+    } else if (kDescend) {
+      store_rct(re, ro, G, W, rc_t + (size_t)c * chp * G.hq, chp, r0, c0);
+    }
   }
   store(su, u_out + c * chan, G, r0, c0);
 }
 
 // Launch one instantiation on a (wq2 / kTW, hq / kTH, c) grid with the
 // dynamic shared memory it needs; returns the cudaError_t.
-template <bool kAscend, bool kDescend>
+template <bool kAscend, bool kDescend, bool kSplit = false>
 int launch(const float* u, const float* g, const float* e_even, const float* e_odd,
-           float* u_out, float* rc_t, float* rmax, int c, Geo G, int nu2, int nu1,
-           int chp, Weights W, void* stream) {
+           float* u_out, float* rc_t, float* rh_e, float* rh_o, float* rmax, int c, Geo G,
+           int nu2, int nu1, int chp, Weights W, void* stream) {
   if (c <= 0 || G.hq <= 0 || G.wq2 <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(level_q_kernel<kAscend, kDescend>,
+  cudaError_t err = cudaFuncSetAttribute(level_q_kernel<kAscend, kDescend, kSplit>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(G.wq2 / kTW, G.hq / kTH, c);
-  level_q_kernel<kAscend, kDescend><<<grid, kThreads, kSmemBytes,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      u, g, e_even, e_odd, u_out, rc_t, rmax, G, nu2, nu1, chp, W);
+  level_q_kernel<kAscend, kDescend, kSplit><<<grid, kThreads, kSmemBytes,
+                                              static_cast<cudaStream_t>(stream)>>>(
+      u, g, e_even, e_odd, u_out, rc_t, rh_e, rh_o, rmax, G, nu2, nu1, chp, W);
   return static_cast<int>(cudaGetLastError());
 }
 

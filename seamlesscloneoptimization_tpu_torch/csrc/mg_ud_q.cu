@@ -41,7 +41,7 @@ extern "C" int mg_ud_q_launch(const void* u, const void* g, const void* e_even,
   return mgq::launch<true, true>(
       static_cast<const float*>(u), static_cast<const float*>(g),
       static_cast<const float*>(e_even), static_cast<const float*>(e_odd),
-      static_cast<float*>(u_out), static_cast<float*>(rc_t), static_cast<float*>(rmax),
-      c, mgq::Geo{h, w, hq, wq2}, nu2, nu1, chp,
+      static_cast<float*>(u_out), static_cast<float*>(rc_t), nullptr, nullptr,
+      static_cast<float*>(rmax), c, mgq::Geo{h, w, hq, wq2}, nu2, nu1, chp,
       mgq::Weights{up_a, up_b, dn_e, dn_o, rc_a, rc_b}, stream);
 }

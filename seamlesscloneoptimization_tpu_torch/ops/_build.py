@@ -68,12 +68,15 @@ SIGNATURES = {
     "preprocess_rhs_q": ("preprocess_rhs_q_launch",
                          (_P, _L, _L, _L, _P, _L, _L, _L, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _P)),
-    "mg_down_q": ("mg_down_q_launch", (_P,) * 4 + (_I,) * 7 + (_F,) * 4 + (_P,)),
-    "mg_up_q": ("mg_up_q_launch", (_P,) * 5 + (_I,) * 6 + (_F,) * 2 + (_P,)),
+    "mg_down_q": ("mg_down_q_launch", (_P,) * 6 + (_I,) * 7 + (_F,) * 4 + (_P,)),
+    "mg_up_q": ("mg_up_q_launch", (_P,) * 6 + (_I,) * 6 + (_F,) * 2 + (_P,)),
     "mg_ud_q": ("mg_ud_q_launch", (_P,) * 7 + (_I,) * 8 + (_F,) * 6 + (_P,)),
     "mg_prolong_tq": ("mg_prolong_tq_launch", (_P,) * 3 + (_I,) * 6 + (_F, _F, _P)),
     "clamp_cast_paste_q": ("clamp_cast_paste_q_launch",
                            (_P, _I, _I, _I, _P, _L, _L, _L, _I, _I, _I, _I, _P)),
+    "to_quarters": ("to_quarters_launch", (_P, _P, _I, _I, _I, _P)),
+    "from_quarters": ("from_quarters_launch", (_P, _P, _I, _I, _I, _P)),
+    "mg_restrict_tq": ("mg_restrict_tq_launch", (_P,) * 3 + (_I,) * 6 + (_F, _F, _P)),
 }
 
 _lock = threading.Lock()

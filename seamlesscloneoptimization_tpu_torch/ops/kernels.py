@@ -2,10 +2,11 @@
 launch counters.
 
 The port's counterpart of ``seamlesscloneoptimization_tpu/ops/pallas_kernels.py``
-and ``pallas_mg_quarter.py`` for ROADMAP slices 1 to 3b:
+and ``pallas_mg_quarter.py`` for ROADMAP slices 1 to 3c:
 
 ============================  =============================================
-wrapper                       replaces (pallas_kernels.py)
+wrapper                       replaces (pallas_kernels.py,
+                              pallas_mg_quarter.py)
 ============================  =============================================
 ``erode3``                    ``erode3_pallas``
 ``preprocess_rhs_t``          ``preprocess_rhs_transposed_pallas``
@@ -24,8 +25,12 @@ wrapper                       replaces (pallas_kernels.py)
 ``mg_restrict_t``             ``mg_restrict_t_pallas``
 ``mg_prolong_t``              ``mg_prolong_t_pallas``
 ``preprocess_rhs_q``          ``preprocess_rhs_quarters_pallas``
-``mg_down_q``                 ``mg_down_q_pallas`` (fused-restrict form)
-``mg_up_q``                   ``mg_up_q_pallas``
+``to_quarters``               ``to_quarters_pallas``
+``from_quarters``             ``from_quarters_pallas``
+``mg_down_q``                 ``mg_down_q_pallas`` (fused-restrict and
+                              split forms)
+``mg_restrict_tq``            ``mg_restrict_tq_pallas``
+``mg_up_q``                   ``mg_up_q_pallas`` (with its residual option)
 ``mg_ud_q``                   ``mg_ud_q_pallas`` (fused-restrict form)
 ``mg_prolong_tq``             ``mg_prolong_tq_pallas``
 ``clamp_cast_paste_q``        ``clamp_cast_guarded_quarters_pallas`` + the
@@ -60,7 +65,8 @@ LAUNCHES = {"erode3": 0, "preprocess_rhs_t": 0, "transpose": 0,
             "transpose_pair": 0, "unfold_transpose": 0, "unfold_clamp_paste": 0,
             "preprocess_rhs_p": 0, "mg_down": 0, "mg_up": 0, "mg_restrict_t": 0,
             "mg_prolong_t": 0, "preprocess_rhs_q": 0, "mg_down_q": 0, "mg_up_q": 0,
-            "mg_ud_q": 0, "mg_prolong_tq": 0, "clamp_cast_paste_q": 0}
+            "mg_ud_q": 0, "mg_prolong_tq": 0, "clamp_cast_paste_q": 0, "to_quarters": 0,
+            "from_quarters": 0, "mg_restrict_tq": 0}
 
 _MIXED_RULES = {"opencv": 0, "norm": 1}
 
@@ -827,10 +833,11 @@ def mg_prolong_t(ec_t: torch.Tensor, w: int, bw: float, out_rows: int,
 
 
 # ---------------------------------------------------------------------------
-# The quarter-plane finest level: preprocess_rhs_q, mg_down_q, mg_ud_q,
-# mg_up_q, mg_prolong_tq, clamp_cast_paste_q (solvers/multigrid.py's "q"
-# path). A dense (C, 2 hq, 2 wq2) level lives as four quarter planes
-# (C, 4, hq, wq2): plane 2 rp + cp holds dense (2 i + rp, 2 j + cp) at (i, j)
+# The quarter-plane finest level: to_quarters, from_quarters,
+# preprocess_rhs_q, mg_down_q, mg_restrict_tq, mg_ud_q, mg_up_q,
+# mg_prolong_tq, clamp_cast_paste_q (solvers/multigrid.py's "q" path). A
+# dense (C, 2 hq, 2 wq2) level lives as four quarter planes (C, 4, hq, wq2):
+# plane 2 rp + cp holds dense (2 i + rp, 2 j + cp) at (i, j)
 # (csrc/mg_level_q.cuh).
 # ---------------------------------------------------------------------------
 
@@ -846,17 +853,45 @@ def mg_geometry_q(h: int, w: int) -> tuple[int, int, int, int]:
     return 128, hq, _round_up((w + 1) // 2, 128), _round_up(hq, 128)
 
 
-def to_quarters(x: torch.Tensor) -> torch.Tensor:
-    """(C, 2 HQ, 2 WQ) dense -> (C, 4, HQ, WQ) quarter planes."""
+def to_quarters_plain(x: torch.Tensor) -> torch.Tensor:
     c, hp, wp = x.shape
     q = x.reshape(c, hp // 2, 2, wp // 2, 2)
     return q.permute(0, 2, 4, 1, 3).reshape(c, 4, hp // 2, wp // 2)
 
 
-def from_quarters(uq: torch.Tensor) -> torch.Tensor:
-    """(C, 4, HQ, WQ) quarter planes -> (C, 2 HQ, 2 WQ) dense."""
+def from_quarters_plain(uq: torch.Tensor) -> torch.Tensor:
     c, _, hq, wq = uq.shape
     return uq.reshape(c, 2, 2, hq, wq).permute(0, 3, 1, 4, 2).reshape(c, 2 * hq, 2 * wq)
+
+
+def to_quarters(x: torch.Tensor) -> torch.Tensor:
+    """(C, 2 HQ, 2 WQ) dense -> (C, 4, HQ, WQ) quarter planes, plane 2 a + b
+    holding x[2 i + a, 2 j + b] at (i, j): EE, EO, OE, OO. Moves data only."""
+    _require(x, "x", torch.float32, 3)
+    c, hp, wp = x.shape
+    if hp % 2 or wp % 2 or hp == 0 or wp == 0:
+        raise ValueError(f"x {tuple(x.shape)} is not (C, 2 HQ, 2 WQ) with HQ, WQ >= 1")
+    if x.device.type == "cpu":
+        return to_quarters_plain(x)
+    if x.data_ptr() % 8:
+        raise ValueError("x must be 8-byte aligned (its kernel moves float2 pairs)")
+    out = torch.empty((c, 4, hp // 2, wp // 2), dtype=torch.float32, device=x.device)
+    _launch("to_quarters", x, x.data_ptr(), out.data_ptr(), c, hp // 2, wp // 2)
+    return out
+
+
+def from_quarters(uq: torch.Tensor) -> torch.Tensor:
+    """(C, 4, HQ, WQ) quarter planes -> (C, 2 HQ, 2 WQ) dense: the inverse of
+    ``to_quarters``."""
+    _require(uq, "uq", torch.float32, 4)
+    c, four, hq, wq = uq.shape
+    if four != 4 or hq == 0 or wq == 0:
+        raise ValueError(f"uq {tuple(uq.shape)} is not (C, 4, HQ, WQ) quarter planes")
+    if uq.device.type == "cpu":
+        return from_quarters_plain(uq)
+    out = torch.empty((c, 2 * hq, 2 * wq), dtype=torch.float32, device=uq.device)
+    _launch("from_quarters", uq, uq.data_ptr(), out.data_ptr(), c, hq, wq)
+    return out
 
 
 def preprocess_rhs_q_plain(dest: torch.Tensor, patch: torch.Tensor,
@@ -865,7 +900,7 @@ def preprocess_rhs_q_plain(dest: torch.Tensor, patch: torch.Tensor,
     c, h, w = dest.shape
     out = torch.zeros((c, *out_hw), dtype=torch.float32, device=dest.device)
     out[:, : h - 2, : w - 2] = _rhs_plain(dest, patch, mask_eroded, flags, mixed_rule)
-    return to_quarters(out)
+    return to_quarters_plain(out)
 
 
 def preprocess_rhs_q(dest: torch.Tensor, patch: torch.Tensor,
@@ -956,13 +991,12 @@ def _q_residual(planes, gq, doms):
     return ree, roo
 
 
-def _q_rct(ree, roo, h: int, w: int, chp: int) -> torch.Tensor:
-    """Row restriction of the red residual (split into the even / odd dense
-    columns rh_e, rh_o) and the transposed x4 lane restriction:
-    (C, chp, hq), zeros for rows >= wc and lanes >= hc."""
+def _q_rh(ree, roo, h: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row restriction of the red residual, split into the even / odd dense
+    columns: rh_e, rh_o (C, hq, wq2), rows [0, hc) data, zeros beyond."""
     wt = _q_weights()
-    c, hq, _ = ree.shape
-    hc, wc = (h - 1) // 2, (w - 1) // 2
+    hq = ree.shape[1]
+    hc = (h - 1) // 2
     ree_dn, roo_dn = _sh(ree, 1, 0), _sh(roo, 1, 0)
     if h % 2 == 0:  # coarse row hc-1 takes the beta-gap weights of fine h-2, h-1
         w_e = torch.full((hq, 1), 0.25, device=ree.device)
@@ -973,13 +1007,24 @@ def _q_rct(ree, roo, h: int, w: int, chp: int) -> torch.Tensor:
     else:
         rh_e = 0.25 * ree + 0.25 * ree_dn
         rh_o = 0.5 * roo
+    data = (torch.arange(hq, device=ree.device) < hc)[:, None]
+    return torch.where(data, rh_e, 0.0), torch.where(data, rh_o, 0.0)
+
+
+def mg_restrict_tq_plain(rh_e: torch.Tensor, rh_o: torch.Tensor, h: int, w: int,
+                         out_rows: int) -> torch.Tensor:
+    """The transposed x4 lane restriction of the split rh planes: (C,
+    out_rows, rh rows), zeros for rows >= wc and lanes >= hc (whatever the
+    rh planes hold there)."""
+    wt = _q_weights()
+    hc, wc = (h - 1) // 2, (w - 1) // 2
     out = (rh_e[..., :wc] + 2.0 * rh_o[..., :wc]) + rh_e[..., 1 : wc + 1]
     if w % 2 == 0:
         edge = (((rh_e[..., wc - 1] + 2.0 * rh_o[..., wc - 1]) + wt["rc_a"] * rh_e[..., wc])
                 + wt["rc_b"] * rh_o[..., wc])
         out = torch.cat([out[..., : wc - 1], edge[..., None]], dim=-1)
-    out = torch.where((torch.arange(hq, device=ree.device) < hc)[:, None], out, 0.0)
-    return F.pad(out.transpose(1, 2), (0, 0, 0, chp - wc)).contiguous()
+    out = torch.where((torch.arange(rh_e.shape[1], device=rh_e.device) < hc)[:, None], out, 0.0)
+    return F.pad(out.transpose(1, 2), (0, 0, 0, out_rows - wc)).contiguous()
 
 
 def _q_correct(planes, e_even, e_odd, doms, h: int):
@@ -1004,29 +1049,39 @@ def _q_correct(planes, e_even, e_odd, doms, h: int):
     return tuple(torch.where(d, p + cq, p) for p, cq, d in zip(planes, corr, doms))
 
 
+def _q_rmax(ree, roo) -> torch.Tensor:
+    return torch.maximum(ree.abs().amax(), roo.abs().amax())
+
+
 def _q_down(planes, gq, doms, nu1, h, w, chp, u_zero=False):
     planes = _q_sweeps(planes, gq, doms, nu1, u_zero)
     ree, roo = _q_residual(planes, gq, doms)
-    return planes, _q_rct(ree, roo, h, w, chp), ree, roo
+    return planes, mg_restrict_tq_plain(*_q_rh(ree, roo, h), h, w, chp), ree, roo
 
 
 def mg_down_q_plain(uq: torch.Tensor | None, gq: torch.Tensor, nu1: int, h: int, w: int,
-                    rct_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+                    rct_rows: int | None = None) -> tuple[torch.Tensor, ...]:
     _, _, hq, wq2 = gq.shape
     doms = _q_doms(hq, wq2, h, w, gq.device)
     planes = tuple(gq.new_zeros(gq.shape[:1] + gq.shape[2:]) for _ in range(4)) \
         if uq is None else uq.unbind(1)
-    planes, rc_t, _, _ = _q_down(planes, gq.unbind(1), doms, nu1, h, w, rct_rows,
-                                 uq is None)
-    return torch.stack(planes, 1), rc_t
+    planes = _q_sweeps(planes, gq.unbind(1), doms, nu1, uq is None)
+    rh = _q_rh(*_q_residual(planes, gq.unbind(1), doms), h)
+    if rct_rows is None:
+        return (torch.stack(planes, 1),) + rh
+    return torch.stack(planes, 1), mg_restrict_tq_plain(*rh, h, w, rct_rows)
 
 
 def mg_up_q_plain(uq: torch.Tensor, gq: torch.Tensor, e_even: torch.Tensor,
-                  e_odd: torch.Tensor, nu2: int, h: int, w: int) -> torch.Tensor:
+                  e_odd: torch.Tensor, nu2: int, h: int, w: int,
+                  with_residual: bool = False):
     _, _, hq, wq2 = gq.shape
+    g4 = gq.unbind(1)
     doms = _q_doms(hq, wq2, h, w, gq.device)
-    planes = _q_correct(uq.unbind(1), e_even, e_odd, doms, h)
-    return torch.stack(_q_sweeps(planes, gq.unbind(1), doms, nu2), 1)
+    planes = _q_sweeps(_q_correct(uq.unbind(1), e_even, e_odd, doms, h), g4, doms, nu2)
+    if with_residual:
+        return torch.stack(planes, 1), _q_rmax(*_q_residual(planes, g4, doms))
+    return torch.stack(planes, 1)
 
 
 def mg_ud_q_plain(uq: torch.Tensor, gq: torch.Tensor, e_even: torch.Tensor,
@@ -1039,7 +1094,7 @@ def mg_ud_q_plain(uq: torch.Tensor, gq: torch.Tensor, e_even: torch.Tensor,
     planes, rc_t, ree, roo = _q_down(planes, g4, doms, nu1, h, w, rct_rows)
     out = (torch.stack(planes, 1), rc_t)
     if with_residual:
-        return out + (torch.maximum(ree.abs().amax(), roo.abs().amax()),)
+        return out + (_q_rmax(ree, roo),)
     return out
 
 
@@ -1070,32 +1125,70 @@ def _check_rct(rct_rows: int, w: int, wq2: int) -> int:
 
 
 def mg_down_q(uq: torch.Tensor | None, gq: torch.Tensor, nu1: int, h: int, w: int,
-              rct_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+              rct_rows: int | None = None) -> tuple[torch.Tensor, ...]:
     """Quarter-plane descent at the finest level (beta = 1): ``nu1``
-    red-black sweeps, the red-cell residual, its row restriction and the
-    transposed x4 lane restriction, in one pass.
+    red-black sweeps, the red-cell residual and its row restriction, in one
+    pass; with ``rct_rows`` also the transposed x4 lane restriction.
 
     gq, uq: (C, 4, hq, wq2) per ``mg_geometry_q(h, w)``, exact zeros outside
     the true (h, w) domain; ``uq=None`` is a known-zero guess. rct_rows: the
     coarse level's row extent chp (``mg_geometry_t(wc, hc, wp_min=hq)[1]``).
     Returns (swept uq, rc_t (C, chp, hq)): the coarse RHS of the (wc, hc)
-    level in transposed orientation, exact zeros outside it.
+    level in transposed orientation, exact zeros outside it. ``rct_rows=
+    None`` is the split form: (swept uq, rh_e, rh_o), the row-restricted
+    residual's even / odd dense columns (C, hq, wq2), rows [0, hc) data and
+    exact zeros beyond, which ``mg_restrict_tq`` restricts.
     """
     c, hq, wq2, h, w = _check_q_level(gq, h, w)
     if uq is not None:
         _check_q("uq", uq, (c, 4, hq, wq2))
         _same_device(gq, uq)
     nu1 = _check_nu(nu1, 1, 2, "nu1")
-    rct_rows = _check_rct(rct_rows, w, wq2)
+    if rct_rows is not None:
+        rct_rows = _check_rct(rct_rows, w, wq2)
     if gq.device.type == "cpu":
         return mg_down_q_plain(uq, gq, nu1, h, w, rct_rows)
     wt = _q_weights()
     u_out = torch.empty_like(gq)
-    rc_t = torch.empty((c, rct_rows, hq), dtype=torch.float32, device=gq.device)
+    if rct_rows is None:
+        outs = (torch.empty((c, hq, wq2), dtype=torch.float32, device=gq.device),
+                torch.empty((c, hq, wq2), dtype=torch.float32, device=gq.device))
+        ptrs = (None, outs[0].data_ptr(), outs[1].data_ptr())
+    else:
+        outs = (torch.empty((c, rct_rows, hq), dtype=torch.float32, device=gq.device),)
+        ptrs = (outs[0].data_ptr(), None, None)
     _launch("mg_down_q", gq, None if uq is None else uq.data_ptr(), gq.data_ptr(),
-            u_out.data_ptr(), rc_t.data_ptr(), c, hq, wq2, rct_rows, h, w, nu1,
+            u_out.data_ptr(), *ptrs, c, hq, wq2, rct_rows or 0, h, w, nu1,
             wt["dn_e"], wt["dn_o"], wt["rc_a"], wt["rc_b"])
-    return u_out, rc_t
+    return (u_out,) + outs
+
+
+def mg_restrict_tq(rh_e: torch.Tensor, rh_o: torch.Tensor, h: int, w: int,
+                   out_rows: int) -> torch.Tensor:
+    """Transposed x4 lane restriction of the split row-restricted residual.
+
+    rh_e, rh_o: (C, hp2, wq2) f32 (the split ``mg_down_q``'s), rows [0, hc)
+    read; anything else in them is never read into the result. Returns
+    (C, out_rows, hp2): the coarse RHS of the (wc, hc) level in transposed
+    orientation, exact zeros for rows >= wc and lanes >= hc; equal to the
+    fused ``mg_down_q``'s rc_t.
+    """
+    _require(rh_e, "rh_e", torch.float32, 3)
+    _check_q("rh_o", rh_o, tuple(rh_e.shape))
+    _same_device(rh_e, rh_o)
+    c, hp2, wq2 = rh_e.shape
+    h, w, out_rows = int(h), int(w), int(out_rows)
+    hc, wc = (h - 1) // 2, (w - 1) // 2
+    if hc < 1 or wc < 1 or hp2 < hc or wq2 < wc + 1 or out_rows < wc:
+        raise ValueError(f"rh planes {tuple(rh_e.shape)} cannot restrict a {h}x{w} level "
+                         f"into {out_rows} rows")
+    if rh_e.device.type == "cpu":
+        return mg_restrict_tq_plain(rh_e, rh_o, h, w, out_rows)
+    wt = _q_weights()
+    out = torch.empty((c, out_rows, hp2), dtype=torch.float32, device=rh_e.device)
+    _launch("mg_restrict_tq", rh_e, rh_e.data_ptr(), rh_o.data_ptr(), out.data_ptr(), c, hp2,
+            wq2, out_rows, h, w, wt["rc_a"], wt["rc_b"])
+    return out
 
 
 def _check_up_inputs(uq, gq, e_even, e_odd, h, w):
@@ -1107,20 +1200,31 @@ def _check_up_inputs(uq, gq, e_even, e_odd, h, w):
     return c, hq, wq2, h, w
 
 
+def _tile_maxima(c: int, hq: int, wq2: int, device) -> torch.Tensor:
+    """The per-tile max |r| buffer of a residual-reporting level launch."""
+    return torch.empty((c * (hq // 32) * (wq2 // 32),), dtype=torch.float32, device=device)
+
+
 def mg_up_q(uq: torch.Tensor, gq: torch.Tensor, e_even: torch.Tensor, e_odd: torch.Tensor,
-            nu2: int, h: int, w: int) -> torch.Tensor:
+            nu2: int, h: int, w: int, with_residual: bool = False):
     """Quarter-plane ascent at the finest level: the row prolongation of the
     split coarse correction (``mg_prolong_tq``'s e_even, e_odd (C, hq, wq2),
     rows [0, hc) used), added inside the domain, then ``nu2`` red-black
-    sweeps. uq, gq as for ``mg_down_q``. Returns the swept uq."""
+    sweeps. uq, gq as for ``mg_down_q``. Returns the swept uq;
+    ``with_residual`` returns (uq, max |g - A u| of it as a 0-dim device
+    tensor: the red cells' residual; black cells are 0)."""
     c, hq, wq2, h, w = _check_up_inputs(uq, gq, e_even, e_odd, h, w)
     nu2 = _check_nu(nu2, 0, 4, "nu2")
     if gq.device.type == "cpu":
-        return mg_up_q_plain(uq, gq, e_even, e_odd, nu2, h, w)
+        return mg_up_q_plain(uq, gq, e_even, e_odd, nu2, h, w, with_residual)
     wt = _q_weights()
     u_out = torch.empty_like(gq)
+    tiles = _tile_maxima(c, hq, wq2, gq.device) if with_residual else None
     _launch("mg_up_q", gq, uq.data_ptr(), gq.data_ptr(), e_even.data_ptr(), e_odd.data_ptr(),
-            u_out.data_ptr(), c, hq, wq2, h, w, nu2, wt["up_a"], wt["up_b"])
+            u_out.data_ptr(), None if tiles is None else tiles.data_ptr(), c, hq, wq2, h, w,
+            nu2, wt["up_a"], wt["up_b"])
+    if with_residual:
+        return u_out, tiles.amax()
     return u_out
 
 
@@ -1141,8 +1245,7 @@ def mg_ud_q(uq: torch.Tensor, gq: torch.Tensor, e_even: torch.Tensor, e_odd: tor
     wt = _q_weights()
     u_out = torch.empty_like(gq)
     rc_t = torch.empty((c, rct_rows, hq), dtype=torch.float32, device=gq.device)
-    tiles = torch.empty((c * (hq // 32) * (wq2 // 32),), dtype=torch.float32,
-                        device=gq.device) if with_residual else None
+    tiles = _tile_maxima(c, hq, wq2, gq.device) if with_residual else None
     _launch("mg_ud_q", gq, uq.data_ptr(), gq.data_ptr(), e_even.data_ptr(), e_odd.data_ptr(),
             u_out.data_ptr(), rc_t.data_ptr(), None if tiles is None else tiles.data_ptr(),
             c, hq, wq2, rct_rows, h, w, nu2, nu1, wt["up_a"], wt["up_b"], wt["dn_e"],
@@ -1202,7 +1305,7 @@ def mg_prolong_tq(ec_t: torch.Tensor, w: int, out_rows: int,
 
 def clamp_cast_paste_q_plain(uq: torch.Tensor, dst: torch.Tensor, top1: int, left1: int,
                              h2: int, w2: int) -> torch.Tensor:
-    u = from_quarters(uq)[:, :h2, :w2]
+    u = from_quarters_plain(uq)[:, :h2, :w2]
     dst[:, top1 : top1 + h2, left1 : left1 + w2] = clamp_truncate_u8(u)
     return dst
 

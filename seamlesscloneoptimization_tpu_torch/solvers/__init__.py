@@ -2,10 +2,11 @@
 for the 5-point Dirichlet system (boundary values folded into g).
 
 Ported: ``dst_gemm`` (exact direct solve, DST eigenbasis as GEMMs) and
-``multigrid`` with ``padded="q"`` (the quarter-plane finest level) or
-``padded="t"`` (the transpose-fused V-cycles), or on its element path; its
-dense fused modes raise NotImplementedError naming their ROADMAP slice
-(``solvers/multigrid.py``). The other solvers raise likewise.
+``multigrid`` with ``padded="q"`` (the quarter-plane finest level, from a
+quartered or a dense RHS, zero or warm start) or ``padded="t"`` (the
+transpose-fused V-cycles), or on its element path; its dense fused modes,
+``fmg_start`` and ``pcg`` raise NotImplementedError naming their ROADMAP
+slice (``solvers/multigrid.py``). The other solvers raise likewise.
 ``auto`` is not a solver here: the engine resolves it per geometry with
 ``auto_solver_name`` (``core/engine.py:_effective_solver``).
 """

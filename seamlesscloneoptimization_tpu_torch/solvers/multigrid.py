@@ -20,13 +20,18 @@ Three chains:
 - the quarter-plane chain (``padded="q"``, the default, fine grids with
   ``use_pallas``): the finest level lives as four quarter planes (C, 4, hq,
   wq2) (``ops/kernels.py:mg_geometry_q``), the RHS born so by the pipeline
-  (``preprocess_rhs_q``). One launch per cycle boundary, ``mg_ud_q``:
-  cycle k's ascent and cycle k+1's descent, with the transposed restriction
-  into the coarse RHS fused in; ``mg_down_q`` opens the solve and
-  ``mg_up_q`` closes a fixed-cycle one. The coarse levels are ``vcycle_t``'s,
-  whose correction ``mg_prolong_tq`` splits back into the even / odd
-  column planes. In tolerance mode the boundary launch also returns the
-  residual max of the state it writes, so a check costs one host read.
+  (``preprocess_rhs_q``) or split by ``to_quarters`` from a dense g, the
+  result interleaved back by ``from_quarters`` unless the caller takes the
+  planes. One launch per cycle boundary, ``mg_ud_q``: cycle k's ascent and
+  cycle k+1's descent, with the transposed restriction into the coarse RHS
+  fused in; ``mg_down_q`` opens the solve and ``mg_up_q`` closes a
+  fixed-cycle one. The coarse levels are ``vcycle_t``'s, whose correction
+  ``mg_prolong_tq`` splits back into the even / odd column planes. In
+  tolerance mode the boundary launch also returns the residual max of the
+  state it writes, so a check costs one host read. Where no check-free
+  cycle comes first (tol >= 0.0225, a warm start) the check-first loop runs
+  ``vcycle_q``, the unfused cycle: the split ``mg_down_q``,
+  ``mg_restrict_tq``, the coarse levels, ``mg_up_q`` with its residual.
 - ``vcycle_t`` (``padded="t"``, fine grids with ``use_pallas``): every
   level lives in a zero-padded slab (``ops/kernels.py:mg_geometry_t``) and
   runs as two kernels, ``mg_down`` (sweeps + residual + row restriction)
@@ -39,15 +44,13 @@ Three chains:
   plain PyTorch sweeps and transfers on exact-size arrays, as XLA ran them.
 
 ``solve_multigrid`` drives each, in tolerance mode (check-free burst,
-then a residual check per further cycle) or fixed-work mode (``cycles``).
-The tolerance check reads max |residual| to the host once per check. Not
-ported (NotImplementedError naming the ROADMAP slice): on the quarter
-path, a dense g, a dense result or ``return_info`` (the to/from-quarters
-kernels) and the check-first loop of a zero burst (tol >= 0.0225), slice
-3c; the dense rounded modes (``padded`` True / False) on grids where they
-would fuse, the ``rb_sweeps`` kernel on large element levels on the card,
-``pcg``, ``fmg_start`` and ``u0`` (slice 4). The JAX package's ``SCL_MG_*``
-environment knobs are constants here.
+then a residual check per further cycle) or fixed-work mode (``cycles``),
+from zero or from a warm start ``u0``. The tolerance check reads max
+|residual| to the host once per check. Not ported (NotImplementedError
+naming the ROADMAP slice 4): the dense rounded modes (``padded`` True /
+False) on grids where they would fuse, the ``rb_sweeps`` kernel on large
+element levels on the card, ``pcg`` and ``fmg_start``. The JAX package's
+``SCL_MG_*`` environment knobs are constants here.
 """
 
 from __future__ import annotations
@@ -365,22 +368,54 @@ def _coarse_q(rc_t: torch.Tensor, h: int, w: int, nu1: int, nu2: int, coarsest: 
     return K.mg_prolong_tq(ec_t, w, out_rows=qgeom[3], wq2=qgeom[2])
 
 
-def _solve_q(g_q: torch.Tensor, h: int, w: int, nu1: int, nu2: int, coarsest: int,
-             cycles: int | None, tol: float, max_cycles: int,
-             eig_cache=None) -> tuple[torch.Tensor, int]:
-    """The quarter-plane solve from a zero start, every cycle boundary one
-    ``mg_ud_q`` launch. Returns (uq, V-cycles run).
-
-    Fixed mode: down -> (cycles-1) x [coarse -> ud] -> coarse -> up.
-    Tolerance mode: down -> (burst-1) x [coarse -> ud], then [coarse -> ud
-    with the residual] while max |r| > thresh and fewer than ``max_cycles``
-    ascents. The threshold is shaved, gnorm * min(tol * 0.995, tol - 4e-7),
-    so that the in-kernel red-cell check implies the dense residual meets
-    tol (the JAX package's rule); the result has already had the next
-    descent's nu1 sweeps, and the count is of completed ascents.
-    """
+def _q_geoms(h: int, w: int):
+    """(qgeom, cgeom): the quarter level's geometry and its first (transposed)
+    coarse level's."""
     qgeom = K.mg_geometry_q(h, w)
-    cgeom = K.mg_geometry_t((w - 1) // 2, (h - 1) // 2, wp_min=qgeom[3])
+    return qgeom, K.mg_geometry_t((w - 1) // 2, (h - 1) // 2, wp_min=qgeom[3])
+
+
+def vcycle_q(uq: torch.Tensor | None, gq: torch.Tensor, h: int, w: int, nu1: int = 1,
+             nu2: int = 2, coarsest: int = 63, with_residual: bool = False,
+             eig_cache=None):
+    """One V-cycle with the finest level as quarter planes, unfused: the
+    split ``mg_down_q`` -> ``mg_restrict_tq`` -> ``vcycle_t`` on the
+    transposed coarse level -> ``mg_prolong_tq`` -> ``mg_up_q``.
+
+    uq, gq: (C, 4, hq, wq2) per ``mg_geometry_q(h, w)``, exact zeros outside
+    the domain; ``uq=None`` is a known-zero guess. Returns the swept uq, and
+    with ``with_residual`` also max |g - A u| of it (a 0-dim device tensor),
+    which the ascent computes on the fly.
+    """
+    qgeom, cgeom = _q_geoms(h, w)
+    u, rh_e, rh_o = K.mg_down_q(uq, gq, nu1, h, w)
+    rc_t = K.mg_restrict_tq(rh_e, rh_o, h, w, cgeom[1])
+    e_even, e_odd = _coarse_q(rc_t, h, w, nu1, nu2, coarsest, qgeom, cgeom, eig_cache)
+    return K.mg_up_q(u, gq, e_even, e_odd, nu2, h, w, with_residual=with_residual)
+
+
+def _solve_q(g_q: torch.Tensor, h: int, w: int, nu1: int, nu2: int, coarsest: int,
+             cycles: int | None, tol: float, max_cycles: int, uq0: torch.Tensor | None = None,
+             rmax0: torch.Tensor | None = None, eig_cache=None) -> tuple[torch.Tensor, int]:
+    """The quarter-plane solve from ``uq0`` (None: a zero start). Returns
+    (uq, V-cycles run).
+
+    Fixed mode: down -> (cycles-1) x [coarse -> ud] -> coarse -> up, every
+    cycle boundary one ``mg_ud_q`` launch.
+    Tolerance mode from a zero start with a check-free burst (``_tol_burst``
+    >= 1): down -> (burst-1) x [coarse -> ud], then [coarse -> ud with the
+    residual] while max |r| > thresh and fewer than ``max_cycles`` ascents;
+    the result has already had the next descent's nu1 sweeps. With no burst
+    (tol >= 0.0225, ``max_cycles`` 0, or a warm start) the check-first loop:
+    while ``rmax0`` (max |g| from zero, else the caller's max |residual(u0)|)
+    or the last ascent's max |r| exceeds thresh and fewer than ``max_cycles``
+    cycles ran, one ``vcycle_q`` reporting its residual. Either way one host
+    read per check, and the count is of completed ascents. The threshold is
+    shaved, gnorm * min(tol * 0.995, tol - 4e-7), so that the in-kernel
+    red-cell check implies the dense residual meets tol (the JAX package's
+    rule).
+    """
+    qgeom, cgeom = _q_geoms(h, w)
     chp = cgeom[1]
 
     def coarse(rc_t):
@@ -388,17 +423,22 @@ def _solve_q(g_q: torch.Tensor, h: int, w: int, nu1: int, nu2: int, coarsest: in
 
     if cycles is not None:
         if cycles < 1:
-            return torch.zeros_like(g_q), 0
-        u, rc_t = K.mg_down_q(None, g_q, nu1, h, w, chp)
+            return (torch.zeros_like(g_q) if uq0 is None else uq0), 0
+        u, rc_t = K.mg_down_q(uq0, g_q, nu1, h, w, chp)
         for _ in range(cycles - 1):
             u, rc_t = K.mg_ud_q(u, g_q, *coarse(rc_t), nu2, nu1, h, w, chp)
         return K.mg_up_q(u, g_q, *coarse(rc_t), nu2, h, w), cycles
-    burst = _tol_burst(tol, max_cycles, nu1, nu2)
-    if burst < 1:
-        raise _not_ported(f"the check-first quarter-plane loop (tol={tol}, max_cycles="
-                          f"{max_cycles}: no check-free cycle)", "slice 3c")
-    gnorm = torch.clamp(torch.linalg.vector_norm(g_q, float("inf")), min=1e-30)  # one pass
-    thresh = gnorm * min(tol * 0.995, tol - 4.0e-7)
+    gmax = torch.linalg.vector_norm(g_q, float("inf"))  # one pass
+    thresh = torch.clamp(gmax, min=1e-30) * min(tol * 0.995, tol - 4.0e-7)
+    rmax = gmax if uq0 is None else rmax0
+    burst = 0 if uq0 is not None else _tol_burst(tol, max_cycles, nu1, nu2)
+    if burst < 1:  # check first: the start's residual, then one per cycle
+        u, it = uq0, 0
+        while it < max_cycles and bool(rmax > thresh):  # one host read per check
+            u, rmax = vcycle_q(u, g_q, h, w, nu1, nu2, coarsest, with_residual=True,
+                               eig_cache=eig_cache)
+            it += 1
+        return (torch.zeros_like(g_q) if u is None else u), it
     u, rc_t = K.mg_down_q(None, g_q, nu1, h, w, chp)
     for _ in range(burst - 1):
         u, rc_t = K.mg_ud_q(u, g_q, *coarse(rc_t), nu2, nu1, h, w, chp)
@@ -425,18 +465,21 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
     (C, 4, hq, wq2) planes of ``mg_geometry_q(h, w)`` (``preprocess_rhs_q``'s
     output) or the dense (C, 2 hq, 2 wq2) slab; the RHS at the origin, exact
     zeros elsewhere. With ``use_pallas`` on a grid of at least 2^18 points,
-    ``padded="q"`` runs the quarter-plane chain (``_solve_q``; it takes a
-    quartered g and returns the quarter planes: ``padded_output=
-    "quarters"``) and ``padded="t"`` runs ``vcycle_t``; small grids, and any
-    grid with ``use_pallas=False``, run the element path (as in the JAX
-    package, whatever ``padded`` says). ``cycles=k``: fixed work, k cycles,
-    no checks. Else the tolerance loop: ``_tol_burst`` check-free cycles,
-    then a residual check (one host read) per further cycle, up to
-    ``max_cycles``. ``padded_output``: the ``"t"`` chain returns its
-    (C, hp, wp) slab (zeros outside the domain); the element path returns
-    the exact size either way. ``return_info`` (exclusive with
-    ``padded_output``; not with a quartered g) adds {"cycles": int,
-    "residual": max |g - A u|}. ``eig_cache``: see ``coarse_solve``.
+    ``padded="q"`` runs the quarter-plane chain (``_solve_q``; a dense g is
+    split by ``to_quarters``) and ``padded="t"`` runs ``vcycle_t``; small
+    grids, and any grid with ``use_pallas=False``, run the element path (as
+    in the JAX package, whatever ``padded`` says; a quartered g is then
+    interleaved back first). ``cycles=k``: fixed work, k cycles, no checks.
+    Else the tolerance loop: ``_tol_burst`` check-free cycles, then a
+    residual check (one host read) per further cycle, up to ``max_cycles``.
+    ``u0``: a warm start (C, h, w), checked before its first cycle (no
+    check-free burst). ``padded_output``: ``"quarters"`` returns the
+    quarter chain's planes; True the quarter chain's (C, 2 hq, 2 wq2) or
+    the ``"t"`` chain's (C, hp, wp) slab (zeros outside the domain); the
+    element path returns the exact size either way. ``return_info``
+    (exclusive with ``padded_output``; not with a quartered g) adds
+    {"cycles": int, "residual": max |g - A u|}. ``eig_cache``: see
+    ``coarse_solve``.
     """
     tol = float(tol)
     if padded_output and return_info:
@@ -445,8 +488,7 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
     if quartered and (u0 is not None or fmg_start or pcg or return_info):
         raise ValueError("a quartered g supports only the zero-start padded='q' modes "
                          "(no u0/fmg_start/pcg/return_info)")
-    for flag, what in ((u0 is not None, "u0 (a warm start)"), (fmg_start, "fmg_start"),
-                       (pcg, "pcg")):
+    for flag, what in ((fmg_start, "fmg_start"), (pcg, "pcg")):
         if flag:
             raise _not_ported(f"solve_multigrid {what}", "slice 4 (dense multigrid modes)")
     c = g.shape[0]
@@ -467,18 +509,30 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
     else:
         _, h, w = g.shape
         g_pre = None
+    if u0 is not None and tuple(u0.shape) != (c, h, w):
+        raise ValueError(f"u0 {tuple(u0.shape)} is not the true-size {(c, h, w)}")
     if padded == "q" and quarter_path_applies(h, w, nu1, nu2, coarsest, use_pallas):
-        if not quartered:
-            raise _not_ported("the quarter-plane solve of a dense g (the to_quarters "
-                              "kernel)", "slice 3c")
-        if padded_output != "quarters":
-            raise _not_ported("a dense result of the quarter-plane solve (the "
-                              "from_quarters kernel)", "slice 3c")
-        return _solve_q(g_pre, h, w, nu1, nu2, coarsest, cycles, tol, max_cycles,
-                        eig_cache)[0]
-    if quartered:
-        raise _not_ported(f"a quartered g on a {h}x{w} grid that the quarter-plane chain "
-                          "does not take (the from_quarters kernel)", "slice 3c")
+        _, hq, wq2, _ = K.mg_geometry_q(h, w)
+        dense = (c, 2 * hq, 2 * wq2)
+        if quartered:
+            g_q = g_pre
+        else:
+            g_q = K.to_quarters(g_pre.contiguous() if g_pre is not None else _pad_to(g, dense))
+        uq0 = rmax0 = None
+        if u0 is not None:
+            uq0 = K.to_quarters(_pad_to(u0, dense))
+            rmax0 = residual(u0, g).abs().max()
+        uq, it = _solve_q(g_q, h, w, nu1, nu2, coarsest, cycles, tol, max_cycles, uq0, rmax0,
+                          eig_cache)
+        if padded_output == "quarters":
+            return uq
+        u = K.from_quarters(uq)
+        out = u if padded_output else u[:, :h, :w]
+        if return_info:
+            return out, {"cycles": it, "residual": residual(out, g).abs().max().item()}
+        return out
+    if quartered:  # a grid the quarter chain does not take: its dense view
+        g = K.from_quarters_plain(g_pre)[:, :h, :w]
     g_p = g_pre if padded == "t" else None  # the "t" chain's own slab
     small = _small(h, w, coarsest)
     fused = t_chain_applies(h, w, nu1, nu2, coarsest, use_pallas)
@@ -505,6 +559,8 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
             return u
 
     u = None  # a known-zero start
+    if u0 is not None:
+        u = _pad_to(u0, g_p.shape) if fused else u0
     if cycles is not None:
         it = int(cycles)
         for _ in range(it):
@@ -512,7 +568,8 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
     else:
         gnorm = torch.clamp(g.abs().max(), min=1e-30)
         thresh = tol * gnorm
-        burst = _tol_burst(tol, max_cycles, nu1, nu2)
+        # a warm start is checked first (no check-free burst), as in JAX
+        burst = 0 if u0 is not None else _tol_burst(tol, max_cycles, nu1, nu2)
         if small:
             burst = min(burst, 1)
         for _ in range(burst):

@@ -16,6 +16,7 @@ import torch
 from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
 from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
+from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
     dst_eigenvalues_grouped,
     dst_eigenvalues_padded,
@@ -504,5 +505,116 @@ def test_serve_mg_q_tol_counts(cuda):
     assert K.LAUNCHES == _per_frame(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1,
                                     mg_down_q=1, mg_ud_q=n, mg_prolong_tq=n, mg_down=n,
                                     mg_up=n, mg_restrict_t=n, mg_prolong_t=n)
+    want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (300, 290)).numpy()
+    assert np.abs(out.astype(np.int16) - want).max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# the rest of the quarter-plane chain: the conversions, the split descent and
+# its restriction, the ascent with its residual, dense solves
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2), (3, 256, 256), (2, 512, 768), (3, 2, 2050)])
+def test_quarter_conversions_match_plain(cuda, shape):
+    """to_quarters and from_quarters bit-exact against their twins, and each
+    other's inverse; a misaligned dense view is refused (float2 pairs)."""
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    q = K.to_quarters(x.to(cuda))
+    d = K.from_quarters(q)
+    torch.cuda.synchronize()
+    assert torch.equal(q.cpu(), K.to_quarters_plain(x))
+    assert torch.equal(d.cpu(), x)
+    qc = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    assert torch.equal(K.from_quarters(qc.to(cuda)).cpu(), K.from_quarters_plain(qc))
+    flat = torch.zeros(x.numel() + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        K.to_quarters(flat[1:].view(shape))
+
+
+@pytest.mark.parametrize("hw", Q_CASES)
+def test_mg_q_split_and_residual_forms_match_plain(cuda, hw):
+    """The split mg_down_q (both guesses, nu1 1 and 2), mg_restrict_tq (on
+    its output, and on planes with NaN where it must not read) and mg_up_q
+    with its residual (nu2 0, 2, 4), bit-exact; split + restrict equals the
+    fused descent's rc_t."""
+    h, w = hw
+    _, hq, wq2, hp2 = K.mg_geometry_q(h, w)
+    hc, wc = (h - 1) // 2, (w - 1) // 2
+    chp = K.mg_geometry_t(wc, hc, wp_min=hp2)[1]
+    rng = np.random.default_rng(h * w + 11)
+    g, u = _q_planes(rng, h, w), _q_planes(rng, h, w, 10.0)
+    ee, eo = _q_corr(rng, h, w)
+    gd, ud, eed, eod = (x.to(cuda) for x in (g, u, ee, eo))
+    for nu1 in (1, 2):
+        for uz in (True, False):
+            want = K.mg_down_q_plain(None if uz else u, g, nu1, h, w)
+            got = K.mg_down_q(None if uz else ud, gd, nu1, h, w)
+            torch.cuda.synchronize()
+            assert len(got) == 3
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), (nu1, uz)
+            rc = K.mg_restrict_tq(got[1], got[2], h, w, chp)
+            torch.cuda.synchronize()
+            assert torch.equal(rc.cpu(), K.mg_restrict_tq_plain(want[1], want[2], h, w, chp))
+            assert torch.equal(rc, K.mg_down_q(None if uz else ud, gd, nu1, h, w, chp)[1])
+    poisoned = [x.clone() for x in got[1:]]
+    for x in poisoned:
+        x[:, hc:] = float("nan")
+        x[:, :, wc + 1 :] = float("nan")
+    assert torch.equal(K.mg_restrict_tq(*poisoned, h, w, chp), rc)
+    for nu2 in (0, 2, 4):
+        got = K.mg_up_q(ud, gd, eed, eod, nu2, h, w, with_residual=True)
+        torch.cuda.synchronize()
+        want = K.mg_up_q_plain(u, g, ee, eo, nu2, h, w, with_residual=True)
+        assert got[1].dim() == 0
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), nu2
+
+
+@pytest.mark.parametrize("mode", ["cycles", "tol", "coarse tol", "warm start"])
+def test_dense_solve_on_card_matches_cpu(cuda, mode):
+    """solve_multigrid on a dense (3, 518, 526) RHS, the quarter chain end to
+    end on the card (to_quarters in, from_quarters out; the check-first loop
+    at tol 0.05; u0 split by a second to_quarters): the same cycles as the
+    CPU run and the same result up to the coarsest level's GEMM summation
+    order."""
+    rng = np.random.default_rng(5)
+    g = torch.from_numpy(rng.normal(size=(3, 518, 526)).astype(np.float32) * 50)
+    kw = {"cycles": dict(cycles=2), "tol": dict(tol=1e-4), "coarse tol": dict(tol=0.05),
+          "warm start": dict(tol=1e-4)}[mode]
+    if mode == "warm start":
+        kw["u0"] = TM.solve_multigrid(g, padded="q", use_pallas=True, tol=0.05)
+    want, winfo = TM.solve_multigrid(g, padded="q", use_pallas=True, return_info=True, **kw)
+    K.reset_launches()
+    got, info = TM.solve_multigrid(g.to(cuda), padded="q", use_pallas=True, return_info=True,
+                                   **{k: v.to(cuda) if k == "u0" else v for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["to_quarters"] == (2 if mode == "warm start" else 1)
+    assert K.LAUNCHES["from_quarters"] == 1
+    assert info["cycles"] == winfo["cycles"]
+    rel = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+    assert rel <= (1e-5 if mode == "cycles" else 5e-5)
+    if mode != "cycles":
+        assert info["residual"] <= kw["tol"] * g.abs().max().item()
+
+
+def test_serve_mg_q_coarse_tol_counts(cuda):
+    """tol 0.05, no check-free cycle: per cycle the split mg_down_q,
+    mg_restrict_tq, the coarse level's four kernels, mg_prolong_tq and
+    mg_up_q with its residual; no mg_ud_q; the card within 1 of the CPU."""
+    rng = np.random.default_rng(2)
+    src = _u8(rng, (520, 528, 3))
+    dst = _u8(rng, (580, 600, 3))
+    mask = np.full((520, 528), 255, np.uint8)
+    cfg = CloneConfig(solver="multigrid", tol=0.05)
+    K.reset_launches()
+    out = SeamlessClone(cfg, device=cuda).run(src, dst, mask, (300, 290)).cpu().numpy()
+    torch.cuda.synchronize()
+    n = K.LAUNCHES["mg_up_q"]
+    assert n >= 1
+    assert K.LAUNCHES == _per_frame(
+        erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1,
+        **{k: n for k in ("mg_down_q", "mg_restrict_tq", "mg_prolong_tq", "mg_up_q", "mg_down",
+                          "mg_up", "mg_restrict_t", "mg_prolong_t")})
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (300, 290)).numpy()
     assert np.abs(out.astype(np.int16) - want).max() <= 1

@@ -139,12 +139,16 @@ def test_cpu_twins_do_not_count_launches():
     uq = K.mg_ud_q(uq, gq, e_even, e_odd, 2, 1, 18, 28, 128, with_residual=True)[0]
     uq = K.mg_up_q(uq, gq, e_even, e_odd, 2, 18, 28)
     K.clamp_cast_paste_q(uq, torch.zeros((3, 20, 30), dtype=torch.uint8), 1, 1, 18, 28)
+    uq, rh_e, rh_o = K.mg_down_q(K.to_quarters(K.from_quarters(uq)), gq, 1, 18, 28)
+    K.mg_restrict_tq(rh_e, rh_o, 18, 28, 128)
+    K.mg_up_q(uq, gq, e_even, e_odd, 2, 18, 28, with_residual=True)
     assert set(K.LAUNCHES) == {"erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste",
                                "fold_minor", "unfold_minor", "transpose_pair",
                                "unfold_transpose", "unfold_clamp_paste", "preprocess_rhs_p",
                                "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t",
                                "preprocess_rhs_q", "mg_down_q", "mg_up_q", "mg_ud_q",
-                               "mg_prolong_tq", "clamp_cast_paste_q"}
+                               "mg_prolong_tq", "clamp_cast_paste_q", "to_quarters",
+                               "from_quarters", "mg_restrict_tq"}
     assert set(K.LAUNCHES.values()) == {0}
 
 

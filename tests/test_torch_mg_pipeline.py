@@ -179,13 +179,14 @@ def test_auto_above_crossover_runs_multigrid(monkeypatch):
     out, _ = eng.timed_serve(small_src, dst, small_mask, (320, 300), loops=1)
     assert eng.metrics["solver_resolved"] == "multigrid"
     assert out.shape == dst.shape
-    # a zero check-free burst on a grid the quarter chain takes: slice 3c
-    for cfg, s_img, m_img, match in (
-            (CloneConfig(tol=0.05), src, mask, "slice 3c"),
-            (CloneConfig(mg_padded=True), small_src, small_mask, "slice 4"),
-            (CloneConfig(mg_padded=False), small_src, small_mask, "slice 4")):
-        with pytest.raises(NotImplementedError, match=match):
-            SeamlessClone(cfg, device="cpu").run(s_img, dst, m_img, (320, 300))
+    # a zero check-free burst on a grid the quarter chain takes: the
+    # check-first loop
+    eng = SeamlessClone(CloneConfig(tol=0.05), device="cpu")
+    assert eng.run(src, dst, mask, (320, 300)).shape == dst.shape
+    assert eng.metrics["solver_resolved"] == "multigrid"
+    for cfg in (CloneConfig(mg_padded=True), CloneConfig(mg_padded=False)):
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            SeamlessClone(cfg, device="cpu").run(small_src, dst, small_mask, (320, 300))
 
 
 def test_multigrid_engine_builds_no_dst_bases():
@@ -263,7 +264,45 @@ def test_serve_matches_run_q(cycles):
 
 Q_KERNELS = ("erode3", "preprocess_rhs_q", "mg_down_q", "mg_ud_q", "mg_up_q",
              "mg_prolong_tq", "clamp_cast_paste_q", "preprocess_rhs_p", "clamp_cast_paste",
-             "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t")
+             "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t", "to_quarters",
+             "from_quarters", "mg_restrict_tq")
+
+
+def _count_q_frame(monkeypatch, cfg, seed):
+    """One single-shot run of ``cfg`` on ``_images(seed)`` with each outermost
+    twin call of Q_KERNELS counted as a launch (a twin calling another, as
+    preprocess_rhs_q_plain calls to_quarters_plain, is one kernel). Returns
+    (counts, (h, w), the frame's dense RHS (C, h, w))."""
+    counts = dict.fromkeys(Q_KERNELS, 0)
+    depth = [0]
+    for name in Q_KERNELS:
+        orig = getattr(K, f"{name}_plain")
+
+        def counted(*a, _orig=orig, _name=name, **k):
+            counts[_name] += depth[0] == 0
+            depth[0] += 1
+            try:
+                return _orig(*a, **k)
+            finally:
+                depth[0] -= 1
+
+        monkeypatch.setattr(K, f"{name}_plain", counted)
+    src, dst, mask = _images(seed)
+    eng = SeamlessClone(cfg, device="cpu")
+    eng.run(src, dst, mask, (320, 300))
+    frame = dict(counts)  # the frame's launches, before the checks below
+    _, _, bw, bh = eng.metrics["bbox"]
+    h, w = bh - 2, bw - 2
+    assert TM._fused_level((w - 1) // 2, (h - 1) // 2, 1, 2, True, TM.FUSE_MIN_T)
+    assert not TM._fused_level(((h - 1) // 2 - 1) // 2, ((w - 1) // 2 - 1) // 2, 1, 2, True,
+                               TM.FUSE_MIN_T)
+    m, (x0, y0), (left, top), _ = TE.prepare_inputs(mask, src.shape, dst.shape, (320, 300))
+    dest = torch.from_numpy(dst[top : top + bh, left : left + bw].transpose(2, 0, 1).copy())
+    m01 = torch.from_numpy((m[y0 : y0 + bh, x0 : x0 + bw] != 0).astype(np.uint8))
+    patch = torch.from_numpy(src[y0 : y0 + bh, x0 : x0 + bw].transpose(2, 0, 1).copy())
+    patch = torch.where(m01[None] != 0, patch, 0).to(torch.uint8)
+    g = K.preprocess_rhs_p_plain(dest, patch, K.erode3_plain(m01), (h, w))
+    return frame, (h, w), g
 
 
 @pytest.mark.parametrize("cycles", [None, 3])
@@ -274,24 +313,8 @@ def test_launch_counts_on_the_q_path(cycles, monkeypatch):
     mg_ud_q k-1, mg_prolong_tq k, mg_up_q 1, each coarse-level kernel k.
     Tolerance mode: mg_down_q 1, mg_ud_q = mg_prolong_tq = the cycles run,
     which is what the JAX package reports for the same RHS."""
-    counts = dict.fromkeys(Q_KERNELS, 0)
-    for name in Q_KERNELS:
-        orig = getattr(K, f"{name}_plain")
-
-        def counted(*a, _orig=orig, _name=name, **k):
-            counts[_name] += 1
-            return _orig(*a, **k)
-
-        monkeypatch.setattr(K, f"{name}_plain", counted)
-    src, dst, mask = _images(80)
-    eng = SeamlessClone(CloneConfig(solver="multigrid", mg_cycles=cycles), device="cpu")
-    eng.run(src, dst, mask, (320, 300))
-    frame = dict(counts)  # the frame's launches, before the checks below
-    _, _, bw, bh = eng.metrics["bbox"]
-    h, w = bh - 2, bw - 2
-    assert TM._fused_level((w - 1) // 2, (h - 1) // 2, 1, 2, True, TM.FUSE_MIN_T)
-    assert not TM._fused_level(((h - 1) // 2 - 1) // 2, ((w - 1) // 2 - 1) // 2, 1, 2, True,
-                               TM.FUSE_MIN_T)
+    frame, _, g = _count_q_frame(
+        monkeypatch, CloneConfig(solver="multigrid", mg_cycles=cycles), 80)
     k = cycles if cycles is not None else frame["mg_ud_q"]
     want = dict.fromkeys(Q_KERNELS, 0)
     want.update(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1, mg_down_q=1,
@@ -299,15 +322,67 @@ def test_launch_counts_on_the_q_path(cycles, monkeypatch):
     if cycles is None:
         want.update(mg_ud_q=k)
         # the frame's RHS, dense, through the JAX solve's report
-        m, (x0, y0), (left, top), _ = TE.prepare_inputs(mask, src.shape, dst.shape, (320, 300))
-        dest = torch.from_numpy(dst[top : top + bh, left : left + bw].transpose(2, 0, 1).copy())
-        m01 = torch.from_numpy((m[y0 : y0 + bh, x0 : x0 + bw] != 0).astype(np.uint8))
-        patch = torch.from_numpy(src[y0 : y0 + bh, x0 : x0 + bw].transpose(2, 0, 1).copy())
-        patch = torch.where(m01[None] != 0, patch, 0).to(torch.uint8)
-        g = K.preprocess_rhs_p_plain(dest, patch, K.erode3_plain(m01), (h, w))
         _, info = JM.solve_multigrid(jnp.asarray(g.numpy()), padded="q", use_pallas=True,
                                      interpret=True, return_info=True)
         assert k == int(info["cycles"]) >= 3
     else:
         want.update(mg_ud_q=k - 1, mg_up_q=1)
     assert frame == want
+
+
+def test_launch_counts_on_the_q_check_first_path(monkeypatch):
+    """The check-first loop (tol 0.05: no check-free cycle), rehearsed: per
+    cycle the split mg_down_q, mg_restrict_tq, the coarse level's four
+    kernels, mg_prolong_tq and mg_up_q with its residual; no mg_ud_q, no
+    conversion. The cycles are what the JAX package reports for the same
+    RHS."""
+    frame, _, g = _count_q_frame(monkeypatch, CloneConfig(solver="multigrid", tol=0.05), 90)
+    k = frame["mg_up_q"]
+    want = dict.fromkeys(Q_KERNELS, 0)
+    want.update(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1,
+                **{n: k for n in ("mg_down_q", "mg_restrict_tq", "mg_prolong_tq", "mg_up_q",
+                                  "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t")})
+    assert frame == want
+    _, info = JM.solve_multigrid(jnp.asarray(g.numpy()), padded="q", use_pallas=True,
+                                 interpret=True, tol=0.05, return_info=True)
+    assert k == int(info["cycles"]) >= 1
+
+
+@pytest.mark.parametrize("mode", [MODES[0], MODES[1], MODES[3]])
+def test_clone_roi_q_coarse_tol_matches_jax(mode):
+    """The "q" tail at tol 0.05 (the check-first loop) against JAX's
+    interpreted "q" tail, NORMAL, MIXED and MONOCHROME."""
+    flags, rule = mode
+    dest, src, mask = _roi_inputs(flags + 8)
+    patch = np.where(mask[None] != 0, src, 0).astype(np.uint8)
+    kw = CloneConfig(solver="multigrid", tol=0.05, flags=flags, mixed_rule=rule).solver_kwargs()
+    with jax_mg_interpret():
+        want = np.asarray(JP.clone_roi(
+            jnp.asarray(dest), jnp.asarray(patch), jnp.asarray(mask), flags,
+            JM.solve_multigrid, {**kw, "interpret": True}, use_pallas_pre=True,
+            use_pallas_post=True, mixed_rule=rule, solver_name="multigrid"))
+    got = TP.clone_roi(torch.from_numpy(dest), torch.from_numpy(patch),
+                       torch.from_numpy(mask), flags, TM.solve_multigrid, kw,
+                       mixed_rule=rule, solver_name="multigrid").numpy()
+    assert _diff_max(got, want) <= 1
+    assert np.array_equal(got[:, [0, -1]], dest[:, [0, -1]])
+
+
+@pytest.mark.parametrize("flags", [1, 2, 3])
+def test_default_engine_coarse_tol_matches_jax(flags, monkeypatch):
+    """SeamlessClone(CloneConfig(tol=0.05)) above a patched crossover: auto ->
+    the "q" multigrid's check-first loop on both sides, within 1 of the JAX
+    engine."""
+    import seamlesscloneoptimization_tpu.solvers as JS
+
+    for mod in (TE, JS):
+        monkeypatch.setattr(mod, "AUTO_CROSSOVER_PIXELS", 100)
+        monkeypatch.setattr(mod, "SERVE_CROSSOVER_PIXELS", 100)
+    src, dst, mask = _images(100 + flags)
+    eng = SeamlessClone(CloneConfig(flags=flags, tol=0.05), device="cpu")
+    got = eng.run(src, dst, mask, (320, 300)).numpy()
+    assert eng.metrics["solver_resolved"] == "multigrid"
+    with jax_mg_interpret():
+        want = np.asarray(JE.SeamlessClone(JConfig(flags=flags, tol=0.05)).run(
+            src, dst, mask.copy(), (320, 300)))
+    assert _diff_max(got, want) <= 1

@@ -316,12 +316,12 @@ def test_padded_output_and_true_hw():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(padded="q"), "slice 3c"),  # a dense g on the quarter path
+    (dict(padded="q", pcg=True), "slice 4"),  # pcg and fmg_start raise on every chain
     (dict(padded=True), "slice 4"),
     (dict(padded=False), "slice 4"),
     (dict(padded="t", pcg=True), "slice 4"),
     (dict(padded="t", fmg_start=True), "slice 4"),
-    (dict(padded="t", u0=torch.zeros((1, 512, 520))), "slice 4"),
+    (dict(padded="q", fmg_start=True, u0=torch.zeros((1, 512, 520))), "slice 4"),
 ])
 def test_unported_modes_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -357,21 +357,24 @@ def test_unported_configs_raise(cfg, match):
 
 def test_auto_above_crossover_raises(monkeypatch):
     """Above the crossover the default mg_padded="q" runs (tests/
-    test_torch_mg_pipeline.py); what still raises there: a tolerance whose
-    check-free burst is 0 on a grid the quarter chain takes (slice 3c), and
-    the dense modes (slice 4)."""
+    test_torch_mg_pipeline.py), at any tolerance: one whose check-free burst
+    is 0 runs the check-first loop, the serve frame landing where the run
+    does. What still raises there: the dense modes (slice 4)."""
     monkeypatch.setattr(TE, "AUTO_CROSSOVER_PIXELS", 100)
     monkeypatch.setattr(TE, "SERVE_CROSSOVER_PIXELS", 100)
     src, dst, _ = _images(src_hw=(522, 530), dst_hw=(560, 600))
     mask = np.full(src.shape[:2], 255, np.uint8)  # interior 518 x 526, above 2^18
     center = (300, 280)
-    for cfg, match in ((CloneConfig(tol=0.05), "slice 3c"),
-                       (CloneConfig(mg_padded=True), "slice 4")):
-        eng = SeamlessClone(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=match):
-            eng.run(src, dst, mask, center)
-        with pytest.raises(NotImplementedError, match=match):
-            eng.timed_serve(src, dst, mask, center, loops=1)
+    eng = SeamlessClone(CloneConfig(tol=0.05), device="cpu")
+    run = eng.run(src, dst, mask, center).numpy()
+    assert eng.metrics["solver_resolved"] == "multigrid"
+    served, _ = eng.timed_serve(src, dst, mask, center, loops=0)
+    assert np.array_equal(served.numpy(), run) and not np.array_equal(run, dst)
+    eng = SeamlessClone(CloneConfig(mg_padded=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        eng.run(src, dst, mask, center)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        eng.timed_serve(src, dst, mask, center, loops=1)
 
 
 def test_port_imports_no_jax():

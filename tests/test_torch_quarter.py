@@ -1,13 +1,17 @@
 """The port's quarter-plane multigrid level against the JAX package on the CPU.
 
 Each kernel twin of the ``"q"`` chain (``ops/kernels.py``) against its
-Pallas kernel run with ``interpret=True``: the descent in both forms, the
-fused cycle boundary with and without its residual, the ascent and the
-split-plane prolongation at odd and even sides and with two strips; the
-quarter RHS and the quarters-consuming paste; the geometry and the path
-gate; and ``solve_multigrid(padded="q")`` from a born-quartered RHS.
+Pallas kernel run with ``interpret=True``: the dense <-> quarter-plane
+conversions, the descent in both forms, the fused cycle boundary and the
+ascent with and without their residual, the split-plane prolongation at
+odd and even sides and with two strips; the quarter RHS and the
+quarters-consuming paste; the geometry and the path gate; and
+``solve_multigrid(padded="q")`` from a born-quartered RHS
+(``tests/test_torch_quarter_dense.py`` has the split restriction and the
+rest of the solver).
 
-Tolerances: the RHS and the paste are integer-valued or casts, bit-exact.
+Tolerances: the RHS, the paste and the conversions are integer-valued,
+casts or moves, bit-exact.
 The level twins run the same float operations in the same order as the
 Pallas kernels, but XLA on the CPU may contract a multiply and an add into
 one FMA (the even-h edge weights, 1/3 and 1/6, are not powers of two), so
@@ -100,10 +104,17 @@ def test_geometry_and_gate_match_jax():
 
 @pytest.mark.parametrize("hq, wq", [(128, 128), (256, 384)])
 def test_to_and_from_quarters_match_jax(hq, wq):
+    """Bit-exact against the XLA conversions and the Pallas kernels, and
+    inverse to each other over the whole footprint."""
     x = _rand((3, 2 * hq, 2 * wq), 1)
     q = K.to_quarters(_t(x))
     np.testing.assert_array_equal(q.numpy(), np.asarray(MQ.to_quarters(jnp.asarray(x))))
-    np.testing.assert_array_equal(K.from_quarters(q).numpy(), x)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(MQ.to_quarters_pallas(
+        jnp.asarray(x), interpret=True)))
+    d = K.from_quarters(q)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(MQ.from_quarters_pallas(
+        jnp.asarray(q.numpy()), interpret=True)))
+    np.testing.assert_array_equal(d.numpy(), x)
     assert np.array_equal(q[:, 1, :, :].numpy(), x[:, 0::2, 1::2])  # EO: even rows, odd cols
 
 
@@ -114,12 +125,16 @@ def test_to_and_from_quarters_match_jax(hq, wq):
 
 @pytest.mark.parametrize("hw", CASES)
 def test_mg_down_q_matches_pallas(hw):
+    """Both guesses, both forms: the fused restriction (rc_t) and the split
+    one (rh_e, rh_o: the Pallas kernel's data rows [0, hc); the port's rows
+    beyond are exact zeros where the Pallas kernel leaves residual
+    leftovers), split + mg_restrict_tq bit-equal to the fused form."""
     h, w = hw
     geom, chp, g, u = _level(h, w, h + w)
     hc, wc = (h - 1) // 2, (w - 1) // 2
     for u_zero in (True, False):
-        ju, jrc = MQ.mg_down_q_pallas(None if u_zero else jnp.asarray(u.numpy()),
-                                      jnp.asarray(g.numpy()), 1, (h, w), geom,
+        ju_arg = None if u_zero else jnp.asarray(u.numpy())
+        ju, jrc = MQ.mg_down_q_pallas(ju_arg, jnp.asarray(g.numpy()), 1, (h, w), geom,
                                       u_zero=u_zero, interpret=True, rct_rows=chp)
         tu, trc = K.mg_down_q(None if u_zero else u, g, 1, h, w, chp)
         assert tu.shape == g.shape and trc.shape == (3, chp, geom[1])
@@ -127,18 +142,34 @@ def test_mg_down_q_matches_pallas(hw):
         _close(trc, jrc)
         assert _zero_outside(tu, h, w)
         assert not trc[:, wc:].any() and not trc[:, :, hc:].any()
+        _, je, jo = MQ.mg_down_q_pallas(ju_arg, jnp.asarray(g.numpy()), 1, (h, w), geom,
+                                        u_zero=u_zero, interpret=True)
+        su, te, to = K.mg_down_q(None if u_zero else u, g, 1, h, w)
+        assert torch.equal(su, tu) and te.shape == to.shape == (3, geom[1], geom[2])
+        _close(te[:, :hc], np.asarray(je)[:, :hc])
+        _close(to[:, :hc], np.asarray(jo)[:, :hc])
+        assert not te[:, hc:].any() and not to[:, hc:].any()
+        assert torch.equal(K.mg_restrict_tq(te, to, h, w, chp), trc)
 
 
 @pytest.mark.parametrize("hw", CASES)
 def test_mg_up_q_matches_pallas(hw):
+    """With and without the residual max, which agrees with the Pallas
+    kernel's to 3e-6 and with the dense residual of the result to 1e-5
+    (black cells are 0 up to rounding)."""
     h, w = hw
     geom, _, g, u = _level(h, w, 3 * h + w)
     ee, eo = _split_corr(h, w, geom[3], geom[2], h)
-    ju = MQ.mg_up_q_pallas(*(jnp.asarray(x.numpy()) for x in (u, g, ee, eo)), 2, (h, w),
-                           geom, interpret=True)
+    ju, jmax = MQ.mg_up_q_pallas(*(jnp.asarray(x.numpy()) for x in (u, g, ee, eo)), 2,
+                                 (h, w), geom, interpret=True, with_residual=True)
     tu = K.mg_up_q(u, g, ee, eo, 2, h, w)
     _close(tu, ju)
     assert _zero_outside(tu, h, w)
+    ru, rmax = K.mg_up_q(u, g, ee, eo, 2, h, w, with_residual=True)
+    assert torch.equal(ru, tu) and rmax.dim() == 0
+    assert abs(float(rmax) - float(jmax)) <= 3e-6 * float(jmax)
+    r = TJ.residual(K.from_quarters(tu)[:, :h, :w], K.from_quarters(g)[:, :h, :w])
+    assert abs(float(rmax) - r.abs().max().item()) <= 1e-5 * float(rmax)
 
 
 @pytest.mark.parametrize("with_residual", [False, True])
@@ -304,20 +335,34 @@ def test_solve_multigrid_q_zero_cycles_and_small_grids():
 
 @pytest.mark.parametrize("what", ["dense g", "dense result", "burst 0", "small grid"])
 def test_quarter_path_gaps_raise_slice_3c(what):
-    """What needs the slice-3c kernels (to_quarters, from_quarters, the
-    check-first loop) raises, on the CPU as on the card."""
-    gq = _quartered(_rand((1, 512, 520), 5))
+    """What raised until slice 3c brought its kernels (to_quarters,
+    from_quarters, the check-first loop) now runs: a dense g is the
+    born-quartered solve, a dense result its interleaved planes, a zero burst
+    (tol 0.05) the check-first loop within tol, and a quartered g below the
+    gate the element solve of its dense view."""
+    g = _rand((1, 512, 520), 5)
+    gq = _quartered(g)
     kw = dict(padded="q", use_pallas=True, true_hw=(512, 520), padded_output="quarters")
+    planes = TM.solve_multigrid(gq, **kw, cycles=1)
     if what == "dense g":
-        g, kw = torch.zeros((1, 512, 520)), dict(padded="q", use_pallas=True, cycles=1)
+        got = TM.solve_multigrid(_t(g), padded="q", use_pallas=True, cycles=1)
+        assert torch.equal(got, K.from_quarters(planes)[:, :512, :520])
     elif what == "dense result":
-        g, kw = gq, dict(kw, padded_output=True, cycles=1)
+        got = TM.solve_multigrid(gq, **dict(kw, padded_output=True), cycles=1)
+        assert torch.equal(got, K.from_quarters(planes))
     elif what == "burst 0":
-        g, kw = gq, dict(kw, tol=0.05)
-    else:
-        g, kw = _quartered(_rand((1, 90, 100), 6)), dict(kw, true_hw=(90, 100), cycles=1)
-    with pytest.raises(NotImplementedError, match="slice 3c"):
-        TM.solve_multigrid(g, **kw)
+        assert TM._tol_burst(0.05, 60) == 0
+        got = TM.solve_multigrid(gq, **kw, tol=0.05)
+        u = K.from_quarters(got)[:, :512, :520]
+        assert TJ.residual(u, _t(g)).abs().max().item() <= 0.05 * np.abs(g).max()
+    else:  # JAX runs its XLA from_quarters there, and the element path
+        small = _rand((1, 90, 100), 6)
+        gqs = _quartered(small)
+        got = TM.solve_multigrid(gqs, **dict(kw, true_hw=(90, 100)), cycles=1)
+        assert torch.equal(got, TM.solve_multigrid(_t(small), use_pallas=True, cycles=1))
+        want = JM.solve_multigrid(jnp.asarray(gqs.numpy()), **dict(kw, true_hw=(90, 100)),
+                                  cycles=1, interpret=True)
+        assert np.abs(got.numpy() - np.asarray(want)).max() <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("kw", [dict(return_info=True), dict(u0=torch.zeros(1)),
@@ -350,13 +395,18 @@ def _bad_call(what):
         "paste planes": lambda: K.clamp_cast_paste_q(torch.zeros((3, 2, 128, 128)), u8, 1, 1,
                                                      18, 28),
         "paste outside": lambda: K.clamp_cast_paste_q(g, u8, 3, 3, 18, 28),
+        "odd dense": lambda: K.to_quarters(torch.zeros((3, 256, 255))),
+        "not quarters": lambda: K.from_quarters(torch.zeros((3, 2, 128, 128))),
+        "restrict shapes": lambda: K.mg_restrict_tq(e, e[:, :64], 200, 200, 128),
+        "restrict rows": lambda: K.mg_restrict_tq(e, e, 200, 200, 64),
     }[what]
 
 
 @pytest.mark.parametrize("what", ["odd out_hw", "small out_hw", "not 4 planes",
                                   "domain too large", "nu1 0", "rct_rows", "guess shape",
                                   "nu2 5", "staleness", "correction shape", "prolong w",
-                                  "paste planes", "paste outside"])
+                                  "paste planes", "paste outside", "odd dense", "not quarters",
+                                  "restrict shapes", "restrict rows"])
 def test_quarter_wrappers_validate_inputs(what):
     """Each wrapper refuses what its kernel cannot run, on the CPU as on the
     card (the checks run before the device dispatch)."""
