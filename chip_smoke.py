@@ -6,7 +6,7 @@
 1. Prints the card (nvidia-smi name and power limit), builds the kernels
    from ``seamlesscloneoptimization_tpu_torch/csrc`` and prints the build
    time, ptxas's resource report and both TF32 flags.
-2. Holds each of the twenty-three kernels against its plain PyTorch twin on
+2. Holds each of the twenty-five kernels against its plain PyTorch twin on
    the card: every kernel bit-exact over its whole output (the divides too: the
    twin's divide is IEEE on the card as well; the kernels are built with
    -fmad=false, so the multigrid's float arithmetic rounds as the twin's
@@ -22,7 +22,12 @@
    the dense <-> quarter conversions at the footprint (3, 2816, 3840), the
    descent in its fused and split forms, the split form's restriction
    (equal to the fused rc_t), the ascent with and without its residual.
-   Times kernel, twin and, where one PyTorch
+   Slice 4a's at the headline: ``preprocess_rhs_p`` at the exact interior
+   size (its own kernels-line entry, ``preprocess_rhs_p_exact``),
+   ``postprocess_transposed`` on the DST-GEMM solve's transposed interior
+   (planar and interleaved, and at ROI widths 128, 251, 256), ``rb_sweeps``
+   for 1, 2, 3, 4 and 6 sweeps (two launches), at the 8K interior and on a
+   97x131 grid. Times kernel, twin and, where one PyTorch
    call computes the same function, that call (``library_ms``; the port
    never calls it), each launch cold in L2; and one GEMM of each chain.
 3. Drives each path through the entry points with the launch counters set
@@ -71,7 +76,25 @@
      of the born-quartered solve), ``padded_output=True`` (exact zeros
      outside the domain), and warm-started from the tol 0.05 solution
      (to_quarters twice, fewer cycles);
-   then ``seamless_clone`` on a small irregular mask in all three modes.
+   then ``seamless_clone`` on a small irregular mask in all three modes;
+   - ``jacobi``: ``CloneConfig(solver="jacobi")`` at the headline, a
+     single run and 2 chained frames (tol 1e-4 ends a frame, at 5500
+     sweeps on an H100: 110 bursts; 10 000 is only the cap), ``rb_sweeps``
+     13 launches per burst of 50 sweeps (1430 a frame); the run's RHS solved with the kernel and with plain sweeps
+     on the card, bit-equal with equal iterations, and the run's image
+     equal to the plain solve pasted;
+   - ``jacobi_small``: the same on a 66x66 patch that converges, the card
+     against the CPU (diff_max <= 1, equal iterations);
+   - ``dst_fft``: ``CloneConfig(solver="dst_fft")`` at the headline, card
+     against the CPU and against the pair chain's image (diff_max <= 1),
+     the relative residual;
+   - ``mg_element``: ``solve_multigrid(nu2=6, use_pallas=True)`` on the
+     headline RHS, the element V-cycles with the fine ascent one
+     ``rb_sweeps`` burst of 2 launches a cycle, cycles equal to the CPU's,
+     relative residual <= tol;
+   - ``dst_post_t``: ``CloneConfig(use_pallas_preprocess=False)`` at the
+     headline, the plain RHS, the transposed DST-GEMM solve and
+     ``postprocess_transposed`` once a frame, card against the CPU.
 
 Prints the kernel table as one JSON line (one entry per kernel; the
 ``*_interleaved`` entries are the same kernel on the single-shot path's
@@ -110,10 +133,15 @@ KERNELS = ("erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste", "fold_
            "unfold_minor", "transpose_pair", "unfold_transpose", "unfold_clamp_paste",
            "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t",
            "preprocess_rhs_q", "mg_down_q", "mg_up_q", "mg_ud_q", "mg_prolong_tq",
-           "clamp_cast_paste_q", "to_quarters", "from_quarters", "mg_restrict_tq")
+           "clamp_cast_paste_q", "to_quarters", "from_quarters", "mg_restrict_tq",
+           "rb_sweeps", "postprocess_transposed")
 MG_KERNELS = ("mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t")
 # a cycle of the check-first loop: each of these once
 Q_CHECK_FIRST = ("mg_down_q", "mg_restrict_tq", "mg_prolong_tq", "mg_up_q")
+JACOBI_SMALL_HW = (66, 66)  # full mask: interior 62x62, converges within max_iters
+CHECK_EVERY = 50  # solve_redblack's sweeps between checks
+RB_LAUNCHES_PER_BURST = -(-CHECK_EVERY // 4)  # rb_sweeps runs <= 4 sweeps a launch
+JACOBI_LOOPS = 2  # a headline jacobi frame is thousands of sweeps
 
 
 def _per_frame(**counts):
@@ -153,7 +181,16 @@ PATHS = {
     "mg_q_coarse_headline": None,
     # solve_multigrid on a dense RHS (no serve frame: the solves' counts)
     "mg_dense": None,
+    # slice 4a: red-black (bursts of rb_sweeps, their number data-dependent),
+    # the DST-FFT solve, the element path's fine sweeps (solver-level, nu2=6),
+    # and the transposed post-process (use_pallas_preprocess=False)
+    "jacobi": None,
+    "jacobi_small": None,
+    "dst_fft": _per_frame(erode3=1, preprocess_rhs_p=1, clamp_cast_paste=1),
+    "mg_element": None,
+    "dst_post_t": _per_frame(postprocess_transposed=1),
 }
+JACOBI_PATHS = ("jacobi", "jacobi_small")
 MG_Q_PATHS = ("mg_q", "mg_q_fixed", "mg_q_headline")
 MG_Q_COARSE_PATHS = ("mg_q_coarse", "mg_q_coarse_headline")
 # fused levels of the "t" chain; fused coarse levels below the quarter level
@@ -166,7 +203,8 @@ HOME_PATH = {"transpose": "unfolded", "clamp_cast_paste": "unfolded",
              "preprocess_rhs_q": "mg_q", "mg_down_q": "mg_q", "mg_ud_q": "mg_q",
              "mg_up_q": "mg_q_fixed", "mg_prolong_tq": "mg_q", "clamp_cast_paste_q": "mg_q",
              "to_quarters": "mg_dense", "from_quarters": "mg_dense",
-             "mg_restrict_tq": "mg_q_coarse"}
+             "mg_restrict_tq": "mg_q_coarse", "rb_sweeps": "jacobi",
+             "postprocess_transposed": "dst_post_t"}
 _PK = "seamlesscloneoptimization_tpu/ops/pallas_kernels.py"
 _MQ = "seamlesscloneoptimization_tpu/ops/pallas_mg_quarter.py"
 REPLACES = {
@@ -182,6 +220,7 @@ REPLACES = {
     "unfold_clamp_paste": [f"{_PK}:2130", f"{_PK}:1785"],
     "unfold_clamp_paste_interleaved": [f"{_PK}:2130", f"{_PK}:1958", f"{_PK}:1614"],
     "preprocess_rhs_p": [f"{_PK}:1358", f"{_PK}:1077"],
+    "preprocess_rhs_p_exact": [f"{_PK}:1077"],
     "mg_down": [f"{_PK}:595"],
     "mg_up": [f"{_PK}:805"],
     "mg_restrict_t": [f"{_PK}:933"],
@@ -196,8 +235,11 @@ REPLACES = {
     "to_quarters": [f"{_MQ}:120"],
     "from_quarters": [f"{_MQ}:158"],
     "mg_restrict_tq": [f"{_MQ}:511"],
+    "rb_sweeps": [f"{_PK}:316", f"{_PK}:288", f"{_PK}:301"],
+    "postprocess_transposed": [f"{_PK}:1498"],
 }
-SOURCE = {"clamp_cast_paste_interleaved": "clamp_cast_paste",
+SOURCE = {"preprocess_rhs_p_exact": "preprocess_rhs_p",
+          "clamp_cast_paste_interleaved": "clamp_cast_paste",
           "unfold_clamp_paste_interleaved": "unfold_clamp_paste",
           "clamp_cast_paste_q_interleaved": "clamp_cast_paste_q"}
 
@@ -216,7 +258,8 @@ def synthetic_image(rng, hw, cell=48):
 def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
     if PATHS[path] is None:
         check = (check_mg_q_counts if path in MG_Q_PATHS else
-                 check_mg_q_coarse_counts if path in MG_Q_COARSE_PATHS else check_mg_counts)
+                 check_mg_q_coarse_counts if path in MG_Q_COARSE_PATHS else
+                 check_jacobi_counts if path in JACOBI_PATHS else check_mg_counts)
         check(path, what, launches, frames)
         return
     for name, per in PATHS[path].items():
@@ -268,6 +311,19 @@ def check_mg_q_coarse_counts(path: str, what: str, launches: dict, frames: int) 
     if launches != want or n < frames:
         raise AssertionError(f"{path} {what}: launches {launches}, expected {want}")
     return n
+
+
+def check_jacobi_counts(path: str, what: str, launches: dict, frames: int) -> int:
+    """Red-black frames: erode3, preprocess_rhs_p and clamp_cast_paste once a
+    frame, rb_sweeps ceil(50 / 4) = 13 launches per burst of 50 sweeps,
+    nothing else. Returns the bursts run."""
+    n = launches["rb_sweeps"]
+    want = _per_frame(erode3=frames, preprocess_rhs_p=frames, clamp_cast_paste=frames,
+                      rb_sweeps=n)
+    if launches != want or n < frames or n % RB_LAUNCHES_PER_BURST:
+        raise AssertionError(f"{path} {what}: launches {launches}, expected {want} with "
+                             f"rb_sweeps a multiple of {RB_LAUNCHES_PER_BURST}")
+    return n // RB_LAUNCHES_PER_BURST
 
 
 def check_outside(out, dst, interior) -> None:
@@ -326,7 +382,7 @@ def profile_frames(label, clone_pipeline, kwargs, frames: int = 5) -> int:
             "fold_minor", "unfold_minor", "transpose_pair", "unfold_transpose",
             "unfold_clamp_paste", "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t",
             "mg_prolong_t", "preprocess_rhs_q", "level_q_kernel", "to_quarters",
-            "from_quarters")
+            "from_quarters", "rb_sweeps", "postprocess_transposed")
     groups = {"gemm": 0.0, "port kernels": 0.0, "other": 0.0}
     gemm_calls = 0
     for k, t in per_kernel.items():
@@ -362,10 +418,13 @@ def main() -> int:
     from seamlesscloneoptimization_tpu_torch.ops import kernels as K
     from seamlesscloneoptimization_tpu_torch.ops.guidance import bgr_to_gray_u8
     from seamlesscloneoptimization_tpu_torch.ops.kernels import ru128
+    from seamlesscloneoptimization_tpu_torch.solvers import jacobi as TJ
     from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
+    from seamlesscloneoptimization_tpu_torch.solvers.dst_fft import solve_dst_fft
     from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
         dst_bases,
         pair_chain_applies,
+        solve_dst_gemm,
         solve_dst_gemm_pl,
     )
 
@@ -819,11 +878,76 @@ def main() -> int:
         time_ms(lambda: K.clamp_cast_paste_q_plain(uq_paste, i_p.permute(2, 0, 1), top8 + 1,
                                                    left8 + 1, h8, w8)),
         shape=f"{qshape} -> u8 ({c},{h8},{w8}) interleaved")
-    del uq0, rcq0, e_q, uq_paste, d_k, d_p, i_k, i_p, gray8, flush, rh_q, rct_s, split, xd8, xq8
+    del uq0, rcq0, e_q, uq_paste, d_k, d_p, i_k, i_p, gray8, rh_q, rct_s, split, xd8, xq8
+
+    # -- 2e. slice 4a: the exact-size preprocess_rhs_p (#26's own role) and
+    #    postprocess_transposed at the headline, rb_sweeps at the headline and
+    #    8K interiors and on an odd small grid --------------------------------
+    for flags, rule, p_in in ((1, "opencv", patch), (2, "opencv", patch),
+                              (2, "norm", patch), (1, "opencv", gray)):
+        require_equal(f"preprocess_rhs_p_exact flags={flags} {rule}",
+                      K.preprocess_rhs_p(dest_roi, p_in, me, (h2, w2), flags, rule),
+                      K.preprocess_rhs_p_plain(dest_roi, p_in, me, (h2, w2), flags, rule))
+    g_ex = K.preprocess_rhs_p(dest_roi, patch, me, (h2, w2))
+    row("preprocess_rhs_p_exact", 2 * c * bh * bw + bh * bw + 4 * c * h2 * w2,
+        30 * c * bh * bw,
+        time_ms(lambda: K.preprocess_rhs_p(dest_roi, patch, me, (h2, w2))),
+        time_ms(lambda: K.preprocess_rhs_p_plain(dest_roi, patch, me, (h2, w2))),
+        shape=f"u8 ({c},{bh},{bw}) -> ({c},{h2},{w2})")
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    u_rb = torch.randn((c, h2, w2), generator=gen, device=dev) * 10.0
+    for k in (1, 2, 3, 4, 6):
+        require_equal(f"rb_sweeps headline k={k}", K.rb_sweeps(u_rb, g_ex, k),
+                      K.rb_sweeps_plain(u_rb, g_ex, k))
+    g8x = K.preprocess_rhs_p(dest8, patch8, me8, (h8, w8))
+    u8x = torch.randn((c, h8, w8), generator=gen, device=dev) * 10.0
+    require_equal("rb_sweeps 8K k=4", K.rb_sweeps(u8x, g8x, 4), K.rb_sweeps_plain(u8x, g8x, 4))
+    u_odd, g_odd = (torch.randn((c, 97, 131), generator=gen, device=dev) * s_
+                    for s_ in (10.0, 50.0))
+    require_equal("rb_sweeps 97x131 k=5", K.rb_sweeps(u_odd, g_odd, 5),
+                  K.rb_sweeps_plain(u_odd, g_odd, 5))
+    pts_h = c * h2 * w2
+    row("rb_sweeps", 12 * pts_h, 5 * 4 * pts_h,
+        time_ms(lambda: K.rb_sweeps(u_rb, g_ex, 4)),
+        time_ms(lambda: K.rb_sweeps_plain(u_rb, g_ex, 4)),
+        shape=f"u, g ({c},{h2},{w2}), 4 sweeps (one launch)",
+        in_burst_ms=time_ms(lambda: K.rb_sweeps(u_rb, g_ex, CHECK_EVERY)) / RB_LAUNCHES_PER_BURST,
+        one_sweep_ms=time_ms(lambda: K.rb_sweeps(u_rb, g_ex, 1)),
+        one_sweep_bound_ms=bound(12 * pts_h, 5 * pts_h)[0],
+        eight_k_shape=f"({c},{h8},{w8}), 4 sweeps",
+        eight_k_ms=time_ms(lambda: K.rb_sweeps(u8x, g8x, 4)),
+        eight_k_bound_ms=bound(12 * pts8, 5 * 4 * pts8)[0])
+    del u8x, g8x, u_odd, g_odd
+    u_t = solve_dst_gemm(g_ex, transposed_output=True, precision="high", folded=True)
+    d_k, d_p = dst_p.clone(), dst_p.clone()
+    K.postprocess_transposed(u_t, d_k, top + 1, left + 1)
+    K.postprocess_transposed_plain(u_t, d_p, top + 1, left + 1)
+    require_equal("postprocess_transposed (planar)", d_k, d_p)
+    i_k = torch.from_numpy(dst.copy()).to(dev)
+    i_p = i_k.clone()
+    K.postprocess_transposed(u_t, i_k.permute(2, 0, 1), top + 1, left + 1)
+    K.postprocess_transposed_plain(u_t, i_p.permute(2, 0, 1), top + 1, left + 1)
+    require_equal("postprocess_transposed (interleaved)", i_k, i_p)
+    for bw_s in (128, 251, 256):  # the bw % 128 classes of the Pallas kernel's tests
+        u_s = torch.rand((c, bw_s - 2, 62), generator=gen, device=dev) * 380.0 - 60.0
+        roi_s = torch.randint(0, 256, (c, 64, bw_s), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        a_s, b_s = roi_s.clone(), roi_s.clone()
+        K.postprocess_transposed(u_s, a_s, 1, 1)
+        K.postprocess_transposed_plain(u_s, b_s, 1, 1)
+        require_equal(f"postprocess_transposed 64x{bw_s}", a_s, b_s)
+    row("postprocess_transposed", 5 * c * h2 * w2, 2 * c * h2 * w2,
+        time_ms(lambda: K.postprocess_transposed(u_t, d_k, top + 1, left + 1)),
+        time_ms(lambda: K.postprocess_transposed_plain(u_t, d_p, top + 1, left + 1)),
+        shape=f"u_t ({c},{w2},{h2}) -> the u8 ROI ({c},{bh},{bw}) in place, planar",
+        interleaved_ms=time_ms(lambda: K.postprocess_transposed(u_t, i_k.permute(2, 0, 1),
+                                                                top + 1, left + 1)))
+    del u_rb, u_t, d_k, d_p, i_k, i_p, flush
 
     # -- 3. every path through the entry points ---------------------------------
     path_launches = {}
     cpu_diffs = {}
+    run_outputs = {}
 
     def drive(path, cfg, s_img, mask_, loops, label, d_img=dst, cpu="run+serve",
               solver="dst_gemm"):
@@ -858,6 +982,7 @@ def main() -> int:
         run = dict(K.LAUNCHES)
         check_counts(path, f"single-shot run ({label})", run, 1)
         run_np = run_out.cpu().numpy()
+        run_outputs.setdefault(path, run_np)
         check_outside(run_np, d_img, interior)
         print(f"single-shot run {path} ({label}): launches {json.dumps(run)}")
         path_launches.setdefault(path, (serve, run))
@@ -1146,6 +1271,132 @@ def main() -> int:
         if dm > 1:
             raise AssertionError(f"flags={flags}: card and CPU disagree by {dm}")
 
+    # -- slice 4a: red-black at the headline and on a small patch, the DST-FFT
+    #    solve, the element path's fine sweeps and the transposed post-process
+    def frame_rhs(s_img, mask_, d_img):
+        """The exact-size RHS of a single-shot run's frame, as its kernels make it."""
+        ctr = (d_img.shape[1] // 2, d_img.shape[0] // 2)
+        m_, (xs, ys), (lf, tp), (rh, rw) = prepare_inputs(mask_, s_img.shape, d_img.shape, ctr)
+        dd = torch.from_numpy(d_img).to(dev).permute(2, 0, 1)[:, tp : tp + rh, lf : lf + rw]
+        ss = torch.from_numpy(s_img).to(dev)[ys : ys + rh, xs : xs + rw].permute(2, 0, 1)
+        mm = torch.from_numpy(m_[ys : ys + rh, xs : xs + rw]).to(dev)
+        pp = torch.where(mm[None] != 0, ss, 0).to(torch.uint8)
+        return K.preprocess_rhs_p(dd, pp, K.erode3((mm != 0).to(torch.uint8)), (rh - 2, rw - 2))
+
+    def rel_residual(u, g) -> float:
+        """max |A u - g| / max |g| in float64."""
+        up = torch.nn.functional.pad(u.double(), (1, 1, 1, 1))
+        lap = (up[:, :-2, 1:-1] + up[:, 2:, 1:-1] + up[:, 1:-1, :-2] + up[:, 1:-1, 2:]
+               - 4 * up[:, 1:-1, 1:-1])
+        return ((lap - g.double()).abs().max() / g.double().abs().max()).item()
+
+    headline = f"{SRC_HW[1]}x{SRC_HW[0]}"
+    prof_h = dict(src=torch.from_numpy(src).to(dev), dst=dst_p.clone(),
+                  mask=torch.from_numpy(m).to(dev), bbox_xy=(x0, y0), left_top=(left, top),
+                  bbox_hw=(bh, bw), flags=1, planar_dst=True)
+    cfg_j = CloneConfig(solver="jacobi")
+    _, jac_ms = drive("jacobi", cfg_j, src, mask, JACOBI_LOOPS, headline, cpu=None,
+                      solver="jacobi")
+    jac_bursts = check_jacobi_counts("jacobi", "single-shot run", path_launches["jacobi"][1], 1)
+    # the run's RHS solved with the kernel and with the plain sweeps, both on the card
+    g_j = frame_rhs(src, mask, dst)
+    t0 = time.perf_counter()
+    u_jk, info_k = TJ.solve_redblack(g_j, return_info=True, **cfg_j.solver_kwargs())
+    kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    u_jp, info_p = TJ.solve_redblack(g_j, return_info=True,
+                                     **dict(cfg_j.solver_kwargs(), use_pallas=False))
+    plain_s = time.perf_counter() - t0
+    want_img = torch.from_numpy(dst.copy()).to(dev)
+    K.clamp_cast_paste_plain(u_jp, want_img.permute(2, 0, 1), top + 1, left + 1, h2, w2)
+    same_img = np.array_equal(run_outputs["jacobi"], want_img.cpu().numpy())
+    print(f"jacobi at the headline ({card}): {info_k['iterations']} sweeps (cap "
+          f"{cfg_j.max_iters}), relative residual {info_k['residual'] / g_j.abs().max().item():.3e}"
+          f" (tol {cfg_j.tol}); launches a frame rb_sweeps {jac_bursts * RB_LAUNCHES_PER_BURST} "
+          f"= {jac_bursts} bursts x {RB_LAUNCHES_PER_BURST}, erode3, preprocess_rhs_p, "
+          f"clamp_cast_paste 1; serve {jac_ms:.4f} ms/frame over {JACOBI_LOOPS} frames; the "
+          f"solve {kernel_s * 1e3:.1f} ms with rb_sweeps, {plain_s * 1e3:.1f} ms with plain "
+          f"sweeps; bit-equal {torch.equal(u_jk, u_jp)}, the run's image equal {same_img}")
+    if (info_k["iterations"] != info_p["iterations"]
+            or info_k["iterations"] != jac_bursts * CHECK_EVERY
+            or not torch.equal(u_jk, u_jp) or not same_img):
+        raise AssertionError(f"jacobi: kernel {info_k}, plain sweeps {info_p}, run bursts "
+                             f"{jac_bursts}, images equal {same_img}")
+    del g_j, u_jk, u_jp, want_img
+    profile_frames("jacobi", clone_pipeline, dict(
+        prof_h, solver=TJ.solve_redblack, solver_kwargs=cfg_j.solver_kwargs(),
+        solver_name="jacobi", use_pallas_post=False), frames=1)
+
+    rng4 = np.random.default_rng(SEED + 4)
+    src_j = synthetic_image(rng4, JACOBI_SMALL_HW, cell=16)
+    mask_j = np.full(JACOBI_SMALL_HW, 255, np.uint8)
+    cfg_js = CloneConfig(solver="jacobi")
+    _, js_ms = drive("jacobi_small", cfg_js, src_j, mask_j, STRIP_LOOPS,
+                     f"{JACOBI_SMALL_HW[1]}x{JACOBI_SMALL_HW[0]}", solver="jacobi")
+    g_js = frame_rhs(src_j, mask_j, dst)
+    _, info_js = TJ.solve_redblack(g_js, return_info=True, **cfg_js.solver_kwargs())
+    _, info_jc = TJ.solve_redblack(g_js.cpu(), return_info=True, **cfg_js.solver_kwargs())
+    js_bursts = check_jacobi_counts("jacobi_small", "single-shot run",
+                                    path_launches["jacobi_small"][1], 1)
+    print(f"jacobi small ({card}): {info_js['iterations']} sweeps on the card, "
+          f"{info_jc['iterations']} on the CPU, the run {js_bursts * CHECK_EVERY}; relative "
+          f"residual {info_js['residual'] / g_js.abs().max().item():.3e}; serve {js_ms:.4f} "
+          f"ms/frame")
+    if (info_js["iterations"] != info_jc["iterations"]
+            or info_js["iterations"] != js_bursts * CHECK_EVERY
+            or not info_js["iterations"] < cfg_js.max_iters):
+        raise AssertionError(f"jacobi small: card {info_js}, CPU {info_jc}, run {js_bursts}")
+    del g_js
+
+    _, fft_ms = drive("dst_fft", CloneConfig(solver="dst_fft"), src, mask, STRIP_LOOPS, headline,
+                      cpu="run", solver="dst_fft")
+    d_pair = diff_max(run_outputs["dst_fft"], run_outputs["pair"])
+    g_f = frame_rhs(src, mask, dst)
+    u_f = solve_dst_fft(g_f)
+    fft_rel = rel_residual(u_f, g_f)
+    print(f"dst_fft at the headline ({card}): serve {fft_ms:.4f} ms/frame (the pair chain "
+          f"{pair_ms:.4f}); run diff_max {d_pair} against the pair chain's; relative residual "
+          f"{fft_rel:.3e}")
+    if d_pair > 1 or not fft_rel < 1e-2 or not torch.isfinite(u_f).all():
+        raise AssertionError(f"dst_fft: diff_max {d_pair} against the pair chain, residual "
+                             f"{fft_rel}")
+    del u_f
+    profile_frames("dst_fft", clone_pipeline, dict(
+        prof_h, solver=solve_dst_fft, solver_name="dst_fft", use_pallas_post=False))
+
+    # the element path: nu2 = 6 leaves the fused chains, and the fine level's
+    # 6-sweep ascent is one rb_sweeps burst of 2 launches a cycle
+    if TM.quarter_path_applies(h2, w2, 1, 6) or TM.t_chain_applies(h2, w2, 1, 6):
+        raise AssertionError("nu2=6 at the headline took a fused chain")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    u_e, info_e = TM.solve_multigrid(g_f, nu2=6, use_pallas=True, tol=TOL, return_info=True)
+    torch.cuda.synchronize()
+    el_ms = (time.perf_counter() - t0) * 1e3
+    el_launches = dict(K.LAUNCHES)
+    _, info_ec = TM.solve_multigrid(g_f.cpu(), nu2=6, use_pallas=True, tol=TOL,
+                                    return_info=True)
+    el_rel = info_e["residual"] / g_f.abs().max().item()
+    print(f"mg_element at the headline, nu2=6 ({card}): {info_e['cycles']} cycles on the card, "
+          f"{info_ec['cycles']} on the CPU, relative residual {el_rel:.3e} (tol {TOL}); "
+          f"launches {json.dumps({k: v for k, v in el_launches.items() if v})}; "
+          f"{el_ms:.1f} ms a solve (host clock)")
+    if (el_launches != _per_frame(rb_sweeps=2 * info_e["cycles"])
+            or info_e["cycles"] != info_ec["cycles"] or not el_rel <= TOL
+            or not torch.isfinite(u_e).all()):
+        raise AssertionError(f"mg_element: {info_e}, CPU {info_ec}, launches {el_launches}")
+    path_launches["mg_element"] = (el_launches, el_launches)
+    del g_f, u_e
+
+    _, post_ms = drive("dst_post_t", CloneConfig(use_pallas_preprocess=False), src, mask,
+                       STRIP_LOOPS, headline, cpu="run")
+    print(f"dst_post_t at the headline ({card}): serve {post_ms:.4f} ms/frame, "
+          f"postprocess_transposed once a frame")
+    profile_frames("dst_post_t", clone_pipeline, dict(
+        prof_h, solver=solve_dst_gemm, solver_kwargs={"precision": "high", "folded": True},
+        solver_name="dst_gemm", use_pallas_pre=False))
+    del prof_h
+
     # -- the kernel table: launches of each kernel's own path ---------------------
     for name in KERNELS:
         home = HOME_PATH.get(name, "pair")
@@ -1162,6 +1413,8 @@ def main() -> int:
     rows["clamp_cast_paste_q_interleaved"]["launches"] = path_launches["mg_q"][1][
         "clamp_cast_paste_q"]
     rows["clamp_cast_paste_q_interleaved"]["path"] = "mg_q single-shot run"
+    rows["preprocess_rhs_p_exact"]["launches"] = path_launches["dst_fft"][0]["preprocess_rhs_p"]
+    rows["preprocess_rhs_p_exact"]["path"] = "dst_fft (also jacobi, jacobi_small)"
     for name, r in rows.items():
         if not r["launches"]:
             raise AssertionError(f"{name} was launched no time on its path")

@@ -10,7 +10,7 @@ unless the caller passes ``device="cpu"``, which runs the plain PyTorch
 twins of the kernels; without a card and without ``device="cpu"`` they
 raise rather than quietly fall back.
 
-What runs (ROADMAP slices 1 to 3c), through ``SeamlessClone.run`` /
+What runs (ROADMAP slices 1 to 4a), through ``SeamlessClone.run`` /
 ``timed_serve`` and ``seamless_clone``, in the NORMAL, MIXED and
 MONOCHROME modes:
 
@@ -28,7 +28,13 @@ MONOCHROME modes:
   element path. ``solvers.multigrid.solve_multigrid`` also takes a dense
   RHS, returns dense results and ``return_info``, and starts warm from
   ``u0``. The dense modes ``mg_padded`` True / False, ``fmg_start`` and
-  ``pcg`` raise until ROADMAP slice 4.
+  ``pcg`` raise until ROADMAP slice 4b.
+- ``CloneConfig(solver="jacobi")``: red-black Gauss-Seidel
+  (``solve_redblack``), its bursts of sweeps the ``rb_sweeps`` kernel;
+  ``CloneConfig(solver="dst_fft")``: the exact solve through ``torch.fft``.
+- ``use_pallas_preprocess`` / ``use_pallas_postprocess`` select the same
+  routes as in the JAX package; ``CloneConfig(use_pallas_preprocess=False)``
+  ends the DST-GEMM solve in the ``postprocess_transposed`` kernel.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ __all__ = [
     "CloneConfig",
     "SeamlessClone",
     "seamless_clone",
+    "solve_dst_fft",
+    "solve_redblack",
     "resolve_device",
 ]
 
@@ -83,4 +91,8 @@ def __getattr__(name):
         from seamlesscloneoptimization_tpu_torch.api import seamless_clone
 
         return seamless_clone
+    if name in ("solve_redblack", "solve_dst_fft"):
+        from seamlesscloneoptimization_tpu_torch import solvers
+
+        return getattr(solvers, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -6,7 +6,9 @@ HWC). A small LRU of engines keeps the device-resident DST bases across
 calls (ref lazy instance creation, SeamlessClone.cpp:108-118). Each engine
 has the default ``CloneConfig`` (``dst_folded=True``), so a patch whose
 interior exceeds 128 px on both sides runs the folded pair chain, and one
-above the 7 MP crossover the quarter-plane multigrid (``mg_padded="q"``).
+above the 7 MP crossover the quarter-plane multigrid (``mg_padded="q"``);
+``solver=`` picks any of dst_gemm | dst_fft | jacobi | multigrid instead.
+The solvers ``solve_redblack`` and ``solve_dst_fft`` are exported here too.
 The batch and edit functions come with later ROADMAP slices.
 """
 
@@ -20,6 +22,7 @@ from seamlesscloneoptimization_tpu_torch.core.config import (
     CloneConfig,
 )
 from seamlesscloneoptimization_tpu_torch.core.engine import BoundedCache, SeamlessClone
+from seamlesscloneoptimization_tpu_torch.solvers import solve_dst_fft, solve_redblack
 
 _engines: dict = BoundedCache(maxsize=16)
 
@@ -41,7 +44,7 @@ def seamless_clone(
     center: tuple[int, int],
     flags: int = NORMAL_CLONE,
     *,
-    solver: str = "auto",
+    solver: str = "auto",  # auto | dst_gemm | dst_fft | jacobi | multigrid
     tol: float = 1e-4,
     to_numpy: bool = True,
     device=None,
@@ -59,6 +62,8 @@ def seamless_clone(
 
 __all__ = [
     "seamless_clone",
+    "solve_dst_fft",
+    "solve_redblack",
     "NORMAL_CLONE",
     "MIXED_CLONE",
     "MONOCHROME_TRANSFER",

@@ -5,19 +5,26 @@ so a configuration carries across with ``config_from_jax``. This system has
 no weights: the only other carried state is the DST basis, which the port
 rebuilds bit-equal on the host (``solvers/dst_gemm.py``).
 
-What the port runs of it (ROADMAP slices 1 to 3c): ``solver`` "auto",
-"dst_gemm" or "multigrid", every ``flags`` mode and ``mixed_rule``,
-``precision`` "high"/"highest" (both FP32 on the card, TF32 off),
-``dst_folded``, ``donate_dst``, and for multigrid ``tol``, ``max_cycles``,
-``mg_cycles``, ``use_pallas_smoother`` and ``mg_padded`` "q" (the default,
-the quarter-plane finest level) or "t".
+What the port runs of it (ROADMAP slices 1 to 4a): every ``solver``
+("auto", "dst_gemm", "dst_fft", "jacobi", "multigrid"), every ``flags``
+mode and ``mixed_rule``, ``precision`` "high"/"highest" (both FP32 on the
+card, TF32 off), ``dst_folded``, ``donate_dst``, for jacobi ``tol`` and
+``max_iters``, for multigrid ``tol``, ``max_cycles``, ``mg_cycles`` and
+``mg_padded`` "q" (the default, the quarter-plane finest level) or "t",
+and for both ``use_pallas_smoother``.
 ``dst_folded=True`` folds each axis where the JAX package does
 (``solvers/dst_gemm.py:fold_pays``, every side above 128 px): the folded
 pair chain when both sides fold, the per-axis branch when one does. "auto"
-picks multigrid above the crossover, as in the JAX package; there, and for
-``solver="multigrid"``, ``mg_padded`` True / False raises
-NotImplementedError naming its ROADMAP slice, as does what a later slice
-brings (``solvers/__init__.py``, ``core/engine.py``).
+picks multigrid above the crossover, as in the JAX package.
+``use_pallas_preprocess`` and ``use_pallas_postprocess`` select the route
+on the card as they select it on the TPU (``core/engine.py``,
+``models/pipeline.py:clone_roi``): without the pre-process the RHS is the
+plain torch stages, without the post-process (or for jacobi and dst_fft)
+the exact-size solve is pasted by ``clamp_cast_paste``, and dst_gemm with
+the post-process but not the pre-process ends in the
+``postprocess_transposed`` kernel. What a later slice brings raises
+NotImplementedError naming its ROADMAP slice: ``mg_padded`` True / False
+on multigrid grids, other precisions, ``bbox_bucket`` and ``debug_dump``.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ MONOCHROME_TRANSFER = 3
 class CloneConfig:
     """Configuration for a SeamlessClone engine instance."""
 
-    solver: str = "auto"  # auto | dst_gemm | multigrid (ported) | dst_fft | jacobi
+    solver: str = "auto"  # auto | dst_gemm | dst_fft | jacobi | multigrid
     precision: str = "high"  # "high" and "highest" both run FP32 GEMMs (TF32 off)
     dst_folded: bool = True  # even/odd-folded DST GEMMs where fold_pays(n)
     flags: int = NORMAL_CLONE
@@ -54,12 +61,14 @@ class CloneConfig:
     # check-first loop) or "t" (the transpose-fused V-cycle) runs the fused
     # kernels on grids of at least 2^18 points (smaller grids, or
     # use_pallas_smoother=False, run the plain element path); True and
-    # False raise there until their ROADMAP slice.
+    # False raise there until their ROADMAP slice. For jacobi,
+    # use_pallas_smoother runs each burst of sweeps as the rb_sweeps kernel.
     use_pallas_smoother: bool = True
     mg_padded: bool | str = "q"
-    # These two and compilation_cache_dir only mean something on a TPU. They
-    # are kept so that configs carry across; they select nothing on the card
-    # (the kernels always run there).
+    # The route on the card, as on the TPU: False for the pre-process makes
+    # the RHS in plain torch ops; False for the post-process (which only
+    # dst_gemm and multigrid use) pastes the exact-size solve; dst_gemm with
+    # the post-process but not the pre-process ends in postprocess_transposed.
     use_pallas_preprocess: bool = True
     use_pallas_postprocess: bool = True
     debug_dump: bool = False  # per-stage dumps: not ported yet (raises)
@@ -67,6 +76,7 @@ class CloneConfig:
     donate_dst: bool = False  # run() updates a caller's device tensor in place
     bbox_bucket: int = 0  # bbox rounding: not ported yet (> 0 raises)
     bucket_exact: bool = False
+    # the TPU's persistent XLA cache: kept so configs carry across; unused here
     compilation_cache_dir: str | None = _DEFAULT_CACHE_DIR
 
     def solver_kwargs(self) -> dict:

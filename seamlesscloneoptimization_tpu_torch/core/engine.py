@@ -11,15 +11,18 @@ seamlessClone-CUDA/seamlessClone_imp.cu:239-370):
   place.
 - ``timed_serve`` uploads once and chains frames in place on a planar
   buffer it owns, timed with CUDA events after one warm-up frame.
-- The DST bases live on the device, cached per shape, so a frame uploads
-  nothing: the padded matrix and eigenvalues of an axis that stays plain,
-  the four folded factors and the grouped eigenvalues of an axis that
-  folds (``dst_folded and fold_pays(n)``). A multigrid engine builds none
-  of them; it caches the coarsest level's eigenbasis per geometry instead
-  (``solvers/multigrid.py:coarse_solve``).
+- The DST bases of the DST-GEMM serve chain live on the device, cached per
+  shape, so a frame uploads nothing: the padded matrix and eigenvalues of
+  an axis that stays plain, the four folded factors and the grouped
+  eigenvalues of an axis that folds (``dst_folded and fold_pays(n)``). A
+  multigrid engine builds none of them; it caches the coarsest level's
+  eigenbasis per geometry instead (``solvers/multigrid.py:coarse_solve``).
+  The ``jacobi`` and ``dst_fft`` engines, and the tails that the two
+  ``use_pallas_*`` fields select (``models/pipeline.py:clone_roi``), build
+  none either.
 - ``solver="auto"`` resolves per geometry: dst_gemm up to the crossover,
   multigrid above it (the default ``mg_padded="q"`` at any ``tol``, or
-  ``"t"``; the dense modes True / False raise there until ROADMAP slice 4).
+  ``"t"``; the dense modes True / False raise there until ROADMAP slice 4b).
 
 Not ported here (TPU-only or a later slice; see ROADMAP): the layout pin
 and self-heal, the sync-overhead subtraction, ``profile`` and
@@ -154,7 +157,7 @@ class SeamlessClone:
         self.config = config or CloneConfig()
         cfg = self.config
         if cfg.solver != "auto":  # "auto" is resolved per geometry at run time
-            get_solver(cfg.solver)  # NotImplementedError / ValueError if unknown
+            get_solver(cfg.solver)  # ValueError if unknown
         if cfg.mg_padded not in ("q", "t", *MG_PADDED_NOT_PORTED):
             raise ValueError(f"unknown mg_padded {cfg.mg_padded!r}")
         if cfg.solver == "multigrid" and cfg.mg_padded in MG_PADDED_NOT_PORTED:
@@ -226,11 +229,17 @@ class SeamlessClone:
                                 self.config.mg_padded)
         self.metrics["solver_resolved"] = eff
         cfg = dataclasses.replace(self.config, solver=eff)
-        bases = (self._eig_cache if eff == "multigrid"
-                 else self._device_bases(bbox_hw[0] - 2, bbox_hw[1] - 2))
+        # the JAX engine's _pallas_gates: the post-process only for these two
+        pre = cfg.use_pallas_preprocess
+        post = cfg.use_pallas_postprocess and eff in ("dst_gemm", "multigrid")
+        bases = None  # the generic and transposed tails' solvers take none
+        if eff == "multigrid":
+            bases = self._eig_cache
+        elif eff == "dst_gemm" and pre and post:
+            bases = self._device_bases(bbox_hw[0] - 2, bbox_hw[1] - 2)
         return dict(bbox_hw=bbox_hw, flags=flags, solver=get_solver(eff),
                     solver_kwargs=cfg.solver_kwargs(), mixed_rule=cfg.mixed_rule,
-                    bases=bases, solver_name=eff)
+                    bases=bases, solver_name=eff, use_pallas_pre=pre, use_pallas_post=post)
 
     def _to_device(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):

@@ -39,9 +39,19 @@ it is
 with the RHS born in the level geometry's (hp, wp) slab and each V-cycle
 level mg_down -> mg_restrict_t -> (coarser level) -> mg_prolong_t ->
 mg_up; smaller grids take the same tail on the exact-size RHS and the
-element path. Either way the interior is written in place into the
-destination at (top+1, left+1), planar or interleaved, by one strided
-kernel.
+element path. ``solver_name`` "jacobi" or "dst_fft", and any solver with
+``use_pallas_postprocess=False``, take the generic tail
+
+    erode3 -> preprocess_rhs_p (exact size) -> solver -> clamp_cast_paste
+
+(``solve_redblack``'s bursts are ``rb_sweeps`` launches). With
+``use_pallas_preprocess=False`` the RHS is the plain torch stages instead,
+and ``dst_gemm`` with the post-process on ends
+
+    solve_dst_gemm(transposed_output=True) -> postprocess_transposed
+
+Either way the interior is written in place into the destination at
+(top+1, left+1), planar or interleaved, by one strided kernel.
 On CPU tensors each kernel wrapper runs its plain twin. Everything runs on
 the current stream, in order: the next chained frame's preprocess reads the
 ROI this frame's paste wrote.
@@ -64,6 +74,7 @@ from seamlesscloneoptimization_tpu_torch.ops.kernels import (
     erode3,
     mg_geometry_q,
     mg_geometry_t,
+    postprocess_transposed,
     preprocess_rhs_p,
     preprocess_rhs_q,
     preprocess_rhs_t,
@@ -72,6 +83,7 @@ from seamlesscloneoptimization_tpu_torch.ops.kernels import (
 from seamlesscloneoptimization_tpu_torch.ops.mask import binarize_mask, erode3x3
 from seamlesscloneoptimization_tpu_torch.ops.postprocess import postprocess_roi
 from seamlesscloneoptimization_tpu_torch.ops.rhs import poisson_rhs
+from seamlesscloneoptimization_tpu_torch.solvers import get_solver
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
     pair_chain_applies,
     solve_dst_gemm_pl,
@@ -80,6 +92,17 @@ from seamlesscloneoptimization_tpu_torch.solvers.multigrid import (
     quarter_path_applies,
     t_chain_applies,
 )
+
+
+def _plain_rhs(dest_roi_u8, patch_u8, mask_roi, flags, mixed_rule):
+    """erode3x3 -> guidance_field -> poisson_rhs in torch ops (XLA's ops in
+    the JAX package): (g (C, H-2, W-2), stages)."""
+    dest_f = dest_roi_u8.to(torch.float32)
+    mask_eroded = erode3x3(binarize_mask(mask_roi))
+    gx, gy = guidance_field(dest_f, patch_u8.to(torch.float32), mask_eroded, flags,
+                            mixed_rule)
+    g = poisson_rhs(gx, gy, dest_f)
+    return g, {"mask_eroded": mask_eroded, "gx": gx, "gy": gy, "rhs": g}
 
 
 def clone_roi(
@@ -95,20 +118,39 @@ def clone_roi(
     out_offset: tuple[int, int] | None = None,
     bases=None,
     solver_name: str | None = None,
+    use_pallas_pre: bool = True,
+    use_pallas_post: bool = True,
 ):
     """Clone on a pre-cropped ROI. Planar (C, H, W) u8 images, (H, W) u8 mask.
 
     ``patch_u8`` must already be zeroed outside the (pre-erosion) mask.
 
-    Kernel branch (the default): with ``solver_name="multigrid"`` the
-    multigrid serve tail, ``solver`` being ``solve_multigrid`` with
-    ``solver_kwargs`` (``CloneConfig.solver_kwargs()``) and ``bases`` the
-    engine's coarse-basis cache (a dict, or None). Otherwise the DST-GEMM
-    serve chain, which ignores ``solver`` (``solver_kwargs`` gives
-    ``precision`` and ``folded``), and ``bases`` are the device-resident
-    DST bases (``dst_bases`` with the same ``folded``), or None. On the
-    pair chain the last unfold is fused into ``unfold_clamp_paste``. With
-    ``out`` (a (C, Hd, Wd) u8 destination view) and ``out_offset`` =
+    Kernel branch (the default), routed as the JAX package routes it by
+    ``solver_name`` and the config's ``use_pallas_preprocess`` /
+    ``use_pallas_postprocess`` (``use_pallas_pre`` / ``use_pallas_post``):
+
+    - Without ``use_pallas_post`` (the engine's gate for ``"jacobi"`` and
+      ``"dst_fft"``, which have no post-process tail: with it they raise):
+      the generic tail. The exact-size RHS (``preprocess_rhs_p`` with
+      ``out_hw = (H-2, W-2)``, or the plain torch stages without
+      ``use_pallas_pre``) -> ``solver(g, **solver_kwargs)`` ->
+      ``clamp_cast_paste``.
+    - ``"multigrid"``: the multigrid serve tail, ``solver`` being
+      ``solve_multigrid`` with ``solver_kwargs``
+      (``CloneConfig.solver_kwargs()``) and ``bases`` the engine's
+      coarse-basis cache (a dict, or None); without ``use_pallas_pre`` the
+      plain RHS feeds ``solver(g, padded_output=True)``.
+    - ``"dst_gemm"`` or None: the DST-GEMM serve chain, which ignores
+      ``solver`` (``solver_kwargs`` gives ``precision`` and ``folded``), and
+      ``bases`` are the device-resident DST bases (``dst_bases`` with the
+      same ``folded``), or None. On the pair chain the last unfold is fused
+      into ``unfold_clamp_paste``. Without ``use_pallas_pre``: the plain
+      RHS -> ``solver(g, transposed_output=True, **solver_kwargs)`` ->
+      ``postprocess_transposed``.
+
+    ``solver=None`` takes ``SOLVERS[solver_name]``.
+
+    With ``out`` (a (C, Hd, Wd) u8 destination view) and ``out_offset`` =
     (top1, left1), the solved interior is pasted in place there and ``out``
     is returned; else a new blended (C, H, W) ROI is returned.
 
@@ -117,8 +159,21 @@ def clone_roi(
     """
     solver_kwargs = dict(solver_kwargs or {})
     c, h, w = dest_roi_u8.shape
-    if not return_stages:
-        h2, w2 = h - 2, w - 2
+    if return_stages:
+        g, stages = _plain_rhs(dest_roi_u8, patch_u8, mask_roi, flags, mixed_rule)
+        u = solver(g, **solver_kwargs)
+        return postprocess_roi(u, dest_roi_u8), {**stages, "u": u}
+    h2, w2 = h - 2, w - 2
+    if out is None:
+        out, out_offset = dest_roi_u8.clone(), (1, 1)
+    top1, left1 = out_offset
+    name = solver_name or "dst_gemm"
+    solver = solver or get_solver(name)
+    if use_pallas_post and name not in ("dst_gemm", "multigrid"):
+        # the engine gates the post-process (JAX's _pallas_gates); a direct
+        # caller must not get another solver's chain silently
+        raise ValueError(f"use_pallas_post has no tail for solver {name!r}")
+    if use_pallas_pre:
         me = erode3((mask_roi != 0).to(torch.uint8))
         if flags == MONOCHROME_TRANSFER:
             # integer gray in [0, 255]: as u8, broadcast by a stride-0 view
@@ -127,49 +182,44 @@ def clone_roi(
             kflags = 1
         else:
             patch_in, kflags = patch_u8, flags
-        if out is None:
-            out, out_offset = dest_roi_u8.clone(), (1, 1)
-        if solver_name == "multigrid":
-            kw = dict(solver_kwargs)
-            use_pallas = kw.get("use_pallas", False)
-            if kw.get("padded") == "q" and quarter_path_applies(h2, w2,
-                                                                use_pallas=use_pallas):
-                # the RHS is born as quarter planes, the solve stays in them
-                # and the paste interleaves them: no conversion pass
-                _, hq, wq2, _ = mg_geometry_q(h2, w2)
-                g = preprocess_rhs_q(dest_roi_u8, patch_in, me, (2 * hq, 2 * wq2), kflags,
-                                     mixed_rule)
-                uq = solver(g, padded_output="quarters", true_hw=(h2, w2), eig_cache=bases,
-                            **kw)
-                return clamp_cast_paste_q(uq, out, out_offset[0], out_offset[1], h2, w2)
-            if kw.get("padded") == "t" and t_chain_applies(h2, w2, use_pallas=use_pallas):
-                # the RHS is born in the fine level's slab: no pad pass
-                _, hp, wp, _ = mg_geometry_t(h2, w2)
-                g = preprocess_rhs_p(dest_roi_u8, patch_in, me, (hp, wp), kflags,
-                                     mixed_rule)
-                kw["true_hw"] = (h2, w2)
-            else:
-                g = preprocess_rhs_p(dest_roi_u8, patch_in, me, (h2, w2), kflags,
-                                     mixed_rule)
-            u = solver(g, padded_output=True, eig_cache=bases, **kw)
-            return clamp_cast_paste(u, out, out_offset[0], out_offset[1], h2, w2)
-        g_tp = preprocess_rhs_t(dest_roi_u8, patch_in, me, kflags, mixed_rule)
-        folded = bool(solver_kwargs.get("folded", False))
-        pair_chain = folded and pair_chain_applies(h2, w2)
-        u = solve_dst_gemm_pl(g_tp, h2=h2, w2=w2,
-                              precision=solver_kwargs.get("precision", "highest"),
-                              folded=folded, bases=bases, return_parts=pair_chain)
-        if pair_chain:
-            return unfold_clamp_paste(*u, out, out_offset[0], out_offset[1], h2, w2)
-        return clamp_cast_paste(u, out, out_offset[0], out_offset[1], h2, w2)
-    dest_f = dest_roi_u8.to(torch.float32)
-    patch_f = patch_u8.to(torch.float32)
-    mask_eroded = erode3x3(binarize_mask(mask_roi))
-    gx, gy = guidance_field(dest_f, patch_f, mask_eroded, flags, mixed_rule)
-    g = poisson_rhs(gx, gy, dest_f)
-    u = solver(g, **solver_kwargs)
-    return postprocess_roi(u, dest_roi_u8), {
-        "mask_eroded": mask_eroded, "gx": gx, "gy": gy, "rhs": g, "u": u}
+        if use_pallas_post and name == "dst_gemm":
+            precision = solver_kwargs.get("precision", "highest")
+            folded = bool(solver_kwargs.get("folded", False))
+            g_tp = preprocess_rhs_t(dest_roi_u8, patch_in, me, kflags, mixed_rule)
+            pair_chain = folded and pair_chain_applies(h2, w2)
+            u = solve_dst_gemm_pl(g_tp, h2=h2, w2=w2, precision=precision, folded=folded,
+                                  bases=bases, return_parts=pair_chain)
+            if pair_chain:
+                return unfold_clamp_paste(*u, out, top1, left1, h2, w2)
+            return clamp_cast_paste(u, out, top1, left1, h2, w2)
+
+    kw = dict(solver_kwargs, eig_cache=bases) if name == "multigrid" else dict(solver_kwargs)
+    out_hw = (h2, w2)
+    if use_pallas_post and name == "multigrid":
+        use_pallas, padded = kw.get("use_pallas", False), kw.get("padded")
+        # the plain RHS is exact-size: only the kernels give birth to padded layouts
+        if use_pallas_pre and padded == "q" and quarter_path_applies(h2, w2,
+                                                                     use_pallas=use_pallas):
+            # the RHS is born as quarter planes, the solve stays in them and
+            # the paste interleaves them: no conversion pass
+            _, hq, wq2, _ = mg_geometry_q(h2, w2)
+            g = preprocess_rhs_q(dest_roi_u8, patch_in, me, (2 * hq, 2 * wq2), kflags,
+                                 mixed_rule)
+            uq = solver(g, padded_output="quarters", true_hw=(h2, w2), **kw)
+            return clamp_cast_paste_q(uq, out, top1, left1, h2, w2)
+        if use_pallas_pre and padded == "t" and t_chain_applies(h2, w2, use_pallas=use_pallas):
+            # the RHS is born in the fine level's slab: no pad pass
+            _, hp, wp, _ = mg_geometry_t(h2, w2)
+            out_hw, kw["true_hw"] = (hp, wp), (h2, w2)
+        kw["padded_output"] = True
+    g = (preprocess_rhs_p(dest_roi_u8, patch_in, me, out_hw, kflags, mixed_rule)
+         if use_pallas_pre else _plain_rhs(dest_roi_u8, patch_u8, mask_roi, flags, mixed_rule)[0])
+    if use_pallas_post and name == "dst_gemm":
+        # the solve ends transposed; one kernel transposes, clamps and pastes
+        u_t = solver(g, transposed_output=True, **kw)
+        return postprocess_transposed(u_t.contiguous(), out, top1, left1)
+    u = solver(g, **kw)
+    return clamp_cast_paste(u.contiguous(), out, top1, left1, h2, w2)
 
 
 def clone_pipeline(
@@ -187,6 +237,8 @@ def clone_pipeline(
     planar_dst: bool = False,
     bases=None,
     solver_name: str | None = None,
+    use_pallas_pre: bool = True,
+    use_pallas_post: bool = True,
 ) -> torch.Tensor:
     """Full-image clone, IN PLACE into ``dst``; returns ``dst``.
 
@@ -195,7 +247,7 @@ def clone_pipeline(
     buffer). mask: (hs, ws) u8. bbox_xy = (x0, y0) of the mask bbox,
     left_top = (left, top) of the paste in dst, bbox_hw = (bh, bw).
     Only the ROI interior of dst, (top+1 .. top+bh-2, left+1 .. left+bw-2),
-    is written.
+    is written. The remaining keywords are ``clone_roi``'s.
     """
     bh, bw = bbox_hw
     c = src.shape[2]
@@ -223,5 +275,6 @@ def clone_pipeline(
 
     clone_roi(dest_p, patch, mask_roi, flags, solver, solver_kwargs,
               mixed_rule=mixed_rule, out=dst_chw, out_offset=(top + 1, left + 1),
-              bases=bases, solver_name=solver_name)
+              bases=bases, solver_name=solver_name, use_pallas_pre=use_pallas_pre,
+              use_pallas_post=use_pallas_post)
     return dst

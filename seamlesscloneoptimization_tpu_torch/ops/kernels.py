@@ -2,7 +2,7 @@
 launch counters.
 
 The port's counterpart of ``seamlesscloneoptimization_tpu/ops/pallas_kernels.py``
-and ``pallas_mg_quarter.py`` for ROADMAP slices 1 to 3c:
+and ``pallas_mg_quarter.py`` for ROADMAP slices 1 to 4a:
 
 ============================  =============================================
 wrapper                       replaces (pallas_kernels.py,
@@ -35,6 +35,8 @@ wrapper                       replaces (pallas_kernels.py,
 ``mg_prolong_tq``             ``mg_prolong_tq_pallas``
 ``clamp_cast_paste_q``        ``clamp_cast_guarded_quarters_pallas`` + the
                               paste
+``rb_sweeps``                 ``rb_sweeps_pallas``
+``postprocess_transposed``    ``postprocess_transposed_pallas`` (in place)
 ============================  =============================================
 
 Each wrapper checks device, dtype, shape and layout, allocates its output
@@ -45,8 +47,8 @@ raises, never falls back. ``LAUNCHES[name]`` counts kernel launches (the
 twins do not count), so a run can show that it went through the kernels.
 The sources are ``csrc/<name>.cu`` (the three unfold kernels share
 ``csrc/fold.cuh``, the three RHS kernels ``csrc/rhs_tile.cuh``, the two
-dense multigrid level kernels ``csrc/mg_level.cuh``, the three quarter-plane
-ones ``csrc/mg_level_q.cuh``), built by ``ops/_build.py``.
+dense multigrid level kernels and ``rb_sweeps`` ``csrc/mg_level.cuh``, the
+three quarter-plane ones ``csrc/mg_level_q.cuh``), built by ``ops/_build.py``.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ import torch.nn.functional as F
 from seamlesscloneoptimization_tpu_torch.ops._build import kernel_function
 from seamlesscloneoptimization_tpu_torch.ops.guidance import guidance_field
 from seamlesscloneoptimization_tpu_torch.ops.mask import erode3x3
-from seamlesscloneoptimization_tpu_torch.ops.postprocess import clamp_truncate_u8
+from seamlesscloneoptimization_tpu_torch.ops.postprocess import clamp_truncate_u8, postprocess_roi
 from seamlesscloneoptimization_tpu_torch.ops.rhs import poisson_rhs
 
 LAUNCHES = {"erode3": 0, "preprocess_rhs_t": 0, "transpose": 0,
@@ -66,7 +68,8 @@ LAUNCHES = {"erode3": 0, "preprocess_rhs_t": 0, "transpose": 0,
             "preprocess_rhs_p": 0, "mg_down": 0, "mg_up": 0, "mg_restrict_t": 0,
             "mg_prolong_t": 0, "preprocess_rhs_q": 0, "mg_down_q": 0, "mg_up_q": 0,
             "mg_ud_q": 0, "mg_prolong_tq": 0, "clamp_cast_paste_q": 0, "to_quarters": 0,
-            "from_quarters": 0, "mg_restrict_tq": 0}
+            "from_quarters": 0, "mg_restrict_tq": 0, "rb_sweeps": 0,
+            "postprocess_transposed": 0}
 
 _MIXED_RULES = {"opencv": 0, "norm": 1}
 
@@ -327,6 +330,46 @@ def _check_paste(u: torch.Tensor, dst: torch.Tensor, top1, left1, h2, w2,
     if min(dst.stride()) < 1:
         raise ValueError("dst strides must be positive")
     return top1, left1, h2, w2
+
+
+# ---------------------------------------------------------------------------
+# postprocess_transposed
+# ---------------------------------------------------------------------------
+
+
+def postprocess_transposed_plain(u_t: torch.Tensor, dst: torch.Tensor, top1: int,
+                                 left1: int) -> torch.Tensor:
+    """``postprocess_roi`` of the un-transposed solve into the ROI of ``dst``
+    whose interior starts at (top1, left1)."""
+    _, w2, h2 = u_t.shape
+    roi = dst[:, top1 - 1 : top1 + h2 + 1, left1 - 1 : left1 + w2 + 1]
+    roi.copy_(postprocess_roi(u_t.transpose(1, 2), roi))
+    return dst
+
+
+def postprocess_transposed(u_t: torch.Tensor, dst: torch.Tensor, top1: int,
+                           left1: int) -> torch.Tensor:
+    """Blend a TRANSPOSED interior solution into the destination, in place.
+
+    u_t: (C, W-2, H-2) f32 contiguous, the solve in transposed orientation
+    (``solve_dst_gemm(transposed_output=True)``). ``dst``: a (C, Hd, Wd) u8
+    view with positive strides (the planar serve buffer or an interleaved
+    image's ``permute(2, 0, 1)``) holding the (C, H, W) ROI with its
+    interior at (top1, left1). The interior becomes clamp(u_t^T, 0, 255)
+    truncated to u8; the ROI's one-pixel border keeps dest's values, so the
+    ROI is the blended ROI of ``postprocess_transposed_pallas``. Returns
+    ``dst``."""
+    _require(u_t, "u_t", torch.float32, 3)
+    _, w2, h2 = u_t.shape
+    top1, left1, _, _ = _check_paste(u_t, dst, top1, left1, h2, w2, rows=h2)
+    if top1 < 1 or left1 < 1 or top1 + h2 + 1 > dst.shape[1] or left1 + w2 + 1 > dst.shape[2]:
+        raise ValueError(f"the ROI around ({top1},{left1})+({h2}x{w2}) is not inside "
+                         f"the destination {tuple(dst.shape[1:])}")
+    if u_t.device.type == "cpu":
+        return postprocess_transposed_plain(u_t, dst, top1, left1)
+    _launch("postprocess_transposed", u_t, u_t.data_ptr(), u_t.shape[0], h2, w2,
+            dst.data_ptr(), *dst.stride(), top1, left1)
+    return dst
 
 
 # ---------------------------------------------------------------------------
@@ -830,6 +873,53 @@ def mg_prolong_t(ec_t: torch.Tensor, w: int, bw: float, out_rows: int,
     _launch("mg_prolong_t", ec_t, ec_t.data_ptr(), out.data_ptr(), c, hp_c, lanes, out_rows,
             wp, w, _f32((1.0 + bw) / gap), _f32(bw / gap))
     return out
+
+
+# ---------------------------------------------------------------------------
+# rb_sweeps: red-black bursts on exact-size arrays (solve_redblack, the
+# element path's fine-level sweeps)
+# ---------------------------------------------------------------------------
+
+RB_SWEEPS_PER_LAUNCH = 4  # the staged ring covers 8 half-sweeps
+
+
+def rb_sweeps_plain(u: torch.Tensor, g: torch.Tensor, n_sweeps: int) -> torch.Tensor:
+    """``n_sweeps`` calls of ``solvers/jacobi.py:redblack_sweep``."""
+    from seamlesscloneoptimization_tpu_torch.solvers.jacobi import redblack_sweep
+
+    for _ in range(n_sweeps):
+        u = redblack_sweep(u, g)
+    return u
+
+
+def rb_sweeps(u: torch.Tensor, g: torch.Tensor, n_sweeps: int) -> torch.Tensor:
+    """``n_sweeps`` red-black Gauss-Seidel sweeps of the 5-point operator on
+    (C, H, W) f32 with a zero Dirichlet frame (red half, then black half,
+    each ``u <- (N4(u) - g) * 0.25``), bit-equal to as many
+    ``redblack_sweep`` calls. ceil(n / 4) launches of at most 4 sweeps,
+    ping-ponging between two new buffers; ``u`` is not written, and
+    ``n_sweeps=0`` returns it."""
+    _require(u, "u", torch.float32, 3)
+    c, h, w = u.shape
+    _check_level("g", g, c, h, w)
+    _same_device(u, g)
+    n = int(n_sweeps)
+    if n < 0:
+        raise ValueError(f"n_sweeps={n} < 0")
+    if n == 0:
+        return u
+    if u.device.type == "cpu":
+        return rb_sweeps_plain(u, g, n)
+    bufs = [torch.empty_like(u)]
+    if n > RB_SWEEPS_PER_LAUNCH:
+        bufs.append(torch.empty_like(u))
+    src = u
+    for i, done in enumerate(range(0, n, RB_SWEEPS_PER_LAUNCH)):
+        out = bufs[i % 2]  # a launch reads its neighbours' rows of src: never in place
+        _launch("rb_sweeps", u, src.data_ptr(), g.data_ptr(), out.data_ptr(), c, h, w,
+                min(RB_SWEEPS_PER_LAUNCH, n - done))
+        src = out
+    return src
 
 
 # ---------------------------------------------------------------------------

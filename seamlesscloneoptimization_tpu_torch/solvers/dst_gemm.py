@@ -267,8 +267,28 @@ def solve_dst_gemm_pl(g_tp: torch.Tensor, h2: int, w2: int,
 # ---------------------------------------------------------------------------
 
 
-def _folded_mats(n: int, device):
+# The plain solves' factors, uploaded once per (shape, device): a frame of
+# the transposed tail or of solve_dst_fft then uploads nothing. A few shapes'
+# worth, so the device memory they hold stays bounded.
+@lru_cache(maxsize=8)
+def _folded_mats(n: int, device: torch.device) -> tuple:
     return tuple(_t(m, device) for m in dst_matrices_folded(n))
+
+
+@lru_cache(maxsize=8)
+def _dst_matrix_on(n: int, device: torch.device) -> torch.Tensor:
+    return _t(dst_matrix(n), device)
+
+
+@lru_cache(maxsize=8)
+def eig_sum_on(nr: int, nc: int, device: torch.device, grouped_r: bool = False,
+               grouped_c: bool = False) -> torch.Tensor:
+    """lam_r[:, None] + lam_c[None, :] on ``device`` (natural, or grouped
+    spectral order on a folded axis), the spectral divisor of an (nr, nc)
+    solve."""
+    lr = dst_eigenvalues_grouped(nr) if grouped_r else dst_eigenvalues(nr)
+    lc = dst_eigenvalues_grouped(nc) if grouped_c else dst_eigenvalues(nc)
+    return _t(lr[:, None] + lc[None, :], device)
 
 
 def dst_fwd_folded_minor(a: torch.Tensor, n: int) -> torch.Tensor:
@@ -331,14 +351,12 @@ def _solve_folded(g2: torch.Tensor, nr: int, nc: int) -> torch.Tensor:
     the minor-axis folds, grouped eigenvalues on each folded axis."""
     dev = g2.device
     fr, fc = fold_pays(nr), fold_pays(nc)
-    x = dst_fwd_folded_rows(g2, nr) if fr else torch.matmul(_t(dst_matrix(nr), dev), g2)
-    x = dst_fwd_folded_minor(x, nc) if fc else torch.matmul(x, _t(dst_matrix(nc), dev))
-    lr = dst_eigenvalues_grouped(nr) if fr else dst_eigenvalues(nr)
-    lc = dst_eigenvalues_grouped(nc) if fc else dst_eigenvalues(nc)
-    x = x / _t(lr[:, None] + lc[None, :], dev)
-    x = dst_inv_folded_rows(x, nr) if fr else torch.matmul(_t(dst_matrix(nr), dev), x)
+    x = dst_fwd_folded_rows(g2, nr) if fr else torch.matmul(_dst_matrix_on(nr, dev), g2)
+    x = dst_fwd_folded_minor(x, nc) if fc else torch.matmul(x, _dst_matrix_on(nc, dev))
+    x = x / eig_sum_on(nr, nc, dev, fr, fc)
+    x = dst_inv_folded_rows(x, nr) if fr else torch.matmul(_dst_matrix_on(nr, dev), x)
     return (dst_inv_folded_minor(x, nc, nc) if fc
-            else torch.matmul(x, _t(dst_matrix(nc), dev)))
+            else torch.matmul(x, _dst_matrix_on(nc, dev)))
 
 
 @lru_cache(maxsize=64)
@@ -425,16 +443,14 @@ def solve_dst_gemm(
         _, w, h = g_t.shape
         if folded:
             return _solve_folded(g_t, w, h)
-        vh, vw = _t(dst_matrix(h), dev), _t(dst_matrix(w), dev)
-        lam_t = _t(dst_eigenvalues(w)[:, None] + dst_eigenvalues(h)[None, :], dev)
+        vh, vw = _dst_matrix_on(h, dev), _dst_matrix_on(w, dev)
         ghat_t = torch.matmul(torch.matmul(vw, g_t), vh)
-        return torch.matmul(torch.matmul(vw, ghat_t / lam_t), vh)
+        return torch.matmul(torch.matmul(vw, ghat_t / eig_sum_on(w, h, dev)), vh)
     _, h, w = g.shape
     if folded and not transform_only:
         return _solve_folded(g, h, w)
-    vh, vw = _t(dst_matrix(h), dev), _t(dst_matrix(w), dev)
+    vh, vw = _dst_matrix_on(h, dev), _dst_matrix_on(w, dev)
     ghat = torch.matmul(torch.matmul(vh, g), vw)
     if transform_only:
         return ghat
-    lam = _t(dst_eigenvalues(h)[:, None] + dst_eigenvalues(w)[None, :], dev)
-    return torch.matmul(torch.matmul(vh, ghat / lam), vw)
+    return torch.matmul(torch.matmul(vh, ghat / eig_sum_on(h, w, dev)), vw)

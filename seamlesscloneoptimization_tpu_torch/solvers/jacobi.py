@@ -1,17 +1,20 @@
 """Red-black Gauss-Seidel relaxation for the 5-point Dirichlet Laplacian.
 
-Port of the sweep and residual of ``seamlesscloneoptimization_tpu/solvers/
-jacobi.py`` (the multigrid smoother, plain PyTorch). System: A u = g with
-A u = sum of the 4 neighbours - 4u and a zero Dirichlet frame. A half-sweep
-updates one colour, ``u <- (N4(u) - g) / 4``, in the select form (``where``
-on a boolean checkerboard), so the written value is exactly the update.
-The solver ``solve_redblack`` comes with ROADMAP slice 4.
+Port of ``seamlesscloneoptimization_tpu/solvers/jacobi.py``: the sweep and
+residual (also the multigrid smoother) and the solver ``solve_redblack``.
+System: A u = g with A u = sum of the 4 neighbours - 4u and a zero
+Dirichlet frame. A half-sweep updates one colour, ``u <- (N4(u) - g) / 4``,
+in the select form (``where`` on a boolean checkerboard), so the written
+value is exactly the update. On the card a burst of sweeps is the
+``rb_sweeps`` kernel (``ops/kernels.py``), bit-equal to the plain sweeps.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from seamlesscloneoptimization_tpu_torch.ops import kernels as K
 
 
 def _neighbor_sum(u: torch.Tensor) -> torch.Tensor:
@@ -38,3 +41,36 @@ def redblack_sweep(u: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def residual(u: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """r = g - A u."""
     return g - (_neighbor_sum(u) - 4.0 * u)
+
+
+def solve_redblack(g: torch.Tensor, u0: torch.Tensor | None = None, tol: float = 1e-3,
+                   max_iters: int = 10000, check_every: int = 50, return_info: bool = False,
+                   use_pallas: bool = False):
+    """Red-black sweeps until max |r| <= tol * max |g| (or ``max_iters``).
+
+    g: (C, H, W) f32; ``u0`` a warm start (zeros by default). Before each
+    burst of ``check_every`` sweeps the loop checks the residual (one host
+    read) and that fewer than ``max_iters`` sweeps ran, as the JAX
+    package's while loop does, so the sweeps run come in whole bursts.
+    ``use_pallas`` runs each burst as ``K.rb_sweeps`` (the kernel on a CUDA
+    tensor, ceil(check_every / 4) launches), else as plain sweeps.
+    ``return_info`` adds {"iterations": sweeps run, "residual": max |g - A u|}.
+    """
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    g = g.contiguous()
+    if u0 is not None and tuple(u0.shape) != tuple(g.shape):
+        raise ValueError(f"u0 {tuple(u0.shape)} does not match g {tuple(g.shape)}")
+    u = torch.zeros_like(g) if u0 is None else u0.to(g.dtype).contiguous()
+    thresh = tol * torch.clamp(g.abs().max(), min=1e-30)
+    it = 0
+    while it < max_iters and bool(residual(u, g).abs().max() > thresh):  # one host read
+        if use_pallas:
+            u = K.rb_sweeps(u, g, check_every)
+        else:
+            for _ in range(check_every):
+                u = redblack_sweep(u, g)
+        it += check_every
+    if return_info:
+        return u, {"iterations": it, "residual": residual(u, g).abs().max().item()}
+    return u

@@ -46,11 +46,13 @@ Three chains:
 ``solve_multigrid`` drives each, in tolerance mode (check-free burst,
 then a residual check per further cycle) or fixed-work mode (``cycles``),
 from zero or from a warm start ``u0``. The tolerance check reads max
-|residual| to the host once per check. Not ported (NotImplementedError
-naming the ROADMAP slice 4): the dense rounded modes (``padded`` True /
-False) on grids where they would fuse, the ``rb_sweeps`` kernel on large
-element levels on the card, ``pcg`` and ``fmg_start``. The JAX package's
-``SCL_MG_*`` environment knobs are constants here.
+|residual| to the host once per check. On the element path a fine level's
+burst of sweeps (``use_pallas``, n > 1, >= 2^18 points: smoothing that the
+fused chains refuse, nu1 > 2 or nu2 > 4) is the ``rb_sweeps`` kernel. Not
+ported (NotImplementedError naming the ROADMAP slice 4b): the dense rounded
+modes (``padded`` True / False) on grids where they would fuse, ``pcg`` and
+``fmg_start``. The JAX package's ``SCL_MG_*`` environment knobs are
+constants here.
 """
 
 from __future__ import annotations
@@ -73,8 +75,8 @@ FUSE_MIN_T = 1 << 16  # vcycle_t's coarse levels run fused from this many
 
 # the CloneConfig.mg_padded modes whose fused chain is not ported yet
 MG_PADDED_NOT_PORTED = {
-    True: "ROADMAP slice 4 (dense multigrid modes)",
-    False: "ROADMAP slice 4 (dense multigrid modes)",
+    True: "ROADMAP slice 4b (dense multigrid modes)",
+    False: "ROADMAP slice 4b (dense multigrid modes)",
 }
 
 
@@ -218,13 +220,12 @@ def _residual_b(u: torch.Tensor, g: torch.Tensor, bh: float, bw: float) -> torch
 
 
 def _sweeps(u: torch.Tensor, g: torch.Tensor, n: int, use_pallas: bool = False) -> torch.Tensor:
-    """n red-black sweeps. On the TPU a fine burst (n > 1, >= 2^18 points)
-    went through the rb_sweeps kernel, which is not ported: on the card that
-    case raises rather than run the plain sweeps."""
-    if (use_pallas and n > 1 and u.shape[-1] * u.shape[-2] >= FUSE_MIN
-            and u.device.type == "cuda"):
-        raise _not_ported("the rb_sweeps kernel (element-path sweeps of a "
-                          f"{u.shape[-2]}x{u.shape[-1]} level)", "slice 4")
+    """n red-black sweeps. A fine burst (``use_pallas``, n > 1, >= 2^18
+    points) goes through ``K.rb_sweeps`` (the kernel on the card, ceil(n/4)
+    launches; its plain twin on the CPU), as the JAX package sends it
+    through its rb_sweeps kernel."""
+    if use_pallas and n > 1 and u.shape[-1] * u.shape[-2] >= FUSE_MIN:
+        return K.rb_sweeps(u.contiguous(), g.contiguous(), n)
     for _ in range(n):
         u = redblack_sweep(u, g)
     return u
@@ -303,7 +304,7 @@ def vcycle(u: torch.Tensor, g: torch.Tensor, nu1: int = 2, nu2: int = 2, coarses
     if _small(h, w, coarsest):
         return coarse_solve(g, bh, bw, eig_cache)
     if _fused_level(h, w, nu1, nu2, use_pallas):
-        raise _not_ported(f"the unpadded fused level ({h}x{w}, mg_padded=False)", "slice 4")
+        raise _not_ported(f"the unpadded fused level ({h}x{w}, mg_padded=False)", "slice 4b")
     hc, bh_c = _coarsen(h, bh)
     wc, bw_c = _coarsen(w, bw)
     if bh == 1.0 and bw == 1.0:
@@ -490,7 +491,7 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
                          "(no u0/fmg_start/pcg/return_info)")
     for flag, what in ((fmg_start, "fmg_start"), (pcg, "pcg")):
         if flag:
-            raise _not_ported(f"solve_multigrid {what}", "slice 4 (dense multigrid modes)")
+            raise _not_ported(f"solve_multigrid {what}", "slice 4b (dense multigrid modes)")
     c = g.shape[0]
     if true_hw is not None:
         h, w = (int(x) for x in true_hw)

@@ -16,6 +16,7 @@ import torch
 from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
 from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
+from seamlesscloneoptimization_tpu_torch.solvers import jacobi as TJ
 from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
     dst_eigenvalues_grouped,
@@ -617,4 +618,105 @@ def test_serve_mg_q_coarse_tol_counts(cuda):
         **{k: n for k in ("mg_down_q", "mg_restrict_tq", "mg_prolong_tq", "mg_up_q", "mg_down",
                           "mg_up", "mg_restrict_t", "mg_prolong_t")})
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (300, 290)).numpy()
+    assert np.abs(out.astype(np.int16) - want).max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# slice 4a: rb_sweeps, postprocess_transposed, the jacobi / dst_fft engines
+# and the routes the two use_pallas_* fields select
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 6, 9])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 30, 61), (3, 97, 131), (1, 64, 128)])
+def test_rb_sweeps_matches_plain(cuda, shape, k):
+    """Bit-exact against k redblack_sweep calls: odd and even sides, tiles
+    cut by the edge, ceil(k / 4) launches ping-ponging between buffers; the
+    input is not written."""
+    rng = np.random.default_rng(k + shape[1])
+    u = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 10)
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 50)
+    ud, gd = u.to(cuda), g.to(cuda)
+    K.reset_launches()
+    got = K.rb_sweeps(ud, gd, k)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rb_sweeps"] == -(-k // 4)
+    assert torch.equal(got.cpu(), K.rb_sweeps_plain(u, g, k))
+    assert torch.equal(ud.cpu(), u)
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("hw", [(64, 90), (64, 127), (64, 256), (150, 260), (3, 3)])
+def test_postprocess_transposed_matches_plain(cuda, planar, hw):
+    """The interior of the ROI at an offset inside a planar or interleaved
+    destination, bit-exact against the twin; nothing else changes."""
+    bh, bw = hw
+    rng = np.random.default_rng(bh + bw)
+    u_t = torch.from_numpy(rng.uniform(-60.0, 320.0, (3, bw - 2, bh - 2)).astype(np.float32))
+    base = torch.from_numpy(_u8(rng, (3, bh + 9, bw + 5) if planar else (bh + 9, bw + 5, 3)))
+    want = base.clone()
+    K.postprocess_transposed_plain(u_t, want if planar else want.permute(2, 0, 1), 5, 4)
+    got = base.to(cuda)
+    K.reset_launches()
+    K.postprocess_transposed(u_t.to(cuda), got if planar else got.permute(2, 0, 1), 5, 4)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["postprocess_transposed"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_solve_redblack_on_card_matches_plain_sweeps(cuda):
+    """use_pallas=True (rb_sweeps bursts) against use_pallas=False (the plain
+    sweeps, on the card too): bit-equal iterates and equal iterations."""
+    rng = np.random.default_rng(3)
+    g = torch.from_numpy(rng.normal(size=(3, 40, 56)).astype(np.float32) * 50).to(cuda)
+    K.reset_launches()
+    got, info = TJ.solve_redblack(g, tol=1e-5, max_iters=20000, return_info=True,
+                                  use_pallas=True)
+    torch.cuda.synchronize()
+    want, winfo = TJ.solve_redblack(g, tol=1e-5, max_iters=20000, return_info=True)
+    assert info["iterations"] == winfo["iterations"] > 0
+    assert K.LAUNCHES["rb_sweeps"] == info["iterations"] // 50 * 13
+    assert torch.equal(got, want)
+
+
+def test_element_path_sweeps_on_card(cuda):
+    """nu2 = 6 on (1, 512, 520): the element V-cycles, the fine ascent one
+    rb_sweeps burst of 2 launches a cycle; the card's cycles equal the CPU's."""
+    rng = np.random.default_rng(9)
+    g = torch.from_numpy(rng.normal(size=(1, 512, 520)).astype(np.float32) * 50)
+    want, winfo = TM.solve_multigrid(g, nu2=6, use_pallas=True, tol=1e-4, return_info=True)
+    K.reset_launches()
+    got, info = TM.solve_multigrid(g.to(cuda), nu2=6, use_pallas=True, tol=1e-4,
+                                   return_info=True)
+    torch.cuda.synchronize()
+    assert info["cycles"] == winfo["cycles"] >= 2
+    assert K.LAUNCHES == _per_frame(rb_sweeps=2 * info["cycles"])
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("cfg", [CloneConfig(solver="jacobi"), CloneConfig(solver="dst_fft"),
+                                 CloneConfig(use_pallas_preprocess=False),
+                                 CloneConfig(use_pallas_postprocess=False),
+                                 CloneConfig(use_pallas_preprocess=False,
+                                             use_pallas_postprocess=False)])
+def test_new_routes_on_card_match_cpu(cuda, cfg):
+    """Each new route on a 44 x 60 full-mask patch (interior 40 x 56): its
+    kernels a frame, and the card within 1 of the CPU."""
+    rng = np.random.default_rng(4)
+    src = _u8(rng, (44, 60, 3))
+    dst = _u8(rng, (100, 120, 3))
+    mask = np.full((44, 60), 255, np.uint8)
+    K.reset_launches()
+    out = SeamlessClone(cfg, device=cuda).run(src, dst, mask, (60, 50)).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    pre = {"erode3": 1, "preprocess_rhs_p": 1} if cfg.use_pallas_preprocess else {}
+    if cfg.solver == "jacobi":
+        assert launches["rb_sweeps"] % 13 == 0 and launches["rb_sweeps"] > 0
+        pre["rb_sweeps"] = launches["rb_sweeps"]
+    paste = ({"postprocess_transposed": 1} if cfg.use_pallas_postprocess
+             and not cfg.use_pallas_preprocess and cfg.solver == "auto"
+             else {"clamp_cast_paste": 1})
+    assert launches == _per_frame(**pre, **paste)
+    want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (60, 50)).numpy()
     assert np.abs(out.astype(np.int16) - want).max() <= 1

@@ -20,6 +20,11 @@ from seamlesscloneoptimization_tpu.solvers import dst_gemm as JD
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
 from seamlesscloneoptimization_tpu_torch.solvers import dst_gemm as TD
 
+# Several pytest-xdist workers share the cores: one intra-op thread each keeps
+# torch's OpenMP pools from oversubscribing them (it cut this suite's CPU time
+# about 3.5x). Results do not depend on it.
+torch.set_num_threads(1)
+
 
 def _halves(n):
     he, ho = (n + 1) // 2, n // 2

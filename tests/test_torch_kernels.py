@@ -15,6 +15,11 @@ from seamlesscloneoptimization_tpu.ops.guidance import bgr_to_gray_u8 as jax_gra
 from seamlesscloneoptimization_tpu.solvers.dst_gemm import dst_eigenvalues
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
 
+# Several pytest-xdist workers share the cores: one intra-op thread each keeps
+# torch's OpenMP pools from oversubscribing them (it cut this suite's CPU time
+# about 3.5x). Results do not depend on it.
+torch.set_num_threads(1)
+
 
 def _u8(seed, shape):
     return np.random.default_rng(seed).integers(0, 256, shape).astype(np.uint8)
@@ -142,13 +147,17 @@ def test_cpu_twins_do_not_count_launches():
     uq, rh_e, rh_o = K.mg_down_q(K.to_quarters(K.from_quarters(uq)), gq, 1, 18, 28)
     K.mg_restrict_tq(rh_e, rh_o, 18, 28, 128)
     K.mg_up_q(uq, gq, e_even, e_odd, 2, 18, 28, with_residual=True)
+    K.rb_sweeps(gp[:, :18, :28].contiguous(), gp[:, :18, :28].contiguous(), 6)
+    K.postprocess_transposed(g[:, :28, :18].contiguous(),
+                             torch.zeros((3, 20, 30), dtype=torch.uint8), 1, 1)
     assert set(K.LAUNCHES) == {"erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste",
                                "fold_minor", "unfold_minor", "transpose_pair",
                                "unfold_transpose", "unfold_clamp_paste", "preprocess_rhs_p",
                                "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t",
                                "preprocess_rhs_q", "mg_down_q", "mg_up_q", "mg_ud_q",
                                "mg_prolong_tq", "clamp_cast_paste_q", "to_quarters",
-                               "from_quarters", "mg_restrict_tq"}
+                               "from_quarters", "mg_restrict_tq", "rb_sweeps",
+                               "postprocess_transposed"}
     assert set(K.LAUNCHES.values()) == {0}
 
 

@@ -34,6 +34,11 @@ from seamlesscloneoptimization_tpu_torch.models import pipeline as TP
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
 from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
 
+# Several pytest-xdist workers share the cores: one intra-op thread each keeps
+# torch's OpenMP pools from oversubscribing them (it cut this suite's CPU time
+# about 3.5x). Results do not depend on it.
+torch.set_num_threads(1)
+
 ROI = (522, 530)   # interior 520 x 528: 274,560 points, above the 2^18 gate
 MODES = [(1, "opencv"), (2, "opencv"), (2, "norm"), (3, "opencv")]
 

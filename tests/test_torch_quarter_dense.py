@@ -1,9 +1,11 @@
 """The rest of the port's quarter-plane multigrid against the JAX package on
 the CPU: the split descent's transposed restriction, the unfused V-cycle
-``vcycle_q``, and ``solve_multigrid(padded="q")`` on a dense RHS in every
-mode (fixed cycles, tolerance with and without a check-free burst, the dense
-results, ``return_info``, warm starts, ``max_cycles=0``), plus warm starts
-on the ``"t"`` chain and the element path.
+``vcycle_q``, and ``solve_multigrid(padded="q")`` from a born-quartered RHS
+and on a dense RHS in every mode (fixed cycles, tolerance with and without a
+check-free burst, the dense results, ``return_info``, warm starts,
+``max_cycles=0``), plus warm starts on the ``"t"`` chain and the element
+path. JAX's interpreted solve of the dense RHS is computed once per shape
+and mode (``_jax_dense_solve``) for the tests that hold the port to it.
 
 Tolerances, as in ``tests/test_torch_quarter.py`` (which also holds the
 conversions, both descent forms and the ascent's residual): the
@@ -17,6 +19,8 @@ moves a 4-cycle result of either implementation by about 1e-5 of max
 |u|). Inputs are numpy-seeded.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +31,11 @@ from seamlesscloneoptimization_tpu.solvers import multigrid as JM
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
 from seamlesscloneoptimization_tpu_torch.solvers import jacobi as TJ
 from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
+
+# Several pytest-xdist workers share the cores: one intra-op thread each keeps
+# torch's OpenMP pools from oversubscribing them (it cut this suite's CPU time
+# about 3.5x). Results do not depend on it.
+torch.set_num_threads(1)
 
 # (h, w): even/even, odd/odd, even/odd, odd/even, and two 128-row strips
 CASES = [(200, 230), (201, 231), (250, 129), (129, 300), (300, 257)]
@@ -117,6 +126,50 @@ def test_mg_restrict_tq_matches_pallas(hw):
 # the unfused V-cycle and the solver
 # ---------------------------------------------------------------------------
 
+SOLVE_MODES = {"cycles": dict(cycles=2), "tol": dict(tol=1e-4), "coarse tol": dict(tol=0.05)}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dense_solve(shape, mode):
+    """JAX's interpreted solve of the dense RHS ``_rand(shape, 16)`` in
+    ``mode``: (u, cycles from return_info), computed once per module."""
+    u, info = JM.solve_multigrid(_j(_rand(shape, 16)), padded="q", use_pallas=True,
+                                 interpret=True, return_info=True, **SOLVE_MODES[mode])
+    return np.asarray(u), int(info["cycles"])
+
+
+def _zero_outside(uq, h, w):
+    d = K.from_quarters(uq).numpy()
+    return not d[:, h:].any() and not d[:, :, w:].any()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("mode", ["cycles", "tol"])
+def test_solve_multigrid_q_matches_jax(shape, mode, monkeypatch):
+    """The born-quartered solve against JAX's interpreted one; tolerance
+    mode: the cycles run (mg_ud_q launches) equal to the cycles JAX reports
+    for the dense RHS, and the relative residual within tol."""
+    _, h, w = shape
+    g = _rand(shape, 16)
+    gq = K.to_quarters(_t(_dense(g)))
+    kw = SOLVE_MODES[mode]
+    want = np.asarray(JM.solve_multigrid(_j(gq), true_hw=(h, w), padded="q", use_pallas=True,
+                                         interpret=True, padded_output="quarters", **kw))
+    launches = []
+    orig = K.mg_ud_q_plain
+    monkeypatch.setattr(K, "mg_ud_q_plain", lambda *a, **k: launches.append(1) or orig(*a, **k))
+    got = TM.solve_multigrid(gq, true_hw=(h, w), padded="q", use_pallas=True,
+                             padded_output="quarters", **kw)
+    assert got.shape == gq.shape and _zero_outside(got, h, w)
+    rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    if mode == "cycles":
+        assert len(launches) == 1 and rel <= 1e-5
+        return
+    assert len(launches) == _jax_dense_solve(shape, "tol")[1]
+    assert rel <= 5e-5
+    u = K.from_quarters(got)[:, :h, :w]
+    assert TJ.residual(u, _t(g)).abs().max().item() <= 1e-4 * np.abs(g).max()
+
 
 @pytest.mark.parametrize("start", ["zero", "guess"])
 def test_vcycle_q_matches_jax(start):
@@ -142,15 +195,12 @@ def test_solve_multigrid_q_dense_matches_jax(shape, mode):
     check-free burst first); tol 0.05 (no burst: the check-first loop), each
     with return_info's cycles equal and its residual within tol. The RHS is
     ``tests/test_torch_quarter.py``'s born-quartered one, dense here."""
-    _, h, w = shape
     g = _rand(shape, 16)
-    kw = {"cycles": dict(cycles=2), "tol": dict(tol=1e-4),
-          "coarse tol": dict(tol=0.05)}[mode]
-    want, jinfo = JM.solve_multigrid(_j(g), padded="q", use_pallas=True, interpret=True,
-                                     return_info=True, **kw)
+    kw = SOLVE_MODES[mode]
+    want, jcycles = _jax_dense_solve(shape, mode)
     got, info = TM.solve_multigrid(_t(g), padded="q", use_pallas=True, return_info=True, **kw)
     assert got.shape == g.shape
-    assert info["cycles"] == int(jinfo["cycles"])
+    assert info["cycles"] == jcycles
     assert _rel(got, want) <= (1e-5 if mode == "cycles" else 5e-5)
     assert info["residual"] == pytest.approx(TJ.residual(got, _t(g)).abs().max().item())
     if mode != "cycles":

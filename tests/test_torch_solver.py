@@ -12,6 +12,11 @@ from seamlesscloneoptimization_tpu_torch import solvers as TS
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
 from seamlesscloneoptimization_tpu_torch.solvers import dst_gemm as TD
 
+# Several pytest-xdist workers share the cores: one intra-op thread each keeps
+# torch's OpenMP pools from oversubscribing them (it cut this suite's CPU time
+# about 3.5x). Results do not depend on it.
+torch.set_num_threads(1)
+
 
 def _rel(got, want):
     return float(np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(want).max())
@@ -180,9 +185,9 @@ def test_unported_precision_raises():
 def test_solver_registry():
     assert TS.get_solver("dst_gemm") is TS.solve_dst_gemm
     assert TS.get_solver("multigrid") is TS.solve_multigrid
-    for name, slice_ in (("jacobi", "slice 4"), ("dst_fft", "slice 4")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            TS.get_solver(name)
+    assert TS.get_solver("jacobi") is TS.solve_redblack
+    assert TS.get_solver("dst_fft") is TS.solve_dst_fft
+    assert set(TS.SOLVERS) == {"dst_gemm", "dst_fft", "jacobi", "multigrid"}
     with pytest.raises(ValueError, match="unknown"):
         TS.get_solver("lu")
     assert TS.auto_solver_name((3, 1548, 2396)) == "dst_gemm"
