@@ -6,7 +6,7 @@
 1. Prints the card (nvidia-smi name and power limit), builds the kernels
    from ``seamlesscloneoptimization_tpu_torch/csrc`` and prints the build
    time, ptxas's resource report and both TF32 flags.
-2. Holds each of the twenty-five kernels against its plain PyTorch twin on
+2. Holds each of the twenty-six kernels against its plain PyTorch twin on
    the card: every kernel bit-exact over its whole output (the divides too: the
    twin's divide is IEEE on the card as well; the kernels are built with
    -fmad=false, so the multigrid's float arithmetic rounds as the twin's
@@ -27,7 +27,14 @@
    ``postprocess_transposed`` on the DST-GEMM solve's transposed interior
    (planar and interleaved, and at ROI widths 128, 251, 256), ``rb_sweeps``
    for 1, 2, 3, 4 and 6 sweeps (two launches), at the 8K interior and on a
-   97x131 grid. Times kernel, twin and, where one PyTorch
+   97x131 grid. Slice 8a's: ``rb_sweeps_tile`` on the 8K DD tiles
+   (3, 1412, 1912) (a 2x2 mesh over the 2800x3800 padded interior, a 6-px
+   ghost band) at the four tiles' origins, 1 and 2 sweeps, an odd origin
+   and a domain cutting the tile (5 sweeps, two launches); the exact-size
+   ``mg_down`` (known-zero and given guess) and ``mg_up`` at the DD coarse
+   solve's two fused levels (1398x1898 and 698x948, betas != 1), each form
+   its own kernels-line entry (``mg_down_exact``, ``mg_up_exact``). Times
+   kernel, twin and, where one PyTorch
    call computes the same function, that call (``library_ms``; the port
    never calls it), each launch cold in L2; and one GEMM of each chain.
 3. Drives each path through the entry points with the launch counters set
@@ -94,11 +101,30 @@
      relative residual <= tol;
    - ``dst_post_t``: ``CloneConfig(use_pallas_preprocess=False)`` at the
      headline, the plain RHS, the transposed DST-GEMM solve and
-     ``postprocess_transposed`` once a frame, card against the CPU.
+     ``postprocess_transposed`` once a frame, card against the CPU;
+   - ``tiled_dd``: ``TiledSeamlessClone(CloneConfig())`` on a 2x2 mesh of
+     the one card at 8K, tol 1e-4: per frame clamp_cast_paste 1 (the plain
+     RHS, the DD solve, the paste), per cycle rb_sweeps_tile 2 a tile and
+     mg_down / mg_up once per fused coarse level (2); the single run's
+     cycles equal to those ``solve_poisson_dd(return_info=True)`` reports
+     on its RHS, relative residual <= tol; serve ms beside the single-card
+     ``"q"`` frame; profiles (tolerance and ``mg_cycles=4``);
+     ``tiled_dd_fixed`` ``mg_cycles=4``; the 1x1 mesh byte for byte
+     ``SeamlessClone(CloneConfig())``; ``tiled_dd_headline`` the 2x2 serve
+     at the headline, card against the CPU mesh (1 fused coarse level);
+   - ``rb_tiled``: ``solve_redblack_tiled`` on the headline interior, 1000
+     sweeps at tol 0, the kernel route bit-equal to the plain sweeps on the
+     card, 500 rounds x 4 tiles launches; a 62x62 solve to tol 1e-4, card
+     against the CPU mesh (equal sweeps);
+   - ``mg_padded_false``: ``CloneConfig(solver="multigrid",
+     mg_padded=False)`` at the headline, the element V-cycle with its 2
+     fused levels (mg_down / mg_up a level a cycle), card against the CPU,
+     cycles equal to ``solve_multigrid``'s report.
 
 Prints the kernel table as one JSON line (one entry per kernel; the
 ``*_interleaved`` entries are the same kernel on the single-shot path's
-interleaved destination; ``launches`` is the count of the path that runs
+interleaved destination, the ``*_exact`` ones the exact-size forms of
+mg_down / mg_up; ``launches`` is the count of the path that runs
 the kernel, ``launches_by_path`` every path's; for ``mg_dense`` the first
 count is the tol 1e-4 solve's, the second the warm start's), then, as the
 last line,
@@ -134,7 +160,7 @@ KERNELS = ("erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste", "fold_
            "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t",
            "preprocess_rhs_q", "mg_down_q", "mg_up_q", "mg_ud_q", "mg_prolong_tq",
            "clamp_cast_paste_q", "to_quarters", "from_quarters", "mg_restrict_tq",
-           "rb_sweeps", "postprocess_transposed")
+           "rb_sweeps", "postprocess_transposed", "rb_sweeps_tile")
 MG_KERNELS = ("mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t")
 # a cycle of the check-first loop: each of these once
 Q_CHECK_FIRST = ("mg_down_q", "mg_restrict_tq", "mg_prolong_tq", "mg_up_q")
@@ -142,6 +168,11 @@ JACOBI_SMALL_HW = (66, 66)  # full mask: interior 62x62, converges within max_it
 CHECK_EVERY = 50  # solve_redblack's sweeps between checks
 RB_LAUNCHES_PER_BURST = -(-CHECK_EVERY // 4)  # rb_sweeps runs <= 4 sweeps a launch
 JACOBI_LOOPS = 2  # a headline jacobi frame is thousands of sweeps
+DD_MESH = (2, 2)  # slice 8a: four tiles of the one card
+DD_TILES = DD_MESH[0] * DD_MESH[1]
+DD_BAND = 6  # the DD multigrid's CA ghost band at nu = (1, 2)
+RB_TILED_SWEEPS = 1000  # rb_tiled: a fixed count, tol 0
+RB_TILED_HALO = 4  # solve_redblack_tiled's default: 2 sweeps an exchange
 
 
 def _per_frame(**counts):
@@ -158,6 +189,12 @@ def _mg_q_per_frame(levels: int, cycles: int):
     return _per_frame(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1, mg_down_q=1,
                       mg_ud_q=cycles - 1, mg_up_q=1, mg_prolong_tq=cycles,
                       **{k: levels * cycles for k in MG_KERNELS})
+
+
+def _dd_per_frame(levels: int, cycles: int):
+    """The 2x2 DD frame, fixed mode: ``levels`` fused coarse levels."""
+    return _per_frame(clamp_cast_paste=1, rb_sweeps_tile=2 * DD_TILES * cycles,
+                      mg_down=levels * cycles, mg_up=levels * cycles)
 
 
 PATHS = {
@@ -189,13 +226,25 @@ PATHS = {
     "dst_fft": _per_frame(erode3=1, preprocess_rhs_p=1, clamp_cast_paste=1),
     "mg_element": None,
     "dst_post_t": _per_frame(postprocess_transposed=1),
+    # slice 8a: the 2x2 DD serve (tolerance mode: cycles data-dependent;
+    # rb_sweeps_tile 2 a tile a cycle, mg_down / mg_up once per fused
+    # coarse level a cycle, 2 at 8K), the red-black tiled solve
+    # (solver-level) and mg_padded=False (the element V-cycle's fused levels)
+    "tiled_dd": None,
+    "tiled_dd_fixed": _dd_per_frame(2, 4),
+    "tiled_dd_headline": None,
+    "rb_tiled": None,
+    "mg_padded_false": None,
 }
 JACOBI_PATHS = ("jacobi", "jacobi_small")
 MG_Q_PATHS = ("mg_q", "mg_q_fixed", "mg_q_headline")
 MG_Q_COARSE_PATHS = ("mg_q_coarse", "mg_q_coarse_headline")
+TILED_PATHS = ("tiled_dd", "tiled_dd_fixed", "tiled_dd_headline")
 # fused levels of the "t" chain; fused coarse levels below the quarter level
 MG_LEVELS = {"mg_t": 4, "mg_t_headline": 3, "mg_q": 3, "mg_q_headline": 2, "mg_q_coarse": 3,
-             "mg_q_coarse_headline": 2}
+             "mg_q_coarse_headline": 2,
+             # exact-size fused levels: the DD coarse solve's, mg_padded=False's
+             "tiled_dd": 2, "tiled_dd_fixed": 2, "tiled_dd_headline": 1, "mg_padded_false": 2}
 # the path whose serve run gives each kernel's "launches"
 HOME_PATH = {"transpose": "unfolded", "clamp_cast_paste": "unfolded",
              "unfold_minor": "per_axis", "preprocess_rhs_p": "mg_t", "mg_down": "mg_t",
@@ -204,7 +253,7 @@ HOME_PATH = {"transpose": "unfolded", "clamp_cast_paste": "unfolded",
              "mg_up_q": "mg_q_fixed", "mg_prolong_tq": "mg_q", "clamp_cast_paste_q": "mg_q",
              "to_quarters": "mg_dense", "from_quarters": "mg_dense",
              "mg_restrict_tq": "mg_q_coarse", "rb_sweeps": "jacobi",
-             "postprocess_transposed": "dst_post_t"}
+             "postprocess_transposed": "dst_post_t", "rb_sweeps_tile": "tiled_dd"}
 _PK = "seamlesscloneoptimization_tpu/ops/pallas_kernels.py"
 _MQ = "seamlesscloneoptimization_tpu/ops/pallas_mg_quarter.py"
 REPLACES = {
@@ -237,8 +286,12 @@ REPLACES = {
     "mg_restrict_tq": [f"{_MQ}:511"],
     "rb_sweeps": [f"{_PK}:316", f"{_PK}:288", f"{_PK}:301"],
     "postprocess_transposed": [f"{_PK}:1498"],
+    "rb_sweeps_tile": [f"{_PK}:391", f"{_PK}:362"],
+    "mg_down_exact": [f"{_PK}:595"],
+    "mg_up_exact": [f"{_PK}:805"],
 }
-SOURCE = {"preprocess_rhs_p_exact": "preprocess_rhs_p",
+SOURCE = {"preprocess_rhs_p_exact": "preprocess_rhs_p", "mg_down_exact": "mg_down",
+          "mg_up_exact": "mg_up", "rb_sweeps": "rb_sweeps_tile",
           "clamp_cast_paste_interleaved": "clamp_cast_paste",
           "unfold_clamp_paste_interleaved": "unfold_clamp_paste",
           "clamp_cast_paste_q_interleaved": "clamp_cast_paste_q"}
@@ -259,7 +312,9 @@ def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
     if PATHS[path] is None:
         check = (check_mg_q_counts if path in MG_Q_PATHS else
                  check_mg_q_coarse_counts if path in MG_Q_COARSE_PATHS else
-                 check_jacobi_counts if path in JACOBI_PATHS else check_mg_counts)
+                 check_jacobi_counts if path in JACOBI_PATHS else
+                 check_tiled_counts if path in TILED_PATHS else
+                 check_unpadded_counts if path == "mg_padded_false" else check_mg_counts)
         check(path, what, launches, frames)
         return
     for name, per in PATHS[path].items():
@@ -324,6 +379,33 @@ def check_jacobi_counts(path: str, what: str, launches: dict, frames: int) -> in
         raise AssertionError(f"{path} {what}: launches {launches}, expected {want} with "
                              f"rb_sweeps a multiple of {RB_LAUNCHES_PER_BURST}")
     return n // RB_LAUNCHES_PER_BURST
+
+
+def check_tiled_counts(path: str, what: str, launches: dict, frames: int) -> int:
+    """DD frames on the 2x2 mesh: clamp_cast_paste once a frame (the generic
+    tail; the RHS is plain torch); per cycle rb_sweeps_tile 2 a tile (nu1 = 1
+    and nu2 = 2 sweeps, one exchange and one launch each) and mg_down /
+    mg_up once per fused coarse level; nothing else. Returns the cycles."""
+    levels = MG_LEVELS[path]
+    n, rem = divmod(launches["rb_sweeps_tile"], 2 * DD_TILES)
+    want = _per_frame(clamp_cast_paste=frames, rb_sweeps_tile=2 * DD_TILES * n,
+                      mg_down=levels * n, mg_up=levels * n)
+    if launches != want or rem or n < frames:
+        raise AssertionError(f"{path} {what}: launches {launches}, expected {want}")
+    return n
+
+
+def check_unpadded_counts(path: str, what: str, launches: dict, frames: int) -> int:
+    """mg_padded=False frames: erode3, preprocess_rhs_p (exact size) and
+    clamp_cast_paste once a frame, mg_down and mg_up once per fused level a
+    cycle (the element V-cycle's), nothing else. Returns the cycles."""
+    levels = MG_LEVELS[path]
+    n, rem = divmod(launches["mg_down"], levels)
+    want = _per_frame(erode3=frames, preprocess_rhs_p=frames, clamp_cast_paste=frames,
+                      mg_down=levels * n, mg_up=levels * n)
+    if launches != want or rem or n < frames:
+        raise AssertionError(f"{path} {what}: launches {launches}, expected {want}")
+    return n
 
 
 def check_outside(out, dst, interior) -> None:
@@ -413,11 +495,17 @@ def main() -> int:
     from seamlesscloneoptimization_tpu_torch.api import seamless_clone
     from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
     from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone, prepare_inputs
-    from seamlesscloneoptimization_tpu_torch.models.pipeline import clone_pipeline
+    from seamlesscloneoptimization_tpu_torch.models.pipeline import _plain_rhs, clone_pipeline
     from seamlesscloneoptimization_tpu_torch.ops import _build
     from seamlesscloneoptimization_tpu_torch.ops import kernels as K
     from seamlesscloneoptimization_tpu_torch.ops.guidance import bgr_to_gray_u8
     from seamlesscloneoptimization_tpu_torch.ops.kernels import ru128
+    from seamlesscloneoptimization_tpu_torch.parallel import (
+        TiledSeamlessClone,
+        make_tile_mesh,
+        solve_poisson_dd,
+        solve_redblack_tiled,
+    )
     from seamlesscloneoptimization_tpu_torch.solvers import jacobi as TJ
     from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
     from seamlesscloneoptimization_tpu_torch.solvers.dst_fft import solve_dst_fft
@@ -942,7 +1030,86 @@ def main() -> int:
         shape=f"u_t ({c},{w2},{h2}) -> the u8 ROI ({c},{bh},{bw}) in place, planar",
         interleaved_ms=time_ms(lambda: K.postprocess_transposed(u_t, i_k.permute(2, 0, 1),
                                                                 top + 1, left + 1)))
-    del u_rb, u_t, d_k, d_p, i_k, i_p, flush
+    del u_rb, u_t, d_k, d_p, i_k, i_p
+
+    # -- 2f. slice 8a: rb_sweeps_tile on the 8K DD tiles (a 2x2 mesh over the
+    #    padded interior, the CA ghost band on every side) at the four tiles'
+    #    origins, an odd origin and a domain cutting the tile; the exact-size
+    #    mg_down / mg_up at the DD coarse solve's two fused levels ----------
+    th_dd = max(2 * -(-h8 // (2 * DD_MESH[0])), 8)
+    tw_dd = max(2 * -(-w8 // (2 * DD_MESH[1])), 8)
+    shape_dd = (c, th_dd + 2 * DD_BAND, tw_dd + 2 * DD_BAND)
+    u_dd = torch.randn(shape_dd, generator=gen, device=dev) * 10.0
+    g_dd = torch.randn(shape_dd, generator=gen, device=dev) * 50.0
+    dom8 = (h8, w8)
+    origins = [(iy * th_dd - DD_BAND, ix * tw_dd - DD_BAND)
+               for iy in range(DD_MESH[0]) for ix in range(DD_MESH[1])]
+    for org in origins:
+        for n in (1, 2):
+            require_equal(f"rb_sweeps_tile 8K tile at {org} n={n}",
+                          K.rb_sweeps_tile(u_dd, g_dd, n, org, dom8),
+                          K.rb_sweeps_tile_plain(u_dd, g_dd, n, org, dom8))
+    for org, dom, n in (((th_dd - DD_BAND - 1, 1 - DD_BAND), dom8, 2),   # odd origin
+                        ((-DD_BAND, tw_dd - DD_BAND), (900, 2600), 5)):  # cut, 2 launches
+        require_equal(f"rb_sweeps_tile 8K tile at {org} domain {dom} n={n}",
+                      K.rb_sweeps_tile(u_dd, g_dd, n, org, dom),
+                      K.rb_sweeps_tile_plain(u_dd, g_dd, n, org, dom))
+    pts_dd = c * shape_dd[1] * shape_dd[2]
+    org_br = origins[-1]
+    row("rb_sweeps_tile", 12 * pts_dd, 5 * 2 * pts_dd,
+        time_ms(lambda: K.rb_sweeps_tile(u_dd, g_dd, 2, org_br, dom8)),
+        time_ms(lambda: K.rb_sweeps_tile_plain(u_dd, g_dd, 2, org_br, dom8)),
+        shape=f"u, g {shape_dd}, 2 sweeps (the ascent's nu2), origin {org_br}, "
+              f"domain {h8}x{w8}",
+        one_sweep_ms=time_ms(lambda: K.rb_sweeps_tile(u_dd, g_dd, 1, org_br, dom8)),
+        one_sweep_bound_ms=bound(12 * pts_dd, 5 * pts_dd)[0])
+    del u_dd, g_dd
+    lvl_dd = []  # (h, w, bh, bw) of the DD coarse solve's fused levels
+    lh, bh_l = TM._coarsen(h8, 1.0)
+    lw, bw_l = TM._coarsen(w8, 1.0)
+    while TM._fused_level(lh, lw, 1, 2, True):
+        lvl_dd.append((lh, lw, bh_l, bw_l))
+        (lh, bh_l), (lw, bw_l) = TM._coarsen(lh, bh_l), TM._coarsen(lw, bw_l)
+    if len(lvl_dd) != MG_LEVELS["tiled_dd"]:
+        raise AssertionError(f"the 8K DD coarse solve has {len(lvl_dd)} fused levels")
+    exact = []
+    for lh, lw, bh_l, bw_l in lvl_dd:
+        slab = (c, lh + lh % 2, lw)
+        g_l = torch.zeros(slab, device=dev)
+        u_l = torch.zeros(slab, device=dev)
+        e_l = torch.zeros((c, slab[1] // 2, lw), device=dev)
+        g_l[:, :lh] = torch.randn((c, lh, lw), generator=gen, device=dev) * 50.0
+        u_l[:, :lh] = torch.randn((c, lh, lw), generator=gen, device=dev) * 10.0
+        e_l[:, : (lh - 1) // 2] = torch.randn((c, (lh - 1) // 2, lw), generator=gen,
+                                              device=dev) * 5.0
+        label = f"{lh}x{lw} beta ({bh_l}, {bw_l})"
+        for guess in (None, u_l):
+            got = K.mg_down(guess, g_l, 1, lh, lw, bh_l, bw_l)
+            want = K.mg_down_plain(guess, g_l, 1, lh, lw, bh_l, bw_l)
+            what = "known-zero guess" if guess is None else "given guess"
+            require_equal(f"mg_down_exact {label} ({what}) u", got[0], want[0])
+            require_equal(f"mg_down_exact {label} ({what}) rh", got[1], want[1])
+        require_equal(f"mg_up_exact {label}", K.mg_up(u_l, g_l, e_l, 2, lh, lw, bh_l, bw_l),
+                      K.mg_up_plain(u_l, g_l, e_l, 2, lh, lw, bh_l, bw_l))
+        exact.append((slab, g_l, u_l, e_l, lh, lw, bh_l, bw_l))
+    (slab, g_l, u_l, e_l, lh, lw, bh_l, bw_l), lvl2 = exact[0], exact[-1]
+    hp_l = slab[1]
+    row("mg_down_exact", 4 * c * (2 * hp_l * lw + hp_l // 2 * lw),
+        c * lh * lw * 11 + c * ((lh - 1) // 2) * lw * 5,
+        time_ms(lambda: K.mg_down(None, g_l, 1, lh, lw, bh_l, bw_l)),
+        time_ms(lambda: K.mg_down_plain(None, g_l, 1, lh, lw, bh_l, bw_l)),
+        shape=f"DD coarse level 1: g {slab} (true {lh}x{lw}, betas {bh_l}, {bw_l}), "
+              f"known-zero guess, nu1=1 -> u, rh ({c},{hp_l // 2},{lw})",
+        given_guess_ms=time_ms(lambda: K.mg_down(u_l, g_l, 1, lh, lw, bh_l, bw_l)),
+        last_level_shape=f"{lvl2[0]}", last_level_ms=time_ms(
+            lambda: K.mg_down(None, lvl2[1], 1, *lvl2[4:])))
+    row("mg_up_exact", 4 * c * (3 * hp_l * lw + hp_l // 2 * lw), c * lh * lw * 12,
+        time_ms(lambda: K.mg_up(u_l, g_l, e_l, 2, lh, lw, bh_l, bw_l)),
+        time_ms(lambda: K.mg_up_plain(u_l, g_l, e_l, 2, lh, lw, bh_l, bw_l)),
+        shape=f"DD coarse level 1: u, g {slab} + e ({c},{hp_l // 2},{lw}), nu2=2",
+        last_level_shape=f"{lvl2[0]}", last_level_ms=time_ms(
+            lambda: K.mg_up(lvl2[2], lvl2[1], lvl2[3], 2, *lvl2[4:])))
+    del exact, lvl2, g_l, u_l, e_l, flush
 
     # -- 3. every path through the entry points ---------------------------------
     path_launches = {}
@@ -950,12 +1117,14 @@ def main() -> int:
     run_outputs = {}
 
     def drive(path, cfg, s_img, mask_, loops, label, d_img=dst, cpu="run+serve",
-              solver="dst_gemm"):
+              solver="dst_gemm", engine=None):
         """timed_serve (warm-up + loops frames) and one single-shot run, each
         with the counters set to 0 just before and read just after; the card
         against the CPU twins (``cpu``: "run+serve" the run and a 2-frame
-        serve, "run" the run only, None no comparison)."""
-        eng = SeamlessClone(cfg, device="cuda")
+        serve, "run" the run only, None no comparison). ``engine(device)``
+        makes the engine (default: ``SeamlessClone(cfg, device)``)."""
+        make = engine or (lambda device: SeamlessClone(cfg, device=device))
+        eng = make("cuda")
         ctr = (d_img.shape[1] // 2, d_img.shape[0] // 2)
         prep = prepare_inputs(mask_, s_img.shape, d_img.shape, ctr)
         _, _, (lft, tp), (rh, rw) = prep
@@ -988,7 +1157,7 @@ def main() -> int:
         path_launches.setdefault(path, (serve, run))
         if cpu is None:
             return eng, ms
-        cpu_eng = SeamlessClone(cfg, device="cpu")
+        cpu_eng = make("cpu")
         d_run = diff_max(run_np, cpu_eng.run(s_img, d_img, mask_, ctr).numpy())
         d_serve = 0
         if cpu == "run+serve":
@@ -1397,6 +1566,122 @@ def main() -> int:
         solver_name="dst_gemm", use_pallas_pre=False))
     del prof_h
 
+    # -- slice 8a: the 2x2 DD serve at 8K (tolerance and fixed), the 1x1 mesh,
+    #    the DD serve at the headline against the CPU mesh, the red-black tiled
+    #    solve, mg_padded=False -------------------------------------------------
+    def dd_engine(cfg):
+        return lambda device: TiledSeamlessClone(
+            cfg, mesh=make_tile_mesh([torch.device(device)] * DD_TILES, DD_MESH))
+
+    mesh_c = make_tile_mesh([dev] * DD_TILES, DD_MESH)
+    _, dd8_ms = drive("tiled_dd", CloneConfig(), src8, mask8, MG_LOOPS, "8K", d_img=dst8,
+                      cpu=None, solver="multigrid_dd", engine=dd_engine(CloneConfig()))
+    dd_run_cycles = check_tiled_counts("tiled_dd", "single-shot run (8K)",
+                                       path_launches["tiled_dd"][1], 1)
+    dd_serve = path_launches["tiled_dd"][0]
+    dd_serve_cycles = dd_serve["rb_sweeps_tile"] // (2 * DD_TILES)
+    # the single run's RHS (the plain stages of the generic tail) through the
+    # solver's own report
+    g_dd8 = _plain_rhs(dest8, patch8, mask8_roi, 1, "opencv")[0]
+    u_dd8, info_dd = solve_poisson_dd(g_dd8, mesh_c, tol=TOL, return_info=True, eig_cache={})
+    g_dd8max = g_dd8.abs().max().item()
+    dd_rel = info_dd["residual"] / g_dd8max
+    dd_rel64 = rel_residual(u_dd8, g_dd8)
+    print(f"tiled_dd 8K ({card}): 2x2 mesh of one card, tiles {th_dd}x{tw_dd} + a "
+          f"{DD_BAND}-px band; single run {dd_run_cycles} cycles, solve_poisson_dd reports "
+          f"{info_dd['cycles']}, relative residual {dd_rel:.3e} (float64 {dd_rel64:.3e}, tol "
+          f"{TOL}); serve {dd8_ms:.4f} ms/frame ({dd_serve_cycles / (MG_LOOPS + 1):g} cycles a "
+          f"frame) against the single-card 'q' frame {q8_ms:.4f}; launches a cycle "
+          f"rb_sweeps_tile {2 * DD_TILES}, mg_down {MG_LEVELS['tiled_dd']}, mg_up "
+          f"{MG_LEVELS['tiled_dd']}, clamp_cast_paste 1 a frame: {json.dumps(dd_serve)}")
+    if (info_dd["cycles"] != dd_run_cycles or not dd_rel <= TOL
+            or not torch.isfinite(u_dd8).all()):
+        raise AssertionError(f"tiled_dd 8K: {dd_run_cycles} cycles run, {info_dd} reported")
+    del u_dd8
+    eig_dd: dict = {}
+    dd_prof = dict(src=torch.from_numpy(src8).to(dev), dst=dst8_p.clone(),
+                   mask=torch.from_numpy(m8).to(dev), bbox_xy=(x8, y8), left_top=(left8, top8),
+                   bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver_name="multigrid_dd",
+                   use_pallas_pre=False, use_pallas_post=False)
+    for label, cyc in (("tiled_dd 8K tolerance", None), ("tiled_dd 8K mg_cycles=4", 4)):
+        profile_frames(label, clone_pipeline, dict(dd_prof, solver=lambda g, cyc=cyc: (
+            solve_poisson_dd(g, mesh_c, tol=None if cyc else TOL, cycles=cyc or 4,
+                             eig_cache=eig_dd))), frames=3)
+    del dd_prof
+    _, dd8_fixed_ms = drive("tiled_dd_fixed", CloneConfig(mg_cycles=4), src8, mask8, MG_LOOPS,
+                            "8K, mg_cycles=4", d_img=dst8, cpu=None, solver="multigrid_dd",
+                            engine=dd_engine(CloneConfig(mg_cycles=4)))
+    print(f"tiled_dd 8K serve ({card}): tolerance {dd8_ms:.4f} ms/frame, mg_cycles=4 "
+          f"{dd8_fixed_ms:.4f}; the single-card 'q' frame {q8_ms:.4f} and {q8_fixed_ms:.4f}")
+    one = TiledSeamlessClone(CloneConfig(), mesh=make_tile_mesh([dev], (1, 1)))
+    one_out = one.run(src8, dst8, mask8, ctr8).cpu().numpy()
+    ref_out = SeamlessClone(CloneConfig(), device="cuda").run(src8, dst8, mask8, ctr8)
+    same = np.array_equal(one_out, ref_out.cpu().numpy())
+    print(f"tiled 1x1 mesh at 8K: byte for byte SeamlessClone(CloneConfig()) {same}, solver "
+          f"{one.metrics['solver_resolved']}")
+    if not same or one.metrics["solver_resolved"] != "multigrid":
+        raise AssertionError("the 1x1 mesh is not the single-device engine")
+    del one, one_out, ref_out
+    _, dd_head_ms = drive("tiled_dd_headline", CloneConfig(), src, mask, MG_LOOPS, headline,
+                          cpu="run", solver="multigrid_dd", engine=dd_engine(CloneConfig()))
+    print(f"tiled_dd at the headline ({card}): serve {dd_head_ms:.4f} ms/frame "
+          f"({path_launches['tiled_dd_headline'][0]['rb_sweeps_tile'] / (2 * DD_TILES)
+              / (MG_LOOPS + 1):g} cycles a frame); the single-card 'q' frame {q_head_ms:.4f}")
+
+    # solve_redblack_tiled on the headline interior: a fixed count, kernel
+    # against plain sweeps on the card, then a small solve to tol, card
+    # against the CPU mesh
+    g_rb = frame_rhs(src, mask, dst)
+    rounds = RB_TILED_SWEEPS // (RB_TILED_HALO // 2)
+    runs = {}
+    for route in (None, False):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[route] = solve_redblack_tiled(g_rb, mesh_c, tol=0.0, max_iters=RB_TILED_SWEEPS,
+                                           halo=RB_TILED_HALO, use_pallas=route,
+                                           return_info=True)
+        torch.cuda.synchronize()
+        runs[route] += ((time.perf_counter() - t0) * 1e3, dict(K.LAUNCHES))
+    (u_rk, info_rk, rk_ms, rk_launches), (u_rp, info_rp, rp_ms, _) = runs[None], runs[False]
+    rb_equal = torch.equal(u_rk, u_rp)
+    print(f"rb_tiled at the headline ({card}): {info_rk['iterations']} sweeps on the 2x2 mesh, "
+          f"rb_sweeps_tile {rk_launches['rb_sweeps_tile']} launches = {rounds} rounds x "
+          f"{DD_TILES} tiles x 1; {rk_ms / RB_TILED_SWEEPS:.4f} ms a sweep with the kernel, "
+          f"{rp_ms / RB_TILED_SWEEPS:.4f} with plain sweeps (host clock, "
+          f"{RB_TILED_SWEEPS // 50} checks included); bit-equal {rb_equal}")
+    if (rk_launches != _per_frame(rb_sweeps_tile=rounds * DD_TILES) or not rb_equal
+            or not info_rk["iterations"] == info_rp["iterations"] == RB_TILED_SWEEPS):
+        raise AssertionError(f"rb_tiled: {info_rk}, {info_rp}, launches {rk_launches}")
+    path_launches["rb_tiled"] = (rk_launches, rk_launches)
+    del g_rb, u_rk, u_rp, runs
+    g_rs = frame_rhs(src_j, mask_j, dst)
+    mesh_cpu = make_tile_mesh([torch.device("cpu")] * DD_TILES, DD_MESH)
+    u_rs, info_rs = solve_redblack_tiled(g_rs, mesh_c, tol=TOL, return_info=True)
+    u_rc, info_rc = solve_redblack_tiled(g_rs.cpu(), mesh_cpu, tol=TOL, return_info=True)
+    rs_diff = (u_rs.cpu() - u_rc).abs().max().item() / u_rc.abs().max().item()
+    print(f"rb_tiled small ({card}): {tuple(g_rs.shape)} to tol {TOL}: {info_rs['iterations']} "
+          f"sweeps on the card, {info_rc['iterations']} on the CPU mesh, max |du| / max |u| "
+          f"{rs_diff:.3e}, bit-equal {torch.equal(u_rs.cpu(), u_rc)}")
+    if info_rs["iterations"] != info_rc["iterations"] or not rs_diff <= 1e-6:
+        raise AssertionError(f"rb_tiled small: card {info_rs}, CPU {info_rc}")
+    del g_rs, u_rs, u_rc
+
+    _, unp_ms = drive("mg_padded_false", CloneConfig(solver="multigrid", mg_padded=False), src,
+                      mask, MG_LOOPS, headline, cpu="run", solver="multigrid")
+    unp_run_cycles = check_unpadded_counts("mg_padded_false", "single-shot run",
+                                           path_launches["mg_padded_false"][1], 1)
+    g_unp = frame_rhs(src, mask, dst)
+    _, info_unp = TM.solve_multigrid(g_unp, use_pallas=True, padded=False, tol=TOL,
+                                     return_info=True)
+    unp_rel = info_unp["residual"] / g_unp.abs().max().item()
+    print(f"mg_padded_false at the headline ({card}): serve {unp_ms:.4f} ms/frame; single run "
+          f"{unp_run_cycles} cycles, solve_multigrid reports {info_unp['cycles']}, relative "
+          f"residual {unp_rel:.3e}; the 'q' frame {q_head_ms:.4f}")
+    if info_unp["cycles"] != unp_run_cycles or not unp_rel <= TOL:
+        raise AssertionError(f"mg_padded_false: {unp_run_cycles} cycles run, {info_unp}")
+    del g_unp
+
     # -- the kernel table: launches of each kernel's own path ---------------------
     for name in KERNELS:
         home = HOME_PATH.get(name, "pair")
@@ -1415,6 +1700,11 @@ def main() -> int:
     rows["clamp_cast_paste_q_interleaved"]["path"] = "mg_q single-shot run"
     rows["preprocess_rhs_p_exact"]["launches"] = path_launches["dst_fft"][0]["preprocess_rhs_p"]
     rows["preprocess_rhs_p_exact"]["path"] = "dst_fft (also jacobi, jacobi_small)"
+    for name, base in (("mg_down_exact", "mg_down"), ("mg_up_exact", "mg_up")):
+        rows[name]["launches"] = path_launches["tiled_dd"][0][base]
+        rows[name]["path"] = "tiled_dd (the coarse solve's fused levels)"
+        rows[name]["launches_by_path"] = {p: path_launches[p][0][base] for p in (
+            "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline", "mg_padded_false")}
     for name, r in rows.items():
         if not r["launches"]:
             raise AssertionError(f"{name} was launched no time on its path")

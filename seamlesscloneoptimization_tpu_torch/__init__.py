@@ -10,7 +10,7 @@ unless the caller passes ``device="cpu"``, which runs the plain PyTorch
 twins of the kernels; without a card and without ``device="cpu"`` they
 raise rather than quietly fall back.
 
-What runs (ROADMAP slices 1 to 4a), through ``SeamlessClone.run`` /
+What runs (ROADMAP slices 1 to 4a and 8a), through ``SeamlessClone.run`` /
 ``timed_serve`` and ``seamless_clone``, in the NORMAL, MIXED and
 MONOCHROME modes:
 
@@ -24,17 +24,24 @@ MONOCHROME modes:
   quarter planes (``mg_padded="q"``, the default) and transpose-fused
   coarse levels, in tolerance mode at any ``tol`` (a coarse one runs the
   check-first loop) or fixed-cycle mode; ``mg_padded="t"`` runs the
-  transpose-fused V-cycle on every level. Small interiors run the plain
-  element path. ``solvers.multigrid.solve_multigrid`` also takes a dense
-  RHS, returns dense results and ``return_info``, and starts warm from
-  ``u0``. The dense modes ``mg_padded`` True / False, ``fmg_start`` and
-  ``pcg`` raise until ROADMAP slice 4b.
+  transpose-fused V-cycle on every level, ``mg_padded=False`` the element
+  V-cycle, its levels of at least 2^18 points fused (``mg_down`` /
+  ``mg_up`` on exact-size levels). Small interiors run the plain element
+  path. ``solvers.multigrid.solve_multigrid`` also takes a dense RHS,
+  returns dense results and ``return_info``, and starts warm from ``u0``.
+  The dense mode ``mg_padded=True``, ``fmg_start`` and ``pcg`` raise until
+  ROADMAP slice 4b.
 - ``CloneConfig(solver="jacobi")``: red-black Gauss-Seidel
   (``solve_redblack``), its bursts of sweeps the ``rb_sweeps`` kernel;
   ``CloneConfig(solver="dst_fft")``: the exact solve through ``torch.fft``.
 - ``use_pallas_preprocess`` / ``use_pallas_postprocess`` select the same
   routes as in the JAX package; ``CloneConfig(use_pallas_preprocess=False)``
   ends the DST-GEMM solve in the ``postprocess_transposed`` kernel.
+- ``parallel``: a ``TileMesh`` of devices (``make_tile_mesh``; one card
+  may appear several times), ``TiledSeamlessClone`` and
+  ``seamless_clone_tiled`` with the Poisson solve decomposed over it
+  (``solve_poisson_dd``: per-tile sweeps through the ``rb_sweeps_tile``
+  kernel, a replicated coarse solve), and ``solve_redblack_tiled``.
 """
 
 from __future__ import annotations
@@ -57,6 +64,9 @@ __all__ = [
     "solve_dst_fft",
     "solve_redblack",
     "resolve_device",
+    "TiledSeamlessClone",
+    "seamless_clone_tiled",
+    "make_tile_mesh",
 ]
 
 
@@ -95,4 +105,8 @@ def __getattr__(name):
         from seamlesscloneoptimization_tpu_torch import solvers
 
         return getattr(solvers, name)
+    if name in ("TiledSeamlessClone", "seamless_clone_tiled", "make_tile_mesh"):
+        from seamlesscloneoptimization_tpu_torch import parallel
+
+        return getattr(parallel, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -5,13 +5,13 @@ so a configuration carries across with ``config_from_jax``. This system has
 no weights: the only other carried state is the DST basis, which the port
 rebuilds bit-equal on the host (``solvers/dst_gemm.py``).
 
-What the port runs of it (ROADMAP slices 1 to 4a): every ``solver``
+What the port runs of it (ROADMAP slices 1 to 4a and 8a): every ``solver``
 ("auto", "dst_gemm", "dst_fft", "jacobi", "multigrid"), every ``flags``
 mode and ``mixed_rule``, ``precision`` "high"/"highest" (both FP32 on the
 card, TF32 off), ``dst_folded``, ``donate_dst``, for jacobi ``tol`` and
 ``max_iters``, for multigrid ``tol``, ``max_cycles``, ``mg_cycles`` and
-``mg_padded`` "q" (the default, the quarter-plane finest level) or "t",
-and for both ``use_pallas_smoother``.
+``mg_padded`` "q" (the default, the quarter-plane finest level), "t" or
+False, and for both ``use_pallas_smoother``.
 ``dst_folded=True`` folds each axis where the JAX package does
 (``solvers/dst_gemm.py:fold_pays``, every side above 128 px): the folded
 pair chain when both sides fold, the per-axis branch when one does. "auto"
@@ -23,8 +23,8 @@ plain torch stages, without the post-process (or for jacobi and dst_fft)
 the exact-size solve is pasted by ``clamp_cast_paste``, and dst_gemm with
 the post-process but not the pre-process ends in the
 ``postprocess_transposed`` kernel. What a later slice brings raises
-NotImplementedError naming its ROADMAP slice: ``mg_padded`` True / False
-on multigrid grids, other precisions, ``bbox_bucket`` and ``debug_dump``.
+NotImplementedError naming its ROADMAP slice: ``mg_padded=True`` on
+multigrid grids, other precisions, ``bbox_bucket`` and ``debug_dump``.
 """
 
 from __future__ import annotations
@@ -60,8 +60,9 @@ class CloneConfig:
     # level, at any tol: one with no check-free cycle, >= 0.0225, runs the
     # check-first loop) or "t" (the transpose-fused V-cycle) runs the fused
     # kernels on grids of at least 2^18 points (smaller grids, or
-    # use_pallas_smoother=False, run the plain element path); True and
-    # False raise there until their ROADMAP slice. For jacobi,
+    # use_pallas_smoother=False, run the plain element path); False runs the
+    # element V-cycle with its levels of at least 2^18 points fused; True
+    # raises there until its ROADMAP slice. For jacobi,
     # use_pallas_smoother runs each burst of sweeps as the rb_sweeps kernel.
     use_pallas_smoother: bool = True
     mg_padded: bool | str = "q"

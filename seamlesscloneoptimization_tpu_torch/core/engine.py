@@ -21,8 +21,9 @@ seamlessClone-CUDA/seamlessClone_imp.cu:239-370):
   ``use_pallas_*`` fields select (``models/pipeline.py:clone_roi``), build
   none either.
 - ``solver="auto"`` resolves per geometry: dst_gemm up to the crossover,
-  multigrid above it (the default ``mg_padded="q"`` at any ``tol``, or
-  ``"t"``; the dense modes True / False raise there until ROADMAP slice 4b).
+  multigrid above it (the default ``mg_padded="q"`` at any ``tol``, ``"t"``,
+  or False, the element V-cycle with its fused levels; the dense mode True
+  raises there until ROADMAP slice 4b).
 
 Not ported here (TPU-only or a later slice; see ROADMAP): the layout pin
 and self-heal, the sync-overhead subtraction, ``profile`` and
@@ -126,7 +127,7 @@ def prepare_inputs(mask: np.ndarray, src_shape, dst_shape, center, bucket: int =
 def _effective_solver(solver: str, bbox_hw, planar_dst: bool, mg_padded) -> str:
     """Resolve "auto" for one geometry: dst_gemm up to the crossover (the
     serve crossover for the planar serve loop), multigrid above it — which
-    raises NotImplementedError for the dense ``mg_padded`` True / False."""
+    raises NotImplementedError for the dense ``mg_padded=True``."""
     if solver != "auto":
         return solver
     crossover = SERVE_CROSSOVER_PIXELS if planar_dst else AUTO_CROSSOVER_PIXELS
@@ -158,7 +159,7 @@ class SeamlessClone:
         cfg = self.config
         if cfg.solver != "auto":  # "auto" is resolved per geometry at run time
             get_solver(cfg.solver)  # ValueError if unknown
-        if cfg.mg_padded not in ("q", "t", *MG_PADDED_NOT_PORTED):
+        if cfg.mg_padded not in ("q", "t", False, *MG_PADDED_NOT_PORTED):
             raise ValueError(f"unknown mg_padded {cfg.mg_padded!r}")
         if cfg.solver == "multigrid" and cfg.mg_padded in MG_PADDED_NOT_PORTED:
             raise mg_padded_not_ported(cfg.mg_padded)

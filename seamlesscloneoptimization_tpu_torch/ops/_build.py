@@ -77,7 +77,8 @@ SIGNATURES = {
     "to_quarters": ("to_quarters_launch", (_P, _P, _I, _I, _I, _P)),
     "from_quarters": ("from_quarters_launch", (_P, _P, _I, _I, _I, _P)),
     "mg_restrict_tq": ("mg_restrict_tq_launch", (_P,) * 3 + (_I,) * 6 + (_F, _F, _P)),
-    "rb_sweeps": ("rb_sweeps_launch", (_P,) * 3 + (_I,) * 4 + (_P,)),
+    # also K.rb_sweeps's kernel (origin (0, 0), the whole array as the domain)
+    "rb_sweeps_tile": ("rb_sweeps_tile_launch", (_P,) * 3 + (_I,) * 9 + (_P,)),
     "postprocess_transposed": ("postprocess_transposed_launch",
                                (_P, _I, _I, _I, _P, _L, _L, _L, _I, _I, _P)),
 }

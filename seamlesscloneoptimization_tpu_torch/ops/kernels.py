@@ -2,7 +2,7 @@
 launch counters.
 
 The port's counterpart of ``seamlesscloneoptimization_tpu/ops/pallas_kernels.py``
-and ``pallas_mg_quarter.py`` for ROADMAP slices 1 to 4a:
+and ``pallas_mg_quarter.py`` for ROADMAP slices 1 to 4a and 8a:
 
 ============================  =============================================
 wrapper                       replaces (pallas_kernels.py,
@@ -20,8 +20,10 @@ wrapper                       replaces (pallas_kernels.py,
 ``unfold_clamp_paste``        ``unfold_clamp_guarded_pallas`` + the paste
 ``preprocess_rhs_p``          ``preprocess_rhs_padded_pallas`` (and the
                               role of ``preprocess_rhs_pallas``)
-``mg_down``                   ``mg_down_pallas`` (padded_io form)
-``mg_up``                     ``mg_up_pallas`` (padded_io form)
+``mg_down``                   ``mg_down_pallas`` (padded_io form; its
+                              exact-size entry on a padded slab,
+                              ``solvers/multigrid.py:vcycle``)
+``mg_up``                     ``mg_up_pallas`` (the same two forms)
 ``mg_restrict_t``             ``mg_restrict_t_pallas``
 ``mg_prolong_t``              ``mg_prolong_t_pallas``
 ``preprocess_rhs_q``          ``preprocess_rhs_quarters_pallas``
@@ -36,6 +38,7 @@ wrapper                       replaces (pallas_kernels.py,
 ``clamp_cast_paste_q``        ``clamp_cast_guarded_quarters_pallas`` + the
                               paste
 ``rb_sweeps``                 ``rb_sweeps_pallas``
+``rb_sweeps_tile``            ``rb_sweeps_tile_pallas``
 ``postprocess_transposed``    ``postprocess_transposed_pallas`` (in place)
 ============================  =============================================
 
@@ -45,10 +48,12 @@ launch returns a non-zero ``cudaError_t``. Given a CPU tensor it runs its
 ``*_plain`` twin instead — only then: a CUDA tensor launches the kernel or
 raises, never falls back. ``LAUNCHES[name]`` counts kernel launches (the
 twins do not count), so a run can show that it went through the kernels.
-The sources are ``csrc/<name>.cu`` (the three unfold kernels share
+The sources are ``csrc/<name>.cu`` (``rb_sweeps`` launches
+``csrc/rb_sweeps_tile.cu`` at origin (0, 0); the three unfold kernels share
 ``csrc/fold.cuh``, the three RHS kernels ``csrc/rhs_tile.cuh``, the two
-dense multigrid level kernels and ``rb_sweeps`` ``csrc/mg_level.cuh``, the
-three quarter-plane ones ``csrc/mg_level_q.cuh``), built by ``ops/_build.py``.
+dense multigrid level kernels and ``rb_sweeps_tile`` ``csrc/mg_level.cuh``,
+the three quarter-plane ones ``csrc/mg_level_q.cuh``), built by
+``ops/_build.py``.
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ LAUNCHES = {"erode3": 0, "preprocess_rhs_t": 0, "transpose": 0,
             "mg_prolong_t": 0, "preprocess_rhs_q": 0, "mg_down_q": 0, "mg_up_q": 0,
             "mg_ud_q": 0, "mg_prolong_tq": 0, "clamp_cast_paste_q": 0, "to_quarters": 0,
             "from_quarters": 0, "mg_restrict_tq": 0, "rb_sweeps": 0,
-            "postprocess_transposed": 0}
+            "postprocess_transposed": 0, "rb_sweeps_tile": 0}
 
 _MIXED_RULES = {"opencv": 0, "norm": 1}
 
@@ -103,14 +108,16 @@ def _same_device(ref: torch.Tensor, *others: torch.Tensor) -> None:
             raise ValueError(f"tensors on different devices: {ref.device} and {o.device}")
 
 
-def _launch(name: str, t: torch.Tensor, *args) -> None:
-    """Launch kernel ``name`` on ``t``'s device and current stream."""
+def _launch(name: str, t: torch.Tensor, *args, count_as: str | None = None) -> None:
+    """Launch kernel ``name`` on ``t``'s device and current stream; counted
+    under ``count_as`` (default ``name``) when one library serves two
+    wrappers."""
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = kernel_function(name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[count_as or name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -876,11 +883,31 @@ def mg_prolong_t(ec_t: torch.Tensor, w: int, bw: float, out_rows: int,
 
 
 # ---------------------------------------------------------------------------
-# rb_sweeps: red-black bursts on exact-size arrays (solve_redblack, the
-# element path's fine-level sweeps)
+# rb_sweeps / rb_sweeps_tile: red-black bursts, one kernel
+# (csrc/rb_sweeps_tile.cu). rb_sweeps on exact-size arrays (solve_redblack,
+# the element path's fine-level sweeps); rb_sweeps_tile on one ghosted tile
+# of a domain decomposition, colours and domain in global coordinates
+# (parallel/tiled.py's per-tile sweeps)
 # ---------------------------------------------------------------------------
 
 RB_SWEEPS_PER_LAUNCH = 4  # the staged ring covers 8 half-sweeps
+
+
+def _rb_burst(counter: str, u: torch.Tensor, g: torch.Tensor, n: int, rect, parity: int):
+    """n >= 1 sweeps of the rb_sweeps_tile kernel updating the local
+    rectangle ``rect`` = (r_lo, r_hi, c_lo, c_hi): ceil(n / 4) launches
+    ping-ponging between two new buffers, each counted under ``counter``."""
+    c, hl, wl = u.shape
+    bufs = [torch.empty_like(u)]
+    if n > RB_SWEEPS_PER_LAUNCH:
+        bufs.append(torch.empty_like(u))
+    src = u
+    for i, done in enumerate(range(0, n, RB_SWEEPS_PER_LAUNCH)):
+        out = bufs[i % 2]  # a launch reads its neighbours' rows of src: never in place
+        _launch("rb_sweeps_tile", u, src.data_ptr(), g.data_ptr(), out.data_ptr(), c, hl, wl,
+                min(RB_SWEEPS_PER_LAUNCH, n - done), *rect, parity, count_as=counter)
+        src = out
+    return src
 
 
 def rb_sweeps_plain(u: torch.Tensor, g: torch.Tensor, n_sweeps: int) -> torch.Tensor:
@@ -896,9 +923,9 @@ def rb_sweeps(u: torch.Tensor, g: torch.Tensor, n_sweeps: int) -> torch.Tensor:
     """``n_sweeps`` red-black Gauss-Seidel sweeps of the 5-point operator on
     (C, H, W) f32 with a zero Dirichlet frame (red half, then black half,
     each ``u <- (N4(u) - g) * 0.25``), bit-equal to as many
-    ``redblack_sweep`` calls. ceil(n / 4) launches of at most 4 sweeps,
-    ping-ponging between two new buffers; ``u`` is not written, and
-    ``n_sweeps=0`` returns it."""
+    ``redblack_sweep`` calls: the rb_sweeps_tile kernel at origin (0, 0)
+    with the whole array as its domain. ceil(n / 4) launches; ``u`` is not
+    written, and ``n_sweeps=0`` returns it."""
     _require(u, "u", torch.float32, 3)
     c, h, w = u.shape
     _check_level("g", g, c, h, w)
@@ -910,16 +937,57 @@ def rb_sweeps(u: torch.Tensor, g: torch.Tensor, n_sweeps: int) -> torch.Tensor:
         return u
     if u.device.type == "cpu":
         return rb_sweeps_plain(u, g, n)
-    bufs = [torch.empty_like(u)]
-    if n > RB_SWEEPS_PER_LAUNCH:
-        bufs.append(torch.empty_like(u))
-    src = u
-    for i, done in enumerate(range(0, n, RB_SWEEPS_PER_LAUNCH)):
-        out = bufs[i % 2]  # a launch reads its neighbours' rows of src: never in place
-        _launch("rb_sweeps", u, src.data_ptr(), g.data_ptr(), out.data_ptr(), c, h, w,
-                min(RB_SWEEPS_PER_LAUNCH, n - done))
-        src = out
-    return src
+    return _rb_burst("rb_sweeps", u, g, n, (0, h, 0, w), 0)
+
+
+def rb_sweeps_tile_plain(u: torch.Tensor, g: torch.Tensor, n_sweeps: int, origin,
+                         domain_hw) -> torch.Tensor:
+    """The select form of the JAX package's per-tile sweeps
+    (``parallel/tiled.py:sweep_region``): the colours from global (row +
+    col) parity inside [0, Ht) x [0, Wt) only; per half-sweep the
+    zero-padded neighbour sum, ``(nsum - g) * 0.25`` written on one colour."""
+    _, hl, wl = u.shape
+    rows = int(origin[0]) + torch.arange(hl, device=u.device)[:, None]
+    cols = int(origin[1]) + torch.arange(wl, device=u.device)[None, :]
+    ht, wt = domain_hw
+    in_dom = (rows >= 0) & (rows < ht) & (cols >= 0) & (cols < wt)
+    par = (rows + cols) % 2 == 0
+    red, black = par & in_dom, ~par & in_dom
+    for _ in range(n_sweeps):
+        for colour in (red, black):
+            up = F.pad(u, (1, 1, 1, 1))
+            nsum = up[:, :-2, 1:-1] + up[:, 2:, 1:-1] + up[:, 1:-1, :-2] + up[:, 1:-1, 2:]
+            u = torch.where(colour, (nsum - g) * 0.25, u)
+    return u
+
+
+def rb_sweeps_tile(u: torch.Tensor, g: torch.Tensor, n_sweeps: int, origin,
+                   domain_hw) -> torch.Tensor:
+    """``n_sweeps`` red-black sweeps on a halo-exchanged (C, hl, wl) f32 tile.
+
+    ``origin``: the global (row, col) of local (0, 0), ints, negative where
+    the ghost band lies above or left of the domain; ``domain_hw``: the
+    global (Ht, Wt). A point is updated only inside the tile and inside
+    [0, Ht) x [0, Wt); its colour is the parity of its global row + col;
+    points beyond the tile read as 0. ceil(n / 4) launches, bit-equal to
+    ``rb_sweeps_tile_plain``; ``u`` is not written, and ``n_sweeps=0``
+    returns it."""
+    _require(u, "u", torch.float32, 3)
+    c, hl, wl = u.shape
+    _check_level("g", g, c, hl, wl)
+    _same_device(u, g)
+    n = int(n_sweeps)
+    if n < 0:
+        raise ValueError(f"n_sweeps={n} < 0")
+    org_r, org_c = (int(x) for x in origin)
+    ht, wt = (int(x) for x in domain_hw)
+    if n == 0:
+        return u
+    if u.device.type == "cpu":
+        return rb_sweeps_tile_plain(u, g, n, (org_r, org_c), (ht, wt))
+    # the update rectangle in local coordinates: inside the tile and the domain
+    rect = (max(0, -org_r), min(hl, ht - org_r), max(0, -org_c), min(wl, wt - org_c))
+    return _rb_burst("rb_sweeps_tile", u, g, n, rect, (org_r + org_c) % 2)
 
 
 # ---------------------------------------------------------------------------

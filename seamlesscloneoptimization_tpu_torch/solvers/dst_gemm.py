@@ -137,7 +137,8 @@ def dst_eigenvalues_grouped(n: int) -> np.ndarray:
 def check_precision(precision: str) -> None:
     if precision not in PRECISIONS:
         raise NotImplementedError(
-            f"precision={precision!r} is not ported: {PRECISIONS} run FP32")
+            f"precision={precision!r} is not ported: {PRECISIONS} run FP32; the two-pass "
+            f"bf16 modes wait for ROADMAP slice 4c")
 
 
 def _t(a: np.ndarray, device) -> torch.Tensor:

@@ -40,8 +40,11 @@ Three chains:
   so each coarser level lives transposed (the operator is symmetric under
   transposition with bh and bw swapped). Levels below 2^16 points solve
   exactly with ``solve_sep_eig``.
-- ``vcycle`` (the element path: small grids, or ``use_pallas=False``):
-  plain PyTorch sweeps and transfers on exact-size arrays, as XLA ran them.
+- ``vcycle`` (the element path: small grids, ``use_pallas=False``, or
+  ``padded=False``): PyTorch sweeps and transfers on exact-size arrays, as
+  XLA ran them, except that a level of at least 2^18 points with
+  ``use_pallas`` is the fused level: ``mg_down`` and ``mg_up`` on the level
+  padded to an even height, the lane halves of the transfers in torch.
 
 ``solve_multigrid`` drives each, in tolerance mode (check-free burst,
 then a residual check per further cycle) or fixed-work mode (``cycles``),
@@ -50,9 +53,9 @@ from zero or from a warm start ``u0``. The tolerance check reads max
 burst of sweeps (``use_pallas``, n > 1, >= 2^18 points: smoothing that the
 fused chains refuse, nu1 > 2 or nu2 > 4) is the ``rb_sweeps`` kernel. Not
 ported (NotImplementedError naming the ROADMAP slice 4b): the dense rounded
-modes (``padded`` True / False) on grids where they would fuse, ``pcg`` and
-``fmg_start``. The JAX package's ``SCL_MG_*`` environment knobs are
-constants here.
+mode (``padded=True``, and ``"q"`` with nu1 = 0) on grids where it would
+fuse, ``pcg`` and ``fmg_start``. The JAX package's ``SCL_MG_*``
+environment knobs are constants here.
 """
 
 from __future__ import annotations
@@ -76,7 +79,6 @@ FUSE_MIN_T = 1 << 16  # vcycle_t's coarse levels run fused from this many
 # the CloneConfig.mg_padded modes whose fused chain is not ported yet
 MG_PADDED_NOT_PORTED = {
     True: "ROADMAP slice 4b (dense multigrid modes)",
-    False: "ROADMAP slice 4b (dense multigrid modes)",
 }
 
 
@@ -85,8 +87,8 @@ def _not_ported(what: str, where: str) -> NotImplementedError:
 
 
 def mg_padded_not_ported(padded, why: str = "") -> NotImplementedError:
-    """True / False, and "q" with nu1 = 0, where the JAX package runs the
-    dense rounded chain."""
+    """True, and "q" with nu1 = 0, where the JAX package runs the dense
+    rounded chain (``vcycle_p``)."""
     return NotImplementedError(
         f"multigrid with mg_padded={padded!r}{why} is not ported yet: "
         f"{MG_PADDED_NOT_PORTED.get(padded, MG_PADDED_NOT_PORTED[True])}")
@@ -298,15 +300,34 @@ def coarse_solve(g: torch.Tensor, bh: float, bw: float, eig_cache=None) -> torch
 
 def vcycle(u: torch.Tensor, g: torch.Tensor, nu1: int = 2, nu2: int = 2, coarsest: int = 63,
            use_pallas: bool = False, bh: float = 1.0, bw: float = 1.0,
-           eig_cache=None) -> torch.Tensor:
-    """One V-cycle on exact-size (C, h, w) arrays (the element path)."""
-    _, h, w = u.shape
+           eig_cache=None, u_zero: bool = False) -> torch.Tensor:
+    """One V-cycle on exact-size (C, h, w) arrays (the element path).
+
+    A level of at least 2^18 points with ``use_pallas`` (nu1 <= 2, nu2 <= 4)
+    is the fused level, the JAX package's exact-size ``mg_down_pallas`` /
+    ``mg_up_pallas``: u and g padded to an even-height (C, h + h % 2, w)
+    slab for ``K.mg_down`` (sweeps + residual + row restriction) and
+    ``K.mg_up`` (row prolongation + correction + sweeps), the lane halves of
+    the transfers in torch (``_restrict_axis``, ``_prolong_axis``). ``u_zero``:
+    u is known zero (every coarse level), so the fused descent synthesizes
+    the guess instead of reading it.
+    """
+    c, h, w = g.shape
     if _small(h, w, coarsest):
         return coarse_solve(g, bh, bw, eig_cache)
-    if _fused_level(h, w, nu1, nu2, use_pallas):
-        raise _not_ported(f"the unpadded fused level ({h}x{w}, mg_padded=False)", "slice 4b")
     hc, bh_c = _coarsen(h, bh)
     wc, bw_c = _coarsen(w, bw)
+    if _fused_level(h, w, nu1, nu2, use_pallas):
+        slab = (c, h + h % 2, w)  # the level kernels take an even-height slab
+        g_p = _pad_to(g, slab).contiguous()
+        u_p = None if u_zero else _pad_to(u, slab).contiguous()
+        u_s, rh = K.mg_down(u_p, g_p, nu1, h, w, bh, bw)
+        rc = 4.0 * _restrict_axis(rh[:, :hc], bw)
+        ec = vcycle(torch.zeros_like(rc), rc, nu1, nu2, coarsest, use_pallas, bh_c, bw_c,
+                    eig_cache, u_zero=True)
+        # rows [hc, h/2) of the lane-prolonged correction are zero to mg_up
+        e_lane = _pad_to(_prolong_axis(ec, w, bw), (c, slab[1] // 2, w)).contiguous()
+        return K.mg_up(u_s, g_p, e_lane, nu2, h, w, bh, bw)[:, :h, :w]
     if bh == 1.0 and bw == 1.0:
         u = _sweeps(u, g, nu1, use_pallas)
         r = residual(u, g)
@@ -536,7 +557,8 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
         g = K.from_quarters_plain(g_pre)[:, :h, :w]
     g_p = g_pre if padded == "t" else None  # the "t" chain's own slab
     small = _small(h, w, coarsest)
-    fused = t_chain_applies(h, w, nu1, nu2, coarsest, use_pallas)
+    # padded=False: the element vcycle, whose large levels fuse on their own
+    fused = padded is not False and t_chain_applies(h, w, nu1, nu2, coarsest, use_pallas)
     if fused and padded != "t":
         raise mg_padded_not_ported(padded, f" on a {h}x{w} grid")
     if fused:

@@ -720,3 +720,133 @@ def test_new_routes_on_card_match_cpu(cuda, cfg):
     assert launches == _per_frame(**pre, **paste)
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (60, 50)).numpy()
     assert np.abs(out.astype(np.int16) - want).max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# slice 8a: rb_sweeps_tile, the element V-cycle's fused level, the tiled
+# solvers and the tiled engine on a mesh of the one card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 5, 9])
+@pytest.mark.parametrize("case", [
+    ((3, 76, 140), (-6, -6), (128, 256)),      # a top-left tile: negative origin
+    ((3, 76, 140), (58, 122), (128, 256)),     # a bottom-right tile, domain edge inside
+    ((1, 21, 33), (17, -3), (30, 25)),         # odd origin, domain cutting the tile
+    ((2, 9, 9), (3, 3), (5, 6)),               # smaller than a CUDA tile
+    ((1, 40, 70), (100, 100), (50, 50)),       # wholly outside the domain: a copy
+])
+def test_rb_sweeps_tile_matches_plain(cuda, case, k):
+    """Bit-exact against the select-form twin over the whole tile, ceil(k / 4)
+    launches; the input is not written."""
+    shape, origin, dom = case
+    rng = np.random.default_rng(k + shape[1])
+    u = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 10)
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 50)
+    ud, gd = u.to(cuda), g.to(cuda)
+    K.reset_launches()
+    got = K.rb_sweeps_tile(ud, gd, k, origin, dom)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rb_sweeps_tile"] == -(-k // 4)
+    assert torch.equal(got.cpu(), K.rb_sweeps_tile_plain(u, g, k, origin, dom))
+    assert torch.equal(ud.cpu(), u)
+
+
+@pytest.mark.parametrize("hw,beta", [((21, 33), (1.0, 1.0)), ((20, 34), (1.0, 1.0)),
+                                     ((513, 700), (1.0, 1.0)), ((40, 57), (1.5, 0.5))])
+def test_exact_size_level_matches_plain(cuda, hw, beta):
+    """The element V-cycle's fused level: an exact-size level padded to an
+    even height, mg_down (given and known-zero guess) and mg_up bit-exact
+    against their twins."""
+    (h, w), (bh, bw) = hw, beta
+    rng = np.random.default_rng(h)
+    slab = (2, h + h % 2, w)
+    g = torch.zeros(slab)
+    u = torch.zeros(slab)
+    g[:, :h] = torch.from_numpy(rng.normal(size=(2, h, w)).astype(np.float32) * 50)
+    u[:, :h] = torch.from_numpy(rng.normal(size=(2, h, w)).astype(np.float32) * 10)
+    e = torch.zeros((2, slab[1] // 2, w))
+    e[:, : (h - 1) // 2] = torch.from_numpy(
+        rng.normal(size=(2, (h - 1) // 2, w)).astype(np.float32) * 5)
+    for guess in (u, None):
+        got = K.mg_down(None if guess is None else guess.to(cuda), g.to(cuda), 1, h, w, bh, bw)
+        want = K.mg_down_plain(guess, g, 1, h, w, bh, bw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    got = K.mg_up(u.to(cuda), g.to(cuda), e.to(cuda), 2, h, w, bh, bw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), K.mg_up_plain(u, g, e, 2, h, w, bh, bw))
+
+
+def test_unpadded_solve_on_card_matches_cpu(cuda):
+    """solve_multigrid(padded=False) on (1, 512, 520): the fused fine level
+    once a cycle (mg_down and mg_up), the card's cycles equal the CPU's."""
+    rng = np.random.default_rng(10)
+    g = torch.from_numpy(rng.normal(size=(1, 512, 520)).astype(np.float32) * 50)
+    want, winfo = TM.solve_multigrid(g, use_pallas=True, padded=False, tol=1e-4,
+                                     return_info=True)
+    K.reset_launches()
+    got, info = TM.solve_multigrid(g.to(cuda), use_pallas=True, padded=False, tol=1e-4,
+                                   return_info=True)
+    torch.cuda.synchronize()
+    assert info["cycles"] == winfo["cycles"] >= 2
+    assert K.LAUNCHES == _per_frame(mg_down=info["cycles"], mg_up=info["cycles"])
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def _card_mesh(cuda, n=4):
+    from seamlesscloneoptimization_tpu_torch.parallel import make_tile_mesh
+
+    return make_tile_mesh([cuda] * n, (2, n // 2))
+
+
+def test_tiled_solvers_on_card_match_cpu(cuda):
+    """On a 2x2 mesh of the one card: solve_redblack_tiled at a fixed sweep
+    count bit-equal to the CPU mesh's (rounds x tiles launches), and the DD
+    multigrid within rel 1e-5 of it with equal cycles (2 rb_sweeps_tile
+    launches a tile a cycle)."""
+    from seamlesscloneoptimization_tpu_torch.parallel import (
+        make_tile_mesh,
+        solve_multigrid_dd,
+        solve_redblack_tiled,
+    )
+
+    cpu = make_tile_mesh([torch.device("cpu")] * 4, (2, 2))
+    rng = np.random.default_rng(11)
+    g = torch.from_numpy(rng.normal(size=(3, 64, 96)).astype(np.float32) * 50)
+    K.reset_launches()
+    got = solve_redblack_tiled(g.to(cuda), _card_mesh(cuda), tol=0.0, max_iters=100)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == _per_frame(rb_sweeps_tile=50 * 4)  # 2 sweeps a round, 100 sweeps
+    assert torch.equal(got.cpu(), solve_redblack_tiled(g, cpu, tol=0.0, max_iters=100))
+    want, winfo = solve_multigrid_dd(g, cpu, true_hw=(61, 90), tol=1e-5, return_info=True)
+    K.reset_launches()
+    got, info = solve_multigrid_dd(g.to(cuda), _card_mesh(cuda), true_hw=(61, 90), tol=1e-5,
+                                   return_info=True)
+    torch.cuda.synchronize()
+    assert info["cycles"] == winfo["cycles"] >= 2
+    assert K.LAUNCHES == _per_frame(rb_sweeps_tile=2 * 4 * info["cycles"])
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_tiled_engine_on_card_matches_cpu(cuda):
+    """TiledSeamlessClone on a 2x2 mesh of the card against the CPU mesh
+    (diff_max <= 1, clamp_cast_paste once, 2 rb_sweeps_tile a tile a cycle),
+    and the 1x1 mesh byte for byte the single-device engine."""
+    from seamlesscloneoptimization_tpu_torch.parallel import TiledSeamlessClone, make_tile_mesh
+
+    rng = np.random.default_rng(12)
+    src = _u8(rng, (90, 130, 3))
+    dst = _u8(rng, (120, 200, 3))
+    mask = np.full((90, 130), 255, np.uint8)
+    cfg = CloneConfig(mg_cycles=3)
+    K.reset_launches()
+    out = TiledSeamlessClone(cfg, mesh=_card_mesh(cuda)).run(src, dst, mask, (100, 60))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == _per_frame(clamp_cast_paste=1, rb_sweeps_tile=2 * 4 * 3)
+    cpu = TiledSeamlessClone(cfg, mesh=make_tile_mesh([torch.device("cpu")] * 4, (2, 2)))
+    want = cpu.run(src, dst, mask, (100, 60)).numpy()
+    assert np.abs(out.cpu().numpy().astype(np.int16) - want).max() <= 1
+    one = TiledSeamlessClone(CloneConfig(), mesh=make_tile_mesh([cuda], (1, 1)))
+    assert torch.equal(one.run(src, dst, mask, (100, 60)),
+                       SeamlessClone(CloneConfig(), device=cuda).run(src, dst, mask, (100, 60)))

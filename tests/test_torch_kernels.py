@@ -150,6 +150,8 @@ def test_cpu_twins_do_not_count_launches():
     K.rb_sweeps(gp[:, :18, :28].contiguous(), gp[:, :18, :28].contiguous(), 6)
     K.postprocess_transposed(g[:, :28, :18].contiguous(),
                              torch.zeros((3, 20, 30), dtype=torch.uint8), 1, 1)
+    K.rb_sweeps_tile(gp[:, :18, :28].contiguous(), gp[:, :18, :28].contiguous(), 6, (-3, 5),
+                     (12, 30))
     assert set(K.LAUNCHES) == {"erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste",
                                "fold_minor", "unfold_minor", "transpose_pair",
                                "unfold_transpose", "unfold_clamp_paste", "preprocess_rhs_p",
@@ -157,7 +159,7 @@ def test_cpu_twins_do_not_count_launches():
                                "preprocess_rhs_q", "mg_down_q", "mg_up_q", "mg_ud_q",
                                "mg_prolong_tq", "clamp_cast_paste_q", "to_quarters",
                                "from_quarters", "mg_restrict_tq", "rb_sweeps",
-                               "postprocess_transposed"}
+                               "postprocess_transposed", "rb_sweeps_tile"}
     assert set(K.LAUNCHES.values()) == {0}
 
 

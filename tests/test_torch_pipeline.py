@@ -350,7 +350,7 @@ def test_no_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("cfg, match", [
     (CloneConfig(solver="multigrid", mg_padded=True), "slice 4"),  # the dense modes
-    (CloneConfig(solver="multigrid", mg_padded=False), "slice 4"),
+    (CloneConfig(precision="2x_img"), "slice 4"),  # a DST-GEMM precision mode (4c)
     (CloneConfig(precision="fwd2x"), "not ported"),  # a DST-GEMM precision mode
     (CloneConfig(bbox_bucket=64), "slice 5"),
     (CloneConfig(debug_dump=True), "slice 5"),
