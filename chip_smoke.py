@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--other OTHER_ROOT]
 
 1. Prints the card (nvidia-smi name and power limit), builds the kernels
    from ``seamlesscloneoptimization_tpu_torch/csrc`` and prints the build
@@ -33,10 +33,16 @@
    and a domain cutting the tile (5 sweeps, two launches); the exact-size
    ``mg_down`` (known-zero and given guess) and ``mg_up`` at the DD coarse
    solve's two fused levels (1398x1898 and 698x948, betas != 1), each form
-   its own kernels-line entry (``mg_down_exact``, ``mg_up_exact``). Times
-   kernel, twin and, where one PyTorch
-   call computes the same function, that call (``library_ms``; the port
-   never calls it), each launch cold in L2; and one GEMM of each chain.
+   its own kernels-line entry (``mg_down_exact``, ``mg_up_exact``); and
+   ``mg_up`` / ``mg_down`` at each of the 8K ``"q"`` chain's three fused
+   coarse levels (``coarse_levels``, each with its bound). Times kernel,
+   twin and, where one PyTorch call computes the same function, that call
+   (``library_ms``; the port never calls it), each launch cold in L2 with
+   the card spinning while the host issues it (so the time is the
+   device's); the redesigned level kernels also back to back (``b2b_ms``)
+   and, from the 8K profiles, in the loop (``loop_ms``: device time per
+   launch in the served frame, per coarse level by launch order); and one
+   GEMM of each chain.
 3. Drives each path through the entry points with the launch counters set
    to 0 just before and read just after, and checks every kernel's
    per-frame count (``PATHS``), that nothing outside the ROI interior
@@ -121,6 +127,18 @@
      fused levels (mg_down / mg_up a level a cycle), card against the CPU,
      cycles equal to ``solve_multigrid``'s report.
 
+With ``--other OTHER_ROOT`` (another checkout of this repository, for
+example the parent commit unpacked with ``git archive``; only its
+``csrc/`` is read), the sources of ``OTHER_KERNELS`` there are built with
+the same nvcc flags and launched through the same wrappers in turns with
+this checkout's (other, this, this, other): each kernel timed against
+the other also gets ``other_ms`` / ``other_b2b_ms`` and whether the two
+outputs are equal (``other_output_equal``); the SASS of each pair is
+compared; and, when every pair's outputs were equal, each path of
+``COMPARE_PATHS`` serves its frames in turns with the two kernel sets
+(ms/frame, and from a profile the kernel busy time and idle share),
+printed as one JSON line (``frames_vs_other``) before the kernels line.
+
 Prints the kernel table as one JSON line (one entry per kernel; the
 ``*_interleaved`` entries are the same kernel on the single-shot path's
 interleaved destination, the ``*_exact`` ones the exact-size forms of
@@ -135,6 +153,7 @@ the port's package is missing. Images are synthetic, made from a seed.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -155,6 +174,9 @@ TOL = 1e-4  # CloneConfig's default
 COARSE_TOL = 0.05  # a draft-quality tolerance: no check-free cycle (_tol_burst 0)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak HBM3 bandwidth
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# ~2 ms of spinning before a timed launch: the card starts the kernel only
+# once the host has issued it, so the events time the device alone
+SPIN_CYCLES = 4_000_000
 KERNELS = ("erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste", "fold_minor",
            "unfold_minor", "transpose_pair", "unfold_transpose", "unfold_clamp_paste",
            "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t",
@@ -173,6 +195,23 @@ DD_TILES = DD_MESH[0] * DD_MESH[1]
 DD_BAND = 6  # the DD multigrid's CA ghost band at nu = (1, 2)
 RB_TILED_SWEEPS = 1000  # rb_tiled: a fixed count, tol 0
 RB_TILED_HALO = 4  # solve_redblack_tiled's default: 2 sweeps an exchange
+
+
+# kernel -> (the profile that runs it on the main path, its kernel's name):
+# the kernels line's in-the-loop time per launch
+LOOP_PROFILE = {"mg_ud_q": ("mg_q 8K tolerance", "level_q_kernel<true, true"),
+                "mg_down_q": ("mg_q 8K tolerance", "level_q_kernel<false, true"),
+                "mg_up_q": ("mg_q 8K mg_cycles=4", "level_q_kernel<true, false"),
+                "mg_up": ("mg_q 8K tolerance", "mg_up_kernel"),
+                "mg_down": ("mg_q 8K tolerance", "mg_down_kernel")}
+# --other: the kernels built from the other checkout (the level kernels and
+# every source that includes their headers), the turns, and the serve paths
+# that run them
+OTHER_KERNELS = ("mg_down_q", "mg_up_q", "mg_ud_q", "mg_up", "mg_down", "rb_sweeps_tile")
+TURNS = ("other", "this", "this", "other")
+COMPARE_PATHS = ("mg_t", "mg_t_fixed", "mg_t_headline", "mg_q", "mg_q_fixed", "mg_q_headline",
+                 "mg_q_coarse", "mg_q_coarse_headline", "tiled_dd", "tiled_dd_fixed",
+                 "tiled_dd_headline", "mg_padded_false")
 
 
 def _per_frame(**counts):
@@ -308,6 +347,70 @@ def synthetic_image(rng, hw, cell=48):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+def build_other(other_root: Path):
+    """Build ``other_root``'s OTHER_KERNELS with this checkout's nvcc flags,
+    all at once. Returns (name -> ctypes function, its quarter tile (kTH,
+    kTW), name -> ptxas's resource lines, name -> library path)."""
+    import ctypes
+    import re
+
+    from seamlesscloneoptimization_tpu_torch.ops import _build
+
+    csrc = other_root / "seamlesscloneoptimization_tpu_torch" / "csrc"
+    out = other_root / "_other_build"
+    out.mkdir(exist_ok=True)
+    libs = {name: out / f"lib{name}.so" for name in OTHER_KERNELS}
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(libs[name]), str(csrc / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in OTHER_KERNELS}
+    funcs, ptxas = {}, {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"building {other_root.name}'s {name} failed:\n{log}")
+        ptxas[name] = " | ".join(ln.strip() for ln in log.splitlines()
+                                 if "Used" in ln or "spill" in ln)
+        symbol, argtypes = _build.SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(libs[name])), symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        funcs[name] = fn
+    header = (csrc / "mg_level_q.cuh").read_text()
+    tile = tuple(int(re.search(rf"constexpr int {k} = (\d+);", header).group(1))
+                 for k in ("kTH", "kTW"))
+    return funcs, tile, ptxas, libs
+
+
+@contextlib.contextmanager
+def swapped(funcs: dict, q_tile: tuple[int, int]):
+    """Launch ``funcs`` in place of this checkout's kernels of the same
+    names, with the per-tile residual maxima sized for ``q_tile``."""
+    from seamlesscloneoptimization_tpu_torch.ops import _build
+    from seamlesscloneoptimization_tpu_torch.ops import kernels as K
+
+    saved = {n: _build.kernel_function(n) for n in funcs}, K.Q_TILE
+    _build._functions.update(funcs)
+    K.Q_TILE = q_tile
+    try:
+        yield
+    finally:
+        _build._functions.update(saved[0])
+        K.Q_TILE = saved[1]
+
+
+def sass(lib: Path) -> list[str] | None:
+    """The instructions of a library's kernels (cuobjdump -sass), or None
+    where the toolkit has no cuobjdump."""
+    from seamlesscloneoptimization_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    # instruction lines only: the kernels' names carry a per-source hash
+    return [ln.strip() for ln in text.splitlines() if "/*" in ln]
+
+
 def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
     if PATHS[path] is None:
         check = (check_mg_q_counts if path in MG_Q_PATHS else
@@ -428,12 +531,16 @@ def diff_max(a, b) -> int:
     return int(np.abs(np.asarray(a).astype(np.int16) - np.asarray(b)).max())
 
 
-def profile_frames(label, clone_pipeline, kwargs, frames: int = 5) -> int:
+def profile_frames(label, clone_pipeline, kwargs, frames: int = 5,
+                   into: dict | None = None, brief: bool = False) -> dict:
     """Where a serve frame's device time goes: torch.profiler over
     ``frames`` chained frames of the serve pipeline, kernel time per frame
     by name and by group, the busy share of the device's span (CUDA events
-    around the window), and the GEMM launches per frame, which it returns
-    (-1 when the profiler recorded no device time)."""
+    around the window), and the GEMM launches per frame. Returns
+    {"gemms" (a frame; -1 when the profiler recorded no device time),
+    "span_us", "busy_us", "idle"}, times a frame. ``into[label]`` gets (device us a
+    frame, launches a frame) by kernel name, and the launches in issue
+    order as (name, us). ``brief``: print the summary line only."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -457,9 +564,11 @@ def profile_frames(label, clone_pipeline, kwargs, frames: int = 5) -> int:
             per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + t / frames
             calls[ev.key] = calls.get(ev.key, 0) + ev.count
     busy = sum(per_kernel.values())
+    result = {"gemms": -1, "span_us": span_us, "busy_us": busy,
+              "idle": 1 - busy / span_us if busy else None}
     if busy == 0:
         print(f"profile {label}: no device time recorded; frame span {span_us:.1f} us")
-        return -1
+        return result
     ours = ("erode3", "preprocess_rhs_t", "transpose_kernel", "clamp_cast_paste",
             "fold_minor", "unfold_minor", "transpose_pair", "unfold_transpose",
             "unfold_clamp_paste", "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t",
@@ -472,15 +581,23 @@ def profile_frames(label, clone_pipeline, kwargs, frames: int = 5) -> int:
         g = "gemm" if is_gemm else "port kernels" if any(o in k for o in ours) else "other"
         groups[g] += t
         gemm_calls += calls[k] if is_gemm else 0
-    gemms = gemm_calls // frames
+    result["gemms"] = gemm_calls / frames
+    if into is not None:
+        seq = sorted((ev.time_range.start, ev.name, ev.time_range.elapsed_us())
+                     for ev in prof.events()
+                     if str(getattr(ev, "device_type", "")).endswith("CUDA"))
+        into[label] = (per_kernel, {k: n / frames for k, n in calls.items()},
+                       [(name, us) for _, name, us in seq])
     print(f"profile {label} ({frames} frames, profiler on): device span {span_us:.1f} "
-          f"us/frame, kernels busy {busy:.1f} us/frame, idle share {1 - busy / span_us:.3f}, "
+          f"us/frame, kernels busy {busy:.1f} us/frame, idle share {result['idle']:.3f}, "
           f"GEMM launches {gemm_calls / frames:g} per frame")
+    if brief:
+        return result
     for g, t in groups.items():
         print(f"profile {label} group {g}: {t:.1f} us/frame ({t / busy:.3f} of busy)")
     for k, t in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:14]:
         print(f"profile {label} kernel {t:9.1f} us/frame x{calls[k] / frames:g}  {k[:100]}")
-    return gemms
+    return result
 
 
 def main() -> int:
@@ -489,6 +606,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
+    other_root = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--other":
+        other_root = Path(sys.argv[2]).resolve()
+    elif len(sys.argv) > 1:
+        print("usage: python3 chip_smoke.py [--other OTHER_ROOT]", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
 
@@ -527,6 +650,22 @@ def main() -> int:
     print(f"kernel build: {build_s:.2f} s")
     for name, report in _build.ptxas_report().items():
         print(f"ptxas {name}: {report}")
+    other = None
+    other_agrees = []  # per timed kernel: the other checkout's output equals this one's
+    if other_root is not None:
+        t0 = time.perf_counter()
+        other_funcs, other_tile, other_ptxas, other_libs = build_other(other_root)
+        print(f"{other_root.name}'s kernels built in {time.perf_counter() - t0:.2f} s, "
+              f"quarter tile {other_tile}")
+
+        def other():
+            return swapped(other_funcs, other_tile)
+
+        for name in OTHER_KERNELS:
+            mine = sass(_build._target(name))
+            same = None if mine is None else mine == sass(other_libs[name])
+            print(f"ptxas {name} of {other_root.name}: {other_ptxas[name]}; SASS equal to "
+                  f"this checkout's: {'not checked' if same is None else same}")
     print("tf32: matmul", torch.backends.cuda.matmul.allow_tf32,
           "cudnn", torch.backends.cudnn.allow_tf32,
           "float32_matmul_precision", torch.get_float32_matmul_precision())
@@ -569,6 +708,7 @@ def main() -> int:
         total = 0.0
         for _ in range(REPS):
             flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)  # the card waits while the host issues fn
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -577,6 +717,56 @@ def main() -> int:
             e.synchronize()
             total += s.elapsed_time(e)
         return total / REPS
+
+    def b2b_ms(fn, n: int = 20) -> float:
+        """Back to back: a launch's time inside a chain of launches of it."""
+        fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / n
+
+    def side(name):
+        return other() if name == "other" else contextlib.nullcontext()
+
+    def poisoned(fn) -> tuple:
+        """fn's outputs from a launch into memory just filled with NaN (the
+        allocator hands the same sizes, asked in the same order, the same
+        blocks): an element the kernel leaves unwritten then holds no
+        earlier launch's result."""
+        out = fn()
+        sizes = [t.numel() for t in (out if isinstance(out, tuple) else (out,))]
+        del out
+        junk = [torch.full((n,), float("nan"), device=dev) for n in sizes]
+        del junk
+        out = fn()
+        return out if isinstance(out, tuple) else (out,)
+
+    def vs_other(fn) -> dict:
+        """The kernel back to back; with --other, also the other checkout's
+        kernel, cold and back to back, in turns, and whether the two
+        outputs are equal (each side's from ``poisoned``)."""
+        out = {"b2b_ms": b2b_ms(fn)}
+        if other is None:
+            return out
+        turns, outs = {"other": [], "this": []}, {}
+        for name in TURNS:
+            with side(name):
+                turns[name].append((time_ms(fn), b2b_ms(fn)))
+                outs.setdefault(name, poisoned(fn))
+        a, b = outs["other"], outs["this"]
+        equal = all(torch.equal(x, y) for x, y in zip(a, b))
+        other_agrees.append(equal)
+        out.update(other_ms=sum(t[0] for t in turns["other"]) / 2,
+                   other_b2b_ms=sum(t[1] for t in turns["other"]) / 2,
+                   turns_ms=turns, other_output_equal=equal)
+        return out
 
     def bound(nbytes: float, nops: float):
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_FLOPS * 1e3
@@ -826,7 +1016,7 @@ def main() -> int:
         time_ms(lambda: K.mg_up_plain(u8, g8, e8, 2, h8, w8)),
         shape=f"u, g ({c},{hp8},{wp8}) + e ({c},{hp28},{wp8}), nu2=2 -> ({c},{hp8},{wp8})",
         coarse_ms=time_ms(lambda: K.mg_up(u1c, rc8, e1c, 2, wc8, hc8, bw1, bh1)),
-        coarse_shape=lvl)
+        coarse_shape=lvl, **vs_other(lambda: K.mg_up(u8, g8, e8, 2, h8, w8)))
     row("mg_restrict_t", 4 * c * (hc8 * wp8 + cgeom8[1] * hp28), 3 * c * hc8 * wc8,
         time_ms(lambda: K.mg_restrict_t(rh8, h8, w8, 1.0, cgeom8[1])),
         time_ms(lambda: K.mg_restrict_t_plain(rh8, h8, w8, 1.0, cgeom8[1])),
@@ -840,6 +1030,51 @@ def main() -> int:
         coarse_ms=time_ms(lambda: K.mg_prolong_t(rc1, hc8, bh1, cgeom8[3], cgeom8[2])),
         coarse_shape=lvl)
     del u8, rh8, rc8, e8, rc1, u1c, rh1c, e1c
+
+    # the "q" chain's fused coarse levels at 8K (each transposed, betas
+    # swapped): mg_up (given guess, nu2 = 2) and mg_down (known-zero guess)
+    # against their twins, timed cold and back to back, each with its bound
+    gen8 = torch.Generator(dev).manual_seed(SEED + 2)
+    coarse_q = TM.q_coarse_levels(h8, w8)
+    if len(coarse_q) != MG_LEVELS["mg_q"]:
+        raise AssertionError(f"the 8K 'q' chain has {len(coarse_q)} fused coarse levels")
+    up_levels, down_levels = [], []
+    for lh, lw, bh_l, bw_l, (_, hp_c, wp_c, hp2_c) in coarse_q:
+        g_c = torch.zeros((c, hp_c, wp_c), device=dev)
+        u_c = torch.zeros((c, hp_c, wp_c), device=dev)
+        e_c = torch.zeros((c, hp2_c, wp_c), device=dev)
+        hc_l = (lh - 1) // 2
+        g_c[:, :lh, :lw] = torch.randn((c, lh, lw), generator=gen8, device=dev) * 50.0
+        u_c[:, :lh, :lw] = torch.randn((c, lh, lw), generator=gen8, device=dev) * 10.0
+        e_c[:, :hc_l, :lw] = torch.randn((c, hc_l, lw), generator=gen8, device=dev) * 5.0
+        a_l = (lh, lw, bh_l, bw_l)
+        shape = f"({c},{hp_c},{wp_c}) logical {lh}x{lw} beta ({bh_l},{bw_l})"
+        require_equal(f"mg_up 8K coarse {shape}", K.mg_up(u_c, g_c, e_c, 2, *a_l),
+                      K.mg_up_plain(u_c, g_c, e_c, 2, *a_l))
+        for got, want, what in zip(K.mg_down(None, g_c, 1, *a_l, hp2_c),
+                                   K.mg_down_plain(None, g_c, 1, *a_l, hp2_c), ("u", "rh")):
+            require_equal(f"mg_down 8K coarse {shape} (known-zero guess) {what}", got, want)
+        def up(u_c=u_c, g_c=g_c, e_c=e_c, a_l=a_l):
+            return K.mg_up(u_c, g_c, e_c, 2, *a_l)
+
+        def down(g_c=g_c, a_l=a_l, r=hp2_c):
+            return K.mg_down(None, g_c, 1, *a_l, r)
+
+        up_levels.append(dict(shape=shape, ms=time_ms(up), bound_ms=bound(
+            4 * c * (3 * hp_c * wp_c + hc_l * wp_c), c * lh * lw * 12)[0], **vs_other(up)))
+        down_levels.append(dict(shape=shape, ms=time_ms(down),
+                                bound_ms=bound(4 * c * (2 * hp_c * wp_c + hp2_c * wp_c),
+                                               c * lh * lw * 11 + c * hc_l * lw * 5)[0],
+                                **vs_other(down)))
+        del g_c, u_c, e_c
+    for name, lv in (("mg_up", up_levels), ("mg_down", down_levels)):
+        rows[name].update(coarse_levels=lv, coarse_bound_ms=lv[0]["bound_ms"],
+                          coarse_sum_ms=sum(x["ms"] for x in lv),
+                          coarse_sum_bound_ms=sum(x["bound_ms"] for x in lv))
+        print(f"{name} at the 8K 'q' coarse levels ({card}): " + "; ".join(
+            f"{x['shape']} {x['ms']:.5f} ms cold, {x['b2b_ms']:.5f} back to back, bound "
+            f"{x['bound_ms']:.5f}" + (f", other {x['other_ms']:.5f} / {x['other_b2b_ms']:.5f}"
+                                      if "other_ms" in x else "") for x in lv))
 
     # -- 2d. the quarter-plane kernels, at the 8K frame's quarter planes -------
     _, hq8, wq28, hp2q8 = K.mg_geometry_q(h8, w8)
@@ -922,7 +1157,8 @@ def main() -> int:
         split_plain_ms=time_ms(lambda: K.mg_down_q_plain(uq0, gq8, 1, h8, w8)),
         split_bound_ms=bound(4 * (3 * qplanes + 2 * qhalf), 11 * pts8)[0],
         split_zero_guess_ms=time_ms(lambda: K.mg_down_q(None, gq8, 1, h8, w8)),
-        split_zero_guess_bound_ms=bound(4 * (2 * qplanes + 2 * qhalf), 11 * pts8)[0])
+        split_zero_guess_bound_ms=bound(4 * (2 * qplanes + 2 * qhalf), 11 * pts8)[0],
+        **vs_other(lambda: K.mg_down_q(uq0, gq8, 1, h8, w8, chp8)))
     row("mg_up_q", 4 * (3 * qplanes + 2 * qhalf), 14 * pts8,
         time_ms(lambda: K.mg_up_q(uq0, gq8, *e_q, 2, h8, w8)),
         time_ms(lambda: K.mg_up_q_plain(uq0, gq8, *e_q, 2, h8, w8)),
@@ -930,7 +1166,8 @@ def main() -> int:
         with_residual_ms=time_ms(lambda: K.mg_up_q(uq0, gq8, *e_q, 2, h8, w8, True)),
         with_residual_plain_ms=time_ms(lambda: K.mg_up_q_plain(uq0, gq8, *e_q, 2, h8, w8,
                                                                True)),
-        with_residual_bound_ms=bound(4 * (3 * qplanes + 2 * qhalf), 19 * pts8)[0])
+        with_residual_bound_ms=bound(4 * (3 * qplanes + 2 * qhalf), 19 * pts8)[0],
+        **vs_other(lambda: K.mg_up_q(uq0, gq8, *e_q, 2, h8, w8)))
     row("mg_restrict_tq", 4 * (2 * qhalf + rct), 3 * c * hc8 * wc8,
         time_ms(lambda: K.mg_restrict_tq(*rh_q, h8, w8, chp8)),
         time_ms(lambda: K.mg_restrict_tq_plain(*rh_q, h8, w8, chp8)),
@@ -950,7 +1187,8 @@ def main() -> int:
         shape=f"u, g {qshape} + e_even, e_odd, nu2=2, nu1=1 -> u, rc_t ({c},{chp8},{hq8})",
         with_residual_ms=time_ms(lambda: K.mg_ud_q(uq0, gq8, *e_q, 2, 1, h8, w8, chp8, True)),
         with_residual_plain_ms=time_ms(
-            lambda: K.mg_ud_q_plain(uq0, gq8, *e_q, 2, 1, h8, w8, chp8, True)))
+            lambda: K.mg_ud_q_plain(uq0, gq8, *e_q, 2, 1, h8, w8, chp8, True)),
+        **vs_other(lambda: K.mg_ud_q(uq0, gq8, *e_q, 2, 1, h8, w8, chp8)))
     row("mg_prolong_tq", 4 * (rct + 2 * qhalf), 2 * qhalf,
         time_ms(lambda: K.mg_prolong_tq(rcq0, w8, hp2q8, wq28)),
         time_ms(lambda: K.mg_prolong_tq_plain(rcq0, w8, hp2q8, wq28)),
@@ -1062,7 +1300,8 @@ def main() -> int:
         shape=f"u, g {shape_dd}, 2 sweeps (the ascent's nu2), origin {org_br}, "
               f"domain {h8}x{w8}",
         one_sweep_ms=time_ms(lambda: K.rb_sweeps_tile(u_dd, g_dd, 1, org_br, dom8)),
-        one_sweep_bound_ms=bound(12 * pts_dd, 5 * pts_dd)[0])
+        one_sweep_bound_ms=bound(12 * pts_dd, 5 * pts_dd)[0],
+        **vs_other(lambda: K.rb_sweeps_tile(u_dd, g_dd, 2, org_br, dom8)))
     del u_dd, g_dd
     lvl_dd = []  # (h, w, bh, bw) of the DD coarse solve's fused levels
     lh, bh_l = TM._coarsen(h8, 1.0)
@@ -1108,13 +1347,37 @@ def main() -> int:
         time_ms(lambda: K.mg_up_plain(u_l, g_l, e_l, 2, lh, lw, bh_l, bw_l)),
         shape=f"DD coarse level 1: u, g {slab} + e ({c},{hp_l // 2},{lw}), nu2=2",
         last_level_shape=f"{lvl2[0]}", last_level_ms=time_ms(
-            lambda: K.mg_up(lvl2[2], lvl2[1], lvl2[3], 2, *lvl2[4:])))
+            lambda: K.mg_up(lvl2[2], lvl2[1], lvl2[3], 2, *lvl2[4:])),
+        **vs_other(lambda: K.mg_up(u_l, g_l, e_l, 2, lh, lw, bh_l, bw_l)))
     del exact, lvl2, g_l, u_l, e_l, flush
 
     # -- 3. every path through the entry points ---------------------------------
     path_launches = {}
     cpu_diffs = {}
     run_outputs = {}
+    frames_vs_other = {}
+
+    def compare_frames(path, label, eng, s_img, mask_, d_img, ctr, loops):
+        """--other: the path's serve frames with the other checkout's kernels
+        and with this one's, in turns: ms/frame over 3 x ``loops`` chained
+        frames, then a 3-frame profile's busy time and idle share."""
+        m_, xy, lt, hw = eng._prepare(mask_, s_img, d_img, ctr)
+        kw = dict(src=torch.from_numpy(s_img).to(dev),
+                  dst=torch.from_numpy(d_img).to(dev).permute(2, 0, 1).contiguous(),
+                  mask=torch.from_numpy(m_).to(dev), bbox_xy=xy, left_top=lt,
+                  planar_dst=True, **eng._pipeline_kwargs(hw, eng.config.flags, True))
+        turns = {"other": [], "this": []}
+        for name in TURNS:
+            with side(name):
+                _, ms = eng.timed_serve(s_img, d_img, mask_, ctr, loops=3 * loops)
+                prof = profile_frames(f"{path} ({label}) with {name}'s kernels", clone_pipeline,
+                                      kw, frames=3, brief=True)
+            turns[name].append(dict(ms_per_frame=ms, busy_us=prof["busy_us"],
+                                    span_us=prof["span_us"], idle=prof["idle"]))
+        frames_vs_other[path] = turns
+        print(f"frames {path} ({label}, {card}), other -> this: " + "; ".join(
+            f"{k} {[r[k] for r in turns['other']]} -> {[r[k] for r in turns['this']]}"
+            for k in ("ms_per_frame", "busy_us", "idle")))
 
     def drive(path, cfg, s_img, mask_, loops, label, d_img=dst, cpu="run+serve",
               solver="dst_gemm", engine=None):
@@ -1155,6 +1418,8 @@ def main() -> int:
         check_outside(run_np, d_img, interior)
         print(f"single-shot run {path} ({label}): launches {json.dumps(run)}")
         path_launches.setdefault(path, (serve, run))
+        if other is not None and path in COMPARE_PATHS and all(other_agrees):
+            compare_frames(path, label, eng, s_img, mask_, d_img, ctr, loops)
         if cpu is None:
             return eng, ms
         cpu_eng = make("cpu")
@@ -1193,12 +1458,22 @@ def main() -> int:
     prof_kw = dict(src=torch.from_numpy(src).to(dev), dst=dst_p.clone(),
                    mask=torch.from_numpy(m).to(dev), bbox_xy=(x0, y0),
                    left_top=(left, top), bbox_hw=(bh, bw), flags=1, planar_dst=True)
-    gemms = profile_frames("pair", clone_pipeline, dict(
-        prof_kw, solver_kwargs={"precision": "high", "folded": True}, bases=fold_b))
+    def dst_gemms(label, folded, bases):
+        """GEMM launches a frame of the DST chain's profile. Every frame
+        launches the same kernels, so a fraction of a GEMM a frame means
+        the trace lost events: profile again, up to 3 times."""
+        for _ in range(3):
+            n = profile_frames(label, clone_pipeline, dict(
+                prof_kw, solver_kwargs={"precision": "high", "folded": folded},
+                bases=bases))["gemms"]
+            if n == int(n):
+                break
+        return n
+
+    gemms = dst_gemms("pair", True, fold_b)
     if gemms not in (-1, 8):
         raise AssertionError(f"the pair chain ran {gemms} GEMMs a frame, expected 8")
-    gemms_u = profile_frames("unfolded", clone_pipeline, dict(
-        prof_kw, solver_kwargs={"precision": "high", "folded": False}, bases=plain_b))
+    gemms_u = dst_gemms("unfolded", False, plain_b)
     if gemms_u not in (-1, 4):
         raise AssertionError(f"the unfolded chain ran {gemms_u} GEMMs a frame, expected 4")
     del prof_kw
@@ -1264,14 +1539,9 @@ def main() -> int:
 
     # -- the quarter-plane multigrid (the default): 8K through auto, then the
     #    headline ---------------------------------------------------------------
-    def coarse_levels(h, w):
-        n, (lh, lw) = 0, ((w - 1) // 2, (h - 1) // 2)  # the first coarse level, transposed
-        while TM._fused_level(lh, lw, 1, 2, True, TM.FUSE_MIN_T):
-            n, (lh, lw) = n + 1, ((lw - 1) // 2, (lh - 1) // 2)
-        return n
-
     for path, (lh, lw) in (("mg_q", (h8, w8)), ("mg_q_headline", (h2, w2))):
-        if not TM.quarter_path_applies(lh, lw) or coarse_levels(lh, lw) != MG_LEVELS[path]:
+        if (not TM.quarter_path_applies(lh, lw)
+                or len(TM.q_coarse_levels(lh, lw)) != MG_LEVELS[path]):
             raise AssertionError(f"{path}: {lh}x{lw} is not a quarter-plane grid with "
                                  f"{MG_LEVELS[path]} fused coarse levels")
     eng8, q8_ms = drive("mg_q", CloneConfig(), src8, mask8, MG_LOOPS, "8K", d_img=dst8,
@@ -1305,13 +1575,14 @@ def main() -> int:
     print(f"8K serve ({card}), quarter-plane multigrid: tolerance mode {q8_ms:.4f} ms/frame "
           f"({q_serve_cycles / (MG_LOOPS + 1):g} cycles a frame), mg_cycles=4 "
           f"{q8_fixed_ms:.4f} ms/frame; the 't' chain {mg8_ms:.4f} and {mg8_fixed_ms:.4f}")
+    q_profiles = {}  # the in-the-loop times of the kernels line (LOOP_PROFILE)
     for label, cyc in (("mg_q 8K tolerance", None), ("mg_q 8K mg_cycles=4", 4)):
         kw = CloneConfig(solver="multigrid", mg_cycles=cyc).solver_kwargs()
         profile_frames(label, clone_pipeline, dict(
             src=torch.from_numpy(src8).to(dev), dst=dst8_p.clone(),
             mask=torch.from_numpy(m8).to(dev), bbox_xy=(x8, y8), left_top=(left8, top8),
             bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver=TM.solve_multigrid,
-            bases={}, solver_name="multigrid", solver_kwargs=kw), frames=3)
+            bases={}, solver_name="multigrid", solver_kwargs=kw), frames=3, into=q_profiles)
     _, q_head_ms = drive("mg_q_headline", CloneConfig(solver="multigrid"), src, mask,
                          MG_LOOPS, f"{SRC_HW[1]}x{SRC_HW[0]}", cpu="run", solver="multigrid")
     q_head_cycles = path_launches["mg_q_headline"][0]["mg_ud_q"]
@@ -1705,10 +1976,29 @@ def main() -> int:
         rows[name]["path"] = "tiled_dd (the coarse solve's fused levels)"
         rows[name]["launches_by_path"] = {p: path_launches[p][0][base] for p in (
             "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline", "mg_padded_false")}
+    for name, (label, kernel) in LOOP_PROFILE.items():
+        per_kernel, per_frame, seq = q_profiles.get(label, ({}, {}, []))
+        n = sum(v for k, v in per_frame.items() if kernel in k)
+        us = sum(t for k, t in per_kernel.items() if kernel in k)
+        rows[name].update(loop_ms=us / n / 1e3 if n else None, loop_launches_per_frame=n,
+                          loop_profile=label)
+        # per coarse level, by launch order: a cycle descends levels 1, 2,
+        # 3 (mg_down) and ascends 3, 2, 1 (mg_up)
+        times = [t for k, t in seq if kernel in k]
+        levels = rows[name].get("coarse_levels", [])
+        if levels and times and len(times) % len(levels) == 0:
+            order = range(len(levels)) if name == "mg_down" else range(len(levels))[::-1]
+            for lv, i in zip(levels, order):
+                lv["loop_ms"] = sum(times[i :: len(levels)]) / len(times[i :: len(levels)]) / 1e3
+            print(f"{name} in the loop ({label}, {card}), by coarse level: " + "; ".join(
+                f"{lv['shape']} {lv['loop_ms']:.5f} ms" for lv in levels))
     for name, r in rows.items():
         if not r["launches"]:
             raise AssertionError(f"{name} was launched no time on its path")
     print(f"card vs cpu diff_max by path: {json.dumps(cpu_diffs)}")
+    if other is not None:
+        print(json.dumps({"frames_vs_other": frames_vs_other, "other": str(other_root),
+                          "kernel_outputs_equal": all(other_agrees)}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

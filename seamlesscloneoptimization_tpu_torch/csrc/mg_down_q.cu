@@ -25,13 +25,15 @@
 // level (3, 4, 1408, 1920) (0.13 ms at 3.35 TB/s), 292 MB with the
 // known-zero guess; the split form writes 2 x 3 x 1408 x 1920 x 4 B of rh
 // instead of rc_t: 454 MB (0.136 ms), 324 MB with the known-zero guess;
-// ~12 flops per dense point and sweep. Design: one block of
-// 256 threads per (channel, 32 x 32 quarter tile = 64 x 64 dense points);
-// the four planes of u and g are staged in shared memory with an 8-deep
-// quarter ring (72 KB), each half-sweep updates only its colour's two planes
-// (no select, no discarded work), the residual lands in two of g's planes,
-// and the block writes its u tile and its 32 x 32 block of rc_t (or of rh_e
-// and rh_o). The ring stages 2.25x the owned points: simple and right first.
+// ~12 flops per dense point and sweep. Design (mg_level_q.cuh, shared
+// with mg_ud_q): one block of 256 threads per (channel, 32 x 64 quarter
+// tile = 64 x 128 dense points); the four planes of u and g are staged with
+// asynchronous 16-byte copies and a ring as deep as the 2 nu1 half-sweeps
+// need (Shallow: 4 / 5 rows, 4 / 8 columns, 99.7 KB, two blocks an SM);
+// each half-sweep updates its colour's two planes over a region that
+// shrinks by one dense layer a half-sweep; the residual lands in two of g's
+// planes, and the block writes its u tile and its 64 x 32 block of rc_t (or
+// of rh_e and rh_o).
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // returns the launch's cudaError_t.
@@ -39,7 +41,7 @@
 #include "mg_level_q.cuh"
 
 // u (nullable: known-zero guess), g, u_out: (c, 4, hq, wq2) f32 contiguous,
-// hq % 32 == 0, wq2 % 32 == 0. Fused form: rc_t (c, chp, hq) f32 contiguous,
+// hq % 32 == 0, wq2 % 64 == 0. Fused form: rc_t (c, chp, hq) f32 contiguous,
 // wc <= chp <= wq2, rh_e = rh_o = nullptr. Split form: rc_t == nullptr, rh_e,
 // rh_o (c, hq, wq2) f32 contiguous. (h, w): the true dense domain; 1 <= nu1
 // <= 2; dn_e, dn_o, rc_a, rc_b: the even-h / even-w edge weights

@@ -28,6 +28,8 @@
 
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace mg {
 
 constexpr int kTH = 32;                  // owned rows per block
@@ -122,6 +124,120 @@ __device__ __forceinline__ void store(const Tile& s, float* __restrict__ x,
     const int gr = r0 + rr, gc = c0 + cc;
     if (gr < hp && gc < wp) x[(size_t)gr * wp + gc] = s[kHalo + rr][kHalo + cc];
   }
+}
+
+}  // namespace mg
+
+// -- the ascent's tile (mg_up.cu) ------------------------------------------
+//
+// mg_up's block stages u, g and the tile's rows of the coarse correction
+// with asynchronous copies, and sweeps a region that shrinks by one point a
+// half-sweep (only points whose value can still reach the owned tile are
+// updated). The helpers above stay as mg_down and rb_sweeps_tile use them.
+
+namespace mg {
+
+// A tile of kTH owned rows and 64 - 2 kRing owned columns with a kRing-deep
+// ring (even, >= the half-sweeps it runs); 64 staged columns (32 lanes cover
+// one colour of a row).
+template <int kRing>
+struct UpTile {
+  static constexpr int kR = kRing;
+  static constexpr int kTH = 32;
+  static constexpr int kCols = 64;
+  static constexpr int kTW = kCols - 2 * kRing;
+  static constexpr int kRows = kTH + 2 * kRing;
+  static constexpr int kERows = kRows / 2 + 1;  // correction rows q-1 .. of the staged rows
+  static constexpr int kLanes = kCols / 2;      // threads over one colour of a row
+};
+
+// Issue the copies of x's rows [gr0, gr0 + kR) x columns [gc0, gc0 + kC)
+// (row stride ld) into s (kR x kC); points outside rows [0, rows) x columns
+// [0, cols) are zero-filled. vec: 16-byte copies (gc0, ld, cols and x's base
+// multiples of 4 floats), else 4-byte ones.
+template <int kR, int kC, int kThr>
+__device__ __forceinline__ void stage_async(float* s, const float* __restrict__ x, int rows,
+                                            int cols, int ld, int gr0, int gc0, bool vec) {
+  if (vec) {
+    constexpr int kChunks = kC / 4;
+    for (int i = threadIdx.x; i < kR * kChunks; i += kThr) {
+      const int lr = i / kChunks, ch = i % kChunks;
+      const int gr = gr0 + lr, gc = gc0 + 4 * ch;
+      const bool ok = gr >= 0 && gr < rows && gc >= 0 && gc < cols;
+      acp::copy16(s + lr * kC + 4 * ch, ok ? x + (size_t)gr * ld + gc : x, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kR * kC; i += kThr) {
+      const int lr = i / kC, lc = i % kC;
+      const int gr = gr0 + lr, gc = gc0 + lc;
+      const bool ok = gr >= 0 && gr < rows && gc >= 0 && gc < cols;
+      acp::copy4(s + i, ok ? x + (size_t)gr * ld + gc : x, ok);
+    }
+  }
+}
+
+// The level operator on a staged tile of kC columns: nsum and inv_diag of
+// the helpers above, the same arithmetic.
+template <int kC>
+__device__ __forceinline__ float nsum_t(const float* s, const Level& L, int lr, int lc,
+                                        int gr, int gc) {
+  const float up = s[(lr - 1) * kC + lc], dn = s[(lr + 1) * kC + lc];
+  const float lf = s[lr * kC + lc - 1], rt = s[lr * kC + lc + 1];
+  float n = ((up + dn) + lf) + rt;
+  if (!L.uniform) {
+    const float lrow = gr == L.h - 1 ? L.cuh : 0.0f;
+    const float lcol = gc == L.w - 1 ? L.cuw : 0.0f;
+    n = (n + lrow * up) + lcol * lf;
+  }
+  return n;
+}
+
+// The staged rows / columns [lo, hi) of the global band [g_lo, g_hi), cut to
+// the domain [0, n) and to the staged points [1, k - 1) whose neighbours are
+// staged. g0: the global index of staged point 0.
+__device__ __forceinline__ void band(int g_lo, int g_hi, int n, int g0, int k, int& lo,
+                                     int& hi) {
+  lo = max(max(g_lo, 0) - g0, 1);
+  hi = min(min(g_hi, n) - g0, k - 1);
+}
+
+// inv_diag's four values (the interior, the last column, the last row, the
+// corner), each computed once per block as inv_diag does, so a sweep point
+// selects its factor instead of dividing.
+struct InvDiag {
+  float in, col, row, both;  // interior, last column, last row, the corner
+  __device__ __forceinline__ explicit InvDiag(const Level& L)
+      : in(L.uniform ? 0.25f : 1.0f / (2.0f + 2.0f)),
+        col(L.uniform ? 0.25f : 1.0f / (2.0f + L.dw)),
+        row(L.uniform ? 0.25f : 1.0f / (L.dh + 2.0f)),
+        both(L.uniform ? 0.25f : 1.0f / (L.dh + L.dw)) {}
+  __device__ __forceinline__ float at(const Level& L, int gr, int gc) const {
+    const bool lc = gc == L.w - 1;
+    return gr == L.h - 1 ? (lc ? both : row) : (lc ? col : in);
+  }
+};
+
+// One half-sweep of colour `color` over the owned tile widened by d on every
+// side: u <- (nsum(u) - g) * inv_d, one point a thread. Ends with
+// __syncthreads().
+template <class T, int kThr>
+__device__ __forceinline__ void half_sweep_band(float* su, const float* sg, const Level& L,
+                                                const InvDiag& inv, int r0, int c0, int color,
+                                                int d) {
+  const int gr0 = r0 - T::kR, gc0 = c0 - T::kR;
+  int rlo, rhi, clo, chi;
+  band(r0 - d, r0 + T::kTH + d, L.h, gr0, T::kRows, rlo, rhi);
+  band(c0 - d, c0 + T::kTW + d, L.w, gc0, T::kCols, clo, chi);
+  constexpr int kRowsPerPass = kThr / T::kLanes;
+  const int j = threadIdx.x % T::kLanes;
+  for (int lr = rlo + threadIdx.x / T::kLanes; lr < rhi; lr += kRowsPerPass) {
+    const int lc = 2 * j + ((color + lr) & 1);  // gr0, gc0 even: colour = (lr + lc) % 2
+    if (lc < clo || lc >= chi) continue;
+    const int gr = gr0 + lr, gc = gc0 + lc;
+    const float n = nsum_t<T::kCols>(su, L, lr, lc, gr, gc);
+    su[lr * T::kCols + lc] = (n - sg[lr * T::kCols + lc]) * inv.at(L, gr, gc);
+  }
+  __syncthreads();
 }
 
 }  // namespace mg

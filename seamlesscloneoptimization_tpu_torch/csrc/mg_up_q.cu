@@ -23,12 +23,12 @@
 // correction planes read once, u written once: 3 x 4 x 1408 x 1920 x 12 B +
 // 2 x 3 x 1408 x 1920 x 4 B = 454 MB at the 8K level (0.14 ms at
 // 3.35 TB/s); the residual adds ~10 flops per red point and no byte but the
-// per-tile maxima. Design: mg_down_q's tile and ring; the correction is added
-// to every staged point, reading e_even / e_odd from device memory (each
-// value serves two quarter rows and stays in L1/L2); the residual reuses the
-// descent's (mg_level_q.cuh: residual, store_max) on the swept tile, exact
-// since nu2 <= 4 sweeps leave the ring's outer 4 quarter layers stale and it
-// reads one layer beyond the owned tile.
+// per-tile maxima. Design: mg_down_q's tile and staging (mg_level_q.cuh);
+// the correction walks each column down, reading each row of e_even /
+// e_odd once; the residual reuses the descent's (residual, store_max) on
+// the swept tile, exact since the ring keeps 2 nu2 half-sweeps and the
+// residual's one extra dense layer exact (nu2 <= 3 the Shallow ring,
+// nu2 = 4 the Deep one).
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // returns the launch's cudaError_t.
@@ -36,7 +36,7 @@
 #include "mg_level_q.cuh"
 
 // u, g, u_out: (c, 4, hq, wq2) f32 contiguous; e_even, e_odd: (c, hq, wq2)
-// f32 contiguous; rmax: nullptr or (c * hq / 32 * wq2 / 32) f32. (h, w): the
+// f32 contiguous; rmax: nullptr or (c * hq / 32 * wq2 / 64) f32. (h, w): the
 // true dense domain; 0 <= nu2 <= 4; up_a, up_b: the even-h edge weights.
 extern "C" int mg_up_q_launch(const void* u, const void* g, const void* e_even,
                               const void* e_odd, void* u_out, void* rmax, int c, int hq,

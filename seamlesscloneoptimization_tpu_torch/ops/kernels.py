@@ -58,6 +58,8 @@ the three quarter-plane ones ``csrc/mg_level_q.cuh``), built by
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -603,6 +605,7 @@ def mg_geometry_t(h: int, w: int, wp_min: int = 0,
     return th, hp, wp, _round_up(hp // 2, 128)
 
 
+@functools.lru_cache(maxsize=1024)
 def _f32(x: float) -> float:
     """A Python double rounded once to float32 (the JAX package rounds its
     double-precision beta coefficients once, as weak-typed constants)."""
@@ -811,7 +814,8 @@ def mg_restrict_t_plain(rh: torch.Tensor, h: int, w: int, bw: float,
         out = torch.cat([out[..., : wc - 1], edge[..., None]], dim=-1)
     lanes = torch.arange(hp2, device=rh.device)[:, None]
     out = torch.where(lanes < hc, out, 0.0)  # rh rows >= hc: leftovers, zeroed
-    return F.pad(out.transpose(1, 2), (0, 0, 0, out_rows - wc))
+    # contiguous as the kernel's output, also where the pad adds no row
+    return F.pad(out.transpose(1, 2), (0, 0, 0, out_rows - wc)).contiguous()
 
 
 def mg_restrict_t(rh: torch.Tensor, h: int, w: int, bw: float, out_rows: int) -> torch.Tensor:
@@ -1358,9 +1362,14 @@ def _check_up_inputs(uq, gq, e_even, e_odd, h, w):
     return c, hq, wq2, h, w
 
 
+Q_TILE = (32, 64)  # the quarter level kernel's owned tile (csrc/mg_level_q.cuh: kTH, kTW)
+
+
 def _tile_maxima(c: int, hq: int, wq2: int, device) -> torch.Tensor:
-    """The per-tile max |r| buffer of a residual-reporting level launch."""
-    return torch.empty((c * (hq // 32) * (wq2 // 32),), dtype=torch.float32, device=device)
+    """The per-tile max |r| buffer of a residual-reporting level launch: one
+    float per (channel, Q_TILE quarter tile)."""
+    return torch.empty((c * (hq // Q_TILE[0]) * (wq2 // Q_TILE[1]),), dtype=torch.float32,
+                       device=device)
 
 
 def mg_up_q(uq: torch.Tensor, gq: torch.Tensor, e_even: torch.Tensor, e_odd: torch.Tensor,

@@ -397,6 +397,22 @@ def _q_geoms(h: int, w: int):
     return qgeom, K.mg_geometry_t((w - 1) // 2, (h - 1) // 2, wp_min=qgeom[3])
 
 
+def q_coarse_levels(h: int, w: int, nu1: int = 1, nu2: int = 2,
+                    coarsest: int = 63) -> list[tuple]:
+    """The fused coarse levels that ``vcycle_t`` runs below an (h, w)
+    quarter level, in descent order: (h, w, bh, bw, geom) per level, each
+    the transposed child of the one before (logical (wc, hc), betas
+    swapped, its slab per ``geom = (th, hp, wp, hp2)``)."""
+    (hc, bh_c), (wc, bw_c) = _coarsen(h, 1.0), _coarsen(w, 1.0)
+    h, w, bh, bw, geom = wc, hc, bw_c, bh_c, _q_geoms(h, w)[1]
+    levels = []
+    while not _small(h, w, coarsest) and _fused_level(h, w, nu1, nu2, True, FUSE_MIN_T):
+        levels.append((h, w, bh, bw, geom))
+        (hc, bh_c), (wc, bw_c) = _coarsen(h, bh), _coarsen(w, bw)
+        h, w, bh, bw, geom = wc, hc, bw_c, bh_c, K.mg_geometry_t(wc, hc, wp_min=geom[3])
+    return levels
+
+
 def vcycle_q(uq: torch.Tensor | None, gq: torch.Tensor, h: int, w: int, nu1: int = 1,
              nu2: int = 2, coarsest: int = 63, with_residual: bool = False,
              eig_cache=None):

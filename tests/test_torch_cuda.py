@@ -572,6 +572,94 @@ def test_mg_q_split_and_residual_forms_match_plain(cuda, hw):
         assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), nu2
 
 
+# the redesigned level kernels' edges: every (nu2, nu1) the fused boundary
+# takes (nu1 + nu2 <= 6: the Shallow ring up to 3, the Deep one beyond), a
+# domain inside one tile, and domains that cut the last tile row and column
+# at odd and even h / w
+Q_NU_PAIRS = [(nu2, nu1) for nu2 in range(5) for nu1 in range(1, 7 - nu2)]
+Q_EDGE_CASES = [(5, 7), (201, 157), (256, 255), (199, 256)]
+
+
+@pytest.mark.parametrize("hw", Q_EDGE_CASES)
+def test_mg_ud_q_every_nu_pair(cuda, hw):
+    h, w = hw
+    hp2 = K.mg_geometry_q(h, w)[3]
+    chp = K.mg_geometry_t((w - 1) // 2, (h - 1) // 2, wp_min=hp2)[1]
+    rng = np.random.default_rng(h * w + 13)
+    g, u = _q_planes(rng, h, w), _q_planes(rng, h, w, 10.0)
+    ee, eo = _q_corr(rng, h, w)
+    gd, ud, eed, eod = (x.to(cuda) for x in (g, u, ee, eo))
+    for nu2, nu1 in Q_NU_PAIRS:
+        for with_residual in (False, True):
+            want = K.mg_ud_q_plain(u, g, ee, eo, nu2, nu1, h, w, chp, with_residual)
+            got = K.mg_ud_q(ud, gd, eed, eod, nu2, nu1, h, w, chp, with_residual)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), (nu2, nu1)
+
+
+@pytest.mark.parametrize("hw", Q_EDGE_CASES)
+def test_mg_down_up_q_edges(cuda, hw):
+    """mg_down_q fused and split (both guesses) and mg_up_q (nu2 0 to 4, the
+    Deep ring at 4, with and without the residual) on the edge domains."""
+    h, w = hw
+    hp2 = K.mg_geometry_q(h, w)[3]
+    chp = K.mg_geometry_t((w - 1) // 2, (h - 1) // 2, wp_min=hp2)[1]
+    rng = np.random.default_rng(h * w + 17)
+    g, u = _q_planes(rng, h, w), _q_planes(rng, h, w, 10.0)
+    ee, eo = _q_corr(rng, h, w)
+    gd, ud, eed, eod = (x.to(cuda) for x in (g, u, ee, eo))
+    for nu1 in (1, 2):
+        for guess, guess_d in ((None, None), (u, ud)):
+            for rows in (chp, None):
+                want = K.mg_down_q_plain(guess, g, nu1, h, w, rows)
+                got = K.mg_down_q(guess_d, gd, nu1, h, w, rows)
+                torch.cuda.synchronize()
+                assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), (nu1, rows)
+    for nu2 in range(5):
+        for with_residual in (False, True):
+            want = K.mg_up_q_plain(u, g, ee, eo, nu2, h, w, with_residual)
+            got = K.mg_up_q(ud, gd, eed, eod, nu2, h, w, with_residual)
+            torch.cuda.synchronize()
+            got, want = (got, want) if with_residual else ((got,), (want,))
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), nu2
+
+
+# (h, w, beta, slab): beta != 1 on either axis, even / odd h, a level of
+# one tile, e_rows past hp / 2, the exact-size entry (an odd width, the
+# slab padded to an even height), and the 8K "q" chain's three coarse levels
+UP_EDGE_CASES = [
+    (70, 200, (1.0, 2.0), "padded"),
+    (129, 257, (2.0, 1.0), "padded"),
+    (20, 30, (1.5, 1.5), "padded"),
+    (134, 99, (1.9375, 1.4375), "more e rows"),
+    (41, 57, (1.5, 0.5), "exact"),
+    (698, 949, (1.75, 1.25), "exact"),
+] + [(h, w, (bh, bw), "8K coarse") for h, w, bh, bw, _ in TM.q_coarse_levels(2798, 3798)]
+
+
+@pytest.mark.parametrize("case", UP_EDGE_CASES)
+def test_mg_up_edges(cuda, case):
+    h, w, (bh, bw), kind = case
+    if kind == "exact":
+        hp, wp, e_rows = h + h % 2, w, (h + h % 2) // 2
+    else:
+        _, hp, wp, e_rows = K.mg_geometry_t(h, w)
+        e_rows += 5 if kind == "more e rows" else 0
+    rng = np.random.default_rng(h * w + 19)
+    u = torch.zeros((3, hp, wp))
+    g = torch.zeros((3, hp, wp))
+    e = torch.zeros((3, e_rows, wp))
+    u[:, :h, :w] = torch.from_numpy(rng.normal(size=(3, h, w)).astype(np.float32) * 10)
+    g[:, :h, :w] = torch.from_numpy(rng.normal(size=(3, h, w)).astype(np.float32) * 50)
+    e[:, : (h - 1) // 2] = torch.from_numpy(
+        rng.normal(size=(3, (h - 1) // 2, wp)).astype(np.float32) * 5)
+    ud, gd, ed = u.to(cuda), g.to(cuda), e.to(cuda)
+    for nu2 in range(5):
+        got = K.mg_up(ud, gd, ed, nu2, h, w, bh, bw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), K.mg_up_plain(u, g, e, nu2, h, w, bh, bw)), nu2
+
+
 @pytest.mark.parametrize("mode", ["cycles", "tol", "coarse tol", "warm start"])
 def test_dense_solve_on_card_matches_cpu(cuda, mode):
     """solve_multigrid on a dense (3, 518, 526) RHS, the quarter chain end to
