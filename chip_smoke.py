@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--other OTHER_ROOT]
+    python3 chip_smoke.py [--other OTHER_ROOT] [--kernels]
 
 1. Prints the card (nvidia-smi name and power limit), builds the kernels
    from ``seamlesscloneoptimization_tpu_torch/csrc`` and prints the build
@@ -34,8 +34,9 @@
    ``mg_down`` (known-zero and given guess) and ``mg_up`` at the DD coarse
    solve's two fused levels (1398x1898 and 698x948, betas != 1), each form
    its own kernels-line entry (``mg_down_exact``, ``mg_up_exact``); and
-   ``mg_up`` / ``mg_down`` at each of the 8K ``"q"`` chain's three fused
-   coarse levels (``coarse_levels``, each with its bound). Times kernel,
+   ``mg_up`` / ``mg_down`` and the transfers ``mg_restrict_t`` /
+   ``mg_prolong_t`` at each of the 8K ``"q"`` chain's three fused coarse
+   levels (``coarse_levels``, each with its bound). Times kernel,
    twin and, where one PyTorch call computes the same function, that call
    (``library_ms``; the port never calls it), each launch cold in L2 with
    the card spinning while the host issues it (so the time is the
@@ -138,6 +139,10 @@ compared; and, when every pair's outputs were equal, each path of
 ``COMPARE_PATHS`` serves its frames in turns with the two kernel sets
 (ms/frame, and from a profile the kernel busy time and idle share),
 printed as one JSON line (``frames_vs_other``) before the kernels line.
+``--kernels`` stops after step 2 and prints the rows measured so far as
+one JSON line (``kernels_only``, no launch counts, no result line): with
+``--other`` pointing at a copy of the kernels with phases cut out, the
+quick way to a kernel's cost split.
 
 Prints the kernel table as one JSON line (one entry per kernel; the
 ``*_interleaved`` entries are the same kernel on the single-shot path's
@@ -203,11 +208,15 @@ LOOP_PROFILE = {"mg_ud_q": ("mg_q 8K tolerance", "level_q_kernel<true, true"),
                 "mg_down_q": ("mg_q 8K tolerance", "level_q_kernel<false, true"),
                 "mg_up_q": ("mg_q 8K mg_cycles=4", "level_q_kernel<true, false"),
                 "mg_up": ("mg_q 8K tolerance", "mg_up_kernel"),
-                "mg_down": ("mg_q 8K tolerance", "mg_down_kernel")}
+                "mg_down": ("mg_q 8K tolerance", "mg_down_kernel"),
+                "preprocess_rhs_q": ("mg_q 8K tolerance", "preprocess_rhs_q_kernel"),
+                "mg_restrict_t": ("mg_q 8K tolerance", "mg_restrict_t_kernel"),
+                "mg_prolong_t": ("mg_q 8K tolerance", "mg_prolong_t_kernel")}
 # --other: the kernels built from the other checkout (the level kernels and
 # every source that includes their headers), the turns, and the serve paths
 # that run them
-OTHER_KERNELS = ("mg_down_q", "mg_up_q", "mg_ud_q", "mg_up", "mg_down", "rb_sweeps_tile")
+OTHER_KERNELS = ("mg_down_q", "mg_up_q", "mg_ud_q", "mg_up", "mg_down", "rb_sweeps_tile",
+                 "preprocess_rhs_q")
 TURNS = ("other", "this", "this", "other")
 COMPARE_PATHS = ("mg_t", "mg_t_fixed", "mg_t_headline", "mg_q", "mg_q_fixed", "mg_q_headline",
                  "mg_q_coarse", "mg_q_coarse_headline", "tiled_dd", "tiled_dd_fixed",
@@ -606,11 +615,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
+    args = sys.argv[1:]
+    kernels_only = "--kernels" in args
+    args = [a for a in args if a != "--kernels"]
     other_root = None
-    if len(sys.argv) == 3 and sys.argv[1] == "--other":
-        other_root = Path(sys.argv[2]).resolve()
-    elif len(sys.argv) > 1:
-        print("usage: python3 chip_smoke.py [--other OTHER_ROOT]", file=sys.stderr)
+    if len(args) == 2 and args[0] == "--other":
+        other_root = Path(args[1]).resolve()
+    elif args:
+        print("usage: python3 chip_smoke.py [--other OTHER_ROOT] [--kernels]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
@@ -1010,7 +1022,7 @@ def main() -> int:
         shape=f"u, g ({c},{hp8},{wp8}), nu1=1 -> u, rh ({c},{hp28},{wp8})",
         zero_guess_ms=time_ms(lambda: K.mg_down(None, g8, 1, h8, w8, 1.0, 1.0, hp28)),
         coarse_ms=time_ms(lambda: K.mg_down(None, rc8, 1, wc8, hc8, bw1, bh1, cgeom8[3])),
-        coarse_shape=lvl)
+        coarse_shape=lvl, **vs_other(lambda: K.mg_down(u8, g8, 1, h8, w8, 1.0, 1.0, hp28)))
     row("mg_up", 4 * c * (3 * hp8 * wp8 + hc8 * wp8), c * h8 * w8 * 12,
         time_ms(lambda: K.mg_up(u8, g8, e8, 2, h8, w8)),
         time_ms(lambda: K.mg_up_plain(u8, g8, e8, 2, h8, w8)),
@@ -1038,7 +1050,7 @@ def main() -> int:
     coarse_q = TM.q_coarse_levels(h8, w8)
     if len(coarse_q) != MG_LEVELS["mg_q"]:
         raise AssertionError(f"the 8K 'q' chain has {len(coarse_q)} fused coarse levels")
-    up_levels, down_levels = [], []
+    up_levels, down_levels, restrict_levels, prolong_levels = [], [], [], []
     for lh, lw, bh_l, bw_l, (_, hp_c, wp_c, hp2_c) in coarse_q:
         g_c = torch.zeros((c, hp_c, wp_c), device=dev)
         u_c = torch.zeros((c, hp_c, wp_c), device=dev)
@@ -1066,14 +1078,33 @@ def main() -> int:
                                 bound_ms=bound(4 * c * (2 * hp_c * wp_c + hp2_c * wp_c),
                                                c * lh * lw * 11 + c * hc_l * lw * 5)[0],
                                 **vs_other(down)))
-        del g_c, u_c, e_c
-    for name, lv in (("mg_up", up_levels), ("mg_down", down_levels)):
+        # the level's transfers as vcycle_t runs them: rh -> the transposed
+        # child's RHS, and the child's correction back along w
+        wc_l = (lw - 1) // 2
+        chp = K.mg_geometry_t(wc_l, hc_l, wp_min=hp2_c)[1]
+        rh_c = down()[1]
+        rc_c = K.mg_restrict_t(rh_c, lh, lw, bw_l, chp)
+        require_equal(f"mg_restrict_t 8K coarse {shape}", rc_c,
+                      K.mg_restrict_t_plain(rh_c, lh, lw, bw_l, chp))
+        e_l = K.mg_prolong_t(rc_c, lw, bw_l, hp2_c, wp_c)
+        require_equal(f"mg_prolong_t 8K coarse {shape}", e_l,
+                      K.mg_prolong_t_plain(rc_c, lw, bw_l, hp2_c, wp_c))
+        restrict_levels.append(dict(shape=shape, ms=time_ms(
+            lambda rh_c=rh_c, a_l=(lh, lw, bw_l, chp): K.mg_restrict_t(rh_c, *a_l)),
+            bound_ms=bound(4 * c * (hc_l * wp_c + chp * hp2_c), 3 * c * hc_l * wc_l)[0]))
+        prolong_levels.append(dict(shape=shape, ms=time_ms(
+            lambda rc_c=rc_c, a_l=(lw, bw_l, hp2_c, wp_c): K.mg_prolong_t(rc_c, *a_l)),
+            bound_ms=bound(4 * c * (wc_l * hp2_c + hp2_c * wp_c), 2 * c * hp2_c * lw)[0]))
+        del g_c, u_c, e_c, rh_c, rc_c, e_l
+    for name, lv in (("mg_up", up_levels), ("mg_down", down_levels),
+                     ("mg_restrict_t", restrict_levels), ("mg_prolong_t", prolong_levels)):
         rows[name].update(coarse_levels=lv, coarse_bound_ms=lv[0]["bound_ms"],
                           coarse_sum_ms=sum(x["ms"] for x in lv),
                           coarse_sum_bound_ms=sum(x["bound_ms"] for x in lv))
         print(f"{name} at the 8K 'q' coarse levels ({card}): " + "; ".join(
-            f"{x['shape']} {x['ms']:.5f} ms cold, {x['b2b_ms']:.5f} back to back, bound "
-            f"{x['bound_ms']:.5f}" + (f", other {x['other_ms']:.5f} / {x['other_b2b_ms']:.5f}"
+            f"{x['shape']} {x['ms']:.5f} ms cold, "
+            + (f"{x['b2b_ms']:.5f} back to back, " if "b2b_ms" in x else "")
+            + f"bound {x['bound_ms']:.5f}" + (f", other {x['other_ms']:.5f} / {x['other_b2b_ms']:.5f}"
                                       if "other_ms" in x else "") for x in lv))
 
     # -- 2d. the quarter-plane kernels, at the 8K frame's quarter planes -------
@@ -1092,7 +1123,8 @@ def main() -> int:
     row("preprocess_rhs_q", 2 * c * bh8 * bw8 + bh8 * bw8 + 4 * qplanes, 30 * c * bh8 * bw8,
         time_ms(lambda: K.preprocess_rhs_q(dest8, patch8, me8, qhw8)),
         time_ms(lambda: K.preprocess_rhs_q_plain(dest8, patch8, me8, qhw8)),
-        shape=f"u8 ({c},{bh8},{bw8}) -> {qshape}")
+        shape=f"u8 ({c},{bh8},{bw8}) -> {qshape}",
+        **vs_other(lambda: K.preprocess_rhs_q(dest8, patch8, me8, qhw8)))
     uq0, rcq0 = K.mg_down_q(None, gq8, 1, h8, w8, chp8)
     for got, want, what in zip((uq0, rcq0), K.mg_down_q_plain(None, gq8, 1, h8, w8, chp8),
                                ("u", "rc_t")):
@@ -1350,6 +1382,9 @@ def main() -> int:
             lambda: K.mg_up(lvl2[2], lvl2[1], lvl2[3], 2, *lvl2[4:])),
         **vs_other(lambda: K.mg_up(u_l, g_l, e_l, 2, lh, lw, bh_l, bw_l)))
     del exact, lvl2, g_l, u_l, e_l, flush
+    if kernels_only:
+        print(json.dumps({"kernels_only": list(rows.values())}))
+        return 0
 
     # -- 3. every path through the entry points ---------------------------------
     path_launches = {}
@@ -1983,11 +2018,12 @@ def main() -> int:
         rows[name].update(loop_ms=us / n / 1e3 if n else None, loop_launches_per_frame=n,
                           loop_profile=label)
         # per coarse level, by launch order: a cycle descends levels 1, 2,
-        # 3 (mg_down) and ascends 3, 2, 1 (mg_up)
+        # 3 (mg_down, mg_restrict_t) and ascends 3, 2, 1 (mg_prolong_t, mg_up)
         times = [t for k, t in seq if kernel in k]
         levels = rows[name].get("coarse_levels", [])
         if levels and times and len(times) % len(levels) == 0:
-            order = range(len(levels)) if name == "mg_down" else range(len(levels))[::-1]
+            descent = name in ("mg_down", "mg_restrict_t")
+            order = range(len(levels)) if descent else range(len(levels))[::-1]
             for lv, i in zip(levels, order):
                 lv["loop_ms"] = sum(times[i :: len(levels)]) / len(times[i :: len(levels)]) / 1e3
             print(f"{name} in the loop ({label}, {card}), by coarse level: " + "; ".join(

@@ -266,11 +266,29 @@ def _level_slab(rng, h, w, hp, wp, scale=50.0):
     return torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("th", [None, 16])
-@pytest.mark.parametrize("hw,beta", MG_CASES)
-def test_mg_down_matches_plain(cuda, hw, beta, th):
+# (hw, beta, slab): every MG_CASES level on its padded slab (th 128 and
+# 16), exact-size slabs (an odd width, the height padded to even, h = 32 k +
+# 2 where the even-h edge row reads two rows below a tile, rh_rows past hp
+# / 2) and the 8K "q" chain's three coarse levels on their slabs
+DOWN_CASES = [(hw, beta, th) for th in (None, 16) for hw, beta in MG_CASES] + [
+    ((41, 57), (1.5, 0.5), "exact"),
+    ((34, 71), (1.9375, 1.4375), "exact"),
+    ((698, 949), (1.75, 1.25), "exact"),
+    ((1398, 1898), (1.5, 1.5), "exact + 3"),
+] + [((h, w), (bh, bw), "8K coarse") for h, w, bh, bw, _ in TM.q_coarse_levels(2798, 3798)]
+
+
+@pytest.mark.parametrize("hw,beta,slab", DOWN_CASES)
+def test_mg_down_matches_plain(cuda, hw, beta, slab):
     (h, w), (bh, bw) = hw, beta
-    _, hp, wp, hp2 = K.mg_geometry_t(h, w, th=th)
+    if slab in ("exact", "exact + 3"):
+        hp, wp = h + h % 2, w
+        hp2 = hp // 2 + (3 if slab == "exact + 3" else 0)
+    elif slab == "8K coarse":
+        hp, wp, hp2 = next(geom[1:] for lh, lw, *_, geom in TM.q_coarse_levels(2798, 3798)
+                           if (lh, lw) == (h, w))
+    else:
+        _, hp, wp, hp2 = K.mg_geometry_t(h, w, th=slab)
     rng = np.random.default_rng(h * w)
     g = _level_slab(rng, h, w, hp, wp)
     u = _level_slab(rng, h, w, hp, wp, 10.0)
@@ -434,27 +452,35 @@ def test_mg_q_level_kernels_match_plain(cuda, hw):
                                                                                     wq2)))
 
 
-@pytest.mark.parametrize("hw", [(3, 3), (40, 57), (131, 260)])
+@pytest.mark.parametrize("hw", [(3, 3), (40, 57), (131, 260), (37, 4 * 37 + 1),
+                                (23, 16 * 9 + 3)])
 @pytest.mark.parametrize("mode", [(1, "opencv"), (2, "opencv"), (2, "norm"), (3, "opencv")])
 def test_preprocess_rhs_q_matches_plain(cuda, hw, mode):
+    """The destination a view at byte offsets 0 .. 15 of a wider image on the
+    card, planar and interleaved; MONOCHROME's gray patch a stride-0 view."""
     flags, rule = mode
     h, w = hw
     rng = np.random.default_rng(h * w + 2)
-    img = torch.from_numpy(_u8(rng, (h + 4, w + 6, 3)))
-    dest = img[2 : 2 + h, 3 : 3 + w, :].permute(2, 0, 1)
+    img = torch.from_numpy(_u8(rng, (h + 4, w + 22, 3)))
+    img_d = {"interleaved": img.to(cuda), "planar": img.permute(2, 0, 1).contiguous().to(cuda)}
     patch = torch.from_numpy(_u8(rng, (3, h, w)))
     kflags = flags
     if flags == 3:
         patch = patch[0][None].expand(3, h, w)
         kflags = 1
+    patch_d = patch.to(cuda) if flags != 3 else patch[0].to(cuda)[None].expand(3, h, w)
     me = torch.from_numpy((rng.random((h, w)) < 0.7).astype(np.uint8))
     _, hq, wq2, _ = K.mg_geometry_q(max(h - 2, 1), max(w - 2, 1))
-    for out_hw in ((2 * hq, 2 * wq2), (h + (h % 2), w + 130 + (w % 2))):
-        want = K.preprocess_rhs_q_plain(dest, patch, me, out_hw, kflags, rule)
-        got = K.preprocess_rhs_q(dest.to(cuda), patch.to(cuda), me.to(cuda), out_hw, kflags,
-                                 rule)
-        torch.cuda.synchronize()
-        assert torch.equal(got.cpu(), want)
+    for left in range(16):
+        dest = img[2 : 2 + h, left : left + w, :].permute(2, 0, 1)
+        for layout, x in img_d.items():
+            dest_d = (x[2 : 2 + h, left : left + w, :].permute(2, 0, 1)
+                      if layout == "interleaved" else x[:, 2 : 2 + h, left : left + w])
+            for out_hw in ((2 * hq, 2 * wq2), (h + (h % 2), w + 130 + (w % 2))):
+                want = K.preprocess_rhs_q_plain(dest, patch, me, out_hw, kflags, rule)
+                got = K.preprocess_rhs_q(dest_d, patch_d, me.to(cuda), out_hw, kflags, rule)
+                torch.cuda.synchronize()
+                assert torch.equal(got.cpu(), want), (left, layout, out_hw)
 
 
 @pytest.mark.parametrize("planar", [True, False])
