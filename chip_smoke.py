@@ -40,10 +40,10 @@
    twin and, where one PyTorch call computes the same function, that call
    (``library_ms``; the port never calls it), each launch cold in L2 with
    the card spinning while the host issues it (so the time is the
-   device's); the redesigned level kernels also back to back (``b2b_ms``)
-   and, from the 8K profiles, in the loop (``loop_ms``: device time per
-   launch in the served frame, per coarse level by launch order); and one
-   GEMM of each chain.
+   device's); the redesigned kernels also back to back (``b2b_ms``) and,
+   from the profiles of the 8K ``"q"`` frame and of the pair chain, in
+   the loop (``loop_ms``: device time per launch in the served frame, per
+   coarse level by launch order); and one GEMM of each chain.
 3. Drives each path through the entry points with the launch counters set
    to 0 just before and read just after, and checks every kernel's
    per-frame count (``PATHS``), that nothing outside the ROI interior
@@ -136,9 +136,13 @@ this checkout's (other, this, this, other): each kernel timed against
 the other also gets ``other_ms`` / ``other_b2b_ms`` and whether the two
 outputs are equal (``other_output_equal``); the SASS of each pair is
 compared; and, when every pair's outputs were equal, each path of
-``COMPARE_PATHS`` serves its frames in turns with the two kernel sets
-(ms/frame, and from a profile the kernel busy time and idle share),
-printed as one JSON line (``frames_vs_other``) before the kernels line.
+``COMPARE_PATHS`` (the headline DST frames, which run preprocess_rhs_t,
+and the multigrid and DD frames) serves its frames in turns with the two
+kernel sets (ms/frame, and from a profile the kernel busy time and idle
+share), printed as one JSON line (``frames_vs_other``) before the
+kernels line; the second per_axis strip is keyed ``per_axis (<label>)``.
+An in-place kernel's outputs are compared on fresh copies of its
+destination.
 ``--kernels`` stops after step 2 and prints the rows measured so far as
 one JSON line (``kernels_only``, no launch counts, no result line): with
 ``--other`` pointing at a copy of the kernels with phases cut out, the
@@ -204,7 +208,10 @@ RB_TILED_HALO = 4  # solve_redblack_tiled's default: 2 sweeps an exchange
 
 # kernel -> (the profile that runs it on the main path, its kernel's name):
 # the kernels line's in-the-loop time per launch
-LOOP_PROFILE = {"mg_ud_q": ("mg_q 8K tolerance", "level_q_kernel<true, true"),
+LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
+                "preprocess_rhs_t": ("pair", "preprocess_rhs_t_kernel"),
+                "clamp_cast_paste_q": ("mg_q 8K tolerance", "clamp_cast_paste_q_kernel"),
+                "mg_ud_q": ("mg_q 8K tolerance", "level_q_kernel<true, true"),
                 "mg_down_q": ("mg_q 8K tolerance", "level_q_kernel<false, true"),
                 "mg_up_q": ("mg_q 8K mg_cycles=4", "level_q_kernel<true, false"),
                 "mg_up": ("mg_q 8K tolerance", "mg_up_kernel"),
@@ -216,11 +223,11 @@ LOOP_PROFILE = {"mg_ud_q": ("mg_q 8K tolerance", "level_q_kernel<true, true"),
 # every source that includes their headers), the turns, and the serve paths
 # that run them
 OTHER_KERNELS = ("mg_down_q", "mg_up_q", "mg_ud_q", "mg_up", "mg_down", "rb_sweeps_tile",
-                 "preprocess_rhs_q")
+                 "preprocess_rhs_q", "preprocess_rhs_t", "clamp_cast_paste_q")
 TURNS = ("other", "this", "this", "other")
-COMPARE_PATHS = ("mg_t", "mg_t_fixed", "mg_t_headline", "mg_q", "mg_q_fixed", "mg_q_headline",
-                 "mg_q_coarse", "mg_q_coarse_headline", "tiled_dd", "tiled_dd_fixed",
-                 "tiled_dd_headline", "mg_padded_false")
+COMPARE_PATHS = ("pair", "unfolded", "per_axis", "mg_t", "mg_t_fixed", "mg_t_headline", "mg_q",
+                 "mg_q_fixed", "mg_q_headline", "mg_q_coarse", "mg_q_coarse_headline",
+                 "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline", "mg_padded_false")
 
 
 def _per_frame(**counts):
@@ -760,10 +767,12 @@ def main() -> int:
         out = fn()
         return out if isinstance(out, tuple) else (out,)
 
-    def vs_other(fn) -> dict:
+    def vs_other(fn, result=None) -> dict:
         """The kernel back to back; with --other, also the other checkout's
         kernel, cold and back to back, in turns, and whether the two
-        outputs are equal (each side's from ``poisoned``)."""
+        outputs are equal (each side's from ``poisoned``, or the tuple
+        ``result()`` returns: an in-place kernel's launch into a fresh copy
+        of its destination)."""
         out = {"b2b_ms": b2b_ms(fn)}
         if other is None:
             return out
@@ -771,7 +780,7 @@ def main() -> int:
         for name in TURNS:
             with side(name):
                 turns[name].append((time_ms(fn), b2b_ms(fn)))
-                outs.setdefault(name, poisoned(fn))
+                outs.setdefault(name, poisoned(fn) if result is None else result())
         a, b = outs["other"], outs["this"]
         equal = all(torch.equal(x, y) for x, y in zip(a, b))
         other_agrees.append(equal)
@@ -829,7 +838,33 @@ def main() -> int:
     g_tp = K.preprocess_rhs_t(dest_roi, patch, me)
     row("preprocess_rhs_t", 2 * c * bh * bw + bh * bw + 4 * c * wp * hp, 30 * c * bh * bw,
         time_ms(lambda: K.preprocess_rhs_t(dest_roi, patch, me)),
-        time_ms(lambda: K.preprocess_rhs_t_plain(dest_roi, patch, me)))
+        time_ms(lambda: K.preprocess_rhs_t_plain(dest_roi, patch, me)),
+        shape=f"u8 ({c},{bh},{bw}) -> ({c},{wp},{hp})",
+        **vs_other(lambda: K.preprocess_rhs_t(dest_roi, patch, me)))
+    # the per-axis strips' ROIs (a grid of few tiles: one channel a block),
+    # views into the planar destination as on their serve frames
+    strips = []
+    gen_s = torch.Generator(dev).manual_seed(SEED + 3)
+    for sh_, sw_ in ((s_[0] - 2, s_[1] - 2) for s_ in STRIPS):
+        d_s = dst_p[:, 1 : 1 + sh_, 3 : 3 + sw_]
+        p_s = torch.randint(0, 256, (c, sh_, sw_), generator=gen_s, device=dev,
+                            dtype=torch.uint8)
+        m_s = K.erode3(torch.ones((sh_, sw_), dtype=torch.uint8, device=dev))
+        require_equal(f"preprocess_rhs_t strip {sh_}x{sw_}", K.preprocess_rhs_t(d_s, p_s, m_s),
+                      K.preprocess_rhs_t_plain(d_s, p_s, m_s))
+
+        def rhs_strip(d_s=d_s, p_s=p_s, m_s=m_s):
+            return K.preprocess_rhs_t(d_s, p_s, m_s)
+
+        strips.append(dict(shape=f"u8 ({c},{sh_},{sw_})", ms=time_ms(rhs_strip),
+                           bound_ms=bound(2 * c * sh_ * sw_ + sh_ * sw_
+                                          + 4 * c * ru128(sw_ - 2) * ru128(sh_ - 2),
+                                          30 * c * sh_ * sw_)[0], **vs_other(rhs_strip)))
+    rows["preprocess_rhs_t"]["strips"] = strips
+    print(f"preprocess_rhs_t on the per-axis strips ({card}): " + "; ".join(
+        f"{x['shape']} {x['ms']:.5f} ms cold, {x['b2b_ms']:.5f} back to back, bound "
+        f"{x['bound_ms']:.5f}" + (f", other {x['other_ms']:.5f} / {x['other_b2b_ms']:.5f}"
+                                  if "other_ms" in x else "") for x in strips))
 
     s1 = torch.matmul(g_tp, vh)
     require_equal("transpose", K.transpose(s1), K.transpose_plain(s1))
@@ -961,7 +996,12 @@ def main() -> int:
     src8_roi = torch.from_numpy(src8).to(dev)[y8 : y8 + bh8, x8 : x8 + bw8].permute(2, 0, 1)
     mask8_roi = torch.from_numpy(m8[y8 : y8 + bh8, x8 : x8 + bw8]).to(dev)
     patch8 = torch.where(mask8_roi[None] != 0, src8_roi, 0).to(torch.uint8)
-    me8 = K.erode3((mask8_roi != 0).to(torch.uint8))
+    m8_01 = (mask8_roi != 0).to(torch.uint8)
+    me8 = K.erode3(m8_01)
+    require_equal("erode3 8K", me8, K.erode3_plain(m8_01))
+    rows["erode3"].update(eight_k_shape=f"({bh8},{bw8})",
+                          eight_k_ms=time_ms(lambda: K.erode3(m8_01)),
+                          eight_k_bound_ms=bound(2 * bh8 * bw8, 12 * bh8 * bw8)[0])
     print(f"8K geometry: roi {bh8}x{bw8}, interior {h8}x{w8} ({h8 * w8 / 1e6:.1f} MP), "
           f"level-0 slab ({c}, {hp8}, {wp8}), rh rows {hp28}")
     gray8 = bgr_to_gray_u8(patch8).to(torch.uint8)[None].expand(c, bh8, bw8)
@@ -1225,17 +1265,23 @@ def main() -> int:
         time_ms(lambda: K.mg_prolong_tq(rcq0, w8, hp2q8, wq28)),
         time_ms(lambda: K.mg_prolong_tq_plain(rcq0, w8, hp2q8, wq28)),
         shape=f"({c},{chp8},{hq8}) -> 2x ({c},{hq8},{wq28})")
+    def paste_q(d_img, planar=True):
+        return K.clamp_cast_paste_q(uq_paste, d_img if planar else d_img.permute(2, 0, 1),
+                                    top8 + 1, left8 + 1, h8, w8)
+
     row("clamp_cast_paste_q", 5 * pts8, 2 * pts8,
-        time_ms(lambda: K.clamp_cast_paste_q(uq_paste, d_k, top8 + 1, left8 + 1, h8, w8)),
+        time_ms(lambda: paste_q(d_k)),
         time_ms(lambda: K.clamp_cast_paste_q_plain(uq_paste, d_p, top8 + 1, left8 + 1, h8,
                                                    w8)),
-        shape=f"{qshape} -> u8 ({c},{h8},{w8}) planar")
+        shape=f"{qshape} -> u8 ({c},{h8},{w8}) planar",
+        **vs_other(lambda: paste_q(d_k), lambda: (paste_q(dst8_p.clone()),)))
     row("clamp_cast_paste_q_interleaved", 5 * pts8, 2 * pts8,
-        time_ms(lambda: K.clamp_cast_paste_q(uq_paste, i_k.permute(2, 0, 1), top8 + 1,
-                                             left8 + 1, h8, w8)),
+        time_ms(lambda: paste_q(i_k, False)),
         time_ms(lambda: K.clamp_cast_paste_q_plain(uq_paste, i_p.permute(2, 0, 1), top8 + 1,
                                                    left8 + 1, h8, w8)),
-        shape=f"{qshape} -> u8 ({c},{h8},{w8}) interleaved")
+        shape=f"{qshape} -> u8 ({c},{h8},{w8}) interleaved",
+        **vs_other(lambda: paste_q(i_k, False),
+                   lambda: (paste_q(torch.from_numpy(dst8).to(dev), False),)))
     del uq0, rcq0, e_q, uq_paste, d_k, d_p, i_k, i_p, gray8, rh_q, rct_s, split, xd8, xq8
 
     # -- 2e. slice 4a: the exact-size preprocess_rhs_p (#26's own role) and
@@ -1388,6 +1434,7 @@ def main() -> int:
 
     # -- 3. every path through the entry points ---------------------------------
     path_launches = {}
+    loop_profiles = {}  # the in-the-loop times of the kernels line (LOOP_PROFILE)
     cpu_diffs = {}
     run_outputs = {}
     frames_vs_other = {}
@@ -1409,7 +1456,7 @@ def main() -> int:
                                       kw, frames=3, brief=True)
             turns[name].append(dict(ms_per_frame=ms, busy_us=prof["busy_us"],
                                     span_us=prof["span_us"], idle=prof["idle"]))
-        frames_vs_other[path] = turns
+        frames_vs_other[f"{path} ({label})" if path in frames_vs_other else path] = turns
         print(f"frames {path} ({label}, {card}), other -> this: " + "; ".join(
             f"{k} {[r[k] for r in turns['other']]} -> {[r[k] for r in turns['this']]}"
             for k in ("ms_per_frame", "busy_us", "idle")))
@@ -1500,7 +1547,7 @@ def main() -> int:
         for _ in range(3):
             n = profile_frames(label, clone_pipeline, dict(
                 prof_kw, solver_kwargs={"precision": "high", "folded": folded},
-                bases=bases))["gemms"]
+                bases=bases), into=loop_profiles)["gemms"]
             if n == int(n):
                 break
         return n
@@ -1610,14 +1657,13 @@ def main() -> int:
     print(f"8K serve ({card}), quarter-plane multigrid: tolerance mode {q8_ms:.4f} ms/frame "
           f"({q_serve_cycles / (MG_LOOPS + 1):g} cycles a frame), mg_cycles=4 "
           f"{q8_fixed_ms:.4f} ms/frame; the 't' chain {mg8_ms:.4f} and {mg8_fixed_ms:.4f}")
-    q_profiles = {}  # the in-the-loop times of the kernels line (LOOP_PROFILE)
     for label, cyc in (("mg_q 8K tolerance", None), ("mg_q 8K mg_cycles=4", 4)):
         kw = CloneConfig(solver="multigrid", mg_cycles=cyc).solver_kwargs()
         profile_frames(label, clone_pipeline, dict(
             src=torch.from_numpy(src8).to(dev), dst=dst8_p.clone(),
             mask=torch.from_numpy(m8).to(dev), bbox_xy=(x8, y8), left_top=(left8, top8),
             bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver=TM.solve_multigrid,
-            bases={}, solver_name="multigrid", solver_kwargs=kw), frames=3, into=q_profiles)
+            bases={}, solver_name="multigrid", solver_kwargs=kw), frames=3, into=loop_profiles)
     _, q_head_ms = drive("mg_q_headline", CloneConfig(solver="multigrid"), src, mask,
                          MG_LOOPS, f"{SRC_HW[1]}x{SRC_HW[0]}", cpu="run", solver="multigrid")
     q_head_cycles = path_launches["mg_q_headline"][0]["mg_ud_q"]
@@ -2012,7 +2058,7 @@ def main() -> int:
         rows[name]["launches_by_path"] = {p: path_launches[p][0][base] for p in (
             "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline", "mg_padded_false")}
     for name, (label, kernel) in LOOP_PROFILE.items():
-        per_kernel, per_frame, seq = q_profiles.get(label, ({}, {}, []))
+        per_kernel, per_frame, seq = loop_profiles.get(label, ({}, {}, []))
         n = sum(v for k, v in per_frame.items() if kernel in k)
         us = sum(t for k, t in per_kernel.items() if kernel in k)
         rows[name].update(loop_ms=us / n / 1e3 if n else None, loop_launches_per_frame=n,

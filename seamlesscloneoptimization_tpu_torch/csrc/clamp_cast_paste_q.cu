@@ -10,15 +10,36 @@
 //
 // out[c, top1 + r, left1 + j] = (u8)(int)clamp(uq[c, 2 (r & 1) + (j & 1),
 // r >> 1, j >> 1], 0, 255) for r < h2, j < w2: the dense interleave, then
-// clamp, then truncate (OpenCV's cast). The destination is given by its
-// element strides (clamp_cast_paste's contract), so one kernel serves the
-// planar serve buffer and an interleaved image.
+// clamp, then truncate (OpenCV's cast). No byte outside that rectangle is
+// written. The destination is given by its element strides
+// (clamp_cast_paste's contract), so one kernel serves the planar serve
+// buffer and an interleaved image.
 //
 // Bound on this card: bytes. One f32 read and one u8 write per interior
 // pixel (159 MB at the 8K interior 3 x 2798 x 3798; 0.048 ms at
-// 3.35 TB/s). Design: one thread per pixel along the row; a warp reads two
-// runs of 16 contiguous floats (the even and odd column planes) and writes
-// 32 contiguous bytes (planar) or a 3-byte stride (interleaved).
+// 3.35 TB/s). The first design (one pixel a thread: a 4-byte load and a
+// byte store, 64-bit index arithmetic per pixel) took 0.124 ms. Design: a
+// warp owns 512 dense columns of one row, a thread kParts 8-byte chunks of
+// it, 256 columns apart, so each of its float4 loads (4 quarter columns of
+// the row's even and of its odd plane) is one 512-byte run across the
+// warp. The thread interleaves, clamps and truncates in registers and packs
+// the bytes into two 32-bit words a chunk. A planar row (element stride 1)
+// starts at any byte offset e = address mod 8, so the thread of chunk n
+// writes the aligned 8-byte word that holds the last e bytes of chunk n - 1
+// and the first 8 - e of its own: it takes its neighbour lane's words with
+// a shuffle and joins the two with a funnel shift (the mirror image of
+// rhs_wide.cuh's read). Words that are not whole inside [left1, left1 + w2)
+// (the row's two ends, and the one word at each end of a warp's run whose
+// other part belongs to the next warp) are written in aligned pieces of 4,
+// 2 and 1 bytes, so no byte outside the rectangle is touched. An
+// interleaved destination (element stride 3) keeps byte stores, in the
+// same kernel, a pixel a lane (each byte fetched from its chunk's lane by
+// a shuffle), so a warp's store covers 96 contiguous bytes; the channel is
+// the grid's fastest index, so the three blocks that write a pixel's
+// bytes run together and L2 holds each 32-byte sector whole before it is
+// written back. It takes 0.064 ms at 8K planar on an H100 80GB HBM3 at
+// 700 W and 0.077 interleaved (chip_smoke.py, PERF.md section 6; 0.124
+// and 0.155 before).
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // returns the launch's cudaError_t.
@@ -28,19 +49,145 @@
 
 namespace {
 
-__global__ void clamp_cast_paste_q_kernel(const float* __restrict__ uq, int hq, int wq2,
-                                          uint8_t* __restrict__ dst, long long sc,
-                                          long long sh, long long sw, int top1,
-                                          int left1, int h2, int w2) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  const int c = blockIdx.z;
-  if (j >= w2 || r >= h2) return;
-  const int p = ((r & 1) << 1) | (j & 1);
-  float v = uq[(((size_t)c * 4 + p) * hq + (r >> 1)) * wq2 + (j >> 1)];
-  v = fminf(fmaxf(v, 0.0f), 255.0f);
-  dst[c * sc + (long long)(top1 + r) * sh + (long long)(left1 + j) * sw] =
-      static_cast<uint8_t>(static_cast<int>(v));
+constexpr int kParts = 2;                // 8-byte chunks a thread
+constexpr int kSpan = 32 * 8 * kParts;   // dense columns a warp
+constexpr int kRows = 8;                 // rows a block, one warp each
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ uint32_t cast_byte(float v) {
+  return static_cast<uint32_t>(static_cast<int>(fminf(fmaxf(v, 0.0f), 255.0f)));
+}
+
+// Four pixels -> the bytes of one 32-bit word, the first in the low byte.
+__device__ __forceinline__ uint32_t pack4(float a, float b, float c, float d) {
+  return cast_byte(a) | (cast_byte(b) << 8) | (cast_byte(c) << 16) | (cast_byte(d) << 24);
+}
+
+// Four quarter columns m0 .. m0 + 3 of a plane row (0 past `need`).
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int m0, int need) {
+  if (kVec) {
+    if (m0 >= need) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return __ldg(reinterpret_cast<const float4*>(row + m0));
+  }
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = m0 + k < need ? __ldg(row + m0 + k) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The 8 bytes that start `8 - e` bytes into the 16 bytes p0 p1 q0 q1 (e in
+// 0 .. 7): the aligned word whose first e bytes end chunk p and whose last
+// 8 - e begin chunk q.
+__device__ __forceinline__ uint2 join(uint32_t p0, uint32_t p1, uint32_t q0, uint32_t q1,
+                                      int e) {
+  const int sb = 8 - e, wq = sb >> 2, bs = 8 * (sb & 3);
+  const uint32_t x0 = wq == 0 ? p0 : wq == 1 ? p1 : q0;
+  const uint32_t x1 = wq == 0 ? p1 : wq == 1 ? q0 : q1;
+  const uint32_t x2 = wq == 0 ? q0 : q1;  // read only when bs != 0 (wq <= 1)
+  return make_uint2(__funnelshift_r(x0, x1, bs), __funnelshift_r(x1, x2, bs));
+}
+
+// Bytes [lo, hi) (0 <= lo < hi <= 8) of the 8-byte word v at the 8-aligned
+// address a, in aligned pieces of 4, 2 and 1 bytes.
+__device__ __forceinline__ void store_part(uint8_t* a, uint2 v, int lo, int hi) {
+  const unsigned long long x = v.x | (static_cast<unsigned long long>(v.y) << 32);
+  for (int o = lo; o < hi;) {
+    if ((o & 3) == 0 && o + 4 <= hi) {
+      *reinterpret_cast<uint32_t*>(a + o) = static_cast<uint32_t>(x >> (8 * o));
+      o += 4;
+    } else if ((o & 1) == 0 && o + 2 <= hi) {
+      *reinterpret_cast<uint16_t*>(a + o) = static_cast<uint16_t>(x >> (8 * o));
+      o += 2;
+    } else {
+      a[o] = static_cast<uint8_t>(x >> (8 * o));
+      o += 1;
+    }
+  }
+}
+
+// Row [lo, hi) of the aligned word that holds row bytes [j - e, j - e + 8)
+// (clipped to the row [0, w2)): one 8-byte store when it is whole.
+__device__ __forceinline__ void store_word(uint8_t* row, int j, int e, uint2 v, int lo,
+                                           int w2) {
+  const int at = j - e, hi = min(w2, at + 8);
+  lo = max(lo, 0);
+  if (lo >= hi) return;
+  if (lo == at && hi == at + 8)
+    *reinterpret_cast<uint2*>(row + at) = v;
+  else
+    store_part(row + at, v, lo - at, hi - at);
+}
+
+// Block (32, kRows): warp y writes dense row r = kRows blockIdx.z + y of
+// channel blockIdx.x, its dense columns [kSpan blockIdx.y, kSpan
+// (blockIdx.y + 1)); lane l owns the chunks n = 32 p + l (p < kParts),
+// columns j0 = kSpan blockIdx.y + 8 n. The channel is the grid's fastest
+// index, so the blocks that write the three bytes of an interleaved pixel
+// run together and each 32-byte sector is whole in L2 before it is written
+// back.
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kRows)
+clamp_cast_paste_q_kernel(const float* __restrict__ uq, int hq, int wq2,
+                          uint8_t* __restrict__ dst, long long sc, long long sh,
+                          long long sw, int top1, int left1, int h2, int w2) {
+  const int r = blockIdx.z * kRows + threadIdx.y;
+  if (r >= h2) return;  // the whole warp
+  const int lane = threadIdx.x, c = blockIdx.x;
+  const int span0 = kSpan * blockIdx.y;
+  const int need = (w2 + 1) >> 1;  // quarter columns that hold a pixel
+  const size_t plane = (size_t)hq * wq2;
+  const float* ev = uq + ((size_t)c * 4 + 2 * (r & 1)) * plane + (size_t)(r >> 1) * wq2;
+  const float* od = ev + plane;
+  uint32_t own[kParts][2];
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    const int m0 = (span0 >> 1) + 4 * (32 * p + lane);
+    const float4 a = load4<kVec>(ev, m0, need), b = load4<kVec>(od, m0, need);
+    own[p][0] = pack4(a.x, b.x, a.y, b.y);
+    own[p][1] = pack4(a.z, b.z, a.w, b.w);
+  }
+  if (sw != 1) {  // an interleaved destination: byte stores, a pixel a lane
+    uint8_t* row = dst + c * sc + (long long)(top1 + r) * sh + left1 * sw;
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) {
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        // pixel 256 p + 32 t + lane of the warp's run: byte lane % 8 of the
+        // chunk of lane 4 t + lane / 8
+        const int src = 4 * t + (lane >> 3), b = lane & 7;
+        const uint32_t w0 = __shfl_sync(kFull, own[p][0], src);
+        const uint32_t w1 = __shfl_sync(kFull, own[p][1], src);
+        const int j = span0 + 256 * p + 32 * t + lane;
+        if (j < w2) row[j * sw] = static_cast<uint8_t>((b < 4 ? w0 : w1) >> (8 * (b & 3)));
+      }
+    }
+    return;
+  }
+  uint8_t* row = dst + c * sc + (long long)(top1 + r) * sh + left1;
+  const int e = static_cast<int>(reinterpret_cast<uintptr_t>(row) & 7);
+  // the previous lane's words (lane 0: lane 31's, of the previous part)
+  uint32_t prev[kParts][2];
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    prev[p][0] = __shfl_sync(kFull, own[p][0], (lane + 31) & 31);
+    prev[p][1] = __shfl_sync(kFull, own[p][1], (lane + 31) & 31);
+  }
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    const int j0 = span0 + 8 * (32 * p + lane);
+    const bool first = lane == 0 && p == 0;  // the chunk before is another warp's
+    const int pb = p > 0 ? p - 1 : 0;  // constant: a register, selected by lane
+    const bool back = lane == 0 && p > 0;
+    const uint32_t q0 = back ? prev[pb][0] : prev[p][0];
+    const uint32_t q1 = back ? prev[pb][1] : prev[p][1];
+    store_word(row, j0, e, join(q0, q1, own[p][0], own[p][1], e), first ? j0 : j0 - e, w2);
+  }
+  if (lane == 31 && e != 0) {  // the last chunk's tail: the next warp's first word
+    const int j1 = span0 + kSpan;
+    store_word(row, j1, e, join(own[kParts - 1][0], own[kParts - 1][1], 0u, 0u, e),
+               j1 - e, min(w2, j1));
+  }
 }
 
 }  // namespace
@@ -52,10 +199,17 @@ extern "C" int clamp_cast_paste_q_launch(const void* uq, int c, int hq, int wq2,
                                          long long sw, int top1, int left1, int h2,
                                          int w2, void* stream) {
   if (c <= 0 || h2 <= 0 || w2 <= 0) return 0;
-  const dim3 block(128, 4);
-  const dim3 grid((w2 + 127) / 128, (h2 + 3) / 4, c);
-  clamp_cast_paste_q_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(uq), hq, wq2, static_cast<uint8_t*>(dst), sc, sh, sw,
-      top1, left1, h2, w2);
+  const dim3 block(32, kRows);
+  const dim3 grid(c, (w2 + kSpan - 1) / kSpan, (h2 + kRows - 1) / kRows);
+  const bool vec = wq2 % 4 == 0 && (reinterpret_cast<uintptr_t>(uq) & 15) == 0;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* u = static_cast<const float*>(uq);
+  auto* d = static_cast<uint8_t*>(dst);
+  if (vec)
+    clamp_cast_paste_q_kernel<true><<<grid, block, 0, st>>>(u, hq, wq2, d, sc, sh, sw, top1,
+                                                            left1, h2, w2);
+  else
+    clamp_cast_paste_q_kernel<false><<<grid, block, 0, st>>>(u, hq, wq2, d, sc, sh, sw, top1,
+                                                             left1, h2, w2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // rhs_wide.cuh: the Poisson right-hand side of a 2 x 4 patch of interior
 // pixels a thread, from u8 rows staged in shared memory as 32-bit words;
-// preprocess_rhs_q.cu's design (rhs_tile.cuh keeps the 32 x 32 tile of
-// preprocess_rhs_t and preprocess_rhs_p).
+// the design of preprocess_rhs_q.cu and, with one-array windows (Rows, at
+// the end), of preprocess_rhs_t.cu (rhs_tile.cuh keeps the 32 x 32 tile
+// of preprocess_rhs_p).
 //
 // The function is rhs_tile.cuh's: for the (h, w) ROI and its interior pixel
 // (y, x), gx/gy the forward differences of the destination d and the patch
@@ -241,6 +242,65 @@ __device__ __forceinline__ void rhs_patch_packed(const uint32_t (&D)[4][2],
     lap[i][1] = static_cast<float>(static_cast<int>(l24 & 0xffffu) - 1024);
     lap[i][3] = static_cast<float>(static_cast<int>(l24 >> 16) - 1024);
   }
+}
+
+// -- one array a window: preprocess_rhs_t.cu's staging ----------------------
+//
+// The transposed kernel stages each array into a window of its own (the
+// mask, then every channel's destination and patch): kR rows of kC 16-byte
+// chunks, each row starting `shift` bytes in, copied as stage_rows copies.
+
+template <int kR, int kC>
+struct __align__(16) Rows {
+  static constexpr int kRows = kR, kRowChunks = kC;
+  uint32_t w[kR][4 * kC];
+  uint8_t shift[kR];
+};
+
+// A window and the array it stages.
+template <class Win>
+struct Slot {
+  Win* win;
+  Src src;
+};
+
+// Start the copies of rows [0, kRows) (image rows r0 .., pixels from j0) of
+// the n arrays at(0) .. at(n - 1) (each a Slot<Win>), spread over the
+// block's nthr threads; the caller commits them as one group.
+template <class Win, class At>
+__device__ __forceinline__ void stage_arrays(const At& at, int n, int h, int w, int r0, int j0,
+                                             int tid, int nthr) {
+  constexpr int kR = Win::kRows, kC = Win::kRowChunks;
+  for (int i = tid; i < n * kR * kC; i += nthr) {
+    const int a = i / (kR * kC), rest = i % (kR * kC);
+    const int ry = rest / kC, k = rest % kC;
+    const int y = r0 + ry;
+    const Slot<Win> sl = at(a);
+    uint32_t* dst = &sl.win->w[ry][4 * k];
+    if (sl.src.sw == 1) {
+      const uint8_t* p = sl.src.base + y * sl.src.sh + j0;
+      const int sh = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+      const uint8_t* chunk = p - sh + 16 * k;
+      const bool ok = y < h && j0 - sh + 16 * k < w;
+      acp::copy16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(chunk), ok);
+      if (k == 0) sl.win->shift[ry] = static_cast<uint8_t>(sh);
+    } else {
+      for (int m = 0; m < 4; ++m)
+        dst[m] = y < h ? load_bytes(sl.src, y, j0 + 16 * k + 4 * m, w) : 0u;
+      if (k == 0) sl.win->shift[ry] = 0;
+    }
+  }
+}
+
+// row_words on a one-array window.
+template <int kR, int kC>
+__device__ __forceinline__ void row_words(const Rows<kR, kC>& s, int ry, int tx,
+                                          uint32_t (&v)[2]) {
+  const int shift = s.shift[ry];
+  const int wi = (shift >> 2) + tx, bs = 8 * (shift & 3);
+  const uint32_t w0 = s.w[ry][wi], w1 = s.w[ry][wi + 1], w2 = s.w[ry][wi + 2];
+  v[0] = __funnelshift_r(w0, w1, bs);
+  v[1] = __funnelshift_r(w1, w2, bs);
 }
 
 }  // namespace rhsw

@@ -46,26 +46,34 @@ def test_erode3_matches_plain(cuda, hw):
     assert torch.equal(got.cpu(), K.erode3_plain(m))
 
 
-@pytest.mark.parametrize("hw", [(3, 3), (5, 9), (40, 57), (131, 260)])
+@pytest.mark.parametrize("hw", [(3, 3), (5, 9), (40, 57), (131, 260), (37, 4 * 37 + 1),
+                                (23, 16 * 9 + 3), (1550, 2398)])
 @pytest.mark.parametrize("mode", [(1, "opencv"), (2, "opencv"), (2, "norm"), (3, "opencv")])
 def test_preprocess_rhs_t_matches_plain(cuda, hw, mode):
+    """The destination a view at byte offsets 0 .. 15 of a wider image on the
+    card, planar and interleaved (like run()); MONOCHROME's gray patch a
+    stride-0 view; the headline ROI (1550 x 2398) among the shapes. The
+    twin runs on the card's copies (integer-valued floats: exact)."""
     flags, rule = mode
     h, w = hw
     rng = np.random.default_rng(h * w)
-    # dest as a strided view into a larger interleaved image, like run()
-    img = torch.from_numpy(_u8(rng, (h + 4, w + 6, 3)))
-    dest = img[2 : 2 + h, 3 : 3 + w, :].permute(2, 0, 1)
-    patch = torch.from_numpy(_u8(rng, (3, h, w)))
+    img = torch.from_numpy(_u8(rng, (h + 4, w + 22, 3)))
+    img_d = {"interleaved": img.to(cuda), "planar": img.permute(2, 0, 1).contiguous().to(cuda)}
+    patch = torch.from_numpy(_u8(rng, (3, h, w))).to(cuda)
     kflags = flags
     if flags == 3:  # MONOCHROME: gray patch broadcast with a stride-0 view
         patch = patch[0][None].expand(3, h, w)
         kflags = 1
-    me = torch.from_numpy((rng.random((h, w)) < 0.7).astype(np.uint8))
-    want = K.preprocess_rhs_t_plain(dest, patch, me, kflags, rule)
-    got = K.preprocess_rhs_t(dest.to(cuda), patch.to(cuda), me.to(cuda), kflags, rule)
-    torch.cuda.synchronize()
-    # bit-exact, padding included (torch.empty output: every element written)
-    assert torch.equal(got.cpu(), want)
+    me = torch.from_numpy((rng.random((h, w)) < 0.7).astype(np.uint8)).to(cuda)
+    for left in range(16):
+        for layout, x in img_d.items():
+            dest = (x[2 : 2 + h, left : left + w, :].permute(2, 0, 1)
+                    if layout == "interleaved" else x[:, 2 : 2 + h, left : left + w])
+            want = K.preprocess_rhs_t_plain(dest, patch, me, kflags, rule)
+            got = K.preprocess_rhs_t(dest, patch, me, kflags, rule)
+            torch.cuda.synchronize()
+            # bit-exact, padding included (torch.empty output: every element written)
+            assert torch.equal(got, want), (left, layout)
 
 
 @pytest.mark.parametrize("ab", [(60, 90), (130, 61), (128, 256)])
@@ -485,22 +493,37 @@ def test_preprocess_rhs_q_matches_plain(cuda, hw, mode):
 
 @pytest.mark.parametrize("planar", [True, False])
 @pytest.mark.parametrize("off, hw", [((1, 1), (255, 256)), ((7, 127), (130, 259)),
-                                     ((55, 201), (200, 311))])
+                                     ((55, 201), (200, 311)), ((2, 0), (1, 1)),
+                                     ((0, 3), (77, 385))])
 def test_clamp_cast_paste_q_matches_plain(cuda, planar, off, hw):
+    """left1 at 16 consecutive offsets from each case's, odd and even h2 and
+    w2, values below 0, above 255 and just under an integer; the last
+    offset also from planes of an odd width (the kernel's scalar loads)."""
     top1, left1 = off
     h2, w2 = hw
     _, hq, wq2, _ = K.mg_geometry_q(h2, w2)
-    rng = np.random.default_rng(top1)
-    uq = torch.from_numpy(rng.normal(size=(3, 4, hq, wq2)).astype(np.float32) * 160 + 90)
-    base = _u8(rng, (3, 300, 520) if planar else (300, 520, 3))
-    want = torch.from_numpy(base.copy())
-    K.clamp_cast_paste_q_plain(uq, want if planar else want.permute(2, 0, 1), top1, left1,
-                               h2, w2)
-    got = torch.from_numpy(base.copy()).to(cuda)
-    K.clamp_cast_paste_q(uq.to(cuda), got if planar else got.permute(2, 0, 1), top1, left1,
-                         h2, w2)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
+    rng = np.random.default_rng(top1 + w2)
+    uq = rng.normal(size=(3, 4, hq, wq2)).astype(np.float32) * 160 + 90
+    special = np.array([254.9999, -0.0, 255.0, 255.5, -0.5, 0.9999, 1e9, -1e9], np.float32)
+    pick = rng.random(uq.shape) < 0.1
+    uq[pick] = rng.choice(special, int(pick.sum()))
+    need = (w2 + 1) // 2  # quarter columns that hold a pixel
+    uq_odd = np.zeros((3, 4, hq, need + 1 - need % 2), np.float32)
+    uq_odd[..., :need] = uq[..., :need]
+    uq_odd = torch.from_numpy(uq_odd)
+    uq = torch.from_numpy(uq)
+    base = _u8(rng, (3, 300, 560) if planar else (300, 560, 3))
+    for left in list(range(left1, left1 + 16)) + [-1]:
+        if left < 0:
+            left, uq = left1 + 15, uq_odd
+        want = torch.from_numpy(base.copy())
+        K.clamp_cast_paste_q_plain(uq, want if planar else want.permute(2, 0, 1), top1, left,
+                                   h2, w2)
+        got = torch.from_numpy(base.copy()).to(cuda)
+        K.clamp_cast_paste_q(uq.to(cuda), got if planar else got.permute(2, 0, 1), top1, left,
+                             h2, w2)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), left
 
 
 MG_Q_FIXED = _per_frame(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1, mg_down_q=1,
