@@ -207,8 +207,12 @@ RB_TILED_HALO = 4  # solve_redblack_tiled's default: 2 sweeps an exchange
 
 
 # kernel -> (the profile that runs it on the main path, its kernel's name):
-# the kernels line's in-the-loop time per launch
+# the kernels line's in-the-loop time per launch; "<kernel> <form>" puts a
+# second profile or template of the kernel under "<form>_loop_ms"
 LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
+                "erode3 pair": ("pair", "erode3_kernel"),
+                "transpose_pair": ("pair", "transpose_pair_kernel<false"),
+                "transpose_pair divide": ("pair", "transpose_pair_kernel<true"),
                 "preprocess_rhs_t": ("pair", "preprocess_rhs_t_kernel"),
                 "clamp_cast_paste_q": ("mg_q 8K tolerance", "clamp_cast_paste_q_kernel"),
                 "mg_ud_q": ("mg_q 8K tolerance", "level_q_kernel<true, true"),
@@ -223,7 +227,8 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
 # every source that includes their headers), the turns, and the serve paths
 # that run them
 OTHER_KERNELS = ("mg_down_q", "mg_up_q", "mg_ud_q", "mg_up", "mg_down", "rb_sweeps_tile",
-                 "preprocess_rhs_q", "preprocess_rhs_t", "clamp_cast_paste_q")
+                 "preprocess_rhs_q", "preprocess_rhs_t", "clamp_cast_paste_q", "erode3",
+                 "transpose_pair")
 TURNS = ("other", "this", "this", "other")
 COMPARE_PATHS = ("pair", "unfolded", "per_axis", "mg_t", "mg_t_fixed", "mg_t_headline", "mg_q",
                  "mg_q_fixed", "mg_q_headline", "mg_q_coarse", "mg_q_coarse_headline",
@@ -399,18 +404,26 @@ def build_other(other_root: Path):
 @contextlib.contextmanager
 def swapped(funcs: dict, q_tile: tuple[int, int]):
     """Launch ``funcs`` in place of this checkout's kernels of the same
-    names, with the per-tile residual maxima sized for ``q_tile``."""
+    names, with the per-tile residual maxima sized for ``q_tile``. Another
+    checkout's erode3 may read a {0,1} mask only (its pipeline cast the
+    mask first), so with it the pipeline casts the mask first too (two
+    torch ops a frame)."""
+    import torch
+
+    from seamlesscloneoptimization_tpu_torch.models import pipeline
     from seamlesscloneoptimization_tpu_torch.ops import _build
     from seamlesscloneoptimization_tpu_torch.ops import kernels as K
 
-    saved = {n: _build.kernel_function(n) for n in funcs}, K.Q_TILE
+    saved = {n: _build.kernel_function(n) for n in funcs}, K.Q_TILE, pipeline.erode3
     _build._functions.update(funcs)
     K.Q_TILE = q_tile
+    if "erode3" in funcs:
+        pipeline.erode3 = lambda m: K.erode3((m != 0).to(torch.uint8))
     try:
         yield
     finally:
         _build._functions.update(saved[0])
-        K.Q_TILE = saved[1]
+        K.Q_TILE, pipeline.erode3 = saved[1:]
 
 
 def sass(lib: Path) -> list[str] | None:
@@ -591,13 +604,15 @@ def profile_frames(label, clone_pipeline, kwargs, frames: int = 5,
             "mg_prolong_t", "preprocess_rhs_q", "level_q_kernel", "to_quarters",
             "from_quarters", "rb_sweeps", "postprocess_transposed")
     groups = {"gemm": 0.0, "port kernels": 0.0, "other": 0.0}
-    gemm_calls = 0
+    gemm_calls = other_calls = 0
     for k, t in per_kernel.items():
         is_gemm = any(g in k.lower() for g in ("gemm", "cutlass", "xmma"))
         g = "gemm" if is_gemm else "port kernels" if any(o in k for o in ours) else "other"
         groups[g] += t
         gemm_calls += calls[k] if is_gemm else 0
+        other_calls += calls[k] if g == "other" else 0
     result["gemms"] = gemm_calls / frames
+    result["torch_op_launches"] = other_calls / frames
     if into is not None:
         seq = sorted((ev.time_range.start, ev.name, ev.time_range.elapsed_us())
                      for ev in prof.events()
@@ -606,7 +621,8 @@ def profile_frames(label, clone_pipeline, kwargs, frames: int = 5,
                        [(name, us) for _, name, us in seq])
     print(f"profile {label} ({frames} frames, profiler on): device span {span_us:.1f} "
           f"us/frame, kernels busy {busy:.1f} us/frame, idle share {result['idle']:.3f}, "
-          f"GEMM launches {gemm_calls / frames:g} per frame")
+          f"GEMM launches {gemm_calls / frames:g}, torch-op kernel launches "
+          f"{other_calls / frames:g} per frame")
     if brief:
         return result
     for g, t in groups.items():
@@ -704,7 +720,7 @@ def main() -> int:
     dst_p = torch.from_numpy(dst).to(dev).permute(2, 0, 1).contiguous()
     dest_roi = dst_p[:, top : top + bh, left : left + bw]
     src_roi = torch.from_numpy(src).to(dev)[y0 : y0 + bh, x0 : x0 + bw].permute(2, 0, 1)
-    mask_roi = torch.from_numpy(m[y0 : y0 + bh, x0 : x0 + bw]).to(dev)
+    mask_roi = torch.from_numpy(np.ascontiguousarray(m[y0 : y0 + bh, x0 : x0 + bw])).to(dev)
     patch = torch.where(mask_roi[None] != 0, src_roi, 0).to(torch.uint8)
     m01 = (mask_roi != 0).to(torch.uint8)
     plain_b = dst_bases(h2, w2, hp, wp, dev)
@@ -824,10 +840,15 @@ def main() -> int:
               f"{flops / ms / 1e9:.1f} TFLOP/s")
 
     # -- 2a. the slice-1 kernels, on the unfolded chain's tensors ---------------
-    me = K.erode3(m01)
-    require_equal("erode3", me, K.erode3_plain(m01))
+    # the pipeline passes the {0,255} ROI; a {0,1} mask keeps the timed
+    # outputs comparable with another checkout's erode3, which may read
+    # {0,1} masks only
+    me = K.erode3(mask_roi)
+    require_equal("erode3", me, K.erode3_plain(mask_roi))
+    require_equal("erode3 {0,1}", K.erode3(m01), me)
     row("erode3", 2 * bh * bw, 12 * bh * bw,
-        time_ms(lambda: K.erode3(m01)), time_ms(lambda: K.erode3_plain(m01)))
+        time_ms(lambda: K.erode3(m01)), time_ms(lambda: K.erode3_plain(m01)),
+        shape=f"u8 ({bh},{bw})", **vs_other(lambda: K.erode3(m01)))
 
     gray = bgr_to_gray_u8(patch).to(torch.uint8)[None].expand(c, bh, bw)
     for flags, rule, p_in in ((1, "opencv", patch), (2, "opencv", patch),
@@ -843,13 +864,19 @@ def main() -> int:
         **vs_other(lambda: K.preprocess_rhs_t(dest_roi, patch, me)))
     # the per-axis strips' ROIs (a grid of few tiles: one channel a block),
     # views into the planar destination as on their serve frames
-    strips = []
+    strips, erode_strips = [], []
     gen_s = torch.Generator(dev).manual_seed(SEED + 3)
     for sh_, sw_ in ((s_[0] - 2, s_[1] - 2) for s_ in STRIPS):
         d_s = dst_p[:, 1 : 1 + sh_, 3 : 3 + sw_]
         p_s = torch.randint(0, 256, (c, sh_, sw_), generator=gen_s, device=dev,
                             dtype=torch.uint8)
-        m_s = K.erode3(torch.ones((sh_, sw_), dtype=torch.uint8, device=dev))
+        m1_s = (torch.rand((sh_, sw_), generator=gen_s, device=dev) < 0.999).to(torch.uint8)
+        m_s = K.erode3(m1_s)
+        require_equal(f"erode3 strip {sh_}x{sw_}", m_s, K.erode3_plain(m1_s))
+        erode_strips.append(dict(shape=f"u8 ({sh_},{sw_})",
+                                 ms=time_ms(lambda m1_s=m1_s: K.erode3(m1_s)),
+                                 bound_ms=bound(2 * sh_ * sw_, 12 * sh_ * sw_)[0],
+                                 **vs_other(lambda m1_s=m1_s: K.erode3(m1_s))))
         require_equal(f"preprocess_rhs_t strip {sh_}x{sw_}", K.preprocess_rhs_t(d_s, p_s, m_s),
                       K.preprocess_rhs_t_plain(d_s, p_s, m_s))
 
@@ -861,10 +888,12 @@ def main() -> int:
                                           + 4 * c * ru128(sw_ - 2) * ru128(sh_ - 2),
                                           30 * c * sh_ * sw_)[0], **vs_other(rhs_strip)))
     rows["preprocess_rhs_t"]["strips"] = strips
-    print(f"preprocess_rhs_t on the per-axis strips ({card}): " + "; ".join(
-        f"{x['shape']} {x['ms']:.5f} ms cold, {x['b2b_ms']:.5f} back to back, bound "
-        f"{x['bound_ms']:.5f}" + (f", other {x['other_ms']:.5f} / {x['other_b2b_ms']:.5f}"
-                                  if "other_ms" in x else "") for x in strips))
+    rows["erode3"]["strips"] = erode_strips
+    for what, xs_ in (("erode3", erode_strips), ("preprocess_rhs_t", strips)):
+        print(f"{what} on the per-axis strips ({card}): " + "; ".join(
+            f"{x['shape']} {x['ms']:.5f} ms cold, {x['b2b_ms']:.5f} back to back, bound "
+            f"{x['bound_ms']:.5f}" + (f", other {x['other_ms']:.5f} / {x['other_b2b_ms']:.5f}"
+                                      if "other_ms" in x else "") for x in xs_))
 
     s1 = torch.matmul(g_tp, vh)
     require_equal("transpose", K.transpose(s1), K.transpose_plain(s1))
@@ -955,7 +984,10 @@ def main() -> int:
                                                                0, ep_h)),
         divide_bound_ms=bound(8 * c * ep_h * gw + 4 * (gw + ep_h), 2 * c * ep_h * gw)[0],
         divide_shape=f"({c},{gh},{ep_w}) + ({c},{gh},{op_w}) rows 0+{ep_h} -> "
-                     f"({c},{gw},{ep_h})")
+                     f"({c},{gw},{ep_h})",
+        **vs_other(lambda: K.transpose_pair(fe, fo)),
+        **{f"divide_{k}": v for k, v in vs_other(
+            lambda: K.transpose_pair(ge, go, lam_gw, lam_gh, 0, ep_h)).items()})
     row("unfold_transpose", 4 * c * ep_w * (2 * he_h + hp), c * ep_w * h2,
         time_ms(lambda: K.unfold_transpose(e_h, o_h, h2, hp, 0, ep_w)),
         time_ms(lambda: K.unfold_transpose_plain(e_h, o_h, h2, hp, 0, ep_w)),
@@ -994,14 +1026,17 @@ def main() -> int:
     dst8_p = torch.from_numpy(dst8).to(dev).permute(2, 0, 1).contiguous()
     dest8 = dst8_p[:, top8 : top8 + bh8, left8 : left8 + bw8]
     src8_roi = torch.from_numpy(src8).to(dev)[y8 : y8 + bh8, x8 : x8 + bw8].permute(2, 0, 1)
-    mask8_roi = torch.from_numpy(m8[y8 : y8 + bh8, x8 : x8 + bw8]).to(dev)
+    mask8_roi = torch.from_numpy(np.ascontiguousarray(m8[y8 : y8 + bh8, x8 : x8 + bw8])).to(dev)
     patch8 = torch.where(mask8_roi[None] != 0, src8_roi, 0).to(torch.uint8)
     m8_01 = (mask8_roi != 0).to(torch.uint8)
     me8 = K.erode3(m8_01)
     require_equal("erode3 8K", me8, K.erode3_plain(m8_01))
+    require_equal("erode3 8K {0,255}", K.erode3(mask8_roi), me8)
     rows["erode3"].update(eight_k_shape=f"({bh8},{bw8})",
                           eight_k_ms=time_ms(lambda: K.erode3(m8_01)),
-                          eight_k_bound_ms=bound(2 * bh8 * bw8, 12 * bh8 * bw8)[0])
+                          eight_k_bound_ms=bound(2 * bh8 * bw8, 12 * bh8 * bw8)[0],
+                          **{f"eight_k_{k}": v
+                             for k, v in vs_other(lambda: K.erode3(m8_01)).items()})
     print(f"8K geometry: roi {bh8}x{bw8}, interior {h8}x{w8} ({h8 * w8 / 1e6:.1f} MP), "
           f"level-0 slab ({c}, {hp8}, {wp8}), rh rows {hp28}")
     gray8 = bgr_to_gray_u8(patch8).to(torch.uint8)[None].expand(c, bh8, bw8)
@@ -1455,11 +1490,12 @@ def main() -> int:
                 prof = profile_frames(f"{path} ({label}) with {name}'s kernels", clone_pipeline,
                                       kw, frames=3, brief=True)
             turns[name].append(dict(ms_per_frame=ms, busy_us=prof["busy_us"],
-                                    span_us=prof["span_us"], idle=prof["idle"]))
+                                    span_us=prof["span_us"], idle=prof["idle"],
+                                    torch_op_launches=prof.get("torch_op_launches")))
         frames_vs_other[f"{path} ({label})" if path in frames_vs_other else path] = turns
         print(f"frames {path} ({label}, {card}), other -> this: " + "; ".join(
             f"{k} {[r[k] for r in turns['other']]} -> {[r[k] for r in turns['this']]}"
-            for k in ("ms_per_frame", "busy_us", "idle")))
+            for k in ("ms_per_frame", "busy_us", "idle", "torch_op_launches")))
 
     def drive(path, cfg, s_img, mask_, loops, label, d_img=dst, cpu="run+serve",
               solver="dst_gemm", engine=None):
@@ -2057,16 +2093,20 @@ def main() -> int:
         rows[name]["path"] = "tiled_dd (the coarse solve's fused levels)"
         rows[name]["launches_by_path"] = {p: path_launches[p][0][base] for p in (
             "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline", "mg_padded_false")}
-    for name, (label, kernel) in LOOP_PROFILE.items():
+    loop_lines = []
+    for key, (label, kernel) in LOOP_PROFILE.items():
+        name, _, form = key.partition(" ")
+        pre = f"{form}_" if form else ""
         per_kernel, per_frame, seq = loop_profiles.get(label, ({}, {}, []))
         n = sum(v for k, v in per_frame.items() if kernel in k)
         us = sum(t for k, t in per_kernel.items() if kernel in k)
-        rows[name].update(loop_ms=us / n / 1e3 if n else None, loop_launches_per_frame=n,
-                          loop_profile=label)
+        rows[name].update({f"{pre}loop_ms": us / n / 1e3 if n else None,
+                           f"{pre}loop_launches_per_frame": n, f"{pre}loop_profile": label})
+        loop_lines.append(f"{key} ({label}) {rows[name][pre + 'loop_ms']} ms x{n:g} a frame")
         # per coarse level, by launch order: a cycle descends levels 1, 2,
         # 3 (mg_down, mg_restrict_t) and ascends 3, 2, 1 (mg_prolong_t, mg_up)
         times = [t for k, t in seq if kernel in k]
-        levels = rows[name].get("coarse_levels", [])
+        levels = rows[name].get("coarse_levels", []) if not form else []
         if levels and times and len(times) % len(levels) == 0:
             descent = name in ("mg_down", "mg_restrict_t")
             order = range(len(levels)) if descent else range(len(levels))[::-1]
@@ -2074,6 +2114,7 @@ def main() -> int:
                 lv["loop_ms"] = sum(times[i :: len(levels)]) / len(times[i :: len(levels)]) / 1e3
             print(f"{name} in the loop ({label}, {card}), by coarse level: " + "; ".join(
                 f"{lv['shape']} {lv['loop_ms']:.5f} ms" for lv in levels))
+    print(f"in the loop ({card}): " + "; ".join(loop_lines))
     for name, r in rows.items():
         if not r["launches"]:
             raise AssertionError(f"{name} was launched no time on its path")

@@ -1,7 +1,7 @@
-// rhs_tile.cuh: the Poisson right-hand side of one 32x32 interior tile,
-// shared by preprocess_rhs_t.cu (transposed store) and preprocess_rhs_p.cu
-// (natural store). The TPU kernels share it the same way
-// (pallas_kernels.py:_fused_lap_tile).
+// rhs_tile.cuh: the Poisson right-hand side of one 32x32 interior tile, for
+// preprocess_rhs_p.cu (natural store), the only source that includes it
+// (preprocess_rhs_t.cu and preprocess_rhs_q.cu are on rhs_wide.cuh). The TPU
+// kernels share the function the same way (pallas_kernels.py:_fused_lap_tile).
 //
 // For the (h, w) ROI and its interior pixel (y, x), 1 <= y <= h-2,
 // 1 <= x <= w-2:

@@ -174,7 +174,7 @@ def clone_roi(
         # caller must not get another solver's chain silently
         raise ValueError(f"use_pallas_post has no tail for solver {name!r}")
     if use_pallas_pre:
-        me = erode3((mask_roi != 0).to(torch.uint8))
+        me = erode3(mask_roi)
         if flags == MONOCHROME_TRANSFER:
             # integer gray in [0, 255]: as u8, broadcast by a stride-0 view
             gray = bgr_to_gray_u8(patch_u8).to(torch.uint8)

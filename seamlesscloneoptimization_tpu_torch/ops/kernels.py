@@ -128,19 +128,22 @@ def _launch(name: str, t: torch.Tensor, *args, count_as: str | None = None) -> N
 # ---------------------------------------------------------------------------
 
 
-def erode3_plain(mask01: torch.Tensor) -> torch.Tensor:
-    """Three 3x3 erosions with a zero border of a {0,1} u8 mask."""
-    return erode3x3(mask01)
+def erode3_plain(mask: torch.Tensor) -> torch.Tensor:
+    """Three 3x3 erosions with a zero border of a u8 mask, any nonzero byte
+    inside: ``erode3x3((mask != 0).to(torch.uint8))``, {0,1} u8."""
+    return erode3x3((mask != 0).to(torch.uint8))
 
 
-def erode3(mask01: torch.Tensor) -> torch.Tensor:
-    """(H, W) u8 {0,1} mask -> 3x-eroded {0,1} u8 (one 7x7 min, zero border)."""
-    _require(mask01, "mask01", torch.uint8, 2)
-    if mask01.device.type == "cpu":
-        return erode3_plain(mask01)
-    h, w = mask01.shape
-    out = torch.empty_like(mask01)
-    _launch("erode3", mask01, mask01.data_ptr(), out.data_ptr(), h, w)
+def erode3(mask: torch.Tensor) -> torch.Tensor:
+    """(H, W) u8 mask (any nonzero byte inside) -> 3x-eroded {0,1} u8 (one
+    7x7 min, zero border); equal to ``erode3_plain``, which is
+    ``erode3x3((mask != 0).to(torch.uint8))``."""
+    _require(mask, "mask", torch.uint8, 2)
+    if mask.device.type == "cpu":
+        return erode3_plain(mask)
+    h, w = mask.shape
+    out = torch.empty_like(mask)
+    _launch("erode3", mask, mask.data_ptr(), out.data_ptr(), h, w)
     return out
 
 

@@ -37,13 +37,37 @@ def _u8(rng, shape):
     return rng.integers(0, 256, shape).astype(np.uint8)
 
 
-@pytest.mark.parametrize("hw", [(1, 1), (5, 7), (37, 70), (130, 257)])
+@pytest.mark.parametrize("hw", [(1, 1), (5, 7), (37, 70), (130, 257), (1550, 2398),
+                                (2800, 3800), (124, 2398), (2398, 124)])
 def test_erode3_matches_plain(cuda, hw):
+    """{0,1} masks, then {0,255} and any-nonzero masks with a few holes;
+    the shapes include the headline ROI, the 8K ROI and the per-axis
+    strips' ROIs."""
     rng = np.random.default_rng(hw[0])
     m = torch.from_numpy((rng.random(hw) < 0.9).astype(np.uint8))
     got = K.erode3(m.to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), K.erode3_plain(m))
+    holes = torch.from_numpy(rng.random(hw) < 0.002)
+    for inside in (torch.full(hw, 255, dtype=torch.uint8),
+                   torch.from_numpy(rng.integers(1, 256, hw).astype(np.uint8))):
+        m = inside.masked_fill(holes, 0)
+        assert torch.equal(K.erode3(m.to(cuda)).cpu(), K.erode3_plain(m))
+
+
+@pytest.mark.parametrize("w", list(range(1, 41)) + [124, 463, 465, 929, 2398])
+def test_erode3_every_offset(cuda, w):
+    """The mask a contiguous view at byte offsets 0 .. 15 of a buffer on the
+    card, so its rows start at every offset mod 16."""
+    rng = np.random.default_rng(w)
+    h = 37
+    buf = torch.from_numpy(rng.integers(0, 256, h * w + 16).astype(np.uint8))
+    buf[torch.from_numpy(rng.random(h * w + 16) < 0.97)] = 255
+    buf_c = buf.to(cuda)
+    for off in range(16):
+        got = K.erode3(buf_c[off : off + h * w].view(h, w))
+        assert torch.equal(got.cpu(), K.erode3_plain(buf[off : off + h * w].view(h, w)))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("hw", [(3, 3), (5, 9), (40, 57), (131, 260), (37, 4 * 37 + 1),
@@ -160,17 +184,24 @@ def test_unfold_minor_matches_plain(cuda, n):
     assert torch.equal(got.cpu(), K.unfold_minor_plain(e, o, n, out_pad))
 
 
-@pytest.mark.parametrize("pab", [(128, 128), (896, 896), (100, 37)])
+# the pair chain's headline slabs (pa, pb, m, windows): the plain pair
+# (3, 2432, 896) x 2 and the divide's windows 0+896, 896+896 of
+# (3, 1792, 1280) x 2, whole 64 x 64 tiles
+HEADLINE_PAIRS = [(896, 896, 2432, ((0, 2432),)), (1280, 1280, 1792, ((0, 896), (896, 896)))]
+
+
+@pytest.mark.parametrize("pab", [(128, 128), (896, 896), (100, 37), *HEADLINE_PAIRS])
 def test_transpose_pair_matches_plain(cuda, pab):
-    pa, pb = pab
+    pa, pb = pab[:2]
     rng = np.random.default_rng(pa)
-    m = 300
+    m = 300 if len(pab) == 2 else pab[2]
     a = torch.from_numpy(rng.normal(size=(3, m, pa)).astype(np.float32) * 40).to(cuda)
     b = torch.from_numpy(rng.normal(size=(3, m, pb)).astype(np.float32) * 40).to(cuda)
     lam_p = torch.from_numpy(dst_eigenvalues_padded(pa + pb - 9, pa + pb).copy()).to(cuda)
     lam_r = torch.from_numpy(dst_eigenvalues_grouped(2 * m - 300)[:m].copy()).to(cuda)
     assert torch.equal(K.transpose_pair(a, b), K.transpose_pair_plain(a, b))
-    for rs, rc in ((0, 131), (131, m - 131)):  # two windows: every row once
+    windows = ((0, 131), (131, m - 131)) if len(pab) == 2 else pab[3]
+    for rs, rc in windows:  # every row once
         assert torch.equal(K.transpose_pair(a, b, row_start=rs, row_count=rc),
                            K.transpose_pair_plain(a, b, row_start=rs, row_count=rc))
         # the twin on the card: the same sum, then an IEEE divide
