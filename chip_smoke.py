@@ -6,7 +6,7 @@
 1. Prints the card (nvidia-smi name and power limit), builds the kernels
    from ``seamlesscloneoptimization_tpu_torch/csrc`` and prints the build
    time, ptxas's resource report and both TF32 flags.
-2. Holds each of the twenty-six kernels against its plain PyTorch twin on
+2. Holds each of the twenty-eight kernels against its plain PyTorch twin on
    the card: every kernel bit-exact over its whole output (the divides too: the
    twin's divide is IEEE on the card as well; the kernels are built with
    -fmad=false, so the multigrid's float arithmetic rounds as the twin's
@@ -34,21 +34,30 @@
    ``mg_down`` (known-zero and given guess) and ``mg_up`` at the DD coarse
    solve's two fused levels (1398x1898 and 698x948, betas != 1), each form
    its own kernels-line entry (``mg_down_exact``, ``mg_up_exact``); and
-   ``mg_up`` / ``mg_down`` and the transfers ``mg_restrict_t`` /
-   ``mg_prolong_t`` at each of the 8K ``"q"`` chain's three fused coarse
-   levels (``coarse_levels``, each with its bound). Times kernel,
+   at each of the 8K ``"q"`` chain's three fused coarse levels
+   (``coarse_levels``, each with its bound) ``mg_up`` / ``mg_down``, the
+   transfers ``mg_restrict_t`` / ``mg_prolong_t`` and the fused forms that
+   ``vcycle_t`` runs, ``mg_down_t`` (mg_down + mg_restrict_t) and
+   ``mg_up_t`` (mg_prolong_t + mg_up), also at the 8K fine level and its
+   first coarse level: each fused form bit-exact against its twin and
+   against the unfused pair, and timed with the pair beside it
+   (``pair_ms``, ``pair_b2b_ms``). Times kernel,
    twin and, where one PyTorch call computes the same function, that call
    (``library_ms``; the port never calls it), each launch cold in L2 with
    the card spinning while the host issues it (so the time is the
    device's); the redesigned kernels also back to back (``b2b_ms``) and,
    from the profiles of the 8K ``"q"`` frame and of the pair chain, in
    the loop (``loop_ms``: device time per launch in the served frame, per
-   coarse level by launch order); and one GEMM of each chain.
+   coarse level by launch order; the standalone level kernels and
+   transfers from the same frame profiled with the four-kernel chain,
+   ``vcycle_t_unfused``); and one GEMM of each chain.
 3. Drives each path through the entry points with the launch counters set
    to 0 just before and read just after, and checks every kernel's
-   per-frame count (``PATHS``), that nothing outside the ROI interior
-   changed, and the card against the same port on the CPU (the plain
-   twins), diff_max <= 1:
+   per-frame count (``PATHS``; every ``vcycle_t`` level of the ``"t"`` and
+   ``"q"`` chains is one ``mg_down_t`` and one ``mg_up_t`` a cycle, and no
+   path launches ``mg_restrict_t`` or ``mg_prolong_t``), that nothing
+   outside the ROI interior changed, and the card against the same port
+   on the CPU (the plain twins), diff_max <= 1:
    - ``pair``: ``CloneConfig()`` (``dst_folded=True``) at the headline,
      20 chained ``timed_serve`` frames and one single-shot ``run`` into the
      interleaved destination; the Poisson residual of one folded
@@ -77,7 +86,8 @@
      residual must be <= tol; ``mg_q_fixed`` the same with ``mg_cycles=4``;
      profiles of both; ``mg_q_headline``: ``solver="multigrid"`` at the
      headline with the card against the CPU, its profile, and the host's
-     issue time of a 4-cycle solve against the card's time for it;
+     issue time of a 4-cycle solve against the card's time for it, with
+     the fused transfers and with the four-kernel chain, in turns;
    - ``mg_q_coarse``: ``CloneConfig(tol=0.05)`` at 8K, where no check-free
      cycle comes first and the check-first loop runs (per cycle the split
      mg_down_q, mg_restrict_tq, the coarse levels, mg_prolong_tq and
@@ -135,7 +145,10 @@ the same nvcc flags and launched through the same wrappers in turns with
 this checkout's (other, this, this, other): each kernel timed against
 the other also gets ``other_ms`` / ``other_b2b_ms`` and whether the two
 outputs are equal (``other_output_equal``); the SASS of each pair is
-compared; and, when every pair's outputs were equal, each path of
+compared. A checkout without the fused transfers runs, in its turns,
+``vcycle_t`` as the four-kernel chain (``vcycle_t_unfused``), and its time
+for ``mg_down_t`` / ``mg_up_t`` is that of its unfused pair on the same
+inputs. When every pair's outputs were equal, each path of
 ``COMPARE_PATHS`` (the headline DST frames, which run preprocess_rhs_t,
 and the multigrid and DD frames) serves its frames in turns with the two
 kernel sets (ms/frame, and from a profile the kernel busy time and idle
@@ -189,10 +202,14 @@ SPIN_CYCLES = 4_000_000
 KERNELS = ("erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste", "fold_minor",
            "unfold_minor", "transpose_pair", "unfold_transpose", "unfold_clamp_paste",
            "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t",
-           "preprocess_rhs_q", "mg_down_q", "mg_up_q", "mg_ud_q", "mg_prolong_tq",
-           "clamp_cast_paste_q", "to_quarters", "from_quarters", "mg_restrict_tq",
+           "mg_down_t", "mg_up_t", "preprocess_rhs_q", "mg_down_q", "mg_up_q", "mg_ud_q",
+           "mg_prolong_tq", "clamp_cast_paste_q", "to_quarters", "from_quarters", "mg_restrict_tq",
            "rb_sweeps", "postprocess_transposed", "rb_sweeps_tile")
-MG_KERNELS = ("mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t")
+# a fused vcycle_t level of the "t" and "q" chains: each of these once a cycle
+MG_KERNELS = ("mg_down_t", "mg_up_t")
+# the transfers folded into them: launched by no path, held against their
+# twins in the kernel phase
+FOLDED = {"mg_restrict_t": "mg_down_t", "mg_prolong_t": "mg_up_t"}
 # a cycle of the check-first loop: each of these once
 Q_CHECK_FIRST = ("mg_down_q", "mg_restrict_tq", "mg_prolong_tq", "mg_up_q")
 JACOBI_SMALL_HW = (66, 66)  # full mask: interior 62x62, converges within max_iters
@@ -206,6 +223,7 @@ RB_TILED_SWEEPS = 1000  # rb_tiled: a fixed count, tol 0
 RB_TILED_HALO = 4  # solve_redblack_tiled's default: 2 sweeps an exchange
 
 
+UNFUSED_PROFILE = "mg_q 8K tolerance (unfused chain)"
 # kernel -> (the profile that runs it on the main path, its kernel's name):
 # the kernels line's in-the-loop time per launch; "<kernel> <form>" puts a
 # second profile or template of the kernel under "<form>_loop_ms"
@@ -218,17 +236,20 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
                 "mg_ud_q": ("mg_q 8K tolerance", "level_q_kernel<true, true"),
                 "mg_down_q": ("mg_q 8K tolerance", "level_q_kernel<false, true"),
                 "mg_up_q": ("mg_q 8K mg_cycles=4", "level_q_kernel<true, false"),
-                "mg_up": ("mg_q 8K tolerance", "mg_up_kernel"),
-                "mg_down": ("mg_q 8K tolerance", "mg_down_kernel"),
+                "mg_up_t": ("mg_q 8K tolerance", "mg_up_t_kernel"),
+                "mg_down_t": ("mg_q 8K tolerance", "mg_down_t_kernel"),
                 "preprocess_rhs_q": ("mg_q 8K tolerance", "preprocess_rhs_q_kernel"),
-                "mg_restrict_t": ("mg_q 8K tolerance", "mg_restrict_t_kernel"),
-                "mg_prolong_t": ("mg_q 8K tolerance", "mg_prolong_t_kernel")}
+                # the same frame with the four-kernel chain (vcycle_t_unfused)
+                "mg_up": (UNFUSED_PROFILE, "mg_up_kernel"),
+                "mg_down": (UNFUSED_PROFILE, "mg_down_kernel"),
+                "mg_restrict_t": (UNFUSED_PROFILE, "mg_restrict_t_kernel"),
+                "mg_prolong_t": (UNFUSED_PROFILE, "mg_prolong_t_kernel")}
 # --other: the kernels built from the other checkout (the level kernels and
 # every source that includes their headers), the turns, and the serve paths
 # that run them
-OTHER_KERNELS = ("mg_down_q", "mg_up_q", "mg_ud_q", "mg_up", "mg_down", "rb_sweeps_tile",
-                 "preprocess_rhs_q", "preprocess_rhs_t", "clamp_cast_paste_q", "erode3",
-                 "transpose_pair")
+OTHER_KERNELS = ("mg_down_q", "mg_up_q", "mg_ud_q", "mg_up", "mg_down", "mg_up_t", "mg_down_t",
+                 "rb_sweeps_tile", "preprocess_rhs_q", "preprocess_rhs_t", "clamp_cast_paste_q",
+                 "erode3", "transpose_pair")
 TURNS = ("other", "this", "this", "other")
 COMPARE_PATHS = ("pair", "unfolded", "per_axis", "mg_t", "mg_t_fixed", "mg_t_headline", "mg_q",
                  "mg_q_fixed", "mg_q_headline", "mg_q_coarse", "mg_q_coarse_headline",
@@ -307,9 +328,9 @@ MG_LEVELS = {"mg_t": 4, "mg_t_headline": 3, "mg_q": 3, "mg_q_headline": 2, "mg_q
              "tiled_dd": 2, "tiled_dd_fixed": 2, "tiled_dd_headline": 1, "mg_padded_false": 2}
 # the path whose serve run gives each kernel's "launches"
 HOME_PATH = {"transpose": "unfolded", "clamp_cast_paste": "unfolded",
-             "unfold_minor": "per_axis", "preprocess_rhs_p": "mg_t", "mg_down": "mg_t",
-             "mg_up": "mg_t", "mg_restrict_t": "mg_t", "mg_prolong_t": "mg_t",
-             "preprocess_rhs_q": "mg_q", "mg_down_q": "mg_q", "mg_ud_q": "mg_q",
+             "unfold_minor": "per_axis", "preprocess_rhs_p": "mg_t",
+             "mg_down": "mg_padded_false", "mg_up": "mg_padded_false", "mg_down_t": "mg_q",
+             "mg_up_t": "mg_q", "preprocess_rhs_q": "mg_q", "mg_down_q": "mg_q", "mg_ud_q": "mg_q",
              "mg_up_q": "mg_q_fixed", "mg_prolong_tq": "mg_q", "clamp_cast_paste_q": "mg_q",
              "to_quarters": "mg_dense", "from_quarters": "mg_dense",
              "mg_restrict_tq": "mg_q_coarse", "rb_sweeps": "jacobi",
@@ -334,6 +355,8 @@ REPLACES = {
     "mg_up": [f"{_PK}:805"],
     "mg_restrict_t": [f"{_PK}:933"],
     "mg_prolong_t": [f"{_PK}:986"],
+    "mg_down_t": [f"{_PK}:595", f"{_PK}:933"],
+    "mg_up_t": [f"{_PK}:986", f"{_PK}:805"],
     "preprocess_rhs_q": [f"{_PK}:1434"],
     "mg_down_q": [f"{_MQ}:414"],
     "mg_up_q": [f"{_MQ}:675"],
@@ -369,9 +392,10 @@ def synthetic_image(rng, hw, cell=48):
 
 
 def build_other(other_root: Path):
-    """Build ``other_root``'s OTHER_KERNELS with this checkout's nvcc flags,
-    all at once. Returns (name -> ctypes function, its quarter tile (kTH,
-    kTW), name -> ptxas's resource lines, name -> library path)."""
+    """Build the sources of ``other_root``'s OTHER_KERNELS with this
+    checkout's nvcc flags, all at once. Returns (name -> ctypes function,
+    for the kernels its sources export; its quarter tile (kTH, kTW); source
+    -> ptxas's resource lines; source -> library path)."""
     import ctypes
     import re
 
@@ -380,25 +404,44 @@ def build_other(other_root: Path):
     csrc = other_root / "seamlesscloneoptimization_tpu_torch" / "csrc"
     out = other_root / "_other_build"
     out.mkdir(exist_ok=True)
-    libs = {name: out / f"lib{name}.so" for name in OTHER_KERNELS}
-    procs = {name: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(libs[name]), str(csrc / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in OTHER_KERNELS}
+    sources = sorted({_build.source_name(name) for name in OTHER_KERNELS})
+    libs = {src: out / f"lib{src}.so" for src in sources}
+    procs = {src: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(libs[src]), str(csrc / f"{src}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for src in sources}
     funcs, ptxas = {}, {}
-    for name, proc in procs.items():
+    for src, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"building {other_root.name}'s {name} failed:\n{log}")
-        ptxas[name] = " | ".join(ln.strip() for ln in log.splitlines()
-                                 if "Used" in ln or "spill" in ln)
-        symbol, argtypes = _build.SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(libs[name])), symbol)
-        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
-        funcs[name] = fn
+            raise RuntimeError(f"building {other_root.name}'s {src} failed:\n{log}")
+        ptxas[src] = " | ".join(ln.strip() for ln in log.splitlines()
+                                if "Used" in ln or "spill" in ln)
+        lib = ctypes.CDLL(str(libs[src]))
+        for name in OTHER_KERNELS:
+            symbol, argtypes = _build.SIGNATURES[name]
+            if _build.source_name(name) != src or not hasattr(lib, symbol):
+                continue  # a checkout without the fused transfers exports no mg_*_t
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+            funcs[name] = fn
     header = (csrc / "mg_level_q.cuh").read_text()
     tile = tuple(int(re.search(rf"constexpr int {k} = (\d+);", header).group(1))
                  for k in ("kTH", "kTW"))
     return funcs, tile, ptxas, libs
+
+
+@contextlib.contextmanager
+def unfused_chain():
+    """Run ``vcycle_t`` as the four-kernel chain that the fused transfers
+    fold (``solvers/multigrid.py:vcycle_t_unfused``)."""
+    from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
+
+    saved = TM.vcycle_t
+    TM.vcycle_t = TM.vcycle_t_unfused
+    try:
+        yield
+    finally:
+        TM.vcycle_t = saved
 
 
 @contextlib.contextmanager
@@ -407,7 +450,8 @@ def swapped(funcs: dict, q_tile: tuple[int, int]):
     names, with the per-tile residual maxima sized for ``q_tile``. Another
     checkout's erode3 may read a {0,1} mask only (its pipeline cast the
     mask first), so with it the pipeline casts the mask first too (two
-    torch ops a frame)."""
+    torch ops a frame); one without the fused transfers runs ``vcycle_t``
+    as the four-kernel chain."""
     import torch
 
     from seamlesscloneoptimization_tpu_torch.models import pipeline
@@ -420,7 +464,8 @@ def swapped(funcs: dict, q_tile: tuple[int, int]):
     if "erode3" in funcs:
         pipeline.erode3 = lambda m: K.erode3((m != 0).to(torch.uint8))
     try:
-        yield
+        with contextlib.nullcontext() if "mg_down_t" in funcs else unfused_chain():
+            yield
     finally:
         _build._functions.update(saved[0])
         K.Q_TILE, pipeline.erode3 = saved[1:]
@@ -457,10 +502,10 @@ def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
 
 def check_mg_counts(path: str, what: str, launches: dict, frames: int) -> int:
     """Tolerance-mode multigrid counts: erode3, preprocess_rhs_p and
-    clamp_cast_paste once a frame, the four V-cycle kernels equally often,
+    clamp_cast_paste once a frame, the two V-cycle kernels equally often,
     a multiple of the fused levels, nothing else. Returns the cycles run."""
     levels = MG_LEVELS[path]
-    n = launches["mg_down"]
+    n = launches["mg_down_t"]
     want = _mg_per_frame(1, 0)
     want = {k: v * frames for k, v in want.items()}
     want.update({k: n for k in MG_KERNELS})
@@ -686,6 +731,7 @@ def main() -> int:
     for name, report in _build.ptxas_report().items():
         print(f"ptxas {name}: {report}")
     other = None
+    other_fused = True  # the other checkout has mg_down_t / mg_up_t
     other_agrees = []  # per timed kernel: the other checkout's output equals this one's
     if other_root is not None:
         t0 = time.perf_counter()
@@ -696,11 +742,13 @@ def main() -> int:
         def other():
             return swapped(other_funcs, other_tile)
 
-        for name in OTHER_KERNELS:
-            mine = sass(_build._target(name))
-            same = None if mine is None else mine == sass(other_libs[name])
-            print(f"ptxas {name} of {other_root.name}: {other_ptxas[name]}; SASS equal to "
+        for src, lib in other_libs.items():
+            mine = sass(_build._target(src))
+            same = None if mine is None else mine == sass(lib)
+            print(f"ptxas {src} of {other_root.name}: {other_ptxas[src]}; SASS equal to "
                   f"this checkout's: {'not checked' if same is None else same}")
+        other_fused = "mg_down_t" in other_funcs
+        print(f"{other_root.name} has the fused transfers: {other_fused}")
     print("tf32: matmul", torch.backends.cuda.matmul.allow_tf32,
           "cudnn", torch.backends.cudnn.allow_tf32,
           "float32_matmul_precision", torch.get_float32_matmul_precision())
@@ -783,20 +831,22 @@ def main() -> int:
         out = fn()
         return out if isinstance(out, tuple) else (out,)
 
-    def vs_other(fn, result=None) -> dict:
+    def vs_other(fn, result=None, pair=None) -> dict:
         """The kernel back to back; with --other, also the other checkout's
         kernel, cold and back to back, in turns, and whether the two
         outputs are equal (each side's from ``poisoned``, or the tuple
         ``result()`` returns: an in-place kernel's launch into a fresh copy
-        of its destination)."""
+        of its destination). ``pair``: a fused kernel's unfused pair, which
+        the other checkout runs where it has no fused transfers."""
         out = {"b2b_ms": b2b_ms(fn)}
         if other is None:
             return out
         turns, outs = {"other": [], "this": []}, {}
         for name in TURNS:
             with side(name):
-                turns[name].append((time_ms(fn), b2b_ms(fn)))
-                outs.setdefault(name, poisoned(fn) if result is None else result())
+                f = pair if name == "other" and pair is not None and not other_fused else fn
+                turns[name].append((time_ms(f), b2b_ms(f)))
+                outs.setdefault(name, poisoned(f) if result is None else result())
         a, b = outs["other"], outs["this"]
         equal = all(torch.equal(x, y) for x, y in zip(a, b))
         other_agrees.append(equal)
@@ -825,7 +875,7 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, nops)
         rows[name] = dict(name=name, route="cuda",
                           source="seamlesscloneoptimization_tpu_torch/csrc/"
-                                 f"{SOURCE.get(name, name)}.cu",
+                                 f"{SOURCE.get(name, _build.source_name(name))}.cu",
                           replaces=REPLACES[name][0], launches=None, max_abs_err=errs[name],
                           ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                           library_ms=library_ms, **extra)
@@ -1055,7 +1105,9 @@ def main() -> int:
 
     def mg_level_checks(label, g, u, h, w, bh, bw, rh_rows):
         """mg_down (known-zero and given guess), mg_restrict_t, mg_prolong_t
-        and mg_up of one level against their twins; returns the tensors."""
+        and mg_up of one level against their twins, and the fused forms
+        mg_down_t / mg_up_t against theirs and against those pairs; returns
+        the tensors."""
         hc, wc = (h - 1) // 2, (w - 1) // 2
         cgeom = K.mg_geometry_t(wc, hc, wp_min=rh_rows)
         u0, rh0 = K.mg_down(None, g, 1, h, w, bh, bw, rh_rows)
@@ -1076,6 +1128,19 @@ def main() -> int:
                       K.mg_prolong_t_plain(rc, w, bw, rh_rows, g.shape[2]))
         up = K.mg_up(u0, g, e, 2, h, w, bh, bw)
         require_equal(f"mg_up {label}", up, K.mg_up_plain(u0, g, e, 2, h, w, bh, bw))
+        for guess, what in ((None, " (known-zero guess)"), (u, "")):
+            if what and u is None:
+                continue
+            got = K.mg_down_t(guess, g, 1, h, w, bh, bw, cgeom[1])
+            want = K.mg_down_t_plain(guess, g, 1, h, w, bh, bw, cgeom[1])
+            u_p, rh_p = K.mg_down(guess, g, 1, h, w, bh, bw, rh_rows)
+            pair = (u_p, K.mg_restrict_t(rh_p, h, w, bw, cgeom[1]))
+            for a, b, c_, part in zip(got, want, pair, ("u", "rc_t")):
+                require_equal(f"mg_down_t {label}{what} {part}", a, b)
+                require_equal(f"mg_down_t {label}{what} {part} (the unfused pair's)", a, c_)
+        up_t = K.mg_up_t(u0, g, rc, 2, h, w, bh, bw)
+        require_equal(f"mg_up_t {label}", up_t, K.mg_up_t_plain(u0, g, rc, 2, h, w, bh, bw))
+        require_equal(f"mg_up_t {label} (the unfused pair's)", up_t, up)
         return u0, rh0, rc, e, cgeom
 
     u8, rh8, rc8, e8, cgeom8 = mg_level_checks("8K level 0", g8, None, h8, w8, 1.0, 1.0, hp28)
@@ -1116,6 +1181,41 @@ def main() -> int:
         shape=f"({c},{cgeom8[1]},{cgeom8[2]}) -> ({c},{hp28},{wp8})",
         coarse_ms=time_ms(lambda: K.mg_prolong_t(rc1, hc8, bh1, cgeom8[3], cgeom8[2])),
         coarse_shape=lvl)
+    # the fused forms at the "t" chain's level 0 (given guess), the unfused
+    # pair beside each; level 1 below, as the "q" chain's coarse level 1
+    rows8 = cgeom8[1]
+
+    def down_t0():
+        return K.mg_down_t(u8, g8, 1, h8, w8, 1.0, 1.0, rows8)
+
+    def down_pair0():
+        u_p, rh_p = K.mg_down(u8, g8, 1, h8, w8, 1.0, 1.0, hp28)
+        return u_p, K.mg_restrict_t(rh_p, h8, w8, 1.0, rows8)
+
+    def up_t0():
+        return K.mg_up_t(u8, g8, rc8, 2, h8, w8)
+
+    def up_pair0():
+        return K.mg_up(u8, g8, K.mg_prolong_t(rc8, w8, 1.0, hp28, wp8), 2, h8, w8)
+
+    row("mg_down_t", 4 * c * (3 * hp8 * wp8 + rows8 * hp28),
+        c * h8 * w8 * 11 + c * hc8 * w8 * 5 + 3 * c * hc8 * wc8, time_ms(down_t0),
+        time_ms(lambda: K.mg_down_t_plain(u8, g8, 1, h8, w8, 1.0, 1.0, rows8)),
+        shape=f"u, g ({c},{hp8},{wp8}), nu1=1 -> u, rc_t ({c},{rows8},{hp28})",
+        pair_ms=time_ms(down_pair0), pair_b2b_ms=b2b_ms(down_pair0),
+        zero_guess_ms=time_ms(lambda: K.mg_down_t(None, g8, 1, h8, w8, 1.0, 1.0, rows8)),
+        **vs_other(down_t0, pair=down_pair0))
+    row("mg_up_t", 4 * c * (3 * hp8 * wp8 + wc8 * hc8), c * h8 * w8 * 12 + 2 * c * hc8 * w8,
+        time_ms(up_t0), time_ms(lambda: K.mg_up_t_plain(u8, g8, rc8, 2, h8, w8)),
+        shape=f"u, g ({c},{hp8},{wp8}) + ec_t ({c},{rows8},{hp28}), nu2=2 -> "
+              f"({c},{hp8},{wp8})",
+        pair_ms=time_ms(up_pair0), pair_b2b_ms=b2b_ms(up_pair0),
+        **vs_other(up_t0, pair=up_pair0))
+    for name in ("mg_down_t", "mg_up_t"):
+        r = rows[name]
+        print(f"{name} at the 8K 't' level 0 ({card}): {r['ms']:.5f} ms cold, "
+              f"{r['b2b_ms']:.5f} back to back; the unfused pair {r['pair_ms']:.5f} / "
+              f"{r['pair_b2b_ms']:.5f}; bound {r['bound_ms']:.5f}")
     del u8, rh8, rc8, e8, rc1, u1c, rh1c, e1c
 
     # the "q" chain's fused coarse levels at 8K (each transposed, betas
@@ -1126,6 +1226,7 @@ def main() -> int:
     if len(coarse_q) != MG_LEVELS["mg_q"]:
         raise AssertionError(f"the 8K 'q' chain has {len(coarse_q)} fused coarse levels")
     up_levels, down_levels, restrict_levels, prolong_levels = [], [], [], []
+    down_t_levels, up_t_levels = [], []
     for lh, lw, bh_l, bw_l, (_, hp_c, wp_c, hp2_c) in coarse_q:
         g_c = torch.zeros((c, hp_c, wp_c), device=dev)
         u_c = torch.zeros((c, hp_c, wp_c), device=dev)
@@ -1170,15 +1271,53 @@ def main() -> int:
         prolong_levels.append(dict(shape=shape, ms=time_ms(
             lambda rc_c=rc_c, a_l=(lw, bw_l, hp2_c, wp_c): K.mg_prolong_t(rc_c, *a_l)),
             bound_ms=bound(4 * c * (wc_l * hp2_c + hp2_c * wp_c), 2 * c * hp2_c * lw)[0]))
+        # the fused forms as vcycle_t runs them (the known-zero descent; the
+        # level's rc_t standing in for the child's correction), each against
+        # its twin and its unfused pair, the pair timed beside it
+
+        def down_t(g_c=g_c, a_l=a_l, o=chp):
+            return K.mg_down_t(None, g_c, 1, *a_l, o)
+
+        def down_pair(g_c=g_c, a_l=a_l, r=hp2_c, o=chp):
+            u_p, rh_p = K.mg_down(None, g_c, 1, *a_l, r)
+            return u_p, K.mg_restrict_t(rh_p, a_l[0], a_l[1], a_l[3], o)
+
+        def up_t(u_c=u_c, g_c=g_c, ec=rc_c, a_l=a_l):
+            return K.mg_up_t(u_c, g_c, ec, 2, *a_l)
+
+        def up_pair(u_c=u_c, g_c=g_c, ec=rc_c, a_l=a_l, r=hp2_c, wp_c=wp_c):
+            return K.mg_up(u_c, g_c, K.mg_prolong_t(ec, a_l[1], a_l[3], r, wp_c), 2, *a_l)
+
+        for a, b, c_, part in zip(down_t(), K.mg_down_t_plain(None, g_c, 1, *a_l, chp),
+                                  down_pair(), ("u", "rc_t")):
+            require_equal(f"mg_down_t 8K coarse {shape} {part}", a, b)
+            require_equal(f"mg_down_t 8K coarse {shape} {part} (the unfused pair's)", a, c_)
+        require_equal(f"mg_up_t 8K coarse {shape}", up_t(),
+                      K.mg_up_t_plain(u_c, g_c, rc_c, 2, *a_l))
+        require_equal(f"mg_up_t 8K coarse {shape} (the unfused pair's)", up_t(), up_pair())
+        down_t_levels.append(dict(
+            shape=shape, ms=time_ms(down_t), pair_ms=time_ms(down_pair),
+            pair_b2b_ms=b2b_ms(down_pair),
+            bound_ms=bound(4 * c * (2 * hp_c * wp_c + chp * hp2_c),
+                           c * lh * lw * 11 + c * hc_l * lw * 5 + 3 * c * hc_l * wc_l)[0],
+            **vs_other(down_t, pair=down_pair)))
+        up_t_levels.append(dict(
+            shape=shape, ms=time_ms(up_t), pair_ms=time_ms(up_pair), pair_b2b_ms=b2b_ms(up_pair),
+            bound_ms=bound(4 * c * (3 * hp_c * wp_c + wc_l * hc_l),
+                           c * lh * lw * 12 + 2 * c * hc_l * lw)[0],
+            **vs_other(up_t, pair=up_pair)))
         del g_c, u_c, e_c, rh_c, rc_c, e_l
     for name, lv in (("mg_up", up_levels), ("mg_down", down_levels),
-                     ("mg_restrict_t", restrict_levels), ("mg_prolong_t", prolong_levels)):
+                     ("mg_restrict_t", restrict_levels), ("mg_prolong_t", prolong_levels),
+                     ("mg_down_t", down_t_levels), ("mg_up_t", up_t_levels)):
         rows[name].update(coarse_levels=lv, coarse_bound_ms=lv[0]["bound_ms"],
                           coarse_sum_ms=sum(x["ms"] for x in lv),
                           coarse_sum_bound_ms=sum(x["bound_ms"] for x in lv))
         print(f"{name} at the 8K 'q' coarse levels ({card}): " + "; ".join(
             f"{x['shape']} {x['ms']:.5f} ms cold, "
             + (f"{x['b2b_ms']:.5f} back to back, " if "b2b_ms" in x else "")
+            + (f"the unfused pair {x['pair_ms']:.5f} / {x['pair_b2b_ms']:.5f}, "
+               if "pair_ms" in x else "")
             + f"bound {x['bound_ms']:.5f}" + (f", other {x['other_ms']:.5f} / {x['other_b2b_ms']:.5f}"
                                       if "other_ms" in x else "") for x in lv))
 
@@ -1616,7 +1755,7 @@ def main() -> int:
     eng8, mg8_ms = drive("mg_t", CloneConfig(mg_padded="t"), src8, mask8, MG_LOOPS, "8K",
                          d_img=dst8, cpu=None, solver="multigrid")
     run_cycles = check_mg_counts("mg_t", "single-shot run (8K)", path_launches["mg_t"][1], 1)
-    serve_cycles = path_launches["mg_t"][0]["mg_down"] // levels8
+    serve_cycles = path_launches["mg_t"][0]["mg_down_t"] // levels8
     # the single run's RHS (the original destination), solved with the report
     g8 = K.preprocess_rhs_p(dest8, patch8, me8, (hp8, wp8))
     u_chk, info = TM.solve_multigrid(g8, true_hw=(h8, w8), padded="t", use_pallas=True,
@@ -1649,7 +1788,7 @@ def main() -> int:
     _, mg_head_ms = drive("mg_t_headline", CloneConfig(solver="multigrid", mg_padded="t"),
                           src, mask, MG_LOOPS, f"{SRC_HW[1]}x{SRC_HW[0]}", cpu="run",
                           solver="multigrid")
-    head_cycles = path_launches["mg_t_headline"][0]["mg_down"] // MG_LEVELS["mg_t_headline"]
+    head_cycles = path_launches["mg_t_headline"][0]["mg_down_t"] // MG_LEVELS["mg_t_headline"]
     print(f"crossover data ({card}), serve ms/frame, dst_gemm pair chain vs multigrid "
           f"mg_padded='t' tol {TOL}: {h2 * w2 / 1e6:.1f} MP {pair_ms:.4f} vs {mg_head_ms:.4f} "
           f"({head_cycles / (MG_LOOPS + 1):g} cycles a frame); {h8 * w8 / 1e6:.1f} MP "
@@ -1693,19 +1832,25 @@ def main() -> int:
     print(f"8K serve ({card}), quarter-plane multigrid: tolerance mode {q8_ms:.4f} ms/frame "
           f"({q_serve_cycles / (MG_LOOPS + 1):g} cycles a frame), mg_cycles=4 "
           f"{q8_fixed_ms:.4f} ms/frame; the 't' chain {mg8_ms:.4f} and {mg8_fixed_ms:.4f}")
-    for label, cyc in (("mg_q 8K tolerance", None), ("mg_q 8K mg_cycles=4", 4)):
+    for label, cyc, chain in (("mg_q 8K tolerance", None, contextlib.nullcontext),
+                              ("mg_q 8K mg_cycles=4", 4, contextlib.nullcontext),
+                              (UNFUSED_PROFILE, None, unfused_chain)):
         kw = CloneConfig(solver="multigrid", mg_cycles=cyc).solver_kwargs()
-        profile_frames(label, clone_pipeline, dict(
-            src=torch.from_numpy(src8).to(dev), dst=dst8_p.clone(),
-            mask=torch.from_numpy(m8).to(dev), bbox_xy=(x8, y8), left_top=(left8, top8),
-            bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver=TM.solve_multigrid,
-            bases={}, solver_name="multigrid", solver_kwargs=kw), frames=3, into=loop_profiles)
+        with chain():
+            profile_frames(label, clone_pipeline, dict(
+                src=torch.from_numpy(src8).to(dev), dst=dst8_p.clone(),
+                mask=torch.from_numpy(m8).to(dev), bbox_xy=(x8, y8), left_top=(left8, top8),
+                bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver=TM.solve_multigrid,
+                bases={}, solver_name="multigrid", solver_kwargs=kw), frames=3,
+                into=loop_profiles)
     _, q_head_ms = drive("mg_q_headline", CloneConfig(solver="multigrid"), src, mask,
                          MG_LOOPS, f"{SRC_HW[1]}x{SRC_HW[0]}", cpu="run", solver="multigrid")
     q_head_cycles = path_launches["mg_q_headline"][0]["mg_ud_q"]
     # The host's issue time of a 4-cycle quarter solve at the headline against
     # the card's time for it: a spin kernel holds the card while the host
-    # queues the solve, so the events time the device work alone.
+    # queues the solve, so the events time the device work alone. In turns
+    # with the fused transfers and with the four-kernel chain (2 wrapper
+    # calls a coarse level a cycle fewer: 16 in this solve).
     _, hqh, wq2h, _ = K.mg_geometry_q(h2, w2)
     gqh = K.preprocess_rhs_q(dest_roi, patch, K.erode3(m01), (2 * hqh, 2 * wq2h))
     eig_h: dict = {}
@@ -1714,23 +1859,28 @@ def main() -> int:
         return TM.solve_multigrid(gqh, true_hw=(h2, w2), padded="q", use_pallas=True,
                                   cycles=4, padded_output="quarters", eig_cache=eig_h)
 
-    solve4()
-    issue, device_ms = [], []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)  # ~50 ms of spinning at the card's clock
-        t0 = time.perf_counter()
-        s.record()
-        solve4()
-        e.record()
-        issue.append((time.perf_counter() - t0) * 1e3)
-        e.synchronize()
-        device_ms.append(s.elapsed_time(e))
-    print(f"host issue vs device, 4-cycle quarter solve at the headline ({card}): host "
-          f"{min(issue):.4f}-{max(issue):.4f} ms, device {min(device_ms):.4f}-"
-          f"{max(device_ms):.4f} ms")
-    if max(issue) > 40.0:
+    issue = {"fused": [], "unfused": []}
+    device_ms = {"fused": [], "unfused": []}
+    for chain in ("fused", "unfused", "unfused", "fused"):
+        with contextlib.nullcontext() if chain == "fused" else unfused_chain():
+            solve4()
+            for _ in range(5):
+                torch.cuda.synchronize()
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(100_000_000)  # ~50 ms of spinning at the card's clock
+                t0 = time.perf_counter()
+                s.record()
+                solve4()
+                e.record()
+                issue[chain].append((time.perf_counter() - t0) * 1e3)
+                e.synchronize()
+                device_ms[chain].append(s.elapsed_time(e))
+    for chain in ("fused", "unfused"):
+        print(f"host issue vs device, 4-cycle quarter solve at the headline, {chain} "
+              f"transfers ({card}): host {min(issue[chain]):.4f}-{max(issue[chain]):.4f} ms "
+              f"(median {sorted(issue[chain])[4]:.4f}), device {min(device_ms[chain]):.4f}-"
+              f"{max(device_ms[chain]):.4f} ms")
+    if max(max(v) for v in issue.values()) > 40.0:
         raise AssertionError("the host issue outlasted the spin: the device time is not "
                              "the solve's alone")
     del gqh, eig_h
@@ -2072,11 +2222,16 @@ def main() -> int:
 
     # -- the kernel table: launches of each kernel's own path ---------------------
     for name in KERNELS:
-        home = HOME_PATH.get(name, "pair")
-        rows[name]["launches"] = path_launches[home][0][name]
+        home = None if name in FOLDED else HOME_PATH.get(name, "pair")
+        rows[name]["launches"] = 0 if home is None else path_launches[home][0][name]
         rows[name]["path"] = home
         rows[name]["launches_by_path"] = {p: path_launches[p][0][name] for p in PATHS}
         rows[name]["run_launches_by_path"] = {p: path_launches[p][1][name] for p in PATHS}
+    for name, fused in FOLDED.items():
+        rows[name]["folded_into"] = fused
+        if (any(rows[name]["launches_by_path"].values())
+                or any(rows[name]["run_launches_by_path"].values())):
+            raise AssertionError(f"{name} was launched on a path: it is folded into {fused}")
     rows["clamp_cast_paste_interleaved"]["launches"] = path_launches["unfolded"][1][
         "clamp_cast_paste"]
     rows["clamp_cast_paste_interleaved"]["path"] = "unfolded single-shot run"
@@ -2104,11 +2259,11 @@ def main() -> int:
                            f"{pre}loop_launches_per_frame": n, f"{pre}loop_profile": label})
         loop_lines.append(f"{key} ({label}) {rows[name][pre + 'loop_ms']} ms x{n:g} a frame")
         # per coarse level, by launch order: a cycle descends levels 1, 2,
-        # 3 (mg_down, mg_restrict_t) and ascends 3, 2, 1 (mg_prolong_t, mg_up)
+        # 3 (mg_down_t; mg_down, mg_restrict_t) and ascends 3, 2, 1
         times = [t for k, t in seq if kernel in k]
         levels = rows[name].get("coarse_levels", []) if not form else []
         if levels and times and len(times) % len(levels) == 0:
-            descent = name in ("mg_down", "mg_restrict_t")
+            descent = name in ("mg_down_t", "mg_down", "mg_restrict_t")
             order = range(len(levels)) if descent else range(len(levels))[::-1]
             for lv, i in zip(levels, order):
                 lv["loop_ms"] = sum(times[i :: len(levels)]) / len(times[i :: len(levels)]) / 1e3
@@ -2116,7 +2271,7 @@ def main() -> int:
                 f"{lv['shape']} {lv['loop_ms']:.5f} ms" for lv in levels))
     print(f"in the loop ({card}): " + "; ".join(loop_lines))
     for name, r in rows.items():
-        if not r["launches"]:
+        if not r["launches"] and name not in FOLDED:
             raise AssertionError(f"{name} was launched no time on its path")
     print(f"card vs cpu diff_max by path: {json.dumps(cpu_diffs)}")
     if other is not None:

@@ -37,8 +37,8 @@ it is
     -> clamp_cast_paste
 
 with the RHS born in the level geometry's (hp, wp) slab and each V-cycle
-level mg_down -> mg_restrict_t -> (coarser level) -> mg_prolong_t ->
-mg_up; smaller grids take the same tail on the exact-size RHS and the
+level mg_down_t -> (coarser level) -> mg_up_t (each a level kernel with
+its transposed transfer folded in); smaller grids take the same tail on the exact-size RHS and the
 element path. ``solver_name`` "jacobi" or "dst_fft", and any solver with
 ``use_pallas_postprocess=False``, take the generic tail
 

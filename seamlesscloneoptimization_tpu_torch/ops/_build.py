@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) on first use.
 
 Each source compiles with nvcc, all of them at once in parallel, into its
-own shared library with a plain C interface:
+own shared library with a plain C interface (a source may export more than
+one kernel, ``SHARED_SOURCE``):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
          -shared -Xcompiler -fPIC -Xptxas=-v -o _build/lib<name>_<hash>.so csrc/<name>.cu
@@ -63,6 +64,8 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _I, _P)),
     "mg_down": ("mg_down_launch", (_P,) * 4 + (_I,) * 8 + (_F,) * 6 + (_P,)),
     "mg_up": ("mg_up_launch", (_P,) * 4 + (_I,) * 8 + (_F,) * 6 + (_P,)),
+    "mg_down_t": ("mg_down_t_launch", (_P,) * 4 + (_I,) * 9 + (_F,) * 8 + (_P,)),
+    "mg_up_t": ("mg_up_t_launch", (_P,) * 4 + (_I,) * 9 + (_F,) * 8 + (_P,)),
     "mg_restrict_t": ("mg_restrict_t_launch", (_P, _P) + (_I,) * 6 + (_F, _F, _P)),
     "mg_prolong_t": ("mg_prolong_t_launch", (_P, _P) + (_I,) * 6 + (_F, _F, _P)),
     "preprocess_rhs_q": ("preprocess_rhs_q_launch",
@@ -83,13 +86,25 @@ SIGNATURES = {
                                (_P, _I, _I, _I, _P, _L, _L, _L, _I, _I, _P)),
 }
 
+# kernels exported by another kernel's source: name -> that source's name
+SHARED_SOURCE = {"mg_down_t": "mg_down", "mg_up_t": "mg_up"}
+
 _lock = threading.Lock()
 _functions: dict[str, ctypes._CFuncPtr] = {}
 _libs: list[ctypes.CDLL] = []  # kept alive with the functions
 
 
+def source_name(name: str) -> str:
+    return SHARED_SOURCE.get(name, name)
+
+
 def source_path(name: str) -> Path:
-    return CSRC_DIR / f"{name}.cu"
+    return CSRC_DIR / f"{source_name(name)}.cu"
+
+
+def _sources() -> list[str]:
+    """The sources to build, one for each library."""
+    return [n for n in SIGNATURES if n not in SHARED_SOURCE]
 
 
 def _nvcc() -> str:
@@ -106,7 +121,7 @@ def _target(name: str) -> Path:
     for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared headers: an edit rebuilds
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source_name(name)}_{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> float:
@@ -114,7 +129,7 @@ def build_all() -> float:
     once; returns the seconds spent. Raises RuntimeError with nvcc's output
     if any compile fails."""
     t0 = time.perf_counter()
-    todo = [(n, _target(n)) for n in SIGNATURES if not _target(n).is_file()]
+    todo = [(n, _target(n)) for n in _sources() if not _target(n).is_file()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -140,10 +155,10 @@ def build_all() -> float:
 
 
 def ptxas_report() -> dict[str, str]:
-    """ptxas's resource lines (registers, shared memory, spills) per kernel,
+    """ptxas's resource lines (registers, shared memory, spills) per source,
     from the last build's logs."""
     out = {}
-    for name in SIGNATURES:
+    for name in _sources():
         log = _target(name).with_suffix(".log")
         if log.is_file():
             lines = [ln.strip() for ln in log.read_text().splitlines()
@@ -161,11 +176,11 @@ def kernel_function(name: str):
     with _lock:
         if not _functions:
             build_all()
+            libs = {n: ctypes.CDLL(str(_target(n))) for n in _sources()}
+            _libs.extend(libs.values())
             for kname, (symbol, argtypes) in SIGNATURES.items():
-                lib = ctypes.CDLL(str(_target(kname)))
-                f = getattr(lib, symbol)
+                f = getattr(libs[source_name(kname)], symbol)
                 f.argtypes = list(argtypes)
                 f.restype = ctypes.c_int
-                _libs.append(lib)
                 _functions[kname] = f
     return _functions[name]

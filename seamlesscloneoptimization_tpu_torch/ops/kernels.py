@@ -26,6 +26,10 @@ wrapper                       replaces (pallas_kernels.py,
 ``mg_up``                     ``mg_up_pallas`` (the same two forms)
 ``mg_restrict_t``             ``mg_restrict_t_pallas``
 ``mg_prolong_t``              ``mg_prolong_t_pallas``
+``mg_down_t``                 ``mg_down_pallas`` + ``mg_restrict_t_pallas``,
+                              fused (``vcycle_t``'s descent)
+``mg_up_t``                   ``mg_prolong_t_pallas`` + ``mg_up_pallas``,
+                              fused (``vcycle_t``'s ascent)
 ``preprocess_rhs_q``          ``preprocess_rhs_quarters_pallas``
 ``to_quarters``               ``to_quarters_pallas``
 ``from_quarters``             ``from_quarters_pallas``
@@ -53,8 +57,9 @@ The sources are ``csrc/<name>.cu`` (``rb_sweeps`` launches
 ``csrc/fold.cuh``, preprocess_rhs_p ``csrc/rhs_tile.cuh``, preprocess_rhs_q and
 preprocess_rhs_t ``csrc/rhs_wide.cuh``, the two
 dense multigrid level kernels and ``rb_sweeps_tile`` ``csrc/mg_level.cuh``,
-the three quarter-plane ones ``csrc/mg_level_q.cuh``), built by
-``ops/_build.py``.
+the three quarter-plane ones ``csrc/mg_level_q.cuh``; ``mg_down_t`` and
+``mg_up_t`` are the fused forms in ``csrc/mg_down.cu`` and ``csrc/mg_up.cu``),
+built by ``ops/_build.py``.
 """
 
 from __future__ import annotations
@@ -74,9 +79,9 @@ LAUNCHES = {"erode3": 0, "preprocess_rhs_t": 0, "transpose": 0,
             "clamp_cast_paste": 0, "fold_minor": 0, "unfold_minor": 0,
             "transpose_pair": 0, "unfold_transpose": 0, "unfold_clamp_paste": 0,
             "preprocess_rhs_p": 0, "mg_down": 0, "mg_up": 0, "mg_restrict_t": 0,
-            "mg_prolong_t": 0, "preprocess_rhs_q": 0, "mg_down_q": 0, "mg_up_q": 0,
-            "mg_ud_q": 0, "mg_prolong_tq": 0, "clamp_cast_paste_q": 0, "to_quarters": 0,
-            "from_quarters": 0, "mg_restrict_tq": 0, "rb_sweeps": 0,
+            "mg_prolong_t": 0, "mg_down_t": 0, "mg_up_t": 0, "preprocess_rhs_q": 0,
+            "mg_down_q": 0, "mg_up_q": 0, "mg_ud_q": 0, "mg_prolong_tq": 0,
+            "clamp_cast_paste_q": 0, "to_quarters": 0, "from_quarters": 0, "mg_restrict_tq": 0, "rb_sweeps": 0,
             "postprocess_transposed": 0, "rb_sweeps_tile": 0}
 
 _MIXED_RULES = {"opencv": 0, "norm": 1}
@@ -577,8 +582,10 @@ def unfold_clamp_paste(e: torch.Tensor, o: torch.Tensor, dst: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The transpose-fused multigrid chain: mg_down, mg_up, mg_restrict_t,
-# mg_prolong_t (solvers/multigrid.py:vcycle_t)
+# The transpose-fused multigrid chain (solvers/multigrid.py:vcycle_t): the
+# level kernels mg_down, mg_up, the transfers mg_restrict_t, mg_prolong_t,
+# and the fused forms vcycle_t runs, mg_down_t (mg_down + mg_restrict_t) and
+# mg_up_t (mg_prolong_t + mg_up)
 # ---------------------------------------------------------------------------
 
 
@@ -622,6 +629,14 @@ def _level_consts(bh: float, bw: float) -> tuple[bool, float, float, float, floa
     halves 2/beta, each rounded once to f32; uniform when both betas are 1."""
     return (bh == 1.0 and bw == 1.0, _f32(2.0 / (1.0 + bh) - 1.0),
             _f32(2.0 / (1.0 + bw) - 1.0), _f32(2.0 / bh), _f32(2.0 / bw))
+
+
+def _edge_weights_w(bw: float) -> tuple[float, float, float, float]:
+    """(c5, c6, c7, c8): the even-w edge weights of the lane restriction
+    (mg_restrict_t) and of the lane prolongation (mg_prolong_t)."""
+    gap = 2.0 + bw
+    return (_f32(2.0 * (1.0 + bw) / gap), _f32(2.0 * bw / gap), _f32((1.0 + bw) / gap),
+            _f32(bw / gap))
 
 
 def _level_ops(hp: int, wp: int, h: int, w: int, bh: float, bw: float, device):
@@ -694,6 +709,29 @@ def _check_hw(h: int, w: int, hp: int, wp: int) -> tuple[int, int]:
     return h, w
 
 
+def _check_descent(u, g, h, w, nu1) -> tuple[int, int, int, int, int, int]:
+    """The input contract of mg_down and mg_down_t: (c, hp, wp, h, w, nu1)."""
+    _require(g, "g", torch.float32, 3)
+    c, hp, wp = g.shape
+    if u is not None:
+        _check_level("u", u, c, hp, wp)
+        _same_device(g, u)
+    h, w = _check_hw(h, w, hp, wp)
+    return c, hp, wp, h, w, _check_nu(nu1, 0, 2, "nu1")
+
+
+def _check_ascent(u, g, e, e_name: str, h, w) -> tuple[int, int, int, int, int]:
+    """The slab contract of mg_up and mg_up_t (e: the correction operand
+    ``e_name``): (c, hp, wp, h, w)."""
+    _require(u, "u", torch.float32, 3)
+    c, hp, wp = u.shape
+    _check_level("g", g, c, hp, wp)
+    _require(e, e_name, torch.float32, 3)
+    _same_device(u, g, e)
+    h, w = _check_hw(h, w, hp, wp)
+    return c, hp, wp, h, w
+
+
 def mg_down_plain(u: torch.Tensor | None, g: torch.Tensor, nu1: int, h: int, w: int,
                   bh: float = 1.0, bw: float = 1.0, rh_rows: int | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -734,13 +772,7 @@ def mg_down(u: torch.Tensor | None, g: torch.Tensor, nu1: int, h: int, w: int,
     hold the row-restricted residual (hc = (h-1)//2; an even h puts the
     beta-gap weights on row hc-1), rows from hp//2 on are exact zeros.
     """
-    _require(g, "g", torch.float32, 3)
-    c, hp, wp = g.shape
-    if u is not None:
-        _check_level("u", u, c, hp, wp)
-        _same_device(g, u)
-    h, w = _check_hw(h, w, hp, wp)
-    nu1 = _check_nu(nu1, 0, 2, "nu1")
+    c, hp, wp, h, w, nu1 = _check_descent(u, g, h, w, nu1)
     rh_rows = hp // 2 if rh_rows is None else int(rh_rows)
     if rh_rows < hp // 2:
         raise ValueError(f"rh_rows {rh_rows} < hp // 2 = {hp // 2}")
@@ -784,12 +816,7 @@ def mg_up(u: torch.Tensor, g: torch.Tensor, e_lane: torch.Tensor, nu2: int, h: i
     [0, hc) used, the rest taken as zero), added inside the domain, then
     ``nu2`` red-black sweeps. u, g: (C, hp, wp) as for ``mg_down``.
     Returns the swept (C, hp, wp) u, exact zeros outside the domain."""
-    _require(u, "u", torch.float32, 3)
-    c, hp, wp = u.shape
-    _check_level("g", g, c, hp, wp)
-    _require(e_lane, "e_lane", torch.float32, 3)
-    _same_device(u, g, e_lane)
-    h, w = _check_hw(h, w, hp, wp)
+    c, hp, wp, h, w = _check_ascent(u, g, e_lane, "e_lane", h, w)
     if e_lane.shape[0] != c or e_lane.shape[2] != wp or e_lane.shape[1] < hp // 2:
         raise ValueError(f"e_lane {tuple(e_lane.shape)} does not cover {(c, hp // 2, wp)}")
     nu2 = _check_nu(nu2, 0, 4, "nu2")
@@ -840,10 +867,10 @@ def mg_restrict_t(rh: torch.Tensor, h: int, w: int, bw: float, out_rows: int) ->
                          f"into {out_rows} rows")
     if rh.device.type == "cpu":
         return mg_restrict_t_plain(rh, h, w, bw, out_rows)
-    gap = 2.0 + bw
+    c5, c6, _, _ = _edge_weights_w(bw)
     out = torch.empty((c, out_rows, hp2), dtype=torch.float32, device=rh.device)
     _launch("mg_restrict_t", rh, rh.data_ptr(), out.data_ptr(), c, hp2, wp, out_rows, h, w,
-            _f32(2.0 * (1.0 + bw) / gap), _f32(2.0 * bw / gap))
+            c5, c6)
     return out
 
 
@@ -883,10 +910,81 @@ def mg_prolong_t(ec_t: torch.Tensor, w: int, bw: float, out_rows: int,
                          f"({out_rows}, {wp})")
     if ec_t.device.type == "cpu":
         return mg_prolong_t_plain(ec_t, w, bw, out_rows, wp)
-    gap = 2.0 + bw
+    _, _, c7, c8 = _edge_weights_w(bw)
     out = torch.empty((c, out_rows, wp), dtype=torch.float32, device=ec_t.device)
     _launch("mg_prolong_t", ec_t, ec_t.data_ptr(), out.data_ptr(), c, hp_c, lanes, out_rows,
-            wp, w, _f32((1.0 + bw) / gap), _f32(bw / gap))
+            wp, w, c7, c8)
+    return out
+
+
+def mg_down_t_plain(u: torch.Tensor | None, g: torch.Tensor, nu1: int, h: int, w: int,
+                    bh: float, bw: float, out_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    u, rh = mg_down_plain(u, g, nu1, h, w, bh, bw, _round_up(g.shape[1] // 2, 128))
+    return u, mg_restrict_t_plain(rh, h, w, bw, out_rows)
+
+
+def mg_down_t(u: torch.Tensor | None, g: torch.Tensor, nu1: int, h: int, w: int, bh: float,
+              bw: float, out_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``vcycle_t``'s descent in one launch: ``mg_down`` and the transposed
+    lane restriction ``mg_restrict_t`` of its rh, which stays on chip.
+
+    u, g as for ``mg_down``. Returns (swept u (C, hp, wp), rc_t (C,
+    out_rows, hp2)), hp2 = hp // 2 rounded up to 128, bit-equal to
+    ``mg_restrict_t(mg_down(u, g, nu1, h, w, bh, bw, rh_rows=hp2)[1], h, w,
+    bw, out_rows)``: the transposed coarse RHS at the origin, exact zeros
+    outside [0, wc) x [0, hc).
+    """
+    c, hp, wp, h, w, nu1 = _check_descent(u, g, h, w, nu1)
+    out_rows = int(out_rows)
+    hc, wc = (h - 1) // 2, (w - 1) // 2
+    if hc < 1 or wc < 1 or wp < 2 * wc + 2 or out_rows < wc:
+        raise ValueError(f"slab {(hp, wp)} cannot restrict true size {(h, w)} into "
+                         f"{out_rows} rows")
+    if g.device.type == "cpu":
+        return mg_down_t_plain(u, g, nu1, h, w, bh, bw, out_rows)
+    uniform, cuh, cuw, dh, dw = _level_consts(bh, bw)
+    gap = 2.0 + bh
+    c5, c6, _, _ = _edge_weights_w(bw)
+    hp2 = _round_up(hp // 2, 128)
+    u_out = torch.empty_like(g)
+    rc_t = torch.empty((c, out_rows, hp2), dtype=torch.float32, device=g.device)
+    _launch("mg_down_t", g, None if u is None else u.data_ptr(), g.data_ptr(),
+            u_out.data_ptr(), rc_t.data_ptr(), c, hp, wp, hp2, out_rows, h, w, nu1,
+            int(uniform), cuh, cuw, dh, dw, _f32((1.0 + bh) / gap * 0.5 - 0.25),
+            _f32(bh / gap * 0.5), c5, c6)
+    return u_out, rc_t
+
+
+def mg_up_t_plain(u: torch.Tensor, g: torch.Tensor, ec_t: torch.Tensor, nu2: int, h: int,
+                  w: int, bh: float = 1.0, bw: float = 1.0) -> torch.Tensor:
+    e_lane = mg_prolong_t_plain(ec_t, w, bw, u.shape[1] // 2, u.shape[2])
+    return mg_up_plain(u, g, e_lane, nu2, h, w, bh, bw)
+
+
+def mg_up_t(u: torch.Tensor, g: torch.Tensor, ec_t: torch.Tensor, nu2: int, h: int, w: int,
+            bh: float = 1.0, bw: float = 1.0) -> torch.Tensor:
+    """``vcycle_t``'s ascent in one launch: the lane prolongation
+    ``mg_prolong_t`` of the transposed coarse correction ec_t (C, hp_c,
+    lanes >= hp // 2), which stays on chip, then ``mg_up``. u, g as for
+    ``mg_up``. Bit-equal to ``mg_up(u, g, mg_prolong_t(ec_t, w, bw,
+    out_rows, wp), nu2, h, w, bh, bw)`` for any out_rows in [hp // 2,
+    lanes]."""
+    c, hp, wp, h, w = _check_ascent(u, g, ec_t, "ec_t", h, w)
+    nu2 = _check_nu(nu2, 0, 4, "nu2")
+    _, hp_c, lanes = ec_t.shape
+    wc = (w - 1) // 2
+    if ec_t.shape[0] != c or wc < 1 or hp_c < wc or lanes < hp // 2:
+        raise ValueError(f"ec_t {tuple(ec_t.shape)} cannot prolong to w={w}, "
+                         f"({hp // 2}, {wp})")
+    if u.device.type == "cpu":
+        return mg_up_t_plain(u, g, ec_t, nu2, h, w, bh, bw)
+    uniform, cuh, cuw, dh, dw = _level_consts(bh, bw)
+    gap = 2.0 + bh
+    _, _, c7, c8 = _edge_weights_w(bw)
+    out = torch.empty_like(u)
+    _launch("mg_up_t", u, u.data_ptr(), g.data_ptr(), ec_t.data_ptr(), out.data_ptr(), c, hp,
+            wp, hp_c, lanes, h, w, nu2, int(uniform), cuh, cuw, dh, dw,
+            _f32(2.0 * (1.0 + bh) / gap), _f32(2.0 * bh / gap), c7, c8)
     return out
 
 

@@ -34,12 +34,12 @@ Three chains:
   ``mg_restrict_tq``, the coarse levels, ``mg_up_q`` with its residual.
 - ``vcycle_t`` (``padded="t"``, fine grids with ``use_pallas``): every
   level lives in a zero-padded slab (``ops/kernels.py:mg_geometry_t``) and
-  runs as two kernels, ``mg_down`` (sweeps + residual + row restriction)
-  and ``mg_up`` (row prolongation + correction + sweeps); the lane half of
-  each transfer is ``mg_restrict_t`` / ``mg_prolong_t``, which transpose,
-  so each coarser level lives transposed (the operator is symmetric under
-  transposition with bh and bw swapped). Levels below 2^16 points solve
-  exactly with ``solve_sep_eig``.
+  runs as two kernels, ``mg_down_t`` (sweeps + residual + row restriction
+  + the lane restriction, emitted transposed) and ``mg_up_t`` (the lane
+  prolongation of the transposed correction + row prolongation +
+  correction + sweeps), so each coarser level lives transposed (the
+  operator is symmetric under transposition with bh and bw swapped).
+  Levels below 2^16 points solve exactly with ``solve_sep_eig``.
 - ``vcycle`` (the element path: small grids, ``use_pallas=False``, or
   ``padded=False``): PyTorch sweeps and transfers on exact-size arrays, as
   XLA ran them, except that a level of at least 2^18 points with
@@ -343,6 +343,18 @@ def vcycle(u: torch.Tensor, g: torch.Tensor, nu1: int = 2, nu2: int = 2, coarses
     return _sweeps_b(u, g, nu2, bh, bw)
 
 
+def _small_t_level(u_p, g_p, h, w, nu1, nu2, coarsest, bh, bw, eig_cache) -> torch.Tensor:
+    """A ``vcycle_t`` level below the fused gate, padded back to its slab.
+    Only a coarse level lands here (solve_multigrid takes this chain when
+    the fine level fuses), and it always starts from zero: the exact solve
+    replaces the correction."""
+    if u_p is None:
+        u = coarse_solve(g_p[:, :h, :w], bh, bw, eig_cache)
+    else:
+        u = vcycle(u_p[:, :h, :w], g_p[:, :h, :w], nu1, nu2, coarsest, True, bh, bw, eig_cache)
+    return _pad_to(u, g_p.shape)
+
+
 def vcycle_t(u_p: torch.Tensor | None, g_p: torch.Tensor, h: int, w: int, nu1: int = 1,
              nu2: int = 2, coarsest: int = 63, bh: float = 1.0, bw: float = 1.0,
              geom: tuple[int, int, int, int] | None = None, eig_cache=None) -> torch.Tensor:
@@ -350,30 +362,45 @@ def vcycle_t(u_p: torch.Tensor | None, g_p: torch.Tensor, h: int, w: int, nu1: i
 
     g_p, u_p: (C, hp, wp) per ``mg_geometry_t(h, w)`` (or ``geom``), the
     true (h, w) domain at the origin, exact zeros elsewhere; ``u_p=None`` is
-    a known-zero guess (every coarse level). Per level: ``mg_down`` ->
-    ``mg_restrict_t`` -> the transposed child level (logical (wc, hc), betas
-    swapped, its width the parent's hp2) -> ``mg_prolong_t`` -> ``mg_up``.
-    A level below the fused gate solves exactly (``coarse_solve``). Returns
-    (C, hp, wp) with the same zero invariant.
+    a known-zero guess (every coarse level). Per level: ``mg_down_t``
+    (the JAX package's ``mg_down`` + ``mg_restrict_t`` in one launch) -> the
+    transposed child level (logical (wc, hc), betas swapped, its width the
+    parent's hp2) -> ``mg_up_t`` (``mg_prolong_t`` + ``mg_up``). A level
+    below the fused gate solves exactly (``coarse_solve``). Returns (C, hp,
+    wp) with the same zero invariant.
     """
     c = g_p.shape[0]
     th, hp, wp, hp2 = geom if geom is not None else K.mg_geometry_t(h, w)
     if _small(h, w, coarsest) or not _fused_level(h, w, nu1, nu2, True, FUSE_MIN_T):
-        # only a coarse level lands here (solve_multigrid takes this chain
-        # when the fine level fuses), and it always starts from zero: the
-        # exact solve replaces the correction
-        if u_p is None:
-            u = coarse_solve(g_p[:, :h, :w], bh, bw, eig_cache)
-        else:
-            u = vcycle(u_p[:, :h, :w], g_p[:, :h, :w], nu1, nu2, coarsest, True, bh, bw,
-                       eig_cache)
-        return _pad_to(u, g_p.shape)
+        return _small_t_level(u_p, g_p, h, w, nu1, nu2, coarsest, bh, bw, eig_cache)
+    hc, bh_c = _coarsen(h, bh)
+    wc, bw_c = _coarsen(w, bw)
+    cgeom = K.mg_geometry_t(wc, hc, wp_min=hp2)
+    u_s, rc_t = K.mg_down_t(u_p, g_p, nu1, h, w, bh, bw, out_rows=cgeom[1])
+    ec_t = vcycle_t(None, rc_t, wc, hc, nu1, nu2, coarsest, bw_c, bh_c, cgeom, eig_cache)
+    return K.mg_up_t(u_s, g_p, ec_t, nu2, h, w, bh, bw)
+
+
+def vcycle_t_unfused(u_p: torch.Tensor | None, g_p: torch.Tensor, h: int, w: int,
+                     nu1: int = 1, nu2: int = 2, coarsest: int = 63, bh: float = 1.0,
+                     bw: float = 1.0, geom: tuple[int, int, int, int] | None = None,
+                     eig_cache=None) -> torch.Tensor:
+    """``vcycle_t`` as the four kernels a level that ``mg_down_t`` /
+    ``mg_up_t`` fold (``mg_down`` -> ``mg_restrict_t`` -> the child level ->
+    ``mg_prolong_t`` -> ``mg_up``), the JAX package's chain: the same
+    arithmetic, bit for bit. No solve runs it; it is the reference that the
+    card checks (``tests/test_torch_cuda.py``, ``chip_smoke.py``) hold the
+    fused chain against."""
+    th, hp, wp, hp2 = geom if geom is not None else K.mg_geometry_t(h, w)
+    if _small(h, w, coarsest) or not _fused_level(h, w, nu1, nu2, True, FUSE_MIN_T):
+        return _small_t_level(u_p, g_p, h, w, nu1, nu2, coarsest, bh, bw, eig_cache)
     hc, bh_c = _coarsen(h, bh)
     wc, bw_c = _coarsen(w, bw)
     u_s, rh = K.mg_down(u_p, g_p, nu1, h, w, bh, bw, rh_rows=hp2)
     cgeom = K.mg_geometry_t(wc, hc, wp_min=hp2)
     rc_t = K.mg_restrict_t(rh, h, w, bw, out_rows=cgeom[1])
-    ec_t = vcycle_t(None, rc_t, wc, hc, nu1, nu2, coarsest, bw_c, bh_c, cgeom, eig_cache)
+    ec_t = vcycle_t_unfused(None, rc_t, wc, hc, nu1, nu2, coarsest, bw_c, bh_c, cgeom,
+                            eig_cache)
     e_lane = K.mg_prolong_t(ec_t, w, bw, out_rows=hp2, wp=wp)
     return K.mg_up(u_s, g_p, e_lane, nu2, h, w, bh, bw)
 
@@ -397,6 +424,25 @@ def _q_geoms(h: int, w: int):
     return qgeom, K.mg_geometry_t((w - 1) // 2, (h - 1) // 2, wp_min=qgeom[3])
 
 
+def _t_levels_from(h, w, bh, bw, geom, nu1, nu2, coarsest) -> list[tuple]:
+    """The fused levels ``vcycle_t`` runs from the level (h, w, bh, bw,
+    geom) down, in descent order: (h, w, bh, bw, geom) per level, each the
+    transposed child of the one before (logical (wc, hc), betas swapped,
+    its slab per ``geom = (th, hp, wp, hp2)``)."""
+    levels = []
+    while not _small(h, w, coarsest) and _fused_level(h, w, nu1, nu2, True, FUSE_MIN_T):
+        levels.append((h, w, bh, bw, geom))
+        (hc, bh_c), (wc, bw_c) = _coarsen(h, bh), _coarsen(w, bw)
+        h, w, bh, bw, geom = wc, hc, bw_c, bh_c, K.mg_geometry_t(wc, hc, wp_min=geom[3])
+    return levels
+
+
+def t_levels(h: int, w: int, nu1: int = 1, nu2: int = 2, coarsest: int = 63) -> list[tuple]:
+    """The fused levels of a ``vcycle_t`` on an (h, w) fine level (the
+    ``"t"`` chain), as ``q_coarse_levels`` lists them."""
+    return _t_levels_from(h, w, 1.0, 1.0, K.mg_geometry_t(h, w), nu1, nu2, coarsest)
+
+
 def q_coarse_levels(h: int, w: int, nu1: int = 1, nu2: int = 2,
                     coarsest: int = 63) -> list[tuple]:
     """The fused coarse levels that ``vcycle_t`` runs below an (h, w)
@@ -404,13 +450,7 @@ def q_coarse_levels(h: int, w: int, nu1: int = 1, nu2: int = 2,
     the transposed child of the one before (logical (wc, hc), betas
     swapped, its slab per ``geom = (th, hp, wp, hp2)``)."""
     (hc, bh_c), (wc, bw_c) = _coarsen(h, 1.0), _coarsen(w, 1.0)
-    h, w, bh, bw, geom = wc, hc, bw_c, bh_c, _q_geoms(h, w)[1]
-    levels = []
-    while not _small(h, w, coarsest) and _fused_level(h, w, nu1, nu2, True, FUSE_MIN_T):
-        levels.append((h, w, bh, bw, geom))
-        (hc, bh_c), (wc, bw_c) = _coarsen(h, bh), _coarsen(w, bw)
-        h, w, bh, bw, geom = wc, hc, bw_c, bh_c, K.mg_geometry_t(wc, hc, wp_min=geom[3])
-    return levels
+    return _t_levels_from(wc, hc, bw_c, bh_c, _q_geoms(h, w)[1], nu1, nu2, coarsest)
 
 
 def vcycle_q(uq: torch.Tensor | None, gq: torch.Tensor, h: int, w: int, nu1: int = 1,

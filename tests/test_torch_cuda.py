@@ -396,20 +396,22 @@ def test_preprocess_rhs_p_matches_plain(cuda, hw, mode):
         assert torch.equal(got.cpu(), want)
 
 
-MG_T_FIXED = _per_frame(erode3=1, preprocess_rhs_p=1, clamp_cast_paste=1, mg_down=4, mg_up=4,
-                        mg_restrict_t=4, mg_prolong_t=4)
+MG_T_FIXED = _per_frame(erode3=1, preprocess_rhs_p=1, clamp_cast_paste=1, mg_down_t=4,
+                        mg_up_t=4)
 
 
 def test_serve_mg_t_fixed_counts(cuda):
     """mg_padded="t", 2 fixed cycles, interior 518 x 526: 2 fused levels,
-    so each V-cycle kernel runs 2 x 2 times a frame."""
+    so each V-cycle kernel (the fused descent and ascent) runs 2 x 2 times
+    a frame."""
     _serve_counts(cuda, CloneConfig(solver="multigrid", mg_padded="t", mg_cycles=2),
                   (520, 528), MG_T_FIXED)
 
 
 def test_serve_mg_t_tol_counts(cuda):
-    """Tolerance mode: every V-cycle kernel a multiple of the 2 levels, the
-    same for all four, and the card within 1 of the CPU."""
+    """Tolerance mode: both V-cycle kernels a multiple of the 2 levels, the
+    same for both, no standalone level kernel or transfer, and the card
+    within 1 of the CPU."""
     rng = np.random.default_rng(0)
     src = _u8(rng, (520, 528, 3))
     dst = _u8(rng, (580, 600, 3))
@@ -418,12 +420,124 @@ def test_serve_mg_t_tol_counts(cuda):
     K.reset_launches()
     out = SeamlessClone(cfg, device=cuda).run(src, dst, mask, (300, 290)).cpu().numpy()
     torch.cuda.synchronize()
-    n = K.LAUNCHES["mg_down"]
+    n = K.LAUNCHES["mg_down_t"]
     assert n > 0 and n % 2 == 0
-    assert all(K.LAUNCHES[k] == n for k in ("mg_up", "mg_restrict_t", "mg_prolong_t"))
-    assert K.LAUNCHES["preprocess_rhs_p"] == K.LAUNCHES["clamp_cast_paste"] == 1
+    assert K.LAUNCHES == _per_frame(erode3=1, preprocess_rhs_p=1, clamp_cast_paste=1,
+                                    mg_down_t=n, mg_up_t=n)
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (300, 290)).numpy()
     assert np.abs(out.astype(np.int16) - want).max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# the fused transfers: mg_down_t (mg_down + mg_restrict_t) and mg_up_t
+# (mg_prolong_t + mg_up), vcycle_t's two kernels a level
+# ---------------------------------------------------------------------------
+
+
+# (label, (h, w, bh, bw, geom)): the 8K frame's "t" levels and "q" coarse
+# levels, the headline's, and small levels (betas != 1, odd and even sides,
+# w - 1 = 65 and 129: the even-w edge column at a tile's right end; rc_t
+# rows past the tiles)
+FUSED_LEVELS = [(f"{frame} {chain} {i}", lv)
+                for frame, hw in (("8K", (2798, 3798)), ("headline", (1548, 2396)))
+                for chain, levels in (("t", TM.t_levels(*hw)), ("q", TM.q_coarse_levels(*hw)))
+                for i, lv in enumerate(levels)] + [
+    (f"{h}x{w}", (h, w, bh, bw, K.mg_geometry_t(h, w))) for h, w, bh, bw in (
+        (70, 200, 1.0, 2.0), (129, 257, 2.0, 1.0), (134, 99, 1.9375, 1.4375),
+        (63, 66, 1.5, 1.25), (33, 130, 1.25, 1.75), (150, 300, 1.75, 1.5))]
+
+
+def _child_geom(lv):
+    h, w, _, _, geom = lv
+    return K.mg_geometry_t((w - 1) // 2, (h - 1) // 2, wp_min=geom[3])
+
+
+@pytest.mark.parametrize("label,lv", FUSED_LEVELS)
+def test_mg_down_t_matches_plain_and_chain(cuda, label, lv):
+    """Every nu1 with a given and a known-zero guess: u and rc_t bit-exact
+    against mg_down_t_plain (on the card) and against the unfused chain
+    mg_restrict_t(mg_down(..., rh_rows=hp2)[1]) on the card, over every
+    element (rc_t's uncovered band of zeros included)."""
+    h, w, bh, bw, (_, hp, wp, hp2) = lv
+    out_rows = _child_geom(lv)[1]
+    gen = torch.Generator(cuda).manual_seed(h * w)
+    g = torch.zeros((3, hp, wp), device=cuda)
+    u = torch.zeros((3, hp, wp), device=cuda)
+    g[:, :h, :w] = torch.randn((3, h, w), generator=gen, device=cuda) * 50
+    u[:, :h, :w] = torch.randn((3, h, w), generator=gen, device=cuda) * 10
+    for nu1 in (0, 1, 2):
+        for guess in (u, None):
+            got = K.mg_down_t(guess, g, nu1, h, w, bh, bw, out_rows)
+            want = K.mg_down_t_plain(guess, g, nu1, h, w, bh, bw, out_rows)
+            u_c, rh = K.mg_down(guess, g, nu1, h, w, bh, bw, hp2)
+            chain = (u_c, K.mg_restrict_t(rh, h, w, bw, out_rows))
+            torch.cuda.synchronize()
+            assert got[1].shape == (3, out_rows, hp2)
+            for a, b, c in zip(got, want, chain):
+                assert torch.equal(a, b) and torch.equal(a, c), (nu1, guess is None)
+
+
+@pytest.mark.parametrize("label,lv", FUSED_LEVELS)
+def test_mg_up_t_matches_plain_and_chain(cuda, label, lv):
+    """nu2 in {0, 2, 4} (both rings): bit-exact against mg_up_t_plain (on the
+    card) and against the unfused chain mg_up(mg_prolong_t(ec_t, out_rows =
+    hp2)) on the card; ec_t carries junk on lanes >= hc, which both ignore."""
+    h, w, bh, bw, (_, hp, wp, hp2) = lv
+    hc, wc = (h - 1) // 2, (w - 1) // 2
+    _, chp, cwp, _ = _child_geom(lv)
+    gen = torch.Generator(cuda).manual_seed(h + w)
+    g = torch.zeros((3, hp, wp), device=cuda)
+    u = torch.zeros((3, hp, wp), device=cuda)
+    ec = torch.zeros((3, chp, cwp), device=cuda)
+    g[:, :h, :w] = torch.randn((3, h, w), generator=gen, device=cuda) * 50
+    u[:, :h, :w] = torch.randn((3, h, w), generator=gen, device=cuda) * 10
+    ec[:, :wc, :hc] = torch.randn((3, wc, hc), generator=gen, device=cuda) * 5
+    ec[:, :wc, hc:] = torch.randn((3, wc, cwp - hc), generator=gen, device=cuda)
+    for nu2 in (0, 2, 4):
+        got = K.mg_up_t(u, g, ec, nu2, h, w, bh, bw)
+        want = K.mg_up_t_plain(u, g, ec, nu2, h, w, bh, bw)
+        chain = K.mg_up(u, g, K.mg_prolong_t(ec, w, bw, hp2, wp), nu2, h, w, bh, bw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, chain), nu2
+
+
+def test_vcycle_t_fused_equals_unfused(cuda):
+    """Whole V-cycles at the headline's "t" fine level (3 fused levels, a
+    given guess) and at its "q" chain's first coarse level (2, a known-zero
+    guess): the fused chain bit-equal to the four-kernel chain
+    (``vcycle_t_unfused``), with 2 launches a level against 4."""
+    for (h, w, bh, bw, geom), given, levels in ((TM.t_levels(1548, 2396)[0], True, 3),
+                                                (TM.q_coarse_levels(1548, 2396)[0], False, 2)):
+        gen = torch.Generator(cuda).manual_seed(h)
+        g = torch.zeros((3,) + geom[1:3], device=cuda)
+        g[:, :h, :w] = torch.randn((3, h, w), generator=gen, device=cuda) * 50
+        u = g * 0.1 if given else None
+        K.reset_launches()
+        got = TM.vcycle_t(u, g, h, w, 1, 2, 63, bh, bw, geom, {})
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == _per_frame(mg_down_t=levels, mg_up_t=levels)
+        K.reset_launches()
+        want = TM.vcycle_t_unfused(u, g, h, w, 1, 2, 63, bh, bw, geom, {})
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == _per_frame(mg_down=levels, mg_up=levels, mg_restrict_t=levels,
+                                        mg_prolong_t=levels)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("padded", ["q", "t"])
+def test_solve_cycles_unchanged_by_fusion(cuda, padded, monkeypatch):
+    """solve_multigrid to tol 1e-4 on a (3, 1548, 2396) RHS: the fused chain
+    and the four-kernel chain run the same cycles and give the same bits."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    g = torch.randn((3, 1548, 2396), generator=gen, device=cuda) * 50
+    got, info = TM.solve_multigrid(g, padded=padded, use_pallas=True, tol=1e-4,
+                                   return_info=True)
+    monkeypatch.setattr(TM, "vcycle_t", TM.vcycle_t_unfused)
+    want, winfo = TM.solve_multigrid(g, padded=padded, use_pallas=True, tol=1e-4,
+                                     return_info=True)
+    torch.cuda.synchronize()
+    assert info["cycles"] == winfo["cycles"] >= 2
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -558,14 +672,13 @@ def test_clamp_cast_paste_q_matches_plain(cuda, planar, off, hw):
 
 
 MG_Q_FIXED = _per_frame(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1, mg_down_q=1,
-                        mg_ud_q=1, mg_up_q=1, mg_prolong_tq=2, mg_down=2, mg_up=2,
-                        mg_restrict_t=2, mg_prolong_t=2)
+                        mg_ud_q=1, mg_up_q=1, mg_prolong_tq=2, mg_down_t=2, mg_up_t=2)
 
 
 def test_serve_mg_q_fixed_counts(cuda):
     """The default mg_padded="q", 2 fixed cycles, interior 518 x 526 (one
     fused coarse level): a frame is mg_down_q, one mg_ud_q, mg_up_q, and per
-    cycle mg_prolong_tq and the coarse level's four kernels."""
+    cycle mg_prolong_tq and the coarse level's two kernels."""
     _serve_counts(cuda, CloneConfig(solver="multigrid", mg_cycles=2), (520, 528), MG_Q_FIXED)
 
 
@@ -584,8 +697,8 @@ def test_serve_mg_q_tol_counts(cuda):
     n = K.LAUNCHES["mg_ud_q"]
     assert n >= 3
     assert K.LAUNCHES == _per_frame(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1,
-                                    mg_down_q=1, mg_ud_q=n, mg_prolong_tq=n, mg_down=n,
-                                    mg_up=n, mg_restrict_t=n, mg_prolong_t=n)
+                                    mg_down_q=1, mg_ud_q=n, mg_prolong_tq=n, mg_down_t=n,
+                                    mg_up_t=n)
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (300, 290)).numpy()
     assert np.abs(out.astype(np.int16) - want).max() <= 1
 
@@ -769,7 +882,7 @@ def test_dense_solve_on_card_matches_cpu(cuda, mode):
 
 def test_serve_mg_q_coarse_tol_counts(cuda):
     """tol 0.05, no check-free cycle: per cycle the split mg_down_q,
-    mg_restrict_tq, the coarse level's four kernels, mg_prolong_tq and
+    mg_restrict_tq, the coarse level's two kernels, mg_prolong_tq and
     mg_up_q with its residual; no mg_ud_q; the card within 1 of the CPU."""
     rng = np.random.default_rng(2)
     src = _u8(rng, (520, 528, 3))
@@ -783,8 +896,8 @@ def test_serve_mg_q_coarse_tol_counts(cuda):
     assert n >= 1
     assert K.LAUNCHES == _per_frame(
         erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1,
-        **{k: n for k in ("mg_down_q", "mg_restrict_tq", "mg_prolong_tq", "mg_up_q", "mg_down",
-                          "mg_up", "mg_restrict_t", "mg_prolong_t")})
+        **{k: n for k in ("mg_down_q", "mg_restrict_tq", "mg_prolong_tq", "mg_up_q",
+                          "mg_down_t", "mg_up_t")})
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (300, 290)).numpy()
     assert np.abs(out.astype(np.int16) - want).max() <= 1
 

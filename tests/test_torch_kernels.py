@@ -137,6 +137,8 @@ def test_cpu_twins_do_not_count_launches():
     u, rh = K.mg_down(None, gp, 1, 18, 28, rh_rows=128)
     ec = K.mg_restrict_t(rh, 18, 28, 1.0, 16)
     K.mg_up(u, gp, K.mg_prolong_t(ec, 28, 1.0, 128, 128), 2, 18, 28)
+    u, rc_t = K.mg_down_t(None, gp, 1, 18, 28, 1.0, 1.0, 16)
+    K.mg_up_t(u, gp, rc_t[:, :, :16].contiguous(), 2, 18, 28)
     gq = K.preprocess_rhs_q(torch.from_numpy(_u8(2, (3, 20, 30))),
                             torch.from_numpy(_u8(3, (3, 20, 30))), me, (256, 256))
     uq, rc_t = K.mg_down_q(None, gq, 1, 18, 28, 128)
@@ -156,8 +158,9 @@ def test_cpu_twins_do_not_count_launches():
                                "fold_minor", "unfold_minor", "transpose_pair",
                                "unfold_transpose", "unfold_clamp_paste", "preprocess_rhs_p",
                                "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t",
-                               "preprocess_rhs_q", "mg_down_q", "mg_up_q", "mg_ud_q",
-                               "mg_prolong_tq", "clamp_cast_paste_q", "to_quarters",
+                               "mg_down_t", "mg_up_t", "preprocess_rhs_q", "mg_down_q",
+                               "mg_up_q", "mg_ud_q", "mg_prolong_tq", "clamp_cast_paste_q",
+                               "to_quarters",
                                "from_quarters", "mg_restrict_tq", "rb_sweeps",
                                "postprocess_transposed", "rb_sweeps_tile"}
     assert set(K.LAUNCHES.values()) == {0}

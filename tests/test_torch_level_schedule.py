@@ -384,19 +384,19 @@ def test_up_schedule_matches_plain(case, nu2):
 @pytest.mark.parametrize("hw,levels", [((518, 526), 1), ((1030, 1062), 2)])
 def test_q_coarse_levels_are_the_levels_the_cycle_runs(hw, levels, monkeypatch):
     """``q_coarse_levels`` (the levels chip_smoke.py and the card tests time
-    mg_up and mg_down at) names the levels on which one quarter-plane
+    the coarse kernels at) names the levels on which one quarter-plane
     V-cycle launches the fused ascent, with their betas and slabs."""
     from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
 
     h, w = hw
     calls = []
-    mg_up = K.mg_up
+    mg_up_t = K.mg_up_t
 
-    def recorded(u, g, e, nu2, lh, lw, bh=1.0, bw=1.0):
+    def recorded(u, g, ec_t, nu2, lh, lw, bh=1.0, bw=1.0):
         calls.append((lh, lw, bh, bw, tuple(u.shape)))
-        return mg_up(u, g, e, nu2, lh, lw, bh, bw)
+        return mg_up_t(u, g, ec_t, nu2, lh, lw, bh, bw)
 
-    monkeypatch.setattr(K, "mg_up", recorded)
+    monkeypatch.setattr(K, "mg_up_t", recorded)
     _, hq, wq2, _ = K.mg_geometry_q(h, w)
     TM.vcycle_q(None, torch.zeros((1, 4, hq, wq2)), h, w)
     want = [(lh, lw, bh, bw, (1, geom[1], geom[2]))

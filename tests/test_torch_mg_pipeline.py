@@ -144,16 +144,24 @@ def test_serve_matches_run():
 
 def test_launch_counts_on_the_t_path(monkeypatch):
     """A CPU rehearsal of the card's per-frame counts: each outermost twin
-    call stands for a kernel launch. Fixed mode, 2 cycles, 2 fused levels
-    at this size: every V-cycle kernel twice per level and cycle."""
+    call stands for a kernel launch (mg_down_t_plain calls mg_down_plain and
+    mg_restrict_t_plain: one kernel). Fixed mode, 2 cycles, 2 fused levels
+    at this size: each fused V-cycle kernel twice per level and cycle, the
+    standalone level kernels and transfers never."""
     counts = {}
+    depth = [0]
     for name in ("erode3", "preprocess_rhs_p", "clamp_cast_paste", "mg_down", "mg_up",
-                 "mg_restrict_t", "mg_prolong_t"):
+                 "mg_restrict_t", "mg_prolong_t", "mg_down_t", "mg_up_t"):
         orig = getattr(K, f"{name}_plain")
 
         def counted(*a, _orig=orig, _name=name, **k):
-            counts[_name] = counts.get(_name, 0) + 1
-            return _orig(*a, **k)
+            if depth[0] == 0:
+                counts[_name] = counts.get(_name, 0) + 1
+            depth[0] += 1
+            try:
+                return _orig(*a, **k)
+            finally:
+                depth[0] -= 1
 
         monkeypatch.setattr(K, f"{name}_plain", counted)
     src, dst, mask = _images(30)
@@ -166,8 +174,7 @@ def test_launch_counts_on_the_t_path(monkeypatch):
         levels, (h, w) = levels + 1, ((w - 1) // 2, (h - 1) // 2)
     assert levels == 2
     assert counts == {"erode3": 1, "preprocess_rhs_p": 1, "clamp_cast_paste": 1,
-                      "mg_down": 2 * levels, "mg_up": 2 * levels,
-                      "mg_restrict_t": 2 * levels, "mg_prolong_t": 2 * levels}
+                      "mg_down_t": 2 * levels, "mg_up_t": 2 * levels}
 
 
 def test_auto_above_crossover_runs_multigrid(monkeypatch):
@@ -274,8 +281,8 @@ def test_serve_matches_run_q(cycles):
 
 Q_KERNELS = ("erode3", "preprocess_rhs_q", "mg_down_q", "mg_ud_q", "mg_up_q",
              "mg_prolong_tq", "clamp_cast_paste_q", "preprocess_rhs_p", "clamp_cast_paste",
-             "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t", "to_quarters",
-             "from_quarters", "mg_restrict_tq")
+             "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t", "mg_down_t", "mg_up_t",
+             "to_quarters", "from_quarters", "mg_restrict_tq")
 
 
 def _count_q_frame(monkeypatch, cfg, seed):
@@ -320,7 +327,7 @@ def test_launch_counts_on_the_q_path(cycles, monkeypatch):
     """A CPU rehearsal of the card's per-frame counts (each twin call stands
     for a launch). Interior 518 x 526: one fused coarse level (262 x 258,
     transposed), then the exact solve. Fixed mode, k cycles: mg_down_q 1,
-    mg_ud_q k-1, mg_prolong_tq k, mg_up_q 1, each coarse-level kernel k.
+    mg_ud_q k-1, mg_prolong_tq k, mg_up_q 1, mg_down_t and mg_up_t k.
     Tolerance mode: mg_down_q 1, mg_ud_q = mg_prolong_tq = the cycles run,
     which is what the JAX package reports for the same RHS."""
     frame, _, g = _count_q_frame(
@@ -328,7 +335,7 @@ def test_launch_counts_on_the_q_path(cycles, monkeypatch):
     k = cycles if cycles is not None else frame["mg_ud_q"]
     want = dict.fromkeys(Q_KERNELS, 0)
     want.update(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1, mg_down_q=1,
-                mg_prolong_tq=k, mg_down=k, mg_up=k, mg_restrict_t=k, mg_prolong_t=k)
+                mg_prolong_tq=k, mg_down_t=k, mg_up_t=k)
     if cycles is None:
         want.update(mg_ud_q=k)
         # the frame's RHS, dense, through the JAX solve's report
@@ -342,7 +349,7 @@ def test_launch_counts_on_the_q_path(cycles, monkeypatch):
 
 def test_launch_counts_on_the_q_check_first_path(monkeypatch):
     """The check-first loop (tol 0.05: no check-free cycle), rehearsed: per
-    cycle the split mg_down_q, mg_restrict_tq, the coarse level's four
+    cycle the split mg_down_q, mg_restrict_tq, the coarse level's two
     kernels, mg_prolong_tq and mg_up_q with its residual; no mg_ud_q, no
     conversion. The cycles are what the JAX package reports for the same
     RHS."""
@@ -351,7 +358,7 @@ def test_launch_counts_on_the_q_check_first_path(monkeypatch):
     want = dict.fromkeys(Q_KERNELS, 0)
     want.update(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1,
                 **{n: k for n in ("mg_down_q", "mg_restrict_tq", "mg_prolong_tq", "mg_up_q",
-                                  "mg_down", "mg_up", "mg_restrict_t", "mg_prolong_t")})
+                                  "mg_down_t", "mg_up_t")})
     assert frame == want
     _, info = JM.solve_multigrid(jnp.asarray(g.numpy()), padded="q", use_pallas=True,
                                  interpret=True, tol=0.05, return_info=True)
