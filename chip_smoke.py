@@ -151,9 +151,11 @@ for ``mg_down_t`` / ``mg_up_t`` is that of its unfused pair on the same
 inputs. When every pair's outputs were equal, each path of
 ``COMPARE_PATHS`` (the headline DST frames, which run preprocess_rhs_t,
 and the multigrid and DD frames) serves its frames in turns with the two
-kernel sets (ms/frame, and from a profile the kernel busy time and idle
-share), printed as one JSON line (``frames_vs_other``) before the
-kernels line; the second per_axis strip is keyed ``per_axis (<label>)``.
+kernel sets (ms/frame, and from a profile the kernel busy time, idle
+share and the in-the-loop time of each ``LOOP_PROFILE`` kernel the path
+profiles, ``other_loop_ms`` in the kernels line), printed as one JSON line
+(``frames_vs_other``) before the kernels line; the second per_axis strip
+is keyed ``per_axis (<label>)``.
 An in-place kernel's outputs are compared on fresh copies of its
 destination.
 ``--kernels`` stops after step 2 and prints the rows measured so far as
@@ -231,6 +233,8 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
                 "erode3 pair": ("pair", "erode3_kernel"),
                 "transpose_pair": ("pair", "transpose_pair_kernel<false"),
                 "transpose_pair divide": ("pair", "transpose_pair_kernel<true"),
+                "unfold_transpose": ("pair", "unfold_transpose_kernel"),
+                "unfold_clamp_paste": ("pair", "unfold_clamp_paste_kernel"),
                 "preprocess_rhs_t": ("pair", "preprocess_rhs_t_kernel"),
                 "clamp_cast_paste_q": ("mg_q 8K tolerance", "clamp_cast_paste_q_kernel"),
                 "mg_ud_q": ("mg_q 8K tolerance", "level_q_kernel<true, true"),
@@ -249,7 +253,8 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
 # that run them
 OTHER_KERNELS = ("mg_down_q", "mg_up_q", "mg_ud_q", "mg_up", "mg_down", "mg_up_t", "mg_down_t",
                  "rb_sweeps_tile", "preprocess_rhs_q", "preprocess_rhs_t", "clamp_cast_paste_q",
-                 "erode3", "transpose_pair")
+                 "erode3", "transpose_pair", "unfold_transpose", "unfold_clamp_paste",
+                 "unfold_minor")
 TURNS = ("other", "this", "this", "other")
 COMPARE_PATHS = ("pair", "unfolded", "per_axis", "mg_t", "mg_t_fixed", "mg_t_headline", "mg_q",
                  "mg_q_fixed", "mg_q_headline", "mg_q_coarse", "mg_q_coarse_headline",
@@ -1016,6 +1021,24 @@ def main() -> int:
     K.unfold_clamp_paste(e_w, o_w, i_k.permute(2, 0, 1), top + 1, left + 1, h2, w2)
     K.unfold_clamp_paste_plain(e_w, o_w, i_p.permute(2, 0, 1), top + 1, left + 1, h2, w2)
     require_equal("unfold_clamp_paste_interleaved", i_k, i_p)
+    # the kernels' other paths: a window that is no whole tile (the ragged
+    # unfold_transpose), an ep that is no multiple of 4 (the scalar loads)
+    require_equal("unfold_transpose (ragged rows 37+101)",
+                  K.unfold_transpose(e_h, o_h, h2, hp, 37, 101),
+                  K.unfold_transpose_plain(e_h, o_h, h2, hp, 37, 101))
+    e_s, o_s = (x[..., : he_w + 1 + (he_w % 4 == 3)].contiguous() for x in (e_w, o_w))
+    for name, img, planar in (("unfold_clamp_paste", dst_p, True),
+                              ("unfold_clamp_paste_interleaved", torch.from_numpy(dst).to(dev),
+                               False)):
+        a, b = img.clone(), img.clone()
+        for f, x in ((K.unfold_clamp_paste, a), (K.unfold_clamp_paste_plain, b)):
+            f(e_s, o_s, x if planar else x.permute(2, 0, 1), top + 1, left + 1, h2, w2)
+        require_equal(f"{name} (scalar loads)", a, b)
+    del e_s, o_s, a, b
+
+    def unfold_paste(d_img, planar=True):
+        return K.unfold_clamp_paste(e_w, o_w, d_img if planar else d_img.permute(2, 0, 1),
+                                    top + 1, left + 1, h2, w2)
 
     row("fold_minor", 4 * c * wp * (h2 + ep_h + op_h), 2 * c * wp * ho_h,
         time_ms(lambda: K.fold_minor(g_tp, h2)), time_ms(lambda: K.fold_minor_plain(g_tp, h2)),
@@ -1041,23 +1064,26 @@ def main() -> int:
     row("unfold_transpose", 4 * c * ep_w * (2 * he_h + hp), c * ep_w * h2,
         time_ms(lambda: K.unfold_transpose(e_h, o_h, h2, hp, 0, ep_w)),
         time_ms(lambda: K.unfold_transpose_plain(e_h, o_h, h2, hp, 0, ep_w)),
-        shape=f"2x ({c},{gw},{ep_h}) rows 0+{ep_w}, n={h2} -> ({c},{hp},{ep_w})")
+        shape=f"2x ({c},{gw},{ep_h}) rows 0+{ep_w}, n={h2} -> ({c},{hp},{ep_w})",
+        **vs_other(lambda: K.unfold_transpose(e_h, o_h, h2, hp, 0, ep_w)))
     row("unfold_minor", 4 * c * hp * (2 * he_w + wp), c * hp * w2,
         time_ms(lambda: K.unfold_minor(e_w, o_w, w2, wp)),
         time_ms(lambda: K.unfold_minor_plain(e_w, o_w, w2, wp)),
         shape=f"2x ({c},{hp},{ep_w}), n={w2} -> ({c},{hp},{wp})")
     ucp_bytes, ucp_ops = 8 * c * h2 * he_w + c * h2 * w2, 3 * c * h2 * w2
     row("unfold_clamp_paste", ucp_bytes, ucp_ops,
-        time_ms(lambda: K.unfold_clamp_paste(e_w, o_w, d_k, top + 1, left + 1, h2, w2)),
+        time_ms(lambda: unfold_paste(d_k)),
         time_ms(lambda: K.unfold_clamp_paste_plain(e_w, o_w, d_p, top + 1, left + 1,
                                                    h2, w2)),
-        shape=f"2x ({c},{hp},{ep_w}) -> u8 ({c},{h2},{w2}) planar")
+        shape=f"2x ({c},{hp},{ep_w}) -> u8 ({c},{h2},{w2}) planar",
+        **vs_other(lambda: unfold_paste(d_k), lambda: (unfold_paste(dst_p.clone()),)))
     row("unfold_clamp_paste_interleaved", ucp_bytes, ucp_ops,
-        time_ms(lambda: K.unfold_clamp_paste(e_w, o_w, i_k.permute(2, 0, 1), top + 1,
-                                             left + 1, h2, w2)),
+        time_ms(lambda: unfold_paste(i_k, False)),
         time_ms(lambda: K.unfold_clamp_paste_plain(e_w, o_w, i_p.permute(2, 0, 1), top + 1,
                                                    left + 1, h2, w2)),
-        shape=f"2x ({c},{hp},{ep_w}) -> u8 ({c},{h2},{w2}) interleaved")
+        shape=f"2x ({c},{hp},{ep_w}) -> u8 ({c},{h2},{w2}) interleaved",
+        **vs_other(lambda: unfold_paste(i_k, False),
+                   lambda: (unfold_paste(torch.from_numpy(dst.copy()).to(dev), False),)))
     gemm_line("pair", s, vep_h)
     gemm_line("pair", s2, vep_w)
     del (s, d, ws, wd, fe, fo, tr1, s2, d2, ws2, wd2, ge, go, tr2w, e_h, o_h, t3, e_w, o_w,
@@ -1624,17 +1650,26 @@ def main() -> int:
                   planar_dst=True, **eng._pipeline_kwargs(hw, eng.config.flags, True))
         turns = {"other": [], "this": []}
         for name in TURNS:
+            prof_label = f"{path} ({label}) with {name}'s kernels"
+            kernel_us = {}
             with side(name):
                 _, ms = eng.timed_serve(s_img, d_img, mask_, ctr, loops=3 * loops)
-                prof = profile_frames(f"{path} ({label}) with {name}'s kernels", clone_pipeline,
-                                      kw, frames=3, brief=True)
+                prof = profile_frames(prof_label, clone_pipeline, kw, frames=3, brief=True,
+                                      into=kernel_us)
+            per_kernel, per_frame, _ = kernel_us.get(prof_label, ({}, {}, []))
+            loop = {}  # the in-the-loop time of each LOOP_PROFILE kernel this path profiles
+            for key, (profiled, kernel) in LOOP_PROFILE.items():
+                n = sum(v for k, v in per_frame.items() if kernel in k)
+                if profiled == path and n:
+                    loop[key] = sum(t for k, t in per_kernel.items() if kernel in k) / n / 1e3
             turns[name].append(dict(ms_per_frame=ms, busy_us=prof["busy_us"],
                                     span_us=prof["span_us"], idle=prof["idle"],
-                                    torch_op_launches=prof.get("torch_op_launches")))
+                                    torch_op_launches=prof.get("torch_op_launches"),
+                                    loop_ms=loop))
         frames_vs_other[f"{path} ({label})" if path in frames_vs_other else path] = turns
         print(f"frames {path} ({label}, {card}), other -> this: " + "; ".join(
             f"{k} {[r[k] for r in turns['other']]} -> {[r[k] for r in turns['this']]}"
-            for k in ("ms_per_frame", "busy_us", "idle", "torch_op_launches")))
+            for k in ("ms_per_frame", "busy_us", "idle", "torch_op_launches", "loop_ms")))
 
     def drive(path, cfg, s_img, mask_, loops, label, d_img=dst, cpu="run+serve",
               solver="dst_gemm", engine=None):
@@ -2257,6 +2292,11 @@ def main() -> int:
         us = sum(t for k, t in per_kernel.items() if kernel in k)
         rows[name].update({f"{pre}loop_ms": us / n / 1e3 if n else None,
                            f"{pre}loop_launches_per_frame": n, f"{pre}loop_profile": label})
+        # --other: the other checkout's kernel in the same frame, in its turns
+        other_loop = [r["loop_ms"].get(key)
+                      for r in frames_vs_other.get(label, {}).get("other", [])]
+        if other_loop and None not in other_loop:
+            rows[name][f"{pre}other_loop_ms"] = sum(other_loop) / len(other_loop)
         loop_lines.append(f"{key} ({label}) {rows[name][pre + 'loop_ms']} ms x{n:g} a frame")
         # per coarse level, by launch order: a cycle descends levels 1, 2,
         # 3 (mg_down_t; mg_down, mg_restrict_t) and ascends 3, 2, 1

@@ -25,3 +25,33 @@ __device__ __forceinline__ float unfold_at(const float* __restrict__ e,
   }
   return 0.0f;
 }
+
+// Lanes k .. k + 3 (k a multiple of 4) of one row of e and of o as the
+// unfold's two halves, s = e + o (output lanes k ..) and d = e - o (output
+// lanes n - 1 - k ..). Lanes from he on read as 0: the GEMM's padding lanes
+// never reach a result, and the caller writes no output of a lane >= he
+// (d: >= n / 2). kVec: one float4 load each (the row 16-byte aligned, a
+// whole float4 below the row's end wherever k < he).
+template <bool kVec>
+__device__ __forceinline__ void unfold_lanes4(const float* __restrict__ e,
+                                              const float* __restrict__ o, int k, int he,
+                                              float4& s, float4& d) {
+  float a[4], b[4];
+  if (kVec) {
+    float4 va = make_float4(0.0f, 0.0f, 0.0f, 0.0f), vb = va;
+    if (k < he) {
+      va = __ldg(reinterpret_cast<const float4*>(e + k));
+      vb = __ldg(reinterpret_cast<const float4*>(o + k));
+    }
+    a[0] = va.x, a[1] = va.y, a[2] = va.z, a[3] = va.w;
+    b[0] = vb.x, b[1] = vb.y, b[2] = vb.z, b[3] = vb.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = k + i < he ? __ldg(e + k + i) : 0.0f;
+      b[i] = k + i < he ? __ldg(o + k + i) : 0.0f;
+    }
+  }
+  s = make_float4(a[0] + b[0], a[1] + b[1], a[2] + b[2], a[3] + b[3]);
+  d = make_float4(a[0] - b[0], a[1] - b[1], a[2] - b[2], a[3] - b[3]);
+}

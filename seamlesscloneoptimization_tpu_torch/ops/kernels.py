@@ -54,9 +54,10 @@ raises, never falls back. ``LAUNCHES[name]`` counts kernel launches (the
 twins do not count), so a run can show that it went through the kernels.
 The sources are ``csrc/<name>.cu`` (``rb_sweeps`` launches
 ``csrc/rb_sweeps_tile.cu`` at origin (0, 0); the three unfold kernels share
-``csrc/fold.cuh``, preprocess_rhs_p ``csrc/rhs_tile.cuh``, preprocess_rhs_q and
-preprocess_rhs_t ``csrc/rhs_wide.cuh``, the two
-dense multigrid level kernels and ``rb_sweeps_tile`` ``csrc/mg_level.cuh``,
+``csrc/fold.cuh``, unfold_clamp_paste and clamp_cast_paste_q the word
+stores of ``csrc/paste_words.cuh``, preprocess_rhs_p ``csrc/rhs_tile.cuh``,
+preprocess_rhs_q and preprocess_rhs_t ``csrc/rhs_wide.cuh``, the two dense
+multigrid level kernels and ``rb_sweeps_tile`` ``csrc/mg_level.cuh``,
 the three quarter-plane ones ``csrc/mg_level_q.cuh``; ``mg_down_t`` and
 ``mg_up_t`` are the fused forms in ``csrc/mg_down.cu`` and ``csrc/mg_up.cu``),
 built by ``ops/_build.py``.

@@ -153,11 +153,13 @@ def _halves(n):
     return he, ho, K.ru128(he), K.ru128(ho)
 
 
-def _eo(rng, c, rows, n, scale=1.0):
-    """Inverse half-GEMM outputs: data on lanes [0, he), zeros beyond."""
-    he, _, ep, _ = _halves(n)
-    e = np.zeros((c, rows, ep), np.float32)
-    o = np.zeros((c, rows, ep), np.float32)
+def _eo(rng, c, rows, n, scale=1.0, ep=None, pad=0.0):
+    """Inverse half-GEMM outputs: data on lanes [0, he), ``pad`` on the
+    padding lanes up to ``ep`` (default the 128-roundup of he)."""
+    he, _, ep128, _ = _halves(n)
+    ep = ep128 if ep is None else ep
+    e = np.full((c, rows, ep), pad, np.float32)
+    o = np.full((c, rows, ep), pad, np.float32)
     e[..., :he] = rng.normal(size=(c, rows, he)) * scale
     o[..., :he] = rng.normal(size=(c, rows, he)) * scale
     return torch.from_numpy(e), torch.from_numpy(o)
@@ -219,6 +221,53 @@ def test_unfold_transpose_matches_plain(cuda, n):
         assert torch.equal(K.unfold_transpose(e, o, n, out_pad, rs, rc),
                            K.unfold_transpose_plain(e, o, n, out_pad, rs, rc))
     torch.cuda.synchronize()
+
+
+# the pair chain's headline unfold_transpose: n = 1548 on the inverse-h
+# outputs (3, 2560, 896), the w spectrum's two 1280-row windows, out_pad
+# 1664; then n % 4 = 1, 2, 3 on tight and padded ep, whole-tile windows at
+# offsets that are no multiple of 64, a ragged window, and an ep that is no
+# multiple of 4 (the ragged kernel)
+@pytest.mark.parametrize("n, ep, windows", [
+    (1548, 896, ((0, 1280), (1280, 1280))),
+    (1549, 896, ((0, 1280), (64, 640))),
+    (1550, 776, ((1280, 1280), (9, 64))),
+    (1551, 776, ((0, 1280), (37, 101))),
+    (301, 151, ((0, 128), (5, 2555)))])
+def test_unfold_transpose_headline(cuda, n, ep, windows):
+    """NaN on the padding lanes [he, ep), which no output may read; out_pad
+    the 128-roundup (zero rows) and n (none)."""
+    e, o = _eo(np.random.default_rng(n), 3, 2560, n, 160.0, ep=ep, pad=np.nan)
+    e, o = e.to(cuda), o.to(cuda)
+    for out_pad in (K.ru128(n), n):
+        for rs, rc in windows:
+            assert torch.equal(K.unfold_transpose(e, o, n, out_pad, rs, rc),
+                               K.unfold_transpose_plain(e, o, n, out_pad, rs, rc)), (out_pad, rs)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("w2, ep", [(2396, 1280), (2397, 1280), (2398, 1200), (2399, 1201)])
+def test_unfold_clamp_paste_headline(cuda, planar, w2, ep):
+    """The headline paste (w2 = 2396, 1548 rows of (3, 1664, 1280)) into the
+    serve buffer (3, 2694, 4800) or an interleaved (2694, 4800, 3) image at
+    8 consecutive left1 (every offset mod 8, so the forward, the mirrored
+    run and the word at he take every phase), then w2 % 4 = 1, 2, 3 on 67
+    rows, a tight ep and one that is no multiple of 4 (the scalar loads);
+    NaN on the padding lanes; the whole buffer against the twin's, so no
+    byte outside the rectangle changed."""
+    h2 = 1548 if w2 == 2396 else 67
+    rng = np.random.default_rng(w2)
+    e, o = _eo(rng, 3, 1664, w2, 160.0, ep=ep, pad=np.nan)
+    e, o = (e + 90.0).to(cuda), o.to(cuda)
+    base = torch.from_numpy(_u8(rng, (3, 2694, 4800) if planar else (2694, 4800, 3))).to(cuda)
+    for left1 in range(1201, 1209):
+        want, got = base.clone(), base.clone()
+        K.unfold_clamp_paste_plain(e, o, want if planar else want.permute(2, 0, 1), 573, left1,
+                                   h2, w2)
+        K.unfold_clamp_paste(e, o, got if planar else got.permute(2, 0, 1), 573, left1, h2, w2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), left1
 
 
 @pytest.mark.parametrize("planar", [True, False])
