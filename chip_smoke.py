@@ -145,15 +145,22 @@ the same nvcc flags and launched through the same wrappers in turns with
 this checkout's (other, this, this, other): each kernel timed against
 the other also gets ``other_ms`` / ``other_b2b_ms`` and whether the two
 outputs are equal (``other_output_equal``); the SASS of each pair is
-compared. A checkout without the fused transfers runs, in its turns,
+compared. The red-black rows carry it for one 4-sweep launch and, per
+launch, for a 50-sweep burst (``in_burst_*``), rb_sweeps_tile for 2 and
+1 sweeps (``one_sweep_*``); the 8K preprocess_rhs_p slab also carries
+preprocess_rhs_q's times of the same call (``rhs_q_ms``), which reads the
+same u8 inputs and writes as many bytes. A checkout without the fused transfers runs, in its turns,
 ``vcycle_t`` as the four-kernel chain (``vcycle_t_unfused``), and its time
 for ``mg_down_t`` / ``mg_up_t`` is that of its unfused pair on the same
 inputs. When every pair's outputs were equal, each path of
 ``COMPARE_PATHS`` (the headline DST frames, which run preprocess_rhs_t,
-and the multigrid and DD frames) serves its frames in turns with the two
-kernel sets (ms/frame, and from a profile the kernel busy time, idle
-share and the in-the-loop time of each ``LOOP_PROFILE`` kernel the path
-profiles, ``other_loop_ms`` in the kernels line), printed as one JSON line
+the multigrid and DD frames, and the jacobi and dst_fft frames, which
+run rb_sweeps and the exact-size preprocess_rhs_p) serves its frames in
+turns with the two kernel sets (ms/frame, and from a profile the kernel
+busy time, idle share and the in-the-loop time of each ``LOOP_PROFILE``
+kernel the path profiles, ``other_loop_ms`` in the kernels line;
+``PROFILE_PATH`` names the frame of a profile labelled otherwise), printed
+as one JSON line
 (``frames_vs_other``) before the kernels line; the second per_axis strip
 is keyed ``per_axis (<label>)``.
 An in-place kernel's outputs are compared on fresh copies of its
@@ -247,18 +254,26 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
                 "mg_up": (UNFUSED_PROFILE, "mg_up_kernel"),
                 "mg_down": (UNFUSED_PROFILE, "mg_down_kernel"),
                 "mg_restrict_t": (UNFUSED_PROFILE, "mg_restrict_t_kernel"),
-                "mg_prolong_t": (UNFUSED_PROFILE, "mg_prolong_t_kernel")}
+                "mg_prolong_t": (UNFUSED_PROFILE, "mg_prolong_t_kernel"),
+                "rb_sweeps": ("jacobi", "rb_sweeps_tile_kernel"),
+                "rb_sweeps_tile": ("tiled_dd 8K tolerance", "rb_sweeps_tile_kernel"),
+                "preprocess_rhs_p": ("mg_t 8K tolerance", "preprocess_rhs_p_kernel"),
+                "preprocess_rhs_p exact": ("dst_fft", "preprocess_rhs_p_kernel")}
+# a LOOP_PROFILE profile -> the COMPARE_PATHS frame it profiles (default:
+# the profile's own label), whose --other turns time the kernel in the loop
+PROFILE_PATH = {"tiled_dd 8K tolerance": "tiled_dd", "mg_t 8K tolerance": "mg_t"}
 # --other: the kernels built from the other checkout (the level kernels and
 # every source that includes their headers), the turns, and the serve paths
 # that run them
 OTHER_KERNELS = ("mg_down_q", "mg_up_q", "mg_ud_q", "mg_up", "mg_down", "mg_up_t", "mg_down_t",
                  "rb_sweeps_tile", "preprocess_rhs_q", "preprocess_rhs_t", "clamp_cast_paste_q",
                  "erode3", "transpose_pair", "unfold_transpose", "unfold_clamp_paste",
-                 "unfold_minor")
+                 "unfold_minor", "preprocess_rhs_p")
 TURNS = ("other", "this", "this", "other")
 COMPARE_PATHS = ("pair", "unfolded", "per_axis", "mg_t", "mg_t_fixed", "mg_t_headline", "mg_q",
                  "mg_q_fixed", "mg_q_headline", "mg_q_coarse", "mg_q_coarse_headline",
-                 "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline", "mg_padded_false")
+                 "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline", "mg_padded_false",
+                 "jacobi", "dst_fft")
 
 
 def _per_frame(**counts):
@@ -860,6 +875,23 @@ def main() -> int:
                    turns_ms=turns, other_output_equal=equal)
         return out
 
+    def per_launch(timed: dict, n: int) -> dict:
+        """vs_other's times of a run of n launches, per launch."""
+        out = {k: v / n if k.endswith("_ms") and k != "turns_ms" else v
+               for k, v in timed.items()}
+        if "turns_ms" in timed:
+            out["turns_ms"] = {s_: [(a / n, b / n) for a, b in t_]
+                               for s_, t_ in timed["turns_ms"].items()}
+        return out
+
+    def print_other(what, r, pre=""):
+        """A row's vs_other times (keys under ``pre``) on one line."""
+        print(f"{what} ({card}): {r[pre + 'ms']:.5f} ms cold, "
+              f"{r[pre + 'b2b_ms']:.5f} back to back"
+              + (f"; other {r[pre + 'other_ms']:.5f} cold, {r[pre + 'other_b2b_ms']:.5f} "
+                 f"back to back, outputs equal {r[pre + 'other_output_equal']}"
+                 if pre + "other_ms" in r else ""))
+
     def bound(nbytes: float, nops: float):
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_FLOPS * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
@@ -1127,7 +1159,8 @@ def main() -> int:
         30 * c * bh8 * bw8,
         time_ms(lambda: K.preprocess_rhs_p(dest8, patch8, me8, (hp8, wp8))),
         time_ms(lambda: K.preprocess_rhs_p_plain(dest8, patch8, me8, (hp8, wp8))),
-        shape=f"u8 ({c},{bh8},{bw8}) -> ({c},{hp8},{wp8})")
+        shape=f"u8 ({c},{bh8},{bw8}) -> ({c},{hp8},{wp8})",
+        **vs_other(lambda: K.preprocess_rhs_p(dest8, patch8, me8, (hp8, wp8))))
 
     def mg_level_checks(label, g, u, h, w, bh, bw, rh_rows):
         """mg_down (known-zero and given guess), mg_restrict_t, mg_prolong_t
@@ -1365,6 +1398,15 @@ def main() -> int:
         time_ms(lambda: K.preprocess_rhs_q_plain(dest8, patch8, me8, qhw8)),
         shape=f"u8 ({c},{bh8},{bw8}) -> {qshape}",
         **vs_other(lambda: K.preprocess_rhs_q(dest8, patch8, me8, qhw8)))
+    # the slab's yardstick in this call: the same u8 inputs and output bytes
+    rhs_p8 = rows["preprocess_rhs_p"]
+    rhs_p8.update(rhs_q_ms=rows["preprocess_rhs_q"]["ms"],
+                  rhs_q_b2b_ms=rows["preprocess_rhs_q"]["b2b_ms"])
+    print(f"preprocess_rhs_p 8K slab ({card}): {rhs_p8['ms']:.5f} ms cold, "
+          f"{rhs_p8['b2b_ms']:.5f} back to back; preprocess_rhs_q {rhs_p8['rhs_q_ms']:.5f}, "
+          f"{rhs_p8['rhs_q_b2b_ms']:.5f}; bound {rhs_p8['bound_ms']:.5f}"
+          + (f"; other {rhs_p8['other_ms']:.5f} / {rhs_p8['other_b2b_ms']:.5f}"
+             if "other_ms" in rhs_p8 else ""))
     uq0, rcq0 = K.mg_down_q(None, gq8, 1, h8, w8, chp8)
     for got, want, what in zip((uq0, rcq0), K.mg_down_q_plain(None, gq8, 1, h8, w8, chp8),
                                ("u", "rc_t")):
@@ -1497,7 +1539,8 @@ def main() -> int:
         30 * c * bh * bw,
         time_ms(lambda: K.preprocess_rhs_p(dest_roi, patch, me, (h2, w2))),
         time_ms(lambda: K.preprocess_rhs_p_plain(dest_roi, patch, me, (h2, w2))),
-        shape=f"u8 ({c},{bh},{bw}) -> ({c},{h2},{w2})")
+        shape=f"u8 ({c},{bh},{bw}) -> ({c},{h2},{w2})",
+        **vs_other(lambda: K.preprocess_rhs_p(dest_roi, patch, me, (h2, w2))))
     gen = torch.Generator(dev).manual_seed(SEED + 1)
     u_rb = torch.randn((c, h2, w2), generator=gen, device=dev) * 10.0
     for k in (1, 2, 3, 4, 6):
@@ -1520,7 +1563,13 @@ def main() -> int:
         one_sweep_bound_ms=bound(12 * pts_h, 5 * pts_h)[0],
         eight_k_shape=f"({c},{h8},{w8}), 4 sweeps",
         eight_k_ms=time_ms(lambda: K.rb_sweeps(u8x, g8x, 4)),
-        eight_k_bound_ms=bound(12 * pts8, 5 * 4 * pts8)[0])
+        eight_k_bound_ms=bound(12 * pts8, 5 * 4 * pts8)[0],
+        **vs_other(lambda: K.rb_sweeps(u_rb, g_ex, 4)),
+        **{f"in_burst_{k}": v for k, v in per_launch(vs_other(
+            lambda: K.rb_sweeps(u_rb, g_ex, CHECK_EVERY)), RB_LAUNCHES_PER_BURST).items()})
+    print_other("rb_sweeps headline, 4 sweeps", rows["rb_sweeps"])
+    print_other("rb_sweeps headline, a launch in a 50-sweep burst", rows["rb_sweeps"],
+                "in_burst_")
     del u8x, g8x, u_odd, g_odd
     u_t = solve_dst_gemm(g_ex, transposed_output=True, precision="high", folded=True)
     d_k, d_p = dst_p.clone(), dst_p.clone()
@@ -1579,7 +1628,11 @@ def main() -> int:
               f"domain {h8}x{w8}",
         one_sweep_ms=time_ms(lambda: K.rb_sweeps_tile(u_dd, g_dd, 1, org_br, dom8)),
         one_sweep_bound_ms=bound(12 * pts_dd, 5 * pts_dd)[0],
-        **vs_other(lambda: K.rb_sweeps_tile(u_dd, g_dd, 2, org_br, dom8)))
+        **vs_other(lambda: K.rb_sweeps_tile(u_dd, g_dd, 2, org_br, dom8)),
+        **{f"one_sweep_{k}": v for k, v in vs_other(
+            lambda: K.rb_sweeps_tile(u_dd, g_dd, 1, org_br, dom8)).items()})
+    print_other("rb_sweeps_tile 8K DD tile, 2 sweeps", rows["rb_sweeps_tile"])
+    print_other("rb_sweeps_tile 8K DD tile, 1 sweep", rows["rb_sweeps_tile"], "one_sweep_")
     del u_dd, g_dd
     lvl_dd = []  # (h, w, bh, bw) of the DD coarse solve's fused levels
     lh, bh_l = TM._coarsen(h8, 1.0)
@@ -1660,7 +1713,7 @@ def main() -> int:
             loop = {}  # the in-the-loop time of each LOOP_PROFILE kernel this path profiles
             for key, (profiled, kernel) in LOOP_PROFILE.items():
                 n = sum(v for k, v in per_frame.items() if kernel in k)
-                if profiled == path and n:
+                if PROFILE_PATH.get(profiled, profiled) == path and n:
                     loop[key] = sum(t for k, t in per_kernel.items() if kernel in k) / n / 1e3
             turns[name].append(dict(ms_per_frame=ms, busy_us=prof["busy_us"],
                                     span_us=prof["span_us"], idle=prof["idle"],
@@ -1815,7 +1868,8 @@ def main() -> int:
                  bases={}, solver_name="multigrid")
     for label, cyc in (("mg_t 8K tolerance", None), ("mg_t 8K mg_cycles=4", 4)):
         kw = CloneConfig(solver="multigrid", mg_padded="t", mg_cycles=cyc).solver_kwargs()
-        profile_frames(label, clone_pipeline, dict(prof8, solver_kwargs=kw), frames=3)
+        profile_frames(label, clone_pipeline, dict(prof8, solver_kwargs=kw), frames=3,
+                       into=loop_profiles)
     del prof8, eng8
     dst8_eng = SeamlessClone(CloneConfig(solver="dst_gemm"), device="cuda")
     _, dst8_ms = dst8_eng.timed_serve(src8, dst8, mask8, ctr8, loops=5)
@@ -2067,7 +2121,7 @@ def main() -> int:
     del g_j, u_jk, u_jp, want_img
     profile_frames("jacobi", clone_pipeline, dict(
         prof_h, solver=TJ.solve_redblack, solver_kwargs=cfg_j.solver_kwargs(),
-        solver_name="jacobi", use_pallas_post=False), frames=1)
+        solver_name="jacobi", use_pallas_post=False), frames=1, into=loop_profiles)
 
     rng4 = np.random.default_rng(SEED + 4)
     src_j = synthetic_image(rng4, JACOBI_SMALL_HW, cell=16)
@@ -2104,7 +2158,8 @@ def main() -> int:
                              f"{fft_rel}")
     del u_f
     profile_frames("dst_fft", clone_pipeline, dict(
-        prof_h, solver=solve_dst_fft, solver_name="dst_fft", use_pallas_post=False))
+        prof_h, solver=solve_dst_fft, solver_name="dst_fft", use_pallas_post=False),
+        into=loop_profiles)
 
     # the element path: nu2 = 6 leaves the fused chains, and the fine level's
     # 6-sweep ascent is one rb_sweeps burst of 2 launches a cycle
@@ -2179,7 +2234,7 @@ def main() -> int:
     for label, cyc in (("tiled_dd 8K tolerance", None), ("tiled_dd 8K mg_cycles=4", 4)):
         profile_frames(label, clone_pipeline, dict(dd_prof, solver=lambda g, cyc=cyc: (
             solve_poisson_dd(g, mesh_c, tol=None if cyc else TOL, cycles=cyc or 4,
-                             eig_cache=eig_dd))), frames=3)
+                             eig_cache=eig_dd))), frames=3, into=loop_profiles)
     del dd_prof
     _, dd8_fixed_ms = drive("tiled_dd_fixed", CloneConfig(mg_cycles=4), src8, mask8, MG_LOOPS,
                             "8K, mg_cycles=4", d_img=dst8, cpu=None, solver="multigrid_dd",
@@ -2293,8 +2348,8 @@ def main() -> int:
         rows[name].update({f"{pre}loop_ms": us / n / 1e3 if n else None,
                            f"{pre}loop_launches_per_frame": n, f"{pre}loop_profile": label})
         # --other: the other checkout's kernel in the same frame, in its turns
-        other_loop = [r["loop_ms"].get(key)
-                      for r in frames_vs_other.get(label, {}).get("other", [])]
+        other_loop = [r["loop_ms"].get(key) for r in frames_vs_other.get(
+            PROFILE_PATH.get(label, label), {}).get("other", [])]
         if other_loop and None not in other_loop:
             rows[name][f"{pre}other_loop_ms"] = sum(other_loop) / len(other_loop)
         loop_lines.append(f"{key} ({label}) {rows[name][pre + 'loop_ms']} ms x{n:g} a frame")

@@ -11,7 +11,7 @@
 // Bound on this card: bytes. u8 destination, patch and mask read once,
 // f32 slab written once (74.6 MB at the headline ROI, two thirds of it the
 // store; 0.022 ms at 3.35 TB/s), ~30 integer operations per pixel. The
-// first design (rhs_tile.cuh: one block per channel and 32 x 32 tile, byte
+// first design (one block per channel and 32 x 32 tile, byte
 // loads through 64-bit strides, the mask read again per channel, the
 // guidance and the divergence as float passes through shared memory) took
 // 0.109 ms. Design: one block of 32 x 8 threads for every channel of a

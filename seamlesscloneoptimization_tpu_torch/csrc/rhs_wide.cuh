@@ -1,13 +1,13 @@
 // rhs_wide.cuh: the Poisson right-hand side of a 2 x 4 patch of interior
 // pixels a thread, from u8 rows staged in shared memory as 32-bit words;
-// the design of preprocess_rhs_q.cu and, with one-array windows (Rows, at
-// the end), of preprocess_rhs_t.cu (rhs_tile.cuh keeps the 32 x 32 tile
-// of preprocess_rhs_p).
+// the design of preprocess_rhs_q.cu and preprocess_rhs_p.cu and, with
+// one-array windows (Rows, at the end), of preprocess_rhs_t.cu.
 //
-// The function is rhs_tile.cuh's: for the (h, w) ROI and its interior pixel
-// (y, x), gx/gy the forward differences of the destination d and the patch
-// p (0 in the last column / row), MIXED replacing the patch's by the
-// destination's where take_d, blended by the eroded {0,1} mask, then
+// The function (the TPU kernels' _fused_lap_tile): for the (h, w) ROI and
+// its interior pixel (y, x), gx/gy the forward differences of the
+// destination d and the patch p (0 in the last column / row), MIXED
+// replacing the patch's by the destination's where take_d, blended by the
+// eroded {0,1} mask, then
 //   lap = (gx[y][x] - gx[y][x-1]) + (gy[y][x] - gy[y-1][x])
 // minus d's Dirichlet border pixel on the rows/cols next to it, 0 outside
 // the interior. Every value is an integer of magnitude < 2^11, so the

@@ -55,9 +55,9 @@ twins do not count), so a run can show that it went through the kernels.
 The sources are ``csrc/<name>.cu`` (``rb_sweeps`` launches
 ``csrc/rb_sweeps_tile.cu`` at origin (0, 0); the three unfold kernels share
 ``csrc/fold.cuh``, unfold_clamp_paste and clamp_cast_paste_q the word
-stores of ``csrc/paste_words.cuh``, preprocess_rhs_p ``csrc/rhs_tile.cuh``,
-preprocess_rhs_q and preprocess_rhs_t ``csrc/rhs_wide.cuh``, the two dense
-multigrid level kernels and ``rb_sweeps_tile`` ``csrc/mg_level.cuh``,
+stores of ``csrc/paste_words.cuh``, preprocess_rhs_p, preprocess_rhs_q and
+preprocess_rhs_t ``csrc/rhs_wide.cuh``, the two dense multigrid level
+kernels and ``rb_sweeps_tile`` (its staging) ``csrc/mg_level.cuh``,
 the three quarter-plane ones ``csrc/mg_level_q.cuh``; ``mg_down_t`` and
 ``mg_up_t`` are the fused forms in ``csrc/mg_down.cu`` and ``csrc/mg_up.cu``),
 built by ``ops/_build.py``.
@@ -997,7 +997,7 @@ def mg_up_t(u: torch.Tensor, g: torch.Tensor, ec_t: torch.Tensor, nu2: int, h: i
 # (parallel/tiled.py's per-tile sweeps)
 # ---------------------------------------------------------------------------
 
-RB_SWEEPS_PER_LAUNCH = 4  # the staged ring covers 8 half-sweeps
+RB_SWEEPS_PER_LAUNCH = 4  # the kernel is templated on 1 to 4 sweeps (a ring of 2 n)
 
 
 def _rb_burst(counter: str, u: torch.Tensor, g: torch.Tensor, n: int, rect, parity: int):

@@ -37,6 +37,19 @@ def _u8(rng, shape):
     return rng.integers(0, 256, shape).astype(np.uint8)
 
 
+@pytest.fixture
+def nan_outputs(monkeypatch):
+    """Float tensors that torch.empty / empty_like allocate start as NaN, so
+    an output element a kernel leaves unwritten shows."""
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def poison(t):
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: poison(empty(*a, **kw)))
+    monkeypatch.setattr(torch, "empty_like", lambda *a, **kw: poison(empty_like(*a, **kw)))
+
+
 @pytest.mark.parametrize("hw", [(1, 1), (5, 7), (37, 70), (130, 257), (1550, 2398),
                                 (2800, 3800), (124, 2398), (2398, 124)])
 def test_erode3_matches_plain(cuda, hw):
@@ -443,6 +456,62 @@ def test_preprocess_rhs_p_matches_plain(cuda, hw, mode):
                                  rule)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
+
+
+def _rhs_p_on_card(cuda, c, h, w, out_hw, flags, rule, left, planar, gray, seed):
+    """preprocess_rhs_p of a view at column ``left`` of a destination on the
+    card (planar or interleaved) against its twin on the card's copies
+    (integer-valued floats: exact), one launch."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    shape = (c, h + 3, w + left + 5) if planar else (h + 3, w + left + 5, c)
+    img = torch.randint(0, 256, shape, generator=gen, device=cuda, dtype=torch.uint8)
+    dest = (img[:, 2 : 2 + h, left : left + w] if planar
+            else img[2 : 2 + h, left : left + w, :].permute(2, 0, 1))
+    patch = torch.randint(0, 256, (c, h, w), generator=gen, device=cuda, dtype=torch.uint8)
+    if gray:
+        patch = patch[0][None].expand(c, h, w)
+    me = (torch.rand((h, w), generator=gen, device=cuda) < 0.7).to(torch.uint8)
+    K.reset_launches()
+    got = K.preprocess_rhs_p(dest, patch, me, out_hw, flags, rule)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["preprocess_rhs_p"] == 1
+    assert torch.equal(got, K.preprocess_rhs_p_plain(dest, patch, me, out_hw, flags, rule))
+
+
+@pytest.mark.parametrize("mode", [(1, "opencv", False), (2, "opencv", False),
+                                  (2, "norm", False), (1, "opencv", True)])
+@pytest.mark.parametrize("case", ["8K slab", "8K exact", "headline exact"])
+def test_preprocess_rhs_p_full_size(cuda, nan_outputs, case, mode):
+    """The 8K ROI (3, 2800, 3800) into the "t" chain's level-0 slab
+    (3, 2816, 3840; its last block row wholly padding) and exactly
+    (3, 2798, 3798: scalar stores), the headline ROI (3, 1550, 2398) into
+    (3, 1548, 2396); NORMAL, MIXED opencv and norm, and the stride-0 gray
+    patch; outputs start as NaN."""
+    flags, rule, gray = mode
+    h, w = (2800, 3800) if case.startswith("8K") else (1550, 2398)
+    out_hw = (h - 2, w - 2)
+    if case == "8K slab":
+        _, hp, wp, _ = K.mg_geometry_t(h - 2, w - 2)
+        out_hw = (hp, wp)
+    _rhs_p_on_card(cuda, 3, h, w, out_hw, flags, rule, 1 + 7 * len(case) % 16, True, gray,
+                   h + flags)
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("hw,pad", [((37, 4 * 37 + 3), (0, 0)), ((23, 16 * 9 + 6), (0, 0)),
+                                    ((41, 131), (0, 1)), ((18, 262), (3, 2)),
+                                    ((19, 70), (37, 300))])
+def test_preprocess_rhs_p_every_offset(cuda, nan_outputs, hw, pad, planar):
+    """The destination a view at byte offsets 0 .. 15 of a wider image on the
+    card, planar and interleaved; slab widths wpo % 4 = 0 .. 3; a slab with
+    whole blocks of padding below and right of the interior; outputs start
+    as NaN."""
+    h, w = hw
+    for left in range(16):
+        _rhs_p_on_card(cuda, 3, h, w, (h - 2 + pad[0], w - 2 + pad[1]), 1, "opencv", left,
+                       planar, left % 5 == 0, 16 * h + left)
+        _rhs_p_on_card(cuda, 3, h, w, (h - 2 + pad[0], w - 2 + pad[1]), 2, "norm", left,
+                       planar, False, 16 * w + left)
 
 
 MG_T_FIXED = _per_frame(erode3=1, preprocess_rhs_p=1, clamp_cast_paste=1, mg_down_t=4,
@@ -975,6 +1044,29 @@ def test_rb_sweeps_matches_plain(cuda, shape, k):
     assert torch.equal(ud.cpu(), u)
 
 
+@pytest.mark.parametrize("case", ["headline 4", "headline 50", "headline 1", "8K 4",
+                                  "8K 3"])
+def test_rb_sweeps_full_size(cuda, nan_outputs, case):
+    """The headline jacobi burst on u, g (3, 1548, 2396): one 4-sweep launch,
+    a 50-sweep burst (13 launches), one sweep; the 8K interior
+    (3, 2798, 3798: 4-byte staging, scalar stores) at 4 and 3 sweeps. The
+    twin runs on the card (the same f32 operations, bit-equal); outputs
+    start as NaN."""
+    where, k = case.split()
+    k = int(k)
+    shape = (3, 1548, 2396) if where == "headline" else (3, 2798, 3798)
+    gen = torch.Generator(cuda).manual_seed(k)
+    u = torch.randn(shape, generator=gen, device=cuda) * 10
+    g = torch.randn(shape, generator=gen, device=cuda) * 50
+    u0 = u.clone()
+    K.reset_launches()
+    got = K.rb_sweeps(u, g, k)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rb_sweeps"] == -(-k // 4)
+    assert torch.equal(got, K.rb_sweeps_plain(u, g, k))
+    assert torch.equal(u, u0)
+
+
 @pytest.mark.parametrize("planar", [True, False])
 @pytest.mark.parametrize("hw", [(64, 90), (64, 127), (64, 256), (150, 260), (3, 3)])
 def test_postprocess_transposed_matches_plain(cuda, planar, hw):
@@ -1080,6 +1172,44 @@ def test_rb_sweeps_tile_matches_plain(cuda, case, k):
     assert K.LAUNCHES["rb_sweeps_tile"] == -(-k // 4)
     assert torch.equal(got.cpu(), K.rb_sweeps_tile_plain(u, g, k, origin, dom))
     assert torch.equal(ud.cpu(), u)
+
+
+DD_8K_TILE = (3, 1412, 1912)  # a 2x2 mesh over the 2798 x 3798 interior, 6-px band
+DD_8K_ORIGINS = [(-6, -6), (-6, 1894), (1394, -6), (1394, 1894)]
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("origin", DD_8K_ORIGINS + [(1393, -5)])
+def test_rb_sweeps_tile_8k_dd_tiles(cuda, nan_outputs, origin, k):
+    """The 8K DD tiles at the four origins of a 2x2 mesh (even parity) and an
+    odd one, the ascent's 1 and 2 sweeps (one launch); the twin on the
+    card; outputs start as NaN."""
+    gen = torch.Generator(cuda).manual_seed(origin[0] + origin[1] + k)
+    u = torch.randn(DD_8K_TILE, generator=gen, device=cuda) * 10
+    g = torch.randn(DD_8K_TILE, generator=gen, device=cuda) * 50
+    K.reset_launches()
+    got = K.rb_sweeps_tile(u, g, k, origin, (2798, 3798))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rb_sweeps_tile"] == 1
+    assert torch.equal(got, K.rb_sweeps_tile_plain(u, g, k, origin, (2798, 3798)))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("wl", [117, 118, 119, 120, 241])
+def test_rb_sweeps_tile_widths_and_cuts(cuda, nan_outputs, wl, k):
+    """Widths 4k .. 4k + 3 (16-byte and 4-byte staging), odd and even
+    origins, the domain cutting the tile on each side and missing it."""
+    rng = np.random.default_rng(wl + k)
+    shape = (2, 75, wl)
+    u = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 10)
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 50)
+    for origin, dom in (((-5, -3), (60, wl - 9)), ((7, 10), (70, 2 * wl)),
+                        ((-1, 0), (200, 40)), ((100, 0), (50, 50))):
+        K.reset_launches()
+        got = K.rb_sweeps_tile(u.to(cuda), g.to(cuda), k, origin, dom)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["rb_sweeps_tile"] == -(-k // 4)
+        assert torch.equal(got.cpu(), K.rb_sweeps_tile_plain(u, g, k, origin, dom))
 
 
 @pytest.mark.parametrize("hw,beta", [((21, 33), (1.0, 1.0)), ((20, 34), (1.0, 1.0)),
