@@ -13,7 +13,13 @@
    separate ops do). The DST kernels run at the shapes of the headline
    serve frame (a 2400x1552 full-mask patch into a 4800x2694 destination,
    bench.py's geometry): the slice-1 kernels on the unfolded chain's
-   tensors, the folded chain's kernels on the pair chain's. The multigrid
+   tensors, the folded chain's kernels on the pair chain's;
+   ``clamp_cast_paste`` also at 8K, from the ``"t"`` chain's slab
+   (3, 2816, 3840) and from an exact-size solution (3, 2798, 3798), whose
+   rows alternate between 16-byte aligned and 8 bytes off
+   (``slab_8k_*``, ``exact_8k_*``), planar and interleaved;
+   ``unfold_minor`` also at the per-axis strips' shape, the one its serve
+   launch has (``strips``). The multigrid
    kernels run at the 8K frame's (a 3802x2802 full-mask patch into a
    7680x4320 destination: interior 2798x3798, 10.6 MP): the fine level
    (3, 2816, 3840) and the first transposed coarse level (3, 1920, 1408,
@@ -25,7 +31,8 @@
    Slice 4a's at the headline: ``preprocess_rhs_p`` at the exact interior
    size (its own kernels-line entry, ``preprocess_rhs_p_exact``),
    ``postprocess_transposed`` on the DST-GEMM solve's transposed interior
-   (planar and interleaved, and at ROI widths 128, 251, 256), ``rb_sweeps``
+   (planar and interleaved, at ROI widths 128, 251, 256, and one row
+   short, h2 % 4 != 0: the ragged route, ``ragged_*``), ``rb_sweeps``
    for 1, 2, 3, 4 and 6 sweeps (two launches), at the 8K interior and on a
    97x131 grid. Slice 8a's: ``rb_sweeps_tile`` on the 8K DD tiles
    (3, 1412, 1912) (a 2x2 mesh over the 2800x3800 padded interior, a 6-px
@@ -155,7 +162,8 @@ for ``mg_down_t`` / ``mg_up_t`` is that of its unfused pair on the same
 inputs. When every pair's outputs were equal, each path of
 ``COMPARE_PATHS`` (the headline DST frames, which run preprocess_rhs_t,
 the multigrid and DD frames, and the jacobi and dst_fft frames, which
-run rb_sweeps and the exact-size preprocess_rhs_p) serves its frames in
+run rb_sweeps and the exact-size preprocess_rhs_p, and dst_post_t, which
+runs postprocess_transposed) serves its frames in
 turns with the two kernel sets (ms/frame, and from a profile the kernel
 busy time, idle share and the in-the-loop time of each ``LOOP_PROFILE``
 kernel the path profiles, ``other_loop_ms`` in the kernels line;
@@ -242,6 +250,8 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
                 "transpose_pair divide": ("pair", "transpose_pair_kernel<true"),
                 "unfold_transpose": ("pair", "unfold_transpose_kernel"),
                 "unfold_clamp_paste": ("pair", "unfold_clamp_paste_kernel"),
+                "transpose": ("unfolded", "transpose_kernel<false"),
+                "transpose divide": ("unfolded", "transpose_kernel<true"),
                 "preprocess_rhs_t": ("pair", "preprocess_rhs_t_kernel"),
                 "clamp_cast_paste_q": ("mg_q 8K tolerance", "clamp_cast_paste_q_kernel"),
                 "mg_ud_q": ("mg_q 8K tolerance", "level_q_kernel<true, true"),
@@ -258,7 +268,14 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
                 "rb_sweeps": ("jacobi", "rb_sweeps_tile_kernel"),
                 "rb_sweeps_tile": ("tiled_dd 8K tolerance", "rb_sweeps_tile_kernel"),
                 "preprocess_rhs_p": ("mg_t 8K tolerance", "preprocess_rhs_p_kernel"),
-                "preprocess_rhs_p exact": ("dst_fft", "preprocess_rhs_p_kernel")}
+                "preprocess_rhs_p exact": ("dst_fft", "preprocess_rhs_p_kernel"),
+                # the generic paste: the 8K slab, the headline slab, the 8K
+                # and the headline exact-size solutions
+                "clamp_cast_paste": ("mg_t 8K tolerance", "clamp_cast_paste_kernel"),
+                "clamp_cast_paste unfolded": ("unfolded", "clamp_cast_paste_kernel"),
+                "clamp_cast_paste tiled_dd": ("tiled_dd 8K tolerance", "clamp_cast_paste_kernel"),
+                "clamp_cast_paste dst_fft": ("dst_fft", "clamp_cast_paste_kernel"),
+                "postprocess_transposed": ("dst_post_t", "postprocess_transposed_kernel")}
 # a LOOP_PROFILE profile -> the COMPARE_PATHS frame it profiles (default:
 # the profile's own label), whose --other turns time the kernel in the loop
 PROFILE_PATH = {"tiled_dd 8K tolerance": "tiled_dd", "mg_t 8K tolerance": "mg_t"}
@@ -268,12 +285,12 @@ PROFILE_PATH = {"tiled_dd 8K tolerance": "tiled_dd", "mg_t 8K tolerance": "mg_t"
 OTHER_KERNELS = ("mg_down_q", "mg_up_q", "mg_ud_q", "mg_up", "mg_down", "mg_up_t", "mg_down_t",
                  "rb_sweeps_tile", "preprocess_rhs_q", "preprocess_rhs_t", "clamp_cast_paste_q",
                  "erode3", "transpose_pair", "unfold_transpose", "unfold_clamp_paste",
-                 "unfold_minor", "preprocess_rhs_p")
+                 "unfold_minor", "preprocess_rhs_p", "clamp_cast_paste", "postprocess_transposed")
 TURNS = ("other", "this", "this", "other")
 COMPARE_PATHS = ("pair", "unfolded", "per_axis", "mg_t", "mg_t_fixed", "mg_t_headline", "mg_q",
                  "mg_q_fixed", "mg_q_headline", "mg_q_coarse", "mg_q_coarse_headline",
                  "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline", "mg_padded_false",
-                 "jacobi", "dst_fft")
+                 "jacobi", "dst_fft", "dst_post_t")
 
 
 def _per_frame(**counts):
@@ -465,13 +482,13 @@ def unfused_chain():
 
 
 @contextlib.contextmanager
-def swapped(funcs: dict, q_tile: tuple[int, int]):
+def swapped(funcs: dict, q_tile: tuple[int, int], cast_mask: bool = True):
     """Launch ``funcs`` in place of this checkout's kernels of the same
     names, with the per-tile residual maxima sized for ``q_tile``. Another
     checkout's erode3 may read a {0,1} mask only (its pipeline cast the
-    mask first), so with it the pipeline casts the mask first too (two
-    torch ops a frame); one without the fused transfers runs ``vcycle_t``
-    as the four-kernel chain."""
+    mask first): with ``cast_mask`` the pipeline casts the mask first too
+    (two torch ops a frame). One without the fused transfers runs
+    ``vcycle_t`` as the four-kernel chain."""
     import torch
 
     from seamlesscloneoptimization_tpu_torch.models import pipeline
@@ -481,7 +498,7 @@ def swapped(funcs: dict, q_tile: tuple[int, int]):
     saved = {n: _build.kernel_function(n) for n in funcs}, K.Q_TILE, pipeline.erode3
     _build._functions.update(funcs)
     K.Q_TILE = q_tile
-    if "erode3" in funcs:
+    if "erode3" in funcs and cast_mask:
         pipeline.erode3 = lambda m: K.erode3((m != 0).to(torch.uint8))
     try:
         with contextlib.nullcontext() if "mg_down_t" in funcs else unfused_chain():
@@ -759,8 +776,19 @@ def main() -> int:
         print(f"{other_root.name}'s kernels built in {time.perf_counter() - t0:.2f} s, "
               f"quarter tile {other_tile}")
 
+        # the mask cast only where the other erode3 reads a {0,255} mask
+        # otherwise than this one does
+        other_casts = False
+        if "erode3" in other_funcs:
+            gen_m = torch.Generator(dev).manual_seed(SEED)
+            probe = (torch.rand((37, 70), generator=gen_m, device=dev) < 0.8).to(torch.uint8)
+            with swapped(other_funcs, other_tile, cast_mask=False):
+                theirs = K.erode3(probe * 255)
+            other_casts = not torch.equal(theirs, K.erode3(probe * 255))
+        print(f"{other_root.name}'s erode3 needs the mask cast to {{0,1}}: {other_casts}")
+
         def other():
-            return swapped(other_funcs, other_tile)
+            return swapped(other_funcs, other_tile, other_casts)
 
         for src, lib in other_libs.items():
             mine = sass(_build._target(src))
@@ -1005,14 +1033,24 @@ def main() -> int:
     K.clamp_cast_paste(u, i_k.permute(2, 0, 1), top + 1, left + 1, h2, w2)
     K.clamp_cast_paste_plain(u, i_p.permute(2, 0, 1), top + 1, left + 1, h2, w2)
     require_equal("clamp_cast_paste_interleaved", i_k, i_p)
+
+    def paste(u_, d_img, planar=True, at=(top + 1, left + 1, h2, w2)):
+        return K.clamp_cast_paste(u_, d_img if planar else d_img.permute(2, 0, 1), *at)
+
     row("clamp_cast_paste", 5 * c * h2 * w2, 2 * c * h2 * w2,
-        time_ms(lambda: K.clamp_cast_paste(u, d_k, top + 1, left + 1, h2, w2)),
-        time_ms(lambda: K.clamp_cast_paste_plain(u, d_p, top + 1, left + 1, h2, w2)))
+        time_ms(lambda: paste(u, d_k)),
+        time_ms(lambda: K.clamp_cast_paste_plain(u, d_p, top + 1, left + 1, h2, w2)),
+        shape=f"u {tuple(u.shape)} -> u8 ({c},{h2},{w2}) planar",
+        **vs_other(lambda: paste(u, d_k), lambda: (paste(u, dst_p.clone()),)))
     row("clamp_cast_paste_interleaved", 5 * c * h2 * w2, 2 * c * h2 * w2,
-        time_ms(lambda: K.clamp_cast_paste(u, i_k.permute(2, 0, 1), top + 1, left + 1,
-                                           h2, w2)),
+        time_ms(lambda: paste(u, i_k, False)),
         time_ms(lambda: K.clamp_cast_paste_plain(u, i_p.permute(2, 0, 1), top + 1,
-                                                 left + 1, h2, w2)))
+                                                 left + 1, h2, w2)),
+        shape=f"u {tuple(u.shape)} -> u8 ({c},{h2},{w2}) interleaved",
+        **vs_other(lambda: paste(u, i_k, False),
+                   lambda: (paste(u, torch.from_numpy(dst.copy()).to(dev), False),)))
+    print_other("clamp_cast_paste headline planar", rows["clamp_cast_paste"])
+    print_other("clamp_cast_paste headline interleaved", rows["clamp_cast_paste_interleaved"])
     gemm_line("unfolded", g_tp, vh)
     del s1, s2, tr2, tr2_plain, u
 
@@ -1102,6 +1140,26 @@ def main() -> int:
         time_ms(lambda: K.unfold_minor(e_w, o_w, w2, wp)),
         time_ms(lambda: K.unfold_minor_plain(e_w, o_w, w2, wp)),
         shape=f"2x ({c},{hp},{ep_w}), n={w2} -> ({c},{hp},{wp})")
+    # the shape its one serve launch has: the per-axis strips' folded side
+    # (a 128-row slab, the long side unfolded)
+    gen_u = torch.Generator(dev).manual_seed(SEED + 5)
+    unfold_strips = []
+    for sh_, sw_ in ((s_[0] - 2, s_[1] - 2) for s_ in STRIPS):
+        n_s, rows_s = max(sh_, sw_), ru128(min(sh_, sw_))
+        b_s = dst_bases(sh_, sw_, ru128(sh_), ru128(sw_), dev, folded=True)[int(sw_ > sh_)]
+        e_s, o_s = (torch.randn((c, rows_s, b_s.mats[2].shape[1]), generator=gen_u, device=dev)
+                    for _ in range(2))
+        require_equal(f"unfold_minor strip n={n_s}", K.unfold_minor(e_s, o_s, n_s, b_s.n_pad),
+                      K.unfold_minor_plain(e_s, o_s, n_s, b_s.n_pad))
+        unfold_strips.append(dict(
+            shape=f"2x {tuple(e_s.shape)}, n={n_s} -> ({c},{rows_s},{b_s.n_pad})",
+            ms=time_ms(lambda: K.unfold_minor(e_s, o_s, n_s, b_s.n_pad)),
+            bound_ms=bound(4 * c * rows_s * (2 * (n_s - n_s // 2) + b_s.n_pad),
+                           c * rows_s * n_s)[0]))
+    rows["unfold_minor"]["strips"] = unfold_strips
+    print(f"unfold_minor on the per-axis strips ({card}): " + "; ".join(
+        f"{x['shape']} {x['ms']:.5f} ms cold, bound {x['bound_ms']:.5f}" for x in unfold_strips))
+    del e_s, o_s
     ucp_bytes, ucp_ops = 8 * c * h2 * he_w + c * h2 * w2, 3 * c * h2 * w2
     row("unfold_clamp_paste", ucp_bytes, ucp_ops,
         time_ms(lambda: unfold_paste(d_k)),
@@ -1524,6 +1582,35 @@ def main() -> int:
         shape=f"{qshape} -> u8 ({c},{h8},{w8}) interleaved",
         **vs_other(lambda: paste_q(i_k, False),
                    lambda: (paste_q(torch.from_numpy(dst8).to(dev), False),)))
+    # the generic paste at 8K: from the "t" chain's slab (rows 16-byte
+    # aligned) and from the exact-size solve of the DD and mg_padded=False
+    # frames, wu = 3798 (every other row 8 bytes past a 16-byte boundary)
+    gen8 = torch.Generator(dev).manual_seed(SEED + 8)
+    at8 = (top8 + 1, left8 + 1, h8, w8)
+    for form, u_shape in (("slab_8k", (c, 2 * hq8, 2 * wq28)), ("exact_8k", (c, h8, w8))):
+        u8_ = torch.randn(u_shape, generator=gen8, device=dev) * 160.0 + 90.0
+        for planar, img in ((True, dst8_p), (False, torch.from_numpy(dst8).to(dev))):
+            a_, b_ = img.clone(), img.clone()
+            paste(u8_, a_, planar, at8)
+            K.clamp_cast_paste_plain(u8_, b_ if planar else b_.permute(2, 0, 1), *at8)
+            require_equal(f"clamp_cast_paste {form} ({'planar' if planar else 'interleaved'})",
+                          a_, b_)
+        d8_, i8_ = dst8_p.clone(), torch.from_numpy(dst8).to(dev)
+        rows["clamp_cast_paste"].update({
+            f"{form}_shape": f"u {u_shape} -> u8 ({c},{h8},{w8})",
+            f"{form}_ms": time_ms(lambda: paste(u8_, d8_, True, at8)),
+            f"{form}_bound_ms": bound(5 * pts8, 2 * pts8)[0],
+            f"{form}_interleaved_ms": time_ms(lambda: paste(u8_, i8_, False, at8)),
+            **{f"{form}_{k}": v for k, v in vs_other(
+                lambda: paste(u8_, d8_, True, at8),
+                lambda: (paste(u8_, dst8_p.clone(), True, at8),)).items()},
+            **{f"{form}_interleaved_{k}": v for k, v in vs_other(
+                lambda: paste(u8_, i8_, False, at8),
+                lambda: (paste(u8_, torch.from_numpy(dst8).to(dev), False, at8),)).items()}})
+        print_other(f"clamp_cast_paste 8K {form} planar", rows["clamp_cast_paste"], f"{form}_")
+        print_other(f"clamp_cast_paste 8K {form} interleaved", rows["clamp_cast_paste"],
+                    f"{form}_interleaved_")
+        del u8_, d8_, i8_, a_, b_
     del uq0, rcq0, e_q, uq_paste, d_k, d_p, i_k, i_p, gray8, rh_q, rct_s, split, xd8, xq8
 
     # -- 2e. slice 4a: the exact-size preprocess_rhs_p (#26's own role) and
@@ -1589,13 +1676,38 @@ def main() -> int:
         K.postprocess_transposed(u_s, a_s, 1, 1)
         K.postprocess_transposed_plain(u_s, b_s, 1, 1)
         require_equal(f"postprocess_transposed 64x{bw_s}", a_s, b_s)
+    # h2 % 4 != 0: the ragged route (the first design), one ROI row fewer
+    u_r = u_t[:, :, : h2 - 1].contiguous()
+    for planar, img in ((True, dst_p), (False, torch.from_numpy(dst.copy()).to(dev))):
+        a_, b_ = img.clone(), img.clone()
+        K.postprocess_transposed(u_r, a_ if planar else a_.permute(2, 0, 1), top + 1, left + 1)
+        K.postprocess_transposed_plain(u_r, b_ if planar else b_.permute(2, 0, 1), top + 1,
+                                       left + 1)
+        require_equal(f"postprocess_transposed ragged ({'planar' if planar else 'interleaved'})",
+                      a_, b_)
+
+    def post(u_, d_img, planar=True):
+        return K.postprocess_transposed(u_, d_img if planar else d_img.permute(2, 0, 1),
+                                        top + 1, left + 1)
+
     row("postprocess_transposed", 5 * c * h2 * w2, 2 * c * h2 * w2,
-        time_ms(lambda: K.postprocess_transposed(u_t, d_k, top + 1, left + 1)),
+        time_ms(lambda: post(u_t, d_k)),
         time_ms(lambda: K.postprocess_transposed_plain(u_t, d_p, top + 1, left + 1)),
         shape=f"u_t ({c},{w2},{h2}) -> the u8 ROI ({c},{bh},{bw}) in place, planar",
-        interleaved_ms=time_ms(lambda: K.postprocess_transposed(u_t, i_k.permute(2, 0, 1),
-                                                                top + 1, left + 1)))
-    del u_rb, u_t, d_k, d_p, i_k, i_p
+        interleaved_ms=time_ms(lambda: post(u_t, i_k, False)),
+        ragged_shape=f"u_t ({c},{w2},{h2 - 1}) (h2 % 4 != 0), planar",
+        ragged_ms=time_ms(lambda: post(u_r, d_k)),
+        ragged_bound_ms=bound(5 * c * (h2 - 1) * w2, 2 * c * (h2 - 1) * w2)[0],
+        **vs_other(lambda: post(u_t, d_k), lambda: (post(u_t, dst_p.clone()),)),
+        **{f"interleaved_{k}": v for k, v in vs_other(
+            lambda: post(u_t, i_k, False),
+            lambda: (post(u_t, torch.from_numpy(dst.copy()).to(dev), False),)).items()},
+        **{f"ragged_{k}": v for k, v in vs_other(
+            lambda: post(u_r, d_k), lambda: (post(u_r, dst_p.clone()),)).items()})
+    for what, pre in (("planar", ""), ("interleaved", "interleaved_"), ("ragged", "ragged_")):
+        print_other(f"postprocess_transposed headline {what}", rows["postprocess_transposed"],
+                    pre)
+    del u_rb, u_t, u_r, d_k, d_p, i_k, i_p, a_, b_
 
     # -- 2f. slice 8a: rb_sweeps_tile on the 8K DD tiles (a 2x2 mesh over the
     #    padded interior, the CA ghost band on every side) at the four tiles'
@@ -2191,7 +2303,7 @@ def main() -> int:
           f"postprocess_transposed once a frame")
     profile_frames("dst_post_t", clone_pipeline, dict(
         prof_h, solver=solve_dst_gemm, solver_kwargs={"precision": "high", "folded": True},
-        solver_name="dst_gemm", use_pallas_pre=False))
+        solver_name="dst_gemm", use_pallas_pre=False), into=loop_profiles)
     del prof_h
 
     # -- slice 8a: the 2x2 DD serve at 8K (tolerance and fixed), the 1x1 mesh,

@@ -34,12 +34,13 @@
 // 2 and 1 bytes, so no byte outside the rectangle is touched. An
 // interleaved destination (element stride 3) keeps byte stores, in the
 // same kernel, a pixel a lane (each byte fetched from its chunk's lane by
-// a shuffle), so a warp's store covers 96 contiguous bytes; the channel is
-// the grid's fastest index, so the three blocks that write a pixel's
-// bytes run together and L2 holds each 32-byte sector whole before it is
-// written back. It takes 0.064 ms at 8K planar on an H100 80GB HBM3 at
-// 700 W and 0.077 interleaved (chip_smoke.py, PERF.md section 6; 0.124
-// and 0.155 before).
+// a shuffle), so a warp's store covers 96 contiguous bytes (that walk is
+// paste_words.cuh's paste_run, shared with clamp_cast_paste.cu and
+// postprocess_transposed.cu); the channel is the grid's fastest index, so the
+// three blocks that write a pixel's bytes run together and L2 holds each
+// 32-byte sector whole before it is written back. It takes 0.064 ms at 8K
+// planar on an H100 80GB HBM3 at 700 W and 0.077 interleaved (chip_smoke.py,
+// PERF.md section 6; 0.124 and 0.155 before).
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // returns the launch's cudaError_t.
@@ -54,7 +55,6 @@ namespace {
 constexpr int kParts = 2;                // 8-byte chunks a thread
 constexpr int kSpan = 32 * 8 * kParts;   // dense columns a warp
 constexpr int kRows = 8;                 // rows a block, one warp each
-constexpr unsigned kFull = 0xffffffffu;
 
 // Four quarter columns m0 .. m0 + 3 of a plane row (0 past `need`).
 template <bool kVec>
@@ -67,19 +67,6 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ row, int m0, i
 #pragma unroll
   for (int k = 0; k < 4; ++k) v[k] = m0 + k < need ? __ldg(row + m0 + k) : 0.0f;
   return make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// Row [lo, hi) of the aligned word that holds row bytes [j - e, j - e + 8)
-// (clipped to the row [0, w2)): one 8-byte store when it is whole.
-__device__ __forceinline__ void store_word(uint8_t* row, int j, int e, uint2 v, int lo,
-                                           int w2) {
-  const int at = j - e, hi = min(w2, at + 8);
-  lo = max(lo, 0);
-  if (lo >= hi) return;
-  if (lo == at && hi == at + 8)
-    *reinterpret_cast<uint2*>(row + at) = v;
-  else
-    store_part(row + at, v, lo - at, hi - at);
 }
 
 // Block (32, kRows): warp y writes dense row r = kRows blockIdx.z + y of
@@ -110,47 +97,8 @@ clamp_cast_paste_q_kernel(const float* __restrict__ uq, int hq, int wq2,
     own[p][0] = pack4(a.x, b.x, a.y, b.y);
     own[p][1] = pack4(a.z, b.z, a.w, b.w);
   }
-  if (sw != 1) {  // an interleaved destination: byte stores, a pixel a lane
-    uint8_t* row = dst + c * sc + (long long)(top1 + r) * sh + left1 * sw;
-#pragma unroll
-    for (int p = 0; p < kParts; ++p) {
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        // pixel 256 p + 32 t + lane of the warp's run: byte lane % 8 of the
-        // chunk of lane 4 t + lane / 8
-        const int src = 4 * t + (lane >> 3), b = lane & 7;
-        const uint32_t w0 = __shfl_sync(kFull, own[p][0], src);
-        const uint32_t w1 = __shfl_sync(kFull, own[p][1], src);
-        const int j = span0 + 256 * p + 32 * t + lane;
-        if (j < w2) row[j * sw] = static_cast<uint8_t>((b < 4 ? w0 : w1) >> (8 * (b & 3)));
-      }
-    }
-    return;
-  }
-  uint8_t* row = dst + c * sc + (long long)(top1 + r) * sh + left1;
-  const int e = static_cast<int>(reinterpret_cast<uintptr_t>(row) & 7);
-  // the previous lane's words (lane 0: lane 31's, of the previous part)
-  uint32_t prev[kParts][2];
-#pragma unroll
-  for (int p = 0; p < kParts; ++p) {
-    prev[p][0] = __shfl_sync(kFull, own[p][0], (lane + 31) & 31);
-    prev[p][1] = __shfl_sync(kFull, own[p][1], (lane + 31) & 31);
-  }
-#pragma unroll
-  for (int p = 0; p < kParts; ++p) {
-    const int j0 = span0 + 8 * (32 * p + lane);
-    const bool first = lane == 0 && p == 0;  // the chunk before is another warp's
-    const int pb = p > 0 ? p - 1 : 0;  // constant: a register, selected by lane
-    const bool back = lane == 0 && p > 0;
-    const uint32_t q0 = back ? prev[pb][0] : prev[p][0];
-    const uint32_t q1 = back ? prev[pb][1] : prev[p][1];
-    store_word(row, j0, e, join(q0, q1, own[p][0], own[p][1], e), first ? j0 : j0 - e, w2);
-  }
-  if (lane == 31 && e != 0) {  // the last chunk's tail: the next warp's first word
-    const int j1 = span0 + kSpan;
-    store_word(row, j1, e, join(own[kParts - 1][0], own[kParts - 1][1], 0u, 0u, e),
-               j1 - e, min(w2, j1));
-  }
+  paste_run<kParts>(dst + c * sc + (long long)(top1 + r) * sh + left1 * sw, sw, span0, w2,
+                    own);
 }
 
 }  // namespace

@@ -54,7 +54,8 @@ raises, never falls back. ``LAUNCHES[name]`` counts kernel launches (the
 twins do not count), so a run can show that it went through the kernels.
 The sources are ``csrc/<name>.cu`` (``rb_sweeps`` launches
 ``csrc/rb_sweeps_tile.cu`` at origin (0, 0); the three unfold kernels share
-``csrc/fold.cuh``, unfold_clamp_paste and clamp_cast_paste_q the word
+``csrc/fold.cuh``, the four paste kernels (clamp_cast_paste,
+clamp_cast_paste_q, postprocess_transposed, unfold_clamp_paste) the word
 stores of ``csrc/paste_words.cuh``, preprocess_rhs_p, preprocess_rhs_q and
 preprocess_rhs_t ``csrc/rhs_wide.cuh``, the two dense multigrid level
 kernels and ``rb_sweeps_tile`` (its staging) ``csrc/mg_level.cuh``,

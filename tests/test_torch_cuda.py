@@ -129,22 +129,47 @@ def test_transpose_matches_plain(cuda, ab):
     assert torch.equal(got_d, want_d)
 
 
+# (u's shape, h2, w2, top1, first left1, the destination's (H, W)): u's
+# width at every residue mod 4, exact-size solutions (w2 == wu), runs below
+# and past one warp's span, the headline slab, and both 8K pastes: the "t"
+# chain's slab and the exact-size solve of the DD and mg_padded=False
+# frames, wu = 3798 (2 mod 4: every other row 8 bytes off 16)
+PASTE_CASES = {
+    "wu0": ((3, 256, 384), 130, 260, 1, 1, (300, 520)),
+    "wu1_exact": ((3, 140, 261), 140, 261, 7, 127, (300, 520)),
+    "wu2": ((3, 131, 518), 131, 515, 55, 3, (300, 560)),
+    "wu3_exact": ((3, 77, 515), 77, 515, 2, 17, (90, 560)),
+    "one_row_short": ((3, 1, 37), 1, 37, 0, 0, (4, 60)),
+    "headline_slab": ((3, 1664, 2432), 1548, 2396, 572, 1201, (2694, 4800)),
+    "8k_slab": ((3, 2816, 3840), 2798, 3798, 760, 1940, (4320, 7680)),
+    "8k_exact": ((3, 2798, 3798), 2798, 3798, 760, 1940, (4320, 7680)),
+}
+
+
 @pytest.mark.parametrize("planar", [True, False])
-@pytest.mark.parametrize("off", [(1, 1), (7, 127), (55, 201)])
-def test_clamp_cast_paste_matches_plain(cuda, planar, off):
-    top1, left1 = off
-    h2, w2 = 130, 260
-    rng = np.random.default_rng(top1)
-    u = torch.from_numpy(rng.normal(size=(3, 256, 384)).astype(np.float32) * 160 + 90)
-    base = _u8(rng, (3, 300, 520) if planar else (300, 520, 3))
-    want = torch.from_numpy(base.copy())
-    want_v = want if planar else want.permute(2, 0, 1)
-    K.clamp_cast_paste_plain(u, want_v, top1, left1, h2, w2)
-    got = torch.from_numpy(base.copy()).to(cuda)
-    got_v = got if planar else got.permute(2, 0, 1)
-    K.clamp_cast_paste(u.to(cuda), got_v, top1, left1, h2, w2)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
+@pytest.mark.parametrize("case", list(PASTE_CASES))
+def test_clamp_cast_paste_matches_plain(cuda, planar, case):
+    """left1 at 8 consecutive offsets (every residue mod 8), values below
+    0, above 255 and just under an integer; one launch a paste, the whole
+    destination compared (the twin on the card's copy), so a stray byte
+    fails."""
+    shape, h2, w2, top1, left1, (hd, wd) = PASTE_CASES[case]
+    gen = torch.Generator(cuda).manual_seed(shape[2] + h2)
+    u = torch.randn(shape, generator=gen, device=cuda) * 160 + 90
+    special = torch.tensor([254.9999, -0.0, 255.0, 255.5, -0.5, 0.9999, 1e9, -1e9], device=cuda)
+    pick = torch.rand(shape, generator=gen, device=cuda) < 0.1
+    u[pick] = special[torch.randint(0, 8, (int(pick.sum()),), generator=gen, device=cuda)]
+    base = torch.randint(0, 256, (3, hd, wd) if planar else (hd, wd, 3), generator=gen,
+                         device=cuda, dtype=torch.uint8)
+    for left in range(left1, left1 + 8):
+        want, got = base.clone(), base.clone()
+        K.clamp_cast_paste_plain(u, want if planar else want.permute(2, 0, 1), top1, left, h2,
+                                 w2)
+        K.reset_launches()
+        K.clamp_cast_paste(u, got if planar else got.permute(2, 0, 1), top1, left, h2, w2)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["clamp_cast_paste"] == 1
+        assert torch.equal(got, want), left
 
 
 @pytest.mark.parametrize("flags", [1, 2, 3])
@@ -1068,22 +1093,36 @@ def test_rb_sweeps_full_size(cuda, nan_outputs, case):
 
 
 @pytest.mark.parametrize("planar", [True, False])
-@pytest.mark.parametrize("hw", [(64, 90), (64, 127), (64, 256), (150, 260), (3, 3)])
+@pytest.mark.parametrize("hw", [(64, 90), (64, 127), (64, 256), (150, 260), (3, 3), (66, 300),
+                                (6, 3), (39, 517), (1550, 2398), (1549, 2398)])
 def test_postprocess_transposed_matches_plain(cuda, planar, hw):
-    """The interior of the ROI at an offset inside a planar or interleaved
-    destination, bit-exact against the twin; nothing else changes."""
+    """The interior of the ROI at 8 consecutive left offsets (every residue
+    mod 8) and odd and even top offsets inside a planar or interleaved
+    destination, bit-exact against the twin over the whole buffer: nothing
+    else changes. ROI heights with h2 % 4 == 0 (the tiles: (66, 300),
+    (150, 260), the headline (1550, 2398)) and != 0 (the ragged route), and
+    u_t a view 4 bytes past a 16-byte boundary (the ragged route too)."""
     bh, bw = hw
     rng = np.random.default_rng(bh + bw)
-    u_t = torch.from_numpy(rng.uniform(-60.0, 320.0, (3, bw - 2, bh - 2)).astype(np.float32))
-    base = torch.from_numpy(_u8(rng, (3, bh + 9, bw + 5) if planar else (bh + 9, bw + 5, 3)))
-    want = base.clone()
-    K.postprocess_transposed_plain(u_t, want if planar else want.permute(2, 0, 1), 5, 4)
-    got = base.to(cuda)
-    K.reset_launches()
-    K.postprocess_transposed(u_t.to(cuda), got if planar else got.permute(2, 0, 1), 5, 4)
-    torch.cuda.synchronize()
-    assert K.LAUNCHES["postprocess_transposed"] == 1
-    assert torch.equal(got.cpu(), want)
+    flat = torch.from_numpy(rng.uniform(-60.0, 320.0, 3 * (bw - 2) * (bh - 2) + 1)
+                            .astype(np.float32))
+    flat[torch.from_numpy(rng.random(flat.numel()) < 0.05)] = 254.9999
+    base = torch.from_numpy(_u8(rng, (3, bh + 9, bw + 12) if planar else (bh + 9, bw + 12, 3)))
+    flat_d = flat.to(cuda)
+    for i, left in enumerate(range(4, 12)):
+        top = 5 + i % 2
+        for off in (0, 1) if i == 0 else (0,):
+            u_t = flat[off : off + 3 * (bw - 2) * (bh - 2)].view(3, bw - 2, bh - 2)
+            want = base.clone()
+            K.postprocess_transposed_plain(u_t, want if planar else want.permute(2, 0, 1), top,
+                                           left)
+            got = base.to(cuda)
+            K.reset_launches()
+            K.postprocess_transposed(flat_d[off : off + u_t.numel()].view(u_t.shape),
+                                     got if planar else got.permute(2, 0, 1), top, left)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["postprocess_transposed"] == 1
+            assert torch.equal(got.cpu(), want), (left, off)
 
 
 def test_solve_redblack_on_card_matches_plain_sweeps(cuda):

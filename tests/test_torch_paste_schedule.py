@@ -17,7 +17,9 @@ a flat buffer whose length rounds up to 16 bytes and whose index 0 is
 aligned to its size and stays in the buffer, that every byte of the
 rectangle is written exactly once and no other byte at all, and holds the
 buffer equal to the plain twin's (``K.clamp_cast_paste_q_plain``) bit for
-bit.
+bit. The store walk is ``paste_run`` (csrc/paste_words.cuh's, which
+clamp_cast_paste and postprocess_transposed share: their replays import
+it from here).
 """
 
 import re
@@ -124,6 +126,34 @@ def store_word(dst, row, j, e, v, lo, w2):
         store_part(dst, row + at, v, lo - at, hi - at)
 
 
+def paste_run(dst, row, sw, span0, w2, own):
+    """paste_words.cuh's paste_run for one warp: own[p][lane] is the words
+    (w0, w1) of chunk 32 p + lane; ``row`` the byte address of the row's
+    column 0."""
+    parts = len(own)
+    if sw != 1:  # a pixel a lane: byte lane % 8 of lane 4 t + lane / 8's chunk
+        for p in range(parts):
+            for t in range(8):
+                for lane in range(32):
+                    j, b = span0 + 256 * p + 32 * t + lane, lane & 7
+                    if j < w2:
+                        dst.store(row + j * sw, 1, own[p][4 * t + (lane >> 3)][b >> 2]
+                                  >> (8 * (b & 3)))
+        return
+    e = row % 8
+    for p in range(parts):
+        for lane in range(32):
+            j0 = span0 + 8 * (32 * p + lane)
+            # the previous lane's words (lane 0: lane 31's, of the previous part;
+            # of part 0, the shuffle's wrap, whose bytes are not stored)
+            q = own[p - 1][31] if lane == 0 and p > 0 else own[p][(lane + 31) % 32]
+            v = join(*q, *own[p][lane], e)
+            store_word(dst, row, j0, e, v, j0 if lane == 0 and p == 0 else j0 - e, w2)
+    if e != 0:  # lane 31: the tail of the warp's last chunk
+        j1 = span0 + 256 * parts
+        store_word(dst, row, j1, e, join(*own[parts - 1][31], 0, 0, e), j1 - e, min(w2, j1))
+
+
 def paste_blocks(uq, dst, top1, left1, h2, w2, vec):
     """Every warp of clamp_cast_paste_q_kernel<vec>, replayed."""
     c, _, hq, wq2 = uq.shape
@@ -143,31 +173,8 @@ def paste_blocks(uq, dst, top1, left1, h2, w2, vec):
                         a, b = load4(ev, m0, need, vec), load4(od, m0, need, vec)
                         own[p][lane] = (pack4(a[0], b[0], a[1], b[1]),
                                         pack4(a[2], b[2], a[3], b[3]))
-                if sw != 1:  # a pixel a lane: byte lane % 8 of lane 4 t + lane / 8's chunk
-                    row = dst.off + cz * sc + (top1 + r) * sh + left1 * sw
-                    for p in range(PARTS):
-                        for t in range(8):
-                            for lane in range(32):
-                                j = span0 + 256 * p + 32 * t + lane
-                                b = lane & 7
-                                word = own[p][4 * t + (lane >> 3)][b >> 2]
-                                if j < w2:
-                                    dst.store(row + j * sw, 1, word >> (8 * (b & 3)))
-                    continue
-                row = dst.off + cz * sc + (top1 + r) * sh + left1
-                e = row % 8
-                prev = [[own[p][(lane + 31) % 32] for lane in range(32)] for p in range(PARTS)]
-                for p in range(PARTS):
-                    for lane in range(32):
-                        j0 = span0 + 8 * (32 * p + lane)
-                        first = lane == 0 and p == 0
-                        q = prev[p - 1][lane] if lane == 0 and p > 0 else prev[p][lane]
-                        v = join(*q, *own[p][lane], e)
-                        store_word(dst, row, j0, e, v, j0 if first else j0 - e, w2)
-                if e != 0:  # lane 31: the tail of the warp's last chunk
-                    j1 = span0 + SPAN
-                    v = join(*own[PARTS - 1][31], 0, 0, e)
-                    store_word(dst, row, j1, e, v, j1 - e, min(w2, j1))
+                paste_run(dst, dst.off + cz * sc + (top1 + r) * sh + left1 * sw, sw, span0, w2,
+                          own)
 
 
 def _case(h2, w2, top1, left1, base, interleaved, seed, c=3, vec=True, margin=(1, 5)):
