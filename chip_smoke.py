@@ -19,7 +19,12 @@
    rows alternate between 16-byte aligned and 8 bytes off
    (``slab_8k_*``, ``exact_8k_*``), planar and interleaved;
    ``unfold_minor`` also at the per-axis strips' shape, the one its serve
-   launch has (``strips``). The multigrid
+   launch had before the per-axis route took the fused kernels
+   (``strips``), and ``transpose_pair`` (strip H's plain form, strip W's
+   divide), ``unfold_transpose`` (strip H) and ``unfold_clamp_paste``
+   (strip W) at the shapes of the strips' serve launches (``strips``, each
+   with its path, bound and, from the strips' profiles, ``loop_ms``). The
+   multigrid
    kernels run at the 8K frame's (a 3802x2802 full-mask patch into a
    7680x4320 destination: interior 2798x3798, 10.6 MP): the fine level
    (3, 2816, 3840) and the first transposed coarse level (3, 1920, 1408,
@@ -72,8 +77,14 @@
      kernel and group, GEMMs per frame, idle share);
    - ``unfolded``: ``CloneConfig(dst_folded=False)`` at the headline, the
      same, with its own profile;
-   - ``per_axis``: the default config on a 126x2400 and a 2400x126 strip
-     (only the long side folds);
+   - ``per_axis_w`` and ``per_axis_h``: the default config on a 126x2400
+     and a 2400x126 strip (only the long side folds, joined through the
+     pair chain's kernels: strip W ends in ``unfold_clamp_paste``, strip H
+     runs ``unfold_transpose`` and ``clamp_cast_paste``; no
+     ``unfold_minor``), each with its profile and the same frame served on
+     the parent's unfused chain from the same kernels (``torch.cat``,
+     ``transpose``, ``unfold_minor``, ``clamp_cast_paste``; no path counts
+     those launches): busy us a frame both ways, pasted bytes equal;
    - ``mg_t``: ``CloneConfig(mg_padded="t")`` at 8K, where ``auto``
      resolves to multigrid: 10 chained frames and one single-shot run in
      tolerance mode (1e-4; every V-cycle kernel a multiple of the 4 fused
@@ -169,8 +180,7 @@ busy time, idle share and the in-the-loop time of each ``LOOP_PROFILE``
 kernel the path profiles, ``other_loop_ms`` in the kernels line;
 ``PROFILE_PATH`` names the frame of a profile labelled otherwise), printed
 as one JSON line
-(``frames_vs_other``) before the kernels line; the second per_axis strip
-is keyed ``per_axis (<label>)``.
+(``frames_vs_other``) before the kernels line.
 An in-place kernel's outputs are compared on fresh copies of its
 destination.
 ``--kernels`` stops after step 2 and prints the rows measured so far as
@@ -224,9 +234,12 @@ KERNELS = ("erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste", "fold_
            "rb_sweeps", "postprocess_transposed", "rb_sweeps_tile")
 # a fused vcycle_t level of the "t" and "q" chains: each of these once a cycle
 MG_KERNELS = ("mg_down_t", "mg_up_t")
-# the transfers folded into them: launched by no path, held against their
-# twins in the kernel phase
-FOLDED = {"mg_restrict_t": "mg_down_t", "mg_prolong_t": "mg_up_t"}
+# the kernels folded into others: launched by no serve path, held against
+# their twins in the kernel phase (the transfers into the fused levels;
+# unfold_minor, the natural-order return of a solver-level call, into the
+# per-axis route's transpose_pair, unfold_transpose and unfold_clamp_paste)
+FOLDED = {"mg_restrict_t": "mg_down_t", "mg_prolong_t": "mg_up_t",
+          "unfold_minor": "transpose_pair, unfold_transpose, unfold_clamp_paste"}
 # a cycle of the check-first loop: each of these once
 Q_CHECK_FIRST = ("mg_down_q", "mg_restrict_tq", "mg_prolong_tq", "mg_up_q")
 JACOBI_SMALL_HW = (66, 66)  # full mask: interior 62x62, converges within max_iters
@@ -241,6 +254,11 @@ RB_TILED_HALO = 4  # solve_redblack_tiled's default: 2 sweeps an exchange
 
 
 UNFUSED_PROFILE = "mg_q 8K tolerance (unfused chain)"
+# the per-axis strips: path -> its source's (h, w) under a full mask, and
+# the profile of its frame on the parent's unfused chain (cat, transpose,
+# unfold_minor)
+STRIP_PATHS = {"per_axis_w": STRIPS[0], "per_axis_h": STRIPS[1]}
+UNFUSED_STRIP = {p: f"{p} (unfused chain)" for p in STRIP_PATHS}
 # kernel -> (the profile that runs it on the main path, its kernel's name):
 # the kernels line's in-the-loop time per launch; "<kernel> <form>" puts a
 # second profile or template of the kernel under "<form>_loop_ms"
@@ -250,6 +268,20 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
                 "transpose_pair divide": ("pair", "transpose_pair_kernel<true"),
                 "unfold_transpose": ("pair", "unfold_transpose_kernel"),
                 "unfold_clamp_paste": ("pair", "unfold_clamp_paste_kernel"),
+                "fold_minor": ("pair", "fold_minor_kernel"),
+                # the per-axis strips: each folded axis through the fused kernels
+                # (the strip template or the headline one: one launch a frame)
+                "transpose_pair strip_h": ("per_axis_h", "transpose_pair"),
+                "transpose_pair strip_w_divide": ("per_axis_w", "transpose_pair"),
+                "unfold_transpose strip_h": ("per_axis_h", "unfold_transpose"),
+                "unfold_clamp_paste strip_w": ("per_axis_w", "unfold_clamp_paste"),
+                "fold_minor strip_w": ("per_axis_w", "fold_minor_kernel"),
+                "fold_minor strip_h": ("per_axis_h", "fold_minor_kernel"),
+                "transpose strip_w": ("per_axis_w", "transpose_kernel<false"),
+                "transpose strip_h_divide": ("per_axis_h", "transpose_kernel<true"),
+                # the same strip frames on the parent's unfused per-axis chain
+                "unfold_minor strip_w": (UNFUSED_STRIP["per_axis_w"], "unfold_minor_kernel"),
+                "unfold_minor strip_h": (UNFUSED_STRIP["per_axis_h"], "unfold_minor_kernel"),
                 "transpose": ("unfolded", "transpose_kernel<false"),
                 "transpose divide": ("unfolded", "transpose_kernel<true"),
                 "preprocess_rhs_t": ("pair", "preprocess_rhs_t_kernel"),
@@ -257,6 +289,8 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
                 "mg_ud_q": ("mg_q 8K tolerance", "level_q_kernel<true, true"),
                 "mg_down_q": ("mg_q 8K tolerance", "level_q_kernel<false, true"),
                 "mg_up_q": ("mg_q 8K mg_cycles=4", "level_q_kernel<true, false"),
+                "mg_prolong_tq": ("mg_q 8K tolerance", "mg_prolong_tq_kernel"),
+                "mg_restrict_tq": (f"mg_q 8K tol {COARSE_TOL}", "mg_restrict_tq_kernel"),
                 "mg_up_t": ("mg_q 8K tolerance", "mg_up_t_kernel"),
                 "mg_down_t": ("mg_q 8K tolerance", "mg_down_t_kernel"),
                 "preprocess_rhs_q": ("mg_q 8K tolerance", "preprocess_rhs_q_kernel"),
@@ -287,10 +321,10 @@ OTHER_KERNELS = ("mg_down_q", "mg_up_q", "mg_ud_q", "mg_up", "mg_down", "mg_up_t
                  "erode3", "transpose_pair", "unfold_transpose", "unfold_clamp_paste",
                  "unfold_minor", "preprocess_rhs_p", "clamp_cast_paste", "postprocess_transposed")
 TURNS = ("other", "this", "this", "other")
-COMPARE_PATHS = ("pair", "unfolded", "per_axis", "mg_t", "mg_t_fixed", "mg_t_headline", "mg_q",
-                 "mg_q_fixed", "mg_q_headline", "mg_q_coarse", "mg_q_coarse_headline",
-                 "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline", "mg_padded_false",
-                 "jacobi", "dst_fft", "dst_post_t")
+COMPARE_PATHS = ("pair", "unfolded", "per_axis_w", "per_axis_h", "mg_t", "mg_t_fixed",
+                 "mg_t_headline", "mg_q", "mg_q_fixed", "mg_q_headline", "mg_q_coarse",
+                 "mg_q_coarse_headline", "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline",
+                 "mg_padded_false", "jacobi", "dst_fft", "dst_post_t")
 
 
 def _per_frame(**counts):
@@ -319,8 +353,12 @@ PATHS = {
     "pair": _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=2, transpose_pair=3,
                        unfold_transpose=2, unfold_clamp_paste=1),
     "unfolded": _per_frame(erode3=1, preprocess_rhs_t=1, transpose=3, clamp_cast_paste=1),
-    "per_axis": _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=1, unfold_minor=1,
-                           transpose=3, clamp_cast_paste=1),
+    # one side of at most 128 px: the long side folds, joined through the
+    # pair chain's kernels (strip W: w folds; strip H: h folds)
+    "per_axis_w": _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=1, transpose=2,
+                             transpose_pair=1, unfold_clamp_paste=1),
+    "per_axis_h": _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=1, transpose_pair=1,
+                             transpose=1, unfold_transpose=1, clamp_cast_paste=1),
     # tolerance mode: the V-cycle kernels' counts depend on the data (see
     # check_mg_counts); fixed mode (mg_cycles=4) at 8K has 4 fused levels
     "mg_t": None,
@@ -365,7 +403,7 @@ MG_LEVELS = {"mg_t": 4, "mg_t_headline": 3, "mg_q": 3, "mg_q_headline": 2, "mg_q
              "tiled_dd": 2, "tiled_dd_fixed": 2, "tiled_dd_headline": 1, "mg_padded_false": 2}
 # the path whose serve run gives each kernel's "launches"
 HOME_PATH = {"transpose": "unfolded", "clamp_cast_paste": "unfolded",
-             "unfold_minor": "per_axis", "preprocess_rhs_p": "mg_t",
+             "preprocess_rhs_p": "mg_t",
              "mg_down": "mg_padded_false", "mg_up": "mg_padded_false", "mg_down_t": "mg_q",
              "mg_up_t": "mg_q", "preprocess_rhs_q": "mg_q", "mg_down_q": "mg_q", "mg_ud_q": "mg_q",
              "mg_up_q": "mg_q_fixed", "mg_prolong_tq": "mg_q", "clamp_cast_paste_q": "mg_q",
@@ -482,6 +520,52 @@ def unfused_chain():
 
 
 @contextlib.contextmanager
+def unfused_per_axis():
+    """Serve the per-axis DST route as the parent commit composed it from the
+    same kernels: a folded axis concatenates its half-GEMM outputs
+    (``torch.cat``) for a ``transpose`` and unfolds in an ``unfold_minor``
+    pass of its own, and the frame ends in ``clamp_cast_paste``."""
+    import torch
+
+    from seamlesscloneoptimization_tpu_torch.models import pipeline
+    from seamlesscloneoptimization_tpu_torch.ops import kernels as K
+    from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
+        dst_bases,
+        pair_chain_applies,
+    )
+
+    def fwd(a, b):
+        if not b.folded:
+            return torch.matmul(a, b.mats[0])
+        s, d = K.fold_minor(a, b.n)
+        return torch.cat([torch.matmul(s, b.mats[0]), torch.matmul(d, b.mats[1])], dim=-1)
+
+    def inv(a, b):
+        if not b.folded:
+            return torch.matmul(a, b.mats[0])
+        ep = b.mats[2].shape[0]
+        return K.unfold_minor(torch.matmul(a[..., :ep], b.mats[2]),
+                              torch.matmul(a[..., ep:], b.mats[3]), b.n, b.n_pad)
+
+    def solve(g_tp, h2, w2, precision="highest", folded=False, bases=None, return_parts=False):
+        if return_parts or (folded and pair_chain_applies(h2, w2)):
+            raise AssertionError("the unfused chain is the per-axis route's only")
+        _, wp, hp = g_tp.shape
+        bh, bw = bases if bases is not None else dst_bases(h2, w2, hp, wp, g_tp.device, folded)
+        tr1 = K.transpose(fwd(g_tp, bh))
+        tr2 = K.transpose(fwd(tr1, bw), bh.lam, bw.lam)
+        tr3 = K.transpose(inv(tr2, bh))
+        return inv(tr3, bw)
+
+    saved = pipeline.solve_dst_gemm_pl, pipeline.parts_apply
+    pipeline.solve_dst_gemm_pl, pipeline.parts_apply = solve, lambda w2, folded: False
+    try:
+        yield
+    finally:
+        pipeline.solve_dst_gemm_pl, pipeline.parts_apply = saved
+
+
+@contextlib.contextmanager
 def swapped(funcs: dict, q_tile: tuple[int, int], cast_mask: bool = True):
     """Launch ``funcs`` in place of this checkout's kernels of the same
     names, with the per-tile residual maxima sized for ``q_tile``. Another
@@ -508,9 +592,15 @@ def swapped(funcs: dict, q_tile: tuple[int, int], cast_mask: bool = True):
         K.Q_TILE, pipeline.erode3 = saved[1:]
 
 
-def sass(lib: Path) -> list[str] | None:
-    """The instructions of a library's kernels (cuobjdump -sass), or None
-    where the toolkit has no cuobjdump."""
+def sass(lib: Path) -> dict[str, list[str]] | None:
+    """The instructions of each of a library's kernels (cuobjdump -sass), by
+    kernel name, or None where the toolkit has no cuobjdump. The numbers
+    ptxas gives its internal subroutines (the IEEE divide's slow path,
+    ``$__internal_<k>_$...``) count the module's kernels, so they are
+    written ``<k>``; runs of blanks are one blank (cuobjdump pads the
+    columns to the module's longest instruction)."""
+    import re
+
     from seamlesscloneoptimization_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -518,8 +608,35 @@ def sass(lib: Path) -> list[str] | None:
         return None
     text = subprocess.run([str(tool), "-sass", str(lib)], check=True, capture_output=True,
                           text=True).stdout
-    # instruction lines only: the kernels' names carry a per-source hash
-    return [ln.strip() for ln in text.splitlines() if "/*" in ln]
+    funcs, name = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None and "/*" in ln:  # instruction lines only
+            funcs[name].append(" ".join(re.sub(r"__internal_\d+_", "__internal_<k>_",
+                                               ln).split()))
+    return funcs
+
+
+def sass_kept(mine: dict, theirs: dict) -> tuple[bool, list[str], list[str]]:
+    """Whether every kernel of ``theirs`` has one of ``mine`` with the same
+    instructions (the names carry a per-source hash), the names of
+    ``mine`` without such a twin there, and for each kernel of ``theirs``
+    without one here its first differing instruction against this
+    checkout's kernel of as many instructions that differs least."""
+    theirs_bodies, mine_bodies = list(theirs.values()), list(mine.values())
+    lost = []
+    for name, body in theirs.items():
+        if body in mine_bodies:
+            continue
+        near = [m for m in mine_bodies if len(m) == len(body)]
+        diffs = [[(x, y) for x, y in zip(body, m) if x != y] for m in near]
+        best = min(diffs, key=len, default=None)
+        lost.append(f"{name[:90]}: {len(body)} instructions, "
+                    + (f"{len(best)} lines differ, first {best[0]}" if best
+                       else "no kernel here of that length"))
+    return not lost, [n for n, body in mine.items() if body not in theirs_bodies], lost
 
 
 def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
@@ -694,6 +811,7 @@ def profile_frames(label, clone_pipeline, kwargs, frames: int = 5,
         gemm_calls += calls[k] if is_gemm else 0
         other_calls += calls[k] if g == "other" else 0
     result["gemms"] = gemm_calls / frames
+    result["gemm_us"] = groups["gemm"]
     result["torch_op_launches"] = other_calls / frames
     if into is not None:
         seq = sorted((ev.time_range.start, ev.name, ev.time_range.elapsed_us())
@@ -792,9 +910,16 @@ def main() -> int:
 
         for src, lib in other_libs.items():
             mine = sass(_build._target(src))
-            same = None if mine is None else mine == sass(lib)
+            if mine is None:
+                print(f"ptxas {src} of {other_root.name}: {other_ptxas[src]}; SASS not checked")
+                continue
+            theirs = sass(lib)
+            kept, new, lost = sass_kept(mine, theirs)
             print(f"ptxas {src} of {other_root.name}: {other_ptxas[src]}; SASS equal to "
-                  f"this checkout's: {'not checked' if same is None else same}")
+                  f"this checkout's: {mine == theirs}; each of its kernels' SASS among this "
+                  f"checkout's: {kept}; this checkout's kernels without a twin there: "
+                  f"{[n[:90] for n in new]}" + (f"; its kernels without a twin here: {lost}"
+                                               if lost else ""))
         other_fused = "mg_down_t" in other_funcs
         print(f"{other_root.name} has the fused transfers: {other_fused}")
     print("tf32: matmul", torch.backends.cuda.matmul.allow_tf32,
@@ -1160,6 +1285,96 @@ def main() -> int:
     print(f"unfold_minor on the per-axis strips ({card}): " + "; ".join(
         f"{x['shape']} {x['ms']:.5f} ms cold, bound {x['bound_ms']:.5f}" for x in unfold_strips))
     del e_s, o_s
+    # the fused kernels at the shapes of the per-axis strips' serve launches
+    # (a 128-lane other side): strip W's divide (transpose_pair) and paste
+    # (unfold_clamp_paste), strip H's forward transpose_pair and
+    # unfold_transpose
+    fused_strips = {"transpose_pair": [], "unfold_transpose": [], "unfold_clamp_paste": []}
+    for path, hw_s in STRIP_PATHS.items():
+        *_, (sbh, sbw) = prepare_inputs(np.full(hw_s, 255, np.uint8), hw_s + (3,),
+                                        DST_HW + (3,), center)
+        sh2, sw2 = sbh - 2, sbw - 2
+        sbase_h, sbase_w = dst_bases(sh2, sw2, ru128(sh2), ru128(sw2), dev, folded=True)
+        fb, ob = (sbase_w, sbase_h) if path == "per_axis_w" else (sbase_h, sbase_w)
+        n_s, rows_s = fb.n, ob.n_pad
+        sep, sop = fb.mats[0].shape[0], fb.mats[1].shape[0]
+        s_he = n_s - n_s // 2
+        # the chain's zeros: the other side's padding rows, the fold's
+        # padding lanes (0 / x takes another path through an IEEE divide)
+        a_s = torch.randn((c, rows_s, sep), generator=gen_u, device=dev)
+        b_s = torch.randn((c, rows_s, sop), generator=gen_u, device=dev)
+        o_s = torch.randn((c, rows_s, sep), generator=gen_u, device=dev)
+        dense = a_s.clone(), b_s.clone()
+        for x_, lanes in ((a_s, s_he), (b_s, n_s // 2), (o_s, s_he)):
+            x_[:, ob.n:] = 0
+            x_[..., lanes:] = 0
+        tp_bytes = 8 * c * rows_s * (sep + sop)
+        src_copy = torch.randn((c, rows_s, sep + sop), generator=gen_u, device=dev)
+        dst_copy = torch.empty_like(src_copy)
+        floor = dict(copy_ms=time_ms(lambda: dst_copy.copy_(src_copy)),
+                     copy_b2b_ms=b2b_ms(lambda: dst_copy.copy_(src_copy)))
+        if path == "per_axis_w":
+            lam_p, lam_r = fb.lam, ob.lam
+            for a_, b_ in ((a_s, b_s), dense):
+                require_equal(f"transpose_pair strip {path}",
+                              K.transpose_pair(a_, b_, lam_p, lam_r),
+                              K.transpose_pair_plain(a_, b_, lam_p, lam_r))
+            fn = (lambda a_s=a_s, b_s=b_s, lp=lam_p, lr=lam_r:
+                  K.transpose_pair(a_s, b_s, lp, lr))
+            fn_dense = (lambda a_s=dense[0], b_s=dense[1], lp=lam_p, lr=lam_r:
+                        K.transpose_pair(a_s, b_s, lp, lr))
+            fused_strips["transpose_pair"].append(dict(
+                path=path, form="divide", shape=f"({c},{rows_s},{sep}) + ({c},{rows_s},{sop}) -> "
+                                                f"({c},{sep + sop},{rows_s})",
+                ms=time_ms(fn), bound_ms=bound(tp_bytes + 4 * (sep + sop + rows_s),
+                                               2 * c * rows_s * (sep + sop))[0], **vs_other(fn),
+                dense_ms=time_ms(fn_dense),
+                **{f"dense_{k}": v for k, v in vs_other(fn_dense).items()}, **floor))
+            # the paste: rows [0, sh2) of (c, 128, ep) into the planar destination
+            at = (top + 1, left + 1, sh2, sw2)
+            sd_k, sd_p = dst_p.clone(), dst_p.clone()
+            K.unfold_clamp_paste(a_s, o_s, sd_k, *at)
+            K.unfold_clamp_paste_plain(a_s, o_s, sd_p, *at)
+            require_equal(f"unfold_clamp_paste strip {path}", sd_k, sd_p)
+            fn = (lambda a_s=a_s, o_s=o_s, sd_k=sd_k, at=at:
+                  K.unfold_clamp_paste(a_s, o_s, sd_k, *at))
+            fused_strips["unfold_clamp_paste"].append(dict(
+                path=path, shape=f"2x ({c},{rows_s},{sep}) rows 0+{sh2} -> u8 ({c},{sh2},{sw2}) "
+                                 "planar",
+                ms=time_ms(fn), bound_ms=bound(8 * c * sh2 * s_he + c * sh2 * sw2,
+                                               3 * c * sh2 * sw2)[0],
+                **vs_other(fn, lambda a_s=a_s, o_s=o_s, at=at: (
+                    K.unfold_clamp_paste(a_s, o_s, dst_p.clone(), *at),))))
+            del sd_k, sd_p
+        else:
+            require_equal(f"transpose_pair strip {path}", K.transpose_pair(a_s, b_s),
+                          K.transpose_pair_plain(a_s, b_s))
+            fn = lambda a_s=a_s, b_s=b_s: K.transpose_pair(a_s, b_s)
+            fused_strips["transpose_pair"].append(dict(
+                path=path, form="plain", shape=f"({c},{rows_s},{sep}) + ({c},{rows_s},{sop}) -> "
+                                               f"({c},{sep + sop},{rows_s})",
+                ms=time_ms(fn), bound_ms=bound(tp_bytes, 0)[0], **vs_other(fn), **floor))
+            out_pad = fb.n_pad
+            require_equal(f"unfold_transpose strip {path}",
+                          K.unfold_transpose(a_s, o_s, n_s, out_pad),
+                          K.unfold_transpose_plain(a_s, o_s, n_s, out_pad))
+            fn = lambda a_s=a_s, o_s=o_s, n=n_s, op_=out_pad: K.unfold_transpose(a_s, o_s, n, op_)
+            fused_strips["unfold_transpose"].append(dict(
+                path=path, shape=f"2x ({c},{rows_s},{sep}), n={n_s} -> ({c},{out_pad},{rows_s})",
+                ms=time_ms(fn), bound_ms=bound(4 * c * rows_s * (2 * s_he + out_pad),
+                                               c * rows_s * n_s)[0], **vs_other(fn)))
+        del a_s, b_s, o_s, dense, src_copy, dst_copy
+    for name, xs_ in fused_strips.items():
+        print(f"{name} on the per-axis strips ({card}): " + "; ".join(
+            f"{x['path']} {x['shape']} {x['ms']:.5f} ms cold, {x['b2b_ms']:.5f} back to back, "
+            f"bound {x['bound_ms']:.5f}" + (f", other {x['other_ms']:.5f} / "
+                                            f"{x['other_b2b_ms']:.5f}" if "other_ms" in x else "")
+            + (f"; without zeros {x['dense_ms']:.5f} / {x['dense_b2b_ms']:.5f}"
+               + (f", other {x['dense_other_ms']:.5f} / {x['dense_other_b2b_ms']:.5f}"
+                  if "dense_other_ms" in x else "") if "dense_ms" in x else "")
+            + (f"; a copy of the same bytes {x['copy_ms']:.5f} / {x['copy_b2b_ms']:.5f}"
+               if "copy_ms" in x else "")
+            for x in xs_))
     ucp_bytes, ucp_ops = 8 * c * h2 * he_w + c * h2 * w2, 3 * c * h2 * w2
     row("unfold_clamp_paste", ucp_bytes, ucp_ops,
         time_ms(lambda: unfold_paste(d_k)),
@@ -1174,6 +1389,8 @@ def main() -> int:
         shape=f"2x ({c},{hp},{ep_w}) -> u8 ({c},{h2},{w2}) interleaved",
         **vs_other(lambda: unfold_paste(i_k, False),
                    lambda: (unfold_paste(torch.from_numpy(dst.copy()).to(dev), False),)))
+    for name, xs_ in fused_strips.items():
+        rows[name]["strips"] = xs_
     gemm_line("pair", s, vep_h)
     gemm_line("pair", s2, vep_w)
     del (s, d, ws, wd, fe, fo, tr1, s2, d2, ws2, wd2, ge, go, tr2w, e_h, o_h, t3, e_w, o_w,
@@ -1939,10 +2156,53 @@ def main() -> int:
                            f"{SRC_HW[1]}x{SRC_HW[0]}")
     print(f"serve at {SRC_HW[1]}x{SRC_HW[0]}: pair chain {pair_ms:.4f} ms/frame, unfolded "
           f"chain {unfolded_ms:.4f} ms/frame, ratio {pair_ms / unfolded_ms:.3f} ({card})")
-    for hw in STRIPS:
+    # the per-axis strips: each serve frame, its profile, and the same frame
+    # on the parent's unfused chain from the same kernels, profiled beside
+    # it in turns (busy us a frame both ways, and without the GEMMs, whose
+    # time swings more than the rest) and pasting the same bytes
+    strip_busy = {}
+    for path, hw in STRIP_PATHS.items():
         s_src = synthetic_image(rng, hw)
-        drive("per_axis", CloneConfig(), s_src, np.full(hw, 255, np.uint8), STRIP_LOOPS,
-              f"{hw[1]}x{hw[0]} strip")
+        s_mask = np.full(hw, 255, np.uint8)
+        s_eng, _ = drive(path, CloneConfig(), s_src, s_mask, STRIP_LOOPS,
+                         f"{hw[1]}x{hw[0]} strip")
+        s_m, s_xy, s_lt, s_hw = s_eng._prepare(s_mask, s_src, dst, center)
+        s_kw = dict(src=torch.from_numpy(s_src).to(dev), mask=torch.from_numpy(s_m).to(dev),
+                    bbox_xy=s_xy, left_top=s_lt, planar_dst=True,
+                    **s_eng._pipeline_kwargs(s_hw, s_eng.config.flags, True))
+        routes = (("fused", path, contextlib.nullcontext, PATHS[path]),
+                  ("unfused", UNFUSED_STRIP[path], unfused_per_axis, _per_frame(
+                      erode3=1, preprocess_rhs_t=1, fold_minor=1, unfold_minor=1, transpose=3,
+                      clamp_cast_paste=1)))
+        outs, busy = [], {"fused": [], "unfused": [], "fused_no_gemm": [], "unfused_no_gemm": []}
+        for turn in range(2):
+            for route, label, chain, want in routes:
+                with chain():
+                    if turn == 0:
+                        K.reset_launches()
+                        outs.append(clone_pipeline(**s_kw, dst=dst_p.clone()))
+                        torch.cuda.synchronize()
+                        if K.LAUNCHES != want:
+                            raise AssertionError(f"{label}: launches {K.LAUNCHES}, expected {want}")
+                    for _ in range(3):  # a fraction of a GEMM a frame: the trace lost events
+                        prof = profile_frames(label, clone_pipeline, dict(s_kw, dst=dst_p.clone()),
+                                              into=loop_profiles, brief=turn > 0)
+                        if prof["gemms"] == int(prof["gemms"]):
+                            break
+                busy[route].append(prof["busy_us"])
+                busy[f"{route}_no_gemm"].append(prof["busy_us"] - prof.get("gemm_us", 0.0))
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"{path}: the fused and the unfused route pasted different "
+                                 f"bytes, diff_max {diff_max(outs[0].cpu(), outs[1].cpu())}")
+        strip_busy[path] = busy
+        mean = {k: sum(v) / len(v) for k, v in busy.items()}
+        print(f"{path} ({hw[1]}x{hw[0]} strip, {card}): kernels busy {busy['fused']} us/frame "
+              f"on the fused route, {busy['unfused']} on the parent's unfused chain, in turns "
+              f"(means {mean['fused'] - mean['unfused']:+.1f}; without the GEMMs "
+              f"{busy['fused_no_gemm']} and {busy['unfused_no_gemm']}, "
+              f"{mean['fused_no_gemm'] - mean['unfused_no_gemm']:+.1f}); pasted outputs "
+              "bit-equal")
+        del outs, s_kw, s_eng
 
     # -- the transpose-fused multigrid: 8K through auto, then the headline ------
     levels8 = 0
@@ -2121,7 +2381,7 @@ def main() -> int:
         bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver=TM.solve_multigrid, bases={},
         solver_name="multigrid",
         solver_kwargs=CloneConfig(solver="multigrid", tol=COARSE_TOL).solver_kwargs()),
-        frames=3)
+        frames=3, into=loop_profiles)
     _, qc_head_ms = drive("mg_q_coarse_headline", CloneConfig(solver="multigrid", tol=COARSE_TOL),
                           src, mask, MG_LOOPS, f"{SRC_HW[1]}x{SRC_HW[0]}, tol {COARSE_TOL}",
                           cpu="run", solver="multigrid")
@@ -2477,6 +2737,17 @@ def main() -> int:
             print(f"{name} in the loop ({label}, {card}), by coarse level: " + "; ".join(
                 f"{lv['shape']} {lv['loop_ms']:.5f} ms" for lv in levels))
     print(f"in the loop ({card}): " + "; ".join(loop_lines))
+    strip_loop = {("transpose_pair", "per_axis_w"): "strip_w_divide_loop_ms",
+                  ("transpose_pair", "per_axis_h"): "strip_h_loop_ms",
+                  ("unfold_transpose", "per_axis_h"): "strip_h_loop_ms",
+                  ("unfold_clamp_paste", "per_axis_w"): "strip_w_loop_ms"}
+    for (name, path), key in strip_loop.items():
+        for x in rows[name]["strips"]:
+            if x["path"] == path:
+                x["loop_ms"] = rows[name].get(key)
+                print(f"{name} on {path} ({card}): {x['ms']:.5f} ms cold, {x['b2b_ms']:.5f} "
+                      f"back to back, {x['loop_ms']} in the loop, bound {x['bound_ms']:.5f}")
+    print(json.dumps({"strip_frames_busy_us": strip_busy}))
     for name, r in rows.items():
         if not r["launches"] and name not in FOLDED:
             raise AssertionError(f"{name} was launched no time on its path")

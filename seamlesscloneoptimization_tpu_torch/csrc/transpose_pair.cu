@@ -36,6 +36,15 @@
 // Other shapes (ragged P, windows of any length) take that design, kept as
 // transpose_pair_ragged.
 //
+// The divide on a strip (the per-axis route's 2 x (3, 128, 1280) -> (3,
+// 2560, 128): 240 tiles, fewer than two blocks an SM) is latency-bound:
+// there an IEEE divide of 0, which takes the divide's slow path, costs the
+// block its time. The chain's padding rows and lanes make about a tenth
+// of the dividends 0, and on an H100 80GB HBM3 at 700 W they took the
+// launch from 0.0040 to 0.0061 ms back to back (chip_smoke.py, PERF.md
+// section 6). So the strip's divide (kZeros) takes 0 / x as 0 x x: the
+// same signed zero for a finite nonzero x, without the divide.
+//
 // Plain C interface, loaded with ctypes; launches on the caller's stream
 // and returns the launch's cudaError_t.
 
@@ -55,7 +64,13 @@ __device__ __forceinline__ float at(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-template <bool kDiv>
+// 0 / den as the product 0 x den, the IEEE quotient's signed zero for a
+// finite nonzero den; any other v / den as the IEEE divide.
+__device__ __forceinline__ float quotient(float v, float den) {
+  return v == 0.0f && den != 0.0f && fabsf(den) <= 3.402823466e38f ? v * den : v / den;
+}
+
+template <bool kDiv, bool kZeros = false>
 __global__ void __launch_bounds__(kThreads)
 transpose_pair_kernel(const float* __restrict__ a, const float* __restrict__ b,
                       float* __restrict__ out, const float* __restrict__ lam_p,
@@ -102,7 +117,8 @@ transpose_pair_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       o[j] = at(s[j], i);
-      if (kDiv) o[j] = o[j] / (at(lp, i) + at(lr, j));
+      if (kDiv && kZeros) o[j] = quotient(o[j], at(lp, i) + at(lr, j));
+      else if (kDiv) o[j] = o[j] / (at(lp, i) + at(lr, j));
     }
     *reinterpret_cast<float4*>(dst + (size_t)i * rc) = make_float4(o[0], o[1], o[2], o[3]);
   }
@@ -155,12 +171,19 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 template <bool kDiv>
 void launch(const float* a, const float* b, float* out, const float* lam_p,
             const float* lam_r, int c, int m, int pa, int pb, int row_start, int rc,
-            cudaStream_t s) {
+            int sms, cudaStream_t s) {
   const bool whole = pa % kT == 0 && pb % kT == 0 && rc % kT == 0 && row_start % 4 == 0 &&
                      aligned16(a) && aligned16(b) && aligned16(out) &&
                      (!kDiv || (aligned16(lam_p) && aligned16(lam_r)));
   if (whole) {
     const dim3 grid((pa + pb) / kT, rc / kT, c);
+    if constexpr (kDiv) {
+      if ((long long)grid.x * grid.y * c < 2LL * sms) {  // a strip
+        transpose_pair_kernel<true, true><<<grid, kThreads, 0, s>>>(a, b, out, lam_p, lam_r, m,
+                                                                    pa, pb, row_start, rc);
+        return;
+      }
+    }
     transpose_pair_kernel<kDiv><<<grid, kThreads, 0, s>>>(a, b, out, lam_p, lam_r, m, pa, pb,
                                                           row_start, rc);
   } else {
@@ -179,14 +202,18 @@ extern "C" int transpose_pair_launch(const void* a, const void* b, void* out,
                                      int m, int pa, int pb, int row_start,
                                      int rc, void* stream) {
   if (c <= 0 || rc <= 0 || pa + pb <= 0) return 0;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ap = static_cast<const float*>(a);
   const float* bp = static_cast<const float*>(b);
   float* op = static_cast<float*>(out);
   if (lam_p != nullptr)
     launch<true>(ap, bp, op, static_cast<const float*>(lam_p),
-                 static_cast<const float*>(lam_r), c, m, pa, pb, row_start, rc, s);
+                 static_cast<const float*>(lam_r), c, m, pa, pb, row_start, rc, sms, s);
   else
-    launch<false>(ap, bp, op, nullptr, nullptr, c, m, pa, pb, row_start, rc, s);
+    launch<false>(ap, bp, op, nullptr, nullptr, c, m, pa, pb, row_start, rc, sms, s);
   return static_cast<int>(cudaGetLastError());
 }

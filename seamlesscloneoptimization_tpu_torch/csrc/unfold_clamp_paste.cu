@@ -52,6 +52,12 @@
 // store per pixel, the mirrored half reading again what the forward half
 // read).
 //
+// Strips (the per-axis route's 122 rows of w2 = 2396: 3 x 3 x 16 blocks,
+// fewer than two an SM): the same kernel with kStripParts chunks a thread,
+// kSpan / 2 source lanes a warp, twice the blocks, each thread half the
+// loads: 0.0032 ms in the strip frame's loop against 0.0036 with
+// kParts (H100 80GB HBM3 at 700 W, chip_smoke.py).
+//
 // Plain C interface, loaded with ctypes; launches on the caller's stream
 // and returns the launch's cudaError_t.
 
@@ -64,6 +70,7 @@
 namespace {
 
 constexpr int kParts = 2;               // 8-lane chunks a thread
+constexpr int kStripParts = 1;          // on a strip
 constexpr int kSpan = 32 * 8 * kParts;  // source lanes a warp
 constexpr int kRows = 8;                // rows a block, one warp each
 constexpr unsigned kFull = 0xffffffffu;
@@ -86,13 +93,15 @@ __device__ __forceinline__ uint8_t byte_of(uint32_t w0, uint32_t w1, int b) {
 }
 
 // Block (32, kRows): warp y writes row r = kRows blockIdx.z + y of channel
-// blockIdx.x from source lanes [kSpan blockIdx.y, kSpan (blockIdx.y + 1));
-// lane l owns the chunks n = kSpan / 8 blockIdx.y + 32 p + l (p < kParts).
-template <bool kVec>
+// blockIdx.x from source lanes [kSpan blockIdx.y, kSpan (blockIdx.y + 1)),
+// kSpan = 256 kParts; lane l owns the chunks n = kSpan / 8 blockIdx.y + 32
+// p + l (p < kParts).
+template <bool kVec, int kParts>
 __global__ void __launch_bounds__(32 * kRows)
 unfold_clamp_paste_kernel(const float* __restrict__ e, const float* __restrict__ o, int hu,
                           int ep, uint8_t* __restrict__ dst, long long sc, long long sh,
                           long long sw, int top1, int left1, int h2, int w2) {
+  constexpr int kSpan = 32 * 8 * kParts;
   const int r = blockIdx.z * kRows + threadIdx.y;
   if (r >= h2) return;  // the whole warp
   const int lane = threadIdx.x, c = blockIdx.x;
@@ -185,18 +194,33 @@ extern "C" int unfold_clamp_paste_launch(const void* e, const void* o, int c,
                                          int left1, int h2, int w2,
                                          void* stream) {
   if (c <= 0 || h2 <= 0 || w2 <= 0) return 0;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int he = w2 - w2 / 2;
+  const int row_blocks = (h2 + kRows - 1) / kRows;
+  // fewer than two blocks an SM (a strip): half the lanes a warp
+  const bool strip = (long long)c * ((he + kSpan - 1) / kSpan) * row_blocks < 2LL * sms;
+  const int span = strip ? 32 * 8 * kStripParts : kSpan;
   const dim3 block(32, kRows);
-  const dim3 grid(c, (he + kSpan - 1) / kSpan, (h2 + kRows - 1) / kRows);
+  const dim3 grid(c, (he + span - 1) / span, row_blocks);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* ef = static_cast<const float*>(e);
   const auto* of = static_cast<const float*>(o);
   auto* d = static_cast<uint8_t*>(dst);
-  if (ep % 4 == 0 && aligned16(e) && aligned16(o))
-    unfold_clamp_paste_kernel<true><<<grid, block, 0, st>>>(ef, of, hu, ep, d, sc, sh, sw,
-                                                            top1, left1, h2, w2);
+  const bool vec = ep % 4 == 0 && aligned16(e) && aligned16(o);
+  if (vec && !strip)
+    unfold_clamp_paste_kernel<true, kParts><<<grid, block, 0, st>>>(ef, of, hu, ep, d, sc, sh,
+                                                                    sw, top1, left1, h2, w2);
+  else if (!strip)
+    unfold_clamp_paste_kernel<false, kParts><<<grid, block, 0, st>>>(ef, of, hu, ep, d, sc, sh,
+                                                                     sw, top1, left1, h2, w2);
+  else if (vec)
+    unfold_clamp_paste_kernel<true, kStripParts><<<grid, block, 0, st>>>(
+        ef, of, hu, ep, d, sc, sh, sw, top1, left1, h2, w2);
   else
-    unfold_clamp_paste_kernel<false><<<grid, block, 0, st>>>(ef, of, hu, ep, d, sc, sh, sw,
-                                                             top1, left1, h2, w2);
+    unfold_clamp_paste_kernel<false, kStripParts><<<grid, block, 0, st>>>(
+        ef, of, hu, ep, d, sc, sh, sw, top1, left1, h2, w2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,6 +36,14 @@
 // blocks. Other shapes (windows of any length, an unaligned pointer) take
 // that design, kept as unfold_transpose_ragged.
 //
+// Strips (the per-axis route's 2 x (3, 128, 1280) -> (3, 2432, 128): 20
+// lane and zero tiles x 2 x 3, fewer than two blocks an SM):
+// unfold_transpose_strip, the same walk on kTS = 32 window rows in 256
+// threads, twice the blocks, each thread half the loads; after the
+// barrier the block's first 128 threads store the s tile and the other 128
+// the d tile. In the strip frame's loop it takes 0.0030 ms against the
+// headline tile's 0.0034 (H100 80GB HBM3 at 700 W, chip_smoke.py).
+//
 // Plain C interface, loaded with ctypes; launches on the caller's stream
 // and returns the launch's cudaError_t.
 
@@ -131,6 +139,61 @@ unfold_transpose_kernel(const float* __restrict__ e, const float* __restrict__ o
   }
 }
 
+// The strip form: kTS window rows x kT source lanes, 256 threads. Load:
+// thread (row t / kQ + kPass i, unit t % kQ), i < kTS / kPass; store: thread
+// half h = t / 128 takes tile h (s, then d), tt = t % 128 the rows 4 (tt %
+// 8) .. + 3 at unit tt / 8. Zero blocks write rows [n + kT z, + kT) of the
+// window's kTS columns, a float4 a thread and row pass.
+constexpr int kTS = 32;
+
+__global__ void __launch_bounds__(kThreads)
+unfold_transpose_strip(const float* __restrict__ e, const float* __restrict__ o,
+                       float* __restrict__ out, int m, int ep, int n, int out_pad,
+                       int row_start, int rc, int lane_tiles) {
+  __shared__ float4 tile[2][kTS][kQ];
+  const int ci = blockIdx.z, r0 = blockIdx.y * kTS;
+  const int t = threadIdx.x, q = t % kQ, rr = t / kQ;
+  float* oc = out + (size_t)ci * out_pad * rc + r0;
+  if (blockIdx.x >= lane_tiles) {
+    const int x0 = n + kT * (blockIdx.x - lane_tiles);
+    const int zq = t % (kTS / 4), zr = t / (kTS / 4);  // 8 units x 32 rows a pass
+#pragma unroll
+    for (int i = 0; i < kT / (kThreads / (kTS / 4)); ++i) {
+      const int x = x0 + zr + (kThreads / (kTS / 4)) * i;
+      if (x < out_pad)
+        *reinterpret_cast<float4*>(oc + (size_t)x * rc + 4 * zq) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  const int he = n - n / 2, ho = n / 2;
+  const int k0 = blockIdx.x * kT;
+  float4 s[kTS / kPass], d[kTS / kPass];
+#pragma unroll
+  for (int i = 0; i < kTS / kPass; ++i) {
+    const size_t base = ((size_t)ci * m + row_start + r0 + rr + kPass * i) * ep;
+    unfold_lanes4<true>(e + base, o + base, k0 + 4 * q, he, s[i], d[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < kTS / kPass; ++i) {
+    const int row = rr + kPass * i;
+    tile[0][row][swizzle(row, q)] = s[i];
+    tile[1][row][swizzle(row, q)] = d[i];
+  }
+  __syncthreads();
+
+  const int half = t / 128, tt = t % 128, r4 = tt % 8, p4 = tt / 8;
+  float4 v[4];
+  transposed(tile[half], r4, p4, v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + 4 * p4 + i;
+    if (half == 0 && k < he)
+      *reinterpret_cast<float4*>(oc + (size_t)k * rc + 4 * r4) = v[i];
+    if (half == 1 && k < ho)
+      *reinterpret_cast<float4*>(oc + (size_t)(n - 1 - k) * rc + 4 * r4) = v[i];
+  }
+}
+
 // Any shape: a 32 x 32 tile of 4-byte accesses, rows padded to 33 floats;
 // the load phase evaluates unfold_at per output element with threads along
 // x, the store phase writes along r.
@@ -174,6 +237,10 @@ extern "C" int unfold_transpose_launch(const void* e, const void* o, void* out,
                                        int c, int m, int ep, int n, int out_pad,
                                        int row_start, int rc, void* stream) {
   if (c <= 0 || rc <= 0 || out_pad <= 0) return 0;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ef = static_cast<const float*>(e);
   const float* of = static_cast<const float*>(o);
@@ -181,9 +248,15 @@ extern "C" int unfold_transpose_launch(const void* e, const void* o, void* out,
   if (rc % kT == 0 && ep % 4 == 0 && aligned16(e) && aligned16(o) && aligned16(out)) {
     const int lane_tiles = (n - n / 2 + kT - 1) / kT;
     const int zero_tiles = (out_pad - n + kT - 1) / kT;
-    const dim3 grid(lane_tiles + zero_tiles, rc / kT, c);
-    unfold_transpose_kernel<<<grid, kThreads, 0, s>>>(ef, of, outf, m, ep, n, out_pad, row_start,
-                                                      rc, lane_tiles);
+    if ((long long)(lane_tiles + zero_tiles) * (rc / kT) * c < 2LL * sms) {
+      const dim3 grid(lane_tiles + zero_tiles, rc / kTS, c);  // a strip
+      unfold_transpose_strip<<<grid, kThreads, 0, s>>>(ef, of, outf, m, ep, n, out_pad,
+                                                       row_start, rc, lane_tiles);
+    } else {
+      const dim3 grid(lane_tiles + zero_tiles, rc / kT, c);
+      unfold_transpose_kernel<<<grid, kThreads, 0, s>>>(ef, of, outf, m, ep, n, out_pad,
+                                                        row_start, rc, lane_tiles);
+    }
   } else {
     const dim3 grid((out_pad + kRagged - 1) / kRagged, (rc + kRagged - 1) / kRagged, c);
     unfold_transpose_ragged<<<grid, dim3(kRagged, kRaggedRows), 0, s>>>(

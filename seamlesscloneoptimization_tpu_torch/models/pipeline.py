@@ -14,14 +14,19 @@ config's default ``dst_folded=True``) and both interior sides folding
     -> fold_minor -> 2 GEMMs -> transpose_pair(÷) x2 -> 2 GEMMs
     -> unfold_transpose x2 -> 2 GEMMs -> unfold_clamp_paste
 
-and otherwise
+and otherwise (the per-axis route; ``dst_folded=False``, or one side of at
+most 128 px)
 
     erode3 -> preprocess_rhs_t -> GEMM -> transpose -> GEMM -> transpose(÷)
     -> GEMM -> transpose -> GEMM -> clamp_cast_paste
 
-where an axis that folds (``folded and fold_pays(n)``) runs fold_minor ->
-2 half-GEMMs for its forward GEMM and 2 half-GEMMs -> unfold_minor for its
-inverse. With ``solver_name="multigrid"`` (the multigrid serve tail, ref
+where an axis that folds (``folded and fold_pays(n)``) joins its half-GEMMs
+through the pair chain's kernels: a folded h runs fold_minor -> 2
+half-GEMMs -> transpose_pair forward and 2 half-GEMMs -> unfold_transpose
+back; a folded w fold_minor -> 2 half-GEMMs -> transpose_pair(÷) forward
+and ends in 2 half-GEMMs -> unfold_clamp_paste (``parts_apply``: the
+solve returns the w halves wherever w folds). With
+``solver_name="multigrid"`` (the multigrid serve tail, ref
 ``pipeline.py:152-237``) and ``mg_padded="q"`` (the default) on a grid the
 quarter-plane chain takes (``quarter_path_applies``), a frame is
 
@@ -85,7 +90,7 @@ from seamlesscloneoptimization_tpu_torch.ops.postprocess import postprocess_roi
 from seamlesscloneoptimization_tpu_torch.ops.rhs import poisson_rhs
 from seamlesscloneoptimization_tpu_torch.solvers import get_solver
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
-    pair_chain_applies,
+    parts_apply,
     solve_dst_gemm_pl,
 )
 from seamlesscloneoptimization_tpu_torch.solvers.multigrid import (
@@ -143,10 +148,10 @@ def clone_roi(
     - ``"dst_gemm"`` or None: the DST-GEMM serve chain, which ignores
       ``solver`` (``solver_kwargs`` gives ``precision`` and ``folded``), and
       ``bases`` are the device-resident DST bases (``dst_bases`` with the
-      same ``folded``), or None. On the pair chain the last unfold is fused
-      into ``unfold_clamp_paste``. Without ``use_pallas_pre``: the plain
-      RHS -> ``solver(g, transposed_output=True, **solver_kwargs)`` ->
-      ``postprocess_transposed``.
+      same ``folded``), or None. Wherever w folds (``parts_apply``) the last
+      unfold is fused into ``unfold_clamp_paste``. Without
+      ``use_pallas_pre``: the plain RHS -> ``solver(g,
+      transposed_output=True, **solver_kwargs)`` -> ``postprocess_transposed``.
 
     ``solver=None`` takes ``SOLVERS[solver_name]``.
 
@@ -186,10 +191,10 @@ def clone_roi(
             precision = solver_kwargs.get("precision", "highest")
             folded = bool(solver_kwargs.get("folded", False))
             g_tp = preprocess_rhs_t(dest_roi_u8, patch_in, me, kflags, mixed_rule)
-            pair_chain = folded and pair_chain_applies(h2, w2)
+            parts = parts_apply(w2, folded)
             u = solve_dst_gemm_pl(g_tp, h2=h2, w2=w2, precision=precision, folded=folded,
-                                  bases=bases, return_parts=pair_chain)
-            if pair_chain:
+                                  bases=bases, return_parts=parts)
+            if parts:
                 return unfold_clamp_paste(*u, out, top1, left1, h2, w2)
             return clamp_cast_paste(u, out, top1, left1, h2, w2)
 

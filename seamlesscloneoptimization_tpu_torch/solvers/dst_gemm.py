@@ -93,9 +93,16 @@ def fold_pays(n: int) -> bool:
 
 def pair_chain_applies(h2: int, w2: int) -> bool:
     """Whether ``solve_dst_gemm_pl(folded=True)`` runs the folded pair chain
-    (both axes fold): the one gate shared with the pipeline, whose fused
-    unfold-clamp-paste tail needs that chain's ``return_parts``."""
+    (both axes fold); otherwise it runs the per-axis route."""
     return fold_pays(h2) and fold_pays(w2)
+
+
+def parts_apply(w2: int, folded: bool) -> bool:
+    """Whether ``solve_dst_gemm_pl(folded=folded)`` can stop before its last
+    unfold and return the w axis's halves (``return_parts``): wherever w
+    folds, on the pair chain and on the per-axis route. The one gate shared
+    with the pipeline, whose ``unfold_clamp_paste`` tail needs those halves."""
+    return folded and fold_pays(w2)
 
 
 @lru_cache(maxsize=64)
@@ -180,25 +187,6 @@ def dst_bases(h2: int, w2: int, hp: int, wp: int, device, folded: bool = False):
             axis_basis(w2, wp, folded and fold_pays(w2), device))
 
 
-def _fwd(a: torch.Tensor, b: AxisBasis) -> torch.Tensor:
-    """Forward transform along the minor axis (grouped where folded)."""
-    if not b.folded:
-        return torch.matmul(a, b.mats[0])
-    vep, vop, _, _ = b.mats
-    s, d = fold_minor(a, b.n)
-    return torch.cat([torch.matmul(s, vep), torch.matmul(d, vop)], dim=-1)
-
-
-def _inv(a: torch.Tensor, b: AxisBasis) -> torch.Tensor:
-    """Inverse transform along the minor axis, natural order out (n_pad)."""
-    if not b.folded:
-        return torch.matmul(a, b.mats[0])
-    _, _, ve2p, vo2p = b.mats
-    ep = ve2p.shape[0]
-    return unfold_minor(torch.matmul(a[..., :ep], ve2p), torch.matmul(a[..., ep:], vo2p),
-                        b.n, b.n_pad)
-
-
 def solve_dst_gemm_pl(g_tp: torch.Tensor, h2: int, w2: int,
                       precision: str = "highest", folded: bool = False,
                       bases=None, return_parts: bool = False):
@@ -210,16 +198,22 @@ def solve_dst_gemm_pl(g_tp: torch.Tensor, h2: int, w2: int,
     out (near) zero. Each GEMM is a right-multiply of the slab by a
     zero-padded factor, so nothing is sliced or re-padded between stages.
 
-    Three branches, as in the JAX function:
+    Two branches, as in the JAX function, with the same GEMMs and the same
+    arithmetic; the per-axis one joins them through the pair chain's fused
+    kernels (layout only: the JAX function concatenates and unfolds there):
     - ``folded and pair_chain_applies(h2, w2)``: the pair chain,
       fold_minor -> 2 GEMMs -> transpose_pair -> fold_minor -> 2 GEMMs ->
       transpose_pair(÷) x2 (row windows) -> 2 GEMMs -> unfold_transpose x2
-      -> 2 GEMMs -> unfold_minor. With ``return_parts`` it stops before the
-      last unfold and returns (e_w, o_w), each (C, HP, ep_w), for
-      ``unfold_clamp_paste``.
-    - otherwise per axis: an axis folds where ``folded and fold_pays(n)``
-      (fold_minor / unfold_minor around its half-GEMMs), else plain; three
-      ``transpose`` launches, the middle one dividing.
+      -> 2 GEMMs -> unfold_minor.
+    - otherwise per axis: an axis folds where ``folded and fold_pays(n)``,
+      else it is one plain GEMM each way. A folded h runs fold_minor -> 2
+      half-GEMMs -> transpose_pair forward and 2 half-GEMMs ->
+      unfold_transpose back; a folded w fold_minor -> 2 half-GEMMs ->
+      transpose_pair(÷) forward and 2 half-GEMMs -> unfold_minor back; the
+      other transposes are ``transpose`` launches, the middle one dividing.
+    With ``return_parts`` (``parts_apply(w2, folded)``: w folds) either
+    branch stops before its last unfold and returns (e_w, o_w), each
+    (C, HP, ep_w), for ``unfold_clamp_paste``.
     ``bases``: ``dst_bases(h2, w2, HP, WP, device, folded)``, or None to
     build them.
     """
@@ -251,16 +245,39 @@ def solve_dst_gemm_pl(g_tp: torch.Tensor, h2: int, w2: int,
             return e_w, o_w
         return unfold_minor(e_w, o_w, w2, wp)
 
+    if return_parts and not bw.folded:
+        raise ValueError(f"return_parts needs a folded w axis: parts_apply({w2}, {folded}) "
+                         f"is False")
+    # forward h: (C,WP,HP) -> tr1 (C,HG,WP) = Vh G
+    if bh.folded:
+        vep_h, vop_h, ve2p_h, vo2p_h = bh.mats
+        s, d = fold_minor(g_tp, h2)
+        tr1 = transpose_pair(torch.matmul(s, vep_h), torch.matmul(d, vop_h))
+    else:
+        tr1 = transpose(torch.matmul(g_tp, bh.mats[0]))
+    # forward w, the spectral divide fused into the transpose back:
+    # tr2 (C,WG,HG) = uhat^T
+    if bw.folded:
+        vep_w, vop_w, ve2p_w, vo2p_w = bw.mats
+        s, d = fold_minor(tr1, w2)
+        tr2 = transpose_pair(torch.matmul(s, vep_w), torch.matmul(d, vop_w), bw.lam, bh.lam)
+    else:
+        tr2 = transpose(torch.matmul(tr1, bw.mats[0]), lam_a=bh.lam, lam_b=bw.lam)
+    # inverse h, the unfold fused into the transpose back: tr3 (C,HP,WG) = Vh uhat
+    if bh.folded:
+        ep_h = ve2p_h.shape[0]
+        tr3 = unfold_transpose(torch.matmul(tr2[..., :ep_h], ve2p_h),
+                               torch.matmul(tr2[..., ep_h:], vo2p_h), h2, hp)
+    else:
+        tr3 = transpose(torch.matmul(tr2, bh.mats[0]))
+    # inverse w: (C,HP,WP) = u (padded)
+    if not bw.folded:
+        return torch.matmul(tr3, bw.mats[0])
+    ep_w = ve2p_w.shape[0]
+    e_w, o_w = torch.matmul(tr3[..., :ep_w], ve2p_w), torch.matmul(tr3[..., ep_w:], vo2p_w)
     if return_parts:
-        raise ValueError(f"return_parts needs the pair chain: folded=True and "
-                         f"pair_chain_applies({h2}, {w2})")
-    s1 = _fwd(g_tp, bh)                             # (C,WP,HG) = (Vh G)^T
-    tr1 = transpose(s1)                             # (C,HG,WP) = Vh G
-    s2 = _fwd(tr1, bw)                              # (C,HG,WG) = ghat
-    tr2 = transpose(s2, lam_a=bh.lam, lam_b=bw.lam)  # (C,WG,HG) = uhat^T
-    s4 = _inv(tr2, bh)                              # (C,WG,HP) = (Vh uhat)^T
-    tr3 = transpose(s4)                             # (C,HP,WG) = Vh uhat
-    return _inv(tr3, bw)                            # (C,HP,WP) = u (padded)
+        return e_w, o_w
+    return unfold_minor(e_w, o_w, w2, wp)
 
 
 # ---------------------------------------------------------------------------

@@ -326,6 +326,80 @@ def test_unfold_clamp_paste_matches_plain(cuda, planar, n, off):
     assert torch.equal(got.cpu(), want)
 
 
+# the per-axis strips' launches: the folded side n (2396 at chip_smoke.py's
+# 126 x 2400 strips; 2397 and 2398 beside it) on slabs of 128 rows, the
+# other side's 128-roundup
+STRIP_N = [2396, 2397, 2398]
+
+
+@pytest.mark.parametrize("n", STRIP_N)
+def test_transpose_pair_strips(cuda, nan_outputs, n):
+    """Strip H's forward pair (3, 128, ep) + (3, 128, op) -> (3, ep + op,
+    128) and strip W's divide (grouped w eigenvalues along p, the padded h
+    ones along r) on the chain's zeros (the padding rows from 122, the
+    fold's padding lanes, and zeros among the data, whose quotients are
+    -0), bit for bit; whole, then windows at an offset and one that is no
+    whole tile (the ragged route)."""
+    he, ho, ep, op = _halves(n)
+    rng = np.random.default_rng(n)
+    a = rng.normal(size=(3, 128, ep)).astype(np.float32) * 40
+    b = rng.normal(size=(3, 128, op)).astype(np.float32) * 40
+    for x, lanes in ((a, he), (b, ho)):
+        x[:, 122:] = 0
+        x[..., lanes:] = 0
+        x[rng.random(x.shape) < 0.01] = 0
+    a, b = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    lam_p = torch.from_numpy(dst_eigenvalues_grouped(n).copy()).to(cuda)
+    lam_r = torch.from_numpy(dst_eigenvalues_padded(122, 128).copy()).to(cuda)
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    for rs, rc in ((0, 128), (64, 64), (5, 101)):
+        assert torch.equal(K.transpose_pair(a, b, row_start=rs, row_count=rc),
+                           K.transpose_pair_plain(a, b, row_start=rs, row_count=rc)), rs
+        got = K.transpose_pair(a, b, lam_p, lam_r, rs, rc)
+        want = K.transpose_pair_plain(a, b, lam_p, lam_r, rs, rc)
+        assert torch.equal(bits(got), bits(want)), rs
+        assert bool((bits(want) == -(2 ** 31)).any())  # some -0 quotients
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", STRIP_N)
+def test_unfold_transpose_strips(cuda, nan_outputs, n):
+    """Strip H's inverse: (3, 128, ep) x 2 -> (3, ru128(n), 128), NaN on the
+    padding lanes; out_pad the roundup (zero rows) and n; windows at an
+    offset and one that is no whole tile (the ragged route)."""
+    e, o = _eo(np.random.default_rng(n), 3, 128, n, 160.0, pad=np.nan)
+    e, o = e.to(cuda), o.to(cuda)
+    for out_pad in (K.ru128(n), n):
+        for rs, rc in ((0, 128), (64, 64), (5, 101)):
+            assert torch.equal(K.unfold_transpose(e, o, n, out_pad, rs, rc),
+                               K.unfold_transpose_plain(e, o, n, out_pad, rs, rc)), (out_pad, rs)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("n", STRIP_N)
+def test_unfold_clamp_paste_strips(cuda, planar, n):
+    """Strip W's paste: 122 and 124 rows of (3, 128, ep), w2 = n, into the
+    serve buffer (3, 2694, 4800) or an interleaved image at 8 consecutive
+    left1; NaN on the padding lanes; the whole buffer against the twin's."""
+    rng = np.random.default_rng(n + 1)
+    e, o = _eo(rng, 3, 128, n, 160.0, pad=np.nan)
+    e, o = (e + 90.0).to(cuda), o.to(cuda)
+    base = torch.from_numpy(_u8(rng, (3, 2694, 4800) if planar else (2694, 4800, 3))).to(cuda)
+    for h2 in (122, 124):
+        for left1 in range(1201, 1209):
+            want, got = base.clone(), base.clone()
+            K.unfold_clamp_paste_plain(e, o, want if planar else want.permute(2, 0, 1), 1285,
+                                       left1, h2, n)
+            K.unfold_clamp_paste(e, o, got if planar else got.permute(2, 0, 1), 1285, left1, h2,
+                                 n)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (h2, left1)
+
+
 def _per_frame(**counts):
     """Per-frame launches of every kernel: those given, 0 for the rest."""
     return {k: counts.get(k, 0) for k in K.LAUNCHES}
@@ -334,8 +408,13 @@ def _per_frame(**counts):
 PAIR_CHAIN = _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=2, transpose_pair=3,
                         unfold_transpose=2, unfold_clamp_paste=1)
 UNFOLDED = _per_frame(erode3=1, preprocess_rhs_t=1, transpose=3, clamp_cast_paste=1)
-PER_AXIS = _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=1, unfold_minor=1,
-                      transpose=3, clamp_cast_paste=1)
+# the per-axis route: the long side folds, joined through the pair chain's
+# kernels; strip W (w folds) ends in unfold_clamp_paste, strip H (h folds)
+# runs unfold_transpose and clamp_cast_paste
+PER_AXIS_W = _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=1, transpose=2,
+                        transpose_pair=1, unfold_clamp_paste=1)
+PER_AXIS_H = _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=1, transpose_pair=1,
+                        transpose=1, unfold_transpose=1, clamp_cast_paste=1)
 
 
 def _serve_counts(cuda, cfg, src_hw, per_frame):
@@ -367,8 +446,15 @@ def test_serve_unfolded_chain(cuda):
 
 @pytest.mark.parametrize("src_hw", [(60, 200), (200, 60)])
 def test_serve_per_axis_strip(cuda, src_hw):
-    """A strip whose short side does not fold: one fold and one unfold."""
-    _serve_counts(cuda, CloneConfig(), src_hw, PER_AXIS)
+    """A strip whose short side does not fold: one fold, the fused kernels
+    for the rest, no unfold_minor."""
+    _serve_counts(cuda, CloneConfig(), src_hw, PER_AXIS_W if src_hw[1] > src_hw[0] else PER_AXIS_H)
+
+
+@pytest.mark.parametrize("src_hw", [(126, 2400), (2400, 126)])
+def test_serve_per_axis_full_strips(cuda, src_hw):
+    """chip_smoke.py's two strips at full size, the card within 1 of the CPU."""
+    _serve_counts(cuda, CloneConfig(), src_hw, PER_AXIS_W if src_hw[1] > src_hw[0] else PER_AXIS_H)
 
 
 # ---------------------------------------------------------------------------

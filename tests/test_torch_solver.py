@@ -49,16 +49,19 @@ def test_fold_pays_is_false_until_the_pair_chain():
 
 
 @pytest.mark.parametrize("hw, calls", [
-    ((61, 93), {}),                                           # neither axis folds
-    ((130, 61), {"fold_minor": 1, "unfold_minor": 1}),        # h only
-    ((61, 130), {"fold_minor": 1, "unfold_minor": 1}),        # w only
+    ((61, 93), {"transpose": 3}),                             # neither axis folds
+    ((130, 61), {"fold_minor": 1, "transpose_pair": 1,        # h only
+                 "transpose": 1, "unfold_transpose": 1}),
+    ((61, 130), {"fold_minor": 1, "transpose": 2,             # w only
+                 "transpose_pair": 1, "unfold_minor": 1}),
     ((200, 300), {"fold_minor": 2, "transpose_pair": 3,       # the pair chain
                   "unfold_transpose": 2, "unfold_minor": 1}),
 ])
 def test_folded_axes_follow_fold_pays(monkeypatch, hw, calls):
     """solve_dst_gemm_pl folds exactly the axes where folded and fold_pays:
-    the pair chain when both fold, else per axis with three transposes;
-    folded=False never folds."""
+    the pair chain when both fold, else per axis, a folded axis joined
+    through the pair chain's kernels; folded=False never folds. return_parts
+    holds wherever w folds (parts_apply) and skips the last unfold."""
     seen = {}
 
     def counting(name):
@@ -76,17 +79,21 @@ def test_folded_axes_follow_fold_pays(monkeypatch, hw, calls):
     g_tp = torch.zeros((3, K.ru128(w2), K.ru128(h2)))
     assert TD.solve_dst_gemm_pl(g_tp, h2, w2, folded=True).shape == (3, K.ru128(h2),
                                                                       K.ru128(w2))
-    want = dict(calls)
-    if "transpose_pair" not in calls:
-        want["transpose"] = 3
-    assert seen == want
+    assert seen == calls
     seen.clear()
     TD.solve_dst_gemm_pl(g_tp, h2, w2, folded=False)
     assert seen == {"transpose": 3}
-    if "transpose_pair" not in calls:  # return_parts exists only on the pair chain
-        with pytest.raises(ValueError, match="pair chain"):
+    if TD.parts_apply(w2, True):
+        seen.clear()
+        e_w, o_w = TD.solve_dst_gemm_pl(g_tp, h2, w2, folded=True, return_parts=True)
+        assert e_w.shape == o_w.shape == (3, K.ru128(h2), K.ru128((w2 + 1) // 2))
+        assert seen == {k: v for k, v in calls.items() if k != "unfold_minor"}
+    else:
+        with pytest.raises(ValueError, match="folded w axis"):
             TD.solve_dst_gemm_pl(g_tp, h2, w2, folded=True, return_parts=True)
-    if calls:  # unfolded bases cannot drive an axis that folds
+    with pytest.raises(ValueError, match="folded w axis"):
+        TD.solve_dst_gemm_pl(g_tp, h2, w2, folded=False, return_parts=True)
+    if len(calls) > 1:  # unfolded bases cannot drive an axis that folds
         with pytest.raises(ValueError, match="bases do not match"):
             TD.solve_dst_gemm_pl(g_tp, h2, w2, folded=True,
                                  bases=TD.dst_bases(h2, w2, K.ru128(h2), K.ru128(w2), "cpu"))

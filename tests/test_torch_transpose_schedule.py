@@ -13,8 +13,9 @@ and read once, the value read the one written for the same logical unit,
 no two lanes of a quarter-warp (the eight lanes a 16-byte access serves
 together) on one bank group in either direction, and every block of small
 whole-tile shapes replayed against ``K.transpose_pair_plain`` bit for bit
-(every output element written once). The constants are parsed from the
-source.
+(every output element written once). A strip's divide (the same kernel
+with 0 / x as the product 0 x x) is replayed on the chain's zeros, bit for
+bit (the zeros' signs too). The constants are parsed from the source.
 """
 
 import re
@@ -84,8 +85,9 @@ def test_transpose_tile_no_bank_conflicts(phase):
             assert len(set(quarter.tolist())) == 8
 
 
-def replay(a, b, lam_p, lam_r, row_start, rc):
-    """Every block of the whole-tile kernel, on numpy arrays."""
+def replay(a, b, lam_p, lam_r, row_start, rc, zeros=False):
+    """Every block of the whole-tile kernel, on numpy arrays; ``zeros``:
+    the strip's divide, 0 / x as 0 x x for a finite nonzero x."""
     c, m, pa = a.shape
     pb = b.shape[2]
     out = np.full((c, pa + pb, rc), np.nan, np.float32)
@@ -107,7 +109,12 @@ def replay(a, b, lam_p, lam_r, row_start, rc):
                     if lam_p is not None:
                         den = (lam_p[p0 + 4 * p4 + i][:, None]
                                + lam_r[row_start + r0 + 4 * r4[:, None] + np.arange(4)])
-                        o = o / den
+                        if zeros:
+                            with np.errstate(divide="ignore", invalid="ignore"):
+                                o = np.where((o == 0) & (den != 0) & np.isfinite(den),
+                                             o * den, o / den)
+                        else:
+                            o = o / den
                     for j in range(4):
                         pos = (ci, p0 + 4 * p4 + i, r0 + 4 * r4 + j)
                         out[pos] = o[:, j]
@@ -131,3 +138,48 @@ def test_transpose_pair_tiles_match_plain(pab, m, windows):
                               K.transpose_pair_plain(ta, tb, row_start=rs, row_count=rc).numpy())
         assert np.array_equal(replay(a, b, lam_p, lam_r, rs, rc),
                               K.transpose_pair_plain(ta, tb, tlp, tlr, rs, rc).numpy())
+
+
+def test_strip_choice_is_the_sources():
+    """The host takes the zero-product divide for a whole-tile window whose
+    grid leaves fewer than two blocks an SM."""
+    text = SOURCE.read_text()
+    assert "if ((long long)grid.x * grid.y * c < 2LL * sms) {  // a strip" in text
+    assert "if (kDiv && kZeros) o[j] = quotient(o[j], at(lp, i) + at(lr, j));" in text
+    assert ("return v == 0.0f && den != 0.0f && fabsf(den) <= 3.402823466e38f ? v * den : "
+            "v / den;") in text
+
+
+def _bits(x):
+    return np.ascontiguousarray(x, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("n_pab,m,windows", [
+    ((2396, (1280, 1280)), 128, ((0, 128), (64, 64), (4, 64))),  # the strips' shapes
+    ((255, (128, 128)), 128, ((0, 128), (64, 64)))])
+def test_transpose_pair_strip_divide_matches_plain(n_pab, m, windows):
+    """The strip's divide on the chain's zeros (the other side's padding
+    rows, the fold's padding lanes) with the grouped eigenvalues of n along
+    p and padded ones along r: the twin's values and zero signs."""
+    from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
+        dst_eigenvalues_grouped,
+        dst_eigenvalues_padded,
+    )
+
+    n, (pa, pb) = n_pab
+    rng = np.random.default_rng(n + m)
+    a = (rng.normal(size=(3, m, pa)) * 40).astype(np.float32)
+    b = (rng.normal(size=(3, m, pb)) * 40).astype(np.float32)
+    for x, lanes in ((a, n - n // 2), (b, n // 2)):
+        x[:, m - 6 :] = 0
+        x[..., lanes:] = 0
+    a[0, :3, :5] = 0.0  # 0 / a negative sum: -0
+    lam_p = dst_eigenvalues_grouped(n)
+    lam_r = dst_eigenvalues_padded(m - 6, m)
+    ta, tb, tlp, tlr = (torch.from_numpy(x.copy()) for x in (a, b, lam_p, lam_r))
+    for rs, rc in windows:
+        want = K.transpose_pair_plain(ta, tb, tlp, tlr, rs, rc).numpy()
+        got = replay(a, b, lam_p, lam_r, rs, rc, zeros=True)
+        assert np.array_equal(_bits(got), _bits(want)), (rs, rc)
+        if rs == 0:  # the signed zeros of 0 / a negative sum are there
+            assert np.signbit(got[0, :5, :3]).all()

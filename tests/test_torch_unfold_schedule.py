@@ -16,7 +16,11 @@ into a forward chunk (x = 8 n ..) and a byte-reversed mirrored chunk (x =
 w2 - 8 - 8 n ..); a planar row writes aligned 8-byte words joined across
 lanes (the forward run with the lower neighbour lane, the mirrored run
 with the upper one), clipped to [0, he) and [he, w2) in aligned pieces; an
-interleaved row takes byte stores, a pixel a lane.
+interleaved row takes byte stores, a pixel a lane. On a strip (a grid of
+fewer than two blocks an SM) unfold_transpose_strip walks kTS-row tiles,
+its first 128 threads storing the s tile and the others the d tile, and
+unfold_clamp_paste runs with kStripParts chunks a thread; both are
+replayed the same way.
 
 The kernels do not run here, so this file replays their index maps: every
 unit of the shared tiles written once and read once, no two lanes of a
@@ -52,7 +56,8 @@ def _consts(source, keys):
 
 T, THREADS, RAGGED, RAGGED_ROWS = _consts("unfold_transpose.cu",
                                           ("kT", "kThreads", "kRagged", "kRaggedRows"))
-PARTS, ROWS = _consts("unfold_clamp_paste.cu", ("kParts", "kRows"))
+PARTS, STRIP_PARTS, ROWS = _consts("unfold_clamp_paste.cu", ("kParts", "kStripParts", "kRows"))
+(TS,) = _consts("unfold_transpose.cu", ("kTS",))
 Q = T // 4
 PASS = THREADS // Q
 SPAN = 32 * 8 * PARTS
@@ -260,9 +265,10 @@ def _store_clip(dst, row, at, v, lo, hi):
         store_part(dst, row + at, v, lo - at, hi - at)
 
 
-def _paste_blocks(e, o, dst, top1, left1, h2, w2, vec):
-    """Every warp of unfold_clamp_paste_kernel<vec>; returns the loads per
-    element of e (o's are the same)."""
+def _paste_blocks(e, o, dst, top1, left1, h2, w2, vec, parts=PARTS):
+    """Every warp of unfold_clamp_paste_kernel<vec, parts>; returns the
+    loads per element of e (o's are the same)."""
+    PARTS, SPAN = parts, 32 * 8 * parts  # noqa: N806
     c, hu, ep = e.shape
     sc, sh, sw = dst.strides
     he, ho = w2 - w2 // 2, w2 // 2
@@ -320,7 +326,8 @@ def _paste_blocks(e, o, dst, top1, left1, h2, w2, vec):
     return loads
 
 
-def _paste_case(h2, w2, top1, left1, base, interleaved, seed, c=3, vec=True, margin=(1, 5)):
+def _paste_case(h2, w2, top1, left1, base, interleaved, seed, c=3, vec=True, margin=(1, 5),
+                parts=PARTS):
     rng = np.random.default_rng(seed)
     he = w2 - w2 // 2
     ep = K.ru128(he) if vec else he + 1 + (he % 4 == 3)  # scalar: ep % 4 != 0
@@ -329,7 +336,7 @@ def _paste_case(h2, w2, top1, left1, base, interleaved, seed, c=3, vec=True, mar
     buf = rng.integers(0, 256, -(-(base + c * hh * ww) // 16) * 16).astype(np.uint8)
     strides = (1, ww * c, c) if interleaved else (hh * ww, ww, 1)
     dst = Dest(buf.copy(), base, strides)
-    loads = _paste_blocks(e, o, dst, top1, left1, h2, w2, vec)
+    loads = _paste_blocks(e, o, dst, top1, left1, h2, w2, vec, parts)
     assert (loads[:, :h2, :he] == 1).all(), "a data lane loaded twice or never"
     assert loads[:, :h2, -(-he // 4) * 4 :].sum() == 0 and loads[:, h2:].sum() == 0
     want = Dest(buf.copy(), base, strides)
@@ -374,3 +381,149 @@ def test_unfold_paste_layouts(interleaved, vec):
 def test_unfold_paste_channels(c):
     """One channel, and more than three."""
     _paste_case(5, 301, 1, 6, 5, False, 31 * c, c=c)
+
+
+# ---------------------------------------------------------------------------
+# the strip forms
+# ---------------------------------------------------------------------------
+
+
+def test_strip_choices_are_the_sources():
+    """Each host takes its strip form where the headline grid leaves fewer
+    than two blocks an SM."""
+    text = (CSRC / "unfold_transpose.cu").read_text()
+    assert "if ((long long)(lane_tiles + zero_tiles) * (rc / kT) * c < 2LL * sms) {" in text
+    assert "const dim3 grid(lane_tiles + zero_tiles, rc / kTS, c);  // a strip" in text
+    text = (CSRC / "unfold_clamp_paste.cu").read_text()
+    assert ("const bool strip = (long long)c * ((he + kSpan - 1) / kSpan) * row_blocks "
+            "< 2LL * sms;") in text
+    assert "const int span = strip ? 32 * 8 * kStripParts : kSpan;" in text
+
+
+def strip_writes():
+    rows = np.stack([THREAD // Q + PASS * i for i in range(TS // PASS)])
+    q = np.broadcast_to(THREAD % Q, rows.shape)
+    return rows, q, swizzle(rows, q)
+
+
+def strip_reads():
+    """(instruction, thread) -> (tile, row, logical unit, stored unit): the
+    first 128 threads read the s tile, the others the d tile."""
+    tt = THREAD % 128
+    rows = np.stack([4 * (tt % (TS // 4)) + j for j in range(4)])
+    q = np.broadcast_to(tt // (TS // 4), rows.shape)
+    return np.broadcast_to(THREAD // 128, rows.shape), rows, q, swizzle(rows, q)
+
+
+def test_strip_tiles_units_once_no_bank_conflicts():
+    wr, wq, ws = strip_writes()
+    hits = np.zeros((TS, Q), np.int64)
+    np.add.at(hits, (wr, ws), 1)
+    assert (hits == 1).all()
+    half, rr, rq, rs = strip_reads()
+    for h in (0, 1):
+        mine = half == h
+        hits = np.zeros((TS, Q), np.int64)
+        np.add.at(hits, (rr[mine], rs[mine]), 1)
+        assert (hits == 1).all()
+    where = np.full((TS, Q), -1)
+    where[wr, wq] = ws
+    assert (where[rr, rq] == rs).all()
+    for rows, stored in ((wr, ws), (rr, rs)):
+        group = (rows * T + 4 * stored) // 4 % 8
+        for instr in group:
+            for quarter in instr.reshape(-1, 8):
+                assert len(set(quarter.tolist())) == 8
+
+
+def _transpose_strip_blocks(e, o, n, out_pad, rs, rc):
+    """Every block of unfold_transpose_strip: (out, stores per element,
+    loads per element of e and of o)."""
+    c, m, ep = e.shape
+    he, ho = n - n // 2, n // 2
+    lane_tiles, zero_tiles = -(-he // T), -(-(out_pad - n) // T)
+    out = np.full((c, out_pad, rc), np.nan, np.float32)
+    hits = np.zeros(out.shape, np.int64)
+    loads = np.zeros((2, c, m, ep), np.int64)
+    wr, wq, ws = strip_writes()
+    half, rr, _, rsw = strip_reads()
+    tt = THREAD % 128
+    r4, p4 = tt % (TS // 4), tt // (TS // 4)
+    four = np.arange(4)
+    zq, zr = THREAD % (TS // 4), THREAD // (TS // 4)
+    zpass = THREADS // (TS // 4)
+    for ci in range(c):
+        for by in range(rc // TS):
+            r0 = by * TS
+            cols = r0 + 4 * r4[:, None] + four
+            for bx in range(lane_tiles + zero_tiles):
+                if bx >= lane_tiles:  # the zero band, store-only
+                    for i in range(T // zpass):
+                        x = n + T * (bx - lane_tiles) + zr + zpass * i
+                        zc = r0 + 4 * zq[:, None] + four
+                        live = x < out_pad
+                        pos = (ci, np.broadcast_to(x[:, None], zc.shape)[live], zc[live])
+                        out[pos] = 0.0
+                        np.add.at(hits, pos, 1)
+                    continue
+                k0 = bx * T
+                k = k0 + 4 * wq
+                live = k < he
+                assert (k[live] + 4 <= ep).all()
+                rows = rs + r0 + wr
+                a = np.zeros(k.shape + (4,), np.float32)
+                b = np.zeros(k.shape + (4,), np.float32)
+                lanes = k[live][:, None] + four
+                a[live] = e[ci, rows[live][:, None], lanes]
+                b[live] = o[ci, rows[live][:, None], lanes]
+                for which in (0, 1):
+                    np.add.at(loads[which, ci], (rows[live][:, None], lanes), 1)
+                tiles = np.full((2, TS, Q, 4), np.nan, np.float32)
+                tiles[0][wr, ws] = a + b
+                tiles[1][wr, ws] = a - b
+                v = tiles[half, rr, rsw]  # (4 j, thread, 4 i)
+                for i in range(4):
+                    kk = k0 + 4 * p4 + i
+                    for h, x, keep in ((0, kk, kk < he), (1, n - 1 - kk, kk < ho)):
+                        keep = keep & (THREAD // 128 == h)
+                        pos = (ci, np.broadcast_to(x[:, None], cols.shape)[keep], cols[keep])
+                        out[pos] = v[:, :, i].T[keep]
+                        np.add.at(hits, pos, 1)
+    return out, hits, loads
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 129, 131, 301, 2396, 2397])
+def test_unfold_transpose_strip_blocks_match_plain(n):
+    """The strip form: n even and odd, n % 4 = 0..3 and the strips' 2396 /
+    2397; windows of kTS multiples at offsets; out_pad = n, the 128-roundup
+    and several zero tiles."""
+    he = n - n // 2
+    m = 2 * T + 9
+    rng = np.random.default_rng(n)
+    e, o = _eo(rng, 2 if n < 2000 else 1, m, n, K.ru128(he))
+    te, to = torch.from_numpy(e), torch.from_numpy(o)
+    for out_pad in (n, K.ru128(n), n + 2 * T + 5):
+        for rs, rc in ((0, T), (9, 2 * T), (37, T)):
+            want = K.unfold_transpose_plain(te, to, n, out_pad, rs, rc).numpy()
+            got, hits, loads = _transpose_strip_blocks(e, o, n, out_pad, rs, rc)
+            win = loads[:, :, rs : rs + rc]
+            assert (win[..., :he] == 1).all(), "a data lane loaded twice or never"
+            assert loads.sum() == win.sum(), "a row outside the window loaded"
+            assert (hits == 1).all(), "an output element not written exactly once"
+            assert np.array_equal(got, want), (out_pad, rs, rc)
+
+
+@pytest.mark.parametrize("interleaved", [False, True])
+@pytest.mark.parametrize("vec", [True, False])
+def test_unfold_paste_strip(interleaved, vec):
+    """unfold_clamp_paste with kStripParts chunks a thread: the cases of
+    test_unfold_paste_layouts at that span, a strip row (w2 = 2396) and
+    every left1 mod 8 on a planar row past one warp's span."""
+    span = 32 * 8 * STRIP_PARTS
+    cases = [(3, 1, 1, 4, 1), (2, 3, 2, 1, 0), (9, 77, 0, 5, 7), (2, 2 * span, 1, 3, 0),
+             (2, 2 * span + 1, 0, 6, 9), (2, 2396, 1, 3, 5)]
+    if not interleaved:
+        cases += [(2, 2 * span + 19, 1, left1, 5) for left1 in range(8)]
+    for h2, w2, top1, left1, base in cases:
+        _paste_case(h2, w2, top1, left1, base, interleaved, w2 + left1, vec=vec,
+                    margin=(2, 11), parts=STRIP_PARTS)
