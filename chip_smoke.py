@@ -45,7 +45,10 @@
    and a domain cutting the tile (5 sweeps, two launches); the exact-size
    ``mg_down`` (known-zero and given guess) and ``mg_up`` at the DD coarse
    solve's two fused levels (1398x1898 and 698x948, betas != 1), each form
-   its own kernels-line entry (``mg_down_exact``, ``mg_up_exact``); and
+   its own kernels-line entry (``mg_down_exact``, ``mg_up_exact``);
+   ``mg_down`` / ``mg_up`` at the 8K dense chain's coarse levels on
+   ``mg_geometry``'s slabs ((3, 1440, 1920) and (3, 800, 1024),
+   ``dense_levels``; its fine level is the 8K slab above); and
    at each of the 8K ``"q"`` chain's three fused coarse levels
    (``coarse_levels``, each with its bound) ``mg_up`` / ``mg_down``, the
    transfers ``mg_restrict_t`` / ``mg_prolong_t`` and the fused forms that
@@ -155,6 +158,30 @@
      mg_padded=False)`` at the headline, the element V-cycle with its 2
      fused levels (mg_down / mg_up a level a cycle), card against the CPU,
      cycles equal to ``solve_multigrid``'s report.
+   - ``mg_padded_true`` (slice 4b): ``CloneConfig(mg_padded=True)`` at
+     8K through ``auto``, the dense rounded V-cycle ``vcycle_p`` with its 3
+     fused levels on ``mg_geometry``'s slabs (mg_down / mg_up a level a
+     cycle; erode3, the exact-size preprocess_rhs_p and clamp_cast_paste
+     once), tolerance 1e-4: the single run's cycles equal to those
+     ``solve_multigrid(padded=True, return_info=True)`` reports on its RHS,
+     relative residual <= tol; ``mg_padded_true_fixed`` ``mg_cycles=4``
+     (exact counts); profiles of both; ``mg_padded_true_headline``
+     (``solver="multigrid"``, 2 fused levels) card against the CPU and its
+     single run bit-equal to ``mg_padded_false``'s;
+   - ``mg_fmg`` and ``mg_pcg``: ``solve_multigrid(fmg_start=True)`` (the
+     default ``"q"`` chain: the cascade's element V-cycles, 1 + 2 fused
+     levels, then the check-first loop from it) and ``pcg=True`` (one
+     element V-cycle, 2 fused levels, to start and one an iteration) on
+     the headline RHS at tol 1e-4: cycles / iterations equal to the CPU's,
+     residual <= tol, exact counts, fmg's cycles <= the zero start's;
+   - ``prec_<mode>`` (slice 4c): ``CloneConfig(precision=mode)`` for each
+     bf16 mode (default, 2x_img, 2x_v, fwd2x, inv2x) at the headline, the
+     pair chain's launches; the card's solve of the frame's RHS as far from
+     FP32's as the CPU path's in the same mode (within 5%); the chain's 8
+     GEMM products in the mode timed back to back, a profile of each
+     mode's frame and of FP32's beside it, and each mode's single run's
+     diff_max against FP32's and against the CPU path (the
+     ``precision_modes`` JSON line).
 
 With ``--other OTHER_ROOT`` (another checkout of this repository, for
 example the parent commit unpacked with ``git archive``; only its
@@ -221,6 +248,9 @@ STRIP_LOOPS = 5
 REPS = 10
 TOL = 1e-4  # CloneConfig's default
 COARSE_TOL = 0.05  # a draft-quality tolerance: no check-free cycle (_tol_burst 0)
+# slice 4c: the DST-GEMM precision modes with bf16 passes (the pair chain)
+PRECISION_MODES = ("default", "2x_img", "2x_v", "fwd2x", "inv2x")
+PRECISION_PATHS = {f"prec_{m}": m for m in PRECISION_MODES}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak HBM3 bandwidth
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # ~2 ms of spinning before a timed launch: the card starts the kernel only
@@ -297,6 +327,9 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
                 # the same frame with the four-kernel chain (vcycle_t_unfused)
                 "mg_up": (UNFUSED_PROFILE, "mg_up_kernel"),
                 "mg_down": (UNFUSED_PROFILE, "mg_down_kernel"),
+                # the dense rounded chain's frame (mg_padded=True): every level
+                "mg_up dense": ("mg_padded_true 8K tolerance", "mg_up_kernel"),
+                "mg_down dense": ("mg_padded_true 8K tolerance", "mg_down_kernel"),
                 "mg_restrict_t": (UNFUSED_PROFILE, "mg_restrict_t_kernel"),
                 "mg_prolong_t": (UNFUSED_PROFILE, "mg_prolong_t_kernel"),
                 "rb_sweeps": ("jacobi", "rb_sweeps_tile_kernel"),
@@ -312,7 +345,8 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
                 "postprocess_transposed": ("dst_post_t", "postprocess_transposed_kernel")}
 # a LOOP_PROFILE profile -> the COMPARE_PATHS frame it profiles (default:
 # the profile's own label), whose --other turns time the kernel in the loop
-PROFILE_PATH = {"tiled_dd 8K tolerance": "tiled_dd", "mg_t 8K tolerance": "mg_t"}
+PROFILE_PATH = {"tiled_dd 8K tolerance": "tiled_dd", "mg_t 8K tolerance": "mg_t",
+                "mg_padded_true 8K tolerance": "mg_padded_true"}
 # --other: the kernels built from the other checkout (the level kernels and
 # every source that includes their headers), the turns, and the serve paths
 # that run them
@@ -324,7 +358,8 @@ TURNS = ("other", "this", "this", "other")
 COMPARE_PATHS = ("pair", "unfolded", "per_axis_w", "per_axis_h", "mg_t", "mg_t_fixed",
                  "mg_t_headline", "mg_q", "mg_q_fixed", "mg_q_headline", "mg_q_coarse",
                  "mg_q_coarse_headline", "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline",
-                 "mg_padded_false", "jacobi", "dst_fft", "dst_post_t")
+                 "mg_padded_false", "jacobi", "dst_fft", "dst_post_t", "mg_padded_true",
+                 "mg_padded_true_fixed", "mg_padded_true_headline", *PRECISION_PATHS)
 
 
 def _per_frame(**counts):
@@ -341,6 +376,14 @@ def _mg_q_per_frame(levels: int, cycles: int):
     return _per_frame(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1, mg_down_q=1,
                       mg_ud_q=cycles - 1, mg_up_q=1, mg_prolong_tq=cycles,
                       **{k: levels * cycles for k in MG_KERNELS})
+
+
+def _dense_per_frame(levels: int, cycles: int):
+    """The dense rounded chain (mg_padded=True) and the element V-cycle
+    (mg_padded=False), fixed mode: ``levels`` fused levels, mg_down and
+    mg_up once each a level a cycle, the exact-size RHS and paste."""
+    return _per_frame(erode3=1, preprocess_rhs_p=1, clamp_cast_paste=1,
+                      mg_down=levels * cycles, mg_up=levels * cycles)
 
 
 def _dd_per_frame(levels: int, cycles: int):
@@ -391,7 +434,18 @@ PATHS = {
     "tiled_dd_headline": None,
     "rb_tiled": None,
     "mg_padded_false": None,
+    # slice 4b: the dense rounded chain (mg_padded=True; tolerance mode
+    # data-dependent, 3 fused levels at 8K, 2 at the headline), and the
+    # solver-level fmg start (the "q" chain) and pcg at the headline
+    "mg_padded_true": None,
+    "mg_padded_true_fixed": _dense_per_frame(3, 4),
+    "mg_padded_true_headline": None,
+    "mg_fmg": None,
+    "mg_pcg": None,
 }
+# slice 4c: every precision mode's frame launches the pair chain's kernels
+PATHS.update({p: dict(PATHS["pair"]) for p in PRECISION_PATHS})
+DENSE_PATHS = ("mg_padded_false", "mg_padded_true", "mg_padded_true_headline")
 JACOBI_PATHS = ("jacobi", "jacobi_small")
 MG_Q_PATHS = ("mg_q", "mg_q_fixed", "mg_q_headline")
 MG_Q_COARSE_PATHS = ("mg_q_coarse", "mg_q_coarse_headline")
@@ -400,11 +454,13 @@ TILED_PATHS = ("tiled_dd", "tiled_dd_fixed", "tiled_dd_headline")
 MG_LEVELS = {"mg_t": 4, "mg_t_headline": 3, "mg_q": 3, "mg_q_headline": 2, "mg_q_coarse": 3,
              "mg_q_coarse_headline": 2,
              # exact-size fused levels: the DD coarse solve's, mg_padded=False's
-             "tiled_dd": 2, "tiled_dd_fixed": 2, "tiled_dd_headline": 1, "mg_padded_false": 2}
+             "tiled_dd": 2, "tiled_dd_fixed": 2, "tiled_dd_headline": 1, "mg_padded_false": 2,
+             # the dense rounded chain's fused levels (mg_geometry's slabs)
+             "mg_padded_true": 3, "mg_padded_true_fixed": 3, "mg_padded_true_headline": 2}
 # the path whose serve run gives each kernel's "launches"
 HOME_PATH = {"transpose": "unfolded", "clamp_cast_paste": "unfolded",
              "preprocess_rhs_p": "mg_t",
-             "mg_down": "mg_padded_false", "mg_up": "mg_padded_false", "mg_down_t": "mg_q",
+             "mg_down": "mg_padded_true", "mg_up": "mg_padded_true", "mg_down_t": "mg_q",
              "mg_up_t": "mg_q", "preprocess_rhs_q": "mg_q", "mg_down_q": "mg_q", "mg_ud_q": "mg_q",
              "mg_up_q": "mg_q_fixed", "mg_prolong_tq": "mg_q", "clamp_cast_paste_q": "mg_q",
              "to_quarters": "mg_dense", "from_quarters": "mg_dense",
@@ -645,7 +701,7 @@ def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
                  check_mg_q_coarse_counts if path in MG_Q_COARSE_PATHS else
                  check_jacobi_counts if path in JACOBI_PATHS else
                  check_tiled_counts if path in TILED_PATHS else
-                 check_unpadded_counts if path == "mg_padded_false" else check_mg_counts)
+                 check_unpadded_counts if path in DENSE_PATHS else check_mg_counts)
         check(path, what, launches, frames)
         return
     for name, per in PATHS[path].items():
@@ -727,9 +783,10 @@ def check_tiled_counts(path: str, what: str, launches: dict, frames: int) -> int
 
 
 def check_unpadded_counts(path: str, what: str, launches: dict, frames: int) -> int:
-    """mg_padded=False frames: erode3, preprocess_rhs_p (exact size) and
-    clamp_cast_paste once a frame, mg_down and mg_up once per fused level a
-    cycle (the element V-cycle's), nothing else. Returns the cycles."""
+    """mg_padded=False and mg_padded=True frames: erode3, preprocess_rhs_p
+    (exact size) and clamp_cast_paste once a frame, mg_down and mg_up once
+    per fused level a cycle (the element V-cycle's, or vcycle_p's on
+    mg_geometry's slabs), nothing else. Returns the cycles."""
     levels = MG_LEVELS[path]
     n, rem = divmod(launches["mg_down"], levels)
     want = _per_frame(erode3=frames, preprocess_rhs_p=frames, clamp_cast_paste=frames,
@@ -805,7 +862,7 @@ def profile_frames(label, clone_pipeline, kwargs, frames: int = 5,
     groups = {"gemm": 0.0, "port kernels": 0.0, "other": 0.0}
     gemm_calls = other_calls = 0
     for k, t in per_kernel.items():
-        is_gemm = any(g in k.lower() for g in ("gemm", "cutlass", "xmma"))
+        is_gemm = any(g in k.lower() for g in ("gemm", "cutlass", "xmma", "nvjet"))
         g = "gemm" if is_gemm else "port kernels" if any(o in k for o in ours) else "other"
         groups[g] += t
         gemm_calls += calls[k] if is_gemm else 0
@@ -833,6 +890,7 @@ def profile_frames(label, clone_pipeline, kwargs, frames: int = 5,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -865,6 +923,7 @@ def main() -> int:
         solve_redblack_tiled,
     )
     from seamlesscloneoptimization_tpu_torch.solvers import jacobi as TJ
+    from seamlesscloneoptimization_tpu_torch.solvers import dst_gemm as TD
     from seamlesscloneoptimization_tpu_torch.solvers import multigrid as TM
     from seamlesscloneoptimization_tpu_torch.solvers.dst_fft import solve_dst_fft
     from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import (
@@ -1654,6 +1713,48 @@ def main() -> int:
                if "pair_ms" in x else "")
             + f"bound {x['bound_ms']:.5f}" + (f", other {x['other_ms']:.5f} / {x['other_b2b_ms']:.5f}"
                                       if "other_ms" in x else "") for x in lv))
+
+    # the dense rounded chain's (mg_padded=True) fused levels at 8K, each on
+    # mg_geometry's slab: level 0 is the 8K slab timed above; mg_down (given
+    # and known-zero guess) and mg_up (nu2 = 2) at the coarse levels, bit-exact
+    # against their twins, timed cold, each with its bound
+    p8 = TM.p_levels(h8, w8)
+    if len(p8) != MG_LEVELS["mg_padded_true"] or p8[0][4][1:] != (hp8, wp8):
+        raise AssertionError(f"the 8K dense chain's levels {[lv[:4] for lv in p8]}")
+    dense_down, dense_up = [], []
+    for lh, lw, bh_l, bw_l, (th_l, hp_l, wp_l) in p8[1:]:
+        hc_l = (lh - 1) // 2
+        g_l = torch.zeros((c, hp_l, wp_l), device=dev)
+        u_l = torch.zeros((c, hp_l, wp_l), device=dev)
+        e_l = torch.zeros((c, hp_l // 2, wp_l), device=dev)
+        g_l[:, :lh, :lw] = torch.randn((c, lh, lw), generator=gen8, device=dev) * 50.0
+        u_l[:, :lh, :lw] = torch.randn((c, lh, lw), generator=gen8, device=dev) * 10.0
+        e_l[:, :hc_l, :lw] = torch.randn((c, hc_l, lw), generator=gen8, device=dev) * 5.0
+        a_l = (lh, lw, bh_l, bw_l)
+        shape = f"({c},{hp_l},{wp_l}) th {th_l}, logical {lh}x{lw} beta ({bh_l},{bw_l})"
+        for guess, gname in ((None, "known-zero"), (u_l, "given")):
+            for got, want, what in zip(K.mg_down(guess, g_l, 1, *a_l),
+                                       K.mg_down_plain(guess, g_l, 1, *a_l), ("u", "rh")):
+                require_equal(f"mg_down dense 8K {shape} ({gname} guess) {what}", got, want)
+        require_equal(f"mg_up dense 8K {shape}", K.mg_up(u_l, g_l, e_l, 2, *a_l),
+                      K.mg_up_plain(u_l, g_l, e_l, 2, *a_l))
+        dense_down.append(dict(
+            shape=shape, ms=time_ms(lambda g_l=g_l, a_l=a_l: K.mg_down(None, g_l, 1, *a_l)),
+            given_guess_ms=time_ms(
+                lambda g_l=g_l, u_l=u_l, a_l=a_l: K.mg_down(u_l, g_l, 1, *a_l)),
+            bound_ms=bound(4 * c * (2 * hp_l * wp_l + hp_l // 2 * wp_l),
+                           c * lh * lw * 11 + c * hc_l * lw * 5)[0]))
+        dense_up.append(dict(
+            shape=shape, ms=time_ms(lambda u_l=u_l, g_l=g_l, e_l=e_l, a_l=a_l:
+                                    K.mg_up(u_l, g_l, e_l, 2, *a_l)),
+            bound_ms=bound(4 * c * (3 * hp_l * wp_l + hc_l * wp_l), c * lh * lw * 12)[0]))
+        del g_l, u_l, e_l
+    for name, lv in (("mg_down", dense_down), ("mg_up", dense_up)):
+        rows[name]["dense_levels"] = lv
+        print(f"{name} at the 8K dense chain's coarse levels ({card}): " + "; ".join(
+            f"{x['shape']} {x['ms']:.5f} ms cold"
+            + (f" (given guess {x['given_guess_ms']:.5f})" if "given_guess_ms" in x else "")
+            + f", bound {x['bound_ms']:.5f}" for x in lv))
 
     # -- 2d. the quarter-plane kernels, at the 8K frame's quarter planes -------
     _, hq8, wq28, hp2q8 = K.mg_geometry_q(h8, w8)
@@ -2682,6 +2783,180 @@ def main() -> int:
         raise AssertionError(f"mg_padded_false: {unp_run_cycles} cycles run, {info_unp}")
     del g_unp
 
+    # -- slice 4b: the dense rounded multigrid (mg_padded=True) at 8K through
+    #    auto (tolerance, mg_cycles=4) and at the headline; fmg and pcg --------
+    for path, (lh, lw) in (("mg_padded_true", (h8, w8)), ("mg_padded_true_headline", (h2, w2))):
+        if (TM.quarter_path_applies(lh, lw, 0)
+                or len(TM.p_levels(lh, lw)) != MG_LEVELS[path]):
+            raise AssertionError(f"{path}: {lh}x{lw} is not a dense-chain grid with "
+                                 f"{MG_LEVELS[path]} fused levels")
+    print(f"dense rounded chain: 8K levels {[lv[4] for lv in TM.p_levels(h8, w8)]}, headline "
+          f"levels {[lv[4] for lv in TM.p_levels(h2, w2)]} ((th, hp, wp) of mg_geometry)")
+    _, pt8_ms = drive("mg_padded_true", CloneConfig(mg_padded=True), src8, mask8, MG_LOOPS,
+                      "8K", d_img=dst8, cpu=None, solver="multigrid")
+    pt_run_cycles = check_unpadded_counts("mg_padded_true", "single-shot run (8K)",
+                                          path_launches["mg_padded_true"][1], 1)
+    pt_serve_cycles = (path_launches["mg_padded_true"][0]["mg_down"]
+                       // MG_LEVELS["mg_padded_true"])
+    # the single run's RHS (the exact-size RHS of the generic tail) through the
+    # solver's own report
+    g_pt8 = frame_rhs(src8, mask8, dst8)
+    u_pt8, info_pt8 = TM.solve_multigrid(g_pt8, use_pallas=True, padded=True, tol=TOL,
+                                         return_info=True)
+    pt_rel = info_pt8["residual"] / g_pt8.abs().max().item()
+    print(f"mg_padded_true 8K ({card}): single run {pt_run_cycles} cycles, solve_multigrid "
+          f"reports {info_pt8['cycles']}, relative residual {pt_rel:.3e} (float64 "
+          f"{rel_residual(u_pt8, g_pt8):.3e}, tol {TOL}); serve {pt8_ms:.4f} ms/frame "
+          f"({pt_serve_cycles / (MG_LOOPS + 1):g} cycles a frame); the 'q' frame {q8_ms:.4f}, "
+          f"the 't' frame {mg8_ms:.4f}")
+    if (info_pt8["cycles"] != pt_run_cycles or not pt_rel <= TOL
+            or not torch.isfinite(u_pt8).all()):
+        raise AssertionError(f"mg_padded_true 8K: {pt_run_cycles} cycles run, {info_pt8}")
+    del g_pt8, u_pt8
+    _, pt8_fixed_ms = drive("mg_padded_true_fixed", CloneConfig(mg_padded=True, mg_cycles=4),
+                            src8, mask8, MG_LOOPS, "8K, mg_cycles=4", d_img=dst8, cpu=None,
+                            solver="multigrid")
+    for label, cyc in (("mg_padded_true 8K tolerance", None),
+                       ("mg_padded_true 8K mg_cycles=4", 4)):
+        kw = CloneConfig(solver="multigrid", mg_padded=True, mg_cycles=cyc).solver_kwargs()
+        profile_frames(label, clone_pipeline, dict(
+            src=torch.from_numpy(src8).to(dev), dst=dst8_p.clone(),
+            mask=torch.from_numpy(m8).to(dev), bbox_xy=(x8, y8), left_top=(left8, top8),
+            bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver=TM.solve_multigrid,
+            bases={}, solver_name="multigrid", solver_kwargs=kw), frames=3,
+            into=loop_profiles)
+    _, pt_head_ms = drive("mg_padded_true_headline", CloneConfig(solver="multigrid",
+                                                                 mg_padded=True),
+                          src, mask, MG_LOOPS, headline, cpu="run", solver="multigrid")
+    pt_same = np.array_equal(run_outputs["mg_padded_true_headline"],
+                             run_outputs["mg_padded_false"])
+    pt_head_cycles = (path_launches["mg_padded_true_headline"][0]["mg_down"]
+                      / MG_LEVELS["mg_padded_true_headline"] / (MG_LOOPS + 1))
+    print(f"mg_padded_true at the headline ({card}): serve {pt_head_ms:.4f} ms/frame "
+          f"({pt_head_cycles:g} cycles a frame); mg_padded=False "
+          f"{unp_ms:.4f}; the single run bit-equal to mg_padded_false's: {pt_same}; 8K serve "
+          f"tolerance {pt8_ms:.4f}, mg_cycles=4 {pt8_fixed_ms:.4f} ms/frame")
+    if not pt_same:
+        raise AssertionError("mg_padded=True and mg_padded=False differ at the headline")
+
+    # fmg_start (the default "q" chain: the cascade's element V-cycles, then
+    # the check-first loop from it) and pcg (the element V-cycle as the
+    # preconditioner) on the headline RHS, the card against the CPU
+    g_h = frame_rhs(src, mask, dst)
+    g_hmax = g_h.abs().max().item()
+    n_h = len(TM.p_levels(h2, w2))
+    _, info_z = TM.solve_multigrid(g_h, use_pallas=True, tol=TOL, return_info=True)
+    solver_runs = {}
+    for path, kw in (("mg_fmg", {"fmg_start": True}), ("mg_pcg", {"pcg": True})):
+        TM.solve_multigrid(g_h, use_pallas=True, tol=TOL, **kw)  # warm-up
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        u_s, info_s = TM.solve_multigrid(g_h, use_pallas=True, tol=TOL, return_info=True, **kw)
+        torch.cuda.synchronize()
+        s_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(K.LAUNCHES)
+        _, info_c = TM.solve_multigrid(g_h.cpu(), use_pallas=True, tol=TOL, return_info=True,
+                                       **kw)
+        rel = info_s["residual"] / g_hmax
+        rel64 = rel_residual(u_s, g_h)
+        k = info_s["cycles"]
+        if path == "mg_fmg":  # the cascade's V-cycle a level, each fusing the levels below
+            want = _per_frame(mg_down=n_h * (n_h + 1) // 2, mg_up=n_h * (n_h + 1) // 2,
+                              to_quarters=2, from_quarters=1,
+                              **{q: k for q in Q_CHECK_FIRST},
+                              **{t: k * MG_LEVELS["mg_q_headline"] for t in MG_KERNELS})
+        else:  # one preconditioning V-cycle to start and one an iteration
+            want = _per_frame(mg_down=n_h * (k + 1), mg_up=n_h * (k + 1))
+        what = "cycles" if path == "mg_fmg" else "iterations"
+        print(f"{path} at the headline ({card}): {k} {what} on the card, "
+              f"{info_c['cycles']} on the CPU, {info_z['cycles']} cycles from zero; "
+              f"relative residual {rel:.3e} (float64 {rel64:.3e}, tol {TOL}); "
+              f"{s_ms:.1f} ms a solve (host clock); launches "
+              f"{json.dumps({n: v for n, v in launches.items() if v})}")
+        if (k != info_c["cycles"] or not rel <= TOL or launches != want
+                or not torch.isfinite(u_s).all()
+                or (path == "mg_fmg" and not k <= info_z["cycles"])):
+            raise AssertionError(f"{path}: {info_s}, CPU {info_c}, zero start {info_z}, "
+                                 f"launches {launches}, expected {want}")
+        path_launches[path] = (launches, launches)
+        solver_runs[path] = dict(cycles=k, cpu_cycles=info_c["cycles"],
+                                 zero_start_cycles=info_z["cycles"], rel_residual=rel,
+                                 rel_residual_f64=rel64, host_ms=s_ms)
+        del u_s
+    del g_h
+
+    # -- slice 4c: the pair-chain frame in each bf16 precision mode: serve ms,
+    #    the GEMMs' time, the solve against the CPU's and FP32's, diff_max ---
+    prec_kw = dict(src=torch.from_numpy(src).to(dev), dst=dst_p.clone(),
+                   mask=torch.from_numpy(m).to(dev), bbox_xy=(x0, y0), left_top=(left, top),
+                   bbox_hw=(bh, bw), flags=1, planar_dst=True)
+    gen_p = torch.Generator(dev).manual_seed(SEED + 5)
+    g_tp_c = g_tp.cpu()
+    u_fp32 = solve_dst_gemm_pl(g_tp, h2, w2, "high", True, bases=fold_b)[:, :h2, :w2]
+    precision_rows = {}
+    for path, mode in (("pair", "high"), *PRECISION_PATHS.items()):
+        if path != "pair":  # the card against the CPU in the mode: below, on the solve
+            _, ms = drive(path, CloneConfig(precision=mode), src, mask, SERVE_LOOPS, headline,
+                          cpu=None)
+        else:
+            ms = pair_ms
+        b_mode = dst_bases(h2, w2, hp, wp, dev, folded=True, precision=mode)
+        # the pair chain's 8 products in the mode, on its operand shapes, back to
+        # back with CUDA events (the profile below may lose a frame's events)
+        fwd_mode, inv_mode = TD.PRECISION_MODES[mode]
+        gh = sum(x.shape[0] for x in b_mode[0].mats[:2])
+        gw = sum(x.shape[0] for x in b_mode[1].mats[:2])
+        prods = []
+        b_h_, b_w_ = b_mode
+        for basis, k, rows_, prod in ((b_h_, 0, wp, fwd_mode), (b_h_, 1, wp, fwd_mode),
+                                      (b_w_, 0, gh, fwd_mode), (b_w_, 1, gh, fwd_mode),
+                                      (b_h_, 2, gw, inv_mode), (b_h_, 3, gw, inv_mode),
+                                      (b_w_, 2, hp, inv_mode), (b_w_, 3, hp, inv_mode)):
+            a_ = torch.randn((c, rows_, basis.mats[k].shape[0]), generator=gen_p, device=dev)
+            prods.append((a_, basis.mats[k], basis.bf16[k] if basis.bf16 else None, prod))
+        gemm_ms = b2b_ms(lambda prods=prods: [TD._mm(*x) for x in prods])
+        del prods
+        for _ in range(3):  # a fraction of a GEMM a frame: the trace lost events
+            prof = profile_frames(f"pair {mode}", clone_pipeline, dict(
+                prec_kw, solver_kwargs={"precision": mode, "folded": True}, bases=b_mode),
+                brief=True)
+            if prof["gemms"] == int(prof["gemms"]):
+                break
+        u_mode = solve_dst_gemm_pl(g_tp, h2, w2, mode, True, bases=b_mode)[:, :h2, :w2]
+        u_cpu = solve_dst_gemm_pl(g_tp_c, h2, w2, mode, True)[:, :h2, :w2]
+        umax = u_fp32.abs().max().item()
+        rel_cpu = (u_mode.cpu() - u_cpu).abs().max().item() / umax
+        rel_fp32 = (u_mode - u_fp32).abs().max().item() / umax
+        rel_fp32_cpu = (u_cpu - u_fp32.cpu()).abs().max().item() / umax
+        img_cpu = SeamlessClone(CloneConfig(precision=mode), device="cpu").run(
+            src, dst, mask, center).numpy()
+        precision_rows[mode] = dict(
+            path=path, ms_per_frame=ms, gemm_ms=gemm_ms, profiled_gemm_us=prof.get("gemm_us"),
+            profiled_gemms=prof["gemms"], busy_us=prof["busy_us"],
+            torch_op_launches=prof.get("torch_op_launches"), solve_rel_vs_cpu=rel_cpu,
+            solve_rel_vs_fp32=rel_fp32, cpu_solve_rel_vs_fp32=rel_fp32_cpu,
+            diff_max_vs_fp32=diff_max(run_outputs[path], run_outputs["pair"]),
+            diff_max_vs_cpu=diff_max(run_outputs[path], img_cpu))
+        # the card's solve carries the mode's error: its distance from FP32
+        # within 5% (+1e-4 of max |u|) of the CPU path's, whose arithmetic the
+        # CPU tests pin to JAX's (tests/test_torch_precision_modes.py). The two
+        # differ where a bf16 rounding flips between the GEMM routes' FP32 sums.
+        if (not abs(rel_fp32 - rel_fp32_cpu) <= 0.05 * rel_fp32_cpu + 1e-4
+                or not torch.isfinite(u_mode).all()):
+            raise AssertionError(f"precision {mode}: the card's solve is {rel_fp32:.3e} of max "
+                                 f"|u| from FP32's, the CPU path's {rel_fp32_cpu:.3e}")
+        del b_mode, u_mode, u_cpu, img_cpu
+    print(f"precision modes on the pair chain at the headline ({card}): " + "; ".join(
+        f"{mode} {r['ms_per_frame']:.4f} ms/frame, 8 GEMM products {r['gemm_ms']:.4f} ms "
+        f"(profiled {r['profiled_gemm_us']} us x{r['profiled_gemms']:g}), busy "
+        f"{r['busy_us']:.1f} us, solve vs the CPU {r['solve_rel_vs_cpu']:.2e} and vs FP32 "
+        f"{r['solve_rel_vs_fp32']:.2e} (the CPU path's {r['cpu_solve_rel_vs_fp32']:.2e}) of "
+        f"max |u|, diff_max vs FP32 {r['diff_max_vs_fp32']}, "
+        f"vs the CPU {r['diff_max_vs_cpu']}" for mode, r in precision_rows.items()))
+    print(json.dumps({"precision_modes": precision_rows, "solver_runs": solver_runs}))
+    del prec_kw, g_tp_c, u_fp32
+
     # -- the kernel table: launches of each kernel's own path ---------------------
     for name in KERNELS:
         home = None if name in FOLDED else HOME_PATH.get(name, "pair")
@@ -2752,6 +3027,7 @@ def main() -> int:
         if not r["launches"] and name not in FOLDED:
             raise AssertionError(f"{name} was launched no time on its path")
     print(f"card vs cpu diff_max by path: {json.dumps(cpu_diffs)}")
+    print(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s, the build included")
     if other is not None:
         print(json.dumps({"frames_vs_other": frames_vs_other, "other": str(other_root),
                           "kernel_outputs_equal": all(other_agrees)}))

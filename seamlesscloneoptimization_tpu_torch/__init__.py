@@ -10,7 +10,7 @@ unless the caller passes ``device="cpu"``, which runs the plain PyTorch
 twins of the kernels; without a card and without ``device="cpu"`` they
 raise rather than quietly fall back.
 
-What runs (ROADMAP slices 1 to 4a and 8a), through ``SeamlessClone.run`` /
+What runs (ROADMAP slices 1 to 4c and 8a), through ``SeamlessClone.run`` /
 ``timed_serve`` and ``seamless_clone``, in the NORMAL, MIXED and
 MONOCHROME modes:
 
@@ -27,10 +27,13 @@ MONOCHROME modes:
   transpose-fused V-cycle on every level, ``mg_padded=False`` the element
   V-cycle, its levels of at least 2^18 points fused (``mg_down`` /
   ``mg_up`` on exact-size levels). Small interiors run the plain element
-  path. ``solvers.multigrid.solve_multigrid`` also takes a dense RHS,
-  returns dense results and ``return_info``, and starts warm from ``u0``.
-  The dense mode ``mg_padded=True``, ``fmg_start`` and ``pcg`` raise until
-  ROADMAP slice 4b.
+  path. ``mg_padded=True`` runs the dense rounded V-cycle (``vcycle_p``,
+  ``mg_down`` / ``mg_up`` on ``mg_geometry``'s slabs).
+  ``solvers.multigrid.solve_multigrid`` also takes a dense RHS, returns
+  dense results and ``return_info``, starts warm from ``u0`` or from the
+  full-multigrid cascade (``fmg_start``), and runs ``pcg``.
+- ``CloneConfig(precision=...)``: every DST-GEMM mode of the JAX package,
+  the bf16 ones as cuBLAS bf16 GEMMs with an FP32 output.
 - ``CloneConfig(solver="jacobi")``: red-black Gauss-Seidel
   (``solve_redblack``), its bursts of sweeps the ``rb_sweeps`` kernel;
   ``CloneConfig(solver="dst_fft")``: the exact solve through ``torch.fft``.

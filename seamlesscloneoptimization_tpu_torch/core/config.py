@@ -5,12 +5,14 @@ so a configuration carries across with ``config_from_jax``. This system has
 no weights: the only other carried state is the DST basis, which the port
 rebuilds bit-equal on the host (``solvers/dst_gemm.py``).
 
-What the port runs of it (ROADMAP slices 1 to 4a and 8a): every ``solver``
+What the port runs of it (ROADMAP slices 1 to 4c and 8a): every ``solver``
 ("auto", "dst_gemm", "dst_fft", "jacobi", "multigrid"), every ``flags``
-mode and ``mixed_rule``, ``precision`` "high"/"highest" (both FP32 on the
-card, TF32 off), ``dst_folded``, ``donate_dst``, for jacobi ``tol`` and
-``max_iters``, for multigrid ``tol``, ``max_cycles``, ``mg_cycles`` and
-``mg_padded`` "q" (the default, the quarter-plane finest level), "t" or
+mode and ``mixed_rule``, every ``precision`` of the JAX package ("high" and
+"highest" FP32 on the card, TF32 off; "default", "2x_img", "2x_v", "fwd2x"
+and "inv2x" the bf16 passes of ``solvers/dst_gemm.py``), ``dst_folded``,
+``donate_dst``, for jacobi ``tol`` and ``max_iters``, for multigrid
+``tol``, ``max_cycles``, ``mg_cycles`` and ``mg_padded`` "q" (the default,
+the quarter-plane finest level), "t", True (the dense rounded V-cycles) or
 False, and for both ``use_pallas_smoother``.
 ``dst_folded=True`` folds each axis where the JAX package does
 (``solvers/dst_gemm.py:fold_pays``, every side above 128 px): the folded
@@ -23,8 +25,8 @@ plain torch stages, without the post-process (or for jacobi and dst_fft)
 the exact-size solve is pasted by ``clamp_cast_paste``, and dst_gemm with
 the post-process but not the pre-process ends in the
 ``postprocess_transposed`` kernel. What a later slice brings raises
-NotImplementedError naming its ROADMAP slice: ``mg_padded=True`` on
-multigrid grids, other precisions, ``bbox_bucket`` and ``debug_dump``.
+NotImplementedError naming its ROADMAP slice: ``bbox_bucket`` and
+``debug_dump``.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ class CloneConfig:
     """Configuration for a SeamlessClone engine instance."""
 
     solver: str = "auto"  # auto | dst_gemm | dst_fft | jacobi | multigrid
-    precision: str = "high"  # "high" and "highest" both run FP32 GEMMs (TF32 off)
+    precision: str = "high"  # DST-GEMM passes: "high"/"highest" FP32 (TF32 off), or bf16
     dst_folded: bool = True  # even/odd-folded DST GEMMs where fold_pays(n)
     flags: int = NORMAL_CLONE
     mixed_rule: str = "opencv"  # MIXED_CLONE comparison: "opencv" | "norm"
@@ -62,7 +64,7 @@ class CloneConfig:
     # kernels on grids of at least 2^18 points (smaller grids, or
     # use_pallas_smoother=False, run the plain element path); False runs the
     # element V-cycle with its levels of at least 2^18 points fused; True
-    # raises there until its ROADMAP slice. For jacobi,
+    # the dense rounded V-cycles (vcycle_p). For jacobi,
     # use_pallas_smoother runs each burst of sweeps as the rb_sweeps kernel.
     use_pallas_smoother: bool = True
     mg_padded: bool | str = "q"

@@ -14,7 +14,8 @@ seamlessClone-CUDA/seamlessClone_imp.cu:239-370):
 - The DST bases of the DST-GEMM serve chain live on the device, cached per
   shape, so a frame uploads nothing: the padded matrix and eigenvalues of
   an axis that stays plain, the four folded factors and the grouped
-  eigenvalues of an axis that folds (``dst_folded and fold_pays(n)``). A
+  eigenvalues of an axis that folds (``dst_folded and fold_pays(n)``),
+  and for a ``precision`` with bf16 passes each factor's bf16 hi and lo. A
   multigrid engine builds none of them; it caches the coarsest level's
   eigenbasis per geometry instead (``solvers/multigrid.py:coarse_solve``).
   The ``jacobi`` and ``dst_fft`` engines, and the tails that the two
@@ -22,8 +23,8 @@ seamlessClone-CUDA/seamlessClone_imp.cu:239-370):
   none either.
 - ``solver="auto"`` resolves per geometry: dst_gemm up to the crossover,
   multigrid above it (the default ``mg_padded="q"`` at any ``tol``, ``"t"``,
-  or False, the element V-cycle with its fused levels; the dense mode True
-  raises there until ROADMAP slice 4b).
+  True, the dense rounded V-cycles, or False, the element V-cycle with its
+  fused levels).
 
 Not ported here (TPU-only or a later slice; see ROADMAP): the layout pin
 and self-heal, the sync-overhead subtraction, ``profile`` and
@@ -47,11 +48,9 @@ from seamlesscloneoptimization_tpu_torch.models.pipeline import clone_pipeline
 from seamlesscloneoptimization_tpu_torch.ops.kernels import ru128
 from seamlesscloneoptimization_tpu_torch.solvers import (
     AUTO_CROSSOVER_PIXELS,
-    MG_PADDED_NOT_PORTED,
     SERVE_CROSSOVER_PIXELS,
     auto_solver_name,
     get_solver,
-    mg_padded_not_ported,
 )
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import check_precision, dst_bases
 
@@ -124,17 +123,13 @@ def prepare_inputs(mask: np.ndarray, src_shape, dst_shape, center, bucket: int =
     return out + ((0, 0, bh, bw),) if return_tight else out
 
 
-def _effective_solver(solver: str, bbox_hw, planar_dst: bool, mg_padded) -> str:
+def _effective_solver(solver: str, bbox_hw, planar_dst: bool) -> str:
     """Resolve "auto" for one geometry: dst_gemm up to the crossover (the
-    serve crossover for the planar serve loop), multigrid above it — which
-    raises NotImplementedError for the dense ``mg_padded=True``."""
+    serve crossover for the planar serve loop), multigrid above it."""
     if solver != "auto":
         return solver
     crossover = SERVE_CROSSOVER_PIXELS if planar_dst else AUTO_CROSSOVER_PIXELS
-    name = auto_solver_name((3, bbox_hw[0] - 2, bbox_hw[1] - 2), crossover)
-    if name == "multigrid" and mg_padded in MG_PADDED_NOT_PORTED:
-        raise mg_padded_not_ported(mg_padded, f" (auto above {crossover} pixels)")
-    return name
+    return auto_solver_name((3, bbox_hw[0] - 2, bbox_hw[1] - 2), crossover)
 
 
 def _is_uint8(img) -> bool:
@@ -159,10 +154,8 @@ class SeamlessClone:
         cfg = self.config
         if cfg.solver != "auto":  # "auto" is resolved per geometry at run time
             get_solver(cfg.solver)  # ValueError if unknown
-        if cfg.mg_padded not in ("q", "t", False, *MG_PADDED_NOT_PORTED):
+        if cfg.mg_padded not in ("q", "t", True, False):
             raise ValueError(f"unknown mg_padded {cfg.mg_padded!r}")
-        if cfg.solver == "multigrid" and cfg.mg_padded in MG_PADDED_NOT_PORTED:
-            raise mg_padded_not_ported(cfg.mg_padded)
         check_precision(cfg.precision)
         if cfg.bbox_bucket:
             raise NotImplementedError(
@@ -197,7 +190,7 @@ class SeamlessClone:
         b = self._bases.get(key)
         if b is None:
             b = dst_bases(h2, w2, ru128(h2), ru128(w2), self.device,
-                          self.config.dst_folded)
+                          self.config.dst_folded, self.config.precision)
             for axis in b:
                 for t in axis.tensors():
                     self._track(t)
@@ -226,8 +219,7 @@ class SeamlessClone:
         return prepare_inputs(mask, tuple(src.shape), tuple(dst.shape), center)
 
     def _pipeline_kwargs(self, bbox_hw, flags: int, planar_dst: bool) -> dict:
-        eff = _effective_solver(self.config.solver, bbox_hw, planar_dst,
-                                self.config.mg_padded)
+        eff = _effective_solver(self.config.solver, bbox_hw, planar_dst)
         self.metrics["solver_resolved"] = eff
         cfg = dataclasses.replace(self.config, solver=eff)
         # the JAX engine's _pallas_gates: the post-process only for these two

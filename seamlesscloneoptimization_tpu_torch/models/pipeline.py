@@ -44,7 +44,10 @@ it is
 with the RHS born in the level geometry's (hp, wp) slab and each V-cycle
 level mg_down_t -> (coarser level) -> mg_up_t (each a level kernel with
 its transposed transfer folded in); smaller grids take the same tail on the exact-size RHS and the
-element path. ``solver_name`` "jacobi" or "dst_fft", and any solver with
+element path. With ``mg_padded=True`` the RHS is exact-size and the solve
+pads it once into ``mg_geometry``'s slab, whose fused levels each run
+mg_down -> (coarser level) -> mg_up (``vcycle_p``), and hands the slab to
+``clamp_cast_paste``. ``solver_name`` "jacobi" or "dst_fft", and any solver with
 ``use_pallas_postprocess=False``, take the generic tail
 
     erode3 -> preprocess_rhs_p (exact size) -> solver -> clamp_cast_paste

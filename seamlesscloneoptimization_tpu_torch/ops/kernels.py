@@ -2,7 +2,7 @@
 launch counters.
 
 The port's counterpart of ``seamlesscloneoptimization_tpu/ops/pallas_kernels.py``
-and ``pallas_mg_quarter.py`` for ROADMAP slices 1 to 4a and 8a:
+and ``pallas_mg_quarter.py`` for ROADMAP slices 1 to 4c and 8a:
 
 ============================  =============================================
 wrapper                       replaces (pallas_kernels.py,
@@ -20,7 +20,8 @@ wrapper                       replaces (pallas_kernels.py,
 ``unfold_clamp_paste``        ``unfold_clamp_guarded_pallas`` + the paste
 ``preprocess_rhs_p``          ``preprocess_rhs_padded_pallas`` (and the
                               role of ``preprocess_rhs_pallas``)
-``mg_down``                   ``mg_down_pallas`` (padded_io form; its
+``mg_down``                   ``mg_down_pallas`` (padded_io form on
+                              ``mg_geometry``'s slab, ``vcycle_p``; its
                               exact-size entry on a padded slab,
                               ``solvers/multigrid.py:vcycle``)
 ``mg_up``                     ``mg_up_pallas`` (the same two forms)
@@ -616,6 +617,36 @@ def mg_geometry_t(h: int, w: int, wp_min: int = 0,
         raise ValueError(f"strip height {th} not a power of two in [16, 256]")
     hp = _round_up(h, th)
     return th, hp, wp, _round_up(hp // 2, 128)
+
+
+_M = 8  # the JAX package's ghost rows a strip window carries above and below
+MG_TH = (160, 128)  # mg_geometry's strip height up to wp = 2560, and above
+
+
+def _strip_height(wp: int, n_windows: int, budget_bytes: int = 6 << 20) -> int:
+    """Largest multiple-of-8 strip height whose n_windows double-buffered
+    (th + 2 _M, wp) windows and their headroom fit budget_bytes (the JAX
+    package's VMEM rule, kept so that mg_geometry's slabs equal its own)."""
+    th = (budget_bytes // (4 * n_windows * 4 * wp)) - 2 * _M
+    th = max(8, (th // 8) * 8)
+    return min(th, 512)
+
+
+def mg_geometry(h: int, w: int) -> tuple[int, int, int]:
+    """(th, hp, wp) of one level of the dense rounded chain (``vcycle_p``).
+
+    A level of true size (h, w) lives in a (C, hp, wp) slab: wp = w rounded
+    up to 128, hp = h rounded up to the strip height th: ``MG_TH`` (the JAX
+    package's ``SCL_MG_TH`` default, 160 for wp <= 2560, 128 above),
+    clamped by the level's height rounded up to 16 and by
+    ``_strip_height(wp, 3, 48 MiB)``. th is a multiple of 16, so hp is
+    even, as ``mg_down`` / ``mg_up`` need.
+    """
+    wp = _round_up(w, 128)
+    th = MG_TH[0] if wp <= 2560 else MG_TH[1]
+    th = min(th, _round_up(max(h, 16), 16))
+    th = min(th, max(16, _strip_height(wp, n_windows=3, budget_bytes=48 << 20) // 16 * 16))
+    return th, _round_up(h, th), wp
 
 
 @functools.lru_cache(maxsize=1024)

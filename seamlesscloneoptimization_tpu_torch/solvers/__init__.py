@@ -6,10 +6,11 @@ for the 5-point Dirichlet system (boundary values folded into g).
 - ``jacobi``: red-black Gauss-Seidel (``solve_redblack``), its bursts of
   sweeps on the card the ``rb_sweeps`` kernel.
 - ``multigrid``: V-cycles with ``padded="q"`` (the quarter-plane finest
-  level, from a quartered or a dense RHS, zero or warm start) or
-  ``padded="t"`` (the transpose-fused V-cycles), or on its element path; its
-  dense fused modes, ``fmg_start`` and ``pcg`` raise NotImplementedError
-  naming their ROADMAP slice (``solvers/multigrid.py``).
+  level, from a quartered or a dense RHS, zero or warm start),
+  ``padded="t"`` (the transpose-fused V-cycles), ``padded=True`` (the
+  dense rounded V-cycles), or on its element path; from zero, a warm start
+  or ``fmg_start``, or as the V-cycle preconditioner of ``pcg``
+  (``solvers/multigrid.py``).
 
 ``auto`` is not a solver here: the engine resolves it per geometry with
 ``auto_solver_name`` (``core/engine.py:_effective_solver``).
@@ -18,11 +19,7 @@ for the 5-point Dirichlet system (boundary values folded into g).
 from seamlesscloneoptimization_tpu_torch.solvers.dst_fft import solve_dst_fft
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import solve_dst_gemm
 from seamlesscloneoptimization_tpu_torch.solvers.jacobi import solve_redblack
-from seamlesscloneoptimization_tpu_torch.solvers.multigrid import (
-    MG_PADDED_NOT_PORTED,
-    mg_padded_not_ported,
-    solve_multigrid,
-)
+from seamlesscloneoptimization_tpu_torch.solvers.multigrid import solve_multigrid
 
 # Size-based selection between the direct DST-GEMM solve and the O(N)
 # multigrid. Both constants were measured on a TPU v5e: 7 MP for a
@@ -54,13 +51,11 @@ def get_solver(name: str):
 
 
 __all__ = [
-    "MG_PADDED_NOT_PORTED",
     "SOLVERS",
     "AUTO_CROSSOVER_PIXELS",
     "SERVE_CROSSOVER_PIXELS",
     "auto_solver_name",
     "get_solver",
-    "mg_padded_not_ported",
     "solve_dst_fft",
     "solve_dst_gemm",
     "solve_multigrid",

@@ -6,9 +6,17 @@ DST-I matrix ``V_n[i,j] = sin((i+1)(j+1)pi/(n+1)) * sqrt(2/(n+1))`` and
 eigenvalues ``lam_k = 2(cos((k+1)pi/(n+1)) - 1)``,
 ``u = Vh @ ((Vh @ g @ Vw) / (lam_i + lam_j)) @ Vw`` per channel.
 
-The GEMMs are plain ``torch.matmul`` in FP32: the port sets neither
-``allow_tf32`` nor ``set_float32_matmul_precision``. ``precision="high"``
-(bf16_3x on the TPU) and ``"highest"`` both map to FP32 here.
+Precision (the JAX package's modes, GEMM by GEMM): ``"highest"`` and
+``"high"`` (bf16_3x on the TPU) are plain FP32 ``torch.matmul`` (the port
+sets neither ``allow_tf32`` nor ``set_float32_matmul_precision``);
+``"default"`` rounds both operands to bf16 once; ``"2x_img"`` splits the
+image operand into bf16 hi + lo and rounds the DST factor once; ``"2x_v"``
+rounds the image once and splits the factor; ``"fwd2x"`` / ``"inv2x"`` put
+the ``"2x_v"`` product on the forward / inverse GEMMs and FP32 on the
+others. Every bf16 pass sums its products in FP32 and the two passes of a
+split add as hi pass + lo pass (``_mm``). ``solve_dst_gemm_pl`` takes every
+mode, ``solve_dst_gemm`` and ``solve_sep_eig`` the single-pass ones
+(``PLAIN_PRECISIONS``).
 
 Folding (half the GEMM FLOPs per axis): the DST-I matrix has the reflection
 symmetry V[n-1-j, i] = (-1)^i V[j, i], so every even output depends only on
@@ -40,7 +48,14 @@ from seamlesscloneoptimization_tpu_torch.ops.kernels import (
     unfold_transpose,
 )
 
-PRECISIONS = ("highest", "high")  # both FP32 on the card
+# precision -> (the forward GEMMs' product, the inverse GEMMs'): "f32",
+# "bf16" (both operands rounded once), "2x_img" or "2x_v" (see _mm)
+PRECISION_MODES = {"highest": ("f32", "f32"), "high": ("f32", "f32"),
+                   "default": ("bf16", "bf16"), "2x_img": ("2x_img", "2x_img"),
+                   "2x_v": ("2x_v", "2x_v"), "fwd2x": ("2x_v", "f32"),
+                   "inv2x": ("f32", "2x_v")}
+PRECISIONS = tuple(PRECISION_MODES)
+PLAIN_PRECISIONS = ("highest", "high", "default")  # the JAX package's _PRECISIONS
 
 
 def _frozen(a: np.ndarray) -> np.ndarray:
@@ -141,50 +156,99 @@ def dst_eigenvalues_grouped(n: int) -> np.ndarray:
     return _frozen(out)
 
 
-def check_precision(precision: str) -> None:
-    if precision not in PRECISIONS:
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported: {PRECISIONS} run FP32; the two-pass "
-            f"bf16 modes wait for ROADMAP slice 4c")
+def check_precision(precision: str, allowed: tuple = PRECISIONS) -> None:
+    if precision not in allowed:
+        raise ValueError(f"precision={precision!r} is not one of {allowed}")
+
+
+def uses_bf16(precision: str) -> bool:
+    """Whether a mode runs bf16 passes (and so needs the factors' bf16 forms)."""
+    return PRECISION_MODES[precision] != ("f32", "f32")
 
 
 def _t(a: np.ndarray, device) -> torch.Tensor:
     return torch.tensor(a, device=device)
 
 
+def _split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) bf16 with hi = bf16(x), lo = bf16(x - hi): x to about 2^-17."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., k) @ b (k, n), both bf16, the products summed in FP32, an
+    FP32 result. On the card one bf16 GEMM with an FP32 output (cuBLAS,
+    FP32 accumulation) on a flattened to 2-D; elsewhere the FP32 product of
+    the operands widened back to FP32 (exact: bf16 products fit FP32's
+    mantissa), which is what the card's GEMM computes up to the order of
+    its sums."""
+    if a.device.type == "cuda":
+        k = a.shape[-1]
+        out = torch.mm(a.reshape(-1, k), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[1])
+    return torch.matmul(a.float(), b.float())
+
+
+def _mm(a: torch.Tensor, v: torch.Tensor, v_bf16, mode: str) -> torch.Tensor:
+    """a (..., k) f32 @ the factor v (k, n) f32 in one precision mode.
+    ``v_bf16``: v's (hi, lo) bf16 forms (``_split_bf16``), for the bf16
+    modes. "f32": FP32; "bf16": a and v rounded once; "2x_img": a's hi pass
+    + a's lo pass, v rounded once; "2x_v": a rounded once, v's hi pass +
+    v's lo pass (the JAX package's ``_mm_2x``)."""
+    if mode == "f32":
+        return torch.matmul(a, v)
+    v_hi, v_lo = v_bf16
+    if mode == "2x_img":
+        a_hi, a_lo = _split_bf16(a)
+        return _mm_bf16(a_hi, v_hi) + _mm_bf16(a_lo, v_hi)
+    a_b = a.to(torch.bfloat16)
+    if mode == "bf16":
+        return _mm_bf16(a_b, v_hi)
+    return _mm_bf16(a_b, v_hi) + _mm_bf16(a_b, v_lo)
+
+
 @dataclass(frozen=True)
 class AxisBasis:
     """Device factors of one axis: size n on an n_pad slab. ``mats`` is
     (Vp,) for the plain transform or (Vep, Vop, Ve2p, Vo2p) where the axis
-    folds; ``lam`` the padded, or grouped, eigenvalues."""
+    folds; ``lam`` the padded, or grouped, eigenvalues; ``bf16`` each
+    factor's (hi, lo) bf16 forms for a mode with bf16 passes, else ()."""
 
     n: int
     n_pad: int
     mats: tuple
     lam: torch.Tensor
+    bf16: tuple = ()
 
     @property
     def folded(self) -> bool:
         return len(self.mats) == 4
 
     def tensors(self) -> tuple:
-        return (*self.mats, self.lam)
+        return (*self.mats, self.lam, *(t for pair in self.bf16 for t in pair))
 
 
-def axis_basis(n: int, n_pad: int, fold: bool, device) -> AxisBasis:
+def axis_basis(n: int, n_pad: int, fold: bool, device, precision: str = "highest") -> AxisBasis:
     if fold:
-        return AxisBasis(n, n_pad, tuple(_t(m, device) for m in dst_matrices_folded(n)),
-                         _t(dst_eigenvalues_grouped(n), device))
-    return AxisBasis(n, n_pad, (_t(dst_matrix_padded(n, n_pad), device),),
-                     _t(dst_eigenvalues_padded(n, n_pad), device))
+        mats = tuple(_t(m, device) for m in dst_matrices_folded(n))
+        lam = _t(dst_eigenvalues_grouped(n), device)
+    else:
+        mats = (_t(dst_matrix_padded(n, n_pad), device),)
+        lam = _t(dst_eigenvalues_padded(n, n_pad), device)
+    bf16 = tuple(_split_bf16(m) for m in mats) if uses_bf16(precision) else ()
+    return AxisBasis(n, n_pad, mats, lam, bf16)
 
 
-def dst_bases(h2: int, w2: int, hp: int, wp: int, device, folded: bool = False):
+def dst_bases(h2: int, w2: int, hp: int, wp: int, device, folded: bool = False,
+              precision: str = "highest"):
     """(h, w) AxisBasis of an (h2, w2) interior on an (hp, wp) slab, each
-    folded where ``folded and fold_pays(n)``. The engine caches them per
-    shape, so a serve frame uploads nothing."""
-    return (axis_basis(h2, hp, folded and fold_pays(h2), device),
-            axis_basis(w2, wp, folded and fold_pays(w2), device))
+    folded where ``folded and fold_pays(n)``, with the factors' bf16 forms
+    where ``precision`` runs bf16 passes. The engine caches them per shape,
+    so a serve frame uploads and splits nothing."""
+    check_precision(precision)
+    return (axis_basis(h2, hp, folded and fold_pays(h2), device, precision),
+            axis_basis(w2, wp, folded and fold_pays(w2), device, precision))
 
 
 def solve_dst_gemm_pl(g_tp: torch.Tensor, h2: int, w2: int,
@@ -211,36 +275,47 @@ def solve_dst_gemm_pl(g_tp: torch.Tensor, h2: int, w2: int,
       unfold_transpose back; a folded w fold_minor -> 2 half-GEMMs ->
       transpose_pair(÷) forward and 2 half-GEMMs -> unfold_minor back; the
       other transposes are ``transpose`` launches, the middle one dividing.
+    ``precision`` (any of ``PRECISIONS``) sets each forward GEMM's product
+    and each inverse GEMM's (``PRECISION_MODES``, ``_mm``).
     With ``return_parts`` (``parts_apply(w2, folded)``: w folds) either
     branch stops before its last unfold and returns (e_w, o_w), each
     (C, HP, ep_w), for ``unfold_clamp_paste``.
-    ``bases``: ``dst_bases(h2, w2, HP, WP, device, folded)``, or None to
-    build them.
+    ``bases``: ``dst_bases(h2, w2, HP, WP, device, folded, precision)``, or
+    None to build them.
     """
     check_precision(precision)
     c, wp, hp = g_tp.shape
-    bh, bw = bases if bases is not None else dst_bases(h2, w2, hp, wp, g_tp.device, folded)
+    bh, bw = (bases if bases is not None
+              else dst_bases(h2, w2, hp, wp, g_tp.device, folded, precision))
     want = (h2, hp, folded and fold_pays(h2), w2, wp, folded and fold_pays(w2))
     if (bh.n, bh.n_pad, bh.folded, bw.n, bw.n_pad, bw.folded) != want:
         raise ValueError(f"bases do not match (h2, hp, fold_h, w2, wp, fold_w) = {want}")
+    if uses_bf16(precision) and not (bh.bf16 and bw.bf16):
+        raise ValueError(f"precision={precision!r} needs bases with the factors' bf16 forms: "
+                         f"dst_bases(..., precision={precision!r})")
+    fwd_mode, inv_mode = PRECISION_MODES[precision]
+
+    def fwd(a, basis, k):  # a @ the axis's forward factor k (Vp, or Vep / Vop)
+        return _mm(a, basis.mats[k], basis.bf16[k] if basis.bf16 else None, fwd_mode)
+
+    def inv(a, basis, k):  # a @ the axis's inverse factor k (Vp, or Ve2p / Vo2p)
+        return _mm(a, basis.mats[k], basis.bf16[k] if basis.bf16 else None, inv_mode)
 
     if bh.folded and bw.folded:
-        vep_h, vop_h, ve2p_h, vo2p_h = bh.mats
-        vep_w, vop_w, ve2p_w, vo2p_w = bw.mats
-        ep_h, op_h = vep_h.shape[0], vop_h.shape[0]
-        ep_w, op_w = vep_w.shape[0], vop_w.shape[0]
+        ep_h, op_h = bh.mats[0].shape[0], bh.mats[1].shape[0]
+        ep_w, op_w = bw.mats[0].shape[0], bw.mats[1].shape[0]
         # forward h: fold the minor (H) axis, two half-GEMMs, pair transpose
         s, d = fold_minor(g_tp, h2)
-        tr1 = transpose_pair(torch.matmul(s, vep_h), torch.matmul(d, vop_h))  # (C,GH,WP)
+        tr1 = transpose_pair(fwd(s, bh, 0), fwd(d, bh, 1))  # (C,GH,WP)
         # forward w on the transposed slab
         s, d = fold_minor(tr1, w2)
-        ge, go = torch.matmul(s, vep_w), torch.matmul(d, vop_w)   # (C,GH,ep_w|op_w)
+        ge, go = fwd(s, bw, 0), fwd(d, bw, 1)   # (C,GH,ep_w|op_w)
         # spectral divide fused into the transposes back, one per h window
-        e_h = torch.matmul(transpose_pair(ge, go, bw.lam, bh.lam, 0, ep_h), ve2p_h)
-        o_h = torch.matmul(transpose_pair(ge, go, bw.lam, bh.lam, ep_h, op_h), vo2p_h)
+        e_h = inv(transpose_pair(ge, go, bw.lam, bh.lam, 0, ep_h), bh, 2)
+        o_h = inv(transpose_pair(ge, go, bw.lam, bh.lam, ep_h, op_h), bh, 3)
         # unfold along h fused into the transposes back, one per w window
-        e_w = torch.matmul(unfold_transpose(e_h, o_h, h2, hp, 0, ep_w), ve2p_w)
-        o_w = torch.matmul(unfold_transpose(e_h, o_h, h2, hp, ep_w, op_w), vo2p_w)
+        e_w = inv(unfold_transpose(e_h, o_h, h2, hp, 0, ep_w), bw, 2)
+        o_w = inv(unfold_transpose(e_h, o_h, h2, hp, ep_w, op_w), bw, 3)
         if return_parts:
             return e_w, o_w
         return unfold_minor(e_w, o_w, w2, wp)
@@ -250,31 +325,28 @@ def solve_dst_gemm_pl(g_tp: torch.Tensor, h2: int, w2: int,
                          f"is False")
     # forward h: (C,WP,HP) -> tr1 (C,HG,WP) = Vh G
     if bh.folded:
-        vep_h, vop_h, ve2p_h, vo2p_h = bh.mats
         s, d = fold_minor(g_tp, h2)
-        tr1 = transpose_pair(torch.matmul(s, vep_h), torch.matmul(d, vop_h))
+        tr1 = transpose_pair(fwd(s, bh, 0), fwd(d, bh, 1))
     else:
-        tr1 = transpose(torch.matmul(g_tp, bh.mats[0]))
+        tr1 = transpose(fwd(g_tp, bh, 0))
     # forward w, the spectral divide fused into the transpose back:
     # tr2 (C,WG,HG) = uhat^T
     if bw.folded:
-        vep_w, vop_w, ve2p_w, vo2p_w = bw.mats
         s, d = fold_minor(tr1, w2)
-        tr2 = transpose_pair(torch.matmul(s, vep_w), torch.matmul(d, vop_w), bw.lam, bh.lam)
+        tr2 = transpose_pair(fwd(s, bw, 0), fwd(d, bw, 1), bw.lam, bh.lam)
     else:
-        tr2 = transpose(torch.matmul(tr1, bw.mats[0]), lam_a=bh.lam, lam_b=bw.lam)
+        tr2 = transpose(fwd(tr1, bw, 0), lam_a=bh.lam, lam_b=bw.lam)
     # inverse h, the unfold fused into the transpose back: tr3 (C,HP,WG) = Vh uhat
     if bh.folded:
-        ep_h = ve2p_h.shape[0]
-        tr3 = unfold_transpose(torch.matmul(tr2[..., :ep_h], ve2p_h),
-                               torch.matmul(tr2[..., ep_h:], vo2p_h), h2, hp)
+        ep_h = bh.mats[2].shape[0]
+        tr3 = unfold_transpose(inv(tr2[..., :ep_h], bh, 2), inv(tr2[..., ep_h:], bh, 3), h2, hp)
     else:
-        tr3 = transpose(torch.matmul(tr2, bh.mats[0]))
+        tr3 = transpose(inv(tr2, bh, 0))
     # inverse w: (C,HP,WP) = u (padded)
     if not bw.folded:
-        return torch.matmul(tr3, bw.mats[0])
-    ep_w = ve2p_w.shape[0]
-    e_w, o_w = torch.matmul(tr3[..., :ep_w], ve2p_w), torch.matmul(tr3[..., ep_w:], vo2p_w)
+        return inv(tr3, bw, 0)
+    ep_w = bw.mats[2].shape[0]
+    e_w, o_w = inv(tr3[..., :ep_w], bw, 2), inv(tr3[..., ep_w:], bw, 3)
     if return_parts:
         return e_w, o_w
     return unfold_minor(e_w, o_w, w2, wp)
@@ -309,7 +381,7 @@ def eig_sum_on(nr: int, nc: int, device: torch.device, grouped_r: bool = False,
     return _t(lr[:, None] + lc[None, :], device)
 
 
-def dst_fwd_folded_minor(a: torch.Tensor, n: int) -> torch.Tensor:
+def dst_fwd_folded_minor(a: torch.Tensor, n: int, mm=torch.matmul) -> torch.Tensor:
     """Folded DST along the minor axis: (..., KP >= n, zero beyond n) ->
     (..., ep + op) spectral in grouped even/odd order (zero-padded)."""
     he, ho, ep, op = fold_halves(n)
@@ -321,22 +393,23 @@ def dst_fwd_folded_minor(a: torch.Tensor, n: int) -> torch.Tensor:
         s = torch.cat([s, a[..., ho : ho + 1]], dim=-1)
     s = F.pad(s, (0, ep - he))
     d = F.pad(d, (0, op - ho))
-    return torch.cat([torch.matmul(s, vep), torch.matmul(d, vop)], dim=-1)
+    return torch.cat([mm(s, vep), mm(d, vop)], dim=-1)
 
 
-def dst_inv_folded_minor(a: torch.Tensor, n: int, out_pad: int) -> torch.Tensor:
+def dst_inv_folded_minor(a: torch.Tensor, n: int, out_pad: int,
+                         mm=torch.matmul) -> torch.Tensor:
     """Inverse folded DST along the minor axis: grouped spectral (..., ep+op)
     -> natural (..., out_pad) with exact zeros beyond n."""
     he, ho, ep, op = fold_halves(n)
     _, _, ve2p, vo2p = _folded_mats(n, a.device)
-    e = torch.matmul(a[..., :ep], ve2p)
-    o = torch.matmul(a[..., ep : ep + op], vo2p)
+    e = mm(a[..., :ep], ve2p)
+    o = mm(a[..., ep : ep + op], vo2p)
     first = (e + o)[..., :he]                                # out_x,       x < he
     second = torch.flip((e - o)[..., :ho], (-1,))            # out_{n-1-x}, x = ho-1..0
     return F.pad(torch.cat([first, second], dim=-1), (0, out_pad - n))
 
 
-def dst_fwd_folded_rows(a: torch.Tensor, n: int) -> torch.Tensor:
+def dst_fwd_folded_rows(a: torch.Tensor, n: int, mm=torch.matmul) -> torch.Tensor:
     """Folded DST along axis -2 (left-multiply): (..., n, M) ->
     (..., ep + op, M) spectral in grouped even/odd order."""
     he, ho, ep, op = fold_halves(n)
@@ -348,33 +421,45 @@ def dst_fwd_folded_rows(a: torch.Tensor, n: int) -> torch.Tensor:
         s = torch.cat([s, a[..., ho : ho + 1, :]], dim=-2)
     s = F.pad(s, (0, 0, 0, ep - he))
     d = F.pad(d, (0, 0, 0, op - ho))
-    return torch.cat([torch.matmul(vep.T, s), torch.matmul(vop.T, d)], dim=-2)
+    return torch.cat([mm(vep.T, s), mm(vop.T, d)], dim=-2)
 
 
-def dst_inv_folded_rows(a: torch.Tensor, n: int) -> torch.Tensor:
+def dst_inv_folded_rows(a: torch.Tensor, n: int, mm=torch.matmul) -> torch.Tensor:
     """Inverse folded DST along axis -2: grouped spectral (..., ep+op, M) ->
     natural (..., n, M)."""
     he, ho, ep, op = fold_halves(n)
     _, _, ve2p, vo2p = _folded_mats(n, a.device)
-    e = torch.matmul(ve2p.T, a[..., :ep, :])
-    o = torch.matmul(vo2p.T, a[..., ep : ep + op, :])
+    e = mm(ve2p.T, a[..., :ep, :])
+    o = mm(vo2p.T, a[..., ep : ep + op, :])
     first = (e + o)[..., :he, :]
     second = torch.flip((e - o)[..., :ho, :], (-2,))
     return torch.cat([first, second], dim=-2)
 
 
-def _solve_folded(g2: torch.Tensor, nr: int, nc: int) -> torch.Tensor:
+def _solve_folded(g2: torch.Tensor, nr: int, nc: int, mm=torch.matmul) -> torch.Tensor:
     """Folded solve of the (C, nr, nc) system, each axis folded where
     ``fold_pays``: rows through the left-multiply folds, columns through
     the minor-axis folds, grouped eigenvalues on each folded axis."""
     dev = g2.device
     fr, fc = fold_pays(nr), fold_pays(nc)
-    x = dst_fwd_folded_rows(g2, nr) if fr else torch.matmul(_dst_matrix_on(nr, dev), g2)
-    x = dst_fwd_folded_minor(x, nc) if fc else torch.matmul(x, _dst_matrix_on(nc, dev))
+    x = dst_fwd_folded_rows(g2, nr, mm) if fr else mm(_dst_matrix_on(nr, dev), g2)
+    x = dst_fwd_folded_minor(x, nc, mm) if fc else mm(x, _dst_matrix_on(nc, dev))
     x = x / eig_sum_on(nr, nc, dev, fr, fc)
-    x = dst_inv_folded_rows(x, nr) if fr else torch.matmul(_dst_matrix_on(nr, dev), x)
-    return (dst_inv_folded_minor(x, nc, nc) if fc
-            else torch.matmul(x, _dst_matrix_on(nc, dev)))
+    x = dst_inv_folded_rows(x, nr, mm) if fr else mm(_dst_matrix_on(nr, dev), x)
+    return (dst_inv_folded_minor(x, nc, nc, mm) if fc
+            else mm(x, _dst_matrix_on(nc, dev)))
+
+
+def _plain_mm(precision: str):
+    """The GEMM of the plain solves (``solve_dst_gemm``, ``solve_sep_eig``):
+    FP32 ``torch.matmul``, or for ``"default"`` the FP32 product of both
+    operands rounded to bf16 once (exact products, FP32 sums: what a bf16
+    GEMM with FP32 accumulation computes, on any device)."""
+    check_precision(precision, PLAIN_PRECISIONS)
+    if precision == "default":
+        return lambda x, y: torch.matmul(x.to(torch.bfloat16).float(),
+                                         y.to(torch.bfloat16).float())
+    return torch.matmul
 
 
 @lru_cache(maxsize=64)
@@ -421,21 +506,22 @@ def solve_sep_eig(g: torch.Tensor, bh: float = 1.0, bw: float = 1.0,
     """Exact solve of the beta-modified separable Poisson operator.
 
     A = Th (x) I + I (x) Tw with Th, Tw from ``beta_eigenbasis``: per
-    channel U = Vh ((Vh^-1 G Vw^-T) / (lam_h_i + lam_w_j)) Vw^T, four FP32
-    GEMMs and a divide (the multigrid's coarsest level). ``basis`` is
+    channel U = Vh ((Vh^-1 G Vw^-T) / (lam_h_i + lam_w_j)) Vw^T, four GEMMs
+    (``_plain_mm(precision)``) and a divide (the multigrid's coarsest
+    level, FP32). ``basis`` is
     ``sep_eig_basis(h, w, bh, bw, device)`` (the engine caches it on the
     device per geometry), or None: then beta == 1 goes through
     ``solve_dst_gemm`` and any other beta builds the basis.
     """
-    check_precision(precision)
+    mm = _plain_mm(precision)
     _, h, w = g.shape
     if basis is None:
         if bh == 1.0 and bw == 1.0:
             return solve_dst_gemm(g, precision=precision)
         basis = sep_eig_basis(h, w, bh, bw, g.device)
     vhi, vwi_t, lam, vh, vw_t = basis
-    x = torch.matmul(torch.matmul(vhi, g), vwi_t) / lam
-    return torch.matmul(torch.matmul(vh, x), vw_t)
+    x = mm(mm(vhi, g), vwi_t) / lam
+    return mm(mm(vh, x), vw_t)
 
 
 def solve_dst_gemm(
@@ -452,23 +538,24 @@ def solve_dst_gemm(
     transposed too. ``transposed_output=True``: the output is (C, W, H).
     ``transform_only`` returns the spectrum Vh g Vw. ``folded``: fold each
     axis where ``fold_pays`` (ignored for the natural-order spectrum of
-    ``transform_only``, as in the JAX package).
+    ``transform_only``, as in the JAX package). ``precision``: one of
+    ``PLAIN_PRECISIONS`` (``_plain_mm``); a two-pass mode raises ValueError.
     """
-    check_precision(precision)
+    mm = _plain_mm(precision)
     dev = g.device
     if transposed_input or transposed_output:
         g_t = g if transposed_input else g.transpose(1, 2)
         _, w, h = g_t.shape
         if folded:
-            return _solve_folded(g_t, w, h)
+            return _solve_folded(g_t, w, h, mm)
         vh, vw = _dst_matrix_on(h, dev), _dst_matrix_on(w, dev)
-        ghat_t = torch.matmul(torch.matmul(vw, g_t), vh)
-        return torch.matmul(torch.matmul(vw, ghat_t / eig_sum_on(w, h, dev)), vh)
+        ghat_t = mm(mm(vw, g_t), vh)
+        return mm(mm(vw, ghat_t / eig_sum_on(w, h, dev)), vh)
     _, h, w = g.shape
     if folded and not transform_only:
-        return _solve_folded(g, h, w)
+        return _solve_folded(g, h, w, mm)
     vh, vw = _dst_matrix_on(h, dev), _dst_matrix_on(w, dev)
-    ghat = torch.matmul(torch.matmul(vh, g), vw)
+    ghat = mm(mm(vh, g), vw)
     if transform_only:
         return ghat
-    return torch.matmul(torch.matmul(vh, ghat / eig_sum_on(h, w, dev)), vw)
+    return mm(mm(vh, ghat / eig_sum_on(h, w, dev)), vw)

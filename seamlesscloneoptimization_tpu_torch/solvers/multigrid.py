@@ -15,7 +15,7 @@ which keeps the contraction near 0.1 per cycle at every size. The coarsest
 level is solved exactly in the beta-modified separable eigenbasis
 (``dst_gemm.solve_sep_eig``: four FP32 GEMMs).
 
-Three chains:
+Four chains:
 
 - the quarter-plane chain (``padded="q"``, the default, fine grids with
   ``use_pallas``): the finest level lives as four quarter planes (C, 4, hq,
@@ -40,6 +40,12 @@ Three chains:
   correction + sweeps), so each coarser level lives transposed (the
   operator is symmetric under transposition with bh and bw swapped).
   Levels below 2^16 points solve exactly with ``solve_sep_eig``.
+- ``vcycle_p`` (``padded=True``, and ``"q"`` where the quarter gate fails:
+  nu1 = 0), the dense rounded chain: every fused level lives in the
+  zero-padded slab of ``ops/kernels.py:mg_geometry`` and runs ``mg_down``
+  and ``mg_up`` on it, the lane halves of the transfers in torch on the
+  cropped half-height arrays; a level below 2^18 points runs ``vcycle``
+  on its interior. The solve pads once on the way in and crops once out.
 - ``vcycle`` (the element path: small grids, ``use_pallas=False``, or
   ``padded=False``): PyTorch sweeps and transfers on exact-size arrays, as
   XLA ran them, except that a level of at least 2^18 points with
@@ -48,14 +54,13 @@ Three chains:
 
 ``solve_multigrid`` drives each, in tolerance mode (check-free burst,
 then a residual check per further cycle) or fixed-work mode (``cycles``),
-from zero or from a warm start ``u0``. The tolerance check reads max
-|residual| to the host once per check. On the element path a fine level's
-burst of sweeps (``use_pallas``, n > 1, >= 2^18 points: smoothing that the
-fused chains refuse, nu1 > 2 or nu2 > 4) is the ``rb_sweeps`` kernel. Not
-ported (NotImplementedError naming the ROADMAP slice 4b): the dense rounded
-mode (``padded=True``, and ``"q"`` with nu1 = 0) on grids where it would
-fuse, ``pcg`` and ``fmg_start``. The JAX package's ``SCL_MG_*``
-environment knobs are constants here.
+from zero, from a warm start ``u0`` or from the full-multigrid cascade
+``fmg`` (``fmg_start``); ``pcg`` wraps the element V-cycle as the
+preconditioner of a flexible CG. The tolerance check reads max |residual|
+to the host once per check. On the element path a fine level's burst of
+sweeps (``use_pallas``, n > 1, >= 2^18 points: smoothing that the fused
+chains refuse, nu1 > 2 or nu2 > 4) is the ``rb_sweeps`` kernel. The JAX
+package's ``SCL_MG_*`` environment knobs are constants here.
 """
 
 from __future__ import annotations
@@ -75,23 +80,6 @@ from seamlesscloneoptimization_tpu_torch.solvers.jacobi import (
 
 FUSE_MIN = 1 << 18    # a fine level runs fused from this many points
 FUSE_MIN_T = 1 << 16  # vcycle_t's coarse levels run fused from this many
-
-# the CloneConfig.mg_padded modes whose fused chain is not ported yet
-MG_PADDED_NOT_PORTED = {
-    True: "ROADMAP slice 4b (dense multigrid modes)",
-}
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {where}")
-
-
-def mg_padded_not_ported(padded, why: str = "") -> NotImplementedError:
-    """True, and "q" with nu1 = 0, where the JAX package runs the dense
-    rounded chain (``vcycle_p``)."""
-    return NotImplementedError(
-        f"multigrid with mg_padded={padded!r}{why} is not ported yet: "
-        f"{MG_PADDED_NOT_PORTED.get(padded, MG_PADDED_NOT_PORTED[True])}")
 
 
 def _coarsen(m: int, beta: float) -> tuple[int, float]:
@@ -343,6 +331,56 @@ def vcycle(u: torch.Tensor, g: torch.Tensor, nu1: int = 2, nu2: int = 2, coarses
     return _sweeps_b(u, g, nu2, bh, bw)
 
 
+def vcycle_p(u_p: torch.Tensor | None, g_p: torch.Tensor, h: int, w: int, nu1: int = 1,
+             nu2: int = 2, coarsest: int = 63, bh: float = 1.0, bw: float = 1.0,
+             eig_cache=None) -> torch.Tensor:
+    """One V-cycle in the dense rounded space (the JAX package's ``vcycle_p``).
+
+    g_p, u_p: (C, hp, wp) per ``mg_geometry(h, w)``, the true (h, w) domain
+    at the origin, exact zeros elsewhere; ``u_p=None`` is a known-zero guess
+    (every coarse level). A fused level: ``mg_down`` on the slab -> the lane
+    restriction of the cropped rh -> the coarse level in its own
+    ``mg_geometry`` slab -> the lane prolongation, padded to (C, hp // 2,
+    wp) -> ``mg_up``. A level below the fused gate runs ``vcycle`` on the
+    cropped interior and pads back. Returns (C, hp, wp), exact zeros outside
+    the domain.
+    """
+    c, hp, wp = g_p.shape
+    if _small(h, w, coarsest) or not _fused_level(h, w, nu1, nu2, True):
+        g = g_p[:, :h, :w]
+        u = torch.zeros_like(g) if u_p is None else u_p[:, :h, :w]
+        u = vcycle(u, g, nu1, nu2, coarsest, True, bh, bw, eig_cache, u_zero=u_p is None)
+        return _pad_to(u, g_p.shape)
+    hc, bh_c = _coarsen(h, bh)
+    wc, bw_c = _coarsen(w, bw)
+    u_s, rh = K.mg_down(u_p, g_p, nu1, h, w, bh, bw)
+    rc = 4.0 * _restrict_axis(rh[:, :hc, :w], bw)
+    _, hpc, wpc = K.mg_geometry(hc, wc)
+    ec_p = vcycle_p(None, _pad_to(rc, (c, hpc, wpc)).contiguous(), hc, wc, nu1, nu2, coarsest,
+                    bh_c, bw_c, eig_cache)
+    e_lane = _pad_to(_prolong_axis(ec_p[:, :hc, :wc], w, bw), (c, hp // 2, wp)).contiguous()
+    return K.mg_up(u_s, g_p, e_lane, nu2, h, w, bh, bw)
+
+
+def fmg(g: torch.Tensor, nu1: int = 2, nu2: int = 2, coarsest: int = 63,
+        use_pallas: bool = False, bh: float = 1.0, bw: float = 1.0,
+        eig_cache=None) -> torch.Tensor:
+    """Full multigrid: a near-converged start from the coarse-to-fine
+    cascade. The RHS is restricted down the hierarchy (scaled by 4, as the
+    residual equation is), the coarsest level solved exactly
+    (``coarse_solve``), then each level's solution is prolonged to the next
+    finer one and polished there by one element ``vcycle``."""
+    _, h, w = g.shape
+    if _small(h, w, coarsest):
+        return coarse_solve(g, bh, bw, eig_cache)
+    hc, bh_c = _coarsen(h, bh)
+    wc, bw_c = _coarsen(w, bw)
+    gc = 4.0 * restrict_fw(g, bh, bw)
+    uc = fmg(gc, nu1, nu2, coarsest, use_pallas, bh_c, bw_c, eig_cache)
+    u = prolong_bilinear(uc, h, w, bh, bw)
+    return vcycle(u, g, nu1, nu2, coarsest, use_pallas, bh, bw, eig_cache)
+
+
 def _small_t_level(u_p, g_p, h, w, nu1, nu2, coarsest, bh, bw, eig_cache) -> torch.Tensor:
     """A ``vcycle_t`` level below the fused gate, padded back to its slab.
     Only a coarse level lands here (solve_multigrid takes this chain when
@@ -443,6 +481,18 @@ def t_levels(h: int, w: int, nu1: int = 1, nu2: int = 2, coarsest: int = 63) -> 
     return _t_levels_from(h, w, 1.0, 1.0, K.mg_geometry_t(h, w), nu1, nu2, coarsest)
 
 
+def p_levels(h: int, w: int, nu1: int = 1, nu2: int = 2, coarsest: int = 63) -> list[tuple]:
+    """The fused levels of a ``vcycle_p`` on an (h, w) fine level (the dense
+    rounded chain; the element ``vcycle`` fuses the same levels), in descent
+    order: (h, w, bh, bw, geom) per level, its slab per ``geom = (th, hp,
+    wp)`` of ``mg_geometry``."""
+    levels, bh, bw = [], 1.0, 1.0
+    while not _small(h, w, coarsest) and _fused_level(h, w, nu1, nu2, True):
+        levels.append((h, w, bh, bw, K.mg_geometry(h, w)))
+        (h, bh), (w, bw) = _coarsen(h, bh), _coarsen(w, bw)
+    return levels
+
+
 def q_coarse_levels(h: int, w: int, nu1: int = 1, nu2: int = 2,
                     coarsest: int = 63) -> list[tuple]:
     """The fused coarse levels that ``vcycle_t`` runs below an (h, w)
@@ -529,6 +579,45 @@ def _solve_q(g_q: torch.Tensor, h: int, w: int, nu1: int, nu2: int, coarsest: in
             return u, it
 
 
+def _apply_a(p: torch.Tensor) -> torch.Tensor:
+    """A p: the plain 5-point operator, zero outside the grid (pcg's)."""
+    pp = F.pad(p, (1, 1, 1, 1))
+    return (pp[:, :-2, 1:-1] + pp[:, 2:, 1:-1] + pp[:, 1:-1, :-2] + pp[:, 1:-1, 2:]) - 4.0 * p
+
+
+def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Over every channel at once, as ``jnp.vdot`` flattens."""
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def _pcg(g: torch.Tensor, u: torch.Tensor, tol: float, max_cycles: int, nu1: int, nu2: int,
+         coarsest: int, use_pallas: bool, eig_cache) -> tuple[torch.Tensor, int, torch.Tensor]:
+    """Flexible CG from u, preconditioned by one element V-cycle from zero,
+    until max |r| <= tol * max |g| or ``max_cycles`` iterations (one host
+    read per check). Returns (u, iterations, max |r|) with r the
+    recurrence's residual."""
+
+    def precond(r):
+        return vcycle(torch.zeros_like(r), r, nu1, nu2, coarsest, use_pallas, eig_cache=eig_cache)
+
+    thresh = tol * torch.clamp(g.abs().max(), min=1e-30)
+    r = residual(u, g)
+    p = precond(r)
+    rz = _vdot(r, p)
+    it = 0
+    while it < max_cycles and bool(r.abs().max() > thresh):  # one host read per check
+        ap = _apply_a(p)
+        alpha = rz / _vdot(p, ap)
+        u = u + alpha * p
+        r = r - alpha * ap
+        z = precond(r)
+        rz_new = _vdot(r, z)
+        p = z + (rz_new / rz) * p  # flexible: the V-cycle is not symmetric
+        rz = rz_new
+        it += 1
+    return u, it, r.abs().max()
+
+
 def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int = 60,
                     nu1: int = 1, nu2: int = 2, return_info: bool = False,
                     use_pallas: bool = False, cycles: int | None = None, pcg: bool = False,
@@ -544,20 +633,27 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
     output) or the dense (C, 2 hq, 2 wq2) slab; the RHS at the origin, exact
     zeros elsewhere. With ``use_pallas`` on a grid of at least 2^18 points,
     ``padded="q"`` runs the quarter-plane chain (``_solve_q``; a dense g is
-    split by ``to_quarters``) and ``padded="t"`` runs ``vcycle_t``; small
-    grids, and any grid with ``use_pallas=False``, run the element path (as
-    in the JAX package, whatever ``padded`` says; a quartered g is then
-    interleaved back first). ``cycles=k``: fixed work, k cycles, no checks.
-    Else the tolerance loop: ``_tol_burst`` check-free cycles, then a
-    residual check (one host read) per further cycle, up to ``max_cycles``.
-    ``u0``: a warm start (C, h, w), checked before its first cycle (no
-    check-free burst). ``padded_output``: ``"quarters"`` returns the
-    quarter chain's planes; True the quarter chain's (C, 2 hq, 2 wq2) or
-    the ``"t"`` chain's (C, hp, wp) slab (zeros outside the domain); the
-    element path returns the exact size either way. ``return_info``
-    (exclusive with ``padded_output``; not with a quartered g) adds
-    {"cycles": int, "residual": max |g - A u|}. ``eig_cache``: see
-    ``coarse_solve``.
+    split by ``to_quarters``), ``padded="t"`` runs ``vcycle_t``, and
+    ``padded=True``, or ``"q"`` with nu1 = 0, runs ``vcycle_p`` on
+    ``mg_geometry``'s slab; small grids, and any grid with
+    ``use_pallas=False``, run the element path (as in the JAX package,
+    whatever ``padded`` says; a quartered g is then interleaved back first).
+    ``cycles=k``: fixed work, k cycles, no checks. Else the tolerance loop:
+    ``_tol_burst`` check-free cycles, then a residual check (one host read)
+    per further cycle, up to ``max_cycles``. ``u0``: a warm start (C, h,
+    w), checked before its first cycle (no check-free burst);
+    ``fmg_start`` (without ``u0``) starts from ``fmg(g)`` the same way.
+    ``pcg`` (tolerance mode only, as in the JAX package: ``cycles`` runs the
+    V-cycles) runs the flexible CG of ``_pcg`` on the exact-size grid
+    instead, ``cycles`` reporting its iterations and ``residual`` its
+    recurrence's max |r|. ``padded_output``: ``"quarters"`` returns the
+    quarter chain's planes; True the quarter chain's (C, 2 hq, 2 wq2), the
+    ``"t"`` chain's or the dense chain's (C, hp, wp) slab (zeros outside
+    the domain); the element path and pcg return the exact size either
+    way. ``return_info`` (exclusive with ``padded_output``; not with a
+    quartered g) adds {"cycles": int, "residual": max |g - A u|}.
+    ``eig_cache``: see ``coarse_solve``; without one, the solve keeps its
+    own, so each geometry's coarsest basis is built once a call.
     """
     tol = float(tol)
     if padded_output and return_info:
@@ -566,9 +662,6 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
     if quartered and (u0 is not None or fmg_start or pcg or return_info):
         raise ValueError("a quartered g supports only the zero-start padded='q' modes "
                          "(no u0/fmg_start/pcg/return_info)")
-    for flag, what in ((fmg_start, "fmg_start"), (pcg, "pcg")):
-        if flag:
-            raise _not_ported(f"solve_multigrid {what}", "slice 4b (dense multigrid modes)")
     c = g.shape[0]
     if true_hw is not None:
         h, w = (int(x) for x in true_hw)
@@ -589,6 +682,16 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
         g_pre = None
     if u0 is not None and tuple(u0.shape) != (c, h, w):
         raise ValueError(f"u0 {tuple(u0.shape)} is not the true-size {(c, h, w)}")
+    if eig_cache is None:
+        eig_cache = {}
+    if u0 is None and fmg_start:  # the cascade's result is a warm start, as in JAX
+        u0 = fmg(g, nu1, nu2, coarsest, use_pallas, eig_cache=eig_cache)
+    if pcg and cycles is None:
+        u, it, rmax = _pcg(g, torch.zeros_like(g) if u0 is None else u0, tol, max_cycles, nu1,
+                           nu2, coarsest, use_pallas, eig_cache)
+        if return_info:
+            return u, {"cycles": it, "residual": rmax.item()}
+        return u
     if padded == "q" and quarter_path_applies(h, w, nu1, nu2, coarsest, use_pallas):
         _, hq, wq2, _ = K.mg_geometry_q(h, w)
         dense = (c, 2 * hq, 2 * wq2)
@@ -611,22 +714,20 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
         return out
     if quartered:  # a grid the quarter chain does not take: its dense view
         g = K.from_quarters_plain(g_pre)[:, :h, :w]
-    g_p = g_pre if padded == "t" else None  # the "t" chain's own slab
     small = _small(h, w, coarsest)
     # padded=False: the element vcycle, whose large levels fuse on their own
     fused = padded is not False and t_chain_applies(h, w, nu1, nu2, coarsest, use_pallas)
-    if fused and padded != "t":
-        raise mg_padded_not_ported(padded, f" on a {h}x{w} grid")
-    if fused:
+    if fused and padded == "t":
         geom = K.mg_geometry_t(h, w)
-        if g_p is None:
-            g_p = _pad_to(g, (c, geom[1], geom[2]))
+        g_p = g_pre if g_pre is not None else _pad_to(g, (c, geom[1], geom[2]))
 
         def cycle(u):
             return vcycle_t(u, g_p, h, w, nu1, nu2, coarsest, geom=geom, eig_cache=eig_cache)
+    elif fused:  # True, and "q" where the quarter gate fails: the dense rounded chain
+        g_p = _pad_to(g, (c, *K.mg_geometry(h, w)[1:])).contiguous()
 
-        def crop(u):
-            return u[:, :h, :w]
+        def cycle(u):
+            return vcycle_p(u, g_p, h, w, nu1, nu2, coarsest, eig_cache=eig_cache)
     else:
         g = g.contiguous()
 
@@ -634,12 +735,12 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
             return vcycle(torch.zeros_like(g) if u is None else u, g, nu1, nu2, coarsest,
                           use_pallas, eig_cache=eig_cache)
 
-        def crop(u):
-            return u
+    def crop(u):  # once per check and once at the end: the slabs pad once on the way in
+        return u[:, :h, :w] if fused else u
 
     u = None  # a known-zero start
     if u0 is not None:
-        u = _pad_to(u0, g_p.shape) if fused else u0
+        u = _pad_to(u0, g_p.shape).contiguous() if fused else u0
     if cycles is not None:
         it = int(cycles)
         for _ in range(it):

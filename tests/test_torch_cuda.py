@@ -1435,3 +1435,102 @@ def test_tiled_engine_on_card_matches_cpu(cuda):
     one = TiledSeamlessClone(CloneConfig(), mesh=make_tile_mesh([cuda], (1, 1)))
     assert torch.equal(one.run(src, dst, mask, (100, 60)),
                        SeamlessClone(CloneConfig(), device=cuda).run(src, dst, mask, (100, 60)))
+
+
+# mg_geometry's slabs (the dense rounded chain, vcycle_p): th 160 up to wp
+# 2560 (hp a multiple of 160), 128 above; each the fine level or a coarse
+# level (betas from _coarsen) of the headline and 8K dense chains
+DENSE_LEVELS = [((512, 520), (1.0, 1.0)), ((1548, 2396), (1.0, 1.0)),
+                ((773, 1197), (1.5, 1.5)), ((2798, 3798), (1.0, 1.0)),
+                ((1398, 1898), (1.5, 1.5)), ((698, 948), (1.75, 1.75))]
+
+
+@pytest.mark.parametrize("hw,beta", DENSE_LEVELS)
+def test_mg_level_on_mg_geometry_slabs(cuda, nan_outputs, hw, beta):
+    """mg_down (nu1 0-2, given and known-zero guess) and mg_up (nu2 0, 2,
+    4) on mg_geometry's slab, bit-exact against their twins over the whole
+    outputs."""
+    (h, w), (bh, bw) = hw, beta
+    th, hp, wp = K.mg_geometry(h, w)
+    assert hp % th == 0 and th in (128, 160) and hp % 2 == 0
+    rng = np.random.default_rng(h + 7 * w)
+    g = _level_slab(rng, h, w, hp, wp)
+    u = _level_slab(rng, h, w, hp, wp, 10.0)
+    e = _level_slab(rng, (h - 1) // 2, w, hp // 2, wp, 5.0)
+    g_c, u_c, e_c = g.to(cuda), u.to(cuda), e.to(cuda)
+    for nu1 in (0, 1, 2):
+        for guess in (u, None):
+            got = K.mg_down(None if guess is None else u_c, g_c, nu1, h, w, bh, bw)
+            want = K.mg_down_plain(guess, g, nu1, h, w, bh, bw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), (nu1, guess is None)
+    for nu2 in (0, 2, 4):
+        got = K.mg_up(u_c, g_c, e_c, nu2, h, w, bh, bw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), K.mg_up_plain(u, g, e, nu2, h, w, bh, bw)), nu2
+
+
+def test_dense_solve_on_card(cuda):
+    """solve_multigrid(padded=True) on (1, 512, 520): one fused level (mg_down
+    and mg_up once a cycle), bit-equal to padded=False on the card, the
+    CPU's cycles, rel 1e-5; "q" with nu1 = 0 the same chain; fmg_start and
+    pcg with the CPU's cycles and iterations."""
+    rng = np.random.default_rng(13)
+    g = torch.from_numpy(rng.normal(size=(1, 512, 520)).astype(np.float32) * 50)
+    g_c = g.to(cuda)
+    want, winfo = TM.solve_multigrid(g, use_pallas=True, padded=True, return_info=True)
+    K.reset_launches()
+    got, info = TM.solve_multigrid(g_c, use_pallas=True, padded=True, return_info=True)
+    torch.cuda.synchronize()
+    assert info["cycles"] == winfo["cycles"] >= 2
+    assert K.LAUNCHES == _per_frame(mg_down=info["cycles"], mg_up=info["cycles"])
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    unp = TM.solve_multigrid(g_c, use_pallas=True, padded=False, return_info=True)
+    assert torch.equal(unp[0], got) and unp[1] == info
+    nu0 = TM.solve_multigrid(g_c, use_pallas=True, padded="q", nu1=0, cycles=2)
+    assert torch.equal(nu0, TM.solve_multigrid(g_c, use_pallas=True, padded=True, nu1=0,
+                                               cycles=2))
+    for kw in ({"fmg_start": True, "padded": True}, {"fmg_start": True, "padded": "q"},
+               {"pcg": True}):
+        want, winfo = TM.solve_multigrid(g, use_pallas=True, return_info=True, **kw)
+        got, info = TM.solve_multigrid(g_c, use_pallas=True, return_info=True, **kw)
+        assert info["cycles"] == winfo["cycles"], kw
+        assert (got.cpu() - want).abs().max().item() <= 5e-5 * want.abs().max().item(), kw
+
+
+@pytest.mark.parametrize("mode", ["bf16", "2x_img", "2x_v"])
+def test_precision_gemm_route_matches_cpu(cuda, mode):
+    """The card's bf16 GEMM (one cuBLAS bf16 GEMM with an FP32 output a
+    pass) against the CPU route (the widened operands' FP32 product), on the
+    headline pair chain's first GEMM: relative 1e-5 of max |out|."""
+    from seamlesscloneoptimization_tpu_torch.solvers import dst_gemm as TD
+
+    rng = np.random.default_rng(14)
+    a = torch.from_numpy(rng.normal(size=(3, 2432, 896)).astype(np.float32) * 50)
+    v = torch.from_numpy(np.array(TD.dst_matrices_folded(1548)[0]))
+    want = TD._mm(a, v, TD._split_bf16(v), mode)
+    v_c = v.to(cuda)
+    got = TD._mm(a.to(cuda), v_c, TD._split_bf16(v_c), mode)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("precision", ["default", "2x_img", "2x_v", "fwd2x", "inv2x"])
+def test_precision_engine_on_card(cuda, precision):
+    """The pair-chain frame in each bf16 mode on the card: the same kernels
+    a frame as in FP32, the image within 1 of the CPU path's in the same
+    mode."""
+    rng = np.random.default_rng(15)
+    src = _u8(rng, (300, 400, 3))
+    dst = _u8(rng, (360, 480, 3))
+    mask = np.full((300, 400), 255, np.uint8)
+    cfg = CloneConfig(precision=precision)
+    K.reset_launches()
+    out = SeamlessClone(cfg, device=cuda).run(src, dst, mask, (240, 180))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=2,
+                                    transpose_pair=3, unfold_transpose=2,
+                                    unfold_clamp_paste=1)
+    want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (240, 180)).numpy()
+    assert np.abs(out.cpu().numpy().astype(np.int16) - want).max() <= 1

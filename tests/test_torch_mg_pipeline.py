@@ -196,9 +196,10 @@ def test_auto_above_crossover_runs_multigrid(monkeypatch):
     eng = SeamlessClone(CloneConfig(tol=0.05), device="cpu")
     assert eng.run(src, dst, mask, (320, 300)).shape == dst.shape
     assert eng.metrics["solver_resolved"] == "multigrid"
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        SeamlessClone(CloneConfig(mg_padded=True), device="cpu").run(small_src, dst, small_mask,
-                                                                    (320, 300))
+    # mg_padded=True: a grid below the fused gate runs the element path too
+    dense = SeamlessClone(CloneConfig(mg_padded=True), device="cpu")
+    assert np.array_equal(dense.run(small_src, dst, small_mask, (320, 300)).numpy(), want)
+    assert dense.metrics["solver_resolved"] == "multigrid"
     # mg_padded=False runs the element V-cycle: below the fused gate, the
     # same arithmetic as every other mode
     eng = SeamlessClone(CloneConfig(mg_padded=False), device="cpu")

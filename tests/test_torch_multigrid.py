@@ -320,17 +320,28 @@ def test_padded_output_and_true_hw():
         TM.solve_multigrid(_t(g), padded_output=True, return_info=True)
 
 
-@pytest.mark.parametrize("kw, match", [
-    (dict(padded="q", pcg=True), "slice 4"),  # pcg and fmg_start raise on every chain
-    (dict(padded=True), "slice 4"),
-    (dict(padded="q", nu1=0), "slice 4"),  # JAX's dense rounded chain (vcycle_p)
-    (dict(padded="t", pcg=True), "slice 4"),
-    (dict(padded="t", fmg_start=True), "slice 4"),
-    (dict(padded="q", fmg_start=True, u0=torch.zeros((1, 512, 520))), "slice 4"),
+_U0 = _t(_rand((1, 512, 520), 9, 1.0))
+
+
+@pytest.mark.parametrize("kw, same_as", [
+    # with cycles, pcg is not read (as in JAX): the fixed-work V-cycles
+    (dict(padded="q", pcg=True), dict(padded="q")),
+    (dict(padded=True), dict(padded=False)),  # vcycle_p: bit-equal to the element chain
+    (dict(padded="q", nu1=0), dict(padded=True, nu1=0)),  # the quarter gate fails: vcycle_p
+    (dict(padded="t", pcg=True), dict(padded="t")),
+    (dict(padded="t", fmg_start=True), dict(padded="t", u0="fmg")),  # fmg(g) as a warm start
+    (dict(padded="q", fmg_start=True, u0=_U0), dict(padded="q", u0=_U0)),  # u0 wins
 ])
-def test_unported_modes_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        TM.solve_multigrid(torch.zeros((1, 512, 520)), use_pallas=True, cycles=1, **kw)
+def test_unported_modes_raise(kw, same_as):
+    """The modes that raised before the dense modes were ported (pcg,
+    fmg_start, padded=True, "q" with nu1 = 0) now run on a fused grid, each
+    equal to the solve it stands for."""
+    g = _t(_rand((1, 512, 520), 10))
+    if same_as.get("u0") == "fmg":
+        same_as = dict(same_as, u0=TM.fmg(g, 1, 2, 63, use_pallas=True))
+    got = TM.solve_multigrid(g, use_pallas=True, cycles=1, **kw)
+    assert got.shape == g.shape and torch.isfinite(got).all() and got.abs().max() > 0
+    assert torch.equal(got, TM.solve_multigrid(g, use_pallas=True, cycles=1, **same_as))
 
 
 def test_small_grids_run_every_mode():

@@ -349,22 +349,34 @@ def test_no_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("cfg, match", [
-    (CloneConfig(solver="multigrid", mg_padded=True), "slice 4"),  # the dense modes
-    (CloneConfig(precision="2x_img"), "slice 4"),  # a DST-GEMM precision mode (4c)
-    (CloneConfig(precision="fwd2x"), "not ported"),  # a DST-GEMM precision mode
+    (CloneConfig(solver="multigrid", mg_padded=True), None),  # the dense modes (4b)
+    (CloneConfig(precision="2x_img"), None),  # a DST-GEMM precision mode (4c)
+    (CloneConfig(precision="fwd2x"), None),  # a DST-GEMM precision mode
     (CloneConfig(bbox_bucket=64), "slice 5"),
     (CloneConfig(debug_dump=True), "slice 5"),
 ])
 def test_unported_configs_raise(cfg, match):
-    with pytest.raises(NotImplementedError, match=match):
-        SeamlessClone(cfg, device="cpu")
+    """What a later slice brings raises, naming its ROADMAP slice; slices
+    4b and 4c run (each against the JAX engine in
+    tests/test_torch_dense_modes.py and tests/test_torch_precision_modes.py)."""
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            SeamlessClone(cfg, device="cpu")
+        return
+    src, dst, mask = _images()
+    prep = prepare_inputs(mask, src.shape, dst.shape, CENTER)
+    out = SeamlessClone(cfg, device="cpu").run(src, dst, mask, CENTER).numpy()
+    inside = _interior(dst.shape, prep)
+    assert out.shape == dst.shape and out.dtype == np.uint8
+    assert np.array_equal(out[~inside], dst[~inside])
+    assert not np.array_equal(out[inside], dst[inside])
 
 
 def test_auto_above_crossover_raises(monkeypatch):
     """Above the crossover the default mg_padded="q" runs (tests/
     test_torch_mg_pipeline.py), at any tolerance: one whose check-free burst
     is 0 runs the check-first loop, the serve frame landing where the run
-    does. What still raises there: the dense modes (slice 4)."""
+    does. The dense mode mg_padded=True runs there too."""
     monkeypatch.setattr(TE, "AUTO_CROSSOVER_PIXELS", 100)
     monkeypatch.setattr(TE, "SERVE_CROSSOVER_PIXELS", 100)
     src, dst, _ = _images(src_hw=(522, 530), dst_hw=(560, 600))
@@ -375,11 +387,11 @@ def test_auto_above_crossover_raises(monkeypatch):
     assert eng.metrics["solver_resolved"] == "multigrid"
     served, _ = eng.timed_serve(src, dst, mask, center, loops=0)
     assert np.array_equal(served.numpy(), run) and not np.array_equal(run, dst)
-    eng = SeamlessClone(CloneConfig(mg_padded=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        eng.run(src, dst, mask, center)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        eng.timed_serve(src, dst, mask, center, loops=1)
+    eng = SeamlessClone(CloneConfig(mg_padded=True, tol=0.05), device="cpu")
+    dense = eng.run(src, dst, mask, center).numpy()
+    assert eng.metrics["solver_resolved"] == "multigrid"
+    served, _ = eng.timed_serve(src, dst, mask, center, loops=0)
+    assert np.array_equal(served.numpy(), dense) and not np.array_equal(dense, dst)
 
 
 def test_port_imports_no_jax():

@@ -182,11 +182,22 @@ def test_solve_dst_gemm_matches_jax(kw):
 
 
 def test_unported_precision_raises():
-    g = torch.zeros((3, 8, 8))
-    with pytest.raises(NotImplementedError, match="precision"):
-        TD.solve_dst_gemm(g, precision="default")
-    with pytest.raises(NotImplementedError, match="precision"):
-        TD.solve_dst_gemm_pl(torch.zeros((3, 128, 128)), 8, 8, precision="2x_v")
+    """Every mode of the JAX package runs (held against it in
+    tests/test_torch_precision_modes.py); a two-pass mode in the plain solve
+    and an unknown name raise ValueError."""
+    g = torch.from_numpy(np.random.default_rng(6).normal(size=(3, 8, 8)).astype(np.float32))
+    fp32 = TD.solve_dst_gemm(g, precision="highest")
+    default = TD.solve_dst_gemm(g, precision="default")
+    assert default.shape == fp32.shape and not torch.equal(default, fp32)
+    assert (default - fp32).abs().max() <= 2.0 ** -6 * fp32.abs().max()
+    g_tp = torch.zeros((3, 128, 128))
+    g_tp[:, :8, :8] = g.transpose(1, 2)
+    u = TD.solve_dst_gemm_pl(g_tp, 8, 8, precision="2x_v")
+    assert (u[:, :8, :8] - fp32).abs().max() <= 2.0 ** -6 * fp32.abs().max()
+    with pytest.raises(ValueError, match="precision"):
+        TD.solve_dst_gemm(g, precision="2x_v")
+    with pytest.raises(ValueError, match="precision"):
+        TD.solve_dst_gemm_pl(g_tp, 8, 8, precision="bf16_3x")
 
 
 def test_solver_registry():
