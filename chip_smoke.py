@@ -181,7 +181,27 @@
      GEMM products in the mode timed back to back, a profile of each
      mode's frame and of FP32's beside it, and each mode's single run's
      diff_max against FP32's and against the CPU path (the
-     ``precision_modes`` JSON line).
+     ``precision_modes`` JSON line);
+   - slice 5, bucketed serving (``bbox_bucket=128``) on seeded ellipse
+     masks whose tight bbox is a multiple of 128 on neither side:
+     ``bucket_exact_headline`` (``bucket_exact=True``, tight 1401x2201 in
+     the bucket 1408x2304 of the headline frame, tol 1e-4): the tight
+     system's runtime-domain multigrid, erode3, the exact-size
+     preprocess_rhs_p and clamp_cast_paste once a frame, mg_down / mg_up
+     once per fused dyn level (2) a cycle; card against the CPU, the
+     single run's cycles equal to those ``solve_dyn_window`` reports on
+     the card and on the CPU for its RHS, a served frame equal to run(),
+     diff_max against the tight unbucketed dst_gemm frame;
+     ``bucket_exact_8k`` (tight 2601x3601 in 2688x3712, 3 fused levels):
+     cycles against the report, relative residual <= tol;
+     ``bucket_grown_headline`` (the pair chain on the 1406x2302 bucket
+     interior; three tight bboxes in the one bucket leave one cached set
+     of DST bases), ``bucket_grown_post_t`` (``use_pallas_preprocess=
+     False``: postprocess_transposed's ragged route, h2 % 4 = 2), both card
+     against the CPU, and ``bucket_grown_8k`` (2686x3710, 9.97 MP: the
+     ``"q"`` chain, cycles against the solve of its RHS); each with its
+     profile (busy, idle share, torch ops a frame; the ``bucket_paths``
+     JSON line) and its kernels' in-the-loop times on the kernels line.
 
 With ``--other OTHER_ROOT`` (another checkout of this repository, for
 example the parent commit unpacked with ``git archive``; only its
@@ -281,6 +301,12 @@ DD_TILES = DD_MESH[0] * DD_MESH[1]
 DD_BAND = 6  # the DD multigrid's CA ghost band at nu = (1, 2)
 RB_TILED_SWEEPS = 1000  # rb_tiled: a fixed count, tol 0
 RB_TILED_HALO = 4  # solve_redblack_tiled's default: 2 sweeps an exchange
+# slice 5: bbox_bucket=128 on seeded ellipse masks whose tight bbox is a
+# multiple of 128 on neither side (the buckets' interiors then are 126 mod 128)
+BUCKET = 128
+BUCKET_BBOX, BUCKET_HW = (1401, 2201), (1408, 2304)  # headline: interior 1406 x 2302
+BUCKET_BBOX_8K, BUCKET_HW_8K = (2601, 3601), (2688, 3712)  # 8K: interior 2686 x 3710
+BUCKET_SIZES = ((1401, 2201), (1290, 2180), (1350, 2250))  # one headline bucket
 
 
 UNFUSED_PROFILE = "mg_q 8K tolerance (unfused chain)"
@@ -342,7 +368,31 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
                 "clamp_cast_paste unfolded": ("unfolded", "clamp_cast_paste_kernel"),
                 "clamp_cast_paste tiled_dd": ("tiled_dd 8K tolerance", "clamp_cast_paste_kernel"),
                 "clamp_cast_paste dst_fft": ("dst_fft", "clamp_cast_paste_kernel"),
-                "postprocess_transposed": ("dst_post_t", "postprocess_transposed_kernel")}
+                "postprocess_transposed": ("dst_post_t", "postprocess_transposed_kernel"),
+                # slice 5: the bucketed frames (bucket_exact's kernels, the
+                # grown bucket's pair chain, its ragged transposed tail at
+                # h2 = 1406 and its "q" chain at 8K)
+                **{f"{k} bucket_exact_{p}": (f"bucket_exact {label}", kernel)
+                   for p, label in (("headline", "headline"), ("8k", "8K"))
+                   for k, kernel in (("erode3", "erode3_kernel"),
+                                     ("preprocess_rhs_p_exact", "preprocess_rhs_p_kernel"),
+                                     ("mg_down_exact", "mg_down_kernel"),
+                                     ("mg_up_exact", "mg_up_kernel"),
+                                     ("clamp_cast_paste", "clamp_cast_paste_kernel"))},
+                **{f"{k} bucket_grown_headline": ("bucket_grown headline", kernel)
+                   for k, kernel in (("preprocess_rhs_t", "preprocess_rhs_t_kernel"),
+                                     ("fold_minor", "fold_minor_kernel"),
+                                     ("transpose_pair", "transpose_pair"),
+                                     ("unfold_transpose", "unfold_transpose"),
+                                     ("unfold_clamp_paste", "unfold_clamp_paste"))},
+                "postprocess_transposed bucket_grown_post_t": ("bucket_grown_post_t",
+                                                               "postprocess_transposed"),
+                **{f"{k} bucket_grown_8k": ("bucket_grown 8K", kernel)
+                   for k, kernel in (("mg_ud_q", "level_q_kernel<true, true"),
+                                     ("mg_down_t", "mg_down_t_kernel"),
+                                     ("mg_up_t", "mg_up_t_kernel"),
+                                     ("preprocess_rhs_q", "preprocess_rhs_q_kernel"),
+                                     ("clamp_cast_paste_q", "clamp_cast_paste_q_kernel"))}}
 # a LOOP_PROFILE profile -> the COMPARE_PATHS frame it profiles (default:
 # the profile's own label), whose --other turns time the kernel in the loop
 PROFILE_PATH = {"tiled_dd 8K tolerance": "tiled_dd", "mg_t 8K tolerance": "mg_t",
@@ -442,12 +492,23 @@ PATHS = {
     "mg_padded_true_headline": None,
     "mg_fmg": None,
     "mg_pcg": None,
+    # slice 5: bucketed serving. bucket_exact: the tight system inside the
+    # bucket (erode3, the exact-size preprocess_rhs_p and clamp_cast_paste
+    # once, mg_down / mg_up once per fused level a cycle, data-dependent
+    # cycles); the grown bucket: the pair chain at the headline, the
+    # transposed tail with use_pallas_preprocess=False, the "q" chain at 8K
+    "bucket_exact_headline": None,
+    "bucket_exact_8k": None,
+    "bucket_grown_post_t": _per_frame(postprocess_transposed=1),
+    "bucket_grown_8k": None,
 }
+PATHS["bucket_grown_headline"] = dict(PATHS["pair"])  # the pair chain on the bucket
 # slice 4c: every precision mode's frame launches the pair chain's kernels
 PATHS.update({p: dict(PATHS["pair"]) for p in PRECISION_PATHS})
 DENSE_PATHS = ("mg_padded_false", "mg_padded_true", "mg_padded_true_headline")
 JACOBI_PATHS = ("jacobi", "jacobi_small")
-MG_Q_PATHS = ("mg_q", "mg_q_fixed", "mg_q_headline")
+MG_Q_PATHS = ("mg_q", "mg_q_fixed", "mg_q_headline", "bucket_grown_8k")
+BUCKET_EXACT_PATHS = ("bucket_exact_headline", "bucket_exact_8k")
 MG_Q_COARSE_PATHS = ("mg_q_coarse", "mg_q_coarse_headline")
 TILED_PATHS = ("tiled_dd", "tiled_dd_fixed", "tiled_dd_headline")
 # fused levels of the "t" chain; fused coarse levels below the quarter level
@@ -456,7 +517,10 @@ MG_LEVELS = {"mg_t": 4, "mg_t_headline": 3, "mg_q": 3, "mg_q_headline": 2, "mg_q
              # exact-size fused levels: the DD coarse solve's, mg_padded=False's
              "tiled_dd": 2, "tiled_dd_fixed": 2, "tiled_dd_headline": 1, "mg_padded_false": 2,
              # the dense rounded chain's fused levels (mg_geometry's slabs)
-             "mg_padded_true": 3, "mg_padded_true_fixed": 3, "mg_padded_true_headline": 2}
+             "mg_padded_true": 3, "mg_padded_true_fixed": 3, "mg_padded_true_headline": 2,
+             # bucket_exact's fused dyn levels (>= 2^18 true points); the grown
+             # 8K bucket's fused "q" coarse levels
+             "bucket_exact_headline": 2, "bucket_exact_8k": 3, "bucket_grown_8k": 3}
 # the path whose serve run gives each kernel's "launches"
 HOME_PATH = {"transpose": "unfolded", "clamp_cast_paste": "unfolded",
              "preprocess_rhs_p": "mg_t",
@@ -520,6 +584,20 @@ def synthetic_image(rng, hw, cell=48):
     img = np.kron(coarse, np.ones((cell, cell, 1), np.float32))[:h, :w]
     img += rng.normal(0.0, 6.0, img.shape).astype(np.float32)
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def ellipse_mask(rng, hw, bbox_hw):
+    """A u8 {0,255} ellipse mask whose bbox is exactly ``bbox_hw``, placed a
+    few pixels (drawn from ``rng``) off the image's centre."""
+    import numpy as np
+
+    bh_, bw_ = bbox_hw
+    y0 = (hw[0] - bh_) // 2 + int(rng.integers(-8, 9))
+    x0 = (hw[1] - bw_) // 2 + int(rng.integers(-8, 9))
+    cy, cx = y0 + (bh_ - 1) / 2, x0 + (bw_ - 1) / 2
+    yy, xx = np.ogrid[: hw[0], : hw[1]]
+    inside = ((yy - cy) / (bh_ / 2)) ** 2 + ((xx - cx) / (bw_ / 2)) ** 2 <= 1
+    return inside.astype(np.uint8) * 255
 
 
 def build_other(other_root: Path):
@@ -701,7 +779,8 @@ def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
                  check_mg_q_coarse_counts if path in MG_Q_COARSE_PATHS else
                  check_jacobi_counts if path in JACOBI_PATHS else
                  check_tiled_counts if path in TILED_PATHS else
-                 check_unpadded_counts if path in DENSE_PATHS else check_mg_counts)
+                 check_unpadded_counts if path in DENSE_PATHS + BUCKET_EXACT_PATHS
+                 else check_mg_counts)
         check(path, what, launches, frames)
         return
     for name, per in PATHS[path].items():
@@ -783,10 +862,11 @@ def check_tiled_counts(path: str, what: str, launches: dict, frames: int) -> int
 
 
 def check_unpadded_counts(path: str, what: str, launches: dict, frames: int) -> int:
-    """mg_padded=False and mg_padded=True frames: erode3, preprocess_rhs_p
-    (exact size) and clamp_cast_paste once a frame, mg_down and mg_up once
-    per fused level a cycle (the element V-cycle's, or vcycle_p's on
-    mg_geometry's slabs), nothing else. Returns the cycles."""
+    """mg_padded=False, mg_padded=True and bucket_exact frames: erode3,
+    preprocess_rhs_p (exact size) and clamp_cast_paste once a frame, mg_down
+    and mg_up once per fused level a cycle (the element V-cycle's, vcycle_p's
+    on mg_geometry's slabs, or the runtime-domain multigrid's), nothing else.
+    Returns the cycles."""
     levels = MG_LEVELS[path]
     n, rem = divmod(launches["mg_down"], levels)
     want = _per_frame(erode3=frames, preprocess_rhs_p=frames, clamp_cast_paste=frames,
@@ -2164,9 +2244,12 @@ def main() -> int:
         make = engine or (lambda device: SeamlessClone(cfg, device=device))
         eng = make("cuda")
         ctr = (d_img.shape[1] // 2, d_img.shape[0] // 2)
-        prep = prepare_inputs(mask_, s_img.shape, d_img.shape, ctr)
-        _, _, (lft, tp), (rh, rw) = prep
-        interior = (tp + 1, lft + 1, rh - 2, rw - 2)
+        exact = bool(cfg.bucket_exact and cfg.bbox_bucket)
+        _, _, (lft, tp), (rh, rw), *tight = prepare_inputs(
+            mask_, s_img.shape, d_img.shape, ctr, bucket=cfg.bbox_bucket, return_tight=exact)
+        # the written interior: the tight bbox's in bucket_exact mode
+        dy, dx, th, tw = tight[0] if exact else (0, 0, rh, rw)
+        interior = (tp + dy + 1, lft + dx + 1, th - 2, tw - 2)
         K.reset_launches()
         out, ms = eng.timed_serve(s_img, d_img, mask_, ctr, loops=loops)
         torch.cuda.synchronize()
@@ -2181,7 +2264,7 @@ def main() -> int:
         check_outside(out_np, d_img, interior)
         mps = s_img.shape[0] * s_img.shape[1] / (ms * 1e3)
         print(f"serve {path} ({label}): {ms:.4f} ms/frame, {mps:.1f} MP/s over {loops} "
-              f"chained frames, interior {rh - 2}x{rw - 2} ({card}); "
+              f"chained frames, interior {th - 2}x{tw - 2} of ROI {rh}x{rw} ({card}); "
               f"device memory {eng.metrics['device_memory_bytes']} B")
         K.reset_launches()
         run_out = eng.run(s_img, d_img, mask_, ctr)
@@ -2957,6 +3040,218 @@ def main() -> int:
     print(json.dumps({"precision_modes": precision_rows, "solver_runs": solver_runs}))
     del prec_kw, g_tp_c, u_fp32
 
+    # -- slice 5: bucketed serving, bbox_bucket=128 on seeded ellipse masks:
+    #    bucket_exact at the headline and at 8K, the grown bucket on the pair
+    #    chain, on the transposed tail and on the "q" chain at 8K ------------------
+    from seamlesscloneoptimization_tpu_torch.solvers.multigrid_dyn import solve_dyn_window
+
+    rng_b = np.random.default_rng(SEED + 11)
+    mask_b = ellipse_mask(rng_b, SRC_HW, BUCKET_BBOX)
+    mask_b8 = ellipse_mask(rng_b, SRC_8K, BUCKET_BBOX_8K)
+    bucket_rows = {}
+
+    def bucket_prep(s_img, mask_, d_img):
+        """prepare_inputs with the bucket: (mask, xy, left_top, bucket hw, tight)."""
+        ctr = (d_img.shape[1] // 2, d_img.shape[0] // 2)
+        return prepare_inputs(mask_, s_img.shape, d_img.shape, ctr, bucket=BUCKET,
+                              return_tight=True)
+
+    def bucket_roi(s_img, mask_, d_img, device, window):
+        """(dest, patch, mask) of the bucket ROI (``window`` False) or of the
+        tight window in it, as the pipeline makes them."""
+        m_, (xs, ys), (lf, tp), (rh, rw), (dy, dx, th, tw) = bucket_prep(s_img, mask_, d_img)
+        if window:
+            xs, ys, lf, tp, rh, rw = xs + dx, ys + dy, lf + dx, tp + dy, th, tw
+        dd = torch.from_numpy(d_img).to(device).permute(2, 0, 1)[:, tp : tp + rh, lf : lf + rw]
+        ss = torch.from_numpy(s_img).to(device)[ys : ys + rh, xs : xs + rw].permute(2, 0, 1)
+        mm = torch.from_numpy(np.ascontiguousarray(m_[ys : ys + rh, xs : xs + rw])).to(device)
+        return dd, torch.where(mm[None] != 0, ss, 0).to(torch.uint8), mm
+
+    def tight_rhs(s_img, mask_, d_img, device):
+        """The RHS a bucket_exact frame solves (the tight window's, exact
+        size: the kernels on the card, their twins on the CPU), and the
+        bucket's interior, whose shape sets the hierarchy."""
+        dd, pp, mm = bucket_roi(s_img, mask_, d_img, device, window=True)
+        _, _, _, (rh, rw), _ = bucket_prep(s_img, mask_, d_img)
+        th, tw = mm.shape
+        return K.preprocess_rhs_p(dd, pp, K.erode3(mm), (th - 2, tw - 2)), (rh - 2, rw - 2)
+
+    def bucket_profile(label, eng_, s_img, mask_, d_img):
+        """profile_frames of the engine's serve frame (the tight bbox carried
+        along in bucket_exact mode)."""
+        ctr = (d_img.shape[1] // 2, d_img.shape[0] // 2)
+        m_, xy, lt, hw, tight = eng_._unpack_prep(eng_._prepare(mask_, s_img, d_img, ctr))
+        kw = dict(src=torch.from_numpy(s_img).to(dev),
+                  dst=torch.from_numpy(d_img).to(dev).permute(2, 0, 1).contiguous(),
+                  mask=torch.from_numpy(m_).to(dev), bbox_xy=xy, left_top=lt, true_bbox=tight,
+                  planar_dst=True, **eng_._pipeline_kwargs(hw, eng_.config.flags, True))
+        return profile_frames(label, clone_pipeline, kw, frames=3, into=loop_profiles)
+
+    def served_equals_run(path, eng_, s_img, mask_, d_img):
+        """One chained serve frame (the warm-up on the planar buffer) against
+        the path's single-shot run, byte for byte."""
+        ctr = (d_img.shape[1] // 2, d_img.shape[0] // 2)
+        served, _ = eng_.timed_serve(s_img, d_img, mask_, ctr, loops=0)
+        if not np.array_equal(served.cpu().numpy(), run_outputs[path]):
+            raise AssertionError(f"{path}: a served frame differs from run()")
+
+    def prof_row(prof):
+        return dict(busy_us=prof["busy_us"], span_us=prof["span_us"], idle=prof["idle"],
+                    torch_op_launches=prof.get("torch_op_launches"))
+
+    for hw_, bbox, want in ((SRC_HW, BUCKET_BBOX, BUCKET_HW),
+                            (SRC_8K, BUCKET_BBOX_8K, BUCKET_HW_8K)):
+        m_t = mask_b if hw_ == SRC_HW else mask_b8
+        d_t = dst if hw_ == SRC_HW else dst8
+        prep_t = bucket_prep(np.empty(hw_ + (3,), np.uint8), m_t, d_t)
+        if prep_t[3] != want or tuple(prep_t[4][2:]) != bbox:
+            raise AssertionError(f"bucket geometry {prep_t[3]}, tight {prep_t[4]}: expected "
+                                 f"{want}, {bbox}")
+    bh2, bw2 = BUCKET_HW[0] - 2, BUCKET_HW[1] - 2
+    bh28, bw28 = BUCKET_HW_8K[0] - 2, BUCKET_HW_8K[1] - 2
+    print(f"bucket geometry: headline tight {BUCKET_BBOX} in bucket {BUCKET_HW} (interior "
+          f"{bh2} x {bw2}, h2 % 4 = {bh2 % 4}, w2 % 128 = {bw2 % 128}), 8K tight "
+          f"{BUCKET_BBOX_8K} in bucket {BUCKET_HW_8K} (interior {bh28} x {bw28}, "
+          f"{bh28 * bw28 / 1e6:.2f} MP)")
+
+    # bucket_exact at the headline: the card against the CPU, the cycles against
+    # the CPU path's report, a served frame equal to run(), and the image
+    # against the tight unbucketed DST-GEMM frame's
+    cfg_be = CloneConfig(bbox_bucket=BUCKET, bucket_exact=True)
+    eng_be, be_ms = drive("bucket_exact_headline", cfg_be, src, mask_b, MG_LOOPS, headline,
+                          cpu="run", solver="multigrid_dyn")
+    be_run = check_unpadded_counts("bucket_exact_headline", "single-shot run",
+                                   path_launches["bucket_exact_headline"][1], 1)
+    be_serve = (path_launches["bucket_exact_headline"][0]["mg_down"]
+                / MG_LEVELS["bucket_exact_headline"] / (MG_LOOPS + 1))
+    g_bh, pad_bh = tight_rhs(src, mask_b, dst, dev)
+    _, info_bh = solve_dyn_window(g_bh, pad_bh, tol=TOL, return_info=True)
+    g_bh_cpu, _ = tight_rhs(src, mask_b, dst, "cpu")
+    _, info_bh_cpu = solve_dyn_window(g_bh_cpu, pad_bh, tol=TOL, return_info=True)
+    rel_bh = info_bh["residual"] / g_bh.abs().max().item()
+    served_equals_run("bucket_exact_headline", eng_be, src, mask_b, dst)
+    tight_img = SeamlessClone(CloneConfig(), device="cuda").run(
+        src, dst, mask_b, center).cpu().numpy()
+    d_tight = diff_max(run_outputs["bucket_exact_headline"], tight_img)
+    print(f"bucket_exact headline ({card}): single run {be_run} cycles, the card's solve of its "
+          f"RHS {info_bh['cycles']}, the CPU path's {info_bh_cpu['cycles']}; relative residual "
+          f"{rel_bh:.3e} (tol {TOL}); a served frame equal to run(); diff_max against the tight "
+          f"unbucketed dst_gemm frame {d_tight}")
+    if not (be_run == info_bh["cycles"] == info_bh_cpu["cycles"]) or not rel_bh <= TOL:
+        raise AssertionError(f"bucket_exact headline: {be_run} cycles run, card {info_bh}, "
+                             f"CPU {info_bh_cpu}")
+    del g_bh, g_bh_cpu
+    bucket_rows["bucket_exact_headline"] = dict(
+        ms_per_frame=be_ms, cycles_run=be_run, cycles_per_served_frame=be_serve,
+        cpu_cycles=info_bh_cpu["cycles"], rel_residual=rel_bh,
+        diff_max_vs_cpu=cpu_diffs[f"bucket_exact_headline ({headline})"],
+        diff_max_vs_tight_dst_gemm=d_tight,
+        **prof_row(bucket_profile("bucket_exact headline", eng_be, src, mask_b, dst)))
+    del eng_be
+
+    # bucket_exact at 8K: the cycles against the solver's report, the residual
+    eng_be8, be8_ms = drive("bucket_exact_8k", cfg_be, src8, mask_b8, MG_LOOPS, "8K",
+                            d_img=dst8, cpu=None, solver="multigrid_dyn")
+    be8_run = check_unpadded_counts("bucket_exact_8k", "single-shot run (8K)",
+                                    path_launches["bucket_exact_8k"][1], 1)
+    be8_serve = (path_launches["bucket_exact_8k"][0]["mg_down"]
+                 / MG_LEVELS["bucket_exact_8k"] / (MG_LOOPS + 1))
+    g_b8, pad_b8 = tight_rhs(src8, mask_b8, dst8, dev)
+    u_b8, info_b8 = solve_dyn_window(g_b8, pad_b8, tol=TOL, return_info=True)
+    rel_b8 = info_b8["residual"] / g_b8.abs().max().item()
+    rel_b8_64 = rel_residual(u_b8, g_b8)
+    served_equals_run("bucket_exact_8k", eng_be8, src8, mask_b8, dst8)
+    print(f"bucket_exact 8K ({card}): single run {be8_run} cycles, the solve of its RHS "
+          f"{info_b8['cycles']}; relative residual {rel_b8:.3e} (float64 {rel_b8_64:.3e}, tol "
+          f"{TOL}); a served frame equal to run()")
+    if be8_run != info_b8["cycles"] or not rel_b8 <= TOL or not torch.isfinite(u_b8).all():
+        raise AssertionError(f"bucket_exact 8K: {be8_run} cycles run, {info_b8}")
+    del g_b8, u_b8
+    bucket_rows["bucket_exact_8k"] = dict(
+        ms_per_frame=be8_ms, cycles_run=be8_run, cycles_per_served_frame=be8_serve,
+        rel_residual=rel_b8, rel_residual_f64=rel_b8_64,
+        **prof_row(bucket_profile("bucket_exact 8K", eng_be8, src8, mask_b8, dst8)))
+    del eng_be8
+
+    # the grown bucket at the headline (the pair chain on 1406 x 2302), then
+    # three mask sizes in the one bucket: one cached set of DST bases
+    cfg_bg = CloneConfig(bbox_bucket=BUCKET)
+    eng_bg, bg_ms = drive("bucket_grown_headline", cfg_bg, src, mask_b, SERVE_LOOPS, headline,
+                          cpu="run")
+    sizes = []
+    for bbox in BUCKET_SIZES:
+        mk = ellipse_mask(rng_b, SRC_HW, bbox)
+        *_, (bh_b, bw_b), tight_b = bucket_prep(src, mk, dst)
+        K.reset_launches()
+        out_b = eng_bg.run(src, dst, mk, center)
+        torch.cuda.synchronize()
+        if (bh_b, bw_b) != BUCKET_HW or tuple(tight_b[2:]) != bbox:
+            raise AssertionError(f"{bbox}: bucket {(bh_b, bw_b)}, tight {tight_b}")
+        check_counts("bucket_grown_headline", f"run, tight {bbox}", dict(K.LAUNCHES), 1)
+        sizes.append(dict(tight=bbox, changed=int((out_b.cpu().numpy() != dst).any(-1).sum())))
+    if len(eng_bg._bases) != 1:
+        raise AssertionError(f"three masks in one bucket left {len(eng_bg._bases)} bases")
+    d_grown = diff_max(run_outputs["bucket_grown_headline"], tight_img)
+    print(f"bucket_grown headline ({card}): three tight bboxes {[x['tight'] for x in sizes]} "
+          f"in the bucket {BUCKET_HW}, one _bases entry; diff_max against the tight "
+          f"unbucketed frame {d_grown} (the Dirichlet frame moved to the bucket's edge)")
+    bucket_rows["bucket_grown_headline"] = dict(
+        ms_per_frame=bg_ms, bases_entries=len(eng_bg._bases), sizes=sizes,
+        diff_max_vs_cpu=cpu_diffs[f"bucket_grown_headline ({headline})"],
+        diff_max_vs_tight_dst_gemm=d_grown,
+        **prof_row(bucket_profile("bucket_grown headline", eng_bg, src, mask_b, dst)))
+    del eng_bg, tight_img
+
+    # the grown bucket with use_pallas_preprocess=False: the plain RHS, the
+    # transposed solve, postprocess_transposed at h2 = 1406 (the ragged route)
+    eng_bp, bp_ms = drive("bucket_grown_post_t",
+                          CloneConfig(bbox_bucket=BUCKET, use_pallas_preprocess=False), src,
+                          mask_b, SERVE_LOOPS, headline, cpu="run")
+    bucket_rows["bucket_grown_post_t"] = dict(
+        ms_per_frame=bp_ms, h2_mod_4=bh2 % 4,
+        diff_max_vs_cpu=cpu_diffs[f"bucket_grown_post_t ({headline})"],
+        **prof_row(bucket_profile("bucket_grown_post_t", eng_bp, src, mask_b, dst)))
+    del eng_bp
+
+    # the grown bucket at 8K: 2686 x 3710 = 9.97 MP resolves to the "q"
+    # multigrid; the single run's cycles against the solve of its RHS
+    if (not TM.quarter_path_applies(bh28, bw28)
+            or len(TM.q_coarse_levels(bh28, bw28)) != MG_LEVELS["bucket_grown_8k"]):
+        raise AssertionError("the 8K bucket is not a quarter-plane grid with "
+                             f"{MG_LEVELS['bucket_grown_8k']} fused coarse levels")
+    eng_bg8, bg8_ms = drive("bucket_grown_8k", cfg_bg, src8, mask_b8, MG_LOOPS, "8K",
+                            d_img=dst8, cpu=None, solver="multigrid")
+    bg8_run = check_mg_q_counts("bucket_grown_8k", "single-shot run (8K)",
+                                path_launches["bucket_grown_8k"][1], 1)
+    dd8, pp8, mm8 = bucket_roi(src8, mask_b8, dst8, dev, window=False)
+    _, hq_b, wq2_b, _ = K.mg_geometry_q(bh28, bw28)
+    gq_b = K.preprocess_rhs_q(dd8, pp8, K.erode3(mm8), (2 * hq_b, 2 * wq2_b))
+    K.reset_launches()
+    uq_b = TM.solve_multigrid(gq_b, true_hw=(bh28, bw28), padded="q", use_pallas=True,
+                              tol=TOL, padded_output="quarters")
+    torch.cuda.synchronize()
+    bg8_solve = K.LAUNCHES["mg_ud_q"]
+    rel_bg8 = rel_residual(K.from_quarters(uq_b)[:, :bh28, :bw28],
+                           K.from_quarters(gq_b)[:, :bh28, :bw28])
+    print(f"bucket_grown 8K ({card}): single run {bg8_run} cycles (mg_ud_q launches), the "
+          f"solve of its RHS {bg8_solve}, relative residual {rel_bg8:.3e} (tol {TOL})")
+    if bg8_solve != bg8_run or not rel_bg8 <= TOL or not torch.isfinite(uq_b).all():
+        raise AssertionError(f"bucket_grown 8K: {bg8_run} cycles run, {bg8_solve} in the "
+                             f"solve, residual {rel_bg8}")
+    del dd8, pp8, mm8, gq_b, uq_b
+    bucket_rows["bucket_grown_8k"] = dict(
+        ms_per_frame=bg8_ms, cycles_run=bg8_run, rel_residual_f64=rel_bg8,
+        cycles_per_served_frame=path_launches["bucket_grown_8k"][0]["mg_ud_q"] / (MG_LOOPS + 1),
+        **prof_row(bucket_profile("bucket_grown 8K", eng_bg8, src8, mask_b8, dst8)))
+    del eng_bg8
+    for path, r in bucket_rows.items():
+        print(f"{path} ({card}): serve {r['ms_per_frame']:.4f} ms/frame, kernels busy "
+              f"{r['busy_us']:.1f} us/frame of a {r['span_us']:.1f} us span, idle share "
+              f"{r['idle']}, torch-op kernel launches {r['torch_op_launches']} a frame"
+              + (f", {r['cycles_per_served_frame']:g} cycles a served frame"
+                 if "cycles_per_served_frame" in r else ""))
+    print(json.dumps({"bucket_paths": bucket_rows}))
+
     # -- the kernel table: launches of each kernel's own path ---------------------
     for name in KERNELS:
         home = None if name in FOLDED else HOME_PATH.get(name, "pair")
@@ -2984,7 +3279,8 @@ def main() -> int:
         rows[name]["launches"] = path_launches["tiled_dd"][0][base]
         rows[name]["path"] = "tiled_dd (the coarse solve's fused levels)"
         rows[name]["launches_by_path"] = {p: path_launches[p][0][base] for p in (
-            "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline", "mg_padded_false")}
+            "tiled_dd", "tiled_dd_fixed", "tiled_dd_headline", "mg_padded_false",
+            *BUCKET_EXACT_PATHS)}
     loop_lines = []
     for key, (label, kernel) in LOOP_PROFILE.items():
         name, _, form = key.partition(" ")

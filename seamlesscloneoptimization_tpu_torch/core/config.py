@@ -24,9 +24,12 @@ on the card as they select it on the TPU (``core/engine.py``,
 plain torch stages, without the post-process (or for jacobi and dst_fft)
 the exact-size solve is pasted by ``clamp_cast_paste``, and dst_gemm with
 the post-process but not the pre-process ends in the
-``postprocess_transposed`` kernel. What a later slice brings raises
-NotImplementedError naming its ROADMAP slice: ``bbox_bucket`` and
-``debug_dump``.
+``postprocess_transposed`` kernel. ``bbox_bucket`` rounds the ROI up to a
+multiple, solving the grown bucket, or with ``bucket_exact`` the tight bbox's
+own system inside it (``solvers/multigrid_dyn.py``, to ``tol`` or for
+``mg_cycles`` cycles, up to ``max_cycles``). ``debug_dump`` and
+``debug_dir`` are carried for the CLI, which reads the first; the engine's
+``dump_stages`` writes into the second.
 """
 
 from __future__ import annotations
@@ -74,11 +77,11 @@ class CloneConfig:
     # the post-process but not the pre-process ends in postprocess_transposed.
     use_pallas_preprocess: bool = True
     use_pallas_postprocess: bool = True
-    debug_dump: bool = False  # per-stage dumps: not ported yet (raises)
+    debug_dump: bool = False  # the CLI's per-stage dumps (the engine does not read it)
     debug_dir: str = "/tmp/scl_debug"
     donate_dst: bool = False  # run() updates a caller's device tensor in place
-    bbox_bucket: int = 0  # bbox rounding: not ported yet (> 0 raises)
-    bucket_exact: bool = False
+    bbox_bucket: int = 0  # round the ROI up to this multiple (0 = the exact bbox)
+    bucket_exact: bool = False  # with bbox_bucket: solve the TIGHT system in the bucket
     # the TPU's persistent XLA cache: kept so configs carry across; unused here
     compilation_cache_dir: str | None = _DEFAULT_CACHE_DIR
 

@@ -25,26 +25,41 @@ seamlessClone-CUDA/seamlessClone_imp.cu:239-370):
   multigrid above it (the default ``mg_padded="q"`` at any ``tol``, ``"t"``,
   True, the dense rounded V-cycles, or False, the element V-cycle with its
   fused levels).
+- ``bbox_bucket > 0`` rounds the ROI up to a multiple (``prepare_inputs``):
+  the grown bucket is solved as the ROI, ``auto`` resolving on the bucket
+  and the DST bases cached per bucket. With ``bucket_exact`` the frame
+  solves the tight bbox's own system inside the bucket
+  (``models/pipeline.py:clone_roi_dyn``, the runtime-domain multigrid to
+  the config's ``tol``, or ``mg_cycles`` cycles, up to ``max_cycles``;
+  ``metrics["solver_resolved"] == "multigrid_dyn"``).
+- ``dump_stages`` writes one clone's stages into ``debug_dir``; ``profile``
+  is a ``torch.profiler`` context writing a Chrome trace; ``destroy`` drops
+  the caches and the tensors the engine holds.
 
-Not ported here (TPU-only or a later slice; see ROADMAP): the layout pin
-and self-heal, the sync-overhead subtraction, ``profile`` and
-``dump_stages``.
+Not ported here (TPU-only): the layout pin and self-heal, and the
+sync-overhead subtraction.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import tempfile
 import time
 import weakref
+from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity
+from torch.profiler import profile as torch_profile
 
-from seamlesscloneoptimization_tpu_torch import resolve_device
+from seamlesscloneoptimization_tpu_torch import native, resolve_device
 from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
 from seamlesscloneoptimization_tpu_torch.core.reference import mask_bounding_box, zero_mask_border
-from seamlesscloneoptimization_tpu_torch.models.pipeline import clone_pipeline
+from seamlesscloneoptimization_tpu_torch.models.pipeline import clone_pipeline, clone_roi
 from seamlesscloneoptimization_tpu_torch.ops.kernels import ru128
 from seamlesscloneoptimization_tpu_torch.solvers import (
     AUTO_CROSSOVER_PIXELS,
@@ -53,6 +68,8 @@ from seamlesscloneoptimization_tpu_torch.solvers import (
     get_solver,
 )
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import check_precision, dst_bases
+
+DYN_SOLVER_NAME = "multigrid_dyn"  # bucket_exact's solve, as metrics record it
 
 
 class BoundedCache(dict):
@@ -157,12 +174,8 @@ class SeamlessClone:
         if cfg.mg_padded not in ("q", "t", True, False):
             raise ValueError(f"unknown mg_padded {cfg.mg_padded!r}")
         check_precision(cfg.precision)
-        if cfg.bbox_bucket:
-            raise NotImplementedError(
-                "bbox_bucket > 0 is not ported yet: ROADMAP slice 5 (bucketed serving)")
-        if cfg.debug_dump:
-            raise NotImplementedError(
-                "debug_dump is not ported yet: ROADMAP slice 5 (stage dumps)")
+        if cfg.bbox_bucket < 0:
+            raise ValueError(f"bbox_bucket must be >= 0, got {cfg.bbox_bucket}")
         if cfg.flags not in (1, 2, 3):
             raise ValueError(f"unknown clone flags={cfg.flags}")
         if cfg.mixed_rule not in ("opencv", "norm"):
@@ -211,14 +224,42 @@ class SeamlessClone:
                 f"destination area {tuple(dst.shape[:2])} smaller than source "
                 f"{tuple(src.shape[:2])}")
 
+    def _bucket_exact(self) -> bool:
+        return bool(self.config.bucket_exact and self.config.bbox_bucket)
+
     def _prepare(self, mask, src, dst, center):
+        """``prepare_inputs`` with the config's bucket; in bucket_exact mode
+        the tight bbox inside the ROI comes fifth (``_unpack_prep``)."""
         if mask is None:
             mask = np.full(tuple(src.shape[:2]), 255, np.uint8)
         elif isinstance(mask, torch.Tensor):
             mask = mask.cpu().numpy()
-        return prepare_inputs(mask, tuple(src.shape), tuple(dst.shape), center)
+        return prepare_inputs(mask, tuple(src.shape), tuple(dst.shape), center,
+                              bucket=self.config.bbox_bucket, return_tight=self._bucket_exact())
+
+    @staticmethod
+    def _unpack_prep(prep):
+        """(mask, bbox_xy, left_top, bbox_hw, tight bbox or None)."""
+        m, xy, lt, hw = prep[:4]
+        return m, xy, lt, hw, (prep[4] if len(prep) > 4 else None)
+
+    @staticmethod
+    def _has_interior(bbox_hw, tight) -> bool:
+        """A pixel to solve for: in the tight bbox in bucket_exact mode, else
+        in the ROI."""
+        h, w = (tight[2], tight[3]) if tight is not None else bbox_hw
+        return h >= 3 and w >= 3
 
     def _pipeline_kwargs(self, bbox_hw, flags: int, planar_dst: bool) -> dict:
+        cfg = self.config
+        if self._bucket_exact():
+            self.metrics["solver_resolved"] = DYN_SOLVER_NAME
+            return dict(bbox_hw=bbox_hw, flags=flags, solver=None,
+                        solver_kwargs=dict(tol=cfg.tol, cycles=cfg.mg_cycles,
+                                           max_cycles=cfg.max_cycles,
+                                           use_pallas=cfg.use_pallas_smoother),
+                        mixed_rule=cfg.mixed_rule, bases=None, solver_name=DYN_SOLVER_NAME,
+                        use_pallas_pre=cfg.use_pallas_preprocess, use_pallas_post=False)
         eff = _effective_solver(self.config.solver, bbox_hw, planar_dst)
         self.metrics["solver_resolved"] = eff
         cfg = dataclasses.replace(self.config, solver=eff)
@@ -255,8 +296,8 @@ class SeamlessClone:
         if prep is None:
             self._last_out = self._to_device(dst)
             return self._last_out
-        m, (x0, y0), (left, top), (bh, bw) = prep
-        if bh < 3 or bw < 3:  # no interior pixel to solve for
+        m, (x0, y0), (left, top), (bh, bw), tight = self._unpack_prep(prep)
+        if not self._has_interior((bh, bw), tight):
             self._last_out = self._to_device(dst)
             return self._last_out
         kw = self._pipeline_kwargs((bh, bw), flags, planar_dst=False)
@@ -264,7 +305,7 @@ class SeamlessClone:
         dst_d = self._to_device(dst)
         if dst_d is dst and not self.config.donate_dst:
             dst_d = self._track(dst_d.clone())
-        out = clone_pipeline(src_d, dst_d, self._upload(m), (x0, y0), (left, top),
+        out = clone_pipeline(src_d, dst_d, self._upload(m), (x0, y0), (left, top), tight,
                              **kw)
         self._last_out = out
         self.metrics["dispatch_ms"] = (time.perf_counter() - t0) * 1e3
@@ -339,16 +380,16 @@ class SeamlessClone:
         prep = self._prepare(mask, src, dst, center)
         if prep is None:
             raise ValueError("empty mask")
-        m, (x0, y0), (left, top), (bh, bw) = prep
-        if bh < 3 or bw < 3:
-            raise ValueError(f"mask bbox {bh}x{bw} has no interior")
+        m, (x0, y0), (left, top), (bh, bw), tight = self._unpack_prep(prep)
+        if not self._has_interior((bh, bw), tight):
+            raise ValueError(f"mask bbox {tight[2:] if tight else (bh, bw)} has no interior")
         kw = self._pipeline_kwargs((bh, bw), flags, planar_dst=True)
         src_d = self._to_device(src)
         buf = self._track(self._to_device(dst).permute(2, 0, 1).contiguous())
         m_d = self._upload(m)
 
-        def frame():
-            clone_pipeline(src_d, buf, m_d, (x0, y0), (left, top),
+        def frame():  # bucket_exact: the tight bbox rides along every frame
+            clone_pipeline(src_d, buf, m_d, (x0, y0), (left, top), tight,
                            planar_dst=True, **kw)
 
         frame()  # warm-up: kernel build/load, allocator, cuBLAS handles
@@ -364,3 +405,83 @@ class SeamlessClone:
         self.metrics["left_top"] = (left, top)
         self.metrics["device_memory_bytes"] = self.device_memory_bytes()
         return out, mean_ms
+
+    def dump_stages(self, src, dst, mask, center, flags: int | None = None):
+        """Run one clone keeping every intermediate stage (ref: SCDEBUG mode).
+
+        The reference dumps per-stage tensors under ``#define SCDEBUG``
+        (write2Yaml2, imp.h:306-366; the RHS channels as g{0,1,2}.yml,
+        imp.cpp:2116) for the g-vs-mod_diff debugging method (compare/vs.py:
+        81-86). This writes the same artifacts into ``config.debug_dir``:
+        mask_eroded.yml, g{0,1,2}.yml, output.bmp and gx / gy / u / rhs .npy,
+        through the plain stages (``clone_roi(return_stages=True)``) on the
+        ROI that ``run`` takes (bucketed with ``bbox_bucket``), ``auto``
+        resolved with the single-shot crossover. A write that fails raises.
+        Returns ((H, W, 3) u8 numpy output, dict of numpy stages).
+        """
+        flags = self.config.flags if flags is None else flags
+        src, dst = (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+                    for x in (src, dst))
+        self._validate(src, dst)
+        prep = self._prepare(mask, src, dst, center)
+        if prep is None:
+            raise ValueError("empty mask")
+        m, (x0, y0), (left, top), (bh, bw), _ = self._unpack_prep(prep)
+        mask_roi = m[y0 : y0 + bh, x0 : x0 + bw]
+        src_roi = np.where(mask_roi[..., None] != 0, src[y0 : y0 + bh, x0 : x0 + bw], 0)
+        dest_roi = dst[top : top + bh, left : left + bw]
+        eff = _effective_solver(self.config.solver, (bh, bw), planar_dst=False)
+        cfg = dataclasses.replace(self.config, solver=eff)
+
+        def planar(a):
+            return self._upload(a).permute(2, 0, 1)
+
+        blended, stages = clone_roi(planar(dest_roi), planar(src_roi.astype(np.uint8)),
+                                    self._upload(mask_roi), flags, get_solver(eff),
+                                    cfg.solver_kwargs(), return_stages=True,
+                                    mixed_rule=cfg.mixed_rule)
+        out = dst.copy()
+        out[top : top + bh, left : left + bw] = blended.permute(1, 2, 0).cpu().numpy()
+        stages = {k: v.cpu().numpy() for k, v in stages.items()}
+        stages.update(mask_roi=mask_roi, bbox=np.array([x0, y0, bw, bh]),
+                      left_top=np.array([left, top]))
+        d = Path(self.config.debug_dir)
+        d.mkdir(parents=True, exist_ok=True)
+        native.write_yaml_mat(d / "mask_eroded.yml", stages["mask_eroded"], "mask_eroded")
+        for ch in range(stages["rhs"].shape[0]):
+            native.write_yaml_mat(d / f"g{ch}.yml", stages["rhs"][ch], f"g{ch}")
+        native.write_bmp(d / "output.bmp", out)
+        for k in ("gx", "gy", "u", "rhs"):
+            np.save(d / f"{k}.npy", stages[k])
+        return out, stages
+
+    @contextlib.contextmanager
+    def profile(self, logdir: str | None = None):
+        """Context manager: ``torch.profiler`` over its body, written as a
+        Chrome trace (``trace_<pid>_<ns>.json``, chrome://tracing or
+        Perfetto) into ``logdir`` (default ``<tempdir>/scl_profile``), which
+        it yields. On ``cuda`` it records the device's kernels too, the
+        counterpart of the reference's nvprof / NVVP workflow
+        (README.md:133-136). A body that raises writes no trace.
+
+            with eng.profile("traces") as d:
+                eng.timed_serve(...)
+        """
+        logdir = logdir or os.path.join(tempfile.gettempdir(), "scl_profile")
+        os.makedirs(logdir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with torch_profile(activities=acts) as prof:
+            yield logdir
+            self.sync()
+        prof.export_chrome_trace(
+            os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+    def destroy(self):
+        """Drop the cached bases and the tensors this engine holds (ref:
+        _destroy); ``device_memory_bytes()`` is 0 afterwards."""
+        self._bases.clear()
+        self._eig_cache.clear()
+        self._held.clear()
+        self._last_out = None

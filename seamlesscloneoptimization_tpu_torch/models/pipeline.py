@@ -58,6 +58,13 @@ and ``dst_gemm`` with the post-process on ends
 
     solve_dst_gemm(transposed_output=True) -> postprocess_transposed
 
+A bucketed ROI with ``bucket_exact`` (``clone_pipeline``'s ``true_bbox``)
+solves the tight bbox's own system inside the bucket (``clone_roi_dyn``):
+
+    erode3 -> preprocess_rhs_p (the tight window, exact size)
+    -> solve_dyn_window (mg_down / mg_up on each level of >= 2^18 points)
+    -> clamp_cast_paste (the tight interior)
+
 Either way the interior is written in place into the destination at
 (top+1, left+1), planar or interleaved, by one strided kernel.
 On CPU tensors each kernel wrapper runs its plain twin. Everything runs on
@@ -100,6 +107,7 @@ from seamlesscloneoptimization_tpu_torch.solvers.multigrid import (
     quarter_path_applies,
     t_chain_applies,
 )
+from seamlesscloneoptimization_tpu_torch.solvers.multigrid_dyn import solve_dyn_window
 
 
 def _plain_rhs(dest_roi_u8, patch_u8, mask_roi, flags, mixed_rule):
@@ -111,6 +119,18 @@ def _plain_rhs(dest_roi_u8, patch_u8, mask_roi, flags, mixed_rule):
                             mixed_rule)
     g = poisson_rhs(gx, gy, dest_f)
     return g, {"mask_eroded": mask_eroded, "gx": gx, "gy": gy, "rhs": g}
+
+
+def _kernel_rhs_inputs(patch_u8: torch.Tensor, mask_roi: torch.Tensor, flags: int):
+    """What the RHS kernels read besides the destination: the ``erode3`` of
+    the (contiguous) mask, the patch and the kernel's flags. MONOCHROME
+    passes the integer gray in [0, 255] as u8, broadcast over the channels by
+    a stride-0 view, with flags 1."""
+    me = erode3(mask_roi)
+    if flags == MONOCHROME_TRANSFER:
+        gray = bgr_to_gray_u8(patch_u8).to(torch.uint8)
+        return me, gray[None].expand(patch_u8.shape), 1
+    return me, patch_u8, flags
 
 
 def clone_roi(
@@ -166,7 +186,7 @@ def clone_roi(
     poisson_rhs -> ``solver`` -> postprocess_roi; returns (blended, stages).
     """
     solver_kwargs = dict(solver_kwargs or {})
-    c, h, w = dest_roi_u8.shape
+    _, h, w = dest_roi_u8.shape
     if return_stages:
         g, stages = _plain_rhs(dest_roi_u8, patch_u8, mask_roi, flags, mixed_rule)
         u = solver(g, **solver_kwargs)
@@ -182,14 +202,7 @@ def clone_roi(
         # caller must not get another solver's chain silently
         raise ValueError(f"use_pallas_post has no tail for solver {name!r}")
     if use_pallas_pre:
-        me = erode3(mask_roi)
-        if flags == MONOCHROME_TRANSFER:
-            # integer gray in [0, 255]: as u8, broadcast by a stride-0 view
-            gray = bgr_to_gray_u8(patch_u8).to(torch.uint8)
-            patch_in = gray[None].expand(c, h, w)
-            kflags = 1
-        else:
-            patch_in, kflags = patch_u8, flags
+        me, patch_in, kflags = _kernel_rhs_inputs(patch_u8, mask_roi, flags)
         if use_pallas_post and name == "dst_gemm":
             precision = solver_kwargs.get("precision", "highest")
             folded = bool(solver_kwargs.get("folded", False))
@@ -230,12 +243,65 @@ def clone_roi(
     return clamp_cast_paste(u.contiguous(), out, top1, left1, h2, w2)
 
 
+def clone_roi_dyn(
+    dest_roi_u8: torch.Tensor,
+    patch_u8: torch.Tensor,
+    mask_roi: torch.Tensor,
+    flags: int,
+    tight: tuple[int, int, int, int],
+    mixed_rule: str = "opencv",
+    tol: float = 1e-4,
+    cycles: int | None = None,
+    max_cycles: int = 60,
+    out: torch.Tensor | None = None,
+    out_offset: tuple[int, int] | None = None,
+    use_pallas_pre: bool = True,
+    use_pallas: bool = True,
+) -> torch.Tensor:
+    """Exact TIGHT-bbox clone inside a bucketed ROI (``bucket_exact``).
+
+    dest_roi_u8, patch_u8: (C, bh, bw) u8, mask_roi: (bh, bw) u8, the
+    bucketed ROI as ``clone_roi`` takes it. tight = (dy, dx, th, tw): the
+    tight bbox's offset and size inside it. Solves the Poisson system that
+    the tight pipeline solves, its Dirichlet frame at the tight bbox's edge:
+    the RHS of the tight window (the guidance is local, and the mask is zero
+    outside the tight bbox, so the tight window's erosion and RHS are the
+    bucket's, windowed), then ``solve_dyn_window`` with the hierarchy of the
+    bucket's (bh-2, bw-2) interior, then the (th-2, tw-2) interior pasted at
+    (dy, dx) past ``out_offset``. Kernels: ``erode3`` of the tight mask and
+    ``preprocess_rhs_p`` on the tight window's views (the plain torch
+    stages without ``use_pallas_pre``), the fused levels of the solve
+    (``use_pallas``), ``clamp_cast_paste``. ``out`` and ``out_offset`` as
+    for ``clone_roi``; a tight bbox without interior writes nothing.
+    """
+    dy, dx, th, tw = (int(v) for v in tight)
+    _, bh, bw = dest_roi_u8.shape
+    if out is None:
+        out, out_offset = dest_roi_u8.clone(), (1, 1)
+    h2, w2 = th - 2, tw - 2
+    if h2 < 1 or w2 < 1:
+        return out
+    dest_w = dest_roi_u8[:, dy : dy + th, dx : dx + tw]
+    patch_w = patch_u8[:, dy : dy + th, dx : dx + tw]
+    mask_w = mask_roi[dy : dy + th, dx : dx + tw].contiguous()
+    if use_pallas_pre:
+        me, patch_in, kflags = _kernel_rhs_inputs(patch_w, mask_w, flags)
+        g = preprocess_rhs_p(dest_w, patch_in, me, (h2, w2), kflags, mixed_rule)
+    else:
+        g = _plain_rhs(dest_w, patch_w, mask_w, flags, mixed_rule)[0]
+    u = solve_dyn_window(g, (bh - 2, bw - 2), tol=tol, cycles=cycles, max_cycles=max_cycles,
+                         use_pallas=use_pallas)
+    top1, left1 = out_offset
+    return clamp_cast_paste(u.contiguous(), out, top1 + dy, left1 + dx, h2, w2)
+
+
 def clone_pipeline(
     src: torch.Tensor,
     dst: torch.Tensor,
     mask: torch.Tensor,
     bbox_xy: tuple[int, int],
     left_top: tuple[int, int],
+    true_bbox: tuple[int, int, int, int] | None = None,
     *,
     bbox_hw: tuple[int, int],
     flags: int,
@@ -256,6 +322,12 @@ def clone_pipeline(
     left_top = (left, top) of the paste in dst, bbox_hw = (bh, bw).
     Only the ROI interior of dst, (top+1 .. top+bh-2, left+1 .. left+bw-2),
     is written. The remaining keywords are ``clone_roi``'s.
+
+    true_bbox = (dy, dx, th, tw): the ``bucket_exact`` mode. The ROI is a
+    bucket and ``clone_roi_dyn`` solves the TIGHT system at that offset and
+    size inside it, ``solver_kwargs`` giving ``tol``, ``cycles``,
+    ``max_cycles`` and ``use_pallas``; ``solver``, ``bases`` and
+    ``use_pallas_post`` are unused.
     """
     bh, bw = bbox_hw
     c = src.shape[2]
@@ -281,6 +353,14 @@ def clone_pipeline(
         mask_roi[:, -1] = 0
     patch = torch.where(mask_roi[None] != 0, src_p, 0).to(torch.uint8)
 
+    if true_bbox is not None:
+        kw = solver_kwargs or {}
+        clone_roi_dyn(dest_p, patch, mask_roi, flags, true_bbox, mixed_rule,
+                      tol=kw.get("tol", 1e-4), cycles=kw.get("cycles"),
+                      max_cycles=kw.get("max_cycles", 60), out=dst_chw,
+                      out_offset=(top + 1, left + 1), use_pallas_pre=use_pallas_pre,
+                      use_pallas=kw.get("use_pallas", True))
+        return dst
     clone_roi(dest_p, patch, mask_roi, flags, solver, solver_kwargs,
               mixed_rule=mixed_rule, out=dst_chw, out_offset=(top + 1, left + 1),
               bases=bases, solver_name=solver_name, use_pallas_pre=use_pallas_pre,

@@ -12,7 +12,14 @@ decomposed: ``solve_poisson_dd`` (``parallel/tiled.py``), where nearly all
 the work is. The stages take the generic tail, as JAX's mesh gates
 (``_pallas_gates``) send them: the plain RHS, the DD solve, the
 ``clamp_cast_paste`` kernel. Sharding the stages themselves over several
-cards waits for a machine with several cards (ROADMAP item 8).
+cards waits for a machine with several cards (ROADMAP §1 item 7, slice 8).
+
+``bbox_bucket`` works as in the single-device engine: the grown bucket is
+the DD solve's ROI; with ``bucket_exact`` the frame is ``clone_roi_dyn``
+on the first device (the plain RHS, the runtime-domain multigrid, the
+paste) to the config's ``tol``, or for ``mg_cycles`` cycles, up to
+``max_cycles``. The JAX package's tiled engine drops those three on a real
+mesh and solves to tol 1e-4; the port keeps them on purpose (ROADMAP §3).
 
 Not ported (NotImplementedError naming the ROADMAP item): ``path="gspmd"``
 (torch has no SPMD partitioner; ``solve_multigrid_sharded`` needs a design
@@ -37,7 +44,7 @@ def _check_path(path: str) -> None:
     if path == "gspmd":
         raise NotImplementedError(
             "path='gspmd' (solve_multigrid_sharded) is not ported yet: torch has no SPMD "
-            "partitioner; ROADMAP item 8")
+            "partitioner; ROADMAP §1 item 7 (slice 8)")
 
 
 def _dd_solver(mesh: TileMesh, tol: float | None, cycles: int | None,
@@ -64,7 +71,9 @@ class TiledSeamlessClone(SeamlessClone):
     On a larger mesh the solve is the DD multigrid (``metrics
     ["solver_resolved"] == "multigrid_dd"``) to ``config.tol``, or for
     ``config.mg_cycles`` cycles, up to ``config.max_cycles``; the RHS and
-    the paste run on the mesh's first device (module docstring).
+    the paste run on the mesh's first device (module docstring). With
+    ``bucket_exact`` the frame solves the tight system on the first device
+    (``metrics["solver_resolved"] == "multigrid_dyn"``).
     """
 
     def __init__(self, config: CloneConfig | None = None, mesh: TileMesh | None = None,
@@ -77,6 +86,9 @@ class TiledSeamlessClone(SeamlessClone):
     def _pipeline_kwargs(self, bbox_hw, flags: int, planar_dst: bool) -> dict:
         if self._single:
             return super()._pipeline_kwargs(bbox_hw, flags, planar_dst)
+        if self._bucket_exact():  # the mesh's generic tail: the plain RHS
+            return dict(super()._pipeline_kwargs(bbox_hw, flags, planar_dst),
+                        use_pallas_pre=False)
         self.metrics["solver_resolved"] = DD_SOLVER_NAME
         cycles = self.config.mg_cycles
         solver = _dd_solver(self.mesh, None if cycles else self.config.tol, cycles,
@@ -103,4 +115,4 @@ def local_edit_tiled(*args, **kwargs):
     """The gradient-domain edits over a tile mesh: not ported yet."""
     raise NotImplementedError(
         "local_edit_tiled is not ported yet: it needs the edit family's ops/edit.py "
-        "(ROADMAP slice 6), then ROADMAP item 8")
+        "(ROADMAP §1 item 5, slice 6), then ROADMAP §1 item 7 (slice 8)")

@@ -16,7 +16,7 @@ counterpart of JAX's virtual mesh and what a one-card machine can measure
 the kernels' plain twins; the port's tests build one.
 
 Not ported: ``init_distributed`` (a multi-process mesh on
-``torch.distributed``; ROADMAP item 8).
+``torch.distributed``; ROADMAP §1 item 7).
 """
 
 from __future__ import annotations

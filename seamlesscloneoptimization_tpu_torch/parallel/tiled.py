@@ -30,7 +30,7 @@ max over the tiles to the host once (the counterpart of ``lax.pmax``).
 Everything runs on each device's current stream in program order.
 
 Not ported: ``solve_multigrid_sharded`` (the GSPMD path: torch has no SPMD
-partitioner; ROADMAP item 8).
+partitioner; ROADMAP §1 item 7).
 """
 
 from __future__ import annotations
@@ -158,7 +158,7 @@ def solve_redblack_tiled(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, in
     tile), False with the plain select-form twin. ``overlap``: accepted for
     the JAX package's signature and runs the plain schedule: JAX's
     interior-first schedule is the same arithmetic, bit for bit, and pays
-    only once the interior runs on a side stream (ROADMAP item 8). Before
+    only once the interior runs on a side stream (ROADMAP §1 item 7). Before
     each ``check_every`` sweeps the loop reads max |r| over the tiles to the
     host once and stops at ``tol`` * max |g| or ``max_iters`` sweeps. Returns u (C, H, W) on g's
     device; ``return_info`` adds {"iterations", "residual"}.

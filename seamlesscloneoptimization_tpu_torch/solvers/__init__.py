@@ -11,6 +11,9 @@ for the 5-point Dirichlet system (boundary values folded into g).
   dense rounded V-cycles), or on its element path; from zero, a warm start
   or ``fmg_start``, or as the V-cycle preconditioner of ``pcg``
   (``solvers/multigrid.py``).
+- ``solve_multigrid_dyn``: the same V-cycles on a runtime (h, w) domain
+  inside a padded grid, the ``bucket_exact`` solve
+  (``solvers/multigrid_dyn.py``).
 
 ``auto`` is not a solver here: the engine resolves it per geometry with
 ``auto_solver_name`` (``core/engine.py:_effective_solver``).
@@ -20,6 +23,7 @@ from seamlesscloneoptimization_tpu_torch.solvers.dst_fft import solve_dst_fft
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import solve_dst_gemm
 from seamlesscloneoptimization_tpu_torch.solvers.jacobi import solve_redblack
 from seamlesscloneoptimization_tpu_torch.solvers.multigrid import solve_multigrid
+from seamlesscloneoptimization_tpu_torch.solvers.multigrid_dyn import solve_multigrid_dyn
 
 # Size-based selection between the direct DST-GEMM solve and the O(N)
 # multigrid. Both constants were measured on a TPU v5e: 7 MP for a
@@ -59,5 +63,6 @@ __all__ = [
     "solve_dst_fft",
     "solve_dst_gemm",
     "solve_multigrid",
+    "solve_multigrid_dyn",
     "solve_redblack",
 ]

@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -167,20 +168,34 @@ def prolong_bilinear(e: torch.Tensor, h: int, w: int,
     return _prolong_rows(_prolong_axis(e, w, bw), h, bh)
 
 
-def _ops_b(h: int, w: int, bh: float, bw: float, device):
-    """Neighbour sum and inverse diagonal of a beta-level operator: the
-    5-point stencil with the Shortley-Weller last row / column (up / left
-    neighbour 2/(1+beta), diagonal half 2/beta)."""
+def _edge_weight(beta: float, f32: bool = False) -> float:
+    """2 / (1 + beta) - 1: the Shortley-Weller weight of a last line's
+    up / left neighbour, less the bulk weight 1. ``f32``: computed in float32
+    a step at a time, as the JAX package's runtime-domain operators compute
+    it from a traced beta (``multigrid_dyn``); else in float64, as its
+    static operators do."""
+    if not f32:
+        return 2.0 / (1.0 + beta) - 1.0
+    one = np.float32(1.0)
+    return float(np.float32(2.0) / (one + np.float32(beta)) - one)
+
+
+def _ops_b(h: int, w: int, bh: float, bw: float, device, f32: bool = False):
+    """Neighbour sum, inverse diagonal and diagonal of a beta-level operator:
+    the 5-point stencil with the Shortley-Weller last row / column (up / left
+    neighbour 2/(1+beta), diagonal half 2/beta). ``f32``: see
+    ``_edge_weight``."""
     rows = torch.arange(h, device=device)[:, None]
     cols = torch.arange(w, device=device)[None, :]
-    f32 = torch.float32
-    dh = torch.where(rows == h - 1, torch.tensor(2.0 / bh, dtype=f32, device=device),
-                     torch.tensor(2.0, dtype=f32, device=device))
-    dw = torch.where(cols == w - 1, torch.tensor(2.0 / bw, dtype=f32, device=device),
-                     torch.tensor(2.0, dtype=f32, device=device))
-    inv_d = (1.0 / (dh + dw))[None]
-    lrow = (rows == h - 1).to(f32)[None] * (2.0 / (1.0 + bh) - 1.0)
-    lcol = (cols == w - 1).to(f32)[None] * (2.0 / (1.0 + bw) - 1.0)
+    f32_ = torch.float32
+    dh = torch.where(rows == h - 1, torch.tensor(2.0 / bh, dtype=f32_, device=device),
+                     torch.tensor(2.0, dtype=f32_, device=device))
+    dw = torch.where(cols == w - 1, torch.tensor(2.0 / bw, dtype=f32_, device=device),
+                     torch.tensor(2.0, dtype=f32_, device=device))
+    diag = (dh + dw)[None]
+    inv_d = 1.0 / diag
+    lrow = (rows == h - 1).to(f32_)[None] * _edge_weight(bh, f32)
+    lcol = (cols == w - 1).to(f32_)[None] * _edge_weight(bw, f32)
 
     def nsum(x):
         xp = F.pad(x, (1, 1, 1, 1))
@@ -188,13 +203,14 @@ def _ops_b(h: int, w: int, bh: float, bw: float, device):
         lf, rt = xp[:, 1:-1, :-2], xp[:, 1:-1, 2:]
         return up + dn + lf + rt + lrow * up + lcol * lf
 
-    return nsum, inv_d
+    return nsum, inv_d, diag
 
 
-def _sweeps_b(u: torch.Tensor, g: torch.Tensor, n: int, bh: float, bw: float) -> torch.Tensor:
+def _sweeps_b(u: torch.Tensor, g: torch.Tensor, n: int, bh: float, bw: float,
+              f32: bool = False) -> torch.Tensor:
     """n red-black sweeps of the beta-level operator (small coarse grids)."""
     _, h, w = u.shape
-    nsum, inv_d = _ops_b(h, w, bh, bw, u.device)
+    nsum, inv_d, _ = _ops_b(h, w, bh, bw, u.device, f32)
     red = checkerboard(h, w, u.device)[None]
     for _ in range(n):
         u = torch.where(red, (nsum(u) - g) * inv_d, u)
@@ -205,7 +221,7 @@ def _sweeps_b(u: torch.Tensor, g: torch.Tensor, n: int, bh: float, bw: float) ->
 def _residual_b(u: torch.Tensor, g: torch.Tensor, bh: float, bw: float) -> torch.Tensor:
     """g - A_beta u for the beta-level operator."""
     _, h, w = u.shape
-    nsum, inv_d = _ops_b(h, w, bh, bw, u.device)
+    nsum, inv_d, _ = _ops_b(h, w, bh, bw, u.device)
     return g - (nsum(u) - u / inv_d)
 
 
@@ -286,46 +302,58 @@ def coarse_solve(g: torch.Tensor, bh: float, bw: float, eig_cache=None) -> torch
     return solve_sep_eig(g, bh, bw, basis=basis)
 
 
+def fused_level(u: torch.Tensor | None, g: torch.Tensor, nu1: int, nu2: int, bh: float,
+                bw: float, u_zero: bool, coarse) -> torch.Tensor:
+    """One exact-size level as the fused level kernels, the JAX package's
+    ``mg_down_pallas`` / ``mg_up_pallas`` on an exact-size level: u and g
+    (C, h, w) padded to an even-height (C, h + h % 2, w) slab for
+    ``K.mg_down`` (sweeps + residual + row restriction) and ``K.mg_up`` (row
+    prolongation + correction + sweeps), the lane halves of the transfers in
+    torch (``_restrict_axis``, ``_prolong_axis``). ``coarse(rc, bh_c,
+    bw_c)`` returns the (C, hc, wc) correction of the coarse level whose RHS
+    is rc. ``u_zero``: u is known zero, so the descent synthesizes the guess
+    instead of reading it. Returns the level's (C, h, w) u."""
+    c, h, w = g.shape
+    hc, bh_c = _coarsen(h, bh)
+    _, bw_c = _coarsen(w, bw)
+    slab = (c, h + h % 2, w)  # the level kernels take an even-height slab
+    g_p = _pad_to(g, slab).contiguous()
+    u_p = None if u_zero else _pad_to(u, slab).contiguous()
+    u_s, rh = K.mg_down(u_p, g_p, nu1, h, w, bh, bw)
+    ec = coarse(4.0 * _restrict_axis(rh[:, :hc], bw), bh_c, bw_c)
+    # rows [hc, h/2) of the lane-prolonged correction are zero to mg_up
+    e_lane = _pad_to(_prolong_axis(ec, w, bw), (c, slab[1] // 2, w)).contiguous()
+    return K.mg_up(u_s, g_p, e_lane, nu2, h, w, bh, bw)[:, :h, :w]
+
+
 def vcycle(u: torch.Tensor, g: torch.Tensor, nu1: int = 2, nu2: int = 2, coarsest: int = 63,
            use_pallas: bool = False, bh: float = 1.0, bw: float = 1.0,
            eig_cache=None, u_zero: bool = False) -> torch.Tensor:
     """One V-cycle on exact-size (C, h, w) arrays (the element path).
 
     A level of at least 2^18 points with ``use_pallas`` (nu1 <= 2, nu2 <= 4)
-    is the fused level, the JAX package's exact-size ``mg_down_pallas`` /
-    ``mg_up_pallas``: u and g padded to an even-height (C, h + h % 2, w)
-    slab for ``K.mg_down`` (sweeps + residual + row restriction) and
-    ``K.mg_up`` (row prolongation + correction + sweeps), the lane halves of
-    the transfers in torch (``_restrict_axis``, ``_prolong_axis``). ``u_zero``:
-    u is known zero (every coarse level), so the fused descent synthesizes
-    the guess instead of reading it.
+    is the fused level (``fused_level``). ``u_zero``: u is known zero (every
+    coarse level), so the fused descent synthesizes the guess instead of
+    reading it.
     """
     c, h, w = g.shape
     if _small(h, w, coarsest):
         return coarse_solve(g, bh, bw, eig_cache)
-    hc, bh_c = _coarsen(h, bh)
-    wc, bw_c = _coarsen(w, bw)
+
+    def coarse(rc, bh_c, bw_c):  # from a known-zero guess
+        return vcycle(torch.zeros_like(rc), rc, nu1, nu2, coarsest, use_pallas, bh_c, bw_c,
+                      eig_cache, u_zero=True)
+
     if _fused_level(h, w, nu1, nu2, use_pallas):
-        slab = (c, h + h % 2, w)  # the level kernels take an even-height slab
-        g_p = _pad_to(g, slab).contiguous()
-        u_p = None if u_zero else _pad_to(u, slab).contiguous()
-        u_s, rh = K.mg_down(u_p, g_p, nu1, h, w, bh, bw)
-        rc = 4.0 * _restrict_axis(rh[:, :hc], bw)
-        ec = vcycle(torch.zeros_like(rc), rc, nu1, nu2, coarsest, use_pallas, bh_c, bw_c,
-                    eig_cache, u_zero=True)
-        # rows [hc, h/2) of the lane-prolonged correction are zero to mg_up
-        e_lane = _pad_to(_prolong_axis(ec, w, bw), (c, slab[1] // 2, w)).contiguous()
-        return K.mg_up(u_s, g_p, e_lane, nu2, h, w, bh, bw)[:, :h, :w]
+        return fused_level(u, g, nu1, nu2, bh, bw, u_zero, coarse)
     if bh == 1.0 and bw == 1.0:
         u = _sweeps(u, g, nu1, use_pallas)
         r = residual(u, g)
     else:
         u = _sweeps_b(u, g, nu1, bh, bw)
         r = _residual_b(u, g, bh, bw)
-    rc = 4.0 * restrict_fw(r, bh, bw)
-    ec = vcycle(torch.zeros_like(rc), rc, nu1, nu2, coarsest, use_pallas, bh_c, bw_c,
-                eig_cache)
-    u = u + prolong_bilinear(ec, h, w, bh, bw)
+    (_, bh_c), (_, bw_c) = _coarsen(h, bh), _coarsen(w, bw)
+    u = u + prolong_bilinear(coarse(4.0 * restrict_fw(r, bh, bw), bh_c, bw_c), h, w, bh, bw)
     if bh == 1.0 and bw == 1.0:
         return _sweeps(u, g, nu2, use_pallas)
     return _sweeps_b(u, g, nu2, bh, bw)

@@ -1534,3 +1534,91 @@ def test_precision_engine_on_card(cuda, precision):
                                     unfold_clamp_paste=1)
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (240, 180)).numpy()
     assert np.abs(out.cpu().numpy().astype(np.int16) - want).max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# slice 5: bucketed serving (the runtime-domain multigrid, bucket_exact and
+# the grown bucket)
+# ---------------------------------------------------------------------------
+
+
+def test_dyn_solve_kernel_route_matches_twins_on_card(cuda, monkeypatch):
+    """solve_multigrid_dyn on a 520 x 524 domain of a (3, 600, 640) grid at
+    tol 1e-4: its fused fine level (272 480 points) is mg_down and mg_up once
+    a cycle; the same solve with the two wrappers swapped for their twins,
+    on the card, runs as many cycles to relative 1e-5."""
+    from seamlesscloneoptimization_tpu_torch.solvers import solve_multigrid_dyn
+
+    rng = np.random.default_rng(16)
+    g = torch.from_numpy(rng.normal(size=(3, 600, 640)).astype(np.float32) * 50).to(cuda)
+    K.reset_launches()
+    got, info = solve_multigrid_dyn(g, (520, 524), tol=1e-4, return_info=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == _per_frame(mg_down=info["cycles"], mg_up=info["cycles"])
+    monkeypatch.setattr(K, "mg_down", K.mg_down_plain)
+    monkeypatch.setattr(K, "mg_up", K.mg_up_plain)
+    want, winfo = solve_multigrid_dyn(g, (520, 524), tol=1e-4, return_info=True)
+    assert info["cycles"] == winfo["cycles"] >= 2
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert got[:, 520:].abs().max().item() == 0.0 and got[:, :, 524:].abs().max().item() == 0.0
+
+
+def _ellipse_mask(hw, bbox_hw):
+    ry, rx = (bbox_hw[0] - 1) // 2, (bbox_hw[1] - 1) // 2
+    yy, xx = np.mgrid[: hw[0], : hw[1]]
+    inside = ((yy - hw[0] // 2) / ry) ** 2 + ((xx - hw[1] // 2) / rx) ** 2 <= 1
+    return inside.astype(np.uint8) * 255
+
+
+@pytest.mark.parametrize("flags", [1, 2, 3])
+@pytest.mark.parametrize("exact", [False, True])
+def test_bucket_engine_on_card_matches_cpu(cuda, exact, flags):
+    """bbox_bucket=128 on a 521 x 601 ellipse (bucket 640 x 640), NORMAL,
+    MIXED and MONOCHROME: the grown bucket runs the pair chain on the
+    bucket, bucket_exact the tight system (erode3, preprocess_rhs_p and
+    clamp_cast_paste once, mg_down / mg_up once a cycle on its one fused
+    level); the card within 1 of the CPU, and a served frame equal to run()
+    on the card."""
+    rng = np.random.default_rng(17)
+    src = _u8(rng, (700, 800, 3))
+    dst = _u8(rng, (800, 900, 3))
+    mask = _ellipse_mask((700, 800), (521, 601))
+    cfg = CloneConfig(bbox_bucket=128, bucket_exact=exact, flags=flags)
+    eng = SeamlessClone(cfg, device=cuda)
+    K.reset_launches()
+    out = eng.run(src, dst, mask, (450, 400)).cpu().numpy()
+    torch.cuda.synchronize()
+    assert eng.metrics["bbox"][2:] == (640, 640)
+    if exact:
+        n = K.LAUNCHES["mg_down"]
+        assert n >= 2 and K.LAUNCHES == _per_frame(erode3=1, preprocess_rhs_p=1,
+                                                   clamp_cast_paste=1, mg_down=n, mg_up=n)
+    else:
+        assert K.LAUNCHES == _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=2,
+                                        transpose_pair=3, unfold_transpose=2,
+                                        unfold_clamp_paste=1)
+    want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (450, 400)).numpy()
+    assert np.abs(out.astype(np.int16) - want).max() <= 1
+    served, _ = eng.timed_serve(src, dst, mask, (450, 400), loops=0)
+    assert np.array_equal(served.cpu().numpy(), out)
+
+
+def test_engine_profile_and_destroy_on_card(cuda, tmp_path):
+    """profile() on the card writes a Chrome trace that holds the port's
+    kernels; destroy() leaves the engine holding no device tensor."""
+    import json
+
+    rng = np.random.default_rng(18)
+    src = _u8(rng, (44, 60, 3))
+    dst = _u8(rng, (100, 120, 3))
+    mask = np.full((44, 60), 255, np.uint8)
+    eng = SeamlessClone(device=cuda)
+    eng.run(src, dst, mask, (60, 50))
+    with eng.profile(str(tmp_path)) as d:
+        eng.run(src, dst, mask, (60, 50))
+    (trace,) = list(tmp_path.glob("trace_*.json"))
+    names = {str(e.get("name", "")) for e in json.loads(trace.read_text())["traceEvents"]}
+    assert d == str(tmp_path) and any("erode3_kernel" in n for n in names)
+    assert eng.device_memory_bytes() > 0
+    eng.destroy()
+    assert eng.device_memory_bytes() == 0

@@ -352,19 +352,20 @@ def test_no_device_raises_without_cuda(monkeypatch):
     (CloneConfig(solver="multigrid", mg_padded=True), None),  # the dense modes (4b)
     (CloneConfig(precision="2x_img"), None),  # a DST-GEMM precision mode (4c)
     (CloneConfig(precision="fwd2x"), None),  # a DST-GEMM precision mode
-    (CloneConfig(bbox_bucket=64), "slice 5"),
-    (CloneConfig(debug_dump=True), "slice 5"),
+    (CloneConfig(bbox_bucket=64), None),  # the grown bucket (slice 5)
+    (CloneConfig(debug_dump=True), None),  # read by the CLI only (slice 5)
 ])
 def test_unported_configs_raise(cfg, match):
     """What a later slice brings raises, naming its ROADMAP slice; slices
-    4b and 4c run (each against the JAX engine in
-    tests/test_torch_dense_modes.py and tests/test_torch_precision_modes.py)."""
+    4b, 4c and 5 run (each against the JAX engine in
+    tests/test_torch_dense_modes.py, tests/test_torch_precision_modes.py and
+    tests/test_torch_bucket.py), writing only the (bucketed) ROI interior."""
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
             SeamlessClone(cfg, device="cpu")
         return
     src, dst, mask = _images()
-    prep = prepare_inputs(mask, src.shape, dst.shape, CENTER)
+    prep = prepare_inputs(mask, src.shape, dst.shape, CENTER, bucket=cfg.bbox_bucket)
     out = SeamlessClone(cfg, device="cpu").run(src, dst, mask, CENTER).numpy()
     inside = _interior(dst.shape, prep)
     assert out.shape == dst.shape and out.dtype == np.uint8

@@ -180,7 +180,7 @@ def test_mesh_shapes_shard_and_gather(monkeypatch):
 
 def test_unported_paths_raise():
     mesh = _port()
-    with pytest.raises(NotImplementedError, match="gspmd.*ROADMAP item 8"):
+    with pytest.raises(NotImplementedError, match="gspmd.*ROADMAP §1 item 7"):
         TiledSeamlessClone(mesh=mesh, path="gspmd")
     with pytest.raises(NotImplementedError, match="gspmd"):
         seamless_clone_tiled(np.zeros((8, 8, 3), np.uint8), np.zeros((8, 8, 3), np.uint8),
