@@ -201,7 +201,34 @@
      against the CPU, and ``bucket_grown_8k`` (2686x3710, 9.97 MP: the
      ``"q"`` chain, cycles against the solve of its RHS); each with its
      profile (busy, idle share, torch ops a frame; the ``bucket_paths``
-     JSON line) and its kernels' in-the-loop times on the kernels line.
+     JSON line) and its kernels' in-the-loop times on the kernels line;
+   - slice 6, the batch and the edits, on a seeded 3840x2160 destination:
+     ``batch_64_4k`` (64 seeded 136x136 patches whose ellipses have a
+     128x128 tight bbox, one per cell of an 8x8 grid, no overlap: one
+     "exact" group) through ``seamless_clone_batch_fused`` on the plain
+     route (clamp_cast_paste 1 a call) and as ``batch_64_4k_pallas``
+     (``use_pallas=True``: erode3 64, preprocess_rhs_p 64, clamp_cast_paste
+     1), each card against the CPU and against 64 sequential
+     ``seamless_clone`` calls on the card (diff_max <= 1), the device step
+     timed (a warm-up, then 5 steps with CUDA events) and profiled (busy,
+     idle share, torch ops a step); ``batch_mixed_4k_{exact,pad,pad_exact}``
+     (64 jobs of seeded tight sides 96-128, 8 of them moved onto their
+     right neighbour): each route card against the CPU, its steps timed
+     and, in each overlap, the later job's whole window in the destination
+     (its ring the destination its group found, the window within 1 of the
+     job's step alone; bit-equal with pad_exact); pad_exact on the first 16
+     jobs when its phase would pass 30 s, and at tol 1e-6 within 1 of the
+     sequential calls on the jobs that overlap none; ``edit_color_1080p``
+     and ``edit_texture_1080p`` (1920x1080, the direct route: clamp_cast_paste
+     1; the host Canny timed apart) card against the CPU;
+     ``edit_color_4k`` and ``edit_illumination_4k`` (the 8.28 MP interior
+     on the "q" chain: to_quarters 1, from_quarters 1, mg_ud_q and
+     mg_prolong_tq a cycle, clamp_cast_paste 1), the cycles equal to those
+     ``solve_multigrid(return_info=True)`` reports on the same RHS, its
+     relative residual <= 1e-5; ``edit_tiled`` (``local_edit_tiled`` of the
+     colour change on a 2x2 mesh of the card at 1080p: rb_sweeps_tile 2 a
+     tile a cycle, clamp_cast_paste 1) within 1 of ``color_change`` on the
+     card (the ``batch_paths`` and ``edit_paths`` JSON lines).
 
 With ``--other OTHER_ROOT`` (another checkout of this repository, for
 example the parent commit unpacked with ``git archive``; only its
@@ -307,6 +334,24 @@ BUCKET = 128
 BUCKET_BBOX, BUCKET_HW = (1401, 2201), (1408, 2304)  # headline: interior 1406 x 2302
 BUCKET_BBOX_8K, BUCKET_HW_8K = (2601, 3601), (2688, 3712)  # 8K: interior 2686 x 3710
 BUCKET_SIZES = ((1401, 2201), (1290, 2180), (1350, 2250))  # one headline bucket
+# slice 6: the batch (64 jobs into a 4K destination, one a cell of an 8 x 8
+# grid of 270 x 480 cells) and the edits
+DST_4K = (2160, 3840)
+BATCH_GRID = (8, 8)
+BATCH_PATCH, BATCH_BBOX = (136, 136), (128, 128)  # batch_64_4k: one "exact" group
+BATCH_STEPS = 5
+MIXED_SIDES = (96, 128)  # batch_mixed_4k: seeded tight sides, inclusive
+MIXED_SHIFT = 400  # a shifted job's centre moves this far toward its right neighbour
+MIXED_OVERLAPS = 8
+MIXED_EXACT_TOL = 1e-6  # pad_exact held against the sequential seamless_clone calls
+# pad_exact's phase runs the entry point about PAD_EXACT_CALLS times: when
+# that would pass PAD_EXACT_LIMIT_S on 64 jobs, it runs on the first 16
+PAD_EXACT_LIMIT_S, PAD_EXACT_CALLS = 30.0, 6
+EDIT_1080P = (1080, 1920)
+EDIT_BBOX_1080P, EDIT_BBOX_4K = (701, 1201), (1401, 2401)
+EDIT_CALLS = 5
+EDIT_FACTORS = (1.7, 0.6, 1.2)  # colorChange's red, green, blue factors
+EDIT_TOL = 1e-5  # the edits' multigrid tolerance (JAX's solve_auto)
 
 
 UNFUSED_PROFILE = "mg_q 8K tolerance (unfused chain)"
@@ -392,7 +437,22 @@ LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
                                      ("mg_down_t", "mg_down_t_kernel"),
                                      ("mg_up_t", "mg_up_t_kernel"),
                                      ("preprocess_rhs_q", "preprocess_rhs_q_kernel"),
-                                     ("clamp_cast_paste_q", "clamp_cast_paste_q_kernel"))}}
+                                     ("clamp_cast_paste_q", "clamp_cast_paste_q_kernel"))},
+                # slice 6: the 64-job batch step (the per-job kernels, the
+                # one paste of the 192-channel stack), the 4K edit's "q"
+                # chain on the dense RHS, the tiled edit's sweeps
+                "erode3 batch_64_4k": ("batch_64_4k_pallas", "erode3_kernel"),
+                "preprocess_rhs_p_exact batch_64_4k": ("batch_64_4k_pallas",
+                                                       "preprocess_rhs_p_kernel"),
+                "clamp_cast_paste batch_64_4k": ("batch_64_4k", "clamp_cast_paste_kernel"),
+                **{f"{k} edit_color_4k": ("edit_color_4k", kernel)
+                   for k, kernel in (("to_quarters", "to_quarters"),
+                                     ("from_quarters", "from_quarters"),
+                                     ("mg_ud_q", "level_q_kernel<true, true"),
+                                     ("mg_down_q", "level_q_kernel<false, true"),
+                                     ("mg_prolong_tq", "mg_prolong_tq_kernel"),
+                                     ("clamp_cast_paste", "clamp_cast_paste_kernel"))},
+                "rb_sweeps_tile edit_tiled": ("edit_tiled", "rb_sweeps_tile_kernel")}
 # a LOOP_PROFILE profile -> the COMPARE_PATHS frame it profiles (default:
 # the profile's own label), whose --other turns time the kernel in the loop
 PROFILE_PATH = {"tiled_dd 8K tolerance": "tiled_dd", "mg_t 8K tolerance": "mg_t",
@@ -501,6 +561,23 @@ PATHS = {
     "bucket_exact_8k": None,
     "bucket_grown_post_t": _per_frame(postprocess_transposed=1),
     "bucket_grown_8k": None,
+    # slice 6: a call of the batch entry point on 64 jobs of one shape (the
+    # group's plain RHS, or erode3 + preprocess_rhs_p a job; one
+    # clamp_cast_paste on the N*C stack); the mixed batch ("exact": one
+    # paste a group; "pad": one group; "pad_exact": each job's tight system,
+    # erode3, preprocess_rhs_p and clamp_cast_paste a job, no fused dyn
+    # level at 128); the edits: the direct route at 1080p (the paste
+    # only), the "q" chain on the dense 4K RHS, the DD solve on a 2x2 mesh
+    "batch_64_4k": _per_frame(clamp_cast_paste=1),
+    "batch_64_4k_pallas": _per_frame(erode3=64, preprocess_rhs_p=64, clamp_cast_paste=1),
+    "batch_mixed_4k_exact": None,
+    "batch_mixed_4k_pad": _per_frame(clamp_cast_paste=1),
+    "batch_mixed_4k_pad_exact": None,
+    "edit_color_1080p": _per_frame(clamp_cast_paste=1),
+    "edit_texture_1080p": _per_frame(clamp_cast_paste=1),
+    "edit_color_4k": None,
+    "edit_illumination_4k": None,
+    "edit_tiled": None,
 }
 PATHS["bucket_grown_headline"] = dict(PATHS["pair"])  # the pair chain on the bucket
 # slice 4c: every precision mode's frame launches the pair chain's kernels
@@ -527,7 +604,7 @@ HOME_PATH = {"transpose": "unfolded", "clamp_cast_paste": "unfolded",
              "mg_down": "mg_padded_true", "mg_up": "mg_padded_true", "mg_down_t": "mg_q",
              "mg_up_t": "mg_q", "preprocess_rhs_q": "mg_q", "mg_down_q": "mg_q", "mg_ud_q": "mg_q",
              "mg_up_q": "mg_q_fixed", "mg_prolong_tq": "mg_q", "clamp_cast_paste_q": "mg_q",
-             "to_quarters": "mg_dense", "from_quarters": "mg_dense",
+             "to_quarters": "edit_color_4k", "from_quarters": "edit_color_4k",
              "mg_restrict_tq": "mg_q_coarse", "rb_sweeps": "jacobi",
              "postprocess_transposed": "dst_post_t", "rb_sweeps_tile": "tiled_dd"}
 _PK = "seamlesscloneoptimization_tpu/ops/pallas_kernels.py"
@@ -586,14 +663,14 @@ def synthetic_image(rng, hw, cell=48):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def ellipse_mask(rng, hw, bbox_hw):
-    """A u8 {0,255} ellipse mask whose bbox is exactly ``bbox_hw``, placed a
-    few pixels (drawn from ``rng``) off the image's centre."""
+def ellipse_mask(rng, hw, bbox_hw, jitter: int = 8):
+    """A u8 {0,255} ellipse mask whose bbox is exactly ``bbox_hw``, placed up
+    to ``jitter`` pixels (drawn from ``rng``) off the image's centre."""
     import numpy as np
 
     bh_, bw_ = bbox_hw
-    y0 = (hw[0] - bh_) // 2 + int(rng.integers(-8, 9))
-    x0 = (hw[1] - bw_) // 2 + int(rng.integers(-8, 9))
+    y0 = (hw[0] - bh_) // 2 + int(rng.integers(-jitter, jitter + 1))
+    x0 = (hw[1] - bw_) // 2 + int(rng.integers(-jitter, jitter + 1))
     cy, cx = y0 + (bh_ - 1) / 2, x0 + (bw_ - 1) / 2
     yy, xx = np.ogrid[: hw[0], : hw[1]]
     inside = ((yy - cy) / (bh_ / 2)) ** 2 + ((xx - cx) / (bw_ / 2)) ** 2 <= 1
@@ -3251,6 +3328,345 @@ def main() -> int:
               + (f", {r['cycles_per_served_frame']:g} cycles a served frame"
                  if "cycles_per_served_frame" in r else ""))
     print(json.dumps({"bucket_paths": bucket_rows}))
+
+    # -- slice 6: the batch (64 jobs into one 4K destination a step, one shape
+    #    and mixed sizes) and the edits (1080p on the direct route, 4K on the
+    #    "q" chain, and over a 2x2 mesh of the card) ----------------------------
+    from seamlesscloneoptimization_tpu_torch import api as TA
+    from seamlesscloneoptimization_tpu_torch.ops import edit as TE
+    from seamlesscloneoptimization_tpu_torch.ops.canny import canny
+    from seamlesscloneoptimization_tpu_torch.ops.rhs import poisson_rhs
+    from seamlesscloneoptimization_tpu_torch.parallel import batch as TB
+    from seamlesscloneoptimization_tpu_torch.parallel import local_edit_tiled
+
+    t_6 = time.perf_counter()
+    rng_6 = np.random.default_rng(SEED + 13)
+    dst4k = synthetic_image(rng_6, DST_4K)
+    gy_, gx_ = BATCH_GRID
+    cell_h, cell_w = DST_4K[0] // gy_, DST_4K[1] // gx_
+    cells = [(cell_w // 2 + cell_w * (i % gx_), cell_h // 2 + cell_h * (i // gx_))
+             for i in range(gy_ * gx_)]
+    batch_rows, edit_rows = {}, {}
+
+    def launches_of(fn):
+        """fn() with the counters set to 0 just before and read just after."""
+        K.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, dict(K.LAUNCHES)
+
+    def event_ms(fn, n: int) -> list:
+        """fn() once to warm up, then n calls each timed with CUDA events."""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            fn()
+            e_ev.record()
+            e_ev.synchronize()
+            times.append(s_ev.elapsed_time(e_ev))
+        return times
+
+    def batch_step(groups_d, out, bucket, use_pallas, tol):
+        """The device part of a seamless_clone_batch_fused call: its groups'
+        steps on the resident destination."""
+        return TB.composite_groups(out, groups_d, 1, TB.fast_dst_solver(), bucket, use_pallas,
+                                   tol)
+
+    def drive_batch(path, srcs_, masks_, centers_, bucket="exact", use_pallas=False, tol=TOL,
+                    steps=BATCH_STEPS):
+        """One call of the entry point on the card (the counters around it,
+        checked when the path has fixed counts), the card against the CPU
+        (diff_max <= 1), the device step timed (warm-up + ``steps``, CUDA
+        events each) and profiled. Returns (the card's image, its row)."""
+        kw = dict(bucket=bucket, use_pallas=use_pallas, tol=tol)
+        t0 = time.perf_counter()
+        out, launches = launches_of(lambda: TB.seamless_clone_batch_fused(
+            dst4k, srcs_, masks_, centers_, **kw))
+        call_s = time.perf_counter() - t0
+        if PATHS[path] is not None:
+            check_counts(path, "call", launches, 1)
+        path_launches.setdefault(path, (launches, launches))
+        run_outputs.setdefault(path, out)
+        d_cpu = diff_max(out, TB.seamless_clone_batch_fused(dst4k, srcs_, masks_, centers_, **kw,
+                                                            device="cpu"))
+        cpu_diffs[path] = d_cpu
+        if d_cpu > 1 or out.shape != dst4k.shape or np.array_equal(out, dst4k):
+            raise AssertionError(f"{path}: card against CPU diff_max {d_cpu}")
+        groups_d = TB.plan_groups(dst4k.shape, srcs_, masks_, centers_, bucket, device=dev)
+        out_d = torch.from_numpy(dst4k).to(dev)
+        ms = event_ms(lambda: batch_step(groups_d, out_d, bucket, use_pallas, tol), steps)
+        # pad_exact's step is ~100 000 torch ops: one profiled step, no trace kept
+        prof = profile_frames(path, lambda **k_: batch_step(**k_), dict(
+            groups_d=groups_d, out=out_d, bucket=bucket, use_pallas=use_pallas, tol=tol),
+            frames=1 if bucket == "pad_exact" else 3,
+            into=None if bucket == "pad_exact" else loop_profiles, brief=True)
+        row = dict(ms_per_step=ms, mean_ms=sum(ms) / len(ms), first_call_s=call_s,
+                   groups=len(groups_d), jobs=sum(len(p_[1]) for p_ in groups_d),
+                   launches_per_call={k: v for k, v in launches.items() if v},
+                   diff_max_vs_cpu=d_cpu, busy_us=prof["busy_us"], span_us=prof["span_us"],
+                   idle=prof["idle"], torch_op_launches=prof.get("torch_op_launches"),
+                   gemms=prof["gemms"])
+        print(f"{path} ({card}): step {row['mean_ms']:.4f} ms ({[round(x, 4) for x in ms]}), "
+              f"{row['groups']} group(s) of {row['jobs']} jobs, busy {row['busy_us']:.1f} us "
+              f"of a {row['span_us']:.1f} us span, idle share {row['idle']}, torch-op "
+              f"launches {row['torch_op_launches']}, GEMMs {row['gemms']} a step; launches a "
+              f"call {row['launches_per_call']}; first call {call_s:.2f} s; card vs cpu "
+              f"diff_max {d_cpu}")
+        batch_rows[path] = row
+        return out, row
+
+    # batch_64_4k: 64 seeded 136 x 136 patches, ellipses of tight bbox 128 x 128
+    # (one "exact" group), no overlap, on the plain route and on the kernels
+    srcs64 = [synthetic_image(rng_6, BATCH_PATCH) for _ in cells]
+    masks64 = [ellipse_mask(rng_6, BATCH_PATCH, BATCH_BBOX, jitter=0) for _ in cells]
+    seq64 = TA.seamless_clone_batch(srcs64, dst4k, masks64, cells)
+    for path, use_pallas in (("batch_64_4k", False), ("batch_64_4k_pallas", True)):
+        out64, row = drive_batch(path, srcs64, masks64, cells, use_pallas=use_pallas)
+        row["diff_max_vs_sequential"] = diff_max(out64, seq64)
+        print(f"{path} ({card}): diff_max against 64 sequential seamless_clone calls on the "
+              f"card {row['diff_max_vs_sequential']}")
+        if row["diff_max_vs_sequential"] > 1 or row["groups"] != 1:
+            raise AssertionError(f"{path}: {row}")
+    del seq64
+
+    # batch_mixed_4k: seeded tight sides in MIXED_SIDES; MIXED_OVERLAPS jobs
+    # moved toward their right neighbour, so each such pair overlaps
+    sides = rng_6.integers(MIXED_SIDES[0], MIXED_SIDES[1] + 1, (len(cells), 2))
+    srcs_m = [synthetic_image(rng_6, (int(h_) + 8, int(w_) + 8)) for h_, w_ in sides]
+    masks_m = [ellipse_mask(rng_6, s_.shape[:2], (int(h_), int(w_)), jitter=0)
+               for s_, (h_, w_) in zip(srcs_m, sides)]
+    shifted = [gx_ * k + k % (gx_ - 1) for k in range(MIXED_OVERLAPS)]
+    centers_m = [(x_ + MIXED_SHIFT, y_) if i in shifted else (x_, y_)
+                 for i, (x_, y_) in enumerate(cells)]
+    pairs = [(i, i + 1) for i in shifted]
+
+    def tight_window(i):
+        """(top, left, h, w) of job i's tight ROI in the destination."""
+        h_, w_ = (int(v) for v in sides[i])
+        return centers_m[i][1] - h_ // 2, centers_m[i][0] - w_ // 2, h_, w_
+
+    for a, b in pairs:
+        (ta, la, ha, wa), (tb, lb, hb, wb) = tight_window(a), tight_window(b)
+        if not (la < lb + wb and lb < la + wa and ta < tb + hb and tb < ta + ha):
+            raise AssertionError(f"batch_mixed_4k: jobs {a} and {b} do not overlap")
+
+    def check_later_window(path, out, bucket, jobs_):
+        """In each overlap, the destination holds the later job's whole window
+        (composite order: group order, then job order). Its ring is the
+        destination as its group found it (the original, in one group:
+        every window is gathered before any paste) exactly, and the window
+        is within 1 of that job's step run alone on the same destination
+        (bit-equal with pad_exact, whose jobs solve one by one)."""
+        plan = TB.plan_groups(dst4k.shape, [srcs_m[i] for i in jobs_],
+                              [masks_m[i] for i in jobs_], [centers_m[i] for i in jobs_], bucket,
+                              device=dev)
+        order = sorted(range(len(jobs_)), key=lambda i: (tuple(sides[jobs_[i]]), i)) \
+            if bucket == "exact" else list(range(len(jobs_)))
+        where, k = {}, 0  # job -> (group, index in it)
+        for gi, (hw_, s_, *_rest) in enumerate(plan):
+            for j in range(len(s_)):
+                job = jobs_[order[k]]
+                if bucket == "exact" and tuple(hw_) != tuple(int(v) for v in sides[job]):
+                    raise AssertionError(f"{path}: group {hw_} holds job {job} of {sides[job]}")
+                where[job] = (gi, j)
+                k += 1
+        worst = 0
+        for a, b in pairs:
+            if a not in where or b not in where:
+                continue
+            later = max((a, b), key=lambda i: where[i])
+            gi, j = where[later]
+            (bh_, bw_), s_, m_, l_, t_ = plan[gi]
+            lf, tp = (int(v) for v in l_[j])
+            base = batch_step(plan[:gi], torch.from_numpy(dst4k).to(dev), bucket, False, TOL)
+            alone = batch_step([((bh_, bw_), s_[j : j + 1], m_[j : j + 1], l_[j : j + 1],
+                                 t_[j : j + 1])], base, bucket, False, TOL)
+            alone, base = alone.cpu().numpy(), base.cpu().numpy()
+            win, ref = out[tp : tp + bh_, lf : lf + bw_], alone[tp : tp + bh_, lf : lf + bw_]
+            before = base[tp : tp + bh_, lf : lf + bw_]
+            ring = np.ones((bh_, bw_), bool)
+            ring[1:-1, 1:-1] = False
+            if not np.array_equal(win[ring], before[ring]):
+                raise AssertionError(f"{path}: job {later}'s window ring is not the destination "
+                                     "its group found")
+            d = diff_max(win, ref)
+            worst = max(worst, d)
+            if d > (0 if bucket == "pad_exact" else 1):
+                raise AssertionError(f"{path}: job {later}'s window is {d} from its own step")
+        return worst
+
+    mixed_jobs = list(range(len(cells)))
+    for bucket in ("exact", "pad", "pad_exact"):
+        path = f"batch_mixed_4k_{bucket}"
+        jobs_ = mixed_jobs
+        if bucket == "pad_exact":
+            t0 = time.perf_counter()
+            TB.seamless_clone_batch_fused(dst4k, srcs_m, masks_m, centers_m, bucket=bucket)
+            pad_exact_s = time.perf_counter() - t0
+            if PAD_EXACT_CALLS * pad_exact_s > PAD_EXACT_LIMIT_S:
+                jobs_ = mixed_jobs[:16]
+                print(f"{path} ({card}): a 64-job call took {pad_exact_s:.2f} s, the phase "
+                      f"would take over {PAD_EXACT_LIMIT_S} s: it runs on the first 16 jobs")
+            pe_call_64_s = pad_exact_s
+        out_m, row = drive_batch(path, [srcs_m[i] for i in jobs_], [masks_m[i] for i in jobs_],
+                                 [centers_m[i] for i in jobs_], bucket=bucket,
+                                 steps=2 if bucket == "pad_exact" else BATCH_STEPS)
+        launches = path_launches[path][0]
+        if bucket == "exact" and launches != _per_frame(clamp_cast_paste=row["groups"]):
+            raise AssertionError(f"{path}: launches {launches}, {row['groups']} groups")
+        if bucket == "pad_exact" and launches != _per_frame(
+                erode3=len(jobs_), preprocess_rhs_p=len(jobs_), clamp_cast_paste=len(jobs_)):
+            raise AssertionError(f"{path}: launches {launches} for {len(jobs_)} jobs")
+        row["later_window_diff_max"] = check_later_window(path, out_m, bucket, jobs_)
+        row["jobs_run"] = len(jobs_)
+        if bucket == "pad_exact":
+            row["call_s_64_jobs"] = pe_call_64_s
+        print(f"{path} ({card}): in each overlap the later job's whole window, its ring the "
+              f"destination its group found; diff_max against its own step "
+              f"{row['later_window_diff_max']}")
+
+    # pad_exact at tol MIXED_EXACT_TOL against sequential seamless_clone calls,
+    # on the jobs that overlap none
+    jobs_ = list(range(batch_rows["batch_mixed_4k_pad_exact"]["jobs_run"]))
+    pick = lambda xs: [xs[i] for i in jobs_]  # noqa: E731
+    tight_pe = TB.seamless_clone_batch_fused(dst4k, pick(srcs_m), pick(masks_m),
+                                             pick(centers_m), bucket="pad_exact",
+                                             tol=MIXED_EXACT_TOL)
+    seq_m = TA.seamless_clone_batch(pick(srcs_m), dst4k, pick(masks_m), pick(centers_m))
+    alone_jobs = [i for i in jobs_ if not any(i in p_ for p_ in pairs)]
+    d_seq = 0
+    for i in alone_jobs:
+        tp, lf, h_, w_ = tight_window(i)
+        d_seq = max(d_seq, diff_max(tight_pe[tp : tp + h_, lf : lf + w_],
+                                    seq_m[tp : tp + h_, lf : lf + w_]))
+    batch_rows["batch_mixed_4k_pad_exact"]["diff_max_vs_sequential_tol_1e-6"] = d_seq
+    print(f"batch_mixed_4k_pad_exact at tol {MIXED_EXACT_TOL} ({card}): diff_max against "
+          f"sequential seamless_clone calls over the {len(alone_jobs)} jobs that overlap none "
+          f"{d_seq}")
+    if d_seq > 1:
+        raise AssertionError(f"pad_exact against the sequential calls: diff_max {d_seq}")
+    del tight_pe, seq_m
+    print(json.dumps({"batch_paths": batch_rows}))
+
+    # the edits: 1080p on the direct DST-GEMM route
+    img1080 = synthetic_image(rng_6, EDIT_1080P)
+    mask1080 = ellipse_mask(rng_6, EDIT_1080P, EDIT_BBOX_1080P)
+    img4k = synthetic_image(rng_6, DST_4K)
+    mask4k = ellipse_mask(rng_6, DST_4K, EDIT_BBOX_4K)
+    red, green, blue = EDIT_FACTORS
+
+    def drive_edit(path, fn, img, mask_, args, cpu=True):
+        """One call with the counters around it, a warm-up and EDIT_CALLS calls
+        timed with CUDA events (the device tensor returned), a 3-call profile,
+        and the card against the CPU (diff_max <= 1). Returns (image,
+        launches, row)."""
+        out, launches = launches_of(lambda: fn(img, mask_, *args))
+        path_launches.setdefault(path, (launches, launches))
+        if PATHS[path] is not None:
+            check_counts(path, "call", launches, 1)
+        ms = event_ms(lambda: fn(img, mask_, *args, to_numpy=False), EDIT_CALLS)
+        prof = profile_frames(path, lambda: fn(img, mask_, *args, to_numpy=False), {},
+                              frames=3, into=loop_profiles, brief=True)
+        row = dict(ms_per_call=ms, mean_ms=sum(ms) / len(ms),
+                   launches_per_call={k: v for k, v in launches.items() if v},
+                   busy_us=prof["busy_us"], span_us=prof["span_us"], idle=prof["idle"],
+                   torch_op_launches=prof.get("torch_op_launches"), gemms=prof["gemms"])
+        if cpu:
+            row["diff_max_vs_cpu"] = diff_max(out, fn(img, mask_, *args, device="cpu"))
+            cpu_diffs[path] = row["diff_max_vs_cpu"]
+            if row["diff_max_vs_cpu"] > 1:
+                raise AssertionError(f"{path}: card against CPU diff_max {row}")
+        if out.shape != img.shape or np.array_equal(out, img):
+            raise AssertionError(f"{path}: output {out.shape} unchanged or misshapen")
+        edit_rows[path] = row
+        print(f"{path} ({card}): {row['mean_ms']:.4f} ms a call "
+              f"({[round(x, 4) for x in ms]}), busy {row['busy_us']:.1f} us of a "
+              f"{row['span_us']:.1f} us span, idle share {row['idle']}, torch-op launches "
+              f"{row['torch_op_launches']}, GEMMs {row['gemms']}; launches a call "
+              f"{row['launches_per_call']}" + (f"; card vs cpu diff_max "
+                                               f"{row['diff_max_vs_cpu']}" if cpu else ""))
+        return out, launches, row
+
+    drive_edit("edit_color_1080p", TA.color_change, img1080, mask1080, (red, green, blue))
+    masked1080 = np.where(mask1080[..., None] != 0, img1080, 0).astype(np.uint8)
+    t0 = time.perf_counter()
+    edges1080 = canny(masked1080, 30, 45, 3)
+    canny_ms = (time.perf_counter() - t0) * 1e3
+    _, _, row = drive_edit("edit_texture_1080p", TA.texture_flattening, img1080, mask1080,
+                           (30, 45, 3))
+    row["host_canny_ms"] = canny_ms
+    row["edge_pixels"] = int((edges1080 != 0).sum())
+    print(f"edit_texture_1080p ({card}): the host Canny of the masked source {canny_ms:.1f} ms "
+          f"({row['edge_pixels']} edge pixels), inside each call's time")
+
+    # the edits at 4K: 3838 x 2158 = 8.28 MP interior, above the crossover: the
+    # "q" chain on the dense RHS, to tol 1e-5; cycles against the solve's report
+    h4, w4 = DST_4K[0] - 2, DST_4K[1] - 2
+    levels4 = len(TM.q_coarse_levels(h4, w4))
+    if not TM.quarter_path_applies(h4, w4):
+        raise AssertionError("the 4K interior is not a quarter-plane grid")
+    for path, fn, args, kind, params in (
+            ("edit_color_4k", TA.color_change, (red, green, blue), TE.COLOR_CHANGE,
+             (blue, green, red)),
+            ("edit_illumination_4k", TA.illumination_change, (0.2, 0.4), TE.ILLUMINATION_CHANGE,
+             (0.2, 0.4))):
+        _, launches, row = drive_edit(path, fn, img4k, mask4k, args, cpu=False)
+        cycles = launches["mg_ud_q"]
+        want = _per_frame(to_quarters=1, from_quarters=1, mg_down_q=1, mg_ud_q=cycles,
+                          mg_prolong_tq=cycles, clamp_cast_paste=1,
+                          **{k: levels4 * cycles for k in MG_KERNELS})
+        src_p, me4, params4, _ = TE.edit_inputs(img4k, mask4k, params, None, dev)
+        src_f = src_p.float()
+        gx4, gy4 = TE.edit_guidance(src_f, me4, params4, None, kind=kind)
+        g4 = poisson_rhs(gx4, gy4, src_f)
+        u4, info4 = TM.solve_multigrid(g4, tol=EDIT_TOL, padded="q", use_pallas=True,
+                                       return_info=True)
+        rel4 = info4["residual"] / g4.abs().max().item()
+        rel4_64 = rel_residual(u4, g4)
+        row.update(cycles=cycles, solve_cycles=info4["cycles"], rel_residual=rel4,
+                   rel_residual_f64=rel4_64, coarse_levels=levels4)
+        print(f"{path} ({card}): {cycles} cycles (mg_ud_q launches), the solve of its RHS "
+              f"{info4['cycles']}; relative residual {rel4:.3e} (float64 {rel4_64:.3e}, tol "
+              f"{EDIT_TOL}); {levels4} fused coarse levels")
+        if launches != want or cycles != info4["cycles"] or not rel4 <= EDIT_TOL:
+            raise AssertionError(f"{path}: launches {launches}, expected {want}; {info4}")
+        del src_p, src_f, me4, gx4, gy4, g4, u4
+
+    # the tiled edit: local_edit_tiled of the colour change on a 2x2 mesh of the card
+    mesh_e = make_tile_mesh([torch.device("cuda")] * DD_TILES, DD_MESH)
+    col1080 = TA.color_change(img1080, mask1080, red, green, blue)
+    t0 = time.perf_counter()
+    tiled, launches = launches_of(lambda: local_edit_tiled(
+        img1080, mask1080, TE.COLOR_CHANGE, (blue, green, red), mesh=mesh_e))
+    tiled_s = time.perf_counter() - t0
+    path_launches.setdefault("edit_tiled", (launches, launches))
+    n_dd, rem = divmod(launches["rb_sweeps_tile"], 2 * DD_TILES)
+    if (rem or not n_dd or launches["mg_down"] != launches["mg_up"] or launches != _per_frame(
+            clamp_cast_paste=1, rb_sweeps_tile=launches["rb_sweeps_tile"],
+            mg_down=launches["mg_down"], mg_up=launches["mg_up"])):
+        raise AssertionError(f"edit_tiled: launches {launches}")
+    prof = profile_frames("edit_tiled", lambda: local_edit_tiled(
+        img1080, mask1080, TE.COLOR_CHANGE, (blue, green, red), mesh=mesh_e), {}, frames=1,
+        into=loop_profiles, brief=True)
+    d_tiled = diff_max(tiled, col1080)
+    edit_rows["edit_tiled"] = dict(
+        first_call_s=tiled_s, cycles=n_dd, launches_per_call={k: v for k, v in launches.items()
+                                                              if v},
+        diff_max_vs_color_change=d_tiled, busy_us=prof["busy_us"], span_us=prof["span_us"],
+        idle=prof["idle"], torch_op_launches=prof.get("torch_op_launches"))
+    print(f"edit_tiled ({card}): local_edit_tiled on a 2x2 mesh of the card, {n_dd} DD cycles, "
+          f"rb_sweeps_tile {launches['rb_sweeps_tile']} launches, {tiled_s:.2f} s the first "
+          f"call, a profiled call {prof['span_us'] / 1e3:.1f} ms; diff_max against color_change "
+          f"on the card {d_tiled}")
+    if d_tiled > 1:
+        raise AssertionError(f"edit_tiled: diff_max {d_tiled} against color_change")
+    del col1080, tiled
+    print(json.dumps({"edit_paths": edit_rows}))
+    print(f"the slice-6 phases ran {time.perf_counter() - t_6:.1f} s")
 
     # -- the kernel table: launches of each kernel's own path ---------------------
     for name in KERNELS:

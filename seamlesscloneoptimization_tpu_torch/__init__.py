@@ -10,7 +10,7 @@ unless the caller passes ``device="cpu"``, which runs the plain PyTorch
 twins of the kernels; without a card and without ``device="cpu"`` they
 raise rather than quietly fall back.
 
-What runs (ROADMAP slices 1 to 4c and 8a), through ``SeamlessClone.run`` /
+What runs (ROADMAP slices 1 to 6 and 8a), through ``SeamlessClone.run`` /
 ``timed_serve`` and ``seamless_clone``, in the NORMAL, MIXED and
 MONOCHROME modes:
 
@@ -44,7 +44,13 @@ MONOCHROME modes:
   may appear several times), ``TiledSeamlessClone`` and
   ``seamless_clone_tiled`` with the Poisson solve decomposed over it
   (``solve_poisson_dd``: per-tile sweeps through the ``rb_sweeps_tile``
-  kernel, a replicated coarse solve), and ``solve_redblack_tiled``.
+  kernel, a replicated coarse solve), ``solve_redblack_tiled`` and
+  ``local_edit_tiled``.
+- The batch (``seamless_clone_batch``, ``seamless_clone_batch_fused``:
+  each group of jobs one batched DST-GEMM solve, or with
+  ``bucket="pad_exact"`` each job's tight system in a shared bucket) and
+  the edits (``color_change``, ``illumination_change``,
+  ``texture_flattening``, with a Canny of the port's own).
 """
 
 from __future__ import annotations
@@ -64,12 +70,18 @@ __all__ = [
     "CloneConfig",
     "SeamlessClone",
     "seamless_clone",
+    "seamless_clone_batch",
+    "seamless_clone_batch_fused",
+    "color_change",
+    "illumination_change",
+    "texture_flattening",
     "solve_dst_fft",
     "solve_redblack",
     "resolve_device",
     "TiledSeamlessClone",
     "seamless_clone_tiled",
     "make_tile_mesh",
+    "local_edit_tiled",
 ]
 
 
@@ -100,15 +112,17 @@ def __getattr__(name):
         from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone
 
         return SeamlessClone
-    if name == "seamless_clone":
-        from seamlesscloneoptimization_tpu_torch.api import seamless_clone
+    if name in ("seamless_clone", "seamless_clone_batch", "seamless_clone_batch_fused",
+                "color_change", "illumination_change", "texture_flattening"):
+        from seamlesscloneoptimization_tpu_torch import api
 
-        return seamless_clone
+        return getattr(api, name)
     if name in ("solve_redblack", "solve_dst_fft"):
         from seamlesscloneoptimization_tpu_torch import solvers
 
         return getattr(solvers, name)
-    if name in ("TiledSeamlessClone", "seamless_clone_tiled", "make_tile_mesh"):
+    if name in ("TiledSeamlessClone", "seamless_clone_tiled", "make_tile_mesh",
+                "local_edit_tiled"):
         from seamlesscloneoptimization_tpu_torch import parallel
 
         return getattr(parallel, name)

@@ -20,16 +20,18 @@ def binarize_mask(mask: torch.Tensor) -> torch.Tensor:
 def erode3x3(mask: torch.Tensor, iterations: int = 3) -> torch.Tensor:
     """Binary 3x3 erosion with a ZERO border, ``iterations`` times.
 
-    mask: (H, W) uint8. The zero border erodes the mask inward from the
-    bbox edge, matching the reference ``myErode`` (border forced 0).
+    mask: (..., H, W) uint8: one mask, or a stack of them (a batch
+    group's, eroded as one set of ops); only the last two dimensions are
+    padded. The zero border erodes the mask inward from the bbox edge,
+    matching the reference ``myErode`` (border forced 0).
     """
     m = mask
-    h, w = m.shape
+    h, w = m.shape[-2:]
     for _ in range(iterations):
         p = F.pad(m, (1, 1, 1, 1))
-        out = p[0:h, 0:w]
+        out = p[..., 0:h, 0:w]
         for dy in range(3):
             for dx in range(3):
-                out = torch.minimum(out, p[dy:dy + h, dx:dx + w])
+                out = torch.minimum(out, p[..., dy:dy + h, dx:dx + w])
         m = out
     return m

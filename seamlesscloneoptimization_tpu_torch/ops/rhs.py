@@ -12,12 +12,14 @@ import torch
 def poisson_rhs(gx: torch.Tensor, gy: torch.Tensor, dest_roi: torch.Tensor) -> torch.Tensor:
     """RHS g on the interior grid.
 
-    gx, gy, dest_roi: (C, H, W) float32. Returns (C, H-2, W-2) float32.
+    gx, gy, dest_roi: (..., C, H, W) float32. Returns (..., C, H-2, W-2)
+    float32.
     """
-    g = (gx[:, 1:-1, 1:-1] - gx[:, 1:-1, 0:-2]) + (gy[:, 1:-1, 1:-1] - gy[:, 0:-2, 1:-1])
+    g = ((gx[..., 1:-1, 1:-1] - gx[..., 1:-1, 0:-2])
+         + (gy[..., 1:-1, 1:-1] - gy[..., 0:-2, 1:-1]))
     d = dest_roi
-    g[:, 0, :] += -d[:, 0, 1:-1]
-    g[:, -1, :] += -d[:, -1, 1:-1]
-    g[:, :, 0] += -d[:, 1:-1, 0]
-    g[:, :, -1] += -d[:, 1:-1, -1]
+    g[..., 0, :] += -d[..., 0, 1:-1]
+    g[..., -1, :] += -d[..., -1, 1:-1]
+    g[..., :, 0] += -d[..., 1:-1, 0]
+    g[..., :, -1] += -d[..., 1:-1, -1]
     return g

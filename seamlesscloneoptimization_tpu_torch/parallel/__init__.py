@@ -1,7 +1,16 @@
 """The tile-based domain decomposition (ROADMAP slice 8a): a device mesh,
-the halo exchange, the distributed red-black and DD multigrid solvers, and
-the tiled seamless clone."""
+the halo exchange, the distributed red-black and DD multigrid solvers, the
+tiled seamless clone and the tiled local edits; and the batch (slice 6):
+N jobs into one destination a step."""
 
+from seamlesscloneoptimization_tpu_torch.parallel.batch import (
+    clone_batch_composite,
+    clone_batch_composite_dyn,
+    clone_batch_composite_p,
+    clone_roi_batch,
+    fast_dst_solver,
+    seamless_clone_batch_fused,
+)
 from seamlesscloneoptimization_tpu_torch.parallel.clone_tiled import (
     TiledSeamlessClone,
     local_edit_tiled,
@@ -32,4 +41,10 @@ __all__ = [
     "TiledSeamlessClone",
     "seamless_clone_tiled",
     "local_edit_tiled",
+    "fast_dst_solver",
+    "clone_roi_batch",
+    "clone_batch_composite",
+    "clone_batch_composite_p",
+    "clone_batch_composite_dyn",
+    "seamless_clone_batch_fused",
 ]

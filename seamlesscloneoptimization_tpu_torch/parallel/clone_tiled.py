@@ -21,9 +21,13 @@ paste) to the config's ``tol``, or for ``mg_cycles`` cycles, up to
 ``max_cycles``. The JAX package's tiled engine drops those three on a real
 mesh and solves to tol 1e-4; the port keeps them on purpose (ROADMAP §3).
 
+``local_edit_tiled`` runs the gradient-domain edits (``ops/edit.py``) with
+the same split: the RHS on the first device, the DD solve over the mesh,
+the paste on the first device.
+
 Not ported (NotImplementedError naming the ROADMAP item): ``path="gspmd"``
 (torch has no SPMD partitioner; ``solve_multigrid_sharded`` needs a design
-of its own) and ``local_edit_tiled`` (it needs slice 6's ``ops/edit.py``).
+of its own).
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ import torch
 
 from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
 from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone
+from seamlesscloneoptimization_tpu_torch.ops.edit import edit_guidance, edit_inputs
+from seamlesscloneoptimization_tpu_torch.ops.kernels import clamp_cast_paste
+from seamlesscloneoptimization_tpu_torch.ops.rhs import poisson_rhs
 from seamlesscloneoptimization_tpu_torch.parallel.mesh import TileMesh, make_tile_mesh
 from seamlesscloneoptimization_tpu_torch.parallel.tiled import solve_poisson_dd
 
@@ -111,8 +118,27 @@ def seamless_clone_tiled(src, dst, mask, center, mesh: TileMesh | None = None, f
     return engine.run(src, dst, mask, center).cpu().numpy()
 
 
-def local_edit_tiled(*args, **kwargs):
-    """The gradient-domain edits over a tile mesh: not ported yet."""
-    raise NotImplementedError(
-        "local_edit_tiled is not ported yet: it needs the edit family's ops/edit.py "
-        "(ROADMAP §1 item 5, slice 6), then ROADMAP §1 item 7 (slice 8)")
+def local_edit_tiled(src, mask, kind: str, params, edge_mask=None, mesh: TileMesh | None = None,
+                     tol: float = 1e-5, path: str = "dd"):
+    """Gradient-domain edit (``ops/edit.py``'s kinds) with the Poisson solve
+    decomposed over ``mesh`` (default: every visible CUDA device).
+
+    On the mesh's first device: ``erode3x3_replicate`` of the mask,
+    ``edit_guidance``, ``poisson_rhs`` on the whole image. Then
+    ``solve_poisson_dd`` over the mesh to ``tol`` (the tiles' sweeps are
+    the ``rb_sweeps_tile`` kernel), and ``clamp_cast_paste`` of the
+    interior into a copy of the source: the image border stays the
+    source's. src: (H, W, C) u8; mask: (H, W) or None (everything);
+    params as ``edit_guidance`` takes them; edge_mask: (H, W) u8 {0, 255}
+    (the Canny map of ``texture_flattening``). Returns (H, W, C) u8 numpy.
+    """
+    _check_path(path)
+    mesh = mesh if mesh is not None else make_tile_mesh()
+    src_p, me, params_t, edge = edit_inputs(src, mask, params, edge_mask, mesh.devices[0][0])
+    src_f = src_p.to(torch.float32)
+    gx, gy = edit_guidance(src_f, me, params_t, edge, kind=kind)
+    g = poisson_rhs(gx, gy, src_f)
+    u = solve_poisson_dd(g, mesh, tol=tol)
+    _, h2, w2 = g.shape
+    out = clamp_cast_paste(u.contiguous(), src_p.clone(), 1, 1, h2, w2)
+    return out.permute(1, 2, 0).cpu().numpy()

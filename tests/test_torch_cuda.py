@@ -1622,3 +1622,79 @@ def test_engine_profile_and_destroy_on_card(cuda, tmp_path):
     assert eng.device_memory_bytes() > 0
     eng.destroy()
     assert eng.device_memory_bytes() == 0
+
+
+# ---------------------------------------------------------------------------
+# slice 6: the batch and the edits
+# ---------------------------------------------------------------------------
+
+
+def test_clamp_cast_paste_on_a_job_stack(cuda, nan_outputs):
+    """The batch step's one paste: a (192, 126, 126) solution, 64 jobs x 3
+    channels, into the gathered (192, 128, 128) u8 stack at (1, 1),
+    bit-exact against the twin, the ring untouched."""
+    rng = np.random.default_rng(19)
+    u = torch.from_numpy(rng.uniform(-40, 300, (192, 126, 126)).astype(np.float32))
+    dst = torch.from_numpy(_u8(rng, (192, 128, 128)))
+    K.reset_launches()
+    got = K.clamp_cast_paste(u.to(cuda), dst.to(cuda), 1, 1, 126, 126)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["clamp_cast_paste"] == 1
+    want = K.clamp_cast_paste_plain(u, dst.clone(), 1, 1, 126, 126)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want[:, 0], dst[:, 0]) and torch.equal(want[:, :, -1], dst[:, :, -1])
+
+
+def _batch_jobs(rng, n, sizes):
+    """n seeded jobs on a grid without overlap in a 400 x 640 destination."""
+    dst = _u8(rng, (400, 640, 3))
+    srcs, masks, centers = [], [], []
+    for i in range(n):
+        hw = sizes[i % len(sizes)]
+        srcs.append(_u8(rng, (hw[0] + 8, hw[1] + 8, 3)))
+        masks.append(_ellipse_mask((hw[0] + 8, hw[1] + 8), hw))
+        centers.append((70 + 125 * (i % 5), 70 + 130 * (i // 5)))
+    return dst, srcs, masks, centers
+
+
+@pytest.mark.parametrize("route", ["plain", "kernels", "pad_exact"])
+def test_batch_on_card_matches_cpu(cuda, route):
+    """seamless_clone_batch_fused on 10 jobs: one group of one shape (plain
+    RHS, or the per-job erode3 + preprocess_rhs_p kernels; clamp_cast_paste
+    once), or mixed sizes in one pad_exact bucket (each job's tight system:
+    erode3, preprocess_rhs_p, clamp_cast_paste once a job); card within 1
+    of the CPU."""
+    from seamlesscloneoptimization_tpu_torch.parallel import seamless_clone_batch_fused
+
+    rng = np.random.default_rng(20)
+    sizes = [(101, 101)] if route != "pad_exact" else [(101, 101), (87, 95), (64, 110)]
+    dst, srcs, masks, centers = _batch_jobs(rng, 10, sizes)
+    kw = dict(bucket="pad_exact", tol=1e-6) if route == "pad_exact" else dict(
+        use_pallas=route == "kernels")
+    K.reset_launches()
+    out = seamless_clone_batch_fused(dst, srcs, masks, centers, **kw, device=cuda)
+    per_job = 10 if route != "plain" else 0
+    assert K.LAUNCHES["erode3"] == K.LAUNCHES["preprocess_rhs_p"] == per_job
+    assert K.LAUNCHES["clamp_cast_paste"] == (10 if route == "pad_exact" else 1)
+    want = seamless_clone_batch_fused(dst, srcs, masks, centers, **kw, device="cpu")
+    assert np.abs(out.astype(np.int16) - want).max() <= 1 and not np.array_equal(out, dst)
+
+
+@pytest.mark.parametrize("kind", ["color", "illumination", "texture"])
+def test_edits_1080p_on_card_match_cpu(cuda, kind):
+    """The 1080p edits (the direct DST-GEMM route, clamp_cast_paste once):
+    card within 1 of the CPU."""
+    from seamlesscloneoptimization_tpu_torch import api
+
+    rng = np.random.default_rng(21)
+    src = np.clip(np.kron(_u8(rng, (23, 41, 3)), np.ones((48, 48, 1)))[:1080, :1920]
+                  + rng.normal(0, 6, (1080, 1920, 3)), 0, 255).astype(np.uint8)
+    mask = _ellipse_mask((1080, 1920), (601, 901))
+    fn, args = {"color": (api.color_change, (1.7, 0.6, 1.2)),
+                "illumination": (api.illumination_change, (0.2, 0.4)),
+                "texture": (api.texture_flattening, (30, 45, 3))}[kind]
+    K.reset_launches()
+    out = fn(src, mask, *args, device=cuda)
+    assert K.LAUNCHES == _per_frame(clamp_cast_paste=1)
+    want = fn(src, mask, *args, device="cpu")
+    assert np.abs(out.astype(np.int16) - want).max() <= 1 and not np.array_equal(out, src)

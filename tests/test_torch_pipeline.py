@@ -13,6 +13,8 @@ pair, so no external fixture is needed.
 import ast
 import contextlib
 import dataclasses
+import importlib
+import inspect
 from pathlib import Path
 from unittest import mock
 
@@ -397,8 +399,9 @@ def test_auto_above_crossover_raises(monkeypatch):
 
 def test_port_imports_no_jax():
     """No file of the port, and not chip_smoke.py, imports jax or the JAX
-    package, not even its JAX-free modules."""
-    banned = ("jax", "jaxlib", "seamlesscloneoptimization_tpu")
+    package, not even its JAX-free modules; nor cv2, which the card's
+    machine does not have (the port's Canny is ``ops/canny.py``)."""
+    banned = ("jax", "jaxlib", "seamlesscloneoptimization_tpu", "cv2")
     files = sorted((REPO / "seamlesscloneoptimization_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
@@ -413,3 +416,27 @@ def test_port_imports_no_jax():
             for name in names:
                 assert not any(name == b or name.startswith(b + ".") for b in banned), (
                     f"{path.relative_to(REPO)} imports {name}")
+
+
+def _params(fn, drop=("device",)):
+    """(name, kind, default) of each parameter but the port's added ``device``."""
+    return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()
+            if p.name not in drop]
+
+
+@pytest.mark.parametrize("name", [
+    "api.seamless_clone_batch", "api.seamless_clone_batch_fused", "api.color_change",
+    "api.illumination_change", "api.texture_flattening", "api._local_edit",
+    "parallel.batch.fast_dst_solver", "parallel.batch.clone_roi_batch",
+    "parallel.batch.clone_batch_composite", "parallel.batch.clone_batch_composite_p",
+    "parallel.batch.clone_batch_composite_dyn", "parallel.batch.seamless_clone_batch_fused",
+    "ops.edit.erode3x3_replicate", "ops.edit.edit_guidance", "ops.edit.local_edit_planar",
+    "parallel.clone_tiled.local_edit_tiled"])
+def test_batch_and_edit_signatures_match_jax(name):
+    """Each public function of the batch and edit slice takes the JAX
+    function's parameters (names, kinds, defaults), plus ``device`` where
+    it chooses where to run."""
+    mod, _, fn = name.rpartition(".")
+    port = getattr(importlib.import_module(f"seamlesscloneoptimization_tpu_torch.{mod}"), fn)
+    ref = getattr(importlib.import_module(f"seamlesscloneoptimization_tpu.{mod}"), fn)
+    assert _params(port) == _params(ref)

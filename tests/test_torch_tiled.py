@@ -187,8 +187,9 @@ def test_unported_paths_raise():
                              None, (4, 4), mesh=mesh, path="gspmd")
     with pytest.raises(ValueError, match="path"):
         TiledSeamlessClone(mesh=mesh, path="spmd")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        local_edit_tiled(np.zeros((8, 8, 3), np.uint8), None, "color_change", (1, 1, 1))
+    with pytest.raises(NotImplementedError, match="gspmd"):
+        local_edit_tiled(np.zeros((8, 8, 3), np.uint8), None, "color_change", (1, 1, 1),
+                         mesh=mesh, path="gspmd")
 
 
 # ---------------------------------------------------------------------------
