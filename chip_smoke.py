@@ -228,7 +228,22 @@
      relative residual <= 1e-5; ``edit_tiled`` (``local_edit_tiled`` of the
      colour change on a 2x2 mesh of the card at 1080p: rb_sweeps_tile 2 a
      tile a cycle, clamp_cast_paste 1) within 1 of ``color_change`` on the
-     card (the ``batch_paths`` and ``edit_paths`` JSON lines).
+     card (the ``batch_paths`` and ``edit_paths`` JSON lines);
+   - slice 7, the user surface on the ``pair`` frame's seeded headline
+     src / dst / full mask: ``cli_headline`` (the inputs written as YAML,
+     ``cli.main`` run in this process with ``--loops 5``: the pair chain's
+     kernels (1 + 5) x a run; its ``ucRGB_Output.bmp`` and ``result.yml``
+     bit-equal to the engine's run on the card and within 1 of the CPU
+     path; the YAML reads and writes timed), ``cli_compare``
+     (``compare.main`` on the CLI's BMP against the engine's image: every
+     statistic 0; the g0.yml of a ``--debug-dump`` run against the CPU
+     path's ``dump_stages`` g0.yml, abs_max <= 1e-3) and ``capi_headline``
+     (``capi_host.build_library`` / ``build_test_program`` timed; the C
+     program in a subprocess on device 0 with ``SC_TPU_PYTHONPATH`` the
+     repo root and this interpreter's path: both its runs, the second from
+     another pthread, bit-equal to the engine's; then the library loaded in
+     this process through ctypes and one ``sc_tpu_run`` counted: the pair
+     chain once) (the ``surface_paths`` JSON line).
 
 With ``--other OTHER_ROOT`` (another checkout of this repository, for
 example the parent commit unpacked with ``git archive``; only its
@@ -267,7 +282,8 @@ Prints the kernel table as one JSON line (one entry per kernel; the
 interleaved destination, the ``*_exact`` ones the exact-size forms of
 mg_down / mg_up; ``launches`` is the count of the path that runs
 the kernel, ``launches_by_path`` every path's; for ``mg_dense`` the first
-count is the tol 1e-4 solve's, the second the warm start's), then, as the
+count is the tol 1e-4 solve's, the second the warm start's; for
+``cli_headline`` the CLI's 1 + 5 runs), then, as the
 last line,
 ``{"ok": true, "device": {...}}``. Every phase raises on failure; the
 script exits non-zero, printing no result, when there is no CUDA card or
@@ -352,6 +368,10 @@ EDIT_BBOX_1080P, EDIT_BBOX_4K = (701, 1201), (1401, 2401)
 EDIT_CALLS = 5
 EDIT_FACTORS = (1.7, 0.6, 1.2)  # colorChange's red, green, blue factors
 EDIT_TOL = 1e-5  # the edits' multigrid tolerance (JAX's solve_auto)
+# slice 7: the CLI's timed runs after its warm-up; the stage tensors of its
+# --debug-dump against the CPU path's (the plain RHS on both)
+CLI_LOOPS = 5
+STAGE_ABS_TOL = 1e-3
 
 
 UNFUSED_PROFILE = "mg_q 8K tolerance (unfused chain)"
@@ -578,8 +598,14 @@ PATHS = {
     "edit_color_4k": None,
     "edit_illumination_4k": None,
     "edit_tiled": None,
+    # slice 7: the CLI (one warm-up and CLI_LOOPS timed runs) and one
+    # sc_tpu_run through the C ABI, each the pair chain a run at the headline
+    "cli_headline": None,
+    "capi_headline": None,
 }
 PATHS["bucket_grown_headline"] = dict(PATHS["pair"])  # the pair chain on the bucket
+PATHS["cli_headline"] = dict(PATHS["pair"])
+PATHS["capi_headline"] = dict(PATHS["pair"])
 # slice 4c: every precision mode's frame launches the pair chain's kernels
 PATHS.update({p: dict(PATHS["pair"]) for p in PRECISION_PATHS})
 DENSE_PATHS = ("mg_padded_false", "mg_padded_true", "mg_padded_true_headline")
@@ -2277,6 +2303,7 @@ def main() -> int:
     loop_profiles = {}  # the in-the-loop times of the kernels line (LOOP_PROFILE)
     cpu_diffs = {}
     run_outputs = {}
+    cpu_outputs = {}  # the CPU path's single-shot image, by path
     frames_vs_other = {}
 
     def compare_frames(path, label, eng, s_img, mask_, d_img, ctr, loops):
@@ -2358,7 +2385,8 @@ def main() -> int:
         if cpu is None:
             return eng, ms
         cpu_eng = make("cpu")
-        d_run = diff_max(run_np, cpu_eng.run(s_img, d_img, mask_, ctr).numpy())
+        cpu_run = cpu_outputs.setdefault(path, cpu_eng.run(s_img, d_img, mask_, ctr).numpy())
+        d_run = diff_max(run_np, cpu_run)
         d_serve = 0
         if cpu == "run+serve":
             a, _ = eng.timed_serve(s_img, d_img, mask_, ctr, loops=1)
@@ -3667,6 +3695,227 @@ def main() -> int:
     del col1080, tiled
     print(json.dumps({"edit_paths": edit_rows}))
     print(f"the slice-6 phases ran {time.perf_counter() - t_6:.1f} s")
+
+    # -- slice 7: the CLI, the compare harness and the C ABI at the headline
+    #    (the seeded headline src / dst / full mask of the pair frame) --------
+    import ctypes
+    import io
+    import os
+    import tempfile
+
+    from seamlesscloneoptimization_tpu_torch import capi_host, native
+    from seamlesscloneoptimization_tpu_torch import cli as TCLI
+    from seamlesscloneoptimization_tpu_torch import compare as TCMP
+
+    t_7 = time.perf_counter()
+    surface = {}
+    want = SeamlessClone(CloneConfig(), device=dev).run(src, dst, mask, center).cpu().numpy()
+    cpu_want = cpu_outputs["pair"]
+    root = Path(__file__).resolve().parent
+
+    @contextlib.contextmanager
+    def io_timed(into: dict):
+        """native's YAML reads and writes timed, seconds by function name."""
+        saved = {f: getattr(native, f) for f in ("read_yaml_mat", "write_yaml_mat")}
+
+        def timed(f):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return saved[f](*a, **kw)
+                finally:
+                    into.setdefault(f, []).append(time.perf_counter() - t0)
+            return call
+
+        for f in saved:
+            setattr(native, f, timed(f))
+        try:
+            yield into
+        finally:
+            for f, fn in saved.items():
+                setattr(native, f, fn)
+
+    def captured(fn, *a) -> tuple[int, list[str]]:
+        """fn(*a)'s return code and its printed lines, each printed again."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(*a)
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            print(f"  | {ln}")
+        return rc, lines
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slice7_") as tmp_s:
+        tmp = Path(tmp_s)
+        inputs = []
+        writes = {}
+        with io_timed(writes):
+            for name, a in (("src", src), ("dst", dst), ("mask", mask)):
+                native.write_yaml_mat(tmp / f"{name}.yml", a, name=name)
+                inputs.append(str(tmp / f"{name}.yml"))
+        argv = [*inputs, str(center[0]), str(center[1]), "0"]
+        print(f"cli_headline ({card}): inputs written as YAML in "
+              f"{[round(t, 3) for t in writes['write_yaml_mat']]} s (src {src.size}, dst "
+              f"{dst.size}, mask {mask.size} values; "
+              f"{[os.path.getsize(p) for p in inputs]} bytes)")
+
+        # cli_headline: the CLI in this process, one warm-up and CLI_LOOPS runs
+        cli_io = {}
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with io_timed(cli_io):
+            rc, lines = captured(TCLI.main, argv + ["--loops", str(CLI_LOOPS), "--output-dir",
+                                                    str(tmp / "cli")])
+        cli_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"cli_headline: the CLI returned {rc}")
+        check_counts("cli_headline", f"CLI (1 + {CLI_LOOPS} runs)", launches, 1 + CLI_LOOPS)
+        path_launches.setdefault("cli_headline", (launches, launches))
+        image = native.read_bmp(tmp / "cli" / "ucRGB_Output.bmp")
+        result = native.read_yaml_mat(tmp / "cli" / "result.yml")
+        if not (np.array_equal(image, want) and np.array_equal(result, want)):
+            raise AssertionError(f"cli_headline: the CLI's BMP / result.yml differ from the "
+                                 f"engine's run: diff_max {diff_max(image, want)}, "
+                                 f"{diff_max(result, want)}")
+        d_cpu = diff_max(image, cpu_want)
+        cpu_diffs["cli_headline"] = d_cpu
+        if d_cpu > 1:
+            raise AssertionError(f"cli_headline: diff_max {d_cpu} against the CPU path")
+        compute = next(ln for ln in lines if ln.startswith("Compute stage performance time="))
+        cli_ms = float(compute.split("time=")[1].split()[0])
+        surface["cli_headline"] = dict(
+            compute_ms=cli_ms, loops=CLI_LOOPS, cli_s=cli_s, read_yaml_s=cli_io["read_yaml_mat"],
+            write_yaml_s=cli_io["write_yaml_mat"], input_write_yaml_s=writes["write_yaml_mat"],
+            launches={k: v for k, v in launches.items() if v}, diff_max_vs_cpu=d_cpu)
+        print(f"cli_headline ({card}): compute {cli_ms:.3f} ms a run over {CLI_LOOPS} runs; "
+              f"YAML reads {[round(t, 3) for t in cli_io['read_yaml_mat']]} s (src, dst, mask), "
+              f"result.yml write {cli_io['write_yaml_mat'][0]:.3f} s; the whole CLI "
+              f"{cli_s:.2f} s; BMP and result.yml bit-equal to the engine's run, diff_max "
+              f"{d_cpu} against the CPU path; launches {json.dumps(surface['cli_headline']['launches'])}")
+
+        # cli_compare: compare.main on the CLI's BMP against the engine's image
+        native.write_bmp(tmp / "engine.bmp", want)
+        rc, lines = captured(TCMP.main, [str(tmp / "cli" / "ucRGB_Output.bmp"),
+                                         str(tmp / "engine.bmp")])
+        stats = {k: float(v) for k, v in (ln.split(": ") for ln in lines)}
+        if rc != 0 or len(stats) != 5 or any(stats.values()):
+            raise AssertionError(f"cli_compare: rc {rc}, statistics {stats}, expected all 0")
+        # --debug-dump on the card; its g0.yml against the CPU path's
+        dbg_io = {}
+        t0 = time.perf_counter()
+        with io_timed(dbg_io):
+            rc, _ = captured(TCLI.main, argv + ["--debug-dump", "--output-dir",
+                                                str(tmp / "dbg")])
+        dbg_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli_compare: the CLI with --debug-dump returned {rc}")
+        t0 = time.perf_counter()
+        SeamlessClone(CloneConfig(debug_dir=str(tmp / "dbg_cpu")), device="cpu").dump_stages(
+            src, dst, mask, center)
+        cpu_dump_s = time.perf_counter() - t0
+        rc, lines = captured(TCMP.main, ["--yaml", str(tmp / "dbg" / "debug" / "g0.yml"),
+                                         str(tmp / "dbg_cpu" / "g0.yml")])
+        stage = {k: float(v) for k, v in (ln.split(": ") for ln in lines)}
+        if rc != 0 or not stage["abs_max"] <= STAGE_ABS_TOL:
+            raise AssertionError(f"cli_compare: g0.yml card vs CPU {stage}, tolerance "
+                                 f"{STAGE_ABS_TOL}")
+        surface["cli_compare"] = dict(image_stats=stats, g0_card_vs_cpu=stage,
+                                      debug_cli_s=dbg_s, debug_write_yaml_s=dbg_io[
+                                          "write_yaml_mat"], cpu_dump_stages_s=cpu_dump_s)
+        print(f"cli_compare ({card}): the CLI's BMP against the engine's, every statistic 0; "
+              f"--debug-dump g0.yml card vs CPU abs_max {stage['abs_max']:.3e} rel_max "
+              f"{stage['rel_max']:.3e} (tolerance {STAGE_ABS_TOL}); the --debug-dump CLI "
+              f"{dbg_s:.2f} s, its YAML writes {[round(t, 3) for t in dbg_io['write_yaml_mat']]} "
+              f"s (result, mask_eroded, g0, g1, g2); the CPU's dump_stages {cpu_dump_s:.2f} s")
+
+        # capi_headline: the library and the C program, built here
+        t0 = time.perf_counter()
+        lib = capi_host.build_library()
+        lib_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prog = capi_host.build_test_program()
+        prog_s = time.perf_counter() - t0
+        print(f"capi_headline: built {lib.name} in {lib_s:.2f} s, {prog.name} in {prog_s:.2f} s")
+        for name, a in (("face", src), ("body", dst), ("mask", mask)):
+            a.tofile(tmp / f"{name}.raw")
+        cmd = [str(prog), str(tmp / "face.raw"), *map(str, SRC_HW), str(tmp / "body.raw"),
+               *map(str, DST_HW), str(tmp / "mask.raw"), *map(str, center), "0", "",
+               str(tmp / "out1.raw"), str(tmp / "out2.raw")]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                           env=dict(os.environ, SC_TPU_PYTHONPATH=capi_host.embedded_path(root)))
+        prog_run_s = time.perf_counter() - t0
+        for ln in (r.stdout + r.stderr).splitlines():
+            print(f"  | {ln}")
+        if r.returncode != 0:
+            raise AssertionError(f"capi_headline: the C program exited {r.returncode}")
+        outs = [np.fromfile(tmp / f, np.uint8).reshape(want.shape)
+                for f in ("out1.raw", "out2.raw")]
+        if not all(np.array_equal(o, want) for o in outs):
+            raise AssertionError("capi_headline: the C program's outputs differ from the "
+                                 f"engine's run: diff_max {[diff_max(o, want) for o in outs]}")
+        d_cpu = max(diff_max(o, cpu_want) for o in outs)
+        cpu_diffs["capi_headline"] = d_cpu
+        if d_cpu > 1:
+            raise AssertionError(f"capi_headline: diff_max {d_cpu} against the CPU path")
+        prog_ms = {ln.split(":")[0]: float(ln.split(": ")[1].split()[0])
+                   for ln in r.stdout.splitlines() if ln.endswith(" ms")}
+        # one sc_tpu_run in this process through ctypes (the interpreter is
+        # already up: the library only takes the GIL), its launches counted
+        cdll = ctypes.CDLL(str(lib))
+        cdll.sc_tpu_create_instance.restype = ctypes.c_void_p
+        cdll.sc_tpu_create_instance.argtypes = [ctypes.c_int, ctypes.c_char_p]
+        cdll.sc_tpu_run.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        cdll.sc_tpu_destroy.argtypes = [ctypes.c_void_p]
+        cdll.sc_tpu_last_error.restype = ctypes.c_char_p
+        inst = cdll.sc_tpu_create_instance(0, b"")
+        if not inst:
+            raise AssertionError(f"capi_headline: {cdll.sc_tpu_last_error().decode()}")
+        out_abi = np.empty_like(dst)
+        face_b, body_b, mask_b = src.tobytes(), dst.tobytes(), mask.tobytes()
+
+        def abi_run():
+            return cdll.sc_tpu_run(inst, face_b, *SRC_HW, body_b, *DST_HW, mask_b, *SRC_HW,
+                                   *center, out_abi.ctypes.data, 1)
+
+        abi_run()  # warm-up: the engine's DST bases
+        K.reset_launches()
+        t0 = time.perf_counter()
+        rc = abi_run()
+        abi_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(K.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"capi_headline: sc_tpu_run: {cdll.sc_tpu_last_error().decode()}")
+        check_counts("capi_headline", "in-process sc_tpu_run", launches, 1)
+        path_launches.setdefault("capi_headline", (launches, launches))
+        abi_run_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            rc = abi_run() or rc
+            abi_run_ms.append((time.perf_counter() - t0) * 1e3)
+        cdll.sc_tpu_destroy(inst)
+        if rc != 0:
+            raise AssertionError(f"capi_headline: sc_tpu_run: {cdll.sc_tpu_last_error().decode()}")
+        if not np.array_equal(out_abi, want):
+            raise AssertionError(f"capi_headline: the in-process run differs from the engine's, "
+                                 f"diff_max {diff_max(out_abi, want)}")
+        surface["capi_headline"] = dict(
+            build_library_s=lib_s, build_program_s=prog_s, program_s=prog_run_s,
+            program_ms=prog_ms, in_process_run_ms=[abi_ms, *abi_run_ms],
+            launches={k: v for k, v in launches.items() if v}, diff_max_vs_cpu=d_cpu)
+        print(f"capi_headline ({card}): the C program's two runs (main thread, another pthread) "
+              f"bit-equal to the engine's run, diff_max {d_cpu} against the CPU path; the "
+              f"program {prog_run_s:.2f} s in all; in this process sc_tpu_run (upload, clone, "
+              f"the result copied into out, sync) {abi_ms:.2f} ms, then "
+              f"{[round(t, 2) for t in abi_run_ms]} ms; launches "
+              f"{json.dumps(surface['capi_headline']['launches'])}")
+    print(json.dumps({"surface_paths": surface}))
+    print(f"the slice-7 phases ran {time.perf_counter() - t_7:.1f} s")
 
     # -- the kernel table: launches of each kernel's own path ---------------------
     for name in KERNELS:

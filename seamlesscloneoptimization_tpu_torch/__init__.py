@@ -10,7 +10,7 @@ unless the caller passes ``device="cpu"``, which runs the plain PyTorch
 twins of the kernels; without a card and without ``device="cpu"`` they
 raise rather than quietly fall back.
 
-What runs (ROADMAP slices 1 to 6 and 8a), through ``SeamlessClone.run`` /
+What runs (ROADMAP slices 1 to 7 and 8a), through ``SeamlessClone.run`` /
 ``timed_serve`` and ``seamless_clone``, in the NORMAL, MIXED and
 MONOCHROME modes:
 
@@ -51,6 +51,13 @@ MONOCHROME modes:
   ``bucket="pad_exact"`` each job's tight system in a shared bucket) and
   the edits (``color_change``, ``illumination_change``,
   ``texture_flattening``, with a Canny of the port's own).
+- The user surface over the engine: ``cli`` (the reference's argv,
+  ``python -m seamlesscloneoptimization_tpu_torch.cli``, the scripts
+  ``seamlessclone-tpu-torch``), ``compare`` (the golden-diff harness,
+  ``seamlessclone-tpu-torch-compare``), ``native`` (YAML / BMP IO and
+  ``prep_mask``) and the C ABI (``capi/``: the JAX ABI's five ``sc_tpu_``
+  entry points, embedding CPython over ``capi_host``; built by
+  ``capi_host.build_library()`` on first call, never at import).
 """
 
 from __future__ import annotations

@@ -58,7 +58,6 @@ from torch.profiler import profile as torch_profile
 
 from seamlesscloneoptimization_tpu_torch import native, resolve_device
 from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
-from seamlesscloneoptimization_tpu_torch.core.reference import mask_bounding_box, zero_mask_border
 from seamlesscloneoptimization_tpu_torch.models.pipeline import clone_pipeline, clone_roi
 from seamlesscloneoptimization_tpu_torch.ops.kernels import ru128
 from seamlesscloneoptimization_tpu_torch.solvers import (
@@ -114,8 +113,7 @@ def prepare_inputs(mask: np.ndarray, src_shape, dst_shape, center, bucket: int =
         mask = mask[..., 0]
     if mask.shape != tuple(src_shape[:2]):
         raise ValueError(f"mask shape {mask.shape} != source {tuple(src_shape[:2])}")
-    m = zero_mask_border(np.where(mask != 0, np.uint8(255), np.uint8(0)))
-    x0, y0, bw, bh = mask_bounding_box(m)
+    m, (x0, y0, bw, bh) = native.prep_mask(mask)
     if bw == 0 or bh == 0:
         return None
     cx, cy = center

@@ -29,8 +29,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from seamlesscloneoptimization_tpu_torch import resolve_device
-from seamlesscloneoptimization_tpu_torch.core.reference import mask_bounding_box, zero_mask_border
+from seamlesscloneoptimization_tpu_torch import native, resolve_device
 from seamlesscloneoptimization_tpu_torch.models.pipeline import (
     _kernel_rhs_inputs,
     _plain_rhs,
@@ -287,8 +286,7 @@ def plan_groups(dst_shape, srcs, masks, centers, bucket: str = "exact", device=N
         mask = (np.full(src.shape[:2], 255, np.uint8) if mask is None else np.asarray(mask))
         if mask.ndim == 3:
             mask = mask[..., 0]
-        m = zero_mask_border(np.where(mask != 0, np.uint8(255), np.uint8(0)))
-        x0, y0, bw, bh = mask_bounding_box(m)
+        m, (x0, y0, bw, bh) = native.prep_mask(mask)
         if bw == 0:
             continue
         jobs.append((src, m, (x0, y0, bw, bh), (cx, cy)))

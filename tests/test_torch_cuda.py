@@ -1698,3 +1698,57 @@ def test_edits_1080p_on_card_match_cpu(cuda, kind):
     assert K.LAUNCHES == _per_frame(clamp_cast_paste=1)
     want = fn(src, mask, *args, device="cpu")
     assert np.abs(out.astype(np.int16) - want).max() <= 1 and not np.array_equal(out, src)
+
+
+def _cli_images(rng):
+    """A 200 x 300 full-mask patch into a 400 x 600 destination: both
+    interior sides above 128, the folded pair chain."""
+    return _u8(rng, (200, 300, 3)), _u8(rng, (400, 600, 3)), np.full((200, 300), 255, np.uint8)
+
+
+def test_cli_on_card_equals_engine(cuda, tmp_path, capsys):
+    """The CLI on cuda:0 (one warm-up and 2 timed runs: the pair chain's
+    kernels 3 times each), its BMP and result.yml bit-equal to the engine's
+    run on the card, within 1 of the CPU path."""
+    from seamlesscloneoptimization_tpu_torch import native
+    from seamlesscloneoptimization_tpu_torch.cli import main
+
+    src, dst, mask = _cli_images(np.random.default_rng(30))
+    for name, a in (("src", src), ("dst", dst), ("mask", mask)):
+        native.write_yaml_mat(tmp_path / f"{name}.yml", a, name=name)
+    K.reset_launches()
+    assert main([str(tmp_path / "src.yml"), str(tmp_path / "dst.yml"),
+                 str(tmp_path / "mask.yml"), "300", "200", "0", "--loops", "2",
+                 "--output-dir", str(tmp_path / "out")]) == 0
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {k: 3 * v for k, v in PAIR_CHAIN.items()}
+    assert "patch size=298x198" in capsys.readouterr().out  # the bbox inside the zeroed frame
+    image = native.read_bmp(tmp_path / "out" / "ucRGB_Output.bmp")
+    want = SeamlessClone(CloneConfig(), device=cuda).run(src, dst, mask, (300, 200)).cpu().numpy()
+    assert np.array_equal(image, want)
+    assert np.array_equal(native.read_yaml_mat(tmp_path / "out" / "result.yml"), want)
+    cpu = SeamlessClone(CloneConfig(), device="cpu").run(src, dst, mask, (300, 200)).numpy()
+    assert np.abs(image.astype(np.int16) - cpu).max() <= 1
+
+
+def test_capi_on_card_equals_engine(cuda, tmp_path):
+    """The C ABI program on cuda:0 (the second run from another pthread):
+    both outputs bit-equal to the engine's run on the card."""
+    import os
+    import subprocess
+
+    from seamlesscloneoptimization_tpu_torch import capi_host
+
+    src, dst, mask = _cli_images(np.random.default_rng(31))
+    for name, a in (("face", src), ("body", dst), ("mask", mask)):
+        a.tofile(tmp_path / f"{name}.raw")
+    prog = capi_host.build_test_program()
+    r = subprocess.run([str(prog), str(tmp_path / "face.raw"), "200", "300",
+                        str(tmp_path / "body.raw"), "400", "600", str(tmp_path / "mask.raw"),
+                        "300", "200", "0", "", str(tmp_path / "o1.raw"), str(tmp_path / "o2.raw")],
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, SC_TPU_PYTHONPATH=capi_host.embedded_path()))
+    assert r.returncode == 0, r.stdout + r.stderr
+    want = SeamlessClone(CloneConfig(), device=cuda).run(src, dst, mask, (300, 200)).cpu().numpy()
+    for out in ("o1.raw", "o2.raw"):
+        assert np.array_equal(np.fromfile(tmp_path / out, np.uint8).reshape(want.shape), want)

@@ -15,6 +15,7 @@ import contextlib
 import dataclasses
 import importlib
 import inspect
+import re
 from pathlib import Path
 from unittest import mock
 
@@ -400,7 +401,9 @@ def test_auto_above_crossover_raises(monkeypatch):
 def test_port_imports_no_jax():
     """No file of the port, and not chip_smoke.py, imports jax or the JAX
     package, not even its JAX-free modules; nor cv2, which the card's
-    machine does not have (the port's Canny is ``ops/canny.py``)."""
+    machine does not have (the port's Canny is ``ops/canny.py``). The C
+    ABI's ``capi.cpp`` imports the port's ``capi_host`` and names no JAX
+    module."""
     banned = ("jax", "jaxlib", "seamlesscloneoptimization_tpu", "cv2")
     files = sorted((REPO / "seamlesscloneoptimization_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -416,6 +419,11 @@ def test_port_imports_no_jax():
             for name in names:
                 assert not any(name == b or name.startswith(b + ".") for b in banned), (
                     f"{path.relative_to(REPO)} imports {name}")
+    # the C ABI's embedded interpreter imports the port's host module only
+    capi = (REPO / "seamlesscloneoptimization_tpu_torch" / "capi" / "capi.cpp").read_text()
+    imported = re.findall(r'PyImport_ImportModule\("([^"]+)"\)', capi)
+    assert imported == ["seamlesscloneoptimization_tpu_torch.capi_host"]
+    assert not re.search(r"seamlesscloneoptimization_tpu(?!_torch)|\bjax\b", capi)
 
 
 def _params(fn, drop=("device",)):
