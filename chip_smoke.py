@@ -243,7 +243,25 @@
      repo root and this interpreter's path: both its runs, the second from
      another pthread, bit-equal to the engine's; then the library loaded in
      this process through ctypes and one ``sc_tpu_run`` counted: the pair
-     chain once) (the ``surface_paths`` JSON line).
+     chain once) (the ``surface_paths`` JSON line);
+   - slice 8, ``path="gspmd"`` (``solve_multigrid_sharded``, the element
+     V-cycle partitioned over the mesh) on the 2x2 mesh of the card:
+     ``tiled_gspmd`` (``TiledSeamlessClone(CloneConfig(tol=1e-4),
+     path="gspmd")`` at 8K: clamp_cast_paste once a frame, rb_sweeps_tile
+     2 a tile a cycle on its one plain level; its serve ms/frame, cycles,
+     launches, a 2-frame profile's idle share and torch ops; the solve of
+     the frame's RHS bit-equal to the card's single-device element solve
+     ``solve_multigrid(use_pallas=False)`` with equal cycles, those of the
+     single run, relative residual <= tol), ``tiled_gspmd_fixed`` (the same
+     with ``mg_cycles=4``, exact counts), ``edit_tiled_gspmd``
+     (``local_edit_tiled(path="gspmd")`` of the colour change at 1080p,
+     within 1 of the DD path's) and ``dist_2proc`` (two processes on the
+     card, ``parallel/dist_check.py``, joined by ``init_distributed`` over
+     gloo, two tiles each of a 2x2 mesh: ``solve_poisson_dd`` and
+     ``solve_multigrid_sharded`` at tol 1e-4 on the 8K RHS, each run twice,
+     bit-equal to the single-process 2x2 mesh; ms a solve, the transfers
+     and bytes a cycle that cross to the other rank, the backend) (the
+     ``slice8_paths`` JSON line).
 
 With ``--other OTHER_ROOT`` (another checkout of this repository, for
 example the parent commit unpacked with ``git archive``; only its
@@ -344,6 +362,10 @@ DD_TILES = DD_MESH[0] * DD_MESH[1]
 DD_BAND = 6  # the DD multigrid's CA ghost band at nu = (1, 2)
 RB_TILED_SWEEPS = 1000  # rb_tiled: a fixed count, tol 0
 RB_TILED_HALO = 4  # solve_redblack_tiled's default: 2 sweeps an exchange
+GSPMD_LOOPS = 3  # slice 8: path="gspmd" serve frames (host-bound, ~0.1-0.3 s each at 8K)
+GSPMD_PLAIN_LEVELS = 1  # partitioned levels with betas 1 at 8K and 1080p (even interiors)
+DIST_WORLD = 2  # dist_2proc: two processes on the one card, two tiles each
+DIST_TIMEOUT = 300  # seconds for both ranks (start-up, two runs of each solve)
 # slice 5: bbox_bucket=128 on seeded ellipse masks whose tight bbox is a
 # multiple of 128 on neither side (the buckets' interiors then are 126 mod 128)
 BUCKET = 128
@@ -602,6 +624,13 @@ PATHS = {
     # sc_tpu_run through the C ABI, each the pair chain a run at the headline
     "cli_headline": None,
     "capi_headline": None,
+    # slice 8: path="gspmd" on the 2x2 mesh (the generic tail's paste, and
+    # rb_sweeps_tile 2 a tile a cycle on the plain level; tolerance mode
+    # data-dependent), and the gspmd edit at 1080p
+    "tiled_gspmd": None,
+    "tiled_gspmd_fixed": _per_frame(clamp_cast_paste=1,
+                                    rb_sweeps_tile=2 * DD_TILES * GSPMD_PLAIN_LEVELS * 4),
+    "edit_tiled_gspmd": None,
 }
 PATHS["bucket_grown_headline"] = dict(PATHS["pair"])  # the pair chain on the bucket
 PATHS["cli_headline"] = dict(PATHS["pair"])
@@ -614,6 +643,7 @@ MG_Q_PATHS = ("mg_q", "mg_q_fixed", "mg_q_headline", "bucket_grown_8k")
 BUCKET_EXACT_PATHS = ("bucket_exact_headline", "bucket_exact_8k")
 MG_Q_COARSE_PATHS = ("mg_q_coarse", "mg_q_coarse_headline")
 TILED_PATHS = ("tiled_dd", "tiled_dd_fixed", "tiled_dd_headline")
+GSPMD_PATHS = ("tiled_gspmd", "edit_tiled_gspmd")
 # fused levels of the "t" chain; fused coarse levels below the quarter level
 MG_LEVELS = {"mg_t": 4, "mg_t_headline": 3, "mg_q": 3, "mg_q_headline": 2, "mg_q_coarse": 3,
              "mg_q_coarse_headline": 2,
@@ -882,6 +912,7 @@ def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
                  check_mg_q_coarse_counts if path in MG_Q_COARSE_PATHS else
                  check_jacobi_counts if path in JACOBI_PATHS else
                  check_tiled_counts if path in TILED_PATHS else
+                 check_gspmd_counts if path in GSPMD_PATHS else
                  check_unpadded_counts if path in DENSE_PATHS + BUCKET_EXACT_PATHS
                  else check_mg_counts)
         check(path, what, launches, frames)
@@ -959,6 +990,21 @@ def check_tiled_counts(path: str, what: str, launches: dict, frames: int) -> int
     n, rem = divmod(launches["rb_sweeps_tile"], 2 * DD_TILES)
     want = _per_frame(clamp_cast_paste=frames, rb_sweeps_tile=2 * DD_TILES * n,
                       mg_down=levels * n, mg_up=levels * n)
+    if launches != want or rem or n < frames:
+        raise AssertionError(f"{path} {what}: launches {launches}, expected {want}")
+    return n
+
+
+def check_gspmd_counts(path: str, what: str, launches: dict, frames: int) -> int:
+    """path="gspmd" frames on the 2x2 mesh: clamp_cast_paste once a frame
+    (the generic tail; the RHS is plain torch); per cycle rb_sweeps_tile 2 a
+    tile on each partitioned level with betas 1 (nu1 and nu2 sweeps on a
+    4-ring band, one launch each; ``GSPMD_PLAIN_LEVELS``); nothing else (the
+    beta levels and the gathered coarse levels run in torch ops). Returns
+    the cycles."""
+    per_cycle = 2 * DD_TILES * GSPMD_PLAIN_LEVELS
+    n, rem = divmod(launches["rb_sweeps_tile"], per_cycle)
+    want = _per_frame(clamp_cast_paste=frames, rb_sweeps_tile=per_cycle * n)
     if launches != want or rem or n < frames:
         raise AssertionError(f"{path} {what}: launches {launches}, expected {want}")
     return n
@@ -3916,6 +3962,162 @@ def main() -> int:
               f"{json.dumps(surface['capi_headline']['launches'])}")
     print(json.dumps({"surface_paths": surface}))
     print(f"the slice-7 phases ran {time.perf_counter() - t_7:.1f} s")
+
+    # -- slice 8: path="gspmd" (solve_multigrid_sharded, the element V-cycle
+    #    partitioned over the mesh) at 8K on the 2x2 mesh of the card, its
+    #    mg_cycles=4 form, the gspmd edit at 1080p, and two processes on the
+    #    card joined by init_distributed over gloo --------------------------------
+    import tempfile
+
+    from seamlesscloneoptimization_tpu_torch.parallel import dist_check, solve_multigrid_sharded
+    from seamlesscloneoptimization_tpu_torch.parallel import tiled as TT
+
+    t_8 = time.perf_counter()
+    slice8 = {}
+
+    def gspmd_engine(cfg):
+        return lambda device: TiledSeamlessClone(
+            cfg, mesh=make_tile_mesh([torch.device(device)] * DD_TILES, DD_MESH), path="gspmd")
+
+    def timed_solve(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    g8 = _plain_rhs(dest8, patch8, mask8_roi, 1, "opencv")[0]
+    g8max = g8.abs().max().item()
+    lv = TT._Level(*g8.shape[1:], 1.0, 1.0, TT._split(g8.shape[1], DD_MESH[0]),
+                   TT._split(g8.shape[2], DD_MESH[1]))
+    gs_levels = []
+    while lv.sharded:
+        gs_levels.append([lv.h, lv.w, lv.bh, lv.bw, min(b - a for a, b in zip(lv.rows,
+                                                                             lv.rows[1:]))])
+        lv = lv.coarser()
+    if sum(1 for x in gs_levels if x[2] == x[3] == 1.0) != GSPMD_PLAIN_LEVELS:
+        raise AssertionError(f"tiled_gspmd: partitioned levels {gs_levels}")
+    for path, cfg, label in (("tiled_gspmd", CloneConfig(tol=TOL), "8K"),
+                             ("tiled_gspmd_fixed", CloneConfig(tol=TOL, mg_cycles=4),
+                              "8K, mg_cycles=4")):
+        _, ms = drive(path, cfg, src8, mask8, GSPMD_LOOPS, label, d_img=dst8, cpu=None,
+                      solver="multigrid_gspmd", engine=gspmd_engine(cfg))
+        serve, run = path_launches[path]
+        cycles = run["rb_sweeps_tile"] // (2 * DD_TILES * GSPMD_PLAIN_LEVELS)
+        want_cycles = cfg.mg_cycles
+        (u_gs, info_gs), gs_ms = timed_solve(lambda: solve_multigrid_sharded(
+            g8, mesh_c, tol=TOL, cycles=want_cycles, return_info=True))
+        (u_el, info_el), el_ms = timed_solve(lambda: TM.solve_multigrid(
+            g8, tol=TOL, cycles=want_cycles, use_pallas=False, return_info=True))
+        same = torch.equal(u_gs, u_el)
+        rel = info_gs["residual"] / g8max
+        rel64 = rel_residual(u_gs, g8)
+        eig_gs: dict = {}
+        prof = profile_frames(f"{path} 8K", clone_pipeline, dict(
+            src=torch.from_numpy(src8).to(dev), dst=dst8_p.clone(),
+            mask=torch.from_numpy(m8).to(dev), bbox_xy=(x8, y8), left_top=(left8, top8),
+            bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver_name="multigrid_gspmd",
+            use_pallas_pre=False, use_pallas_post=False,
+            solver=lambda g, c=want_cycles: solve_multigrid_sharded(
+                g, mesh_c, tol=TOL, cycles=c, eig_cache=eig_gs)), frames=2, brief=True,
+            into=loop_profiles)
+        slice8[path] = dict(
+            ms_per_frame=ms, cycles_run=cycles, cycles_solve=info_gs["cycles"],
+            cycles_single_device=info_el["cycles"], bit_equal_single_device=same,
+            rel_residual=rel, rel_residual_f64=rel64, solve_ms=gs_ms,
+            single_device_element_solve_ms=el_ms,
+            launches_per_frame={k: v / (GSPMD_LOOPS + 1) for k, v in serve.items() if v},
+            rb_sweeps_tile_per_frame=serve["rb_sweeps_tile"] / (GSPMD_LOOPS + 1),
+            busy_us=prof["busy_us"], span_us=prof["span_us"], idle=prof["idle"],
+            torch_op_launches=prof.get("torch_op_launches"), levels=gs_levels)
+        print(f"{path} ({card}): 2x2 mesh of one card, partitioned levels (h, w, bh, bw, "
+              f"shortest tile side) {gs_levels}; serve {ms:.4f} ms/frame; the single run "
+              f"{cycles} cycles, solve_multigrid_sharded {info_gs['cycles']} in {gs_ms:.1f} ms, "
+              f"the single-device element solve {info_el['cycles']} in {el_ms:.1f} ms; "
+              f"bit-equal {same}; relative residual {rel:.3e} (float64 {rel64:.3e}); "
+              f"launches a frame {json.dumps(slice8[path]['launches_per_frame'])}")
+        if (not same or not cycles == info_gs["cycles"] == info_el["cycles"]
+                or (want_cycles is None and not rel <= TOL)
+                or not torch.isfinite(u_gs).all()):
+            raise AssertionError(f"{path}: {slice8[path]}")
+        del u_gs, u_el
+
+    # the gspmd edit at 1080p, within 1 of the DD path's edit
+    ed_gs, launches = launches_of(lambda: local_edit_tiled(
+        img1080, mask1080, TE.COLOR_CHANGE, (blue, green, red), mesh=mesh_e, path="gspmd"))
+    path_launches["edit_tiled_gspmd"] = (launches, launches)
+    n_gs = check_gspmd_counts("edit_tiled_gspmd", "call (1080p)", launches, 1)
+    _, ed_ms = timed_solve(lambda: local_edit_tiled(
+        img1080, mask1080, TE.COLOR_CHANGE, (blue, green, red), mesh=mesh_e, path="gspmd"))
+    ed_dd = local_edit_tiled(img1080, mask1080, TE.COLOR_CHANGE, (blue, green, red),
+                             mesh=mesh_e)
+    d_ed = diff_max(ed_gs, ed_dd)
+    prof = profile_frames("edit_tiled_gspmd", lambda: local_edit_tiled(
+        img1080, mask1080, TE.COLOR_CHANGE, (blue, green, red), mesh=mesh_e, path="gspmd"),
+        {}, frames=1, into=loop_profiles, brief=True)
+    slice8["edit_tiled_gspmd"] = dict(
+        call_ms=ed_ms, cycles=n_gs, launches_per_call={k: v for k, v in launches.items() if v},
+        diff_max_vs_dd=d_ed, busy_us=prof["busy_us"], span_us=prof["span_us"],
+        idle=prof["idle"], torch_op_launches=prof.get("torch_op_launches"))
+    print(f"edit_tiled_gspmd ({card}): local_edit_tiled(path='gspmd') on a 2x2 mesh of the "
+          f"card at 1080p, {n_gs} cycles, {ed_ms:.1f} ms a call (host clock); diff_max against "
+          f"the DD path's edit {d_ed}")
+    if d_ed > 1:
+        raise AssertionError(f"edit_tiled_gspmd: diff_max {d_ed} against the DD path's edit")
+    del ed_gs, ed_dd
+
+    # two processes on the card, two tiles each, joined by init_distributed
+    # (gloo: the processes share the card), against the single-process 2x2 mesh
+    (u_dd1, info_dd1), dd1_ms = timed_solve(lambda: solve_poisson_dd(
+        g8, mesh_c, tol=TOL, return_info=True))
+    (u_gs1, info_gs1), gs1_ms = timed_solve(lambda: solve_multigrid_sharded(
+        g8, mesh_c, tol=TOL, return_info=True))
+    g8c = g8.cpu()
+    dist_runs = {"dd": {"g": g8c, "kwargs": {"tol": TOL}},
+                 "sharded": {"g": g8c, "kwargs": {"tol": TOL}}}
+    expect = {"dd": u_dd1.cpu(), "sharded": u_gs1.cpu()}
+    del u_dd1, u_gs1
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dist_runs, f"{tmp}/in.pt")
+        torch.save(expect, f"{tmp}/expect.pt")
+        t0 = time.perf_counter()
+        ranks = dist_check.spawn(DIST_WORLD, [
+            "--device", "cuda", "--tiles", str(DD_TILES // DIST_WORLD), "--shape",
+            *map(str, DD_MESH), "--input", f"{tmp}/in.pt", "--expect", f"{tmp}/expect.pt",
+            "--repeat", "2"], DIST_TIMEOUT)
+        dist_s = time.perf_counter() - t0
+    del dist_runs, expect, g8c
+    if any(rc != 0 for rc, _ in ranks):
+        raise AssertionError("dist_2proc: a rank failed:\n" + "\n---\n".join(
+            out[-3000:] for _, out in ranks))
+    reports = [dist_check.report_of(out) for _, out in ranks]
+    slice8["dist_2proc"] = dict(wall_s=dist_s, single_process_ms={"dd": dd1_ms,
+                                                                   "sharded": gs1_ms},
+                                single_process_cycles={"dd": info_dd1["cycles"],
+                                                       "sharded": info_gs1["cycles"]},
+                                ranks=reports)
+    for rep in reports:
+        for name, row in rep["solves"].items():
+            print(f"dist_2proc rank {rep['rank']} ({card}, backend {rep['backend']}, cells "
+                  f"{rep['cells']}): {name} {row['ms']:.1f} ms a solve (the second run; "
+                  f"single process {slice8['dist_2proc']['single_process_ms'][name]:.1f}), "
+                  f"{row['cycles']} cycles, bit-equal to the single-process 2x2 mesh "
+                  f"{row['equal']}; crossing to the other rank a cycle "
+                  f"{row['crossed_transfers_per_step']:.1f} transfers, "
+                  f"{row['crossed_bytes_per_step'] / 1e6:.3f} MB; rb_sweeps_tile "
+                  f"{row['rb_sweeps_tile']}")
+    if not all(rep["backend"] == "gloo" and rep["reinit_noop"] and all(
+            row["equal"] for row in rep["solves"].values()) for rep in reports):
+        raise AssertionError(f"dist_2proc: {reports}")
+    print(f"dist_2proc: {DIST_WORLD} processes in {dist_s:.1f} s (start-up, two runs of each "
+          f"solve)")
+    rows["rb_sweeps_tile"]["dist_2proc_launches_per_rank"] = {
+        name: [rep["solves"][name]["rb_sweeps_tile"] for rep in reports]
+        for name in reports[0]["solves"]}
+    del g8
+    print(json.dumps({"slice8_paths": slice8}))
+    print(f"the slice-8 phases ran {time.perf_counter() - t_8:.1f} s")
 
     # -- the kernel table: launches of each kernel's own path ---------------------
     for name in KERNELS:

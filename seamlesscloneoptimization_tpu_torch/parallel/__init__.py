@@ -1,7 +1,9 @@
-"""The tile-based domain decomposition (ROADMAP slice 8a): a device mesh,
-the halo exchange, the distributed red-black and DD multigrid solvers, the
-tiled seamless clone and the tiled local edits; and the batch (slice 6):
-N jobs into one destination a step."""
+"""The tile-based domain decomposition (ROADMAP slices 8a and 8): a device
+mesh, in one process or spanning several (``init_distributed``), the halo
+exchange, the distributed red-black and DD multigrid solvers, the
+partitioned V-cycle (``solve_multigrid_sharded``), the tiled seamless clone
+and the tiled local edits; and the batch (slice 6): N jobs into one
+destination a step."""
 
 from seamlesscloneoptimization_tpu_torch.parallel.batch import (
     clone_batch_composite,
@@ -19,24 +21,28 @@ from seamlesscloneoptimization_tpu_torch.parallel.clone_tiled import (
 from seamlesscloneoptimization_tpu_torch.parallel.mesh import (
     TileMesh,
     gather_tiles,
+    init_distributed,
     make_tile_mesh,
     shard_tiles,
 )
 from seamlesscloneoptimization_tpu_torch.parallel.tiled import (
     halo_exchange,
     solve_multigrid_dd,
+    solve_multigrid_sharded,
     solve_poisson_dd,
     solve_redblack_tiled,
 )
 
 __all__ = [
     "TileMesh",
+    "init_distributed",
     "make_tile_mesh",
     "shard_tiles",
     "gather_tiles",
     "halo_exchange",
     "solve_redblack_tiled",
     "solve_multigrid_dd",
+    "solve_multigrid_sharded",
     "solve_poisson_dd",
     "TiledSeamlessClone",
     "seamless_clone_tiled",

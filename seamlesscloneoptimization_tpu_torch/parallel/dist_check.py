@@ -1,0 +1,169 @@
+"""One rank of a multi-process tile-mesh run: the solves on a process-spanning mesh.
+
+    python -m seamlesscloneoptimization_tpu_torch.parallel.dist_check \\
+        --rank R --world N --port P --device cpu|cuda --tiles T --shape TY TX \\
+        --input IN.pt [--expect EXPECT.pt] [--repeat 1] [--shard-min M]
+
+Every rank joins the group with ``init_distributed("127.0.0.1:P", N, R)``
+(and calls it a second time, which must do nothing), builds
+``make_tile_mesh([device] * T, (TY, TX))`` over all N processes and runs
+the solves of ``IN.pt``: a dict name -> {"g": (C, H, W) f32, "kwargs": {...}},
+the solver chosen by the name's prefix (``dd``: ``solve_poisson_dd``,
+``sharded``: ``solve_multigrid_sharded``, ``rb``: ``solve_redblack_tiled``),
+each with ``return_info=True``, ``--repeat`` times. Every rank passes the
+same global g and gets the whole u back. ``--expect`` holds name -> u of the
+same solves on a single-process mesh: each rank's whole u is held against
+it bit for bit. ``--shard-min`` sets ``parallel/tiled.py:SHARD_MIN`` (small test grids).
+
+Prints one JSON line: the rank, the transport's backend, whether the
+second ``init_distributed`` left the group as it was, and per solve the
+ms of the last run (host clock, the device synchronized), its cycles or
+sweeps, the transfers and bytes this rank sent to other ranks in the last
+run and a cycle, the ``rb_sweeps_tile`` launches, and whether u was equal
+to the expected one. Exits 1 when a result differs. ``spawn`` starts the
+N ranks of such a run on this machine and collects them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+from seamlesscloneoptimization_tpu_torch.ops import kernels as K
+from seamlesscloneoptimization_tpu_torch.parallel import tiled
+from seamlesscloneoptimization_tpu_torch.parallel import transport
+from seamlesscloneoptimization_tpu_torch.parallel.mesh import (
+    init_distributed,
+    make_tile_mesh,
+    transport_backend,
+)
+
+SOLVERS = {"dd": tiled.solve_poisson_dd, "sharded": tiled.solve_multigrid_sharded,
+           "rb": tiled.solve_redblack_tiled}
+
+
+def solver_for(name: str):
+    """The solve a run's name selects, by its prefix."""
+    for prefix, fn in SOLVERS.items():
+        if name.startswith(prefix):
+            return fn
+    raise ValueError(f"no solver for {name!r}: names start with one of {sorted(SOLVERS)}")
+
+
+def free_port() -> int:
+    """A free localhost TCP port (OSError where sockets are refused)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(world: int, args: list[str], timeout: float) -> list[tuple[int, str]]:
+    """Run ranks 0 .. world - 1 of this module with ``args`` on a free
+    localhost port; returns each rank's (exit code, output). A rank still
+    running after ``timeout`` seconds: every rank is killed and
+    TimeoutError raised with their output so far."""
+    root = Path(__file__).resolve().parents[2]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "seamlesscloneoptimization_tpu_torch.parallel.dist_check",
+         "--rank", str(r), "--world", str(world), "--port", str(port), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=root, env=env)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 0.1))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        rest = [p.communicate()[0] for p in procs[len(outs):]]
+        raise TimeoutError(f"ranks still running after {timeout} s:\n" + "\n---\n".join(
+            outs + rest)) from None
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def report_of(out: str) -> dict:
+    """The JSON report line of a rank's output."""
+    for line in reversed(out.splitlines()):
+        if line.startswith("{"):
+            return json.loads(line)
+    raise ValueError(f"no report in the rank's output:\n{out[-4000:]}")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
+    ap.add_argument("--tiles", type=int, default=1)
+    ap.add_argument("--shape", type=int, nargs=2, required=True)
+    ap.add_argument("--input", required=True)
+    ap.add_argument("--expect")
+    ap.add_argument("--repeat", type=int, default=1)
+    ap.add_argument("--shard-min", type=int)
+    args = ap.parse_args(argv)
+    torch.set_num_threads(1)  # ranks share the machine's cores
+    if args.shard_min is not None:
+        tiled.SHARD_MIN = args.shard_min
+    init_distributed(f"127.0.0.1:{args.port}", args.world, args.rank)
+    world = dist.group.WORLD
+    init_distributed()  # the group is up: a no-op
+    reinit_noop = dist.group.WORLD is world and dist.get_world_size() == args.world
+    device = torch.device("cuda", 0) if args.device == "cuda" else torch.device("cpu")
+    mesh = make_tile_mesh([device] * args.tiles, tuple(args.shape))
+    runs = torch.load(args.input)
+    expect = torch.load(args.expect) if args.expect else {}
+    report = {"rank": args.rank, "backend": transport_backend(), "reinit_noop": reinit_noop,
+              "mesh": list(mesh.shape), "cells": [list(c) for c in mesh.local_cells()],
+              "solves": {}}
+    ok = True
+    for name, run in runs.items():
+        fn = solver_for(name)
+        g = run["g"].to(device)
+        for _ in range(args.repeat):
+            dist.barrier()
+            transport.reset_crossed()
+            K.reset_launches()
+            _sync(device)
+            t0 = time.perf_counter()
+            u, info = fn(g, mesh, return_info=True, **run["kwargs"])
+            _sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            u = u.cpu()
+            row = {"ms": ms, **info, **{f"crossed_{k}": v for k, v in transport.CROSSED.items()},
+                   "rb_sweeps_tile": K.LAUNCHES["rb_sweeps_tile"]}
+            steps = info.get("cycles", info.get("iterations"))
+            if steps:
+                row.update({f"crossed_{k}_per_step": v / steps
+                            for k, v in transport.CROSSED.items()})
+            if name in expect:
+                row["equal"] = bool(torch.equal(u, expect[name]))
+                row["max_abs_diff"] = float((u - expect[name]).abs().max())
+                ok &= row["equal"]
+        report["solves"][name] = row
+    print(json.dumps(report), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

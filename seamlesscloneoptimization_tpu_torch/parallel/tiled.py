@@ -2,13 +2,16 @@
 
 Port of ``seamlesscloneoptimization_tpu/parallel/tiled.py``. The interior
 grid (C, H, W) is split into a (ty, tx) grid of tiles over a ``TileMesh``
-(``parallel/mesh.py``); one process drives every tile, as JAX's single
-controller drives every device of its mesh.
+(``parallel/mesh.py``). One process may drive every tile, as JAX's single
+controller drives every device of its mesh, or the mesh may span processes
+(``init_distributed``): each process then holds its own cells' tiles, every
+process passes the same global g, and each gets the whole u back, bit-equal
+to the same call on a single-process mesh of that shape.
 
-- ``halo_exchange`` pads each tile with k-px ghosts copied from its eight
-  neighbours' edge strips (zeros past the grid: the Dirichlet frame). A
-  strip crosses to its neighbour's device by a copy; the assembled global
-  array is never formed.
+- ``halo_exchange`` pads each tile with k-px ghosts from its eight
+  neighbours' edge strips (zeros past the grid: the Dirichlet frame): a copy
+  inside this process, a point-to-point transfer across processes
+  (``parallel/transport.py``). The assembled global array is never formed.
 - ``solve_redblack_tiled``: communication-avoiding red-black relaxation. One
   exchange of k ghosts feeds k/2 full sweeps on each ghosted tile (the
   staleness front never reaches the owned cells), colours and the Dirichlet
@@ -17,20 +20,22 @@ controller drives every device of its mesh.
 - ``solve_multigrid_dd``: the finest level tile-local (CA sweeps through
   ``rb_sweeps_tile``, the residual from the still-exact ghost band,
   restriction and prolongation in global coordinates), everything below it
-  gathered and solved by the element ``vcycle`` once per distinct device of
-  the mesh (once on a one-card mesh), each tile taking its window of the
-  coarse correction.
+  gathered (an ``all_gather`` across processes) and solved by the element
+  ``vcycle`` once per distinct device of this process, each tile taking its
+  window of the coarse correction.
 - ``solve_poisson_dd``: the arbitrary-size front door, padding to tiles the
   CA band fits and cropping.
+- ``solve_multigrid_sharded``: JAX's GSPMD path, the element V-cycle with
+  every level partitioned by hand (XLA partitions it in JAX): uneven tiles,
+  a ghost exchange per stencil, global-coordinate colours and edges, the
+  small levels gathered; bit-equal to the single-device element solve.
 
 Cells outside the true (Ht, Wt) domain of a padded grid are pinned to zero,
 which is the Dirichlet frame of the interior system, so the embedded
 solution restricted to the true cells is exact. A tolerance check reads the
-max over the tiles to the host once (the counterpart of ``lax.pmax``).
-Everything runs on each device's current stream in program order.
-
-Not ported: ``solve_multigrid_sharded`` (the GSPMD path: torch has no SPMD
-partitioner; ROADMAP §1 item 7).
+max over the tiles (all-reduced across processes, the counterpart of
+``lax.pmax``) to the host once, on every rank, so the ranks' loops stay in
+lockstep. Everything runs on each device's current stream in program order.
 """
 
 from __future__ import annotations
@@ -39,47 +44,21 @@ import torch
 import torch.nn.functional as F
 
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
-from seamlesscloneoptimization_tpu_torch.parallel.mesh import TileMesh, gather_tiles, shard_tiles
-from seamlesscloneoptimization_tpu_torch.solvers.multigrid import _coarsen, _tol_burst, vcycle
-
-
-def halo_exchange(tiles, k: int = 1):
-    """Pad every (C, th, tw) tile of a (ty, tx) grid with k-px ghosts.
-
-    The ghosts are the neighbours' edge strips; corners come from the
-    diagonal neighbours, as JAX's rows-then-columns exchange of the
-    row-extended tiles gives them. Tiles on the grid's edge get zeros there
-    (the Dirichlet frame). Returns the grid of (C, th + 2k, tw + 2k) tiles,
-    each on its tile's device; equal to the windows of the globally
-    zero-padded array.
-    """
-    ty, tx = len(tiles), len(tiles[0])
-    out = []
-    for iy in range(ty):
-        row = []
-        for ix in range(tx):
-            t = tiles[iy][ix]
-            c, th, tw = t.shape
-            if min(th, tw) < k:
-                raise ValueError(f"tile {th}x{tw} smaller than the halo {k}")
-            x = t.new_empty((c, th + 2 * k, tw + 2 * k))
-            x[:, k : k + th, k : k + tw] = t
-            for dy, rows_dst, rows_src in ((-1, slice(0, k), slice(th - k, th)),
-                                           (0, slice(k, k + th), slice(0, th)),
-                                           (1, slice(k + th, th + 2 * k), slice(0, k))):
-                for dx, cols_dst, cols_src in ((-1, slice(0, k), slice(tw - k, tw)),
-                                               (0, slice(k, k + tw), slice(0, tw)),
-                                               (1, slice(k + tw, tw + 2 * k), slice(0, k))):
-                    if dy == 0 and dx == 0:
-                        continue
-                    ny, nx = iy + dy, ix + dx
-                    if 0 <= ny < ty and 0 <= nx < tx:  # a strip from the neighbour's device
-                        x[:, rows_dst, cols_dst].copy_(tiles[ny][nx][:, rows_src, cols_src])
-                    else:
-                        x[:, rows_dst, cols_dst].zero_()
-            row.append(x)
-        out.append(row)
-    return out
+from seamlesscloneoptimization_tpu_torch.parallel.mesh import TileMesh, shard_tiles
+from seamlesscloneoptimization_tpu_torch.parallel.transport import (
+    gather,
+    grid_max,
+    halo_exchange,
+    map_local,
+)
+from seamlesscloneoptimization_tpu_torch.solvers.multigrid import (
+    _coarsen,
+    _ops_b,
+    _small,
+    _tol_burst,
+    solve_multigrid,
+    vcycle,
+)
 
 
 def _neighbor_sum_padded(up: torch.Tensor) -> torch.Tensor:
@@ -94,22 +73,19 @@ def _domain(hl: int, wl: int, org_r: int, org_c: int, ht: int, wt: int, device):
     return (rows >= 0) & (rows < ht) & (cols >= 0) & (cols < wt)
 
 
-def _grid_max(vals, device) -> torch.Tensor:
-    """The max of per-tile 0-dim tensors, on ``device`` (no host read)."""
-    return torch.stack([v.to(device) for v in vals]).max()
-
-
 class _Tiles:
     """A (ty, tx) tile grid's fixed geometry: the tile size, each tile's
-    global origin and owned-cell mask, the true domain."""
+    global origin and owned-cell mask, the true domain. Grids hold this
+    process's tiles; the other ranks' cells are None."""
 
     def __init__(self, mesh: TileMesh, hw: tuple[int, int], true_hw):
+        self.mesh = mesh
         self.ty, self.tx = mesh.shape
         h, w = hw
         self.th, self.tw = h // self.ty, w // self.tx
         self.ht, self.wt = true_hw if true_hw is not None else (h, w)
-        self.dev0 = mesh.devices[0][0]
-        self.cells = [(iy, ix) for iy in range(self.ty) for ix in range(self.tx)]
+        self.dev0 = mesh.distinct()[0]
+        self.cells = mesh.local_cells()
         self.own = {(iy, ix): _domain(self.th, self.tw, iy * self.th, ix * self.tw, self.ht,
                                       self.wt, mesh.devices[iy][ix])[None]
                     for iy, ix in self.cells}
@@ -118,9 +94,22 @@ class _Tiles:
         return iy * self.th, ix * self.tw
 
     def map(self, fn, *grids):
-        """[[fn(iy, ix, *cells)]] over the grid."""
-        return [[fn(iy, ix, *(g[iy][ix] for g in grids)) for ix in range(self.tx)]
-                for iy in range(self.ty)]
+        return map_local(self.mesh, fn, *grids)
+
+    def exchange(self, tiles, k: int):
+        return halo_exchange(tiles, k, self.mesh)
+
+    def max(self, vals) -> torch.Tensor:
+        """The max of this process's per-tile 0-dim tensors over every
+        rank, on the first device (no host read)."""
+        return grid_max(vals, self.dev0, self.mesh)
+
+    def gather(self, tiles, device, tile_hw=None) -> torch.Tensor:
+        """The whole array of a grid of (C, *tile_hw) tiles (default the
+        tile size) on ``device``, in every process."""
+        c = next(t for row in tiles for t in row if t is not None).shape[0]
+        th, tw = tile_hw or (self.th, self.tw)
+        return gather(tiles, device, self.mesh, lambda iy, ix: (c, th, tw))
 
     def masked_rhs(self, g: torch.Tensor, mesh: TileMesh):
         """g's tiles, zero outside the true domain."""
@@ -128,20 +117,20 @@ class _Tiles:
                         shard_tiles(g, mesh))
 
     def gnorm(self, g_loc) -> torch.Tensor:
-        m = _grid_max([g_loc[iy][ix].abs().max() for iy, ix in self.cells], self.dev0)
+        m = self.max([g_loc[iy][ix].abs().max() for iy, ix in self.cells])
         return torch.clamp(m, min=1e-30)
 
     def res_norm(self, u, g_loc) -> torch.Tensor:
         """max |g - A u| over the owned true cells of every tile, on the
         first device (a 1-ghost exchange)."""
-        up = halo_exchange(u, 1)
+        up = self.exchange(u, 1)
 
         def tile_max(iy, ix, x, xp, gl):
             r = torch.where(self.own[iy, ix], gl - (_neighbor_sum_padded(xp) - 4.0 * x), 0.0)
             return r.abs().max()
 
-        return _grid_max([m for row in self.map(tile_max, u, up, g_loc) for m in row],
-                         self.dev0)
+        maxima = self.map(tile_max, u, up, g_loc)
+        return self.max([maxima[iy][ix] for iy, ix in self.cells])
 
 
 def solve_redblack_tiled(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, int] | None = None,
@@ -181,12 +170,12 @@ def solve_redblack_tiled(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, in
     sweep = K.rb_sweeps_tile if use_pallas is not False else K.rb_sweeps_tile_plain
 
     g_loc = geo.masked_rhs(g, mesh)
-    gp = halo_exchange(g_loc, k)  # g is static: one exchange
+    gp = geo.exchange(g_loc, k)  # g is static: one exchange
     gnorm = geo.gnorm(g_loc)
 
     def ca_round(u):
         """One exchange + s full sweeps on each ghosted tile."""
-        up = halo_exchange(u, k)
+        up = geo.exchange(u, k)
 
         def tile(iy, ix, x, gx):
             r0, c0 = geo.origin(iy, ix)
@@ -202,7 +191,7 @@ def solve_redblack_tiled(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, in
         for _ in range(rounds_per_check):
             u = ca_round(u)
         it += rounds_per_check * s
-    out = gather_tiles(u, g.device)
+    out = geo.gather(u, g.device)
     if return_info:
         return out, {"iterations": it, "residual": geo.res_norm(u, g_loc).item()}
     return out
@@ -300,12 +289,12 @@ def solve_multigrid_dd(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, int]
         raise ValueError(f"tile {th}x{tw} smaller than the ghost band {k}")
 
     g_loc = geo.masked_rhs(g, mesh)
-    gp = halo_exchange(g_loc, k)
+    gp = geo.exchange(g_loc, k)
 
     def sweeps(u, n):
         """One exchange + n CA sweeps; the ghosted tiles (outer 2n layers
         stale, the rest exact)."""
-        up = halo_exchange(u, k)
+        up = geo.exchange(u, k)
 
         def tile(iy, ix, x, gx):
             r0, c0 = geo.origin(iy, ix)
@@ -330,8 +319,9 @@ def solve_multigrid_dd(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, int]
         rc_loc = geo.map(coarse_rhs, us, gp)
         # the replicated coarse solve on the true coarse grid, once per device
         ecp = {}
+        rc_all = geo.gather(rc_loc, geo.dev0, (thc, twc))[:, :hc, :wc]
         for dev in mesh.distinct():
-            rc = gather_tiles(rc_loc, dev)[:, :hc, :wc]
+            rc = rc_all.to(dev)
             ec = vcycle(torch.zeros_like(rc), rc, nu1, nu2, use_pallas=pallas, bh=bh_c,
                         bw=bw_c, eig_cache=eig_cache, u_zero=True)
             ecp[dev] = F.pad(ec, (1, wcp - wc + 1, 1, hcp - hc + 1))
@@ -344,7 +334,7 @@ def solve_multigrid_dd(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, int]
             return x[:, k : k + th, k : k + tw] + torch.where(geo.own[iy, ix], ef, 0.0)
 
         u = geo.map(correct, us)
-        return [[x[:, k : k + th, k : k + tw] for x in row] for row in sweeps(u, nu2)]
+        return geo.map(lambda iy, ix, x: x[:, k : k + th, k : k + tw], sweeps(u, nu2))
 
     u = geo.map(lambda iy, ix, gl: torch.zeros_like(gl), g_loc)
     if tol is None:
@@ -361,7 +351,7 @@ def solve_multigrid_dd(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, int]
         while it < max_cycles and bool(geo.res_norm(u, g_loc) > thresh):  # one host read
             u = vcycle_local(u)
             it += 1
-    out = gather_tiles(u, g.device)
+    out = geo.gather(u, g.device)
     if return_info:
         return out, {"cycles": it, "residual": geo.res_norm(u, g_loc).item()}
     return out
@@ -388,3 +378,298 @@ def solve_poisson_dd(g: torch.Tensor, mesh: TileMesh, tol: float | None = None, 
     if return_info:
         return res[0][:, :h, :w], res[1]
     return res[:, :h, :w]
+
+
+# ---------------------------------------------------------------------------
+# solve_multigrid_sharded: the element V-cycle partitioned over the mesh
+# ---------------------------------------------------------------------------
+
+SHARD_MIN = 128  # a level whose smallest tile is shorter than this on a side is gathered
+_NU1, _NU2, _COARSEST = 1, 2, 63  # solve_multigrid's defaults, which JAX's GSPMD path runs
+_KG = max(2 * _NU1 + 2, 2 * _NU2)  # ghosts: nu1 sweeps + the residual's window; nu2 sweeps
+
+
+def _split(n: int, parts: int) -> tuple[int, ...]:
+    """Tile boundaries along an axis: ceil(n / parts) each, the last shorter."""
+    t = -(-n // parts)
+    return tuple(min(i * t, n) for i in range(parts + 1))
+
+
+def _halve(bounds: tuple[int, ...], nc: int) -> tuple[int, ...]:
+    """The coarse level's boundaries: coarse j lies in the tile whose fine
+    rows hold its fine point 2j + 1."""
+    return tuple(min(b // 2, nc) for b in bounds[:-1]) + (nc,)
+
+
+class _Level:
+    """One level of the partitioned V-cycle: its global (h, w), its betas
+    and its tile boundaries. ``sharded``: the level runs tile by tile;
+    otherwise it is gathered and solved by the element ``vcycle``."""
+
+    def __init__(self, h: int, w: int, bh: float, bw: float, rows, cols):
+        self.h, self.w, self.bh, self.bw, self.rows, self.cols = h, w, bh, bw, rows, cols
+        sides = [b - a for bounds in (rows, cols) for a, b in zip(bounds, bounds[1:])]
+        self.sharded = not _small(h, w, _COARSEST) and min(sides) >= max(SHARD_MIN, _KG)
+        self.unit = bh == 1.0 and bw == 1.0  # the plain operator: rb_sweeps_tile
+
+    def box(self, iy: int, ix: int) -> tuple[int, int, int, int]:
+        return self.rows[iy], self.rows[iy + 1], self.cols[ix], self.cols[ix + 1]
+
+    def shape_of(self, c: int):
+        def shape(iy, ix):
+            r0, r1, c0, c1 = self.box(iy, ix)
+            return (c, r1 - r0, c1 - c0)
+
+        return shape
+
+    def coarser(self) -> _Level:
+        hc, bh_c = _coarsen(self.h, self.bh)
+        wc, bw_c = _coarsen(self.w, self.bw)
+        return _Level(hc, wc, bh_c, bw_c, _halve(self.rows, hc), _halve(self.cols, wc))
+
+
+def _sweeps_b_tile(u: torch.Tensor, g: torch.Tensor, n: int, lv: _Level, org) -> torch.Tensor:
+    """``solvers/multigrid.py:_sweeps_b`` on a ghosted tile whose (0, 0) is
+    the level's ``org``: the colours and the Shortley-Weller edge from global
+    coordinates; only cells inside the level are updated."""
+    _, hl, wl = u.shape
+    nsum, inv_d, _ = _ops_b(lv.h, lv.w, lv.bh, lv.bw, u.device, origin=org, local_hw=(hl, wl))
+    dom = _domain(hl, wl, org[0], org[1], lv.h, lv.w, u.device)
+    rows = org[0] + torch.arange(hl, device=u.device)[:, None]
+    cols = org[1] + torch.arange(wl, device=u.device)[None, :]
+    par = (rows + cols) % 2 == 0
+    red, black = (par & dom)[None], (~par & dom)[None]
+    for _ in range(n):
+        u = torch.where(red, (nsum(u) - g) * inv_d, u)
+        u = torch.where(black, (nsum(u) - g) * inv_d, u)
+    return u
+
+
+def _smooth(lv: _Level, iy: int, ix: int, x: torch.Tensor, gx: torch.Tensor, n: int):
+    """n red-black sweeps of a _KG-ghosted tile; its outer 2n rings go stale.
+    The plain level's sweeps are ``K.rb_sweeps_tile`` (one launch for n <= 4:
+    the kernel on a CUDA tile, its twin on a CPU tile)."""
+    r0, _, c0, _ = lv.box(iy, ix)
+    org = (r0 - _KG, c0 - _KG)
+    if lv.unit:
+        return K.rb_sweeps_tile(x, gx, n, org, (lv.h, lv.w))
+    return _sweeps_b_tile(x, gx, n, lv, org)
+
+
+def _residual_window(lv: _Level, iy: int, ix: int, us: torch.Tensor, gp: torch.Tensor):
+    """g - A u on the tile's 1-ghost window (``residual`` / ``_residual_b``
+    elementwise), zero past the level. us: the tile after nu1 sweeps, exact
+    but for its outer 2 nu1 rings."""
+    r0, r1, c0, c1 = lv.box(iy, ix)
+    th, tw, k = r1 - r0, c1 - c0, _KG
+    u2 = us[:, k - 2 : k + th + 2, k - 2 : k + tw + 2]
+    u1 = u2[:, 1:-1, 1:-1]
+    g1 = gp[:, k - 1 : k + th + 1, k - 1 : k + tw + 1]
+    if lv.unit:
+        r = g1 - (_neighbor_sum_padded(u2) - 4.0 * u1)
+    else:
+        nsum, inv_d, _ = _ops_b(lv.h, lv.w, lv.bh, lv.bw, us.device, origin=(r0 - 2, c0 - 2),
+                                local_hw=(th + 4, tw + 4))
+        r = g1 - (nsum(u2)[:, 1:-1, 1:-1] - u1 / inv_d[:, 1:-1, 1:-1])
+    return torch.where(_domain(th + 2, tw + 2, r0 - 1, c0 - 1, lv.h, lv.w, us.device)[None],
+                       r, 0.0)
+
+
+def _along(x: torch.Tensor, dim: int, start: int, stop: int, step: int = 1) -> torch.Tensor:
+    idx = [slice(None)] * x.dim()
+    idx[dim] = slice(start, stop, step)
+    return x[tuple(idx)]
+
+
+def _restrict_win(r: torch.Tensor, dim: int, n: int, beta: float, s0: int, a: int,
+                  b: int) -> torch.Tensor:
+    """Full weighting along ``dim`` (-1 or -2) of a window whose index 0 is
+    fine point s0, into coarse [a, b): ``_restrict_axis`` / ``_restrict_rows``
+    elementwise, the even-size edge where the window holds coarse nc - 1."""
+    m, o = b - a, 2 * a - s0
+    out = (0.25 * _along(r, dim, o, o + 2 * m - 1, 2) + 0.5 * _along(r, dim, o + 1, o + 2 * m, 2)
+           + 0.25 * _along(r, dim, o + 2, o + 2 * m + 1, 2))
+    if n % 2 == 0 and b == (n - 1) // 2:
+        gap, q = 2.0 + beta, n - 4 - s0
+        edge = (0.25 * _along(r, dim, q, q + 1) + 0.5 * _along(r, dim, q + 1, q + 2)
+                + ((1.0 + beta) / gap * 0.5) * _along(r, dim, q + 2, q + 3)
+                + (beta / gap * 0.5) * _along(r, dim, q + 3, q + 4))
+        out = torch.cat([_along(out, dim, 0, m - 1), edge], dim=dim)
+    return out
+
+
+def _prolong_win(e: torch.Tensor, dim: int, n: int, beta: float, a: int, f0: int,
+                 f1: int) -> torch.Tensor:
+    """Bilinear prolongation along ``dim`` of a coarse window whose index 0 is
+    coarse point a - 1 (zeros past the coarse grid), into fine [f0, f1):
+    ``_prolong_axis`` / ``_prolong_rows`` elementwise, the even-size edge
+    where the window holds fine n - 1."""
+    length = e.shape[dim]
+    mids = 0.5 * (_along(e, dim, 0, length - 1) + _along(e, dim, 1, length))
+    pairs = torch.stack([mids, _along(e, dim, 1, length)], dim=dim)
+    shape = list(mids.shape)
+    shape[dim] = 2 * (length - 1)
+    out = _along(pairs.reshape(shape), dim, f0 - 2 * a, f1 - 2 * a)
+    if n % 2 == 0 and f1 == n:
+        gap, nc = 2.0 + beta, (n - 1) // 2
+        last = _along(e, dim, nc - a, nc - a + 1)
+        out = torch.cat([_along(out, dim, 0, n - 2 - f0), last * ((1.0 + beta) / gap),
+                         last * (beta / gap)], dim=dim)
+    return out
+
+
+class _Sharded:
+    """The partitioned element V-cycle over a mesh: its levels, the first
+    local device and the coarsest levels' basis cache."""
+
+    def __init__(self, mesh: TileMesh, levels: list[_Level], eig_cache: dict):
+        self.mesh, self.levels, self.eig_cache = mesh, levels, eig_cache
+        self.dev0 = mesh.distinct()[0]
+
+    def map(self, fn, *grids):
+        return map_local(self.mesh, fn, *grids)
+
+    def cycle(self, l: int, u, g, gp):
+        """One V-cycle at level l from u (a tile grid, or None: zero) on the
+        RHS tiles g (gp: their _KG-ghosted windows, or None: exchanged
+        here). Returns the level's tiles."""
+        lv, nxt, k, mesh = self.levels[l], self.levels[l + 1], _KG, self.mesh
+        if gp is None:
+            gp = halo_exchange(g, k, mesh)
+        if u is None:
+            up = self.map(lambda iy, ix, x: torch.zeros_like(x), gp)
+        else:
+            up = halo_exchange(u, k, mesh)
+        us = self.map(lambda iy, ix, x, gx: _smooth(lv, iy, ix, x, gx, _NU1), up, gp)
+
+        def coarse_rhs(iy, ix, x, gx):
+            r0, r1, c0, c1 = lv.box(iy, ix)
+            a, b, ac, bc = nxt.box(iy, ix)
+            r = _restrict_win(_residual_window(lv, iy, ix, x, gx), -1, lv.w, lv.bw, c0 - 1, ac,
+                              bc)
+            return 4.0 * _restrict_win(r, -2, lv.h, lv.bh, r0 - 1, a, b)
+
+        rc = self.map(coarse_rhs, us, gp)
+        if nxt.sharded:
+            ecw = halo_exchange(self.cycle(l + 1, None, rc, None), 1, mesh)
+        else:  # gathered: the element vcycle once per device of this process
+            c = next(t for row in rc for t in row if t is not None).shape[0]
+            rc_all = gather(rc, self.dev0, mesh, nxt.shape_of(c))
+            ecp = {}
+            for dev in mesh.distinct():
+                rcd = rc_all.to(dev)
+                ec = vcycle(torch.zeros_like(rcd), rcd, _NU1, _NU2, _COARSEST, False, nxt.bh,
+                            nxt.bw, self.eig_cache, u_zero=True)
+                ecp[dev] = F.pad(ec, (1, 1, 1, 1))
+
+            def window(iy, ix, x):
+                a, b, ac, bc = nxt.box(iy, ix)
+                return ecp[x.device][:, a : b + 2, ac : bc + 2]
+
+            ecw = self.map(window, us)
+
+        def correct(iy, ix, x, e):
+            r0, r1, c0, c1 = lv.box(iy, ix)
+            a, _, ac, _ = nxt.box(iy, ix)
+            ef = _prolong_win(_prolong_win(e, -1, lv.w, lv.bw, ac, c0, c1), -2, lv.h, lv.bh, a,
+                              r0, r1)
+            return x[:, k : k + r1 - r0, k : k + c1 - c0] + ef
+
+        up = halo_exchange(self.map(correct, us, ecw), k, mesh)
+
+        def post(iy, ix, x, gx):
+            r0, r1, c0, c1 = lv.box(iy, ix)
+            return _smooth(lv, iy, ix, x, gx, _NU2)[:, k : k + r1 - r0, k : k + c1 - c0]
+
+        return self.map(post, up, gp)
+
+    def residual_max(self, u, g_own) -> torch.Tensor:
+        """max |g - A u| of the finest level over every tile (a 1-ghost
+        exchange; ``residual`` elementwise), on the first device."""
+        up = halo_exchange(u, 1, self.mesh)
+        maxima = self.map(lambda iy, ix, x, xp, gl: (
+            gl - (_neighbor_sum_padded(xp) - 4.0 * x)).abs().max(), u, up, g_own)
+        return grid_max([m for row in maxima for m in row if m is not None], self.dev0,
+                        self.mesh)
+
+
+def solve_multigrid_sharded(g: torch.Tensor, mesh: TileMesh, tol: float = 1e-4,
+                            max_cycles: int = 60, cycles: int | None = None,
+                            return_info: bool = False, eig_cache=None):
+    """Multigrid V-cycles with every level partitioned over ``mesh`` (JAX's
+    GSPMD path, partitioned by hand).
+
+    JAX jits ``solve_multigrid(g, tol, max_cycles, cycles)`` with tile
+    shardings, which runs its element path (``use_pallas=False``: V(1, 2),
+    coarsest 63) and lets XLA partition every stencil. This is that solve
+    with the partitioning written out, bit-equal to the port's
+    ``solve_multigrid(g, tol, max_cycles, cycles=cycles, use_pallas=False)``
+    on one device, with the same cycle count, on any mesh shape:
+
+    - each level's u, g and residual stay tiled: the finest level split in
+      ceil(n / t) rows and columns (the last tile shorter), each coarse tile
+      the coarse points whose fine point 2j + 1 its fine tile owns;
+    - each stencil reads its neighbours through a ghost exchange
+      (``parallel/transport.py``): one of 4 rings before the nu1 sweeps and
+      the residual window, one of 1 ring for the coarse correction's window,
+      one of 4 before the nu2 sweeps (one ``rb_sweeps_tile`` launch each on
+      a plain level, its twin on CPU tiles; the beta levels' sweeps and
+      every transfer are per-tile torch ops), colours and the
+      Shortley-Weller edges from global coordinates;
+    - a level whose tiles are shorter than ``SHARD_MIN`` on a side, and the
+      coarsest (``_small``) level, is gathered and solved by the element
+      ``vcycle`` once per device of this process; each tile takes its window
+      of the correction (XLA's resharding of the coarse levels).
+
+    Fixed ``cycles``, or the tolerance loop: ``_tol_burst`` check-free
+    cycles, then one max |g - A u| a check (all-reduced over the mesh, one
+    host read on every rank) until it is <= tol max |g| or ``max_cycles``.
+    A grid too small for any tile to reach ``SHARD_MIN`` is solved whole in
+    this process. On a mesh that spans processes every process passes the
+    same global g and gets the whole u. Returns u (C, H, W) on g's device;
+    ``return_info`` adds {"cycles", "residual"}. ``eig_cache``: see
+    ``solvers/multigrid.py:coarse_solve``.
+    """
+    tol = float(tol)
+    c, h, w = g.shape
+    ty, tx = mesh.shape
+    if eig_cache is None:
+        eig_cache = {}
+    levels = [_Level(h, w, 1.0, 1.0, _split(h, ty), _split(w, tx))]
+    if not levels[0].sharded:
+        return solve_multigrid(g, tol=tol, max_cycles=max_cycles, cycles=cycles,
+                               use_pallas=False, return_info=return_info, eig_cache=eig_cache)
+    while levels[-1].sharded:
+        levels.append(levels[-1].coarser())
+    run = _Sharded(mesh, levels, eig_cache)
+    lv, k = levels[0], _KG
+    g_pad = F.pad(g, (k, k, k, k))
+
+    def g_window(iy, ix, _):
+        r0, r1, c0, c1 = lv.box(iy, ix)
+        return g_pad[:, r0 : r1 + 2 * k, c0 : c1 + 2 * k].to(mesh.devices[iy][ix]).contiguous()
+
+    gp = run.map(g_window, [[None] * tx for _ in range(ty)])
+    g_own = run.map(lambda iy, ix, x: x[:, k:-k, k:-k], gp)
+    u = None  # a known-zero start
+    if cycles is not None:
+        it = int(cycles)
+        for _ in range(it):
+            u = run.cycle(0, u, g_own, gp)
+    else:
+        gmax = g.abs().max()
+        thresh = (tol * torch.clamp(gmax, min=1e-30)).to(run.dev0)
+        it = _tol_burst(tol, max_cycles, _NU1, _NU2)
+        for _ in range(it):
+            u = run.cycle(0, u, g_own, gp)
+        while it < max_cycles:
+            rmax = gmax.to(run.dev0) if u is None else run.residual_max(u, g_own)
+            if not bool(rmax > thresh):  # one host read per check, on every rank
+                break
+            u = run.cycle(0, u, g_own, gp)
+            it += 1
+    out = torch.zeros_like(g) if u is None else gather(u, g.device, mesh, lv.shape_of(c))
+    if return_info:
+        rmax = (g.abs().max() if u is None else run.residual_max(u, g_own)).item()
+        return out, {"cycles": it, "residual": rmax}
+    return out

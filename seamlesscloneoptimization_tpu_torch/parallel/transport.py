@@ -1,0 +1,212 @@
+"""The tile grid's transport: halo strips, maxima and gathers over a ``TileMesh``.
+
+One layer decides, per transfer, between a copy inside this process and a
+transfer to or from the rank that owns the other cell (``torch.distributed``
+on the group ``parallel/mesh.py:transport_group`` names). A tile grid is a
+(ty, tx) list of lists holding this process's tiles; the other ranks' cells
+are None. Tiles may be uneven (the last row or column of tiles shorter),
+as long as the tiles of one grid row share their height and those of one
+grid column their width.
+
+- ``halo_exchange``: each local tile padded with k ghosts from its eight
+  neighbours (zeros past the grid). Every rank walks the same global list
+  of (receiving cell, direction) pairs, edges then corners, and posts a
+  receive where it owns the receiver and a send where it owns the sender
+  of a strip that crosses processes, all in one ``batch_isend_irecv``; the
+  pair's index is the tag. So every rank posts matching operations in the
+  same order.
+- ``grid_max``: the local max, then ``all_reduce(MAX)``. max is exact, so
+  every rank takes the same decision from it.
+- ``gather``: the whole array on a device of this process: one
+  ``all_gather`` of each rank's tiles, packed flat and padded to the
+  longest rank's.
+
+``CROSSED`` counts what this process sends to other ranks: point-to-point
+strips and collective contributions (``transfers``) and their ``bytes``;
+``reset_crossed`` sets both to 0.
+
+Over gloo, CUDA tensors are staged through pinned host buffers (gloo's
+point-to-point transfers take host memory); over NCCL every tile must be a
+CUDA tensor. A failed transfer raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from seamlesscloneoptimization_tpu_torch.parallel.mesh import TileMesh, transport_group
+
+# the eight neighbours of a cell: edges, then corners
+DIRS = ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (-1, 1), (1, -1), (1, 1))
+
+CROSSED = {"transfers": 0, "bytes": 0}
+
+
+def reset_crossed() -> None:
+    for key in CROSSED:
+        CROSSED[key] = 0
+
+
+def _crossed(t: torch.Tensor) -> None:
+    CROSSED["transfers"] += 1
+    CROSSED["bytes"] += t.numel() * t.element_size()
+
+
+def _spans(mesh: TileMesh | None) -> bool:
+    return mesh is not None and mesh.spans_processes
+
+
+def _gloo() -> bool:
+    return dist.get_backend(transport_group()) == "gloo"
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the transport sends it: contiguous, and over gloo on the host
+    (a pinned copy of a CUDA tensor)."""
+    if t.is_cuda and _gloo():
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t)
+        return buf
+    if not t.is_cuda and not _gloo():
+        raise ValueError("an NCCL transport moves CUDA tensors only; got a CPU tile")
+    return t.contiguous()
+
+
+def _landing(shape, like: torch.Tensor) -> torch.Tensor:
+    """A buffer to receive into, for a tensor that ends on ``like``'s device."""
+    if like.is_cuda and _gloo():
+        return torch.empty(shape, dtype=like.dtype, pin_memory=True)
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def _wait(ops: list) -> None:
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
+
+def _ghost(d: int, n: int, k: int) -> slice:
+    """Where the strip from direction d lands along an axis of length n."""
+    return {-1: slice(0, k), 0: slice(k, k + n), 1: slice(k + n, n + 2 * k)}[d]
+
+
+def _strip(d: int, k: int) -> slice:
+    """Which part of the neighbour in direction d is the strip, along an axis."""
+    return {-1: slice(-k, None), 0: slice(None), 1: slice(0, k)}[d]
+
+
+def halo_exchange(tiles, k: int = 1, mesh: TileMesh | None = None):
+    """Pad every local (C, th, tw) tile of a (ty, tx) grid with k-px ghosts.
+
+    The ghosts are the neighbours' edge strips; corners come from the
+    diagonal neighbours, as JAX's rows-then-columns exchange of the
+    row-extended tiles gives them. Tiles on the grid's edge get zeros there
+    (the Dirichlet frame). Returns the grid of (C, th + 2k, tw + 2k) tiles,
+    each on its tile's device (None for the other ranks' cells): the
+    windows of the globally zero-padded array. ``mesh``: needed when the
+    grid spans processes (who owns each None cell); without it every tile
+    must be present.
+    """
+    ty, tx = len(tiles), len(tiles[0])
+    spans = _spans(mesh)
+    local = mesh.is_local if spans else (lambda iy, ix: True)
+    group = transport_group() if spans else None
+    out = [[None] * tx for _ in range(ty)]
+    for iy in range(ty):
+        for ix in range(tx):
+            if local(iy, ix):
+                t = tiles[iy][ix]
+                c, th, tw = t.shape
+                if min(th, tw) < k:
+                    raise ValueError(f"tile {th}x{tw} smaller than the halo {k}")
+                x = t.new_empty((c, th + 2 * k, tw + 2 * k))
+                x[:, k : k + th, k : k + tw] = t
+                out[iy][ix] = x
+    ops, landed = [], []
+    for iy in range(ty):
+        for ix in range(tx):
+            for d, (dy, dx) in enumerate(DIRS):
+                ny, nx = iy + dy, ix + dx
+                inside = 0 <= ny < ty and 0 <= nx < tx
+                tag = (iy * tx + ix) * len(DIRS) + d
+                if local(iy, ix):
+                    x = out[iy][ix]
+                    c, th, tw = tiles[iy][ix].shape
+                    dst = (slice(None), _ghost(dy, th, k), _ghost(dx, tw, k))
+                    if not inside:
+                        x[dst].zero_()
+                    elif local(ny, nx):  # a strip from a neighbour in this process
+                        x[dst].copy_(tiles[ny][nx][:, _strip(dy, k), _strip(dx, k)])
+                    else:
+                        buf = _landing((c, k if dy else th, k if dx else tw), x)
+                        ops.append(dist.P2POp(dist.irecv, buf, mesh.owner(ny, nx), group, tag))
+                        landed.append((x, dst, buf))
+                elif inside and local(ny, nx):  # this process's strip for another rank
+                    strip = _wire(tiles[ny][nx][:, _strip(dy, k), _strip(dx, k)])
+                    _crossed(strip)
+                    ops.append(dist.P2POp(dist.isend, strip, mesh.owner(iy, ix), group, tag))
+    _wait(ops)
+    for x, dst, buf in landed:
+        x[dst].copy_(buf)
+    return out
+
+
+def map_local(mesh: TileMesh, fn, *grids):
+    """[[fn(iy, ix, *cells)]] over this process's cells of the grids, None
+    elsewhere."""
+    ty, tx = mesh.shape
+    return [[fn(iy, ix, *(g[iy][ix] for g in grids)) if mesh.is_local(iy, ix) else None
+             for ix in range(tx)] for iy in range(ty)]
+
+
+def grid_max(vals, device, mesh: TileMesh | None = None) -> torch.Tensor:
+    """The max of this process's 0-dim tensors, over every rank of a
+    process-spanning mesh, as a 0-dim tensor on ``device`` (no host read)."""
+    m = torch.stack([v.to(device) for v in vals]).max()
+    if not _spans(mesh):
+        return m
+    w = _wire(m.reshape(1))
+    _crossed(w)
+    dist.all_reduce(w, op=dist.ReduceOp.MAX, group=transport_group())
+    return w.to(device).reshape(())
+
+
+def gather(tiles, device, mesh: TileMesh | None = None, shape_of=None) -> torch.Tensor:
+    """The (C, H, W) array of a tile grid on ``device``. On a mesh that spans
+    processes every rank calls this and gets the whole array;
+    ``shape_of(iy, ix)`` gives the other ranks' tile shapes."""
+    device = torch.device(device)
+    if _spans(mesh):
+        tiles = _all_tiles(tiles, mesh, shape_of, device)
+    return torch.cat([torch.cat([t.to(device) for t in row], dim=2) for row in tiles], dim=1)
+
+
+def _all_tiles(tiles, mesh: TileMesh, shape_of, device):
+    """Every tile of the grid in this process: one ``all_gather`` of each
+    rank's tiles, flat in row-major order, padded to the longest rank's."""
+    ty, tx = mesh.shape
+    cells = [(iy, ix) for iy in range(ty) for ix in range(tx)]
+    world = dist.get_world_size()
+    numel = {c: int(torch.Size(shape_of(*c)).numel()) for c in cells}
+    totals = [sum(numel[c] for c in cells if mesh.owner(*c) == r) for r in range(world)]
+    mine = [tiles[iy][ix] for iy, ix in mesh.local_cells()]
+    lead = mine[0]
+    wire_dev = torch.device("cpu") if _gloo() else lead.device
+    buf = torch.zeros(max(totals), dtype=lead.dtype, device=wire_dev)
+    flat = torch.cat([t.reshape(-1).to(wire_dev) for t in mine])
+    buf[: flat.numel()] = flat
+    got = [torch.empty_like(buf) for _ in range(world)]
+    _crossed(buf)
+    dist.all_gather(got, buf, group=transport_group())
+    out = [[None] * tx for _ in range(ty)]
+    offset = [0] * world
+    for iy, ix in cells:
+        r = mesh.owner(iy, ix)
+        if r == mesh.rank:
+            out[iy][ix] = tiles[iy][ix]
+        else:
+            n = numel[iy, ix]
+            out[iy][ix] = got[r][offset[r] : offset[r] + n].reshape(shape_of(iy, ix)).to(device)
+        offset[r] += numel[iy, ix]
+    return out

@@ -3,8 +3,9 @@ for the 5-point Dirichlet system (boundary values folded into g).
 
 - ``dst_gemm``: exact direct solve, DST eigenbasis as FP32 GEMMs.
 - ``dst_fft``: exact direct solve, DST through ``torch.fft`` (no kernel).
-- ``jacobi``: red-black Gauss-Seidel (``solve_redblack``), its bursts of
-  sweeps on the card the ``rb_sweeps`` kernel.
+- ``jacobi``: red-black Gauss-Seidel (``solve_redblack``; one sweep,
+  ``redblack_sweep``), its bursts of sweeps on the card the ``rb_sweeps``
+  kernel.
 - ``multigrid``: V-cycles with ``padded="q"`` (the quarter-plane finest
   level, from a quartered or a dense RHS, zero or warm start),
   ``padded="t"`` (the transpose-fused V-cycles), ``padded=True`` (the
@@ -21,7 +22,7 @@ for the 5-point Dirichlet system (boundary values folded into g).
 
 from seamlesscloneoptimization_tpu_torch.solvers.dst_fft import solve_dst_fft
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import solve_dst_gemm
-from seamlesscloneoptimization_tpu_torch.solvers.jacobi import solve_redblack
+from seamlesscloneoptimization_tpu_torch.solvers.jacobi import redblack_sweep, solve_redblack
 from seamlesscloneoptimization_tpu_torch.solvers.multigrid import solve_multigrid
 from seamlesscloneoptimization_tpu_torch.solvers.multigrid_dyn import solve_multigrid_dyn
 
@@ -65,4 +66,5 @@ __all__ = [
     "solve_multigrid",
     "solve_multigrid_dyn",
     "solve_redblack",
+    "redblack_sweep",
 ]

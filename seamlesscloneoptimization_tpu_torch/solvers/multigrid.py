@@ -180,13 +180,18 @@ def _edge_weight(beta: float, f32: bool = False) -> float:
     return float(np.float32(2.0) / (one + np.float32(beta)) - one)
 
 
-def _ops_b(h: int, w: int, bh: float, bw: float, device, f32: bool = False):
+def _ops_b(h: int, w: int, bh: float, bw: float, device, f32: bool = False,
+           origin: tuple[int, int] = (0, 0), local_hw: tuple[int, int] | None = None):
     """Neighbour sum, inverse diagonal and diagonal of a beta-level operator:
     the 5-point stencil with the Shortley-Weller last row / column (up / left
     neighbour 2/(1+beta), diagonal half 2/beta). ``f32``: see
-    ``_edge_weight``."""
-    rows = torch.arange(h, device=device)[:, None]
-    cols = torch.arange(w, device=device)[None, :]
+    ``_edge_weight``. ``origin`` / ``local_hw``: the operator on a (hl, wl)
+    window of the (h, w) level whose (0, 0) is the level's ``origin`` (a
+    ghosted tile of ``parallel/tiled.py:solve_multigrid_sharded``); the
+    neighbour sum reads zeros past the window."""
+    hl, wl = local_hw if local_hw is not None else (h, w)
+    rows = origin[0] + torch.arange(hl, device=device)[:, None]
+    cols = origin[1] + torch.arange(wl, device=device)[None, :]
     f32_ = torch.float32
     dh = torch.where(rows == h - 1, torch.tensor(2.0 / bh, dtype=f32_, device=device),
                      torch.tensor(2.0, dtype=f32_, device=device))

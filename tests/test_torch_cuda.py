@@ -1752,3 +1752,100 @@ def test_capi_on_card_equals_engine(cuda, tmp_path):
     want = SeamlessClone(CloneConfig(), device=cuda).run(src, dst, mask, (300, 200)).cpu().numpy()
     for out in ("o1.raw", "o2.raw"):
         assert np.array_equal(np.fromfile(tmp_path / out, np.uint8).reshape(want.shape), want)
+
+
+# slice 8: solve_multigrid_sharded (the partitioned element V-cycle) and
+# path="gspmd" on a mesh of the one card; two processes on the card
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 3)])
+def test_sharded_solve_on_card_bit_equal(cuda, shape, monkeypatch):
+    """Three partitioned levels over CUDA tiles: u bit-equal to the card's
+    single-device element solve, equal cycles (tolerance and fixed), and
+    within the solves' bars of the CPU mesh's; rb_sweeps_tile 2 launches a
+    tile a cycle on the plain level, nothing else."""
+    from seamlesscloneoptimization_tpu_torch.parallel import (
+        make_tile_mesh,
+        solve_multigrid_sharded,
+        tiled,
+    )
+
+    monkeypatch.setattr(tiled, "SHARD_MIN", 16)
+    n = shape[0] * shape[1]
+    rng = np.random.default_rng(41)
+    g = torch.from_numpy(rng.normal(size=(3, 300, 421)).astype(np.float32) * 30)
+    for cycles in (None, 3):
+        want, winfo = TM.solve_multigrid(g.to(cuda), cycles=cycles, use_pallas=False,
+                                         return_info=True)
+        K.reset_launches()
+        got, info = solve_multigrid_sharded(g.to(cuda), make_tile_mesh([cuda] * n, shape),
+                                            cycles=cycles, return_info=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and info == winfo
+        assert K.LAUNCHES == _per_frame(rb_sweeps_tile=2 * n * info["cycles"])
+        cpu = solve_multigrid_sharded(g, make_tile_mesh([torch.device("cpu")] * n, shape),
+                                      cycles=cycles)
+        # the coarsest level's GEMMs sum in another order on the CPU, and a
+        # multi-cycle solve moves by up to 1.7e-5 under a one-ulp change
+        # (ROADMAP §3): 5e-5 (measured 1.46e-5 after 3 cycles)
+        assert (got.cpu() - cpu).abs().max().item() <= 5e-5 * cpu.abs().max().item()
+
+
+def test_gspmd_engine_on_card_matches_cpu(cuda, monkeypatch):
+    """TiledSeamlessClone(path="gspmd") on a 2x2 mesh of the card against the
+    CPU mesh (diff_max <= 1, clamp_cast_paste once, rb_sweeps_tile 2 a tile
+    a cycle)."""
+    from seamlesscloneoptimization_tpu_torch.parallel import (
+        TiledSeamlessClone,
+        make_tile_mesh,
+        tiled,
+    )
+
+    monkeypatch.setattr(tiled, "SHARD_MIN", 16)
+    rng = np.random.default_rng(42)
+    src = _u8(rng, (150, 230, 3))
+    dst = _u8(rng, (200, 300, 3))
+    mask = np.full((150, 230), 255, np.uint8)
+    cfg = CloneConfig(mg_cycles=3)
+    K.reset_launches()
+    eng = TiledSeamlessClone(cfg, mesh=_card_mesh(cuda), path="gspmd")
+    out = eng.run(src, dst, mask, (150, 100))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == _per_frame(clamp_cast_paste=1, rb_sweeps_tile=2 * 4 * 3)
+    assert eng.metrics["solver_resolved"] == "multigrid_gspmd"
+    cpu = TiledSeamlessClone(cfg, mesh=make_tile_mesh([torch.device("cpu")] * 4, (2, 2)),
+                             path="gspmd")
+    want = cpu.run(src, dst, mask, (150, 100)).numpy()
+    assert np.abs(out.cpu().numpy().astype(np.int16) - want).max() <= 1
+
+
+def test_two_processes_on_the_card(cuda, tmp_path):
+    """Two processes on cuda:0, joined by init_distributed over gloo (they
+    share the card), two tiles each of a 2x2 mesh: solve_poisson_dd,
+    solve_multigrid_sharded and solve_redblack_tiled bit-equal to the
+    single-process 2x2 mesh of the card, the strips staged through pinned
+    host buffers."""
+    from seamlesscloneoptimization_tpu_torch.parallel import dist_check, tiled
+
+    rng = np.random.default_rng(43)
+    g = torch.from_numpy(rng.normal(size=(3, 264, 392)).astype(np.float32) * 30)
+    runs = {"dd": {"g": g, "kwargs": {"tol": 1e-5}},
+            "sharded": {"g": g, "kwargs": {"tol": 1e-4}},
+            "rb": {"g": g, "kwargs": {"tol": 0.0, "max_iters": 100, "halo": 4}}}
+    saved, tiled.SHARD_MIN = tiled.SHARD_MIN, 16
+    try:
+        want = {name: dist_check.solver_for(name)(run["g"].to(cuda), _card_mesh(cuda),
+                                                  **run["kwargs"]).cpu()
+                for name, run in runs.items()}
+    finally:
+        tiled.SHARD_MIN = saved
+    torch.save(runs, tmp_path / "in.pt")
+    torch.save(want, tmp_path / "expect.pt")
+    ranks = dist_check.spawn(2, ["--device", "cuda", "--tiles", "2", "--shape", "2", "2",
+                                 "--input", str(tmp_path / "in.pt"), "--expect",
+                                 str(tmp_path / "expect.pt"), "--shard-min", "16"], 300)
+    assert all(rc == 0 for rc, _ in ranks), "\n---\n".join(out[-3000:] for _, out in ranks)
+    for rep in (dist_check.report_of(out) for _, out in ranks):
+        assert rep["backend"] == "gloo" and rep["reinit_noop"]
+        assert all(row["equal"] for row in rep["solves"].values()), rep
+        assert rep["solves"]["rb"]["rb_sweeps_tile"] == 50 * 2  # 2 sweeps a round, 2 tiles

@@ -448,3 +448,40 @@ def test_batch_and_edit_signatures_match_jax(name):
     port = getattr(importlib.import_module(f"seamlesscloneoptimization_tpu_torch.{mod}"), fn)
     ref = getattr(importlib.import_module(f"seamlesscloneoptimization_tpu.{mod}"), fn)
     assert _params(port) == _params(ref)
+
+
+# ROADMAP "Not to port": JAX names the port leaves out on purpose
+NOT_TO_PORT = {"solve_auto", "tile_sharding", "image_sharding"}
+
+
+@pytest.mark.parametrize("pkg", ["ops", "solvers", "parallel"])
+def test_package_exports_cover_jax(pkg):
+    """Every name the JAX package exports from ``ops``, ``solvers`` and
+    ``parallel`` (its ``__all__``), but those ROADMAP lists as not to port,
+    is exported by the port's package of the same name, and every name the
+    port exports resolves."""
+    port = importlib.import_module(f"seamlesscloneoptimization_tpu_torch.{pkg}")
+    ref = importlib.import_module(f"seamlesscloneoptimization_tpu.{pkg}")
+    missing = set(ref.__all__) - NOT_TO_PORT - set(port.__all__)
+    assert not missing, f"{pkg} does not export {sorted(missing)}"
+    for name in port.__all__:
+        assert getattr(port, name) is not None
+
+
+def test_slice8_signatures_extend_jax():
+    """``init_distributed`` takes JAX's parameters; ``solve_multigrid_sharded``
+    JAX's, then the port's ``return_info`` and ``eig_cache``; the AST scan
+    above covers the new modules and the ranks' script."""
+    from seamlesscloneoptimization_tpu.parallel import init_distributed as j_init
+    from seamlesscloneoptimization_tpu.parallel import solve_multigrid_sharded as j_sharded
+    from seamlesscloneoptimization_tpu_torch.parallel import (
+        init_distributed,
+        solve_multigrid_sharded,
+    )
+
+    assert _params(init_distributed) == _params(j_init)
+    got = _params(solve_multigrid_sharded)
+    assert got[: len(_params(j_sharded))] == _params(j_sharded)
+    assert [p[0] for p in got[len(_params(j_sharded)) :]] == ["return_info", "eig_cache"]
+    scanned = {p.name for p in (REPO / "seamlesscloneoptimization_tpu_torch").rglob("*.py")}
+    assert {"transport.py", "dist_check.py", "tiled.py", "mesh.py"} <= scanned

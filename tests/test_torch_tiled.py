@@ -179,17 +179,27 @@ def test_mesh_shapes_shard_and_gather(monkeypatch):
 
 
 def test_unported_paths_raise():
+    """The name is kept from when ``path="gspmd"`` raised NotImplementedError:
+    it runs now, on the engine, the one-shot function and the edits (the
+    partitioned V-cycle, ``tests/test_torch_sharded.py``); a path that is
+    neither "dd" nor "gspmd" still raises ValueError."""
     mesh = _port()
-    with pytest.raises(NotImplementedError, match="gspmd.*ROADMAP §1 item 7"):
-        TiledSeamlessClone(mesh=mesh, path="gspmd")
-    with pytest.raises(NotImplementedError, match="gspmd"):
-        seamless_clone_tiled(np.zeros((8, 8, 3), np.uint8), np.zeros((8, 8, 3), np.uint8),
-                             None, (4, 4), mesh=mesh, path="gspmd")
+    eng = TiledSeamlessClone(mesh=mesh, path="gspmd")
+    src, dst, mask = _images(7)
+    out = eng.run(src, dst, mask, CENTER).numpy()
+    assert eng.metrics["solver_resolved"] == "multigrid_gspmd" and out.shape == dst.shape
+    assert _diff_max(seamless_clone_tiled(src, dst, mask, CENTER, mesh=mesh, path="gspmd"),
+                     out) <= 1
+    edit = local_edit_tiled(np.zeros((8, 8, 3), np.uint8), None, "color_change", (1, 1, 1),
+                            mesh=_port((1, 1)), path="gspmd")
+    assert edit.shape == (8, 8, 3)
     with pytest.raises(ValueError, match="path"):
         TiledSeamlessClone(mesh=mesh, path="spmd")
-    with pytest.raises(NotImplementedError, match="gspmd"):
+    with pytest.raises(ValueError, match="path"):
+        seamless_clone_tiled(src, dst, mask, CENTER, mesh=mesh, path="spmd")
+    with pytest.raises(ValueError, match="path"):
         local_edit_tiled(np.zeros((8, 8, 3), np.uint8), None, "color_change", (1, 1, 1),
-                         mesh=mesh, path="gspmd")
+                         mesh=mesh, path="spmd")
 
 
 # ---------------------------------------------------------------------------
