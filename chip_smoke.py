@@ -141,12 +141,14 @@
      headline, the plain RHS, the transposed DST-GEMM solve and
      ``postprocess_transposed`` once a frame, card against the CPU;
    - ``tiled_dd``: ``TiledSeamlessClone(CloneConfig())`` on a 2x2 mesh of
-     the one card at 8K, tol 1e-4: per frame clamp_cast_paste 1 (the plain
-     RHS, the DD solve, the paste), per cycle rb_sweeps_tile 2 a tile and
+     the one card at 8K, tol 1e-4: per frame clamp_cast_paste 1 a tile
+     (the per-tile plain RHS, the DD solve on tiles, the paste into each
+     cell's destination tile), per cycle rb_sweeps_tile 2 a tile and
      mg_down / mg_up once per fused coarse level (2); the single run's
      cycles equal to those ``solve_poisson_dd(return_info=True)`` reports
      on its RHS, relative residual <= tol; serve ms beside the single-card
-     ``"q"`` frame; profiles (tolerance and ``mg_cycles=4``);
+     ``"q"`` frame; the resident frames profiled (tolerance and
+     ``mg_cycles=4``);
      ``tiled_dd_fixed`` ``mg_cycles=4``; the 1x1 mesh byte for byte
      ``SeamlessClone(CloneConfig())``; ``tiled_dd_headline`` the 2x2 serve
      at the headline, card against the CPU mesh (1 fused coarse level);
@@ -227,7 +229,7 @@
      ``solve_multigrid(return_info=True)`` reports on the same RHS, its
      relative residual <= 1e-5; ``edit_tiled`` (``local_edit_tiled`` of the
      colour change on a 2x2 mesh of the card at 1080p: rb_sweeps_tile 2 a
-     tile a cycle, clamp_cast_paste 1) within 1 of ``color_change`` on the
+     tile a cycle, clamp_cast_paste 1 a tile) within 1 of ``color_change`` on the
      card (the ``batch_paths`` and ``edit_paths`` JSON lines);
    - slice 7, the user surface on the ``pair`` frame's seeded headline
      src / dst / full mask: ``cli_headline`` (the inputs written as YAML,
@@ -247,7 +249,7 @@
    - slice 8, ``path="gspmd"`` (``solve_multigrid_sharded``, the element
      V-cycle partitioned over the mesh) on the 2x2 mesh of the card:
      ``tiled_gspmd`` (``TiledSeamlessClone(CloneConfig(tol=1e-4),
-     path="gspmd")`` at 8K: clamp_cast_paste once a frame, rb_sweeps_tile
+     path="gspmd")`` at 8K: clamp_cast_paste once a tile a frame, rb_sweeps_tile
      2 a tile a cycle on its one plain level; its serve ms/frame, cycles,
      launches, a 2-frame profile's idle share and torch ops; the solve of
      the frame's RHS bit-equal to the card's single-device element solve
@@ -261,7 +263,28 @@
      ``solve_multigrid_sharded`` at tol 1e-4 on the 8K RHS, each run twice,
      bit-equal to the single-process 2x2 mesh; ms a solve, the transfers
      and bytes a cycle that cross to the other rank, the backend) (the
-     ``slice8_paths`` JSON line).
+     ``slice8_paths`` JSON line);
+   - slice 8b, the mesh-resident tiled pipeline on the 2x2 mesh of the
+     card: ``tiled_dd``, ``tiled_dd_fixed``, ``tiled_gspmd`` and
+     ``tiled_gspmd_fixed`` serve that engine at 8K, and each also checks
+     its resident frame (``resident_check``: a profiled frame's idle share
+     and torch ops, clamp_cast_paste once a tile a frame and rb_sweeps_tile
+     a frame, each cell's resident bytes, no gather in the timed frames
+     (``parallel/mesh.py:GATHERS``), the chained result bit-equal to the
+     single-device composition: the plain RHS, the whole-g
+     ``solve_poisson_dd`` on the same mesh or ``solve_multigrid(...,
+     use_pallas=False)``, the paste; the ``resident`` JSON object),
+     ``bucket_exact_tiled``
+     (``bucket_exact_8k``'s ellipse: ``solve_multigrid_dyn_sharded``
+     bit-equal to ``solve_multigrid_dyn(use_pallas=False)`` with equal
+     cycles, the frame bit-equal to its single-device composition and within
+     1 of ``bucket_exact_8k``), ``batch_64_4k_mesh`` (``batch_64_4k``'s jobs
+     in 4 blocks over the mesh, ``clone_roi_batch(mesh=...)``: bit-equal to
+     ``batch_64_4k``), ``dist_2proc``'s engine (the resident engine's
+     ``timed_serve`` at 8K in two processes, bit-equal on both ranks to the
+     one-process mesh's; ms a frame, bytes a frame sent to the other rank)
+     and ``dryrun_2x2`` (``dryrun_multichip``'s eight sub-checks) (the
+     ``slice8b_paths`` JSON line).
 
 With ``--other OTHER_ROOT`` (another checkout of this repository, for
 example the parent commit unpacked with ``git archive``; only its
@@ -366,6 +389,8 @@ GSPMD_LOOPS = 3  # slice 8: path="gspmd" serve frames (host-bound, ~0.1-0.3 s ea
 GSPMD_PLAIN_LEVELS = 1  # partitioned levels with betas 1 at 8K and 1080p (even interiors)
 DIST_WORLD = 2  # dist_2proc: two processes on the one card, two tiles each
 DIST_TIMEOUT = 300  # seconds for both ranks (start-up, two runs of each solve)
+RESIDENT_LOOPS = 3  # slice 8b: bucket_exact_tiled's serve frames at 8K (host-bound)
+DIST_ENGINE_LOOPS = 2  # dist_2proc's engine: timed frames after the warm-up
 # slice 5: bbox_bucket=128 on seeded ellipse masks whose tight bbox is a
 # multiple of 128 on neither side (the buckets' interiors then are 126 mod 128)
 BUCKET = 128
@@ -539,8 +564,9 @@ def _dense_per_frame(levels: int, cycles: int):
 
 
 def _dd_per_frame(levels: int, cycles: int):
-    """The 2x2 DD frame, fixed mode: ``levels`` fused coarse levels."""
-    return _per_frame(clamp_cast_paste=1, rb_sweeps_tile=2 * DD_TILES * cycles,
+    """The 2x2 DD frame, fixed mode: ``levels`` fused coarse levels; the
+    paste once a tile (the mesh-resident destination's tiles)."""
+    return _per_frame(clamp_cast_paste=DD_TILES, rb_sweeps_tile=2 * DD_TILES * cycles,
                       mg_down=levels * cycles, mg_up=levels * cycles)
 
 
@@ -628,7 +654,7 @@ PATHS = {
     # rb_sweeps_tile 2 a tile a cycle on the plain level; tolerance mode
     # data-dependent), and the gspmd edit at 1080p
     "tiled_gspmd": None,
-    "tiled_gspmd_fixed": _per_frame(clamp_cast_paste=1,
+    "tiled_gspmd_fixed": _per_frame(clamp_cast_paste=DD_TILES,
                                     rb_sweeps_tile=2 * DD_TILES * GSPMD_PLAIN_LEVELS * 4),
     "edit_tiled_gspmd": None,
 }
@@ -982,13 +1008,14 @@ def check_jacobi_counts(path: str, what: str, launches: dict, frames: int) -> in
 
 
 def check_tiled_counts(path: str, what: str, launches: dict, frames: int) -> int:
-    """DD frames on the 2x2 mesh: clamp_cast_paste once a frame (the generic
-    tail; the RHS is plain torch); per cycle rb_sweeps_tile 2 a tile (nu1 = 1
+    """DD frames on the 2x2 mesh: clamp_cast_paste once a tile a frame (the
+    generic tail on each cell's destination tile; the RHS is plain torch per
+    tile); per cycle rb_sweeps_tile 2 a tile (nu1 = 1
     and nu2 = 2 sweeps, one exchange and one launch each) and mg_down /
     mg_up once per fused coarse level; nothing else. Returns the cycles."""
     levels = MG_LEVELS[path]
     n, rem = divmod(launches["rb_sweeps_tile"], 2 * DD_TILES)
-    want = _per_frame(clamp_cast_paste=frames, rb_sweeps_tile=2 * DD_TILES * n,
+    want = _per_frame(clamp_cast_paste=frames * DD_TILES, rb_sweeps_tile=2 * DD_TILES * n,
                       mg_down=levels * n, mg_up=levels * n)
     if launches != want or rem or n < frames:
         raise AssertionError(f"{path} {what}: launches {launches}, expected {want}")
@@ -996,15 +1023,16 @@ def check_tiled_counts(path: str, what: str, launches: dict, frames: int) -> int
 
 
 def check_gspmd_counts(path: str, what: str, launches: dict, frames: int) -> int:
-    """path="gspmd" frames on the 2x2 mesh: clamp_cast_paste once a frame
-    (the generic tail; the RHS is plain torch); per cycle rb_sweeps_tile 2 a
+    """path="gspmd" frames on the 2x2 mesh: clamp_cast_paste once a tile a
+    frame (the generic tail on each cell's destination tile; the RHS is
+    plain torch per tile); per cycle rb_sweeps_tile 2 a
     tile on each partitioned level with betas 1 (nu1 and nu2 sweeps on a
     4-ring band, one launch each; ``GSPMD_PLAIN_LEVELS``); nothing else (the
     beta levels and the gathered coarse levels run in torch ops). Returns
     the cycles."""
     per_cycle = 2 * DD_TILES * GSPMD_PLAIN_LEVELS
     n, rem = divmod(launches["rb_sweeps_tile"], per_cycle)
-    want = _per_frame(clamp_cast_paste=frames, rb_sweeps_tile=per_cycle * n)
+    want = _per_frame(clamp_cast_paste=frames * DD_TILES, rb_sweeps_tile=per_cycle * n)
     if launches != want or rem or n < frames:
         raise AssertionError(f"{path} {what}: launches {launches}, expected {want}")
     return n
@@ -2349,6 +2377,7 @@ def main() -> int:
     loop_profiles = {}  # the in-the-loop times of the kernels line (LOOP_PROFILE)
     cpu_diffs = {}
     run_outputs = {}
+    serve_outputs = {}  # the serve's chained image, by path
     cpu_outputs = {}  # the CPU path's single-shot image, by path
     frames_vs_other = {}
 
@@ -2412,6 +2441,7 @@ def main() -> int:
         if out_np.shape != d_img.shape or out_np.dtype != np.uint8:
             raise AssertionError(f"serve output {out_np.shape} {out_np.dtype}")
         check_outside(out_np, d_img, interior)
+        serve_outputs.setdefault(path, out_np)
         mps = s_img.shape[0] * s_img.shape[1] / (ms * 1e3)
         print(f"serve {path} ({label}): {ms:.4f} ms/frame, {mps:.1f} MP/s over {loops} "
               f"chained frames, interior {th - 2}x{tw - 2} of ROI {rh}x{rw} ({card}); "
@@ -2904,13 +2934,72 @@ def main() -> int:
     # -- slice 8a: the 2x2 DD serve at 8K (tolerance and fixed), the 1x1 mesh,
     #    the DD serve at the headline against the CPU mesh, the red-black tiled
     #    solve, mg_padded=False -------------------------------------------------
+    def chained(solver, n, s_img, mask_, d_img, dyn_kw=None):
+        """n frames of the single-device composition a resident frame is
+        held against, chained on one planar destination: the plain RHS,
+        ``solver`` (or, with ``dyn_kw``, bucket_exact's dyn solve of the
+        tight window), clamp_cast_paste."""
+        ctr = (d_img.shape[1] // 2, d_img.shape[0] // 2)
+        exact = dyn_kw is not None
+        m_, xy, lt, hw, *tight = prepare_inputs(mask_, s_img.shape, d_img.shape, ctr,
+                                                bucket=BUCKET if exact else 0,
+                                                return_tight=exact)
+        buf = torch.from_numpy(d_img).to(dev).permute(2, 0, 1).contiguous()
+        kw = dict(src=torch.from_numpy(s_img).to(dev), dst=buf, mask=torch.from_numpy(m_).to(dev),
+                  bbox_xy=xy, left_top=lt, true_bbox=tight[0] if exact else None, bbox_hw=hw,
+                  flags=1, planar_dst=True, solver=solver, solver_kwargs=dyn_kw,
+                  solver_name="multigrid_resident", use_pallas_pre=False, use_pallas_post=False)
+        for _ in range(n):
+            clone_pipeline(**kw)
+        return buf.permute(1, 2, 0).cpu().numpy()
+
+    def resident_frame_profile(label, eng_, s_img, mask_, d_img, frames=2, brief=True):
+        """profile_frames of the engine's resident frame (``step``)."""
+        ctr = (d_img.shape[1] // 2, d_img.shape[0] // 2)
+        flags_, prep_ = eng_._prepared(s_img, d_img, mask_, ctr, None)
+        fr = eng_._frame(s_img, d_img, prep_, flags_)
+        return profile_frames(label, lambda: fr.step(), {}, frames=frames, into=loop_profiles,
+                              brief=brief)
+
+    resident = {}  # slice 8b's figures of the tiled phases' resident frames, by path
+
+    def resident_check(path, eng_, loops, solver, label, frames_prof=2, brief=True):
+        """The slice-8b checks of a tiled serve phase that ``drive`` ran at
+        8K: its ``loops + 1`` chained frames bit-equal to the single-device
+        composition with ``solver``, no gather in the timed frames, each
+        cell's resident bytes; its resident frame profiled as ``label``."""
+        frames = loops + 1
+        same = np.array_equal(serve_outputs[path], chained(solver, frames, src8, mask8, dst8))
+        prof = resident_frame_profile(label, eng_, src8, mask8, dst8, frames_prof, brief)
+        serve = path_launches[path][0]
+        resident[path] = dict(
+            frames=frames, bit_equal_composition=same,
+            launches_per_frame={k: v / frames for k, v in serve.items() if v},
+            gathers_per_frame=eng_.metrics["gathers_per_frame"],
+            crossed_bytes_per_frame=eng_.metrics["crossed_bytes_per_frame"],
+            replicated_bytes_per_frame=eng_.metrics["replicated_bytes_per_frame"],
+            resident_bytes=eng_.metrics["resident_bytes"], busy_us=prof["busy_us"],
+            span_us=prof["span_us"], idle=prof["idle"],
+            torch_op_launches=prof.get("torch_op_launches"))
+        print(f"{path} resident ({card}): the destination held as tiles on the 2x2 mesh; "
+              f"clamp_cast_paste {serve['clamp_cast_paste'] / frames:g} and rb_sweeps_tile "
+              f"{serve['rb_sweeps_tile'] / frames:g} a frame; gathers in the timed frames "
+              f"{eng_.metrics['gathers_per_frame']}, replicated levels "
+              f"{eng_.metrics['replicated_bytes_per_frame'] / 1e6:.3f} MB a frame; resident "
+              f"bytes by cell {json.dumps(eng_.metrics['resident_bytes'])}; profiled frame "
+              f"busy {prof['busy_us']:.1f} us of {prof['span_us']:.1f}, idle {prof['idle']}, "
+              f"torch ops {prof.get('torch_op_launches')}; {frames} chained frames bit-equal "
+              f"to the single-device composition {same}")
+        if not same or eng_.metrics["gathers_per_frame"] != 0:
+            raise AssertionError(f"{path} resident: {resident[path]}")
+
     def dd_engine(cfg):
         return lambda device: TiledSeamlessClone(
             cfg, mesh=make_tile_mesh([torch.device(device)] * DD_TILES, DD_MESH))
 
     mesh_c = make_tile_mesh([dev] * DD_TILES, DD_MESH)
-    _, dd8_ms = drive("tiled_dd", CloneConfig(), src8, mask8, MG_LOOPS, "8K", d_img=dst8,
-                      cpu=None, solver="multigrid_dd", engine=dd_engine(CloneConfig()))
+    eng_dd, dd8_ms = drive("tiled_dd", CloneConfig(), src8, mask8, MG_LOOPS, "8K", d_img=dst8,
+                           cpu=None, solver="multigrid_dd", engine=dd_engine(CloneConfig()))
     dd_run_cycles = check_tiled_counts("tiled_dd", "single-shot run (8K)",
                                        path_launches["tiled_dd"][1], 1)
     dd_serve = path_launches["tiled_dd"][0]
@@ -2928,24 +3017,23 @@ def main() -> int:
           f"{TOL}); serve {dd8_ms:.4f} ms/frame ({dd_serve_cycles / (MG_LOOPS + 1):g} cycles a "
           f"frame) against the single-card 'q' frame {q8_ms:.4f}; launches a cycle "
           f"rb_sweeps_tile {2 * DD_TILES}, mg_down {MG_LEVELS['tiled_dd']}, mg_up "
-          f"{MG_LEVELS['tiled_dd']}, clamp_cast_paste 1 a frame: {json.dumps(dd_serve)}")
+          f"{MG_LEVELS['tiled_dd']}, clamp_cast_paste {DD_TILES} a frame: "
+          f"{json.dumps(dd_serve)}")
     if (info_dd["cycles"] != dd_run_cycles or not dd_rel <= TOL
             or not torch.isfinite(u_dd8).all()):
         raise AssertionError(f"tiled_dd 8K: {dd_run_cycles} cycles run, {info_dd} reported")
     del u_dd8
-    eig_dd: dict = {}
-    dd_prof = dict(src=torch.from_numpy(src8).to(dev), dst=dst8_p.clone(),
-                   mask=torch.from_numpy(m8).to(dev), bbox_xy=(x8, y8), left_top=(left8, top8),
-                   bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver_name="multigrid_dd",
-                   use_pallas_pre=False, use_pallas_post=False)
-    for label, cyc in (("tiled_dd 8K tolerance", None), ("tiled_dd 8K mg_cycles=4", 4)):
-        profile_frames(label, clone_pipeline, dict(dd_prof, solver=lambda g, cyc=cyc: (
-            solve_poisson_dd(g, mesh_c, tol=None if cyc else TOL, cycles=cyc or 4,
-                             eig_cache=eig_dd))), frames=3, into=loop_profiles)
-    del dd_prof
-    _, dd8_fixed_ms = drive("tiled_dd_fixed", CloneConfig(mg_cycles=4), src8, mask8, MG_LOOPS,
-                            "8K, mg_cycles=4", d_img=dst8, cpu=None, solver="multigrid_dd",
-                            engine=dd_engine(CloneConfig(mg_cycles=4)))
+    # slice 8b: the chained frames against the plain RHS, the whole-g
+    # solve_poisson_dd on the same mesh and the paste; the resident frame profiled
+    resident_check("tiled_dd", eng_dd, MG_LOOPS, lambda g: solve_poisson_dd(g, mesh_c, tol=TOL),
+                   "tiled_dd 8K tolerance", frames_prof=3, brief=False)
+    del eng_dd
+    eng_dd, dd8_fixed_ms = drive("tiled_dd_fixed", CloneConfig(mg_cycles=4), src8, mask8,
+                                 MG_LOOPS, "8K, mg_cycles=4", d_img=dst8, cpu=None,
+                                 solver="multigrid_dd", engine=dd_engine(CloneConfig(mg_cycles=4)))
+    resident_check("tiled_dd_fixed", eng_dd, MG_LOOPS, lambda g: solve_poisson_dd(
+        g, mesh_c, cycles=4), "tiled_dd 8K mg_cycles=4", frames_prof=3, brief=False)
+    del eng_dd
     print(f"tiled_dd 8K serve ({card}): tolerance {dd8_ms:.4f} ms/frame, mg_cycles=4 "
           f"{dd8_fixed_ms:.4f}; the single-card 'q' frame {q8_ms:.4f} and {q8_fixed_ms:.4f}")
     one = TiledSeamlessClone(CloneConfig(), mesh=make_tile_mesh([dev], (1, 1)))
@@ -3720,7 +3808,7 @@ def main() -> int:
     path_launches.setdefault("edit_tiled", (launches, launches))
     n_dd, rem = divmod(launches["rb_sweeps_tile"], 2 * DD_TILES)
     if (rem or not n_dd or launches["mg_down"] != launches["mg_up"] or launches != _per_frame(
-            clamp_cast_paste=1, rb_sweeps_tile=launches["rb_sweeps_tile"],
+            clamp_cast_paste=DD_TILES, rb_sweeps_tile=launches["rb_sweeps_tile"],
             mg_down=launches["mg_down"], mg_up=launches["mg_up"])):
         raise AssertionError(f"edit_tiled: launches {launches}")
     prof = profile_frames("edit_tiled", lambda: local_edit_tiled(
@@ -4000,8 +4088,8 @@ def main() -> int:
     for path, cfg, label in (("tiled_gspmd", CloneConfig(tol=TOL), "8K"),
                              ("tiled_gspmd_fixed", CloneConfig(tol=TOL, mg_cycles=4),
                               "8K, mg_cycles=4")):
-        _, ms = drive(path, cfg, src8, mask8, GSPMD_LOOPS, label, d_img=dst8, cpu=None,
-                      solver="multigrid_gspmd", engine=gspmd_engine(cfg))
+        eng_gs, ms = drive(path, cfg, src8, mask8, GSPMD_LOOPS, label, d_img=dst8, cpu=None,
+                           solver="multigrid_gspmd", engine=gspmd_engine(cfg))
         serve, run = path_launches[path]
         cycles = run["rb_sweeps_tile"] // (2 * DD_TILES * GSPMD_PLAIN_LEVELS)
         want_cycles = cfg.mg_cycles
@@ -4012,15 +4100,12 @@ def main() -> int:
         same = torch.equal(u_gs, u_el)
         rel = info_gs["residual"] / g8max
         rel64 = rel_residual(u_gs, g8)
-        eig_gs: dict = {}
-        prof = profile_frames(f"{path} 8K", clone_pipeline, dict(
-            src=torch.from_numpy(src8).to(dev), dst=dst8_p.clone(),
-            mask=torch.from_numpy(m8).to(dev), bbox_xy=(x8, y8), left_top=(left8, top8),
-            bbox_hw=(bh8, bw8), flags=1, planar_dst=True, solver_name="multigrid_gspmd",
-            use_pallas_pre=False, use_pallas_post=False,
-            solver=lambda g, c=want_cycles: solve_multigrid_sharded(
-                g, mesh_c, tol=TOL, cycles=c, eig_cache=eig_gs)), frames=2, brief=True,
-            into=loop_profiles)
+        # slice 8b: the chained frames against the plain RHS, the
+        # single-device element solve and the paste; the resident frame profiled
+        resident_check(path, eng_gs, GSPMD_LOOPS, lambda g, c=want_cycles: TM.solve_multigrid(
+            g, tol=TOL, cycles=c, use_pallas=False), f"{path} 8K")
+        prof = resident[path]
+        del eng_gs
         slice8[path] = dict(
             ms_per_frame=ms, cycles_run=cycles, cycles_solve=info_gs["cycles"],
             cycles_single_device=info_el["cycles"], bit_equal_single_device=same,
@@ -4073,10 +4158,16 @@ def main() -> int:
     (u_gs1, info_gs1), gs1_ms = timed_solve(lambda: solve_multigrid_sharded(
         g8, mesh_c, tol=TOL, return_info=True))
     g8c = g8.cpu()
+    # slice 8b: the same two processes also serve the mesh-resident engine at
+    # 8K (timed_serve), held against the one-process 2x2 resident engine
+    eng_run = {"args": tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        src8, dst8, mask8)) + (ctr8,), "config": {"tol": TOL}, "loops": DIST_ENGINE_LOOPS}
+    (want_e, info_e1), e1_ms = timed_solve(lambda: dist_check.run_one("engine", eng_run, mesh_c,
+                                                                      dev))
     dist_runs = {"dd": {"g": g8c, "kwargs": {"tol": TOL}},
-                 "sharded": {"g": g8c, "kwargs": {"tol": TOL}}}
-    expect = {"dd": u_dd1.cpu(), "sharded": u_gs1.cpu()}
-    del u_dd1, u_gs1
+                 "sharded": {"g": g8c, "kwargs": {"tol": TOL}}, "engine": eng_run}
+    expect = {"dd": u_dd1.cpu(), "sharded": u_gs1.cpu(), "engine": want_e}
+    del u_dd1, u_gs1, want_e
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(dist_runs, f"{tmp}/in.pt")
@@ -4087,7 +4178,7 @@ def main() -> int:
             *map(str, DD_MESH), "--input", f"{tmp}/in.pt", "--expect", f"{tmp}/expect.pt",
             "--repeat", "2"], DIST_TIMEOUT)
         dist_s = time.perf_counter() - t0
-    del dist_runs, expect, g8c
+    del dist_runs, expect, g8c, eng_run
     if any(rc != 0 for rc, _ in ranks):
         raise AssertionError("dist_2proc: a rank failed:\n" + "\n---\n".join(
             out[-3000:] for _, out in ranks))
@@ -4098,7 +4189,8 @@ def main() -> int:
                                                        "sharded": info_gs1["cycles"]},
                                 ranks=reports)
     for rep in reports:
-        for name, row in rep["solves"].items():
+        for name in ("dd", "sharded"):
+            row = rep["solves"][name]
             print(f"dist_2proc rank {rep['rank']} ({card}, backend {rep['backend']}, cells "
                   f"{rep['cells']}): {name} {row['ms']:.1f} ms a solve (the second run; "
                   f"single process {slice8['dist_2proc']['single_process_ms'][name]:.1f}), "
@@ -4114,10 +4206,143 @@ def main() -> int:
           f"solve)")
     rows["rb_sweeps_tile"]["dist_2proc_launches_per_rank"] = {
         name: [rep["solves"][name]["rb_sweeps_tile"] for rep in reports]
-        for name in reports[0]["solves"]}
+        for name in ("dd", "sharded")}
     del g8
     print(json.dumps({"slice8_paths": slice8}))
     print(f"the slice-8 phases ran {time.perf_counter() - t_8:.1f} s")
+
+    # -- slice 8b (the mesh-resident frames of tiled_dd(_fixed) and
+    #    tiled_gspmd(_fixed) are checked in those phases): bucket_exact's
+    #    partitioned dyn solve, the batch's jobs split over the mesh, the
+    #    engine across two processes, dryrun_multichip on the 2x2 mesh ------------
+    from seamlesscloneoptimization_tpu_torch.parallel import dryrun_multichip
+    from seamlesscloneoptimization_tpu_torch.parallel import solve_multigrid_dyn_sharded
+    from seamlesscloneoptimization_tpu_torch.solvers.multigrid_dyn import solve_multigrid_dyn
+
+    t_8b = time.perf_counter()
+    slice8b = {}
+
+    def plain_levels(h2_, w2_, padded=None):
+        """The partitioned levels with betas 1 of a solve on the 2x2 mesh."""
+        lv_ = TT._Level(h2_, w2_, 1.0, 1.0, TT._split(h2_, DD_MESH[0]),
+                        TT._split(w2_, DD_MESH[1]), padded)
+        return sum(1 for x in TT._levels(lv_)[:-1] if x.unit)
+
+
+    # bucket_exact_tiled: the 8K ellipse in its 128-bucket on the 2x2 mesh
+    cfg_bt = CloneConfig(bbox_bucket=BUCKET, bucket_exact=True)
+    eng_bt = TiledSeamlessClone(cfg_bt, mesh=mesh_c)
+    out_bt, launches = launches_of(lambda: eng_bt.run(src8, dst8, mask_b8, ctr8))
+    out_bt = out_bt.cpu().numpy()
+    path_launches.setdefault("bucket_exact_tiled", (launches, launches))
+    dd_, pp_, mm_ = bucket_roi(src8, mask_b8, dst8, dev, window=True)
+    g_bt = _plain_rhs(dd_, pp_, mm_, 1, "opencv")[0]
+    _, _, _, (rh_b, rw_b), _ = bucket_prep(src8, mask_b8, dst8)
+    hw_bt = tuple(g_bt.shape[1:])
+    g_btp = torch.nn.functional.pad(g_bt, (0, rw_b - 2 - hw_bt[1], 0, rh_b - 2 - hw_bt[0]))
+    del dd_, pp_, mm_, g_bt
+    (u_bs, info_bs), bs_ms = timed_solve(lambda: solve_multigrid_dyn_sharded(
+        g_btp, hw_bt, mesh_c, tol=TOL, return_info=True))
+    (u_b1, info_b1), b1_ms = timed_solve(lambda: solve_multigrid_dyn(
+        g_btp, hw_bt, tol=TOL, use_pallas=False, return_info=True))
+    same_solve = torch.equal(u_bs, u_b1) and info_bs == info_b1
+    del u_bs, u_b1, g_btp
+    bt_levels = plain_levels(*hw_bt, (rh_b - 2, rw_b - 2))
+    n_bt, rem = divmod(launches["rb_sweeps_tile"], 2 * DD_TILES * max(bt_levels, 1))
+    ref_bt = chained(None, 1, src8, mask_b8, dst8, dyn_kw=dict(
+        tol=TOL, cycles=None, max_cycles=60, use_pallas=False))
+    same_bt = np.array_equal(out_bt, ref_bt)
+    d_bt = diff_max(out_bt, run_outputs["bucket_exact_8k"])
+    _, bt_ms = eng_bt.timed_serve(src8, dst8, mask_b8, ctr8, loops=RESIDENT_LOOPS)
+    prof = resident_frame_profile("bucket_exact_tiled", eng_bt, src8, mask_b8, dst8)
+    slice8b["bucket_exact_tiled"] = dict(
+        ms_per_frame=bt_ms, cycles=n_bt, solve_cycles=info_bs["cycles"],
+        solve_bit_equal_single_device=same_solve, sharded_solve_ms=bs_ms,
+        single_device_solve_ms=b1_ms, plain_partitioned_levels=bt_levels,
+        frame_bit_equal_composition=same_bt, diff_max_vs_bucket_exact_8k=d_bt,
+        launches_per_call={k: v for k, v in launches.items() if v},
+        resident_bytes=eng_bt.metrics["resident_bytes"], busy_us=prof["busy_us"],
+        span_us=prof["span_us"], idle=prof["idle"],
+        torch_op_launches=prof.get("torch_op_launches"))
+    print(f"bucket_exact_tiled ({card}): the 8K ellipse (tight {hw_bt[0] + 2}x{hw_bt[1] + 2} "
+          f"in {rh_b}x{rw_b}) on the 2x2 mesh: solve_multigrid_dyn_sharded {info_bs['cycles']} "
+          f"cycles in {bs_ms:.1f} ms, bit-equal to solve_multigrid_dyn(use_pallas=False) "
+          f"({b1_ms:.1f} ms) {same_solve}; the frame bit-equal to the single-device "
+          f"composition {same_bt}, diff_max against bucket_exact_8k {d_bt}; serve "
+          f"{bt_ms:.4f} ms/frame; launches {json.dumps(slice8b['bucket_exact_tiled']['launches_per_call'])}")
+    if (not same_solve or not same_bt or d_bt > 1 or rem or n_bt != info_bs["cycles"]
+            or launches != _per_frame(clamp_cast_paste=DD_TILES,
+                                      rb_sweeps_tile=launches["rb_sweeps_tile"])
+            or eng_bt.metrics["solver_resolved"] != "multigrid_dyn"):
+        raise AssertionError(f"bucket_exact_tiled: {slice8b['bucket_exact_tiled']}")
+    del eng_bt, out_bt, ref_bt
+
+    # batch_64_4k_mesh: batch_64_4k's 64 jobs in blocks of 16 over the 2x2 mesh
+    groups64 = TB.plan_groups(dst4k.shape, srcs64, masks64, cells, "exact", device=dev)
+    (hw64, srcs_d, masks_d, lts64, _), = groups64
+    patches_d = TB._masked_planar(srcs_d, masks_d)
+    dst4k_p = torch.from_numpy(dst4k).to(dev).permute(2, 0, 1)
+
+    def mesh_step(mesh_=mesh_c):
+        d_p = TB._gather(dst4k_p, lts64, *hw64)
+        blended = TB.clone_roi_batch(d_p, patches_d, masks_d, 1, TB.fast_dst_solver(),
+                                     mesh=mesh_)
+        return TB._composite(dst4k_p, blended, lts64)
+
+    out_bm, launches = launches_of(mesh_step)
+    path_launches.setdefault("batch_64_4k_mesh", (launches, launches))
+    same_bm = np.array_equal(out_bm.permute(1, 2, 0).cpu().numpy(), run_outputs["batch_64_4k"])
+    same_stack = torch.equal(mesh_step(), mesh_step(None))
+    bm_ms = event_ms(mesh_step, BATCH_STEPS)
+    prof = profile_frames("batch_64_4k_mesh", lambda: mesh_step(), {}, frames=3,
+                          into=loop_profiles, brief=True)
+    slice8b["batch_64_4k_mesh"] = dict(
+        ms_per_step=bm_ms, mean_ms=sum(bm_ms) / len(bm_ms),
+        batch_64_4k_mean_ms=batch_rows["batch_64_4k"]["mean_ms"], bit_equal_batch_64_4k=same_bm,
+        bit_equal_without_mesh=same_stack, launches_per_step={k: v for k, v in
+                                                              launches.items() if v},
+        busy_us=prof["busy_us"], span_us=prof["span_us"], idle=prof["idle"],
+        torch_op_launches=prof.get("torch_op_launches"), gemms=prof["gemms"])
+    print(f"batch_64_4k_mesh ({card}): 64 jobs in 4 blocks of 16 over the 2x2 mesh of the card: "
+          f"step {sum(bm_ms) / len(bm_ms):.4f} ms ({[round(x, 4) for x in bm_ms]}) against "
+          f"batch_64_4k's {batch_rows['batch_64_4k']['mean_ms']:.4f}; bit-equal to batch_64_4k "
+          f"{same_bm}, to the step without a mesh {same_stack}; idle {prof['idle']}, torch ops "
+          f"{prof.get('torch_op_launches')}, GEMMs {prof['gemms']} a step; launches "
+          f"{json.dumps(slice8b['batch_64_4k_mesh']['launches_per_step'])}")
+    if not same_bm or not same_stack or launches != _per_frame(clamp_cast_paste=DD_TILES):
+        raise AssertionError(f"batch_64_4k_mesh: {slice8b['batch_64_4k_mesh']}")
+    del groups64, srcs_d, masks_d, patches_d, dst4k_p, out_bm
+
+    # dist_2proc, extended: the resident engine's timed_serve at 8K in the same
+    # two processes (run there above), against the one-process 2x2 engine
+    slice8["dist_2proc"]["engine"] = dict(
+        single_process_ms_per_frame=info_e1["ms_per_frame"], single_process_call_ms=e1_ms,
+        ranks=[dict(rank=rep["rank"], **rep["solves"]["engine"]) for rep in reports])
+    for rep in reports:
+        row = rep["solves"]["engine"]
+        print(f"dist_2proc engine rank {rep['rank']} ({card}, backend {rep['backend']}, cells "
+              f"{rep['cells']}): TiledSeamlessClone.timed_serve at 8K {row['ms_per_frame']:.1f} "
+              f"ms a frame (the second run; single process {info_e1['ms_per_frame']:.1f}), "
+              f"{row['crossed_bytes_per_frame'] / 1e6:.3f} MB a frame sent to the other rank, "
+              f"replicated levels {row['replicated_bytes_per_frame'] / 1e6:.3f} MB a frame, "
+              f"gathers a frame {row['gathers_per_frame']}; clamp_cast_paste "
+              f"{row['clamp_cast_paste']}; bit-equal on this rank to the one-process 2x2 "
+              f"resident engine {row['equal']}")
+    if not all(rep["solves"]["engine"]["equal"]
+               and rep["solves"]["engine"]["gathers_per_frame"] == 0 for rep in reports):
+        raise AssertionError(f"dist_2proc engine: {slice8['dist_2proc']['engine']}")
+
+    # dryrun_2x2: dryrun_multichip's eight sub-checks on the 2x2 mesh of the card
+    (dry, _), dry_ms = timed_solve(lambda: (dryrun_multichip(mesh_c), None))
+    slice8b["dryrun_2x2"] = dict(figures=dry, s=dry_ms / 1e3)
+    print(f"dryrun_2x2 ({card}): dryrun_multichip passed its eight sub-checks on the 2x2 mesh "
+          f"in {dry_ms / 1e3:.1f} s: {json.dumps(dry)}")
+    for name in ("clamp_cast_paste", "rb_sweeps_tile"):
+        rows[name]["resident_launches_per_frame"] = {
+            p: r["launches_per_frame"].get(name, 0) for p, r in resident.items()}
+    print(json.dumps({"slice8b_paths": slice8b, "resident": resident,
+                      "dist_2proc_engine": slice8["dist_2proc"]["engine"]}))
+    print(f"the slice-8b phases ran {time.perf_counter() - t_8b:.1f} s")
 
     # -- the kernel table: launches of each kernel's own path ---------------------
     for name in KERNELS:

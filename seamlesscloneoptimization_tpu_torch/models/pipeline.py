@@ -95,7 +95,7 @@ from seamlesscloneoptimization_tpu_torch.ops.kernels import (
     preprocess_rhs_t,
     unfold_clamp_paste,
 )
-from seamlesscloneoptimization_tpu_torch.ops.mask import binarize_mask, erode3x3
+from seamlesscloneoptimization_tpu_torch.ops.mask import binarize_mask, erode3x3, roi_mask
 from seamlesscloneoptimization_tpu_torch.ops.postprocess import postprocess_roi
 from seamlesscloneoptimization_tpu_torch.ops.rhs import poisson_rhs
 from seamlesscloneoptimization_tpu_torch.solvers import get_solver
@@ -341,16 +341,7 @@ def clone_pipeline(
     # binarize + 1-px frame-zero of the mask (ref setMaskBoundaryToConstant),
     # on the ROI slice in global coordinates — the host prep usually did this
     # already; re-applying keeps raw-mask callers right at ROI cost
-    hs, ws = mask.shape
-    mask_roi = binarize_mask(mask[y0 : y0 + bh, x0 : x0 + bw])
-    if y0 == 0:
-        mask_roi[0, :] = 0
-    if y0 + bh == hs:
-        mask_roi[-1, :] = 0
-    if x0 == 0:
-        mask_roi[:, 0] = 0
-    if x0 + bw == ws:
-        mask_roi[:, -1] = 0
+    mask_roi = roi_mask(mask, (x0, y0), (bh, bw))
     patch = torch.where(mask_roi[None] != 0, src_p, 0).to(torch.uint8)
 
     if true_bbox is not None:

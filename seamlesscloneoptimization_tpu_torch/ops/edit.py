@@ -34,6 +34,15 @@ def erode3x3_replicate(mask01: torch.Tensor, iterations: int = 3) -> torch.Tenso
     zero-border erosion (``ops/mask.py``, the ``erode3`` kernel), because
     the local-edit path never border-zeroes its mask. Plain torch.
     """
+    return erode3x3_replicate_window(mask01, None, iterations)
+
+
+def erode3x3_replicate_window(mask01: torch.Tensor, inside: torch.Tensor | None,
+                              iterations: int = 3) -> torch.Tensor:
+    """``erode3x3_replicate`` on a window of the mask: the cells where the
+    bool ``inside`` (the window's shape) is False lie past the image and are
+    held set at every erosion (the replicate border); the window's own edge
+    goes stale a ring an erosion. ``inside=None``: the whole mask."""
     m = mask01.to(torch.float32)
     h, w = m.shape
     for _ in range(iterations):
@@ -42,7 +51,7 @@ def erode3x3_replicate(mask01: torch.Tensor, iterations: int = 3) -> torch.Tenso
         for dy in range(3):
             for dx in range(3):
                 acc = torch.minimum(acc, p[dy : dy + h, dx : dx + w])
-        m = acc
+        m = acc if inside is None else torch.where(inside, acc, 1.0)
     return m
 
 

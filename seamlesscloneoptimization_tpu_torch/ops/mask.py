@@ -17,6 +17,25 @@ def binarize_mask(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask != 0, 255, 0).to(torch.uint8)
 
 
+def roi_mask(mask: torch.Tensor, bbox_xy, bbox_hw) -> torch.Tensor:
+    """The (bh, bw) ROI at bbox_xy = (x0, y0) of an (hs, ws) uint8 mask,
+    binarized, and zero on the rows and columns where the ROI meets the
+    mask's frame (ref ``setMaskBoundaryToConstant``, in global
+    coordinates)."""
+    (x0, y0), (bh, bw) = bbox_xy, bbox_hw
+    hs, ws = mask.shape
+    out = binarize_mask(mask[y0 : y0 + bh, x0 : x0 + bw])
+    if y0 == 0:
+        out[0, :] = 0
+    if y0 + bh == hs:
+        out[-1, :] = 0
+    if x0 == 0:
+        out[:, 0] = 0
+    if x0 + bw == ws:
+        out[:, -1] = 0
+    return out
+
+
 def erode3x3(mask: torch.Tensor, iterations: int = 3) -> torch.Tensor:
     """Binary 3x3 erosion with a ZERO border, ``iterations`` times.
 

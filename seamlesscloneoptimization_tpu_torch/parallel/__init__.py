@@ -1,9 +1,12 @@
-"""The tile-based domain decomposition (ROADMAP slices 8a and 8): a device
-mesh, in one process or spanning several (``init_distributed``), the halo
-exchange, the distributed red-black and DD multigrid solvers, the
-partitioned V-cycle (``solve_multigrid_sharded``), the tiled seamless clone
-and the tiled local edits; and the batch (slice 6): N jobs into one
-destination a step."""
+"""The tile-based domain decomposition (ROADMAP slices 8a, 8 and 8b): a
+device mesh, in one process or spanning several (``init_distributed``), the
+halo exchange, the distributed red-black and DD multigrid solvers, the
+partitioned V-cycles (``solve_multigrid_sharded``,
+``solve_multigrid_dyn_sharded``), each also on tiles in and out, the tiled
+seamless clone and the tiled local edits with their stages per tile and the
+destination resident on the mesh (``parallel/stages.py``), and
+``dryrun_multichip``; and the batch (slice 6): N jobs into one destination
+a step, the jobs split over a mesh with ``clone_roi_batch(mesh=...)``."""
 
 from seamlesscloneoptimization_tpu_torch.parallel.batch import (
     clone_batch_composite,
@@ -18,6 +21,7 @@ from seamlesscloneoptimization_tpu_torch.parallel.clone_tiled import (
     local_edit_tiled,
     seamless_clone_tiled,
 )
+from seamlesscloneoptimization_tpu_torch.parallel.dryrun import dryrun_multichip
 from seamlesscloneoptimization_tpu_torch.parallel.mesh import (
     TileMesh,
     gather_tiles,
@@ -28,6 +32,7 @@ from seamlesscloneoptimization_tpu_torch.parallel.mesh import (
 from seamlesscloneoptimization_tpu_torch.parallel.tiled import (
     halo_exchange,
     solve_multigrid_dd,
+    solve_multigrid_dyn_sharded,
     solve_multigrid_sharded,
     solve_poisson_dd,
     solve_redblack_tiled,
@@ -43,10 +48,12 @@ __all__ = [
     "solve_redblack_tiled",
     "solve_multigrid_dd",
     "solve_multigrid_sharded",
+    "solve_multigrid_dyn_sharded",
     "solve_poisson_dd",
     "TiledSeamlessClone",
     "seamless_clone_tiled",
     "local_edit_tiled",
+    "dryrun_multichip",
     "fast_dst_solver",
     "clone_roi_batch",
     "clone_batch_composite",

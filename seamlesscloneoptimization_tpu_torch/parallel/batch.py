@@ -36,6 +36,8 @@ from seamlesscloneoptimization_tpu_torch.models.pipeline import (
     clone_roi_dyn,
 )
 from seamlesscloneoptimization_tpu_torch.ops.kernels import clamp_cast_paste, preprocess_rhs_p
+from seamlesscloneoptimization_tpu_torch.parallel.mesh import TileMesh
+from seamlesscloneoptimization_tpu_torch.parallel.transport import all_cells, map_local
 
 _FAST_SOLVERS: dict = {}
 
@@ -62,6 +64,7 @@ def clone_roi_batch(
     flags: int,
     solver: Callable[..., torch.Tensor],
     use_pallas: bool = False,
+    mesh: TileMesh | None = None,
 ):
     """Clone over (N, C, bh, bw) u8 ROI stacks; returns (N, C, bh, bw) u8.
 
@@ -73,7 +76,18 @@ def clone_roi_batch(
     plain stages once over the group. The solve: ONE ``solver`` call on the
     stacked (N*C, bh-2, bw-2) RHS. The paste: ONE ``clamp_cast_paste``
     launch into a copy of the ROI stack.
+
+    ``mesh``: the jobs split over a ``TileMesh``, the port's counterpart of
+    JAX's job-axis sharding ``P(('ty', 'tx'))``: contiguous blocks of N /
+    size jobs, row-major over the mesh's cells, each block the call above
+    on its cell's device; the stack comes back on ``dest_rois``' device (on
+    every rank of a mesh that spans processes: an all-gather of the
+    blocks). N not divisible by the mesh's size raises ValueError, as
+    JAX's ``device_put`` does.
     """
+    if mesh is not None:
+        return _batch_over_mesh(dest_rois, patches, mask_rois, flags, solver, use_pallas,
+                                mesh)
     n, c, bh, bw = dest_rois.shape
     h2, w2 = bh - 2, bw - 2
     if use_pallas:
@@ -89,6 +103,26 @@ def clone_roi_batch(
     out = dest_rois.clone(memory_format=torch.contiguous_format)
     clamp_cast_paste(u.contiguous(), out.view(n * c, bh, bw), 1, 1, h2, w2)
     return out
+
+
+def _batch_over_mesh(dest_rois, patches, mask_rois, flags, solver, use_pallas,
+                     mesh: TileMesh) -> torch.Tensor:
+    n = dest_rois.shape[0]
+    ty, tx = mesh.shape
+    if n % mesh.size:
+        raise ValueError(f"{n} jobs do not split over the mesh's {mesh.size} cells")
+    per = n // mesh.size
+
+    def block(iy, ix, _):
+        jobs = slice((iy * tx + ix) * per, (iy * tx + ix + 1) * per)
+        dev = mesh.devices[iy][ix]
+        return clone_roi_batch(dest_rois[jobs].to(dev), patches[jobs].to(dev),
+                               mask_rois[jobs].to(dev), flags, solver, use_pallas)
+
+    blocks = map_local(mesh, block, [[None] * tx for _ in range(ty)])
+    shape = (per,) + tuple(dest_rois.shape[1:])
+    grid = all_cells(blocks, dest_rois.device, mesh, lambda iy, ix: shape)
+    return torch.cat([t for row in grid for t in row])
 
 
 def _lefttops(left_tops) -> list[tuple[int, int]]:

@@ -1,54 +1,62 @@
-"""Seamless clone with the Poisson solve decomposed over a tile mesh.
+"""Seamless clone with the pipeline decomposed over a tile mesh.
 
 Port of ``seamlesscloneoptimization_tpu/parallel/clone_tiled.py``
 (BASELINE config[4]: 8K panorama destinations). ``TiledSeamlessClone`` is
 the serve engine (``core/engine.py:SeamlessClone``) over a ``TileMesh``;
-``seamless_clone_tiled`` the one-shot function.
+``seamless_clone_tiled`` the one-shot function, ``local_edit_tiled`` the
+edits.
 
 On a mesh of one device the engine IS the single-device engine, byte for
-byte. On a larger mesh the pipeline's stages (ROI views, the RHS, the
-paste) run on the mesh's first device and only the Poisson solve is
-decomposed, where nearly all the work is. ``path`` picks the solve:
-``"dd"`` (the default) ``solve_poisson_dd``, the domain-decomposed
-multigrid with its communication-avoiding tiles and a replicated coarse
-solve; ``"gspmd"`` ``solve_multigrid_sharded``, the element V-cycle with
-every level partitioned over the mesh (JAX's XLA-partitioned path, bit-equal
-to the single-device element solve; ``parallel/tiled.py``). The stages take
-the generic tail, as JAX's mesh gates (``_pallas_gates``) send them: the
-plain RHS, the decomposed solve, the ``clamp_cast_paste`` kernel. Both
-paths honour ``mg_cycles`` and ``max_cycles``; JAX's ``"gspmd"`` solver
-takes ``tol`` only (ROADMAP §3).
+byte. On a larger mesh every stage runs per tile (``parallel/stages.py``):
+each cell's windows of src, dst and mask are uploaded from the host, each
+tile of g is born on the device that solves it, the solve runs on tiles and
+returns tiles, and each tile's interior is pasted into the destination
+tile that its device holds (``clamp_cast_paste``, one launch a tile). The
+destination stays on the mesh as tiles from frame to frame
+(``timed_serve``); no frame gathers it, g or u. ``run`` returns the whole
+(H, W, 3) u8 image, gathered once: on the mesh's first device of this
+process, on every rank of a mesh that spans processes (``init_distributed``;
+every rank passes the same host images).
+
+``path`` picks the solve: ``"dd"`` (the default) ``solve_poisson_dd``, the
+domain-decomposed multigrid with its communication-avoiding tiles and a
+replicated coarse solve; ``"gspmd"`` ``solve_multigrid_sharded``, the
+element V-cycle with every level partitioned over the mesh (JAX's
+XLA-partitioned path, bit-equal to the single-device element solve;
+``parallel/tiled.py``). The stages take the generic tail, as JAX's mesh
+gates (``_pallas_gates``) send them: the plain RHS, the decomposed solve,
+the ``clamp_cast_paste`` kernel. Both paths honour ``mg_cycles`` and
+``max_cycles``; JAX's ``"gspmd"`` solver takes ``tol`` only (ROADMAP §3).
 
 ``bbox_bucket`` works as in the single-device engine: the grown bucket is
-the decomposed solve's ROI; with ``bucket_exact`` the frame is
-``clone_roi_dyn`` on the first device (the plain RHS, the runtime-domain
-multigrid, the paste) to the config's ``tol``, or for ``mg_cycles``
+the decomposed solve's ROI; with ``bucket_exact`` the frame solves the tight
+bbox's system, ``solve_multigrid_dyn_sharded`` over the tight interior's
+tiles (the plain RHS of the tight window, the runtime-domain multigrid
+partitioned, the paste), to the config's ``tol``, or for ``mg_cycles``
 cycles, up to ``max_cycles``. The JAX package's tiled engine drops those
 three on a real mesh and solves to tol 1e-4; the port keeps them on purpose
 (ROADMAP §3).
-
-``local_edit_tiled`` runs the gradient-domain edits (``ops/edit.py``) with
-the same split: the RHS on the first device, the decomposed solve over the
-mesh, the paste on the first device.
-
-The engine and the one-shot functions run in one process: a mesh that
-spans processes (``init_distributed``) raises NotImplementedError naming
-ROADMAP §1 item 7; the solvers themselves take one.
 """
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
 from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
-from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone
-from seamlesscloneoptimization_tpu_torch.ops.edit import edit_guidance, edit_inputs
-from seamlesscloneoptimization_tpu_torch.ops.kernels import clamp_cast_paste
-from seamlesscloneoptimization_tpu_torch.ops.rhs import poisson_rhs
-from seamlesscloneoptimization_tpu_torch.parallel.mesh import TileMesh, make_tile_mesh
+from seamlesscloneoptimization_tpu_torch.core.engine import DYN_SOLVER_NAME, SeamlessClone
+from seamlesscloneoptimization_tpu_torch.ops.mask import roi_mask
+from seamlesscloneoptimization_tpu_torch.parallel.mesh import GATHERS, TileMesh, make_tile_mesh
+from seamlesscloneoptimization_tpu_torch.parallel.transport import CROSSED, REPLICATED
+from seamlesscloneoptimization_tpu_torch.parallel.stages import ResidentFrame
 from seamlesscloneoptimization_tpu_torch.parallel.tiled import (
-    solve_multigrid_sharded,
-    solve_poisson_dd,
+    dd_tiling,
+    sharded_tiling,
+    solve_multigrid_dyn_sharded_tiles,
+    solve_multigrid_sharded_tiles,
+    solve_poisson_dd_tiles,
 )
 
 DD_SOLVER_NAME = "multigrid_dd"
@@ -60,120 +68,226 @@ def _check_path(path: str) -> None:
         raise ValueError(f"path must be 'dd' or 'gspmd', got {path!r}")
 
 
-def _check_one_process(mesh: TileMesh) -> None:
-    if mesh.spans_processes:
-        raise NotImplementedError(
-            "the tiled engine and the one-shot functions run in one process; a mesh that "
-            "spans processes is for the solvers only (ROADMAP §1 item 7)")
-
-
-def _dd_solver(mesh: TileMesh, tol: float | None, cycles: int | None,
-               max_cycles: int = 60, eig_cache=None):
-    """The pipeline's solver: ``solve_poisson_dd`` on ``mesh``, to ``tol`` or
-    for ``cycles`` (4 when both are None, as in the JAX package)."""
-
-    def solver(g: torch.Tensor) -> torch.Tensor:
-        return solve_poisson_dd(g, mesh, tol=tol, cycles=cycles or 4, max_cycles=max_cycles,
-                                eig_cache=eig_cache)
-
-    return solver
-
-
-def _solver(path: str, mesh: TileMesh, tol: float, cycles: int | None, max_cycles: int = 60,
-            eig_cache=None):
-    """The pipeline's solver for ``path``: ``_dd_solver``'s, or for
-    ``"gspmd"`` (JAX's ``_gspmd_solver``) ``solve_multigrid_sharded`` on
-    ``mesh`` to ``tol``, or for ``cycles`` when given."""
+def _tile_solver(path: str, mesh: TileMesh, hw2, tol: float, cycles: int | None,
+                 max_cycles: int = 60, eig_cache=None):
+    """(the g tiling, solve(g_tiles) -> u_tiles) of ``path`` for an hw2
+    interior: ``solve_poisson_dd`` to ``tol``, or for ``cycles`` (4 when
+    both are None, as in the JAX package), or ``solve_multigrid_sharded``
+    to ``tol``, or for ``cycles`` when given (JAX's ``_gspmd_solver``)."""
     if path == "dd":
-        return _dd_solver(mesh, None if cycles else tol, cycles, max_cycles, eig_cache)
+        dd_tol = None if cycles else tol
 
-    def solver(g: torch.Tensor) -> torch.Tensor:
-        return solve_multigrid_sharded(g, mesh, tol=tol, max_cycles=max_cycles, cycles=cycles,
-                                       eig_cache=eig_cache)
+        def solve(g_tiles):
+            return solve_poisson_dd_tiles(g_tiles, hw2, mesh, tol=dd_tol, cycles=cycles or 4,
+                                          max_cycles=max_cycles, eig_cache=eig_cache)
 
-    return solver
+        return dd_tiling(*hw2, mesh), solve
+
+    def solve(g_tiles):
+        return solve_multigrid_sharded_tiles(g_tiles, hw2, mesh, tol=tol, max_cycles=max_cycles,
+                                             cycles=cycles, eig_cache=eig_cache)
+
+    return sharded_tiling(*hw2, mesh), solve
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class TiledSeamlessClone(SeamlessClone):
     """The serve engine (``run`` / ``sync`` / ``timed_serve``) with its
-    Poisson solve decomposed over a ``TileMesh``.
+    pipeline decomposed over a ``TileMesh``.
 
         mesh = make_tile_mesh([torch.device("cuda")] * 4, (2, 2))  # one card
         engine = TiledSeamlessClone(CloneConfig(), mesh=mesh)
         out, ms = engine.timed_serve(src, dst, mask, center)
 
     A mesh of one device degenerates to ``SeamlessClone`` on that device.
-    On a larger mesh the solve is the DD multigrid (``path="dd"``,
-    ``metrics["solver_resolved"] == "multigrid_dd"``) or the partitioned
-    element V-cycle (``path="gspmd"``, ``"multigrid_gspmd"``) to
-    ``config.tol``, or for ``config.mg_cycles`` cycles, up to
-    ``config.max_cycles``; the RHS and the paste run on the mesh's first
-    device (module docstring). With ``bucket_exact`` the frame solves the
-    tight system on the first device (``metrics["solver_resolved"] ==
-    "multigrid_dyn"``).
+    On a larger mesh the stages run per tile and the destination stays on
+    the mesh as tiles (module docstring); the solve is the DD multigrid
+    (``path="dd"``, ``metrics["solver_resolved"] == "multigrid_dd"``) or
+    the partitioned element V-cycle (``path="gspmd"``,
+    ``"multigrid_gspmd"``) to ``config.tol``, or for ``config.mg_cycles``
+    cycles, up to ``config.max_cycles``. With ``bucket_exact`` the frame
+    solves the tight system partitioned (``metrics["solver_resolved"] ==
+    "multigrid_dyn"``). ``metrics`` also records, over ``timed_serve``'s
+    timed frames, the whole-array gathers (``gathers_per_frame``: 0), the
+    bytes this process sent to other ranks (``crossed_bytes_per_frame``)
+    and the bytes of the levels the solvers replicate
+    (``replicated_bytes_per_frame``), and each local cell's resident bytes
+    (``resident_bytes``).
     """
 
     def __init__(self, config: CloneConfig | None = None, mesh: TileMesh | None = None,
                  path: str = "dd"):
         _check_path(path)
         self.mesh = mesh if mesh is not None else make_tile_mesh()
-        _check_one_process(self.mesh)
         self.path = path
         self._single = self.mesh.size == 1
-        super().__init__(config, device=self.mesh.devices[0][0])
+        super().__init__(config, device=self.mesh.distinct()[0])
 
-    def _pipeline_kwargs(self, bbox_hw, flags: int, planar_dst: bool) -> dict:
+    # -- the mesh-resident frame ----------------------------------------------
+
+    def _frame(self, src, dst, prep, flags: int) -> ResidentFrame:
+        """The resident frame of one clone: the geometry, the solver, the
+        uploaded destination tiles and input windows."""
+        cfg = self.config
+        m, (x0, y0), (left, top), (bh, bw), tight = self._unpack_prep(prep)
+        mask_roi = roi_mask(torch.from_numpy(_host(m)), (x0, y0), (bh, bw)).numpy()
+        src_h = _host(src)
+        if tight is not None:  # the tight window's own system in the bucket
+            dy, dx, th, tw = tight
+            hw2 = (th - 2, tw - 2)
+            tiling = sharded_tiling(*hw2, self.mesh)
+            padded = (bh - 2, bw - 2)
+
+            def solve(g_tiles):
+                return solve_multigrid_dyn_sharded_tiles(
+                    g_tiles, hw2, padded, self.mesh, tol=cfg.tol, cycles=cfg.mg_cycles,
+                    max_cycles=cfg.max_cycles)
+
+            self.metrics["solver_resolved"] = DYN_SOLVER_NAME
+            roi = (y0 + dy, x0 + dx, top + dy, left + dx, th, tw)
+            mask_w = mask_roi[dy : dy + th, dx : dx + tw]
+        else:
+            hw2 = (bh - 2, bw - 2)
+            tiling, solve = _tile_solver(self.path, self.mesh, hw2, cfg.tol, cfg.mg_cycles,
+                                         cfg.max_cycles, self._eig_cache)
+            self.metrics["solver_resolved"] = (GSPMD_SOLVER_NAME if self.path == "gspmd"
+                                               else DD_SOLVER_NAME)
+            roi = (y0, x0, top, left, bh, bw)
+            mask_w = mask_roi
+        sy, sx, dt, dl, h, w = roi
+        frame = ResidentFrame(self.mesh, tiling, hw2, (dt, dl), tuple(dst.shape[:2]), solve,
+                              track=self._track)
+        frame.upload_dest(dst)
+        frame.set_clone_inputs(src_h[sy : sy + h, sx : sx + w], mask_w, flags,
+                               cfg.mixed_rule)
+        self.metrics["bbox"] = (x0, y0, bw, bh)
+        self.metrics["left_top"] = (left, top)
+        self.metrics["resident_bytes"] = frame.resident_bytes()
+        return frame
+
+    def _prepared(self, src, dst, mask, center, flags):
+        """(flags, prep or None when nothing is to be solved)."""
+        flags = self.config.flags if flags is None else flags
+        self._validate(src, dst)
+        prep = self._prepare(mask, src, dst, center)
+        if prep is None:
+            return flags, None
+        _, _, _, hw, tight = self._unpack_prep(prep)
+        return flags, (prep if self._has_interior(hw, tight) else None)
+
+    def sync(self):
+        for d in self.mesh.distinct():
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def _timer(self):
+        stop = super()._timer()
         if self._single:
-            return super()._pipeline_kwargs(bbox_hw, flags, planar_dst)
-        if self._bucket_exact():  # the mesh's generic tail: the plain RHS
-            return dict(super()._pipeline_kwargs(bbox_hw, flags, planar_dst),
-                        use_pallas_pre=False)
-        name = GSPMD_SOLVER_NAME if self.path == "gspmd" else DD_SOLVER_NAME
-        self.metrics["solver_resolved"] = name
-        solver = _solver(self.path, self.mesh, self.config.tol, self.config.mg_cycles,
-                         self.config.max_cycles, self._eig_cache)
-        return dict(bbox_hw=bbox_hw, flags=flags, solver=solver, solver_kwargs={},
-                    mixed_rule=self.config.mixed_rule, bases=None, solver_name=name,
-                    use_pallas_pre=False, use_pallas_post=False)
+            return stop
+
+        def stop_all():  # every device of this process, then the first's clock
+            self.sync()
+            return stop()
+
+        return stop_all
+
+    # -- public API -----------------------------------------------------------
+
+    def run(self, src, dst, mask, center, flags: int | None = None) -> torch.Tensor:
+        """One clone; returns the (H, W, 3) u8 tensor on this process's first
+        mesh device (async). On a larger mesh: the per-tile frame, then one
+        gather of the destination (on every rank of a process-spanning
+        mesh). The caller's ``dst`` is never modified there."""
+        if self._single:
+            return super().run(src, dst, mask, center, flags)
+        t0 = time.perf_counter()
+        flags, prep = self._prepared(src, dst, mask, center, flags)
+        if prep is None:
+            self._last_out = self._to_device(dst)
+            return self._last_out
+        frame = self._frame(src, dst, prep, flags)
+        frame.step()
+        out = self._track(frame.result(self.device))
+        self._last_out = out
+        self.metrics["dispatch_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def timed_serve(self, src, dst, mask, center, loops: int = 20, flags: int | None = None):
+        """Steady-state serve: upload once, chain ``loops`` frames on the
+        mesh-resident destination tiles, gather once. One warm-up frame runs
+        outside the timed window. Returns ((H, W, 3) u8 tensor on the first
+        device, mean ms per frame)."""
+        if self._single:
+            return super().timed_serve(src, dst, mask, center, loops, flags)
+        flags, prep = self._prepared(src, dst, mask, center, flags)
+        if prep is None:
+            raise ValueError("empty mask, or a mask bbox without interior")
+        frame = self._frame(src, dst, prep, flags)
+        frame.step()  # warm-up: kernel build/load, allocator
+        self.sync()
+        before = GATHERS["calls"], CROSSED["bytes"], REPLICATED["bytes"]
+        stop = self._timer()
+        for _ in range(loops):
+            frame.step()
+        mean_ms = stop() / max(loops, 1)
+        after = GATHERS["calls"], CROSSED["bytes"], REPLICATED["bytes"]
+        for key, a, b in zip(("gathers", "crossed_bytes", "replicated_bytes"), before, after):
+            self.metrics[f"{key}_per_frame"] = (b - a) / max(loops, 1)
+        out = self._track(frame.result(self.device))
+        self._last_out = out
+        self.metrics["compute_ms"] = mean_ms
+        self.metrics["device_memory_bytes"] = self.device_memory_bytes()
+        return out, mean_ms
 
 
 def seamless_clone_tiled(src, dst, mask, center, mesh: TileMesh | None = None, flags: int = 1,
                          tol: float = 1e-4, path: str = "dd", mg_cycles: int | None = None):
-    """``seamless_clone`` with the Poisson solve decomposed over ``mesh``
+    """``seamless_clone`` with the pipeline decomposed over ``mesh``
     (default: every visible CUDA device, most-square). On any mesh, one
-    device included, the solve is ``solve_poisson_dd`` (``path="dd"``) or
-    ``solve_multigrid_sharded`` (``path="gspmd"``) to ``tol``, or
-    ``mg_cycles`` fixed cycles; the stages run on the mesh's first device
-    (the generic tail). Returns u8 HWC numpy."""
+    device included, the stages run per tile and the solve is
+    ``solve_poisson_dd`` (``path="dd"``) or ``solve_multigrid_sharded``
+    (``path="gspmd"``) to ``tol``, or ``mg_cycles`` fixed cycles (the
+    generic tail). Returns u8 HWC numpy (on every rank of a mesh that spans
+    processes)."""
     engine = TiledSeamlessClone(CloneConfig(flags=flags, tol=tol, mg_cycles=mg_cycles),
                                 mesh=mesh, path=path)
-    engine._single = False  # the DD solve on a 1x1 mesh too
+    engine._single = False  # the tiled pipeline on a 1x1 mesh too
     return engine.run(src, dst, mask, center).cpu().numpy()
 
 
 def local_edit_tiled(src, mask, kind: str, params, edge_mask=None, mesh: TileMesh | None = None,
                      tol: float = 1e-5, path: str = "dd"):
-    """Gradient-domain edit (``ops/edit.py``'s kinds) with the Poisson solve
+    """Gradient-domain edit (``ops/edit.py``'s kinds) with the pipeline
     decomposed over ``mesh`` (default: every visible CUDA device).
 
-    On the mesh's first device: ``erode3x3_replicate`` of the mask,
-    ``edit_guidance``, ``poisson_rhs`` on the whole image. Then over the
-    mesh to ``tol`` ``solve_poisson_dd`` (``path="dd"``) or
-    ``solve_multigrid_sharded`` (``path="gspmd"``), whose tiles' plain
-    sweeps are the ``rb_sweeps_tile`` kernel, and ``clamp_cast_paste`` of the
-    interior into a copy of the source: the image border stays the
-    source's. src: (H, W, C) u8; mask: (H, W) or None (everything);
-    params as ``edit_guidance`` takes them; edge_mask: (H, W) u8 {0, 255}
-    (the Canny map of ``texture_flattening``). Returns (H, W, C) u8 numpy.
+    Per tile of the solve's tiling (``parallel/stages.py``), on the cell's
+    device: ``erode3x3_replicate`` of the mask's window, ``edit_guidance``,
+    the divergence and the image border's fold. Then over the mesh to
+    ``tol`` ``solve_poisson_dd`` (``path="dd"``) or
+    ``solve_multigrid_sharded`` (``path="gspmd"``) on the tiles, whose
+    tiles' plain sweeps are the ``rb_sweeps_tile`` kernel, and
+    ``clamp_cast_paste`` of each tile's interior into that cell's tile of a
+    copy of the source: the image border stays the source's. src: (H, W,
+    C) u8; mask: (H, W) or None (everything); params as ``edit_guidance``
+    takes them; edge_mask: (H, W) u8 {0, 255} (the Canny map of
+    ``texture_flattening``). Returns (H, W, C) u8 numpy (on every rank of a
+    mesh that spans processes).
     """
     _check_path(path)
     mesh = mesh if mesh is not None else make_tile_mesh()
-    _check_one_process(mesh)
-    src_p, me, params_t, edge = edit_inputs(src, mask, params, edge_mask, mesh.devices[0][0])
-    src_f = src_p.to(torch.float32)
-    gx, gy = edit_guidance(src_f, me, params_t, edge, kind=kind)
-    g = poisson_rhs(gx, gy, src_f)
-    u = _solver(path, mesh, tol, None)(g)
-    _, h2, w2 = g.shape
-    out = clamp_cast_paste(u.contiguous(), src_p.clone(), 1, 1, h2, w2)
-    return out.permute(1, 2, 0).cpu().numpy()
+    src = np.asarray(src)
+    h, w = src.shape[:2]
+    if mask is None:
+        mask = np.full((h, w), 255, np.uint8)
+    m01 = (np.asarray(mask) != 0).astype(np.float32)
+    edge = None if edge_mask is None else np.asarray(edge_mask, np.float32) / 255.0
+    hw2 = (h - 2, w - 2)
+    tiling, solve = _tile_solver(path, mesh, hw2, tol, None)
+    frame = ResidentFrame(mesh, tiling, hw2, (0, 0), (h, w), solve)
+    frame.upload_dest(src)
+    frame.set_edit_inputs(src, m01, params, edge, kind)
+    frame.step()
+    return frame.result(mesh.distinct()[0]).cpu().numpy()

@@ -1,4 +1,5 @@
-"""One rank of a multi-process tile-mesh run: the solves on a process-spanning mesh.
+"""One rank of a multi-process tile-mesh run: the solves, the tiled clone and
+the batch on a process-spanning mesh.
 
     python -m seamlesscloneoptimization_tpu_torch.parallel.dist_check \\
         --rank R --world N --port P --device cpu|cuda --tiles T --shape TY TX \\
@@ -10,17 +11,26 @@ Every rank joins the group with ``init_distributed("127.0.0.1:P", N, R)``
 the solves of ``IN.pt``: a dict name -> {"g": (C, H, W) f32, "kwargs": {...}},
 the solver chosen by the name's prefix (``dd``: ``solve_poisson_dd``,
 ``sharded``: ``solve_multigrid_sharded``, ``rb``: ``solve_redblack_tiled``),
-each with ``return_info=True``, ``--repeat`` times. Every rank passes the
-same global g and gets the whole u back. ``--expect`` holds name -> u of the
-same solves on a single-process mesh: each rank's whole u is held against
-it bit for bit. ``--shard-min`` sets ``parallel/tiled.py:SHARD_MIN`` (small test grids).
+each with ``return_info=True``, ``--repeat`` times; or, by the same rule,
+one of the other runs of ``RUNS``: ``dyn`` ({"g", "hw", "kwargs"}:
+``solve_multigrid_dyn_sharded``), ``engine`` ({"args": (src, dst, mask,
+center), "config": CloneConfig's fields, "path", "loops"}:
+``TiledSeamlessClone.run``, or ``timed_serve`` for ``loops`` frames),
+``clone_tiled`` / ``edit_tiled`` ({"args", "kwargs"}:
+``seamless_clone_tiled`` / ``local_edit_tiled``), ``batch`` ({"args":
+(dests, patches, masks), "flags"}: ``clone_roi_batch(mesh=...)`` with the
+fast DST solver). Every rank passes the same global inputs and gets the
+whole result back. ``--expect`` holds name -> the result of the same run on
+a single-process mesh (``run_one``): each rank's is held against it bit for
+bit. ``--shard-min`` sets ``parallel/tiled.py:SHARD_MIN`` (small test grids).
 
 Prints one JSON line: the rank, the transport's backend, whether the
 second ``init_distributed`` left the group as it was, and per solve the
 ms of the last run (host clock, the device synchronized), its cycles or
 sweeps, the transfers and bytes this rank sent to other ranks in the last
-run and a cycle, the ``rb_sweeps_tile`` launches, and whether u was equal
-to the expected one. Exits 1 when a result differs. ``spawn`` starts the
+run and a cycle, the ``rb_sweeps_tile`` and ``clamp_cast_paste`` launches,
+the engine's metrics (ms a frame, bytes sent to other ranks a frame,
+gathers a frame), and whether the result was equal to the expected one. Exits 1 when a result differs. ``spawn`` starts the
 N ranks of such a run on this machine and collects them.
 """
 
@@ -38,9 +48,16 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
 from seamlesscloneoptimization_tpu_torch.parallel import tiled
 from seamlesscloneoptimization_tpu_torch.parallel import transport
+from seamlesscloneoptimization_tpu_torch.parallel.batch import clone_roi_batch, fast_dst_solver
+from seamlesscloneoptimization_tpu_torch.parallel.clone_tiled import (
+    TiledSeamlessClone,
+    local_edit_tiled,
+    seamless_clone_tiled,
+)
 from seamlesscloneoptimization_tpu_torch.parallel.mesh import (
     init_distributed,
     make_tile_mesh,
@@ -57,6 +74,55 @@ def solver_for(name: str):
         if name.startswith(prefix):
             return fn
     raise ValueError(f"no solver for {name!r}: names start with one of {sorted(SOLVERS)}")
+
+
+def _host(args) -> tuple:
+    """A run's arguments with its tensors (the input file holds the images
+    as tensors) as host numpy arrays, as the entry points take them."""
+    return tuple(a.numpy() if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def _engine(run, mesh, device):
+    eng = TiledSeamlessClone(CloneConfig(**run.get("config", {})), mesh=mesh,
+                             path=run.get("path", "dd"))
+    if run.get("loops") is None:
+        out = eng.run(*_host(run["args"]))
+        info = {}
+    else:
+        out, ms = eng.timed_serve(*_host(run["args"]), loops=run["loops"])
+        info = {"ms_per_frame": ms, **{k: eng.metrics[k] for k in (
+            "gathers_per_frame", "crossed_bytes_per_frame", "replicated_bytes_per_frame",
+            "resident_bytes")}}
+    return out, info
+
+
+def _batch(run, mesh, device):
+    args = [torch.as_tensor(x).to(device) for x in run["args"]]
+    return clone_roi_batch(*args, run.get("flags", 1), fast_dst_solver(), mesh=mesh), {}
+
+
+RUNNERS = {
+    "dyn": lambda run, mesh, device: tiled.solve_multigrid_dyn_sharded(
+        run["g"].to(device), run["hw"], mesh, return_info=True, **run.get("kwargs", {})),
+    "engine": _engine,
+    "clone_tiled": lambda run, mesh, device: (torch.from_numpy(seamless_clone_tiled(
+        *_host(run["args"]), mesh=mesh, **run.get("kwargs", {}))), {}),
+    "edit_tiled": lambda run, mesh, device: (torch.from_numpy(local_edit_tiled(
+        *_host(run["args"]), mesh=mesh, **run.get("kwargs", {}))), {}),
+    "batch": _batch,
+}
+
+
+def run_one(name: str, run: dict, mesh, device) -> tuple:
+    """(the result on the CPU, info) of one run of an input file on
+    ``mesh``, chosen by the name's prefix (module docstring)."""
+    for prefix, fn in RUNNERS.items():
+        if name.startswith(prefix):
+            out, info = fn(run, mesh, torch.device(device))
+            return out.cpu(), info
+    u, info = solver_for(name)(run["g"].to(device), mesh, return_info=True,
+                               **run.get("kwargs", {}))
+    return u.cpu(), info
 
 
 def free_port() -> int:
@@ -136,27 +202,25 @@ def main(argv=None) -> int:
               "solves": {}}
     ok = True
     for name, run in runs.items():
-        fn = solver_for(name)
-        g = run["g"].to(device)
         for _ in range(args.repeat):
             dist.barrier()
             transport.reset_crossed()
             K.reset_launches()
             _sync(device)
             t0 = time.perf_counter()
-            u, info = fn(g, mesh, return_info=True, **run["kwargs"])
+            u, info = run_one(name, run, mesh, device)
             _sync(device)
             ms = (time.perf_counter() - t0) * 1e3
-            u = u.cpu()
             row = {"ms": ms, **info, **{f"crossed_{k}": v for k, v in transport.CROSSED.items()},
-                   "rb_sweeps_tile": K.LAUNCHES["rb_sweeps_tile"]}
+                   "rb_sweeps_tile": K.LAUNCHES["rb_sweeps_tile"],
+                   "clamp_cast_paste": K.LAUNCHES["clamp_cast_paste"]}
             steps = info.get("cycles", info.get("iterations"))
             if steps:
                 row.update({f"crossed_{k}_per_step": v / steps
                             for k, v in transport.CROSSED.items()})
             if name in expect:
                 row["equal"] = bool(torch.equal(u, expect[name]))
-                row["max_abs_diff"] = float((u - expect[name]).abs().max())
+                row["max_abs_diff"] = float((u.double() - expect[name].double()).abs().max())
                 ok &= row["equal"]
         report["solves"][name] = row
     print(json.dumps(report), flush=True)

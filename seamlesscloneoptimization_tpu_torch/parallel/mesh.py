@@ -34,6 +34,14 @@ import torch.distributed as dist
 # group when every process has a card of its own (``init_distributed``)
 _TRANSPORT = {"group": None}
 
+# whole-array gathers: ``gather_tiles`` and ``parallel/transport.py:gather``
+# count each call here (the mesh-resident engine's frames make none)
+GATHERS = {"calls": 0}
+
+
+def reset_gathers() -> None:
+    GATHERS["calls"] = 0
+
 
 def init_distributed(coordinator_address=None, num_processes=None, process_id=None):
     """Join this process to a multi-process mesh (JAX's ``init_distributed``).
@@ -217,5 +225,6 @@ def gather_tiles(tiles, device=None) -> torch.Tensor:
     """Join a (ty, tx) grid of (C, th, tw) tiles into one (C, H, W) tensor on
     ``device`` (default: tile (0, 0)'s device). Every tile must be present:
     a process-spanning grid is joined by ``parallel/transport.py:gather``."""
+    GATHERS["calls"] += 1
     device = tiles[0][0].device if device is None else torch.device(device)
     return torch.cat([torch.cat([t.to(device) for t in row], dim=2) for row in tiles], dim=1)

@@ -44,20 +44,27 @@ import torch
 import torch.nn.functional as F
 
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
+from seamlesscloneoptimization_tpu_torch.parallel import transport
 from seamlesscloneoptimization_tpu_torch.parallel.mesh import TileMesh, shard_tiles
 from seamlesscloneoptimization_tpu_torch.parallel.transport import (
-    gather,
     grid_max,
     halo_exchange,
     map_local,
+    replicate,
 )
 from seamlesscloneoptimization_tpu_torch.solvers.multigrid import (
     _coarsen,
     _ops_b,
+    _pad_to,
     _small,
     _tol_burst,
     solve_multigrid,
     vcycle,
+)
+from seamlesscloneoptimization_tpu_torch.solvers.multigrid_dyn import (
+    COARSEST as DYN_COARSEST,
+    solve_dyn_window,
+    vcycle_dyn,
 )
 
 
@@ -71,6 +78,60 @@ def _domain(hl: int, wl: int, org_r: int, org_c: int, ht: int, wt: int, device):
     rows = org_r + torch.arange(hl, device=device)[:, None]
     cols = org_c + torch.arange(wl, device=device)[None, :]
     return (rows >= 0) & (rows < ht) & (cols >= 0) & (cols < wt)
+
+
+class Tiling:
+    """Row and column boundaries of a tile grid in the global coordinates of
+    the array it splits: tile (iy, ix) is rows[iy] .. rows[iy + 1] by
+    cols[ix] .. cols[ix + 1]. Each solver's tile form takes g split by its
+    own tiling (``dd_tiling``, ``sharded_tiling``), so that the stages give
+    birth to each tile of g on the device that solves it."""
+
+    def __init__(self, rows, cols):
+        self.rows, self.cols = tuple(rows), tuple(cols)
+
+    def box(self, iy: int, ix: int) -> tuple[int, int, int, int]:
+        return self.rows[iy], self.rows[iy + 1], self.cols[ix], self.cols[ix + 1]
+
+    def shape_of(self, c: int):
+        def shape(iy, ix):
+            r0, r1, c0, c1 = self.box(iy, ix)
+            return (c, r1 - r0, c1 - c0)
+
+        return shape
+
+    def split(self, x: torch.Tensor, mesh: TileMesh):
+        """This process's tiles of a whole (C, H, W) ``x``, each a contiguous
+        copy on its cell's device (None for the other ranks' cells)."""
+        def tile(iy, ix, _):
+            r0, r1, c0, c1 = self.box(iy, ix)
+            return x[:, r0:r1, c0:c1].to(mesh.devices[iy][ix], copy=True).contiguous()
+
+        ty, tx = mesh.shape
+        return map_local(mesh, tile, [[None] * tx for _ in range(ty)])
+
+    def windows_of(self, whole: dict, mesh: TileMesh):
+        """Each local cell's tile of a whole array held on every device of
+        this process (``whole``: device -> (C, H, W))."""
+        def tile(iy, ix, _):
+            r0, r1, c0, c1 = self.box(iy, ix)
+            return whole[mesh.devices[iy][ix]][:, r0:r1, c0:c1].contiguous()
+
+        ty, tx = mesh.shape
+        return map_local(mesh, tile, [[None] * tx for _ in range(ty)])
+
+
+def _check_tiles(g_tiles, tiling: Tiling, mesh: TileMesh) -> None:
+    for iy, ix in mesh.local_cells():
+        r0, r1, c0, c1 = tiling.box(iy, ix)
+        if tuple(g_tiles[iy][ix].shape[1:]) != (r1 - r0, c1 - c0):
+            raise ValueError(f"tile ({iy}, {ix}) {tuple(g_tiles[iy][ix].shape)} is not the "
+                             f"tiling's {(r1 - r0, c1 - c0)}")
+
+
+def _even(n: int, parts: int) -> tuple[int, ...]:
+    t = n // parts
+    return tuple(i * t for i in range(parts + 1))
 
 
 class _Tiles:
@@ -109,7 +170,7 @@ class _Tiles:
         tile size) on ``device``, in every process."""
         c = next(t for row in tiles for t in row if t is not None).shape[0]
         th, tw = tile_hw or (self.th, self.tw)
-        return gather(tiles, device, self.mesh, lambda iy, ix: (c, th, tw))
+        return transport.gather(tiles, device, self.mesh, lambda iy, ix: (c, th, tw))
 
     def masked_rhs(self, g: torch.Tensor, mesh: TileMesh):
         """g's tiles, zero outside the true domain."""
@@ -272,10 +333,23 @@ def solve_multigrid_dd(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, int]
     if h % (2 * ty) or w % (2 * tx):
         raise ValueError(f"grid {h}x{w} must be divisible by 2*mesh {ty}x{tx}")
     geo = _Tiles(mesh, (h, w), true_hw)
+    g_loc = geo.masked_rhs(g, mesh)
+    u, it = _dd_tiles(geo, g_loc, cycles, nu1, nu2, use_pallas, tol, max_cycles, eig_cache)
+    out = geo.gather(u, g.device)
+    if return_info:
+        return out, {"cycles": it, "residual": geo.res_norm(u, g_loc).item()}
+    return out
+
+
+def _dd_tiles(geo: _Tiles, g_loc, cycles: int, nu1: int, nu2: int, use_pallas: bool | None,
+              tol: float | None, max_cycles: int, eig_cache):
+    """``solve_multigrid_dd`` on this process's tiles of g (zero outside the
+    true domain): returns (the tiles of u, the cycles run)."""
+    mesh = geo.mesh
     th, tw, ht, wt = geo.th, geo.tw, geo.ht, geo.wt
     hc, bh_c = _coarsen(ht, 1.0)
     wc, bw_c = _coarsen(wt, 1.0)
-    hcp, wcp = h // 2, w // 2  # the padded coarse grid (tile-divisible)
+    hcp, wcp = geo.ty * th // 2, geo.tx * tw // 2  # the padded coarse grid (tile-divisible)
     thc, twc = th // 2, tw // 2
     pallas = use_pallas is not False
     sweep = K.rb_sweeps_tile if pallas else K.rb_sweeps_tile_plain
@@ -287,9 +361,8 @@ def solve_multigrid_dd(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, int]
     k = max(2 * max(nu1, nu2) + 2, 2 * nu1 + 3)
     if min(th, tw) < k:
         raise ValueError(f"tile {th}x{tw} smaller than the ghost band {k}")
-
-    g_loc = geo.masked_rhs(g, mesh)
     gp = geo.exchange(g_loc, k)
+    coarse_tiling = Tiling(_even(hcp, geo.ty), _even(wcp, geo.tx))
 
     def sweeps(u, n):
         """One exchange + n CA sweeps; the ghosted tiles (outer 2n layers
@@ -318,10 +391,10 @@ def solve_multigrid_dd(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, int]
         us = sweeps(u, nu1)
         rc_loc = geo.map(coarse_rhs, us, gp)
         # the replicated coarse solve on the true coarse grid, once per device
+        c = next(t for row in rc_loc for t in row if t is not None).shape[0]
         ecp = {}
-        rc_all = geo.gather(rc_loc, geo.dev0, (thc, twc))[:, :hc, :wc]
-        for dev in mesh.distinct():
-            rc = rc_all.to(dev)
+        for dev, rc_all in replicate(rc_loc, mesh, coarse_tiling.shape_of(c)).items():
+            rc = rc_all[:, :hc, :wc]
             ec = vcycle(torch.zeros_like(rc), rc, nu1, nu2, use_pallas=pallas, bh=bh_c,
                         bw=bw_c, eig_cache=eig_cache, u_zero=True)
             ecp[dev] = F.pad(ec, (1, wcp - wc + 1, 1, hcp - hc + 1))
@@ -351,10 +424,17 @@ def solve_multigrid_dd(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, int]
         while it < max_cycles and bool(geo.res_norm(u, g_loc) > thresh):  # one host read
             u = vcycle_local(u)
             it += 1
-    out = geo.gather(u, g.device)
-    if return_info:
-        return out, {"cycles": it, "residual": geo.res_norm(u, g_loc).item()}
-    return out
+    return u, it
+
+
+def dd_tiling(h: int, w: int, mesh: TileMesh) -> Tiling:
+    """The tiles of ``solve_poisson_dd``'s padded grid for an (h, w) g: even
+    tiles of at least 8 on a side over a 2 x mesh-divisible grid whose cells
+    past (h, w) pin to zero."""
+    ty, tx = mesh.shape
+    hp = ty * max(2 * (-(-h // (2 * ty))), 8)
+    wp = tx * max(2 * (-(-w // (2 * tx))), 8)
+    return Tiling(_even(hp, ty), _even(wp, tx))
 
 
 def solve_poisson_dd(g: torch.Tensor, mesh: TileMesh, tol: float | None = None, cycles: int = 4,
@@ -363,14 +443,13 @@ def solve_poisson_dd(g: torch.Tensor, mesh: TileMesh, tol: float | None = None, 
     """The arbitrary-size front door of the DD multigrid.
 
     Zero-pads (C, H, W) to a 2 x mesh-divisible grid whose tiles are even
-    and at least 8 (the default CA band is 6), runs
+    and at least 8 (the default CA band is 6; ``dd_tiling``), runs
     :func:`solve_multigrid_dd` with ``true_hw=(H, W)`` (the padded cells pin
     to zero: the Dirichlet frame) and crops.
     """
-    ty, tx = mesh.shape
     _, h, w = g.shape
-    hp = ty * max(2 * (-(-h // (2 * ty))), 8)
-    wp = tx * max(2 * (-(-w // (2 * tx))), 8)
+    tiling = dd_tiling(h, w, mesh)
+    hp, wp = tiling.rows[-1], tiling.cols[-1]
     res = solve_multigrid_dd(F.pad(g, (0, wp - w, 0, hp - h)), mesh, true_hw=(h, w),
                              cycles=cycles, use_pallas=use_pallas, tol=tol,
                              max_cycles=max_cycles, return_info=return_info,
@@ -380,8 +459,27 @@ def solve_poisson_dd(g: torch.Tensor, mesh: TileMesh, tol: float | None = None, 
     return res[:, :h, :w]
 
 
+def solve_poisson_dd_tiles(g_tiles, hw: tuple[int, int], mesh: TileMesh,
+                           tol: float | None = None, cycles: int = 4, max_cycles: int = 60,
+                           use_pallas: bool | None = None, return_info: bool = False,
+                           eig_cache=None):
+    """``solve_poisson_dd`` with g as this process's tiles of ``dd_tiling(h,
+    w, mesh)`` (None for the other ranks' cells; cells past (h, w) ignored)
+    and u returned as tiles of the same tiling, zero past (h, w): the same
+    arithmetic, bit for bit, without the whole g or u anywhere."""
+    tiling = dd_tiling(*hw, mesh)
+    _check_tiles(g_tiles, tiling, mesh)
+    geo = _Tiles(mesh, (tiling.rows[-1], tiling.cols[-1]), hw)
+    g_loc = geo.map(lambda iy, ix, t: torch.where(geo.own[iy, ix], t, 0.0), g_tiles)
+    u, it = _dd_tiles(geo, g_loc, cycles, 1, 2, use_pallas, tol, max_cycles, eig_cache)
+    if return_info:
+        return u, {"cycles": it, "residual": geo.res_norm(u, g_loc).item()}
+    return u
+
+
 # ---------------------------------------------------------------------------
-# solve_multigrid_sharded: the element V-cycle partitioned over the mesh
+# solve_multigrid_sharded: the element V-cycle partitioned over the mesh, and
+# solve_multigrid_dyn_sharded: the runtime-domain V-cycle partitioned the same way
 # ---------------------------------------------------------------------------
 
 SHARD_MIN = 128  # a level whose smallest tile is shorter than this on a side is gathered
@@ -401,39 +499,52 @@ def _halve(bounds: tuple[int, ...], nc: int) -> tuple[int, ...]:
     return tuple(min(b // 2, nc) for b in bounds[:-1]) + (nc,)
 
 
-class _Level:
+def sharded_tiling(h: int, w: int, mesh: TileMesh) -> Tiling:
+    """The tiles of the partitioned V-cycles' fine level (element and
+    runtime-domain) for an (h, w) g: ceil(n / t) rows and columns, the last
+    tile shorter."""
+    return Tiling(_split(h, mesh.shape[0]), _split(w, mesh.shape[1]))
+
+
+class _Level(Tiling):
     """One level of the partitioned V-cycle: its global (h, w), its betas
     and its tile boundaries. ``sharded``: the level runs tile by tile;
-    otherwise it is gathered and solved by the element ``vcycle``."""
+    otherwise it is gathered and solved by the element ``vcycle``.
+    ``padded_hw``: the runtime-domain V-cycle's padded level, whose size
+    sets the depth (``vcycle_dyn``); None for the element V-cycle."""
 
-    def __init__(self, h: int, w: int, bh: float, bw: float, rows, cols):
-        self.h, self.w, self.bh, self.bw, self.rows, self.cols = h, w, bh, bw, rows, cols
-        sides = [b - a for bounds in (rows, cols) for a, b in zip(bounds, bounds[1:])]
-        self.sharded = not _small(h, w, _COARSEST) and min(sides) >= max(SHARD_MIN, _KG)
+    def __init__(self, h: int, w: int, bh: float, bw: float, rows, cols, padded_hw=None):
+        super().__init__(rows, cols)
+        self.h, self.w, self.bh, self.bw = h, w, bh, bw
+        self.padded_hw = padded_hw
+        sides = [b - a for bounds in (self.rows, self.cols) for a, b in zip(bounds, bounds[1:])]
+        if padded_hw is None:
+            self.sharded = not _small(h, w, _COARSEST) and min(sides) >= max(SHARD_MIN, _KG)
+        else:
+            self.sharded = (not _small(*padded_hw, DYN_COARSEST) and min(h, w) >= 1
+                            and min(sides) >= max(SHARD_MIN, _KG))
         self.unit = bh == 1.0 and bw == 1.0  # the plain operator: rb_sweeps_tile
 
-    def box(self, iy: int, ix: int) -> tuple[int, int, int, int]:
-        return self.rows[iy], self.rows[iy + 1], self.cols[ix], self.cols[ix + 1]
-
-    def shape_of(self, c: int):
-        def shape(iy, ix):
-            r0, r1, c0, c1 = self.box(iy, ix)
-            return (c, r1 - r0, c1 - c0)
-
-        return shape
+    @property
+    def dyn(self) -> bool:
+        return self.padded_hw is not None
 
     def coarser(self) -> _Level:
         hc, bh_c = _coarsen(self.h, self.bh)
         wc, bw_c = _coarsen(self.w, self.bw)
-        return _Level(hc, wc, bh_c, bw_c, _halve(self.rows, hc), _halve(self.cols, wc))
+        pad = None if self.padded_hw is None else tuple((p - 1) // 2 for p in self.padded_hw)
+        return _Level(hc, wc, bh_c, bw_c, _halve(self.rows, hc), _halve(self.cols, wc), pad)
 
 
 def _sweeps_b_tile(u: torch.Tensor, g: torch.Tensor, n: int, lv: _Level, org) -> torch.Tensor:
     """``solvers/multigrid.py:_sweeps_b`` on a ghosted tile whose (0, 0) is
     the level's ``org``: the colours and the Shortley-Weller edge from global
-    coordinates; only cells inside the level are updated."""
+    coordinates; only cells inside the level are updated. A runtime-domain
+    level rounds the Shortley-Weller weights in float32 (``_ops_b``'s
+    ``f32``), as ``solvers/multigrid_dyn.py`` does."""
     _, hl, wl = u.shape
-    nsum, inv_d, _ = _ops_b(lv.h, lv.w, lv.bh, lv.bw, u.device, origin=org, local_hw=(hl, wl))
+    nsum, inv_d, _ = _ops_b(lv.h, lv.w, lv.bh, lv.bw, u.device, f32=lv.dyn, origin=org,
+                            local_hw=(hl, wl))
     dom = _domain(hl, wl, org[0], org[1], lv.h, lv.w, u.device)
     rows = org[0] + torch.arange(hl, device=u.device)[:, None]
     cols = org[1] + torch.arange(wl, device=u.device)[None, :]
@@ -457,9 +568,10 @@ def _smooth(lv: _Level, iy: int, ix: int, x: torch.Tensor, gx: torch.Tensor, n: 
 
 
 def _residual_window(lv: _Level, iy: int, ix: int, us: torch.Tensor, gp: torch.Tensor):
-    """g - A u on the tile's 1-ghost window (``residual`` / ``_residual_b``
-    elementwise), zero past the level. us: the tile after nu1 sweeps, exact
-    but for its outer 2 nu1 rings."""
+    """g - A u on the tile's 1-ghost window (``residual`` / ``_residual_b``,
+    or on a runtime-domain level ``_residual_dyn``, elementwise), zero past
+    the level. us: the tile after nu1 sweeps, exact but for its outer 2 nu1
+    rings."""
     r0, r1, c0, c1 = lv.box(iy, ix)
     th, tw, k = r1 - r0, c1 - c0, _KG
     u2 = us[:, k - 2 : k + th + 2, k - 2 : k + tw + 2]
@@ -468,9 +580,10 @@ def _residual_window(lv: _Level, iy: int, ix: int, us: torch.Tensor, gp: torch.T
     if lv.unit:
         r = g1 - (_neighbor_sum_padded(u2) - 4.0 * u1)
     else:
-        nsum, inv_d, _ = _ops_b(lv.h, lv.w, lv.bh, lv.bw, us.device, origin=(r0 - 2, c0 - 2),
-                                local_hw=(th + 4, tw + 4))
-        r = g1 - (nsum(u2)[:, 1:-1, 1:-1] - u1 / inv_d[:, 1:-1, 1:-1])
+        nsum, inv_d, diag = _ops_b(lv.h, lv.w, lv.bh, lv.bw, us.device, f32=lv.dyn,
+                                   origin=(r0 - 2, c0 - 2), local_hw=(th + 4, tw + 4))
+        a_u = (diag[:, 1:-1, 1:-1] * u1) if lv.dyn else (u1 / inv_d[:, 1:-1, 1:-1])
+        r = g1 - (nsum(u2)[:, 1:-1, 1:-1] - a_u)
     return torch.where(_domain(th + 2, tw + 2, r0 - 1, c0 - 1, lv.h, lv.w, us.device)[None],
                        r, 0.0)
 
@@ -519,15 +632,25 @@ def _prolong_win(e: torch.Tensor, dim: int, n: int, beta: float, a: int, f0: int
 
 
 class _Sharded:
-    """The partitioned element V-cycle over a mesh: its levels, the first
-    local device and the coarsest levels' basis cache."""
+    """A partitioned V-cycle over a mesh: its levels (element, or
+    runtime-domain when the levels carry ``padded_hw``), the first local
+    device and the coarsest levels' basis cache."""
 
-    def __init__(self, mesh: TileMesh, levels: list[_Level], eig_cache: dict):
+    def __init__(self, mesh: TileMesh, levels: list[_Level], eig_cache: dict | None):
         self.mesh, self.levels, self.eig_cache = mesh, levels, eig_cache
         self.dev0 = mesh.distinct()[0]
 
     def map(self, fn, *grids):
         return map_local(self.mesh, fn, *grids)
+
+    def _gathered(self, nxt: _Level, rc_all: torch.Tensor) -> torch.Tensor:
+        """The rest of the V-cycle below the partitioned levels, on one
+        device's whole coarse RHS: the element ``vcycle`` or ``vcycle_dyn``."""
+        if nxt.dyn:
+            return vcycle_dyn(None, rc_all, *nxt.padded_hw, nxt.bh, nxt.bw, _NU1, _NU2,
+                              use_pallas=False)
+        return vcycle(torch.zeros_like(rc_all), rc_all, _NU1, _NU2, _COARSEST, False, nxt.bh,
+                      nxt.bw, self.eig_cache, u_zero=True)
 
     def cycle(self, l: int, u, g, gp):
         """One V-cycle at level l from u (a tile grid, or None: zero) on the
@@ -542,6 +665,13 @@ class _Sharded:
             up = halo_exchange(u, k, mesh)
         us = self.map(lambda iy, ix, x, gx: _smooth(lv, iy, ix, x, gx, _NU1), up, gp)
 
+        def post(iy, ix, x, gx):
+            r0, r1, c0, c1 = lv.box(iy, ix)
+            return _smooth(lv, iy, ix, x, gx, _NU2)[:, k : k + r1 - r0, k : k + c1 - c0]
+
+        if nxt.h < 1 or nxt.w < 1:  # an empty coarse level: a zero correction
+            return self.map(post, us, gp)
+
         def coarse_rhs(iy, ix, x, gx):
             r0, r1, c0, c1 = lv.box(iy, ix)
             a, b, ac, bc = nxt.box(iy, ix)
@@ -552,15 +682,10 @@ class _Sharded:
         rc = self.map(coarse_rhs, us, gp)
         if nxt.sharded:
             ecw = halo_exchange(self.cycle(l + 1, None, rc, None), 1, mesh)
-        else:  # gathered: the element vcycle once per device of this process
+        else:  # gathered: the rest of the cycle once per device of this process
             c = next(t for row in rc for t in row if t is not None).shape[0]
-            rc_all = gather(rc, self.dev0, mesh, nxt.shape_of(c))
-            ecp = {}
-            for dev in mesh.distinct():
-                rcd = rc_all.to(dev)
-                ec = vcycle(torch.zeros_like(rcd), rcd, _NU1, _NU2, _COARSEST, False, nxt.bh,
-                            nxt.bw, self.eig_cache, u_zero=True)
-                ecp[dev] = F.pad(ec, (1, 1, 1, 1))
+            ecp = {dev: F.pad(self._gathered(nxt, rc_all), (1, 1, 1, 1))
+                   for dev, rc_all in replicate(rc, mesh, nxt.shape_of(c)).items()}
 
             def window(iy, ix, x):
                 a, b, ac, bc = nxt.box(iy, ix)
@@ -576,11 +701,6 @@ class _Sharded:
             return x[:, k : k + r1 - r0, k : k + c1 - c0] + ef
 
         up = halo_exchange(self.map(correct, us, ecw), k, mesh)
-
-        def post(iy, ix, x, gx):
-            r0, r1, c0, c1 = lv.box(iy, ix)
-            return _smooth(lv, iy, ix, x, gx, _NU2)[:, k : k + r1 - r0, k : k + c1 - c0]
-
         return self.map(post, up, gp)
 
     def residual_max(self, u, g_own) -> torch.Tensor:
@@ -591,6 +711,36 @@ class _Sharded:
             gl - (_neighbor_sum_padded(xp) - 4.0 * x)).abs().max(), u, up, g_own)
         return grid_max([m for row in maxima for m in row if m is not None], self.dev0,
                         self.mesh)
+
+    def gmax(self, g_own) -> torch.Tensor:
+        """max |g| over every tile, on the first device."""
+        return grid_max([t.abs().max() for row in g_own for t in row if t is not None],
+                        self.dev0, self.mesh)
+
+
+def _levels(lv0: _Level) -> list[_Level]:
+    """The partitioned levels from lv0 down, and the first gathered one."""
+    levels = [lv0]
+    while levels[-1].sharded:
+        levels.append(levels[-1].coarser())
+    return levels
+
+
+def _solve_whole(g_tiles, tiling: Tiling, mesh: TileMesh, return_info: bool, solve):
+    """A grid too small to partition: g joined on every device of this
+    process (``transport.replicate``), ``solve`` there, each tile its window
+    of u (and the info of the solve)."""
+    c = next(t for row in g_tiles for t in row if t is not None).shape[0]
+    whole, info = {}, None
+    for dev, g in replicate(g_tiles, mesh, tiling.shape_of(c)).items():
+        res = solve(g)
+        whole[dev], info = res if return_info else (res, None)
+    u = tiling.windows_of(whole, mesh)
+    return (u, info) if return_info else u
+
+
+def _zeros_like_tiles(g_tiles, mesh: TileMesh):
+    return map_local(mesh, lambda iy, ix, t: torch.zeros_like(t), g_tiles)
 
 
 def solve_multigrid_sharded(g: torch.Tensor, mesh: TileMesh, tol: float = 1e-4,
@@ -607,8 +757,9 @@ def solve_multigrid_sharded(g: torch.Tensor, mesh: TileMesh, tol: float = 1e-4,
     on one device, with the same cycle count, on any mesh shape:
 
     - each level's u, g and residual stay tiled: the finest level split in
-      ceil(n / t) rows and columns (the last tile shorter), each coarse tile
-      the coarse points whose fine point 2j + 1 its fine tile owns;
+      ceil(n / t) rows and columns (``sharded_tiling``: the last tile
+      shorter), each coarse tile the coarse points whose fine point 2j + 1
+      its fine tile owns;
     - each stencil reads its neighbours through a ghost exchange
       (``parallel/transport.py``): one of 4 rings before the nu1 sweeps and
       the residual window, one of 1 ring for the coarse correction's window,
@@ -617,59 +768,156 @@ def solve_multigrid_sharded(g: torch.Tensor, mesh: TileMesh, tol: float = 1e-4,
       every transfer are per-tile torch ops), colours and the
       Shortley-Weller edges from global coordinates;
     - a level whose tiles are shorter than ``SHARD_MIN`` on a side, and the
-      coarsest (``_small``) level, is gathered and solved by the element
-      ``vcycle`` once per device of this process; each tile takes its window
-      of the correction (XLA's resharding of the coarse levels).
+      coarsest (``_small``) level, is gathered (``transport.replicate``) and
+      solved by the element ``vcycle`` once per device of this process;
+      each tile takes its window of the correction (XLA's resharding of the
+      coarse levels).
 
     Fixed ``cycles``, or the tolerance loop: ``_tol_burst`` check-free
     cycles, then one max |g - A u| a check (all-reduced over the mesh, one
     host read on every rank) until it is <= tol max |g| or ``max_cycles``.
-    A grid too small for any tile to reach ``SHARD_MIN`` is solved whole in
-    this process. On a mesh that spans processes every process passes the
+    A grid too small to partition is joined and solved whole on each device
+    of this process (``solve_multigrid_sharded_tiles``). On a mesh that spans processes every process passes the
     same global g and gets the whole u. Returns u (C, H, W) on g's device;
     ``return_info`` adds {"cycles", "residual"}. ``eig_cache``: see
-    ``solvers/multigrid.py:coarse_solve``.
+    ``solvers/multigrid.py:coarse_solve``. ``solve_multigrid_sharded_tiles``
+    is the same solve on tiles.
     """
-    tol = float(tol)
     c, h, w = g.shape
-    ty, tx = mesh.shape
+    tiling = sharded_tiling(h, w, mesh)
+    res = solve_multigrid_sharded_tiles(tiling.split(g, mesh), (h, w), mesh, tol, max_cycles,
+                                        cycles, return_info, eig_cache)
+    u, info = res if return_info else (res, None)
+    out = transport.gather(u, g.device, mesh, tiling.shape_of(c))
+    return (out, info) if return_info else out
+
+
+def solve_multigrid_sharded_tiles(g_tiles, hw: tuple[int, int], mesh: TileMesh,
+                                  tol: float = 1e-4, max_cycles: int = 60,
+                                  cycles: int | None = None, return_info: bool = False,
+                                  eig_cache=None):
+    """``solve_multigrid_sharded`` with g as this process's tiles of
+    ``sharded_tiling(h, w, mesh)`` and u returned as tiles of the same
+    tiling: bit for bit the same solve. A grid too small to partition is
+    joined on every device of this process (``transport.replicate``),
+    solved whole there, and each tile takes its window."""
+    tol = float(tol)
+    h, w = hw
+    tiling = sharded_tiling(h, w, mesh)
+    _check_tiles(g_tiles, tiling, mesh)
     if eig_cache is None:
         eig_cache = {}
-    levels = [_Level(h, w, 1.0, 1.0, _split(h, ty), _split(w, tx))]
-    if not levels[0].sharded:
-        return solve_multigrid(g, tol=tol, max_cycles=max_cycles, cycles=cycles,
-                               use_pallas=False, return_info=return_info, eig_cache=eig_cache)
-    while levels[-1].sharded:
-        levels.append(levels[-1].coarser())
+    levels = _levels(_Level(h, w, 1.0, 1.0, tiling.rows, tiling.cols))
+    if len(levels) == 1:
+        return _solve_whole(g_tiles, tiling, mesh, return_info, lambda g: solve_multigrid(
+            g, tol=tol, max_cycles=max_cycles, cycles=cycles, use_pallas=False,
+            return_info=return_info, eig_cache=eig_cache))
     run = _Sharded(mesh, levels, eig_cache)
-    lv, k = levels[0], _KG
-    g_pad = F.pad(g, (k, k, k, k))
-
-    def g_window(iy, ix, _):
-        r0, r1, c0, c1 = lv.box(iy, ix)
-        return g_pad[:, r0 : r1 + 2 * k, c0 : c1 + 2 * k].to(mesh.devices[iy][ix]).contiguous()
-
-    gp = run.map(g_window, [[None] * tx for _ in range(ty)])
-    g_own = run.map(lambda iy, ix, x: x[:, k:-k, k:-k], gp)
+    gp = halo_exchange(g_tiles, _KG, mesh)
+    g_own = g_tiles
     u = None  # a known-zero start
     if cycles is not None:
         it = int(cycles)
         for _ in range(it):
             u = run.cycle(0, u, g_own, gp)
     else:
-        gmax = g.abs().max()
-        thresh = (tol * torch.clamp(gmax, min=1e-30)).to(run.dev0)
+        gmax = run.gmax(g_own)
+        thresh = tol * torch.clamp(gmax, min=1e-30)
         it = _tol_burst(tol, max_cycles, _NU1, _NU2)
         for _ in range(it):
             u = run.cycle(0, u, g_own, gp)
         while it < max_cycles:
-            rmax = gmax.to(run.dev0) if u is None else run.residual_max(u, g_own)
+            rmax = gmax if u is None else run.residual_max(u, g_own)
             if not bool(rmax > thresh):  # one host read per check, on every rank
                 break
             u = run.cycle(0, u, g_own, gp)
             it += 1
-    out = torch.zeros_like(g) if u is None else gather(u, g.device, mesh, lv.shape_of(c))
+    out = _zeros_like_tiles(g_tiles, mesh) if u is None else u
     if return_info:
-        rmax = (g.abs().max() if u is None else run.residual_max(u, g_own)).item()
+        rmax = (run.gmax(g_own) if u is None else run.residual_max(u, g_own)).item()
         return out, {"cycles": it, "residual": rmax}
     return out
+
+
+def solve_multigrid_dyn_sharded(g: torch.Tensor, hw, mesh: TileMesh, tol: float = 1e-4,
+                                cycles: int | None = None, max_cycles: int = 60,
+                                return_info: bool = False):
+    """``solve_multigrid_dyn`` partitioned over ``mesh`` (JAX's
+    ``solve_multigrid_dyn`` jitted with tile shardings, partitioned by hand).
+
+    g: (C, Hp, Wp) f32, the RHS of the (h, w) interior system at [0, h) x
+    [0, w), hw = (h, w). The true-size levels are split as
+    ``solve_multigrid_sharded`` splits its levels (``sharded_tiling`` of (h,
+    w), coarse tiles by the fine point 2j + 1), and each cycle is
+    ``vcycle_dyn`` with the partitioning written out:
+
+    - the depth follows the padded levels ((Hp - 1) // 2, ...); a level
+      whose padded size is small is the bottom;
+    - the operator pieces are the runtime-domain ones: the Shortley-Weller
+      weights rounded in float32, the residual g - (nsum(u) - diag u); the
+      plain (betas 1) level's sweeps are ``K.rb_sweeps_tile`` at the global
+      origin (the kernel on CUDA tiles, its twin on CPU tiles);
+    - a level whose tiles are shorter than ``SHARD_MIN`` on a side, and the
+      bottom, is gathered (``transport.replicate``) and the rest of the
+      cycle is ``vcycle_dyn`` on each device of this process: the bottom's
+      ``BOTTOM_SWEEPS`` red-black sweeps, an empty level's zero correction;
+    - the tolerance check runs before every cycle (one host read on every
+      rank), no check-free burst; ``cycles=k`` runs k cycles unchecked.
+
+    Bit-equal to the port's ``solve_multigrid_dyn(g, hw, tol, cycles,
+    max_cycles, use_pallas=False)`` on one device, with the same cycle
+    count, on any mesh shape; a mesh that spans processes gives every rank
+    the whole u. Returns (C, Hp, Wp), exact zeros outside the true domain,
+    on g's device; ``return_info`` adds {"cycles", "residual"}.
+    """
+    c, hp, wp = g.shape
+    h, w = (max(int(x), 0) for x in hw)
+    if h > hp or w > wp:
+        raise ValueError(f"true size {(h, w)} exceeds the padded {(hp, wp)}")
+    tiling = sharded_tiling(h, w, mesh)
+    res = solve_multigrid_dyn_sharded_tiles(tiling.split(g[:, :h, :w], mesh), (h, w), (hp, wp),
+                                            mesh, tol, cycles, max_cycles, return_info)
+    u, info = res if return_info else (res, None)
+    out = _pad_to(transport.gather(u, g.device, mesh, tiling.shape_of(c)), g.shape)
+    return (out, info) if return_info else out
+
+
+def solve_multigrid_dyn_sharded_tiles(g_tiles, hw: tuple[int, int], padded_hw,
+                                      mesh: TileMesh, tol: float = 1e-4,
+                                      cycles: int | None = None, max_cycles: int = 60,
+                                      return_info: bool = False):
+    """``solve_multigrid_dyn_sharded`` on the true-size RHS as this
+    process's tiles of ``sharded_tiling(h, w, mesh)``; returns u as tiles of
+    the same tiling (``solve_dyn_window``'s u, partitioned). A grid too
+    small to partition is joined on every device of this process
+    (``transport.replicate``), solved whole there by ``solve_dyn_window``,
+    and each tile takes its window."""
+    tol = float(tol)
+    h, w = hw
+    hp, wp = (int(x) for x in padded_hw)
+    tiling = sharded_tiling(h, w, mesh)
+    _check_tiles(g_tiles, tiling, mesh)
+    lv0 = _Level(h, w, 1.0, 1.0, tiling.rows, tiling.cols, (hp, wp))
+    if not lv0.sharded:
+        return _solve_whole(g_tiles, tiling, mesh, return_info, lambda g: solve_dyn_window(
+            g, (hp, wp), tol, cycles, max_cycles, return_info=return_info, use_pallas=False))
+    run = _Sharded(mesh, _levels(lv0), None)
+    gp = halo_exchange(g_tiles, _KG, mesh)
+    u, it = None, 0
+    gmax = run.gmax(g_tiles)
+    rmax = gmax  # the residual of the zero start
+    if cycles is not None:
+        it = int(cycles)
+        for _ in range(it):
+            u = run.cycle(0, u, g_tiles, gp)
+        if return_info and it:
+            rmax = run.residual_max(u, g_tiles)
+    else:
+        thresh = tol * torch.clamp(gmax, min=1e-30)
+        # checked before every cycle; one host read per check, on every rank
+        while it < max_cycles and bool(rmax > thresh):
+            u = run.cycle(0, u, g_tiles, gp)
+            it += 1
+            rmax = run.residual_max(u, g_tiles)
+    out = _zeros_like_tiles(g_tiles, mesh) if u is None else u
+    return (out, {"cycles": it, "residual": rmax.item()}) if return_info else out

@@ -19,7 +19,16 @@ grid column their width.
   every rank takes the same decision from it.
 - ``gather``: the whole array on a device of this process: one
   ``all_gather`` of each rank's tiles, packed flat and padded to the
-  longest rank's.
+  longest rank's. Each call counts in ``mesh.GATHERS``.
+- ``replicate``: the same join, put on each of this process's devices: a
+  level that the solvers solve whole on every device (a coarse level, a
+  grid too small to partition). Not a gather of the frame: it counts in
+  ``REPLICATED`` instead.
+- ``windows``: for each local cell a rectangle of the global array,
+  assembled from the tiles that overlap it (a copy inside this process, a
+  point-to-point transfer across processes, zeros past the array): the
+  ghost rings of the mesh-resident destination. Tiles follow any row and
+  column boundaries, empty tiles included.
 
 ``CROSSED`` counts what this process sends to other ranks: point-to-point
 strips and collective contributions (``transfers``) and their ``bytes``;
@@ -35,17 +44,21 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from seamlesscloneoptimization_tpu_torch.parallel.mesh import TileMesh, transport_group
+from seamlesscloneoptimization_tpu_torch.parallel.mesh import GATHERS, TileMesh, transport_group
 
 # the eight neighbours of a cell: edges, then corners
 DIRS = ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (-1, 1), (1, -1), (1, 1))
 
 CROSSED = {"transfers": 0, "bytes": 0}
+# what ``replicate`` joined: calls, and the bytes of the joined arrays
+REPLICATED = {"calls": 0, "bytes": 0}
 
 
 def reset_crossed() -> None:
     for key in CROSSED:
         CROSSED[key] = 0
+    for key in REPLICATED:
+        REPLICATED[key] = 0
 
 
 def _crossed(t: torch.Tensor) -> None:
@@ -176,10 +189,95 @@ def gather(tiles, device, mesh: TileMesh | None = None, shape_of=None) -> torch.
     """The (C, H, W) array of a tile grid on ``device``. On a mesh that spans
     processes every rank calls this and gets the whole array;
     ``shape_of(iy, ix)`` gives the other ranks' tile shapes."""
-    device = torch.device(device)
+    GATHERS["calls"] += 1
+    return _join(tiles, torch.device(device), mesh, shape_of)
+
+
+def replicate(tiles, mesh: TileMesh, shape_of) -> dict:
+    """{device: the (C, H, W) array of the grid} for each of this process's
+    devices: the join of ``gather`` on the first, copied to the others."""
+    devs = mesh.distinct()
+    whole = _join(tiles, devs[0], mesh, shape_of)
+    REPLICATED["calls"] += 1
+    REPLICATED["bytes"] += whole.numel() * whole.element_size()
+    return {d: whole if d == devs[0] else whole.to(d) for d in devs}
+
+
+def _join(tiles, device: torch.device, mesh: TileMesh | None, shape_of) -> torch.Tensor:
     if _spans(mesh):
         tiles = _all_tiles(tiles, mesh, shape_of, device)
     return torch.cat([torch.cat([t.to(device) for t in row], dim=2) for row in tiles], dim=1)
+
+
+def all_cells(tiles, device, mesh: TileMesh, shape_of):
+    """Every cell's tensor of a grid in this process, on ``device``: the
+    local ones copied, the other ranks' by one ``all_gather`` (the batch's
+    job blocks, any number of dimensions); ``shape_of(iy, ix)`` gives each
+    cell's shape."""
+    device = torch.device(device)
+    if _spans(mesh):
+        tiles = _all_tiles(tiles, mesh, shape_of, device)
+    return [[t.to(device) for t in row] for row in tiles]
+
+
+def _overlap(a: tuple, b: tuple):
+    """The intersection of two (r0, r1, c0, c1) rectangles, or None."""
+    r0, r1, c0, c1 = max(a[0], b[0]), min(a[1], b[1]), max(a[2], b[2]), min(a[3], b[3])
+    return (r0, r1, c0, c1) if r0 < r1 and c0 < c1 else None
+
+
+def windows(tiles, rows, cols, want, mesh: TileMesh, like: torch.Tensor | None = None):
+    """Each local cell's window ``want(iy, ix)`` = (r0, r1, c0, c1), in the
+    global coordinates of the array whose tile (iy, ix) is rows[iy] ..
+    rows[iy + 1] by cols[ix] .. cols[ix + 1] (``tiles`` holds this
+    process's, (C, rows, cols) each, on its cell's device; a tile may be
+    empty). Parts past the array are zero. Every rank walks the same list
+    of (receiving cell, sending cell) pairs in row-major order and posts
+    its receives and sends of the pairs that cross processes in one
+    ``batch_isend_irecv``, the pair's index the tag. ``like``: a tensor of
+    the grid's dtype and channels, for a process with no tile of its own
+    that is not empty. Returns the grid of windows (None for the other
+    ranks' cells)."""
+    ty, tx = mesh.shape
+    spans = _spans(mesh)
+    group = transport_group() if spans else None
+    cells = [(iy, ix) for iy in range(ty) for ix in range(tx)]
+    box = {(iy, ix): (rows[iy], rows[iy + 1], cols[ix], cols[ix + 1]) for iy, ix in cells}
+    ref = like if like is not None else next(t for row in tiles for t in row if t is not None)
+    c = ref.shape[0]
+    out = [[None] * tx for _ in range(ty)]
+    for cell in mesh.local_cells():
+        r0, r1, c0, c1 = want(*cell)
+        out[cell[0]][cell[1]] = torch.zeros((c, r1 - r0, c1 - c0), dtype=ref.dtype,
+                                            device=mesh.devices[cell[0]][cell[1]])
+    ops, landed = [], []
+    for a_i, a in enumerate(cells):
+        wa = want(*a)
+        for b_i, b in enumerate(cells):
+            part = _overlap(wa, box[b])
+            if part is None:
+                continue
+            r0, r1, c0, c1 = part
+            dst = (slice(None), slice(r0 - wa[0], r1 - wa[0]), slice(c0 - wa[2], c1 - wa[2]))
+            src = (slice(None), slice(r0 - box[b][0], r1 - box[b][0]),
+                   slice(c0 - box[b][2], c1 - box[b][2]))
+            tag = a_i * len(cells) + b_i
+            if mesh.is_local(*a):
+                x = out[a[0]][a[1]]
+                if mesh.is_local(*b):
+                    x[dst].copy_(tiles[b[0]][b[1]][src])
+                else:
+                    buf = _landing((c, r1 - r0, c1 - c0), x)
+                    ops.append(dist.P2POp(dist.irecv, buf, mesh.owner(*b), group, tag))
+                    landed.append((x, dst, buf))
+            elif mesh.is_local(*b):
+                part_t = _wire(tiles[b[0]][b[1]][src])
+                _crossed(part_t)
+                ops.append(dist.P2POp(dist.isend, part_t, mesh.owner(*a), group, tag))
+    _wait(ops)
+    for x, dst, buf in landed:
+        x[dst].copy_(buf)
+    return out
 
 
 def _all_tiles(tiles, mesh: TileMesh, shape_of, device):

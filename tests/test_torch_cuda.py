@@ -1416,7 +1416,8 @@ def test_tiled_solvers_on_card_match_cpu(cuda):
 
 def test_tiled_engine_on_card_matches_cpu(cuda):
     """TiledSeamlessClone on a 2x2 mesh of the card against the CPU mesh
-    (diff_max <= 1, clamp_cast_paste once, 2 rb_sweeps_tile a tile a cycle),
+    (diff_max <= 1, clamp_cast_paste once a tile, 2 rb_sweeps_tile a tile a
+    cycle),
     and the 1x1 mesh byte for byte the single-device engine."""
     from seamlesscloneoptimization_tpu_torch.parallel import TiledSeamlessClone, make_tile_mesh
 
@@ -1428,7 +1429,7 @@ def test_tiled_engine_on_card_matches_cpu(cuda):
     K.reset_launches()
     out = TiledSeamlessClone(cfg, mesh=_card_mesh(cuda)).run(src, dst, mask, (100, 60))
     torch.cuda.synchronize()
-    assert K.LAUNCHES == _per_frame(clamp_cast_paste=1, rb_sweeps_tile=2 * 4 * 3)
+    assert K.LAUNCHES == _per_frame(clamp_cast_paste=4, rb_sweeps_tile=2 * 4 * 3)
     cpu = TiledSeamlessClone(cfg, mesh=make_tile_mesh([torch.device("cpu")] * 4, (2, 2)))
     want = cpu.run(src, dst, mask, (100, 60)).numpy()
     assert np.abs(out.cpu().numpy().astype(np.int16) - want).max() <= 1
@@ -1793,8 +1794,8 @@ def test_sharded_solve_on_card_bit_equal(cuda, shape, monkeypatch):
 
 def test_gspmd_engine_on_card_matches_cpu(cuda, monkeypatch):
     """TiledSeamlessClone(path="gspmd") on a 2x2 mesh of the card against the
-    CPU mesh (diff_max <= 1, clamp_cast_paste once, rb_sweeps_tile 2 a tile
-    a cycle)."""
+    CPU mesh (diff_max <= 1, clamp_cast_paste once a tile, rb_sweeps_tile 2
+    a tile a cycle)."""
     from seamlesscloneoptimization_tpu_torch.parallel import (
         TiledSeamlessClone,
         make_tile_mesh,
@@ -1811,7 +1812,7 @@ def test_gspmd_engine_on_card_matches_cpu(cuda, monkeypatch):
     eng = TiledSeamlessClone(cfg, mesh=_card_mesh(cuda), path="gspmd")
     out = eng.run(src, dst, mask, (150, 100))
     torch.cuda.synchronize()
-    assert K.LAUNCHES == _per_frame(clamp_cast_paste=1, rb_sweeps_tile=2 * 4 * 3)
+    assert K.LAUNCHES == _per_frame(clamp_cast_paste=4, rb_sweeps_tile=2 * 4 * 3)
     assert eng.metrics["solver_resolved"] == "multigrid_gspmd"
     cpu = TiledSeamlessClone(cfg, mesh=make_tile_mesh([torch.device("cpu")] * 4, (2, 2)),
                              path="gspmd")
@@ -1822,20 +1823,24 @@ def test_gspmd_engine_on_card_matches_cpu(cuda, monkeypatch):
 def test_two_processes_on_the_card(cuda, tmp_path):
     """Two processes on cuda:0, joined by init_distributed over gloo (they
     share the card), two tiles each of a 2x2 mesh: solve_poisson_dd,
-    solve_multigrid_sharded and solve_redblack_tiled bit-equal to the
-    single-process 2x2 mesh of the card, the strips staged through pinned
-    host buffers."""
+    solve_multigrid_sharded, solve_redblack_tiled and the mesh-resident
+    TiledSeamlessClone (timed_serve on the DD path, run on the gspmd path)
+    bit-equal to the single-process 2x2 mesh of the card, the strips staged
+    through pinned host buffers; no gather in the engine's timed frames."""
     from seamlesscloneoptimization_tpu_torch.parallel import dist_check, tiled
 
     rng = np.random.default_rng(43)
     g = torch.from_numpy(rng.normal(size=(3, 264, 392)).astype(np.float32) * 30)
+    src, dst = torch.from_numpy(_u8(rng, (150, 230, 3))), torch.from_numpy(_u8(rng, (200, 300, 3)))
+    mask = torch.full((150, 230), 255, dtype=torch.uint8)
     runs = {"dd": {"g": g, "kwargs": {"tol": 1e-5}},
             "sharded": {"g": g, "kwargs": {"tol": 1e-4}},
-            "rb": {"g": g, "kwargs": {"tol": 0.0, "max_iters": 100, "halo": 4}}}
+            "rb": {"g": g, "kwargs": {"tol": 0.0, "max_iters": 100, "halo": 4}},
+            "engine": {"args": (src, dst, mask, (150, 100)), "loops": 2},
+            "engine_gspmd": {"args": (src, dst, mask, (150, 100)), "path": "gspmd"}}
     saved, tiled.SHARD_MIN = tiled.SHARD_MIN, 16
     try:
-        want = {name: dist_check.solver_for(name)(run["g"].to(cuda), _card_mesh(cuda),
-                                                  **run["kwargs"]).cpu()
+        want = {name: dist_check.run_one(name, run, _card_mesh(cuda), cuda)[0]
                 for name, run in runs.items()}
     finally:
         tiled.SHARD_MIN = saved
@@ -1849,3 +1854,108 @@ def test_two_processes_on_the_card(cuda, tmp_path):
         assert rep["backend"] == "gloo" and rep["reinit_noop"]
         assert all(row["equal"] for row in rep["solves"].values()), rep
         assert rep["solves"]["rb"]["rb_sweeps_tile"] == 50 * 2  # 2 sweeps a round, 2 tiles
+        assert rep["solves"]["engine"]["gathers_per_frame"] == 0
+        assert rep["solves"]["engine_gspmd"]["clamp_cast_paste"] == 2  # this rank's two tiles
+
+
+def _composition(cuda, src, dst, mask, center, solver, frames, dyn_kw=None, bucket=0):
+    """``frames`` chained single-device frames on the card: the plain RHS,
+    ``solver`` (or bucket_exact's dyn solve of ``dyn_kw``), clamp_cast_paste."""
+    from seamlesscloneoptimization_tpu_torch.core.engine import prepare_inputs
+    from seamlesscloneoptimization_tpu_torch.models.pipeline import clone_pipeline
+
+    m, xy, lt, hw, *tight = prepare_inputs(mask, src.shape, dst.shape, center, bucket=bucket,
+                                           return_tight=dyn_kw is not None)
+    buf = torch.from_numpy(dst).to(cuda).permute(2, 0, 1).contiguous()
+    for _ in range(frames):
+        clone_pipeline(torch.from_numpy(src).to(cuda), buf, torch.from_numpy(m).to(cuda), xy,
+                       lt, tight[0] if tight else None, bbox_hw=hw, flags=1, solver=solver,
+                       solver_kwargs=dyn_kw, planar_dst=True, use_pallas_pre=False,
+                       use_pallas_post=False)
+    return buf.permute(1, 2, 0).cpu().numpy()
+
+
+@pytest.mark.parametrize("path", ["dd", "gspmd"])
+def test_resident_engine_on_card(cuda, monkeypatch, path):
+    """The mesh-resident TiledSeamlessClone on a 2x2 mesh of the card: three
+    chained frames bit-equal to the single-device composition on the card
+    (the plain RHS, the whole-g DD solve on the same mesh or the element
+    V-cycle, clamp_cast_paste), clamp_cast_paste once a tile a frame, no
+    gather in the timed frames; the bucket_exact frame (the partitioned dyn
+    solve) bit-equal to its single-device composition."""
+    from seamlesscloneoptimization_tpu_torch.parallel import (
+        TiledSeamlessClone,
+        mesh,
+        solve_poisson_dd,
+        tiled,
+    )
+
+    monkeypatch.setattr(tiled, "SHARD_MIN", 16)
+    rng = np.random.default_rng(44)
+    src, dst = _u8(rng, (150, 230, 3)), _u8(rng, (200, 300, 3))
+    yy, xx = np.mgrid[:150, :230]
+    mask = ((((yy - 75) / 70.0) ** 2 + ((xx - 115) / 110.0) ** 2) <= 1).astype(np.uint8) * 255
+    center, card = (150, 100), _card_mesh(cuda)
+    eng = TiledSeamlessClone(CloneConfig(), mesh=card, path=path)
+    mesh.reset_gathers()
+    K.reset_launches()
+    out, _ = eng.timed_serve(src, dst, mask, center, loops=2)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["clamp_cast_paste"] == 4 * 3 and mesh.GATHERS["calls"] == 1
+    assert eng.metrics["gathers_per_frame"] == 0
+    if path == "dd":
+        solver = lambda g: solve_poisson_dd(g, card, tol=1e-4)  # noqa: E731
+    else:
+        solver = lambda g: TM.solve_multigrid(g, tol=1e-4, use_pallas=False)  # noqa: E731
+    assert np.array_equal(out.cpu().numpy(), _composition(cuda, src, dst, mask, center, solver,
+                                                          3))
+    cfg = CloneConfig(bbox_bucket=32, bucket_exact=True)
+    got = TiledSeamlessClone(cfg, mesh=card, path=path).run(src, dst, mask, center)
+    want = _composition(cuda, src, dst, mask, center, None, 1, bucket=32, dyn_kw=dict(
+        tol=1e-4, cycles=None, max_cycles=60, use_pallas=False))
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+def test_dyn_sharded_on_card(cuda, monkeypatch):
+    """solve_multigrid_dyn_sharded on a 2x2 mesh of the card bit-equal to
+    the card's single-device solve_multigrid_dyn(use_pallas=False), equal
+    cycles, fixed and tolerance mode; rb_sweeps_tile 2 a tile a cycle on
+    each partitioned plain level."""
+    from seamlesscloneoptimization_tpu_torch.parallel import solve_multigrid_dyn_sharded, tiled
+    from seamlesscloneoptimization_tpu_torch.solvers.multigrid_dyn import solve_multigrid_dyn
+
+    monkeypatch.setattr(tiled, "SHARD_MIN", 16)
+    rng = np.random.default_rng(45)
+    g = torch.zeros((3, 256, 384), device=cuda)
+    g[:, :201, :281] = torch.from_numpy(rng.normal(size=(3, 201, 281)).astype(np.float32) * 20)
+    lv = tiled._Level(201, 281, 1.0, 1.0, tiled._split(201, 2), tiled._split(281, 2), (256, 384))
+    plain = sum(1 for x in tiled._levels(lv)[:-1] if x.unit)
+    assert plain >= 1
+    for cycles in (3, None):
+        want, winfo = solve_multigrid_dyn(g, (201, 281), cycles=cycles, use_pallas=False,
+                                          return_info=True)
+        K.reset_launches()
+        got, info = solve_multigrid_dyn_sharded(g, (201, 281), _card_mesh(cuda), cycles=cycles,
+                                                return_info=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and info == winfo
+        assert K.LAUNCHES == _per_frame(rb_sweeps_tile=2 * 4 * plain * info["cycles"])
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_batch_over_mesh_on_card(cuda, use_pallas):
+    """clone_roi_batch with its 16 jobs split over a 2x2 mesh of the card
+    bit-equal to the call without a mesh (one paste a block)."""
+    from seamlesscloneoptimization_tpu_torch.parallel import batch as TB
+
+    rng = np.random.default_rng(46)
+    dests = torch.from_numpy(_u8(rng, (16, 3, 66, 70))).to(cuda)
+    patches = torch.from_numpy(_u8(rng, (16, 3, 66, 70))).to(cuda)
+    masks = torch.full((16, 66, 70), 255, dtype=torch.uint8, device=cuda)
+    masks[:, :3] = 0
+    want = TB.clone_roi_batch(dests, patches, masks, 1, TB.fast_dst_solver(), use_pallas)
+    K.reset_launches()
+    got = TB.clone_roi_batch(dests, patches, masks, 1, TB.fast_dst_solver(), use_pallas,
+                             mesh=_card_mesh(cuda))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["clamp_cast_paste"] == 4 and torch.equal(got, want)

@@ -11,8 +11,14 @@ must be bit-equal to the same call on a single-process mesh of that shape
 (computed here): ``solve_poisson_dd`` at tol 1e-6 on (1, 40, 56), also
 within 1e-4 of the NumPy DST oracle (JAX's bar);
 ``solve_multigrid_sharded`` (tolerance and fixed cycles, three partitioned
-levels: ``--shard-min 16``); ``solve_redblack_tiled`` with halos 2 and 8.
-Each rank calls ``init_distributed`` a second time, which must do nothing.
+levels: ``--shard-min 16``); ``solve_redblack_tiled`` with halos 2 and 8;
+and slice 8b's: the mesh-resident ``TiledSeamlessClone`` (``run`` on both
+paths, ``timed_serve`` of two frames with no gather in them),
+``seamless_clone_tiled``, ``local_edit_tiled``,
+``solve_multigrid_dyn_sharded`` (three partitioned levels) and
+``clone_roi_batch(mesh=...)``, each rank's whole result bit-equal to the
+one-process mesh's. Each rank calls ``init_distributed`` a second time,
+which must do nothing.
 
 Skipped only when localhost sockets are refused, as the JAX test is; any
 failure inside the protocol fails.
@@ -32,6 +38,17 @@ torch.set_num_threads(1)
 
 G_DD = (np.random.default_rng(0).normal(size=(1, 40, 56)) * 10).astype(np.float32)
 G_MG = (np.random.default_rng(1).normal(size=(1, 264, 392)) * 10).astype(np.float32)
+_RNG = np.random.default_rng(2)
+SRC = torch.from_numpy(_RNG.integers(0, 256, (150, 240, 3)).astype(np.uint8))
+DST = torch.from_numpy(_RNG.integers(0, 256, (200, 300, 3)).astype(np.uint8))
+_YY, _XX = np.mgrid[:150, :240]
+MASK = torch.from_numpy(((((_YY - 75) / 70.0) ** 2 + ((_XX - 120) / 115.0) ** 2 <= 1)
+                         * 255).astype(np.uint8))
+G_DYN = np.zeros((3, 192, 384), np.float32)
+G_DYN[:, :150, :300] = _RNG.normal(size=(3, 150, 300)) * 10
+JOBS = tuple(torch.from_numpy(x) for x in (
+    _RNG.integers(0, 256, (8, 3, 34, 34)).astype(np.uint8),
+    _RNG.integers(0, 256, (8, 3, 34, 34)).astype(np.uint8), np.full((8, 34, 34), 255, np.uint8)))
 RUNS = {
     "dd": {"g": torch.from_numpy(G_DD), "kwargs": {"tol": 1e-6}},
     "sharded": {"g": torch.from_numpy(G_MG), "kwargs": {"tol": 1e-4}},
@@ -40,6 +57,14 @@ RUNS = {
                                                          "halo": 2}},
     "rb_halo8": {"g": torch.from_numpy(G_DD), "kwargs": {"tol": 1e-4, "max_iters": 300,
                                                          "halo": 8}},
+    "engine": {"args": (SRC, DST, MASK, (150, 100)), "config": {"tol": 1e-5}},
+    "engine_gspmd": {"args": (SRC, DST, MASK, (150, 100)), "path": "gspmd"},
+    "engine_serve": {"args": (SRC, DST, MASK, (150, 100)), "config": {"mg_cycles": 3},
+                     "loops": 2},
+    "clone_tiled": {"args": (SRC, DST, MASK, (150, 100)), "kwargs": {"path": "gspmd"}},
+    "edit_tiled": {"args": (DST, None, "illumination_change", (0.2, 0.4))},
+    "dyn": {"g": torch.from_numpy(G_DYN), "hw": (150, 300), "kwargs": {"tol": 1e-4}},
+    "batch": {"args": JOBS},
 }
 SHARD_MIN = 16
 TIMEOUT = 240  # seconds for every rank of a run
@@ -51,7 +76,7 @@ def _single_process(shape):
     saved, tiled.SHARD_MIN = tiled.SHARD_MIN, SHARD_MIN
     try:
         mesh = make_tile_mesh([torch.device("cpu")] * (shape[0] * shape[1]), shape)
-        return {name: dist_check.solver_for(name)(run["g"], mesh, **run["kwargs"])
+        return {name: dist_check.run_one(name, run, mesh, "cpu")[0]
                 for name, run in RUNS.items()}
     finally:
         tiled.SHARD_MIN = saved
@@ -97,6 +122,9 @@ def test_process_spanning_solves_bit_equal(world, tiles, shape, tmp_path):
             assert row["crossed_transfers"] > 0  # strips and collectives crossed ranks
         assert rep["solves"]["sharded_fixed"]["cycles"] == 3
         assert rep["solves"]["rb_halo2"]["iterations"] == 300
+        serve = rep["solves"]["engine_serve"]
+        assert serve["gathers_per_frame"] == 0 and serve["crossed_bytes_per_frame"] > 0
+        assert set(serve["resident_bytes"]) == {f"{iy},{ix}" for iy, ix in rep["cells"]}
     # every rank's DD result is bit-equal to this one: JAX's bar against the oracle
     u_ref = poisson_solve_dst(np.transpose(G_DD, (1, 2, 0)))[:, :, 0]
     err = np.abs(want["dd"].numpy()[0] - u_ref).max() / np.abs(u_ref).max()

@@ -443,11 +443,14 @@ def _params(fn, drop=("device",)):
 def test_batch_and_edit_signatures_match_jax(name):
     """Each public function of the batch and edit slice takes the JAX
     function's parameters (names, kinds, defaults), plus ``device`` where
-    it chooses where to run."""
+    it chooses where to run and ``mesh`` where it splits its jobs over one."""
     mod, _, fn = name.rpartition(".")
     port = getattr(importlib.import_module(f"seamlesscloneoptimization_tpu_torch.{mod}"), fn)
     ref = getattr(importlib.import_module(f"seamlesscloneoptimization_tpu.{mod}"), fn)
-    assert _params(port) == _params(ref)
+    # clone_roi_batch's ``mesh`` is the port's counterpart of JAX's input
+    # sharding of the job axis; every other function keeps JAX's own ``mesh``.
+    drop = ("device", "mesh") if name == "parallel.batch.clone_roi_batch" else ("device",)
+    assert _params(port, drop) == _params(ref, drop)
 
 
 # ROADMAP "Not to port": JAX names the port leaves out on purpose

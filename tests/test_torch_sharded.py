@@ -15,7 +15,8 @@
   tolerance-mode result by up to 1.7e-5), equal cycles where both report.
 - ``TiledSeamlessClone`` / ``seamless_clone_tiled`` / ``local_edit_tiled``
   with ``path="gspmd"`` within 1 grey level of JAX's ``path="gspmd"`` on
-  seeded synthetic images.
+  seeded synthetic images; the engine builds on a mesh that spans
+  processes.
 
 Inputs are numpy-seeded. ``SHARD_MIN`` is lowered where a test grid is
 small, so the tiles are partitioned and not gathered whole.
@@ -276,16 +277,23 @@ def test_gspmd_edit_matches_jax(kind, params, monkeypatch):
     assert _diff_max(got, local_edit_tiled(img, mask, kind, params, mesh=_port())) <= 1
 
 
-def test_process_spanning_mesh_is_for_the_solvers():
-    """The engine and the one-shot functions run in one process: a mesh whose
-    cells another rank owns raises NotImplementedError naming the ROADMAP
-    item, on both paths."""
+def test_process_spanning_mesh_runs_the_engine():
+    """Rewritten from ``test_process_spanning_mesh_is_for_the_solvers``: the
+    engine and the one-shot functions no longer refuse a mesh whose cells
+    another rank owns. The engine builds on both paths, on this rank's
+    device, as a tiled (not single-device) engine, and its resident frame
+    holds this rank's destination tiles and input windows only (the runs
+    across processes, bit-equal on every rank to one process, are in
+    tests/test_torch_distributed.py)."""
     cpu = torch.device("cpu")
     mesh = TileMesh(((cpu, cpu),), owners=((0, 1),), rank=0)
     assert mesh.spans_processes and mesh.local_cells() == [(0, 0)]
+    src, dst, mask = _images(6)
     for path in ("dd", "gspmd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-            TiledSeamlessClone(mesh=mesh, path=path)
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-            local_edit_tiled(np.zeros((8, 8, 3), np.uint8), None, COLOR_CHANGE, (1, 1, 1),
-                             mesh=mesh, path=path)
+        eng = TiledSeamlessClone(mesh=mesh, path=path)
+        assert eng.device == cpu and not eng._single
+        flags, prep = eng._prepared(src, dst, mask, CENTER, None)
+        frame = eng._frame(src, dst, prep, flags)
+        assert frame.dest[0][0] is not None and frame.dest[0][1] is None
+        assert frame.inputs[0][0] is not None and frame.inputs[0][1] is None
+        assert set(eng.metrics["resident_bytes"]) == {"0,0"}

@@ -501,7 +501,8 @@ def test_1x1_mesh_is_the_single_device_engine():
 
 def test_tiled_serve_counts_and_config(monkeypatch):
     """A 2x2-mesh serve frame as the card runs it, each twin call counted as
-    a launch: clamp_cast_paste once, rb_sweeps_tile 2 a tile a cycle
+    a launch: clamp_cast_paste once a tile (the per-tile paste into each
+    cell's destination tile), rb_sweeps_tile 2 a tile a cycle
     (nu1 = 1 and nu2 = 2, one exchange each), nothing else on this small
     coarse grid; mg_cycles fixes the cycles, tol sets them."""
     counts = {}
@@ -516,12 +517,12 @@ def test_tiled_serve_counts_and_config(monkeypatch):
     src, dst, mask = _images(6)
     eng = TiledSeamlessClone(CloneConfig(mg_cycles=3), mesh=_port((2, 2)))
     out, _ = eng.timed_serve(src, dst, mask, CENTER, loops=1)
-    assert counts == {"clamp_cast_paste": 2, "rb_sweeps_tile": 2 * 4 * 3 * 2}
+    assert counts == {"clamp_cast_paste": 2 * 4, "rb_sweeps_tile": 2 * 4 * 3 * 2}
     assert out.shape == dst.shape and eng.metrics["solver_resolved"] == "multigrid_dd"
     counts.clear()
     eng = TiledSeamlessClone(CloneConfig(tol=1e-5), mesh=_port((2, 2)))
     got = eng.run(src, dst, mask, CENTER).numpy()
     cycles = counts["rb_sweeps_tile"] // 8
-    assert counts == {"clamp_cast_paste": 1, "rb_sweeps_tile": 8 * cycles} and cycles > 3
+    assert counts == {"clamp_cast_paste": 4, "rb_sweeps_tile": 8 * cycles} and cycles > 3
     assert _diff_max(got, SeamlessClone(CloneConfig(solver="multigrid", tol=1e-5),
                                         device="cpu").run(src, dst, mask, CENTER)) <= 1
