@@ -42,7 +42,12 @@
    97x131 grid. Slice 8a's: ``rb_sweeps_tile`` on the 8K DD tiles
    (3, 1412, 1912) (a 2x2 mesh over the 2800x3800 padded interior, a 6-px
    ghost band) at the four tiles' origins, 1 and 2 sweeps, an odd origin
-   and a domain cutting the tile (5 sweeps, two launches); the exact-size
+   and a domain cutting the tile (5 sweeps, two launches); slice 8c's
+   window form of ``rb_sweeps_tile`` (its own kernels-line entry,
+   ``rb_sweeps_tile_window``) on the four bands of a ghosted headline tile
+   (a 2x2 mesh over the 1548x2396 interior) at halos 2, 4 and 8 (bands of
+   6, 12 and 24), every tile's origins, the round's sweeps and 5 (two
+   launches), an odd origin and a domain clipping the bands; the exact-size
    ``mg_down`` (known-zero and given guess) and ``mg_up`` at the DD coarse
    solve's two fused levels (1398x1898 and 698x948, betas != 1), each form
    its own kernels-line entry (``mg_down_exact``, ``mg_up_exact``);
@@ -155,7 +160,16 @@
    - ``rb_tiled``: ``solve_redblack_tiled`` on the headline interior, 1000
      sweeps at tol 0, the kernel route bit-equal to the plain sweeps on the
      card, 500 rounds x 4 tiles launches; a 62x62 solve to tol 1e-4, card
-     against the CPU mesh (equal sweeps);
+     against the CPU mesh (equal sweeps); slice 8c's ``rb_overlap``: the
+     interior-first schedule (``overlap=True``) against the plain one at
+     tol 0, in turns (plain, overlap, overlap, plain), at the headline at
+     halos 4 and 8 (200 sweeps), at 8K (40) and on a 256x256 grid at halo
+     8 (200; 128x128 tiles): bit-equal, rb_sweeps_tile rounds x 4 tiles x
+     5 x ceil(s / 4) launches (four fifths of them the window form)
+     against rounds x 4 x ceil(s / 4), ms a sweep for each; one overlap
+     round profiled, its device ops by stream (the sweeps on one stream,
+     the strip copies and zero fills on another) (the ``rb_overlap`` JSON
+     line);
    - ``mg_padded_false``: ``CloneConfig(solver="multigrid",
      mg_padded=False)`` at the headline, the element V-cycle with its 2
      fused levels (mg_down / mg_up a level a cycle), card against the CPU,
@@ -262,8 +276,13 @@
      gloo, two tiles each of a 2x2 mesh: ``solve_poisson_dd`` and
      ``solve_multigrid_sharded`` at tol 1e-4 on the 8K RHS, each run twice,
      bit-equal to the single-process 2x2 mesh; ms a solve, the transfers
-     and bytes a cycle that cross to the other rank, the backend) (the
-     ``slice8_paths`` JSON line);
+     and bytes a cycle that cross to the other rank, the backend; slice
+     8c: ``solve_redblack_tiled`` at halo 4 in both schedules, 400 sweeps
+     and one round (ms a sweep past the round: the solve's final gather
+     takes most of a short one), each rank bit-equal to one process, the
+     overlap round profiled in each rank: the D2H staging on a stream
+     other than the sweeps')
+     (the ``slice8_paths`` JSON line);
    - slice 8b, the mesh-resident tiled pipeline on the 2x2 mesh of the
      card: ``tiled_dd``, ``tiled_dd_fixed``, ``tiled_gspmd`` and
      ``tiled_gspmd_fixed`` serve that engine at 8K, and each also checks
@@ -385,6 +404,14 @@ DD_TILES = DD_MESH[0] * DD_MESH[1]
 DD_BAND = 6  # the DD multigrid's CA ghost band at nu = (1, 2)
 RB_TILED_SWEEPS = 1000  # rb_tiled: a fixed count, tol 0
 RB_TILED_HALO = 4  # solve_redblack_tiled's default: 2 sweeps an exchange
+RB_OVERLAP_SWEEPS = 200  # slice 8c: each schedule at the headline and on small tiles
+RB_OVERLAP_SWEEPS_8K = 40
+RB_OVERLAP_CHECK = 40  # sweeps between checks: whole rounds at halos 4 and 8
+RB_OVERLAP_SMALL = (256, 256)  # 128x128 tiles: latency-bound
+# dist_2proc's solve_redblack_tiled runs (8K, halo 4): the solve's final
+# gather (≈64 MB a rank over gloo) takes ≈370 ms, so the rounds' cost is read
+# from the difference with a one-round solve of each schedule
+DIST_RB_SWEEPS = 400
 GSPMD_LOOPS = 3  # slice 8: path="gspmd" serve frames (host-bound, ~0.1-0.3 s each at 8K)
 GSPMD_PLAIN_LEVELS = 1  # partitioned levels with betas 1 at 8K and 1080p (even interiors)
 DIST_WORLD = 2  # dist_2proc: two processes on the one card, two tiles each
@@ -724,6 +751,7 @@ REPLACES = {
     "rb_sweeps": [f"{_PK}:316", f"{_PK}:288", f"{_PK}:301"],
     "postprocess_transposed": [f"{_PK}:1498"],
     "rb_sweeps_tile": [f"{_PK}:391", f"{_PK}:362"],
+    "rb_sweeps_tile_window": [f"{_PK}:391", f"{_PK}:362"],
     "mg_down_exact": [f"{_PK}:595"],
     "mg_up_exact": [f"{_PK}:805"],
 }
@@ -2321,6 +2349,61 @@ def main() -> int:
     print_other("rb_sweeps_tile 8K DD tile, 2 sweeps", rows["rb_sweeps_tile"])
     print_other("rb_sweeps_tile 8K DD tile, 1 sweep", rows["rb_sweeps_tile"], "one_sweep_")
     del u_dd, g_dd
+
+    # the window form (slice 8c): the four bands of a ghosted headline tile (a
+    # 2x2 mesh over the 1548x2396 interior), read where they lie, as the
+    # interior-first schedule sweeps them: halos 2, 4 and 8 (bands of 6, 12
+    # and 24 rows or columns), every tile's origins, its sweeps and 5 (two
+    # launches), an odd origin and a domain clipping the bands; timed at
+    # halo 4, the bottom-right tile's four bands (2 sweeps each)
+    th_h, tw_h = h2 // DD_MESH[0], w2 // DD_MESH[1]
+    dom_h = (h2, w2)
+
+    def bands(x, b):
+        return (x[:, :b], x[:, -b:], x[:, :, :b], x[:, :, -b:])
+
+    def band_origins(r0, c0, k, b):
+        return ((r0 - k, c0 - k), (r0 + th_h + k - b, c0 - k), (r0 - k, c0 - k),
+                (r0 - k, c0 + tw_h + k - b))
+
+    for k_h in (2, 4, 8):
+        b_h = 3 * k_h
+        x_h = torch.randn((c, th_h + 2 * k_h, tw_h + 2 * k_h), generator=gen, device=dev) * 10
+        gx_h = torch.randn(x_h.shape, generator=gen, device=dev) * 50
+        for iy in range(DD_MESH[0]):
+            for ix in range(DD_MESH[1]):
+                orgs = band_origins(iy * th_h, ix * tw_h, k_h, b_h)
+                for v, gv, org in zip(bands(x_h, b_h), bands(gx_h, b_h), orgs):
+                    for n, o, dom in ((k_h // 2, org, dom_h), (5, org, dom_h),
+                                      (k_h // 2, (org[0] + 1, org[1]), (h2 - 3, w2 - 5))):
+                        require_equal(f"rb_sweeps_tile_window band {tuple(v.shape)} at {o} "
+                                      f"domain {dom} n={n}", K.rb_sweeps_tile(v, gv, n, o, dom),
+                                      K.rb_sweeps_tile_plain(v, gv, n, o, dom))
+        if k_h == RB_TILED_HALO:
+            x_t, gx_t, orgs_t = x_h, gx_h, band_origins(th_h, tw_h, k_h, b_h)
+        del x_h, gx_h
+
+    def four_bands(fn):
+        return lambda: [fn(v, gv, RB_TILED_HALO // 2, o, dom_h) for v, gv, o in zip(
+            bands(x_t, 3 * RB_TILED_HALO), bands(gx_t, 3 * RB_TILED_HALO), orgs_t)]
+
+    pts_b = sum(v.numel() for v in bands(x_t, 3 * RB_TILED_HALO))
+    row("rb_sweeps_tile_window", 12 * pts_b, 6 * (RB_TILED_HALO // 2) * pts_b,
+        time_ms(four_bands(K.rb_sweeps_tile)), time_ms(four_bands(K.rb_sweeps_tile_plain)),
+        shape=f"the four bands (top, bottom {c}x{3 * RB_TILED_HALO}x{x_t.shape[2]}, left, "
+              f"right {c}x{x_t.shape[1]}x{3 * RB_TILED_HALO}) of the ghosted headline tile "
+              f"{tuple(x_t.shape)} at ({th_h}, {tw_h}), halo {RB_TILED_HALO}, "
+              f"{RB_TILED_HALO // 2} sweeps each: 4 launches",
+        per_band_ms=[time_ms(lambda v=v, gv=gv, o=o: K.rb_sweeps_tile(
+            v, gv, RB_TILED_HALO // 2, o, dom_h)) for v, gv, o in zip(
+            bands(x_t, 3 * RB_TILED_HALO), bands(gx_t, 3 * RB_TILED_HALO), orgs_t)],
+        b2b_ms=b2b_ms(four_bands(K.rb_sweeps_tile)))
+    print_other("rb_sweeps_tile_window, a headline tile's four bands at halo 4",
+                rows["rb_sweeps_tile_window"])
+    print(f"rb_sweeps_tile_window ({card}): bound {rows['rb_sweeps_tile_window']['bound_ms']:.5f} "
+          f"ms, the twin {rows['rb_sweeps_tile_window']['plain_ms']:.5f}, per band "
+          f"{rows['rb_sweeps_tile_window']['per_band_ms']}")
+    del x_t, gx_t
     lvl_dd = []  # (h, w, bh, bw) of the DD coarse solve's fused levels
     lh, bh_l = TM._coarsen(h8, 1.0)
     lw, bw_l = TM._coarsen(w8, 1.0)
@@ -3089,6 +3172,98 @@ def main() -> int:
     if info_rs["iterations"] != info_rc["iterations"] or not rs_diff <= 1e-6:
         raise AssertionError(f"rb_tiled small: card {info_rs}, CPU {info_rc}")
     del g_rs, u_rs, u_rc
+
+    # slice 8c: the interior-first schedule (overlap=True) against the plain
+    # one, tol 0 at a fixed count, in turns (plain, overlap, overlap, plain),
+    # on the 2x2 mesh: the headline at halos 4 and 8, 8K, and small
+    # latency-bound tiles; then one profiled overlap round's device ops by
+    # stream
+    from seamlesscloneoptimization_tpu_torch.parallel import dist_check
+
+    t_ov = time.perf_counter()
+    rb_overlap = {}
+
+    def rb_schedules(label, g_, halo, sweeps):
+        s_ = halo // 2
+        turns, got = {False: [], True: []}, {}
+        for ov in (False, True, True, False):
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u_, info_ = solve_redblack_tiled(g_, mesh_c, tol=0.0, max_iters=sweeps, halo=halo,
+                                             check_every=RB_OVERLAP_CHECK, overlap=ov,
+                                             return_info=True)
+            torch.cuda.synchronize()
+            turns[ov].append((time.perf_counter() - t0) * 1e3 / info_["iterations"])
+            got[ov] = (u_, info_["iterations"], dict(K.LAUNCHES),
+                       K.WINDOW_LAUNCHES["rb_sweeps_tile"])
+        (u_p, it_p, l_p, w_p), (u_o, it_o, l_o, w_o) = got[False], got[True]
+        rounds_ = it_o // s_
+        per_ = DD_TILES * -(-s_ // 4)
+        rec = dict(grid=list(g_.shape), tile=[g_.shape[1] // DD_MESH[0],
+                                              g_.shape[2] // DD_MESH[1]],
+                   halo=halo, sweeps=it_o, bit_equal=torch.equal(u_p, u_o),
+                   plain_ms_per_sweep=sum(turns[False]) / 2,
+                   overlap_ms_per_sweep=sum(turns[True]) / 2,
+                   turns_ms_per_sweep={"plain": turns[False], "overlap": turns[True]},
+                   launches_plain=l_p["rb_sweeps_tile"], launches_overlap=l_o["rb_sweeps_tile"],
+                   window_launches_overlap=w_o)
+        rec["overlap_over_plain"] = rec["overlap_ms_per_sweep"] / rec["plain_ms_per_sweep"]
+        print(f"rb_overlap {label} ({card}): {tuple(g_.shape)} on the 2x2 mesh, halo {halo}, "
+              f"{it_o} sweeps: plain {rec['plain_ms_per_sweep']:.4f} ms a sweep, overlap "
+              f"{rec['overlap_ms_per_sweep']:.4f} (x{rec['overlap_over_plain']:.3f}; host clock, "
+              f"the checks included, the mean of two turns each); bit-equal {rec['bit_equal']}; "
+              f"rb_sweeps_tile {l_o['rb_sweeps_tile']} = {rounds_} rounds x {DD_TILES} tiles x 5 "
+              f"x {-(-s_ // 4)} ({w_o} of the window form), plain {l_p['rb_sweeps_tile']}")
+        if (not rec["bit_equal"] or not it_p == it_o == sweeps
+                or l_o != _per_frame(rb_sweeps_tile=rounds_ * 5 * per_)
+                or w_o != rounds_ * 4 * per_ or w_p != 0
+                or l_p != _per_frame(rb_sweeps_tile=rounds_ * per_)):
+            raise AssertionError(f"rb_overlap {label}: {rec}, launches {l_o}, {l_p}")
+        rb_overlap[label] = rec
+        return l_o, w_o
+
+    g_rb = frame_rhs(src, mask, dst)
+    for halo in (RB_TILED_HALO, 8):
+        launches_ov, window_ov = rb_schedules(f"headline_halo{halo}", g_rb, halo,
+                                              RB_OVERLAP_SWEEPS)
+        if halo == RB_TILED_HALO:
+            path_launches["rb_tiled_overlap"] = (launches_ov, launches_ov)
+            rows["rb_sweeps_tile_window"].update(
+                launches=window_ov, path=f"rb_overlap headline_halo{halo} (the bands of "
+                                         f"{RB_OVERLAP_SWEEPS // (halo // 2)} rounds x 4 tiles)")
+    g_rb8 = frame_rhs(src8, mask8, dst8)
+    rb_schedules("8k_halo4", g_rb8, RB_TILED_HALO, RB_OVERLAP_SWEEPS_8K)
+    del g_rb8
+    g_small = torch.randn((c, *RB_OVERLAP_SMALL), generator=torch.Generator(dev).manual_seed(
+        SEED + 23), device=dev) * 50
+    rb_schedules(f"small_{RB_OVERLAP_SMALL[0]}_halo8", g_small, 8, RB_OVERLAP_SWEEPS)
+    del g_small
+    rows["rb_sweeps_tile"]["rb_overlap_launches"] = {
+        label: {"overlap": r["launches_overlap"], "window": r["window_launches_overlap"],
+                "plain": r["launches_plain"]} for label, r in rb_overlap.items()}
+
+    def side_streams(streams, staged):
+        """(the streams of the rb_sweeps_tile kernels, the other streams
+        that ran any of ``staged``)."""
+        rb = sorted(st for st, ops in streams.items() if ops.get("rb_sweeps_tile"))
+        other = sorted(st for st, ops in streams.items()
+                       if st not in rb and any(ops.get(k) for k in staged))
+        return rb, other
+
+    one_round = dict(tol=0.0, max_iters=RB_TILED_HALO // 2, check_every=RB_TILED_HALO // 2,
+                     halo=RB_TILED_HALO, overlap=True)
+    streams = dist_check.stream_ops(lambda: solve_redblack_tiled(g_rb, mesh_c, **one_round))
+    rb_st, copy_st = side_streams(streams, ("copy", "fill", "Memset", "DtoD"))
+    rb_overlap["streams_one_process"] = streams
+    print(f"rb_overlap one profiled round ({card}; a check's exchange, the round, the gather), "
+          f"device ops by stream: {json.dumps(streams)}; rb_sweeps_tile on {rb_st}, strip "
+          f"copies and zero fills also on {copy_st}")
+    if len(rb_st) != 1 or not copy_st:
+        raise AssertionError(f"rb_overlap: the strip copies are not on a side stream: {streams}")
+    del g_rb
+    print(json.dumps({"rb_overlap": rb_overlap}))
+    print(f"the slice-8c rb_overlap phase ran {time.perf_counter() - t_ov:.1f} s")
 
     _, unp_ms = drive("mg_padded_false", CloneConfig(solver="multigrid", mg_padded=False), src,
                       mask, MG_LOOPS, headline, cpu="run", solver="multigrid")
@@ -4164,10 +4339,29 @@ def main() -> int:
         src8, dst8, mask8)) + (ctr8,), "config": {"tol": TOL}, "loops": DIST_ENGINE_LOOPS}
     (want_e, info_e1), e1_ms = timed_solve(lambda: dist_check.run_one("engine", eng_run, mesh_c,
                                                                       dev))
+    # slice 8c: solve_redblack_tiled in both schedules on the 8K RHS at a
+    # fixed count and for one round (the overlap round profiled in each rank)
+    rb_kw = dict(tol=0.0, max_iters=DIST_RB_SWEEPS, halo=RB_TILED_HALO)
+    round_kw = dict(tol=0.0, max_iters=RB_TILED_HALO // 2, check_every=RB_TILED_HALO // 2,
+                    halo=RB_TILED_HALO)
+    (u_rbp1, info_rbp1), rbp1_ms = timed_solve(lambda: solve_redblack_tiled(
+        g8, mesh_c, return_info=True, **rb_kw))
+    (u_rbo1, _), rbo1_ms = timed_solve(lambda: solve_redblack_tiled(
+        g8, mesh_c, overlap=True, return_info=True, **rb_kw))
+    if not torch.equal(u_rbp1, u_rbo1):
+        raise AssertionError("dist_2proc: the one-process schedules differ at 8K")
     dist_runs = {"dd": {"g": g8c, "kwargs": {"tol": TOL}},
-                 "sharded": {"g": g8c, "kwargs": {"tol": TOL}}, "engine": eng_run}
-    expect = {"dd": u_dd1.cpu(), "sharded": u_gs1.cpu(), "engine": want_e}
-    del u_dd1, u_gs1, want_e
+                 "sharded": {"g": g8c, "kwargs": {"tol": TOL}}, "engine": eng_run,
+                 "rb_plain": {"g": g8c, "kwargs": rb_kw},
+                 "rb_overlap": {"g": g8c, "kwargs": {**rb_kw, "overlap": True}},
+                 "rb_plain_round": {"g": g8c, "kwargs": round_kw},
+                 "rb_overlap_round": {"g": g8c, "kwargs": {**round_kw, "overlap": True},
+                                      "profile": True}}
+    u_round = solve_redblack_tiled(g8, mesh_c, **round_kw).cpu()
+    expect = {"dd": u_dd1.cpu(), "sharded": u_gs1.cpu(), "engine": want_e,
+              "rb_plain": u_rbp1.cpu(), "rb_overlap": u_rbp1.cpu(),
+              "rb_plain_round": u_round, "rb_overlap_round": u_round}
+    del u_dd1, u_gs1, want_e, u_rbp1, u_rbo1
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(dist_runs, f"{tmp}/in.pt")
@@ -4183,8 +4377,8 @@ def main() -> int:
         raise AssertionError("dist_2proc: a rank failed:\n" + "\n---\n".join(
             out[-3000:] for _, out in ranks))
     reports = [dist_check.report_of(out) for _, out in ranks]
-    slice8["dist_2proc"] = dict(wall_s=dist_s, single_process_ms={"dd": dd1_ms,
-                                                                   "sharded": gs1_ms},
+    slice8["dist_2proc"] = dict(wall_s=dist_s, single_process_ms={
+        "dd": dd1_ms, "sharded": gs1_ms, "rb_plain": rbp1_ms, "rb_overlap": rbo1_ms},
                                 single_process_cycles={"dd": info_dd1["cycles"],
                                                        "sharded": info_gs1["cycles"]},
                                 ranks=reports)
@@ -4199,6 +4393,26 @@ def main() -> int:
                   f"{row['crossed_transfers_per_step']:.1f} transfers, "
                   f"{row['crossed_bytes_per_step'] / 1e6:.3f} MB; rb_sweeps_tile "
                   f"{row['rb_sweeps_tile']}")
+    for rep in reports:
+        for name in ("rb_plain", "rb_overlap"):
+            row, one = rep["solves"][name], rep["solves"][f"{name}_round"]
+            row["ms_per_sweep_past_round"] = (row["ms"] - one["ms"]) / (
+                row["iterations"] - one["iterations"])
+            print(f"dist_2proc rank {rep['rank']} ({card}, backend {rep['backend']}): {name} "
+                  f"{row['ms']:.1f} ms a solve of {row['iterations']} sweeps, halo "
+                  f"{RB_TILED_HALO} (the second run; single process "
+                  f"{slice8['dist_2proc']['single_process_ms'][name]:.1f}), one round "
+                  f"{one['ms']:.1f}: {row['ms_per_sweep_past_round']:.4f} ms a sweep past it; "
+                  f"bit-equal to the single-process 2x2 mesh {row['equal']}, {one['equal']}; "
+                  f"rb_sweeps_tile {row['rb_sweeps_tile']}, {one['rb_sweeps_tile']}")
+        streams = rep["solves"]["rb_overlap_round"].get("streams", {})
+        rb_st, dtoh_st = side_streams(streams, ("DtoH",))
+        print(f"dist_2proc rank {rep['rank']} one profiled overlap round ({card}), device ops "
+              f"by stream: {json.dumps(streams)}; rb_sweeps_tile on {rb_st}, D2H staging also "
+              f"on {dtoh_st}")
+        if len(rb_st) != 1 or not dtoh_st:
+            raise AssertionError(f"dist_2proc rank {rep['rank']}: the D2H staging is not on a "
+                                 f"side stream: {streams}")
     if not all(rep["backend"] == "gloo" and rep["reinit_noop"] and all(
             row["equal"] for row in rep["solves"].values()) for rep in reports):
         raise AssertionError(f"dist_2proc: {reports}")
@@ -4206,7 +4420,7 @@ def main() -> int:
           f"solve)")
     rows["rb_sweeps_tile"]["dist_2proc_launches_per_rank"] = {
         name: [rep["solves"][name]["rb_sweeps_tile"] for rep in reports]
-        for name in ("dd", "sharded")}
+        for name in ("dd", "sharded", "rb_plain", "rb_overlap")}
     del g8
     print(json.dumps({"slice8_paths": slice8}))
     print(f"the slice-8 phases ran {time.perf_counter() - t_8:.1f} s")

@@ -12,6 +12,15 @@
 //
 // Both run k sweeps as ceil(k / 4) launches, as the TPU functions do.
 //
+// The window form (template kWin, entry rb_sweeps_tile_window_launch): u
+// and g are windows of larger arrays, each with its own channel and row
+// strides (the last stride 1), read where they lie, and the output is a
+// dense (C, hl, wl) buffer. parallel/tiled.py's interior-first schedule
+// sweeps four bands of each ghosted tile this way (two of them column
+// bands, whose rows are tw + 2k apart), so no band is copied. The dense
+// form is the same template with the strides of a dense array, the code of
+// the two forms otherwise one.
+//
 // In: u, g (C, hl, wl) f32 whose local (0, 0) sits at global (org_r, org_c)
 // (negative on tiles with a ghost band above or left of the domain). A
 // point is updated only inside the local buffer AND inside the global
@@ -134,6 +143,12 @@ struct Smem {
   float2 ex[2][kWarps][2][kPairs];  // [slot][strip][first, last row][pair]
 };
 
+// The window form's input strides, in floats (unused by the dense form).
+struct Win {
+  long long u_plane, g_plane;
+  int u_ld, g_ld;
+};
+
 // A lane's rows: pair q (0: A, 1: B) of rows a - 1 .. a + kL in rv, of rows
 // a .. a + kL - 1 in gv.
 using RowsU = float2[kL + 2][2];
@@ -177,28 +192,33 @@ __device__ __forceinline__ void sweep_rows(RowsU& rv, const RowsG& gv, int a, in
   }
 }
 
-// g at local (lr, lc), (lr, lc + 1) (lc even), 0 off the buffer.
-__device__ __forceinline__ float2 load_g(const float* __restrict__ g, int hl, int wl, int lr,
-                                         int lc, bool vec) {
+// g at local (lr, lc), (lr, lc + 1) (lc even), 0 off the buffer; ld: g's row
+// stride.
+__device__ __forceinline__ float2 load_g(const float* __restrict__ g, int hl, int wl, int ld,
+                                         int lr, int lc, bool vec) {
   if (lr < 0 || lr >= hl || lc < 0 || lc >= wl) return make_float2(0.0f, 0.0f);
-  const float* p = g + (size_t)lr * wl + lc;
+  const float* p = g + (size_t)lr * ld + lc;
   if (vec) return __ldg(reinterpret_cast<const float2*>(p));  // lc + 1 < wl: wl % 4 == 0
   return make_float2(__ldg(p), lc + 1 < wl ? __ldg(p + 1) : 0.0f);
 }
 
-template <int kN>
+template <int kN, bool kWin>
 __global__ void __launch_bounds__(kThreads, 3)
 rb_sweeps_tile_kernel(const float* __restrict__ u, const float* __restrict__ g,
-                      float* __restrict__ out, int hl, int wl, Rect R, int parity, bool vec) {
+                      float* __restrict__ out, int hl, int wl, Rect R, int parity, bool vec,
+                      Win W) {
   using G = Geom<kN>;
   __shared__ __align__(16) Smem s;
 
-  const size_t plane = (size_t)hl * wl;
+  const size_t plane = (size_t)hl * wl;  // out's (and the dense form's u and g)
+  const size_t u_plane = kWin ? (size_t)W.u_plane : plane;
+  const size_t g_plane = kWin ? (size_t)W.g_plane : plane;
+  const int u_ld = kWin ? W.u_ld : wl, g_ld = kWin ? W.g_ld : wl;
   const int ch = blockIdx.z;
   const int r0 = blockIdx.y * G::kTH, c0 = blockIdx.x * G::kTW;
   const int lr0 = r0 - G::kRr, lc0 = c0 - G::kRc;  // even: parity carries the origin's
-  mg::stage_async<kRows, kCols, kThreads>(&s.u[0][0], u + ch * plane, hl, wl, wl, lr0, lc0,
-                                          vec);
+  mg::stage_async<kRows, kCols, kThreads>(&s.u[0][0], u + ch * u_plane, hl, wl, u_ld, lr0,
+                                          lc0, vec);
   acp::commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -208,7 +228,8 @@ rb_sweeps_tile_kernel(const float* __restrict__ u, const float* __restrict__ g,
   for (int i = 0; i < kL; ++i)
 #pragma unroll
     for (int q = 0; q < 2; ++q)
-      gv[i][q] = load_g(g + ch * plane, hl, wl, lr0 + a + i, lc0 + 64 * q + 2 * lane, vec);
+      gv[i][q] = load_g(g + ch * g_plane, hl, wl, g_ld, lr0 + a + i, lc0 + 64 * q + 2 * lane,
+                        vec);
   acp::wait<0>();
   __syncthreads();
   RowsU rv;
@@ -275,13 +296,33 @@ rb_sweeps_tile_kernel(const float* __restrict__ u, const float* __restrict__ g,
   }
 }
 
-template <int kN>
+template <int kN, bool kWin>
 void launch(const float* u, const float* g, float* out, int c, int hl, int wl, Rect R,
-            int parity, bool vec, cudaStream_t st) {
+            int parity, bool vec, Win W, cudaStream_t st) {
   using G = Geom<kN>;
   const dim3 grid((wl + G::kTW - 1) / G::kTW, (hl + G::kTH - 1) / G::kTH, c);
-  rb_sweeps_tile_kernel<kN><<<grid, kThreads, 0, st>>>(u, g, out, hl, wl, R, parity, vec);
+  rb_sweeps_tile_kernel<kN, kWin><<<grid, kThreads, 0, st>>>(u, g, out, hl, wl, R, parity,
+                                                              vec, W);
 }
+
+template <bool kWin>
+int launch_n(const void* u, const void* g, void* out, int c, int hl, int wl, int n, Rect R,
+             int parity, bool vec, Win W, void* stream) {
+  const auto* uf = static_cast<const float*>(u);
+  const auto* gf = static_cast<const float*>(g);
+  auto* of = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (n) {
+    case 1: launch<1, kWin>(uf, gf, of, c, hl, wl, R, parity, vec, W, st); break;
+    case 2: launch<2, kWin>(uf, gf, of, c, hl, wl, R, parity, vec, W, st); break;
+    case 3: launch<3, kWin>(uf, gf, of, c, hl, wl, R, parity, vec, W, st); break;
+    case 4: launch<4, kWin>(uf, gf, of, c, hl, wl, R, parity, vec, W, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
@@ -293,19 +334,25 @@ extern "C" int rb_sweeps_tile_launch(const void* u, const void* g, void* out, in
                                      int hl, int wl, int n, int r_lo, int r_hi,
                                      int c_lo, int c_hi, int parity, void* stream) {
   if (c <= 0 || hl <= 0 || wl <= 0) return 0;
-  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   const bool vec = wl % 4 == 0 && aligned(u) && aligned(g) && aligned(out);
-  const auto* uf = static_cast<const float*>(u);
-  const auto* gf = static_cast<const float*>(g);
-  auto* of = static_cast<float*>(out);
-  const Rect R{r_lo, r_hi, c_lo, c_hi};
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (n) {
-    case 1: launch<1>(uf, gf, of, c, hl, wl, R, parity, vec, st); break;
-    case 2: launch<2>(uf, gf, of, c, hl, wl, R, parity, vec, st); break;
-    case 3: launch<3>(uf, gf, of, c, hl, wl, R, parity, vec, st); break;
-    case 4: launch<4>(uf, gf, of, c, hl, wl, R, parity, vec, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_n<false>(u, g, out, c, hl, wl, n, Rect{r_lo, r_hi, c_lo, c_hi}, parity, vec,
+                         Win{}, stream);
+}
+
+// The window form: u, g (c, hl, wl) windows whose channel c and row r start
+// u_plane * c + u_ld * r (g_plane, g_ld) floats past the pointer, with
+// u_ld, g_ld >= wl; out (c, hl, wl) dense, aliasing neither. The other
+// arguments as above. 16-byte copies only where every row of both windows
+// and of out starts on 16 bytes.
+extern "C" int rb_sweeps_tile_window_launch(const void* u, const void* g, void* out, int c,
+                                            int hl, int wl, int n, int r_lo, int r_hi,
+                                            int c_lo, int c_hi, int parity,
+                                            long long u_plane, int u_ld, long long g_plane,
+                                            int g_ld, void* stream) {
+  if (c <= 0 || hl <= 0 || wl <= 0) return 0;
+  if (u_ld < wl || g_ld < wl) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = wl % 4 == 0 && u_ld % 4 == 0 && g_ld % 4 == 0 && u_plane % 4 == 0 &&
+                   g_plane % 4 == 0 && aligned(u) && aligned(g) && aligned(out);
+  return launch_n<true>(u, g, out, c, hl, wl, n, Rect{r_lo, r_hi, c_lo, c_hi}, parity, vec,
+                        Win{u_plane, g_plane, u_ld, g_ld}, stream);
 }

@@ -82,12 +82,16 @@ SIGNATURES = {
     "mg_restrict_tq": ("mg_restrict_tq_launch", (_P,) * 3 + (_I,) * 6 + (_F, _F, _P)),
     # also K.rb_sweeps's kernel (origin (0, 0), the whole array as the domain)
     "rb_sweeps_tile": ("rb_sweeps_tile_launch", (_P,) * 3 + (_I,) * 9 + (_P,)),
+    # its window form: u and g read where they lie, with their own strides
+    "rb_sweeps_tile_window": ("rb_sweeps_tile_window_launch",
+                              (_P,) * 3 + (_I,) * 9 + (_L, _I, _L, _I, _P)),
     "postprocess_transposed": ("postprocess_transposed_launch",
                                (_P, _I, _I, _I, _P, _L, _L, _L, _I, _I, _P)),
 }
 
 # kernels exported by another kernel's source: name -> that source's name
-SHARED_SOURCE = {"mg_down_t": "mg_down", "mg_up_t": "mg_up"}
+SHARED_SOURCE = {"mg_down_t": "mg_down", "mg_up_t": "mg_up",
+                 "rb_sweeps_tile_window": "rb_sweeps_tile"}
 
 _lock = threading.Lock()
 _functions: dict[str, ctypes._CFuncPtr] = {}

@@ -43,7 +43,8 @@ wrapper                       replaces (pallas_kernels.py,
 ``clamp_cast_paste_q``        ``clamp_cast_guarded_quarters_pallas`` + the
                               paste
 ``rb_sweeps``                 ``rb_sweeps_pallas``
-``rb_sweeps_tile``            ``rb_sweeps_tile_pallas``
+``rb_sweeps_tile``            ``rb_sweeps_tile_pallas`` (also on a window
+                              of a larger array, read where it lies)
 ``postprocess_transposed``    ``postprocess_transposed_pallas`` (in place)
 ============================  =============================================
 
@@ -52,7 +53,9 @@ with ``torch.empty``, launches on the current stream and raises when the
 launch returns a non-zero ``cudaError_t``. Given a CPU tensor it runs its
 ``*_plain`` twin instead — only then: a CUDA tensor launches the kernel or
 raises, never falls back. ``LAUNCHES[name]`` counts kernel launches (the
-twins do not count), so a run can show that it went through the kernels.
+twins do not count), so a run can show that it went through the kernels;
+``WINDOW_LAUNCHES`` counts the part of ``rb_sweeps_tile``'s that read a
+window (also in ``LAUNCHES``).
 The sources are ``csrc/<name>.cu`` (``rb_sweeps`` launches
 ``csrc/rb_sweeps_tile.cu`` at origin (0, 0); the three unfold kernels share
 ``csrc/fold.cuh``, the four paste kernels (clamp_cast_paste,
@@ -86,6 +89,7 @@ LAUNCHES = {"erode3": 0, "preprocess_rhs_t": 0, "transpose": 0,
             "mg_down_q": 0, "mg_up_q": 0, "mg_ud_q": 0, "mg_prolong_tq": 0,
             "clamp_cast_paste_q": 0, "to_quarters": 0, "from_quarters": 0, "mg_restrict_tq": 0, "rb_sweeps": 0,
             "postprocess_transposed": 0, "rb_sweeps_tile": 0}
+WINDOW_LAUNCHES = {"rb_sweeps_tile": 0}
 
 _MIXED_RULES = {"opencv": 0, "norm": 1}
 
@@ -93,6 +97,7 @@ _MIXED_RULES = {"opencv": 0, "norm": 1}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    WINDOW_LAUNCHES["rb_sweeps_tile"] = 0
 
 
 def ru128(n: int) -> int:
@@ -1032,21 +1037,50 @@ def mg_up_t(u: torch.Tensor, g: torch.Tensor, ec_t: torch.Tensor, nu2: int, h: i
 RB_SWEEPS_PER_LAUNCH = 4  # the kernel is templated on 1 to 4 sweeps (a ring of 2 n)
 
 
+def _plane(t: torch.Tensor) -> int:
+    """A window's channel stride (a single channel's: its rows')."""
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1] * t.stride(1)
+
+
 def _rb_burst(counter: str, u: torch.Tensor, g: torch.Tensor, n: int, rect, parity: int):
     """n >= 1 sweeps of the rb_sweeps_tile kernel updating the local
     rectangle ``rect`` = (r_lo, r_hi, c_lo, c_hi): ceil(n / 4) launches
-    ping-ponging between two new buffers, each counted under ``counter``."""
+    ping-ponging between two new dense buffers, each counted under
+    ``counter``. Where u or g is a window of a larger array (not
+    contiguous), every launch is the window form, reading g, and the first
+    launch u, where they lie."""
     c, hl, wl = u.shape
-    bufs = [torch.empty_like(u)]
+    window = not (u.is_contiguous() and g.is_contiguous())
+    bufs = [torch.empty((c, hl, wl), dtype=u.dtype, device=u.device)]
     if n > RB_SWEEPS_PER_LAUNCH:
-        bufs.append(torch.empty_like(u))
+        bufs.append(torch.empty((c, hl, wl), dtype=u.dtype, device=u.device))
     src = u
     for i, done in enumerate(range(0, n, RB_SWEEPS_PER_LAUNCH)):
         out = bufs[i % 2]  # a launch reads its neighbours' rows of src: never in place
-        _launch("rb_sweeps_tile", u, src.data_ptr(), g.data_ptr(), out.data_ptr(), c, hl, wl,
-                min(RB_SWEEPS_PER_LAUNCH, n - done), *rect, parity, count_as=counter)
+        args = (src.data_ptr(), g.data_ptr(), out.data_ptr(), c, hl, wl,
+                min(RB_SWEEPS_PER_LAUNCH, n - done), *rect, parity)
+        if window:
+            _launch("rb_sweeps_tile_window", u, *args, _plane(src), src.stride(1), _plane(g),
+                    g.stride(1), count_as=counter)
+            WINDOW_LAUNCHES[counter] += 1
+        else:
+            _launch("rb_sweeps_tile", u, *args, count_as=counter)
         src = out
     return src
+
+
+def _check_window(name: str, x: torch.Tensor, c: int, hl: int, wl: int) -> None:
+    """x: a (c, hl, wl) f32 window of a larger array, rows of unit stride
+    that do not overlap (a contiguous array is one)."""
+    _require(x, name, torch.float32, 3, contiguous=False)
+    if tuple(x.shape) != (c, hl, wl):
+        raise ValueError(f"{name} {tuple(x.shape)} != {(c, hl, wl)}")
+    if x.is_contiguous():
+        return
+    sc, sr, sw = x.stride()
+    if sw != 1 or sr < wl or (c > 1 and sc < hl * sr):
+        raise ValueError(f"{name} strides {x.stride()} are not a window's (rows of unit "
+                         f"stride that do not overlap)")
 
 
 def rb_sweeps_plain(u: torch.Tensor, g: torch.Tensor, n_sweeps: int) -> torch.Tensor:
@@ -1110,10 +1144,14 @@ def rb_sweeps_tile(u: torch.Tensor, g: torch.Tensor, n_sweeps: int, origin,
     [0, Ht) x [0, Wt); its colour is the parity of its global row + col;
     points beyond the tile read as 0. ceil(n / 4) launches, bit-equal to
     ``rb_sweeps_tile_plain``; ``u`` is not written, and ``n_sweeps=0``
-    returns it."""
-    _require(u, "u", torch.float32, 3)
+    returns it. ``u`` and ``g`` may be windows of larger arrays (a band of
+    a ghosted tile: rows of unit stride, any row and channel strides): the
+    kernel's window form reads them where they lie, and the result is a
+    new dense array."""
+    _require(u, "u", torch.float32, 3, contiguous=False)
     c, hl, wl = u.shape
-    _check_level("g", g, c, hl, wl)
+    _check_window("u", u, c, hl, wl)
+    _check_window("g", g, c, hl, wl)
     _same_device(u, g)
     n = int(n_sweeps)
     if n < 0:

@@ -20,7 +20,9 @@ center), "config": CloneConfig's fields, "path", "loops"}:
 ``seamless_clone_tiled`` / ``local_edit_tiled``), ``batch`` ({"args":
 (dests, patches, masks), "flags"}: ``clone_roi_batch(mesh=...)`` with the
 fast DST solver). Every rank passes the same global inputs and gets the
-whole result back. ``--expect`` holds name -> the result of the same run on
+whole result back. A run with ``"profile": True`` on CUDA is called once
+more under ``torch.profiler``, and its row gets ``streams``: the device ops
+of that call by stream (``stream_ops``). ``--expect`` holds name -> the result of the same run on
 a single-process mesh (``run_one``): each rank's is held against it bit for
 bit. ``--shard-min`` sets ``parallel/tiled.py:SHARD_MIN`` (small test grids).
 
@@ -111,6 +113,36 @@ RUNNERS = {
         *_host(run["args"]), mesh=mesh, **run.get("kwargs", {}))), {}),
     "batch": _batch,
 }
+
+
+def _op_kind(name: str) -> str:
+    if "rb_sweeps_tile_kernel" in name:
+        return "rb_sweeps_tile"
+    for kind in ("DtoH", "HtoD", "DtoD", "Memset"):
+        if kind in name:
+            return kind
+    low = name.lower()
+    return "copy" if "copy" in low else "fill" if "fill" in low else "other"
+
+
+def stream_ops(fn) -> dict:
+    """{stream id: {kind: count}} of the device ops of one call of ``fn``
+    under ``torch.profiler``: the ``rb_sweeps_tile`` kernels, the memcpys
+    (``DtoH``, ``HtoD``, ``DtoD``), memsets, copy and fill kernels, the
+    rest as ``other``. Empty when the profiler records no device op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            per = out.setdefault(str(ev.device_resource_id), {})
+            kind = _op_kind(ev.name)
+            per[kind] = per.get(kind, 0) + 1
+    return out
 
 
 def run_one(name: str, run: dict, mesh, device) -> tuple:
@@ -222,6 +254,9 @@ def main(argv=None) -> int:
                 row["equal"] = bool(torch.equal(u, expect[name]))
                 row["max_abs_diff"] = float((u.double() - expect[name].double()).abs().max())
                 ok &= row["equal"]
+        if run.get("profile") and device.type == "cuda":
+            dist.barrier()
+            row["streams"] = stream_ops(lambda: run_one(name, run, mesh, device))
         report["solves"][name] = row
     print(json.dumps(report), flush=True)
     dist.barrier()

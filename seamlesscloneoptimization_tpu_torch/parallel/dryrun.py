@@ -5,8 +5,11 @@ the same geometry (sized by the mesh's (ty, tx)) and the same bars, on the
 port's ``TileMesh``:
 
 1. ``solve_redblack_tiled`` at halos 2 and 8, and 8 with ``overlap=True``
-   (bit-equal to halo 8); each, and ``solve_multigrid_sharded``, within
-   1e-3 of the exact DST-GEMM solve.
+   (bit-equal to halo 8; the 16 x 16 tiles are not above 4 (halo // 2),
+   so this is the plain round, as in JAX); each, and
+   ``solve_multigrid_sharded``, within 1e-3 of the exact DST-GEMM solve;
+   the interior-first schedule itself at halo 4, 100 sweeps at tol 0,
+   bit-equal to the plain schedule.
 2. ``solve_multigrid_sharded`` on a grid deep enough for 4 levels
    (384 x 768, rounded up to the mesh), relative residual < 2e-3.
 3. ``clone_roi_batch`` with its 2 x size jobs split over the mesh
@@ -96,6 +99,10 @@ def dryrun_multichip(mesh: TileMesh) -> dict:
     rb8 = solve_redblack_tiled(g, mesh, tol=1e-5, max_iters=40000, halo=8)
     rb8o = solve_redblack_tiled(g, mesh, tol=1e-5, max_iters=40000, halo=8, overlap=True)
     _check(torch.equal(rb8o, rb8), 1, "the overlap schedule diverged (must be bit-equal)")
+    fixed = dict(tol=0.0, max_iters=100, halo=4)
+    _check(torch.equal(solve_redblack_tiled(g, mesh, overlap=True, **fixed),
+                       solve_redblack_tiled(g, mesh, **fixed)), 1,
+           "the interior-first schedule diverged at halo 4 (must be bit-equal)")
     mg_small = solve_multigrid_sharded(g, mesh, tol=1e-5, max_cycles=30)
     exact = solve_dst_gemm(g)
     rels = {name: _rel(u, exact) for name, u in (("rb_halo2", rb2), ("rb_halo8", rb8),

@@ -17,6 +17,10 @@ to the same call on a single-process mesh of that shape.
   staleness front never reaches the owned cells), colours and the Dirichlet
   domain in global coordinates. The per-tile sweeps are the
   ``rb_sweeps_tile`` kernel on CUDA tiles, its plain twin on CPU tiles.
+  ``overlap=True`` is JAX's interior-first schedule: each tile's deep
+  interior is swept before its ghosts arrive, while the exchange runs on
+  side streams (``transport.halo_exchange_start``), and four rim bands,
+  swept where they lie in the ghosted tile, finish it.
 - ``solve_multigrid_dd``: the finest level tile-local (CA sweeps through
   ``rb_sweeps_tile``, the residual from the still-exact ghost band,
   restriction and prolongation in global coordinates), everything below it
@@ -35,7 +39,9 @@ which is the Dirichlet frame of the interior system, so the embedded
 solution restricted to the true cells is exact. A tolerance check reads the
 max over the tiles (all-reduced across processes, the counterpart of
 ``lax.pmax``) to the host once, on every rank, so the ranks' loops stay in
-lockstep. Everything runs on each device's current stream in program order.
+lockstep. Everything runs on each device's current stream in program
+order, but for the halo exchanges of ``solve_redblack_tiled(overlap=True)``,
+which run on a side stream of each device (on CPU tiles in program order).
 """
 
 from __future__ import annotations
@@ -205,10 +211,15 @@ def solve_redblack_tiled(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, in
     ghost band (even, >= 2, clipped to the tile); one exchange feeds
     halo // 2 full sweeps. ``use_pallas``: True or None sweeps each tile with
     ``K.rb_sweeps_tile`` (the kernel on a CUDA tile, its twin on a CPU
-    tile), False with the plain select-form twin. ``overlap``: accepted for
-    the JAX package's signature and runs the plain schedule: JAX's
-    interior-first schedule is the same arithmetic, bit for bit, and pays
-    only once the interior runs on a side stream (ROADMAP §1 item 7). Before
+    tile), False with the plain select-form twin. ``overlap``: JAX's
+    interior-first schedule, where tiles exceed 4 (halo // 2) on both
+    sides (the plain one otherwise): per round each tile's unghosted
+    interior is swept first, on the current stream, while the exchange's
+    copies (and over gloo its host staging and transfers) run on each
+    device's side stream; then four bands of halo + 2 halo rows or columns
+    of the ghosted tile, swept in place by the kernel's window form, give
+    the tile's outer 2 (halo // 2) rows and columns; bit-equal to the plain
+    schedule, 5 ``rb_sweeps_tile`` calls a tile a round instead of 1. Before
     each ``check_every`` sweeps the loop reads max |r| over the tiles to the
     host once and stops at ``tol`` * max |g| or ``max_iters`` sweeps. Returns u (C, H, W) on g's
     device; ``return_info`` adds {"iterations", "residual"}.
@@ -244,13 +255,39 @@ def solve_redblack_tiled(g: torch.Tensor, mesh: TileMesh, true_hw: tuple[int, in
 
         return geo.map(tile, up, gp)
 
+    def ca_round_overlap(u):
+        """JAX's ``ca_round_overlap``: the interior (the cells >= 2s from
+        the tile's edge need no ghost) swept while the exchange runs, then
+        four bands of b = k + 4s rows or columns of the ghosted tile for
+        its w = 2s outer rows and columns, written over the interior's."""
+        w_, b = 2 * s, k + 4 * s
+        ready = transport.ready_events(u)
+        ui = geo.map(lambda iy, ix, x, gl: sweep(x, gl, s, geo.origin(iy, ix), domain),
+                     u, g_loc)
+        up = transport.halo_exchange_finish(transport.halo_exchange_start(u, k, mesh, ready))
+
+        def tile(iy, ix, x, gx, out):
+            r0, c0 = geo.origin(iy, ix)
+            top = sweep(x[:, :b], gx[:, :b], s, (r0 - k, c0 - k), domain)
+            bot = sweep(x[:, -b:], gx[:, -b:], s, (r0 + th + k - b, c0 - k), domain)
+            lef = sweep(x[:, :, :b], gx[:, :, :b], s, (r0 - k, c0 - k), domain)
+            rig = sweep(x[:, :, -b:], gx[:, :, -b:], s, (r0 - k, c0 + tw + k - b), domain)
+            out[:, :w_] = top[:, k : k + w_, k : k + tw]
+            out[:, th - w_ :] = bot[:, b - k - w_ : b - k, k : k + tw]
+            out[:, w_ : th - w_, :w_] = lef[:, k + w_ : k + th - w_, k : k + w_]
+            out[:, w_ : th - w_, tw - w_ :] = rig[:, k + w_ : k + th - w_, b - k - w_ : b - k]
+            return out
+
+        return geo.map(tile, up, gp, ui)
+
+    step = ca_round_overlap if overlap and th > 4 * s and tw > 4 * s else ca_round
     rounds_per_check = max(check_every // s, 1)
     u = geo.map(lambda iy, ix, gl: torch.zeros_like(gl), g_loc)
     thresh = tol * gnorm
     it = 0
     while it < max_iters and bool(geo.res_norm(u, g_loc) > thresh):  # one host read
         for _ in range(rounds_per_check):
-            u = ca_round(u)
+            u = step(u)
         it += rounds_per_check * s
     out = geo.gather(u, g.device)
     if return_info:

@@ -14,7 +14,20 @@ grid column their width.
   receive where it owns the receiver and a send where it owns the sender
   of a strip that crosses processes, all in one ``batch_isend_irecv``; the
   pair's index is the tag. So every rank posts matching operations in the
-  same order.
+  same order. Everything runs on each device's current stream.
+- ``halo_exchange_start`` / ``halo_exchange_finish``: the same exchange
+  split in two, off the current stream. On CUDA tiles the copies run on a
+  side stream of each device, which first waits for the
+  ``ready_events`` the caller recorded once the tiles were produced; over
+  gloo the strips go to pinned host buffers on the side stream, which the
+  host waits for alone before it posts the transfers, and the landings go
+  back to the card on it. ``start`` posts everything and returns; work
+  queued on the current stream between the two (the interior sweeps of
+  ``parallel/tiled.py:solve_redblack_tiled(overlap=True)``) runs
+  meanwhile. ``finish`` waits for the transfers, lands the strips and
+  makes each current stream wait for its side stream. The tags and the
+  order of the posted operations are ``halo_exchange``'s. On CPU tiles the
+  same steps run in program order.
 - ``grid_max``: the local max, then ``all_reduce(MAX)``. max is exact, so
   every rank takes the same decision from it.
 - ``gather``: the whole array on a device of this process: one
@@ -40,6 +53,8 @@ CUDA tensor. A failed transfer raises.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -74,12 +89,13 @@ def _gloo() -> bool:
     return dist.get_backend(transport_group()) == "gloo"
 
 
-def _wire(t: torch.Tensor) -> torch.Tensor:
+def _wire(t: torch.Tensor, non_blocking: bool = False) -> torch.Tensor:
     """``t`` as the transport sends it: contiguous, and over gloo on the host
-    (a pinned copy of a CUDA tensor)."""
+    (a pinned copy of a CUDA tensor; ``non_blocking``: queued on the current
+    stream, which the caller synchronizes before the transfer reads it)."""
     if t.is_cuda and _gloo():
         buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        buf.copy_(t)
+        buf.copy_(t, non_blocking=non_blocking)
         return buf
     if not t.is_cuda and not _gloo():
         raise ValueError("an NCCL transport moves CUDA tensors only; got a CPU tile")
@@ -97,6 +113,61 @@ def _wait(ops: list) -> None:
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+
+
+_SIDE: dict = {}  # torch.device -> this process's side stream on it
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream of ``halo_exchange_start`` on a CUDA device (a
+    tensor's, with its index), made on first use (the creation's error is
+    raised)."""
+    stream = _SIDE.get(device)
+    if stream is None:
+        stream = _SIDE[device] = torch.cuda.Stream(device=device)
+    return stream
+
+
+def _cuda_devices(tiles) -> list:
+    """The distinct CUDA devices of a grid's local tiles, in grid order."""
+    devs = []
+    for row in tiles:
+        for t in row:
+            if t is not None and t.is_cuda and t.device not in devs:
+                devs.append(t.device)
+    return devs
+
+
+def ready_events(tiles) -> dict:
+    """{device: an event recorded now on its current stream} for each CUDA
+    device of the grid's local tiles: the point after which they are
+    produced. Record it before queuing work that the exchange need not
+    wait for, and pass it to ``halo_exchange_start``."""
+    out = {}
+    for d in _cuda_devices(tiles):
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(d))
+        out[d] = ev
+    return out
+
+
+class Exchange:
+    """A posted halo exchange (``halo_exchange_start``): the ghosted tiles
+    being filled, the transfers in flight and their landings, the side
+    streams."""
+
+    __slots__ = ("out", "works", "landed", "sides")
+
+    def __init__(self, out, works, landed, sides):
+        self.out, self.works, self.landed, self.sides = out, works, landed, sides
+
+
+def _on(streams: dict) -> contextlib.ExitStack:
+    """A context making each stream its device's current stream."""
+    stack = contextlib.ExitStack()
+    for stream in streams.values():
+        stack.enter_context(torch.cuda.stream(stream))
+    return stack
 
 
 def _ghost(d: int, n: int, k: int) -> slice:
@@ -121,6 +192,61 @@ def halo_exchange(tiles, k: int = 1, mesh: TileMesh | None = None):
     grid spans processes (who owns each None cell); without it every tile
     must be present.
     """
+    out, ops, landed = _post(tiles, k, mesh, non_blocking=False)
+    _wait(ops)
+    for x, dst, buf in landed:
+        x[dst].copy_(buf)
+    return out
+
+
+def halo_exchange_start(tiles, k: int, mesh: TileMesh | None, ready: dict) -> Exchange:
+    """Post ``halo_exchange(tiles, k, mesh)`` off the current stream and
+    return its handle for ``halo_exchange_finish``. ``ready``: the
+    ``ready_events`` of ``tiles``. On CUDA tiles each device's side stream
+    waits for its event, then makes the ghosted tiles, copies the strips
+    inside this process, zero-fills the frame's ghosts and, over gloo,
+    copies the strips for other ranks to pinned buffers; the host waits
+    for the side streams only, then posts the transfers."""
+    sides = {d: _side_stream(d) for d in _cuda_devices(tiles)}
+    for d, stream in sides.items():
+        stream.wait_event(ready[d])
+    for row in tiles:  # read on the side streams: not reused before they are done
+        for t in row:
+            if t is not None and t.is_cuda:
+                t.record_stream(sides[t.device])
+    with _on(sides):
+        out, ops, landed = _post(tiles, k, mesh, non_blocking=True)
+        if ops and sides and _gloo():
+            for stream in sides.values():  # the pinned strips are written
+                stream.synchronize()
+        works = dist.batch_isend_irecv(ops) if ops else []
+    return Exchange(out, works, landed, sides)
+
+
+def halo_exchange_finish(ex: Exchange):
+    """Wait for a posted exchange's transfers, land the strips (on the side
+    streams) and make each device's current stream wait for its side
+    stream. Returns the grid of ghosted tiles, as ``halo_exchange`` does."""
+    with _on(ex.sides):
+        for work in ex.works:
+            work.wait()
+        for x, dst, buf in ex.landed:
+            x[dst].copy_(buf, non_blocking=True)
+    for d, stream in ex.sides.items():
+        torch.cuda.current_stream(d).wait_stream(stream)
+    for row in ex.out:  # made on a side stream, used on the current one
+        for x in row:
+            if x is not None and x.is_cuda:
+                x.record_stream(torch.cuda.current_stream(x.device))
+    return ex.out
+
+
+def _post(tiles, k: int, mesh: TileMesh | None, non_blocking: bool):
+    """The ghosted tiles with their centres, the strips from this process's
+    tiles and the zeros past the grid in place; the transfers to post, each
+    strip for another rank through ``_wire(strip, non_blocking)``; and
+    (tile, ghost slice, buffer) for each strip that lands from another
+    rank."""
     ty, tx = len(tiles), len(tiles[0])
     spans = _spans(mesh)
     local = mesh.is_local if spans else (lambda iy, ix: True)
@@ -156,13 +282,10 @@ def halo_exchange(tiles, k: int = 1, mesh: TileMesh | None = None):
                         ops.append(dist.P2POp(dist.irecv, buf, mesh.owner(ny, nx), group, tag))
                         landed.append((x, dst, buf))
                 elif inside and local(ny, nx):  # this process's strip for another rank
-                    strip = _wire(tiles[ny][nx][:, _strip(dy, k), _strip(dx, k)])
+                    strip = _wire(tiles[ny][nx][:, _strip(dy, k), _strip(dx, k)], non_blocking)
                     _crossed(strip)
                     ops.append(dist.P2POp(dist.isend, strip, mesh.owner(iy, ix), group, tag))
-    _wait(ops)
-    for x, dst, buf in landed:
-        x[dst].copy_(buf)
-    return out
+    return out, ops, landed
 
 
 def map_local(mesh: TileMesh, fn, *grids):

@@ -1337,6 +1337,72 @@ def test_rb_sweeps_tile_widths_and_cuts(cuda, nan_outputs, wl, k):
         assert torch.equal(got.cpu(), K.rb_sweeps_tile_plain(u, g, k, origin, dom))
 
 
+def _bands(x: torch.Tensor, b: int) -> dict:
+    """The four bands of b rows or columns of a ghosted tile, as views."""
+    return {"top": x[:, :b], "bottom": x[:, -b:], "left": x[:, :, :b], "right": x[:, :, -b:]}
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("b", [6, 12, 24])
+@pytest.mark.parametrize("tile_w", [112, 115])  # ghosted rows 16-byte aligned, and not
+def test_rb_sweeps_tile_window_matches_plain(cuda, nan_outputs, tile_w, b, n):
+    """The window form on the four bands of a ghosted (3, 90, tile_w + 8)
+    tile, read where they lie: bit-exact against the twin on the same
+    views at negative, odd and even origins, a domain that holds the band
+    and one that clips it; ceil(n / 4) launches, all of the window form;
+    nothing outside the window is read, and the tile is not written."""
+    gen = torch.Generator(cuda).manual_seed(b * 10 + n + tile_w)
+    x = torch.randn((3, 90, tile_w + 8), generator=gen, device=cuda) * 10
+    gx = torch.randn((3, 90, tile_w + 8), generator=gen, device=cuda) * 50
+    keep = x.clone()
+    for origin, dom in (((-4, -4), (400, 400)), ((-3, 36), (40, 60)), ((81, -5), (86, 100)),
+                        ((10, 11), (2000, 2000))):
+        for name, view in _bands(x, b).items():
+            gv = _bands(gx, b)[name]
+            assert not view.is_contiguous()
+            K.reset_launches()
+            got = K.rb_sweeps_tile(view, gv, n, origin, dom)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["rb_sweeps_tile"] == K.WINDOW_LAUNCHES["rb_sweeps_tile"] == -(-n // 4)
+            want = K.rb_sweeps_tile_plain(view, gv, n, origin, dom)
+            assert torch.equal(got, want), (name, origin, dom)
+            # what lies outside the window does not matter
+            y, gy = torch.full_like(x, float("nan")), torch.full_like(gx, float("nan"))
+            _bands(y, b)[name].copy_(view)
+            _bands(gy, b)[name].copy_(gv)
+            assert torch.equal(K.rb_sweeps_tile(_bands(y, b)[name], _bands(gy, b)[name], n,
+                                                origin, dom), want)
+    assert torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("halo", [2, 4, 8, 10])
+def test_redblack_tiled_overlap_on_card(cuda, halo):
+    """solve_redblack_tiled(overlap=True) on the 2x2 mesh of the card,
+    tiles 49x83 and a padded true_hw, tol 0: bit-equal to overlap=False on
+    the card and to overlap=True on the CPU mesh; rb_sweeps_tile rounds x
+    4 tiles x 5 x ceil(s / 4) launches, four fifths of them the window
+    form (halo 10: two launches a region)."""
+    from seamlesscloneoptimization_tpu_torch.parallel import make_tile_mesh, solve_redblack_tiled
+
+    rng = np.random.default_rng(halo)
+    g = np.zeros((3, 98, 166), np.float32)
+    g[:, :95, :160] = rng.normal(size=(3, 95, 160)) * 50
+    g = torch.from_numpy(g)
+    s = halo // 2
+    kw = dict(true_hw=(95, 160), tol=0.0, max_iters=40, halo=halo, return_info=True)
+    K.reset_launches()
+    got, info = solve_redblack_tiled(g.to(cuda), _card_mesh(cuda), overlap=True, **kw)
+    torch.cuda.synchronize()
+    rounds = info["iterations"] // s
+    per = 4 * -(-s // 4)
+    assert K.LAUNCHES == _per_frame(rb_sweeps_tile=rounds * 5 * per)
+    assert K.WINDOW_LAUNCHES["rb_sweeps_tile"] == rounds * 4 * per
+    plain, info_p = solve_redblack_tiled(g.to(cuda), _card_mesh(cuda), overlap=False, **kw)
+    assert info_p["iterations"] == info["iterations"] and torch.equal(got, plain)
+    cpu = make_tile_mesh([torch.device("cpu")] * 4, (2, 2))
+    assert torch.equal(got.cpu(), solve_redblack_tiled(g, cpu, overlap=True, **kw)[0])
+
+
 @pytest.mark.parametrize("hw,beta", [((21, 33), (1.0, 1.0)), ((20, 34), (1.0, 1.0)),
                                      ((513, 700), (1.0, 1.0)), ((40, 57), (1.5, 0.5))])
 def test_exact_size_level_matches_plain(cuda, hw, beta):

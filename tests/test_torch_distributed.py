@@ -11,7 +11,10 @@ must be bit-equal to the same call on a single-process mesh of that shape
 (computed here): ``solve_poisson_dd`` at tol 1e-6 on (1, 40, 56), also
 within 1e-4 of the NumPy DST oracle (JAX's bar);
 ``solve_multigrid_sharded`` (tolerance and fixed cycles, three partitioned
-levels: ``--shard-min 16``); ``solve_redblack_tiled`` with halos 2 and 8;
+levels: ``--shard-min 16``); ``solve_redblack_tiled`` with halos 2 and 8,
+and with halo 4 in both schedules (``overlap=True``: the split exchange,
+its transfers posted before the interior's sweeps end, bit-equal to
+``overlap=False`` as well);
 and slice 8b's: the mesh-resident ``TiledSeamlessClone`` (``run`` on both
 paths, ``timed_serve`` of two frames with no gather in them),
 ``seamless_clone_tiled``, ``local_edit_tiled``,
@@ -57,6 +60,9 @@ RUNS = {
                                                          "halo": 2}},
     "rb_halo8": {"g": torch.from_numpy(G_DD), "kwargs": {"tol": 1e-4, "max_iters": 300,
                                                          "halo": 8}},
+    "rb_halo4": {"g": torch.from_numpy(G_DD), "kwargs": {"tol": 1e-4, "max_iters": 300}},
+    "rb_overlap": {"g": torch.from_numpy(G_DD), "kwargs": {"tol": 1e-4, "max_iters": 300,
+                                                           "overlap": True}},
     "engine": {"args": (SRC, DST, MASK, (150, 100)), "config": {"tol": 1e-5}},
     "engine_gspmd": {"args": (SRC, DST, MASK, (150, 100)), "path": "gspmd"},
     "engine_serve": {"args": (SRC, DST, MASK, (150, 100)), "config": {"mg_cycles": 3},
@@ -122,9 +128,13 @@ def test_process_spanning_solves_bit_equal(world, tiles, shape, tmp_path):
             assert row["crossed_transfers"] > 0  # strips and collectives crossed ranks
         assert rep["solves"]["sharded_fixed"]["cycles"] == 3
         assert rep["solves"]["rb_halo2"]["iterations"] == 300
+        # 20x14 / 20x28 tiles > 4s = 8: the interior-first schedule, 5 sweeps a tile a round
+        assert rep["solves"]["rb_overlap"]["iterations"] == rep["solves"]["rb_halo4"][
+            "iterations"]
         serve = rep["solves"]["engine_serve"]
         assert serve["gathers_per_frame"] == 0 and serve["crossed_bytes_per_frame"] > 0
         assert set(serve["resident_bytes"]) == {f"{iy},{ix}" for iy, ix in rep["cells"]}
+    assert torch.equal(want["rb_overlap"], want["rb_halo4"])  # the schedules agree
     # every rank's DD result is bit-equal to this one: JAX's bar against the oracle
     u_ref = poisson_solve_dst(np.transpose(G_DD, (1, 2, 0)))[:, :, 0]
     err = np.abs(want["dd"].numpy()[0] - u_ref).max() / np.abs(u_ref).max()

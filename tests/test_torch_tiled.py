@@ -126,6 +126,31 @@ def test_rb_sweeps_tile_validates_inputs():
         K.rb_sweeps_tile(u.double(), u.double(), 2, (0, 0), (20, 36))
 
 
+@pytest.mark.parametrize("band", ["top", "bottom", "left", "right"])
+def test_rb_sweeps_tile_takes_band_windows(band):
+    """A band of a ghosted tile (a strided view, as the interior-first
+    schedule passes it) against the Pallas kernel on the band's values, at
+    an odd origin with the domain clipping it; on a CPU tensor the twin,
+    no launch. A view whose rows overlap or whose columns are strided
+    raises."""
+    x, gx = _rand((2, 28, 30), 41, 10.0), _rand((2, 28, 30), 42)
+    cut = {"top": np.s_[:, :12], "bottom": np.s_[:, -12:], "left": np.s_[:, :, :12],
+           "right": np.s_[:, :, -12:]}[band]
+    want = np.asarray(PK.rb_sweeps_tile_pallas(
+        jnp.asarray(x[cut]), jnp.asarray(gx[cut]), 3, jnp.asarray((-3, 6), jnp.int32), (20, 25),
+        interpret=True))
+    u, g = _t(x)[cut], _t(gx)[cut]
+    assert not u.is_contiguous()
+    K.reset_launches()
+    got = K.rb_sweeps_tile(u, g, 3, (-3, 6), (20, 25))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.is_contiguous() and K.LAUNCHES["rb_sweeps_tile"] == 0
+    rows = torch.zeros(100).as_strided((1, 4, 8), (100, 4, 1))  # rows overlap
+    for bad in (rows, u[:, :, ::2]):
+        with pytest.raises(ValueError):
+            K.rb_sweeps_tile(bad, bad, 1, (0, 0), (8, 8))
+
+
 # ---------------------------------------------------------------------------
 # the mesh and the halo exchange
 # ---------------------------------------------------------------------------
@@ -217,15 +242,25 @@ def _padded_rhs(h, w, th, tw, seed):
     dict(hw=(32, 64), halo=2), dict(hw=(32, 64), halo=4), dict(hw=(32, 64), halo=8),
     dict(hw=(32, 64), halo=4, true_hw=(30, 61)),
     dict(hw=(48, 96), halo=4, true_hw=(45, 90), overlap=True),
+    # the interior-first schedule (24x24 tiles > 4s) against JAX's, its XLA
+    # body and its Pallas kernel interpreted
+    dict(hw=(48, 96), halo=2, true_hw=(45, 90), overlap=True),
+    dict(hw=(48, 96), halo=8, true_hw=(45, 90), overlap=True),
+    dict(hw=(48, 96), halo=2, true_hw=(45, 90), overlap=True, jax_pallas=True),
+    dict(hw=(48, 96), halo=4, true_hw=(45, 90), overlap=True, jax_pallas=True),
+    dict(hw=(48, 96), halo=8, true_hw=(45, 90), overlap=True, jax_pallas=True),
 ])
 def test_redblack_tiled_bit_equal_to_jax(case):
-    """tol 0 and a fixed sweep count: bit-equal u, padded cells exactly 0."""
+    """tol 0 and a fixed sweep count: bit-equal u, padded cells exactly 0;
+    ``overlap=True`` also bit-equal to the port's plain schedule."""
     h, w = case["hw"]
     thw = case.get("true_hw")
     g = _padded_rhs(h, w, *(thw or (h, w)), seed=h + case["halo"])
     kw = dict(true_hw=thw, tol=0.0, max_iters=40, halo=case["halo"],
               overlap=case.get("overlap", False))
-    want = np.asarray(jax_rb_tiled(jnp.asarray(g), _mesh24(), use_pallas=False, **kw))
+    jax_pallas = case.get("jax_pallas", False)
+    want = np.asarray(jax_rb_tiled(jnp.asarray(g), _mesh24(), use_pallas=jax_pallas,
+                                   interpret=jax_pallas, **kw))
     got, info = solve_redblack_tiled(_t(g), _port(), return_info=True, **kw)
     np.testing.assert_array_equal(got.numpy(), want)
     s = case["halo"] // 2  # sweeps per exchange; a burst is whole rounds
@@ -235,6 +270,58 @@ def test_redblack_tiled_bit_equal_to_jax(case):
     if case.get("overlap"):  # the interior-first schedule is the same arithmetic
         kw["overlap"] = False
         assert torch.equal(solve_redblack_tiled(_t(g), _port(), **kw), got)
+
+
+@pytest.mark.parametrize("case", [
+    dict(shape=(3, 40, 80), halo=4, true_hw=None),      # 20x20 tiles > 4s = 8
+    dict(shape=(2, 40, 80), halo=8, true_hw=(37, 75)),  # 20x20 tiles > 16
+    dict(shape=(2, 32, 64), halo=8, true_hw=None),      # 16x16 tiles = 4s: the plain round
+])
+def test_redblack_tiled_overlap_runs_the_schedule(case, monkeypatch):
+    """The regions that K.rb_sweeps_tile sweeps, a tile a round: the
+    unghosted tile at its origin, then the top, bottom, left and right
+    bands of the ghosted tile at theirs (JAX's ``ca_round_overlap``), with
+    the shapes JAX's Pallas body sweeps (recorded at its trace); where a
+    tile is not above 4s on a side, the one ghosted tile of the plain
+    round. Port and JAX bit-equal."""
+    c, h, w = case["shape"]
+    k, s = case["halo"], case["halo"] // 2
+    th, tw = h // 2, w // 4
+    calls, jax_shapes = [], []
+    port_sweep, jax_sweep = K.rb_sweeps_tile, PK.rb_sweeps_tile_pallas
+
+    def port_record(u, g, n, origin, dom):
+        calls.append((tuple(u.shape), tuple(origin), n))
+        return port_sweep(u, g, n, origin, dom)
+
+    def jax_record(x, gx, n, origin, dom, **kw):
+        jax_shapes.append(tuple(x.shape))
+        return jax_sweep(x, gx, n, origin, dom, **kw)
+
+    monkeypatch.setattr(K, "rb_sweeps_tile", port_record)
+    monkeypatch.setattr(PK, "rb_sweeps_tile_pallas", jax_record)
+    g = _padded_rhs(h, w, *(case["true_hw"] or (h, w)), seed=h + w + k)[:c]
+    kw = dict(true_hw=case["true_hw"], tol=0.0, max_iters=2 * s, check_every=2 * s, halo=k,
+              overlap=True)
+    want = np.asarray(jax_rb_tiled(jnp.asarray(g), _mesh24(), use_pallas=True, interpret=True,
+                                   **kw))
+    got = solve_redblack_tiled(_t(g), _port(), **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    tiles = [(iy * th, ix * tw) for iy in range(2) for ix in range(4)]
+    if th > 4 * s and tw > 4 * s:
+        b = k + 4 * s
+        interior = [((c, th, tw), (r0, c0), s) for r0, c0 in tiles]
+        bands = [(shape, org, s) for r0, c0 in tiles for shape, org in (
+            ((c, b, tw + 2 * k), (r0 - k, c0 - k)),
+            ((c, b, tw + 2 * k), (r0 + th + k - b, c0 - k)),
+            ((c, th + 2 * k, b), (r0 - k, c0 - k)),
+            ((c, th + 2 * k, b), (r0 - k, c0 + tw + k - b)))]
+        one_round = interior + bands
+        assert jax_shapes[:5] == [(c, th, tw)] + [shape for shape, _, _ in bands[:4]]
+    else:
+        one_round = [((c, th + 2 * k, tw + 2 * k), (r0 - k, c0 - k), s) for r0, c0 in tiles]
+        assert jax_shapes[:1] == [(c, th + 2 * k, tw + 2 * k)]
+    assert calls == one_round * 2  # 2s sweeps: two rounds
 
 
 @pytest.mark.parametrize("use_pallas", [None, False])
