@@ -35,6 +35,15 @@ seamlessClone-CUDA/seamlessClone_imp.cu:239-370):
 - ``dump_stages`` writes one clone's stages into ``debug_dir``; ``profile``
   is a ``torch.profiler`` context writing a Chrome trace; ``destroy`` drops
   the caches and the tensors the engine holds.
+- Under a profiler, ``run`` and ``timed_serve`` are each one
+  ``engine.request`` span (the engine's request number and its configured
+  solver in ``args``) holding ``engine.prepare`` (validation, mask prep,
+  ``auto``, the cache lookups), ``engine.bases_build`` (a DST-basis miss),
+  ``engine.upload``, the frames' ``pipeline.*`` spans, ``engine.sync`` (the
+  host waiting on the card) and ``engine.finish``. ``timed_serve`` also
+  puts the solver's V-cycles and host reads a timed frame
+  (``solvers.multigrid.COUNTS``) into ``metrics["cycles_per_frame"]`` and
+  ``metrics["checks_per_frame"]``.
 
 Not ported here (TPU-only): the layout pin and self-heal, and the
 sync-overhead subtraction.
@@ -58,6 +67,7 @@ from torch.profiler import profile as torch_profile
 
 from seamlesscloneoptimization_tpu_torch import native, resolve_device
 from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
+from seamlesscloneoptimization_tpu_torch.core.trace import span
 from seamlesscloneoptimization_tpu_torch.models.pipeline import clone_pipeline, clone_roi
 from seamlesscloneoptimization_tpu_torch.ops.kernels import ru128
 from seamlesscloneoptimization_tpu_torch.solvers import (
@@ -67,6 +77,7 @@ from seamlesscloneoptimization_tpu_torch.solvers import (
     get_solver,
 )
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import check_precision, dst_bases
+from seamlesscloneoptimization_tpu_torch.solvers.multigrid import COUNTS
 
 DYN_SOLVER_NAME = "multigrid_dyn"  # bucket_exact's solve, as metrics record it
 
@@ -183,7 +194,13 @@ class SeamlessClone:
         self._eig_cache = BoundedCache(maxsize=8)  # multigrid coarsest-level bases
         self._held: dict[int, Any] = {}  # id -> weakref of tensors THIS engine made
         self._last_out: torch.Tensor | None = None
+        self._requests = 0  # run / timed_serve calls: engine.request's number
         self.metrics: dict[str, Any] = {}
+
+    def _request_span(self):
+        """The ``engine.request`` span of the next call."""
+        self._requests += 1
+        return span("engine.request", f"seq={self._requests} solver={self.config.solver}")
 
     def _track(self, x: torch.Tensor) -> torch.Tensor:
         """Count a device tensor in this instance's memory accounting."""
@@ -200,8 +217,9 @@ class SeamlessClone:
         key = (h2, w2)
         b = self._bases.get(key)
         if b is None:
-            b = dst_bases(h2, w2, ru128(h2), ru128(w2), self.device,
-                          self.config.dst_folded, self.config.precision)
+            with span("engine.bases_build"):
+                b = dst_bases(h2, w2, ru128(h2), ru128(w2), self.device,
+                              self.config.dst_folded, self.config.precision)
             for axis in b:
                 for t in axis.tensors():
                     self._track(t)
@@ -287,29 +305,33 @@ class SeamlessClone:
         is used without a host round trip. The caller's ``dst`` tensor is left
         unmodified unless ``donate_dst=True``.
         """
-        t0 = time.perf_counter()
-        flags = self.config.flags if flags is None else flags
-        self._validate(src, dst)
-        prep = self._prepare(mask, src, dst, center)
-        if prep is None:
-            self._last_out = self._to_device(dst)
-            return self._last_out
-        m, (x0, y0), (left, top), (bh, bw), tight = self._unpack_prep(prep)
-        if not self._has_interior((bh, bw), tight):
-            self._last_out = self._to_device(dst)
-            return self._last_out
-        kw = self._pipeline_kwargs((bh, bw), flags, planar_dst=False)
-        src_d = self._to_device(src)
-        dst_d = self._to_device(dst)
-        if dst_d is dst and not self.config.donate_dst:
-            dst_d = self._track(dst_d.clone())
-        out = clone_pipeline(src_d, dst_d, self._upload(m), (x0, y0), (left, top), tight,
-                             **kw)
-        self._last_out = out
-        self.metrics["dispatch_ms"] = (time.perf_counter() - t0) * 1e3
-        self.metrics["bbox"] = (x0, y0, bw, bh)
-        self.metrics["left_top"] = (left, top)
-        return out
+        with self._request_span():
+            flags = self.config.flags if flags is None else flags
+            with span("engine.prepare"):
+                self._validate(src, dst)
+                prep = self._prepare(mask, src, dst, center)
+                if prep is not None:
+                    m, (x0, y0), (left, top), (bh, bw), tight = self._unpack_prep(prep)
+                    if self._has_interior((bh, bw), tight):
+                        kw = self._pipeline_kwargs((bh, bw), flags, planar_dst=False)
+                    else:
+                        prep = None
+            if prep is None:  # nothing to solve: the destination as it is
+                with span("engine.upload"):
+                    self._last_out = self._to_device(dst)
+                return self._last_out
+            with span("engine.upload"):
+                src_d = self._to_device(src)
+                dst_d = self._to_device(dst)
+                if dst_d is dst and not self.config.donate_dst:
+                    dst_d = self._track(dst_d.clone())
+                m_d = self._upload(m)
+            out = clone_pipeline(src_d, dst_d, m_d, (x0, y0), (left, top), tight, **kw)
+            with span("engine.finish"):
+                self._last_out = out
+                self.metrics["bbox"] = (x0, y0, bw, bh)
+                self.metrics["left_top"] = (left, top)
+            return out
 
     def sync(self):
         """Block until the last dispatched clone is done (ref: _sync)."""
@@ -373,36 +395,46 @@ class SeamlessClone:
         (C, H, W) on the device; one warm-up frame runs outside the timed
         window. Returns ((H, W, 3) u8 device tensor, mean ms per frame).
         """
-        flags = self.config.flags if flags is None else flags
-        self._validate(src, dst)
-        prep = self._prepare(mask, src, dst, center)
-        if prep is None:
-            raise ValueError("empty mask")
-        m, (x0, y0), (left, top), (bh, bw), tight = self._unpack_prep(prep)
-        if not self._has_interior((bh, bw), tight):
-            raise ValueError(f"mask bbox {tight[2:] if tight else (bh, bw)} has no interior")
-        kw = self._pipeline_kwargs((bh, bw), flags, planar_dst=True)
-        src_d = self._to_device(src)
-        buf = self._track(self._to_device(dst).permute(2, 0, 1).contiguous())
-        m_d = self._upload(m)
+        with self._request_span():
+            flags = self.config.flags if flags is None else flags
+            with span("engine.prepare"):
+                self._validate(src, dst)
+                prep = self._prepare(mask, src, dst, center)
+                if prep is None:
+                    raise ValueError("empty mask")
+                m, (x0, y0), (left, top), (bh, bw), tight = self._unpack_prep(prep)
+                if not self._has_interior((bh, bw), tight):
+                    raise ValueError(
+                        f"mask bbox {tight[2:] if tight else (bh, bw)} has no interior")
+                kw = self._pipeline_kwargs((bh, bw), flags, planar_dst=True)
+            with span("engine.upload"):
+                src_d = self._to_device(src)
+                buf = self._track(self._to_device(dst).permute(2, 0, 1).contiguous())
+                m_d = self._upload(m)
 
-        def frame():  # bucket_exact: the tight bbox rides along every frame
-            clone_pipeline(src_d, buf, m_d, (x0, y0), (left, top), tight,
-                           planar_dst=True, **kw)
+            def frame():  # bucket_exact: the tight bbox rides along every frame
+                clone_pipeline(src_d, buf, m_d, (x0, y0), (left, top), tight,
+                               planar_dst=True, **kw)
 
-        frame()  # warm-up: kernel build/load, allocator, cuBLAS handles
-        self.sync()
-        stop = self._timer()
-        for _ in range(loops):
-            frame()
-        mean_ms = stop() / max(loops, 1)
-        out = self._track(buf.permute(1, 2, 0).contiguous())
-        self._last_out = out
-        self.metrics["compute_ms"] = mean_ms
-        self.metrics["bbox"] = (x0, y0, bw, bh)
-        self.metrics["left_top"] = (left, top)
-        self.metrics["device_memory_bytes"] = self.device_memory_bytes()
-        return out, mean_ms
+            frame()  # warm-up: kernel build/load, allocator, cuBLAS handles
+            with span("engine.sync"):
+                self.sync()
+            before = dict(COUNTS)
+            stop = self._timer()
+            for _ in range(loops):
+                frame()
+            with span("engine.sync"):
+                mean_ms = stop() / max(loops, 1)
+            with span("engine.finish"):
+                out = self._track(buf.permute(1, 2, 0).contiguous())
+                self._last_out = out
+                self.metrics["compute_ms"] = mean_ms
+                for key in ("cycles", "checks"):
+                    self.metrics[f"{key}_per_frame"] = (COUNTS[key] - before[key]) / max(loops, 1)
+                self.metrics["bbox"] = (x0, y0, bw, bh)
+                self.metrics["left_top"] = (left, top)
+                self.metrics["device_memory_bytes"] = self.device_memory_bytes()
+            return out, mean_ms
 
     def dump_stages(self, src, dst, mask, center, flags: int | None = None):
         """Run one clone keeping every intermediate stage (ref: SCDEBUG mode).

@@ -70,6 +70,12 @@ Either way the interior is written in place into the destination at
 On CPU tensors each kernel wrapper runs its plain twin. Everything runs on
 the current stream, in order: the next chained frame's preprocess reads the
 ROI this frame's paste wrote.
+
+A frame's host time falls into spans (``core/trace.py``): ``pipeline.frame``
+around ``clone_pipeline``, and inside it ``pipeline.glue`` (the ROI views,
+``roi_mask``, the patch), ``pipeline.rhs`` (the erosion and the RHS),
+``pipeline.solve`` (the solver's name in its ``args``) and
+``pipeline.paste``.
 """
 
 from __future__ import annotations
@@ -78,6 +84,7 @@ from typing import Any, Callable
 
 import torch
 
+from seamlesscloneoptimization_tpu_torch.core.trace import span
 from seamlesscloneoptimization_tpu_torch.ops.guidance import (
     MONOCHROME_TRANSFER,
     bgr_to_gray_u8,
@@ -201,21 +208,23 @@ def clone_roi(
         # the engine gates the post-process (JAX's _pallas_gates); a direct
         # caller must not get another solver's chain silently
         raise ValueError(f"use_pallas_post has no tail for solver {name!r}")
-    if use_pallas_pre:
-        me, patch_in, kflags = _kernel_rhs_inputs(patch_u8, mask_roi, flags)
-        if use_pallas_post and name == "dst_gemm":
-            precision = solver_kwargs.get("precision", "highest")
-            folded = bool(solver_kwargs.get("folded", False))
+    if use_pallas_pre and use_pallas_post and name == "dst_gemm":
+        precision = solver_kwargs.get("precision", "highest")
+        folded = bool(solver_kwargs.get("folded", False))
+        parts = parts_apply(w2, folded)
+        with span("pipeline.rhs"):
+            me, patch_in, kflags = _kernel_rhs_inputs(patch_u8, mask_roi, flags)
             g_tp = preprocess_rhs_t(dest_roi_u8, patch_in, me, kflags, mixed_rule)
-            parts = parts_apply(w2, folded)
+        with span("pipeline.solve", name):
             u = solve_dst_gemm_pl(g_tp, h2=h2, w2=w2, precision=precision, folded=folded,
                                   bases=bases, return_parts=parts)
+        with span("pipeline.paste"):
             if parts:
                 return unfold_clamp_paste(*u, out, top1, left1, h2, w2)
             return clamp_cast_paste(u, out, top1, left1, h2, w2)
 
     kw = dict(solver_kwargs, eig_cache=bases) if name == "multigrid" else dict(solver_kwargs)
-    out_hw = (h2, w2)
+    out_hw, quarters = (h2, w2), False
     if use_pallas_post and name == "multigrid":
         use_pallas, padded = kw.get("use_pallas", False), kw.get("padded")
         # the plain RHS is exact-size: only the kernels give birth to padded layouts
@@ -224,23 +233,32 @@ def clone_roi(
             # the RHS is born as quarter planes, the solve stays in them and
             # the paste interleaves them: no conversion pass
             _, hq, wq2, _ = mg_geometry_q(h2, w2)
-            g = preprocess_rhs_q(dest_roi_u8, patch_in, me, (2 * hq, 2 * wq2), kflags,
-                                 mixed_rule)
-            uq = solver(g, padded_output="quarters", true_hw=(h2, w2), **kw)
-            return clamp_cast_paste_q(uq, out, top1, left1, h2, w2)
-        if use_pallas_pre and padded == "t" and t_chain_applies(h2, w2, use_pallas=use_pallas):
-            # the RHS is born in the fine level's slab: no pad pass
-            _, hp, wp, _ = mg_geometry_t(h2, w2)
-            out_hw, kw["true_hw"] = (hp, wp), (h2, w2)
-        kw["padded_output"] = True
-    g = (preprocess_rhs_p(dest_roi_u8, patch_in, me, out_hw, kflags, mixed_rule)
-         if use_pallas_pre else _plain_rhs(dest_roi_u8, patch_u8, mask_roi, flags, mixed_rule)[0])
-    if use_pallas_post and name == "dst_gemm":
-        # the solve ends transposed; one kernel transposes, clamps and pastes
-        u_t = solver(g, transposed_output=True, **kw)
-        return postprocess_transposed(u_t.contiguous(), out, top1, left1)
-    u = solver(g, **kw)
-    return clamp_cast_paste(u.contiguous(), out, top1, left1, h2, w2)
+            out_hw, quarters = (2 * hq, 2 * wq2), True
+            kw["padded_output"], kw["true_hw"] = "quarters", (h2, w2)
+        else:
+            if use_pallas_pre and padded == "t" and t_chain_applies(h2, w2,
+                                                                    use_pallas=use_pallas):
+                # the RHS is born in the fine level's slab: no pad pass
+                _, hp, wp, _ = mg_geometry_t(h2, w2)
+                out_hw, kw["true_hw"] = (hp, wp), (h2, w2)
+            kw["padded_output"] = True
+    with span("pipeline.rhs"):
+        if use_pallas_pre:
+            me, patch_in, kflags = _kernel_rhs_inputs(patch_u8, mask_roi, flags)
+            preprocess = preprocess_rhs_q if quarters else preprocess_rhs_p
+            g = preprocess(dest_roi_u8, patch_in, me, out_hw, kflags, mixed_rule)
+        else:
+            g = _plain_rhs(dest_roi_u8, patch_u8, mask_roi, flags, mixed_rule)[0]
+    transposed = use_pallas_post and name == "dst_gemm"
+    with span("pipeline.solve", name):
+        # the DST solve ends transposed; one kernel transposes, clamps and pastes
+        u = solver(g, transposed_output=True, **kw) if transposed else solver(g, **kw)
+    with span("pipeline.paste"):
+        if quarters:
+            return clamp_cast_paste_q(u, out, top1, left1, h2, w2)
+        if transposed:
+            return postprocess_transposed(u.contiguous(), out, top1, left1)
+        return clamp_cast_paste(u.contiguous(), out, top1, left1, h2, w2)
 
 
 def clone_roi_dyn(
@@ -284,15 +302,18 @@ def clone_roi_dyn(
     dest_w = dest_roi_u8[:, dy : dy + th, dx : dx + tw]
     patch_w = patch_u8[:, dy : dy + th, dx : dx + tw]
     mask_w = mask_roi[dy : dy + th, dx : dx + tw].contiguous()
-    if use_pallas_pre:
-        me, patch_in, kflags = _kernel_rhs_inputs(patch_w, mask_w, flags)
-        g = preprocess_rhs_p(dest_w, patch_in, me, (h2, w2), kflags, mixed_rule)
-    else:
-        g = _plain_rhs(dest_w, patch_w, mask_w, flags, mixed_rule)[0]
-    u = solve_dyn_window(g, (bh - 2, bw - 2), tol=tol, cycles=cycles, max_cycles=max_cycles,
-                         use_pallas=use_pallas)
+    with span("pipeline.rhs"):
+        if use_pallas_pre:
+            me, patch_in, kflags = _kernel_rhs_inputs(patch_w, mask_w, flags)
+            g = preprocess_rhs_p(dest_w, patch_in, me, (h2, w2), kflags, mixed_rule)
+        else:
+            g = _plain_rhs(dest_w, patch_w, mask_w, flags, mixed_rule)[0]
+    with span("pipeline.solve", "multigrid_dyn"):
+        u = solve_dyn_window(g, (bh - 2, bw - 2), tol=tol, cycles=cycles,
+                             max_cycles=max_cycles, use_pallas=use_pallas)
     top1, left1 = out_offset
-    return clamp_cast_paste(u.contiguous(), out, top1 + dy, left1 + dx, h2, w2)
+    with span("pipeline.paste"):
+        return clamp_cast_paste(u.contiguous(), out, top1 + dy, left1 + dx, h2, w2)
 
 
 def clone_pipeline(
@@ -330,30 +351,31 @@ def clone_pipeline(
     ``use_pallas_post`` are unused.
     """
     bh, bw = bbox_hw
-    c = src.shape[2]
     x0, y0 = bbox_xy
     left, top = left_top
-    # ROI-first: strided views, no full-image conversion
-    src_p = src[y0 : y0 + bh, x0 : x0 + bw, :].permute(2, 0, 1)
-    dst_chw = dst if planar_dst else dst.permute(2, 0, 1)
-    dest_p = dst_chw[:, top : top + bh, left : left + bw]
+    with span("pipeline.frame"):
+        with span("pipeline.glue"):
+            # ROI-first: strided views, no full-image conversion
+            src_p = src[y0 : y0 + bh, x0 : x0 + bw, :].permute(2, 0, 1)
+            dst_chw = dst if planar_dst else dst.permute(2, 0, 1)
+            dest_p = dst_chw[:, top : top + bh, left : left + bw]
 
-    # binarize + 1-px frame-zero of the mask (ref setMaskBoundaryToConstant),
-    # on the ROI slice in global coordinates — the host prep usually did this
-    # already; re-applying keeps raw-mask callers right at ROI cost
-    mask_roi = roi_mask(mask, (x0, y0), (bh, bw))
-    patch = torch.where(mask_roi[None] != 0, src_p, 0).to(torch.uint8)
+            # binarize + 1-px frame-zero of the mask (ref setMaskBoundaryToConstant),
+            # on the ROI slice in global coordinates — the host prep usually did
+            # this already; re-applying keeps raw-mask callers right at ROI cost
+            mask_roi = roi_mask(mask, (x0, y0), (bh, bw))
+            patch = torch.where(mask_roi[None] != 0, src_p, 0).to(torch.uint8)
 
-    if true_bbox is not None:
-        kw = solver_kwargs or {}
-        clone_roi_dyn(dest_p, patch, mask_roi, flags, true_bbox, mixed_rule,
-                      tol=kw.get("tol", 1e-4), cycles=kw.get("cycles"),
-                      max_cycles=kw.get("max_cycles", 60), out=dst_chw,
-                      out_offset=(top + 1, left + 1), use_pallas_pre=use_pallas_pre,
-                      use_pallas=kw.get("use_pallas", True))
-        return dst
-    clone_roi(dest_p, patch, mask_roi, flags, solver, solver_kwargs,
-              mixed_rule=mixed_rule, out=dst_chw, out_offset=(top + 1, left + 1),
-              bases=bases, solver_name=solver_name, use_pallas_pre=use_pallas_pre,
-              use_pallas_post=use_pallas_post)
+        if true_bbox is not None:
+            kw = solver_kwargs or {}
+            clone_roi_dyn(dest_p, patch, mask_roi, flags, true_bbox, mixed_rule,
+                          tol=kw.get("tol", 1e-4), cycles=kw.get("cycles"),
+                          max_cycles=kw.get("max_cycles", 60), out=dst_chw,
+                          out_offset=(top + 1, left + 1), use_pallas_pre=use_pallas_pre,
+                          use_pallas=kw.get("use_pallas", True))
+            return dst
+        clone_roi(dest_p, patch, mask_roi, flags, solver, solver_kwargs,
+                  mixed_rule=mixed_rule, out=dst_chw, out_offset=(top + 1, left + 1),
+                  bases=bases, solver_name=solver_name, use_pallas_pre=use_pallas_pre,
+                  use_pallas_post=use_pallas_post)
     return dst

@@ -40,13 +40,12 @@ three on a real mesh and solves to tol 1e-4; the port keeps them on purpose
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
 from seamlesscloneoptimization_tpu_torch.core.engine import DYN_SOLVER_NAME, SeamlessClone
+from seamlesscloneoptimization_tpu_torch.core.trace import span
 from seamlesscloneoptimization_tpu_torch.ops.mask import roi_mask
 from seamlesscloneoptimization_tpu_torch.parallel.mesh import GATHERS, TileMesh, make_tile_mesh
 from seamlesscloneoptimization_tpu_torch.parallel.transport import CROSSED, REPLICATED
@@ -203,17 +202,17 @@ class TiledSeamlessClone(SeamlessClone):
         mesh). The caller's ``dst`` is never modified there."""
         if self._single:
             return super().run(src, dst, mask, center, flags)
-        t0 = time.perf_counter()
-        flags, prep = self._prepared(src, dst, mask, center, flags)
-        if prep is None:
-            self._last_out = self._to_device(dst)
-            return self._last_out
-        frame = self._frame(src, dst, prep, flags)
-        frame.step()
-        out = self._track(frame.result(self.device))
-        self._last_out = out
-        self.metrics["dispatch_ms"] = (time.perf_counter() - t0) * 1e3
-        return out
+        with self._request_span():
+            with span("engine.prepare"):
+                flags, prep = self._prepared(src, dst, mask, center, flags)
+            if prep is None:
+                self._last_out = self._to_device(dst)
+                return self._last_out
+            frame = self._frame(src, dst, prep, flags)
+            frame.step()
+            out = self._track(frame.result(self.device))
+            self._last_out = out
+            return out
 
     def timed_serve(self, src, dst, mask, center, loops: int = 20, flags: int | None = None):
         """Steady-state serve: upload once, chain ``loops`` frames on the
@@ -222,25 +221,28 @@ class TiledSeamlessClone(SeamlessClone):
         device, mean ms per frame)."""
         if self._single:
             return super().timed_serve(src, dst, mask, center, loops, flags)
-        flags, prep = self._prepared(src, dst, mask, center, flags)
-        if prep is None:
-            raise ValueError("empty mask, or a mask bbox without interior")
-        frame = self._frame(src, dst, prep, flags)
-        frame.step()  # warm-up: kernel build/load, allocator
-        self.sync()
-        before = GATHERS["calls"], CROSSED["bytes"], REPLICATED["bytes"]
-        stop = self._timer()
-        for _ in range(loops):
-            frame.step()
-        mean_ms = stop() / max(loops, 1)
-        after = GATHERS["calls"], CROSSED["bytes"], REPLICATED["bytes"]
-        for key, a, b in zip(("gathers", "crossed_bytes", "replicated_bytes"), before, after):
-            self.metrics[f"{key}_per_frame"] = (b - a) / max(loops, 1)
-        out = self._track(frame.result(self.device))
-        self._last_out = out
-        self.metrics["compute_ms"] = mean_ms
-        self.metrics["device_memory_bytes"] = self.device_memory_bytes()
-        return out, mean_ms
+        with self._request_span():
+            with span("engine.prepare"):
+                flags, prep = self._prepared(src, dst, mask, center, flags)
+            if prep is None:
+                raise ValueError("empty mask, or a mask bbox without interior")
+            frame = self._frame(src, dst, prep, flags)
+            frame.step()  # warm-up: kernel build/load, allocator
+            self.sync()
+            before = GATHERS["calls"], CROSSED["bytes"], REPLICATED["bytes"]
+            stop = self._timer()
+            for _ in range(loops):
+                frame.step()
+            mean_ms = stop() / max(loops, 1)
+            after = GATHERS["calls"], CROSSED["bytes"], REPLICATED["bytes"]
+            for key, a, b in zip(("gathers", "crossed_bytes", "replicated_bytes"), before,
+                                 after):
+                self.metrics[f"{key}_per_frame"] = (b - a) / max(loops, 1)
+            out = self._track(frame.result(self.device))
+            self._last_out = out
+            self.metrics["compute_ms"] = mean_ms
+            self.metrics["device_memory_bytes"] = self.device_memory_bytes()
+            return out, mean_ms
 
 
 def seamless_clone_tiled(src, dst, mask, center, mesh: TileMesh | None = None, flags: int = 1,

@@ -7,6 +7,12 @@ Dirichlet frame. A half-sweep updates one colour, ``u <- (N4(u) - g) / 4``,
 in the select form (``where`` on a boolean checkerboard), so the written
 value is exactly the update. On the card a burst of sweeps is the
 ``rb_sweeps`` kernel (``ops/kernels.py``), bit-equal to the plain sweeps.
+
+``COUNTS`` is the solvers' counter, in the style of ``ops.kernels.LAUNCHES``
+(``solvers.multigrid.COUNTS`` is the same dict): ``"checks"``, every host
+read of a residual (``exceeds``, ``read_residual``: the host waits for the
+card), each in a ``solver.check`` span; ``"cycles"``, the multigrid
+V-cycles (``solvers/multigrid.py``, ``solvers/multigrid_dyn.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +20,24 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from seamlesscloneoptimization_tpu_torch.core.trace import span
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
+
+COUNTS = {"cycles": 0, "checks": 0}
+
+
+def exceeds(rmax: torch.Tensor, thresh) -> bool:
+    """One tolerance check: max |r| > thresh, read on the host."""
+    COUNTS["checks"] += 1
+    with span("solver.check"):
+        return bool(rmax > thresh)
+
+
+def read_residual(rmax: torch.Tensor) -> float:
+    """``return_info``'s max |r|, read on the host (a check too)."""
+    COUNTS["checks"] += 1
+    with span("solver.check"):
+        return rmax.item()
 
 
 def _neighbor_sum(u: torch.Tensor) -> torch.Tensor:
@@ -64,7 +87,7 @@ def solve_redblack(g: torch.Tensor, u0: torch.Tensor | None = None, tol: float =
     u = torch.zeros_like(g) if u0 is None else u0.to(g.dtype).contiguous()
     thresh = tol * torch.clamp(g.abs().max(), min=1e-30)
     it = 0
-    while it < max_iters and bool(residual(u, g).abs().max() > thresh):  # one host read
+    while it < max_iters and exceeds(residual(u, g).abs().max(), thresh):  # one host read
         if use_pallas:
             u = K.rb_sweeps(u, g, check_every)
         else:
@@ -72,5 +95,5 @@ def solve_redblack(g: torch.Tensor, u0: torch.Tensor | None = None, tol: float =
                 u = redblack_sweep(u, g)
         it += check_every
     if return_info:
-        return u, {"iterations": it, "residual": residual(u, g).abs().max().item()}
+        return u, {"iterations": it, "residual": read_residual(residual(u, g).abs().max())}
     return u

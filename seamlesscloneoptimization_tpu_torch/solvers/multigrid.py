@@ -61,6 +61,13 @@ to the host once per check. On the element path a fine level's burst of
 sweeps (``use_pallas``, n > 1, >= 2^18 points: smoothing that the fused
 chains refuse, nu1 > 2 or nu2 > 4) is the ``rb_sweeps`` kernel. The JAX
 package's ``SCL_MG_*`` environment knobs are constants here.
+
+``COUNTS`` (``solvers/jacobi.py``'s dict) counts every V-cycle of a solve,
+fixed or tolerance mode, on every chain and as pcg's preconditioner (not
+``fmg``'s cascade, a start), each enqueued in a ``solver.cycle`` span, and
+every host read of a residual (``"checks"``). On the quarter chain a cycle
+is one ascent: an ``mg_ud_q``, or the closing ``mg_up_q``, or a check-first
+``vcycle_q``, so ``"cycles"`` equals ``return_info``'s count.
 """
 
 from __future__ import annotations
@@ -71,16 +78,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from seamlesscloneoptimization_tpu_torch.core.trace import span
 from seamlesscloneoptimization_tpu_torch.ops import kernels as K
 from seamlesscloneoptimization_tpu_torch.solvers.dst_gemm import sep_eig_basis, solve_sep_eig
 from seamlesscloneoptimization_tpu_torch.solvers.jacobi import (
+    COUNTS,
     checkerboard,
+    exceeds,
+    read_residual,
     redblack_sweep,
     residual,
 )
 
 FUSE_MIN = 1 << 18    # a fine level runs fused from this many points
 FUSE_MIN_T = 1 << 16  # vcycle_t's coarse levels run fused from this many
+
+
+def _cycle():
+    """Count one V-cycle and return the span of its enqueue."""
+    COUNTS["cycles"] += 1
+    return span("solver.cycle")
 
 
 def _coarsen(m: int, beta: float) -> tuple[int, float]:
@@ -302,7 +319,8 @@ def coarse_solve(g: torch.Tensor, bh: float, bw: float, eig_cache=None) -> torch
     key = (h, w, bh, bw, str(g.device))
     basis = eig_cache.get(key)
     if basis is None:
-        basis = sep_eig_basis(h, w, bh, bw, g.device)
+        with span("solver.basis_build"):
+            basis = sep_eig_basis(h, w, bh, bw, g.device)
         eig_cache[key] = basis
     return solve_sep_eig(g, bh, bw, basis=basis)
 
@@ -587,28 +605,33 @@ def _solve_q(g_q: torch.Tensor, h: int, w: int, nu1: int, nu2: int, coarsest: in
             return (torch.zeros_like(g_q) if uq0 is None else uq0), 0
         u, rc_t = K.mg_down_q(uq0, g_q, nu1, h, w, chp)
         for _ in range(cycles - 1):
-            u, rc_t = K.mg_ud_q(u, g_q, *coarse(rc_t), nu2, nu1, h, w, chp)
-        return K.mg_up_q(u, g_q, *coarse(rc_t), nu2, h, w), cycles
+            with _cycle():
+                u, rc_t = K.mg_ud_q(u, g_q, *coarse(rc_t), nu2, nu1, h, w, chp)
+        with _cycle():
+            return K.mg_up_q(u, g_q, *coarse(rc_t), nu2, h, w), cycles
     gmax = torch.linalg.vector_norm(g_q, float("inf"))  # one pass
     thresh = torch.clamp(gmax, min=1e-30) * min(tol * 0.995, tol - 4.0e-7)
     rmax = gmax if uq0 is None else rmax0
     burst = 0 if uq0 is not None else _tol_burst(tol, max_cycles, nu1, nu2)
     if burst < 1:  # check first: the start's residual, then one per cycle
         u, it = uq0, 0
-        while it < max_cycles and bool(rmax > thresh):  # one host read per check
-            u, rmax = vcycle_q(u, g_q, h, w, nu1, nu2, coarsest, with_residual=True,
-                               eig_cache=eig_cache)
+        while it < max_cycles and exceeds(rmax, thresh):  # one host read per check
+            with _cycle():
+                u, rmax = vcycle_q(u, g_q, h, w, nu1, nu2, coarsest, with_residual=True,
+                                   eig_cache=eig_cache)
             it += 1
         return (torch.zeros_like(g_q) if u is None else u), it
     u, rc_t = K.mg_down_q(None, g_q, nu1, h, w, chp)
     for _ in range(burst - 1):
-        u, rc_t = K.mg_ud_q(u, g_q, *coarse(rc_t), nu2, nu1, h, w, chp)
+        with _cycle():
+            u, rc_t = K.mg_ud_q(u, g_q, *coarse(rc_t), nu2, nu1, h, w, chp)
     it = burst - 1
     while True:
-        u, rc_t, rmax = K.mg_ud_q(u, g_q, *coarse(rc_t), nu2, nu1, h, w, chp,
-                                  with_residual=True)
+        with _cycle():
+            u, rc_t, rmax = K.mg_ud_q(u, g_q, *coarse(rc_t), nu2, nu1, h, w, chp,
+                                      with_residual=True)
         it += 1
-        if not (bool(rmax > thresh) and it < max_cycles):  # one host read per check
+        if not (exceeds(rmax, thresh) and it < max_cycles):  # one host read per check
             return u, it
 
 
@@ -631,14 +654,16 @@ def _pcg(g: torch.Tensor, u: torch.Tensor, tol: float, max_cycles: int, nu1: int
     recurrence's residual."""
 
     def precond(r):
-        return vcycle(torch.zeros_like(r), r, nu1, nu2, coarsest, use_pallas, eig_cache=eig_cache)
+        with _cycle():
+            return vcycle(torch.zeros_like(r), r, nu1, nu2, coarsest, use_pallas,
+                          eig_cache=eig_cache)
 
     thresh = tol * torch.clamp(g.abs().max(), min=1e-30)
     r = residual(u, g)
     p = precond(r)
     rz = _vdot(r, p)
     it = 0
-    while it < max_cycles and bool(r.abs().max() > thresh):  # one host read per check
+    while it < max_cycles and exceeds(r.abs().max(), thresh):  # one host read per check
         ap = _apply_a(p)
         alpha = rz / _vdot(p, ap)
         u = u + alpha * p
@@ -723,7 +748,7 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
         u, it, rmax = _pcg(g, torch.zeros_like(g) if u0 is None else u0, tol, max_cycles, nu1,
                            nu2, coarsest, use_pallas, eig_cache)
         if return_info:
-            return u, {"cycles": it, "residual": rmax.item()}
+            return u, {"cycles": it, "residual": read_residual(rmax)}
         return u
     if padded == "q" and quarter_path_applies(h, w, nu1, nu2, coarsest, use_pallas):
         _, hq, wq2, _ = K.mg_geometry_q(h, w)
@@ -743,7 +768,7 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
         u = K.from_quarters(uq)
         out = u if padded_output else u[:, :h, :w]
         if return_info:
-            return out, {"cycles": it, "residual": residual(out, g).abs().max().item()}
+            return out, {"cycles": it, "residual": read_residual(residual(out, g).abs().max())}
         return out
     if quartered:  # a grid the quarter chain does not take: its dense view
         g = K.from_quarters_plain(g_pre)[:, :h, :w]
@@ -777,7 +802,8 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
     if cycles is not None:
         it = int(cycles)
         for _ in range(it):
-            u = cycle(u)
+            with _cycle():
+                u = cycle(u)
     else:
         gnorm = torch.clamp(g.abs().max(), min=1e-30)
         thresh = tol * gnorm
@@ -786,18 +812,19 @@ def solve_multigrid(g: torch.Tensor, u0=None, tol: float = 1e-4, max_cycles: int
         if small:
             burst = min(burst, 1)
         for _ in range(burst):
-            u = cycle(u)
+            with _cycle():
+                u = cycle(u)
         it = burst
         while it < max_cycles:
             r = g if u is None else residual(crop(u), g)
-            if not bool(r.abs().max() > thresh):  # one host read per check
+            if not exceeds(r.abs().max(), thresh):  # one host read per check
                 break
-            u = cycle(u)
+            with _cycle():
+                u = cycle(u)
             it += 1
     if u is None:
         u = torch.zeros_like(g_p if fused else g)
     out = u if (fused and padded_output) else crop(u)
     if return_info:
-        rmax = residual(crop(u), g).abs().max().item()
-        return out, {"cycles": it, "residual": rmax}
+        return out, {"cycles": it, "residual": read_residual(residual(crop(u), g).abs().max())}
     return out

@@ -26,15 +26,18 @@ is the depth of the hierarchy, which follows the padded levels
 
 The tolerance loop checks max |g - A u| > tol * max(max |g|, 1e-30) before
 every cycle, with one host read per check and no check-free burst, as the
-JAX package's while loop does.
+JAX package's while loop does. Cycles and checks count in
+``solvers.multigrid.COUNTS``, as the other multigrid paths count them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from seamlesscloneoptimization_tpu_torch.solvers.jacobi import exceeds, read_residual
 from seamlesscloneoptimization_tpu_torch.solvers.multigrid import (
     _coarsen,
+    _cycle,
     _fused_level,
     _ops_b,
     _pad_to,
@@ -97,21 +100,24 @@ def solve_dyn_window(g: torch.Tensor, padded_hw: tuple[int, int], tol: float = 1
     if h > 0 and w > 0:
         if cycles is not None:
             for _ in range(int(cycles)):
-                u = vcycle_dyn(u, g, hp, wp, nu1=nu1, nu2=nu2, use_pallas=use_pallas)
+                with _cycle():
+                    u = vcycle_dyn(u, g, hp, wp, nu1=nu1, nu2=nu2, use_pallas=use_pallas)
             it = int(cycles)
             if return_info and it:
                 r = _residual_dyn(u, g, 1.0, 1.0)
         else:
             thresh = tol * torch.clamp(g.abs().max(), min=1e-30)
             # checked before every cycle; one host read per check
-            while it < max_cycles and bool(r.abs().max() > thresh):
-                u = vcycle_dyn(u, g, hp, wp, nu1=nu1, nu2=nu2, use_pallas=use_pallas)
+            while it < max_cycles and exceeds(r.abs().max(), thresh):
+                with _cycle():
+                    u = vcycle_dyn(u, g, hp, wp, nu1=nu1, nu2=nu2, use_pallas=use_pallas)
                 it += 1
                 r = _residual_dyn(u, g, 1.0, 1.0)
     if u is None:
         u = torch.zeros_like(g)
     if return_info:
-        return u, {"cycles": it, "residual": r.abs().max().item() if r.numel() else 0.0}
+        return u, {"cycles": it,
+                   "residual": read_residual(r.abs().max()) if r.numel() else 0.0}
     return u
 
 

@@ -2025,3 +2025,30 @@ def test_batch_over_mesh_on_card(cuda, use_pallas):
                              mesh=_card_mesh(cuda))
     torch.cuda.synchronize()
     assert K.LAUNCHES["clamp_cast_paste"] == 4 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mg_cycles", [None, 3])
+def test_solver_counts_match_launches(cuda, mg_cycles):
+    """``solvers.multigrid.COUNTS`` against ``LAUNCHES`` on the quarter
+    chain's served frames: in tolerance mode one ``mg_ud_q`` a cycle, in
+    fixed mode ``mg_down_q`` + ``mg_ud_q`` a frame; ``timed_serve``'s
+    ``cycles_per_frame`` / ``checks_per_frame`` from the same counter."""
+    rng = np.random.default_rng(5)
+    src, dst = _u8(rng, (1024, 1280, 3)), _u8(rng, (1200, 1600, 3))
+    mask = np.zeros(src.shape[:2], np.uint8)
+    mask[1:-1, 1:-1] = 255
+    eng = SeamlessClone(CloneConfig(solver="multigrid", mg_cycles=mg_cycles), device=cuda)
+    eng.timed_serve(src, dst, mask, (800, 600), loops=1)  # the build, the coarse basis
+    K.reset_launches()
+    before = dict(TM.COUNTS)
+    eng.timed_serve(src, dst, mask, (800, 600), loops=3)
+    cycles = TM.COUNTS["cycles"] - before["cycles"]
+    checks = TM.COUNTS["checks"] - before["checks"]
+    if mg_cycles is None:
+        assert cycles == K.LAUNCHES["mg_ud_q"] > 0 and K.LAUNCHES["mg_up_q"] == 0
+        assert checks >= K.LAUNCHES["mg_down_q"] == 4
+    else:
+        assert cycles == K.LAUNCHES["mg_down_q"] + K.LAUNCHES["mg_ud_q"] == 4 * mg_cycles
+        assert checks == 0 and eng.metrics["cycles_per_frame"] == mg_cycles
+    assert 3 * eng.metrics["cycles_per_frame"] <= cycles
+    assert 3 * eng.metrics["checks_per_frame"] <= checks
