@@ -70,12 +70,16 @@
    the loop (``loop_ms``: device time per launch in the served frame, per
    coarse level by launch order; the standalone level kernels and
    transfers from the same frame profiled with the four-kernel chain,
-   ``vcycle_t_unfused``); and one GEMM of each chain.
+   ``vcycle_t_unfused``); and one GEMM of each chain. ``prep_mask`` (the
+   engine's mask prep, no TPU counterpart) at the headline's full and
+   elliptic masks and the 8K patch's, into a new tensor and in place, cold,
+   back to back and in the pair and ``"q"`` engines' ``run`` requests.
 3. Drives each path through the entry points with the launch counters set
    to 0 just before and read just after, and checks every kernel's
    per-frame count (``PATHS``; every ``vcycle_t`` level of the ``"t"`` and
    ``"q"`` chains is one ``mg_down_t`` and one ``mg_up_t`` a cycle, and no
-   path launches ``mg_restrict_t`` or ``mg_prolong_t``), that nothing
+   path launches ``mg_restrict_t`` or ``mg_prolong_t``) and the engine's
+   ``prep_mask`` launches (one a request, ``less_preps``), that nothing
    outside the ROI interior changed, and the card against the same port
    on the CPU (the plain twins), diff_max <= 1:
    - ``pair``: ``CloneConfig()`` (``dst_folded=True``) at the headline,
@@ -458,6 +462,9 @@ UNFUSED_STRIP = {p: f"{p} (unfused chain)" for p in STRIP_PATHS}
 # the kernels line's in-the-loop time per launch; "<kernel> <form>" puts a
 # second profile or template of the kernel under "<form>_loop_ms"
 LOOP_PROFILE = {"erode3": ("mg_q 8K tolerance", "erode3_kernel"),
+                # the engine's mask prep: one a request of the pair and mg_q engines
+                "prep_mask": ("pair requests", "prep_mask_kernel"),
+                "prep_mask eight_k": ("mg_q 8K requests", "prep_mask_kernel"),
                 "erode3 pair": ("pair", "erode3_kernel"),
                 "transpose_pair": ("pair", "transpose_pair_kernel<false"),
                 "transpose_pair divide": ("pair", "transpose_pair_kernel<true"),
@@ -567,7 +574,7 @@ COMPARE_PATHS = ("pair", "unfolded", "per_axis_w", "per_axis_h", "mg_t", "mg_t_f
 
 
 def _per_frame(**counts):
-    return {k: counts.get(k, 0) for k in KERNELS}
+    return {k: counts.get(k, 0) for k in (*KERNELS, "prep_mask")}
 
 
 def _mg_per_frame(levels: int, cycles: int):
@@ -754,6 +761,7 @@ REPLACES = {
     "rb_sweeps_tile_window": [f"{_PK}:391", f"{_PK}:362"],
     "mg_down_exact": [f"{_PK}:595"],
     "mg_up_exact": [f"{_PK}:805"],
+    "prep_mask": ["none: the JAX package preps the mask on the host (native.prep_mask)"],
 }
 SOURCE = {"preprocess_rhs_p_exact": "preprocess_rhs_p", "mg_down_exact": "mg_down",
           "mg_up_exact": "mg_up", "rb_sweeps": "rb_sweeps_tile",
@@ -960,7 +968,21 @@ def sass_kept(mine: dict, theirs: dict) -> tuple[bool, list[str], list[str]]:
     return not lost, [n for n, body in mine.items() if body not in theirs_bodies], lost
 
 
-def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
+def less_preps(path: str, what: str, launches: dict, requests: int) -> dict:
+    """``launches`` less the engine's mask preps, which must number
+    ``requests``: one a ``run`` or ``timed_serve`` of ``SeamlessClone`` (a
+    1x1 mesh's too), none for a larger mesh's frames, a pipeline, solver or
+    edit called directly, or the batch path."""
+    if launches["prep_mask"] != requests:
+        raise AssertionError(f"{path} {what} launched prep_mask {launches['prep_mask']} "
+                             f"times, expected {requests} (one a request)")
+    return {**launches, "prep_mask": 0}
+
+
+def check_counts(path: str, what: str, launches: dict, frames: int, requests: int) -> dict:
+    """The path's launch counts over ``frames`` frames of ``requests``
+    engine requests; returns ``launches`` less the mask preps."""
+    launches = less_preps(path, what, launches, requests)
     if PATHS[path] is None:
         check = (check_mg_q_counts if path in MG_Q_PATHS else
                  check_mg_q_coarse_counts if path in MG_Q_COARSE_PATHS else
@@ -970,11 +992,12 @@ def check_counts(path: str, what: str, launches: dict, frames: int) -> None:
                  check_unpadded_counts if path in DENSE_PATHS + BUCKET_EXACT_PATHS
                  else check_mg_counts)
         check(path, what, launches, frames)
-        return
+        return launches
     for name, per in PATHS[path].items():
         if launches[name] != per * frames:
             raise AssertionError(f"{path} {what} launched {name} {launches[name]} times, "
                                  f"expected {per} x {frames} frames")
+    return launches
 
 
 def check_mg_counts(path: str, what: str, launches: dict, frames: int) -> int:
@@ -1143,7 +1166,7 @@ def profile_frames(label, clone_pipeline, kwargs, frames: int = 5,
             "fold_minor", "unfold_minor", "transpose_pair", "unfold_transpose",
             "unfold_clamp_paste", "preprocess_rhs_p", "mg_down", "mg_up", "mg_restrict_t",
             "mg_prolong_t", "preprocess_rhs_q", "level_q_kernel", "to_quarters",
-            "from_quarters", "rb_sweeps", "postprocess_transposed")
+            "from_quarters", "rb_sweeps", "postprocess_transposed", "prep_mask")
     groups = {"gemm": 0.0, "port kernels": 0.0, "other": 0.0}
     gemm_calls = other_calls = 0
     for k, t in per_kernel.items():
@@ -1193,6 +1216,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
 
+    from seamlesscloneoptimization_tpu_torch import native
     from seamlesscloneoptimization_tpu_torch.api import seamless_clone
     from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
     from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone, prepare_inputs
@@ -1433,6 +1457,43 @@ def main() -> int:
     row("erode3", 2 * bh * bw, 12 * bh * bw,
         time_ms(lambda: K.erode3(m01)), time_ms(lambda: K.erode3_plain(m01)),
         shape=f"u8 ({bh},{bw})", **vs_other(lambda: K.erode3(m01)))
+
+    # prep_mask (no TPU counterpart): the engine's mask prep, a request's
+    # first kernel; bit-exact to its twin on the card at the headline's full
+    # mask, an elliptic one and the 8K patch's full mask, into a new tensor
+    # and in place, the bbox also against native.prep_mask's
+    prep_masks = {}
+    for what, m_np in (("headline", mask), ("8K", np.full(SRC_8K, 255, np.uint8)),
+                       ("headline ellipse", ellipse_mask(np.random.default_rng(SEED + 27),
+                                                         SRC_HW, (1401, 2203)))):
+        m_d = torch.from_numpy(m_np).to(dev)
+        want_m, want_b = K.prep_mask_plain(m_d)
+        got_m, got_b = K.prep_mask(m_d)
+        require_equal(f"prep_mask {what}", got_m, want_m)
+        require_equal(f"prep_mask {what} bbox", got_b, want_b)
+        own = m_d.clone()
+        K.prep_mask(own, out=own)
+        require_equal(f"prep_mask {what} in place", own, want_m)
+        require_equal(f"prep_mask {what} input", m_d, torch.from_numpy(m_np).to(dev))
+        if tuple(got_b.tolist()) != native.prep_mask(m_np)[1]:
+            raise AssertionError(f"prep_mask {what}: bbox {got_b.tolist()}, native "
+                                 f"{native.prep_mask(m_np)[1]}")
+        prep_masks[what] = m_d
+    (ph, pw), (ph8, pw8) = SRC_HW, SRC_8K
+    m_h, m_8 = prep_masks["headline"], prep_masks["8K"]
+    row("prep_mask", 2 * ph * pw, 0, time_ms(lambda: K.prep_mask(m_h)),
+        time_ms(lambda: K.prep_mask_plain(m_h)), shape=f"u8 ({ph},{pw})",
+        b2b_ms=b2b_ms(lambda: K.prep_mask(m_h)),
+        in_place_ms=time_ms(lambda: K.prep_mask(m_h, out=m_h)),
+        eight_k_ms=time_ms(lambda: K.prep_mask(m_8)),
+        eight_k_plain_ms=time_ms(lambda: K.prep_mask_plain(m_8)),
+        eight_k_bound_ms=bound(2 * ph8 * pw8, 0)[0], eight_k_shape=f"u8 ({ph8},{pw8})")
+    r_p = rows["prep_mask"]
+    print(f"prep_mask ({card}): headline {r_p['ms']:.5f} ms cold, {r_p['b2b_ms']:.5f} back "
+          f"to back, in place {r_p['in_place_ms']:.5f}, bound {r_p['bound_ms']:.5f}, plain "
+          f"{r_p['plain_ms']:.5f}; 8K {r_p['eight_k_ms']:.5f} cold, bound "
+          f"{r_p['eight_k_bound_ms']:.5f}, plain {r_p['eight_k_plain_ms']:.5f}")
+    del prep_masks, m_h, m_8, m_d, own, got_m, want_m
 
     gray = bgr_to_gray_u8(patch).to(torch.uint8)[None].expand(c, bh, bw)
     for flags, rule, p_in in ((1, "opencv", patch), (2, "opencv", patch),
@@ -2496,13 +2557,26 @@ def main() -> int:
             f"{k} {[r[k] for r in turns['other']]} -> {[r[k] for r in turns['this']]}"
             for k in ("ms_per_frame", "busy_us", "idle", "torch_op_launches", "loop_ms")))
 
+    def prep_loop(label, eng_, s_img, mask_, d_img):
+        """A profile of 1 + 3 of the engine's ``run`` requests (their
+        prep_mask launches, one a request, give the kernels line its
+        in-the-loop time under ``label``)."""
+        ctr = (d_img.shape[1] // 2, d_img.shape[0] // 2)
+        K.reset_launches()
+        profile_frames(label, lambda: eng_.run(s_img, d_img, mask_, ctr), {}, frames=3,
+                       into=loop_profiles, brief=True)
+        less_preps(label, "4 runs", dict(K.LAUNCHES), 4)
+
     def drive(path, cfg, s_img, mask_, loops, label, d_img=dst, cpu="run+serve",
-              solver="dst_gemm", engine=None):
+              solver="dst_gemm", engine=None, preps=1):
         """timed_serve (warm-up + loops frames) and one single-shot run, each
         with the counters set to 0 just before and read just after; the card
         against the CPU twins (``cpu``: "run+serve" the run and a 2-frame
         serve, "run" the run only, None no comparison). ``engine(device)``
-        makes the engine (default: ``SeamlessClone(cfg, device)``)."""
+        makes the engine (default: ``SeamlessClone(cfg, device)``); ``preps``
+        is its prep_mask launches a request (0 on a mesh's frames, which
+        prepare the mask on the host). ``path_launches`` keeps the counts
+        less the preps."""
         make = engine or (lambda device: SeamlessClone(cfg, device=device))
         eng = make("cuda")
         ctr = (d_img.shape[1] // 2, d_img.shape[0] // 2)
@@ -2515,8 +2589,7 @@ def main() -> int:
         K.reset_launches()
         out, ms = eng.timed_serve(s_img, d_img, mask_, ctr, loops=loops)
         torch.cuda.synchronize()
-        serve = dict(K.LAUNCHES)
-        check_counts(path, f"serve ({label})", serve, loops + 1)
+        serve = check_counts(path, f"serve ({label})", dict(K.LAUNCHES), loops + 1, preps)
         if eng.metrics["solver_resolved"] != solver:
             raise AssertionError(f"solver resolved to {eng.metrics['solver_resolved']}, "
                                  f"expected {solver}")
@@ -2532,12 +2605,12 @@ def main() -> int:
         K.reset_launches()
         run_out = eng.run(s_img, d_img, mask_, ctr)
         eng.sync()
-        run = dict(K.LAUNCHES)
-        check_counts(path, f"single-shot run ({label})", run, 1)
+        launched = dict(K.LAUNCHES)
+        run = check_counts(path, f"single-shot run ({label})", launched, 1, preps)
         run_np = run_out.cpu().numpy()
         run_outputs.setdefault(path, run_np)
         check_outside(run_np, d_img, interior)
-        print(f"single-shot run {path} ({label}): launches {json.dumps(run)}")
+        print(f"single-shot run {path} ({label}): launches {json.dumps(launched)}")
         path_launches.setdefault(path, (serve, run))
         if other is not None and path in COMPARE_PATHS and all(other_agrees):
             compare_frames(path, label, eng, s_img, mask_, d_img, ctr, loops)
@@ -2592,6 +2665,7 @@ def main() -> int:
                 break
         return n
 
+    prep_loop("pair requests", eng, src, mask, dst)
     gemms = dst_gemms("pair", True, fold_b)
     if gemms not in (-1, 8):
         raise AssertionError(f"the pair chain ran {gemms} GEMMs a frame, expected 8")
@@ -2715,6 +2789,7 @@ def main() -> int:
     q_run_cycles = check_mg_q_counts("mg_q", "single-shot run (8K)", path_launches["mg_q"][1],
                                      1)
     q_serve_cycles = path_launches["mg_q"][0]["mg_ud_q"]
+    prep_loop("mg_q 8K requests", eng8, src8, mask8, dst8)
     # the single run's RHS through the solver: its cycles are its mg_ud_q
     # launches; the residual of the card's solution, dense, in float64
     gq8 = K.preprocess_rhs_q(dest8, patch8, me8, qhw8)
@@ -3082,7 +3157,8 @@ def main() -> int:
 
     mesh_c = make_tile_mesh([dev] * DD_TILES, DD_MESH)
     eng_dd, dd8_ms = drive("tiled_dd", CloneConfig(), src8, mask8, MG_LOOPS, "8K", d_img=dst8,
-                           cpu=None, solver="multigrid_dd", engine=dd_engine(CloneConfig()))
+                           cpu=None, solver="multigrid_dd", engine=dd_engine(CloneConfig()),
+                           preps=0)
     dd_run_cycles = check_tiled_counts("tiled_dd", "single-shot run (8K)",
                                        path_launches["tiled_dd"][1], 1)
     dd_serve = path_launches["tiled_dd"][0]
@@ -3113,7 +3189,8 @@ def main() -> int:
     del eng_dd
     eng_dd, dd8_fixed_ms = drive("tiled_dd_fixed", CloneConfig(mg_cycles=4), src8, mask8,
                                  MG_LOOPS, "8K, mg_cycles=4", d_img=dst8, cpu=None,
-                                 solver="multigrid_dd", engine=dd_engine(CloneConfig(mg_cycles=4)))
+                                 solver="multigrid_dd", engine=dd_engine(CloneConfig(mg_cycles=4)),
+                                 preps=0)
     resident_check("tiled_dd_fixed", eng_dd, MG_LOOPS, lambda g: solve_poisson_dd(
         g, mesh_c, cycles=4), "tiled_dd 8K mg_cycles=4", frames_prof=3, brief=False)
     del eng_dd
@@ -3129,7 +3206,8 @@ def main() -> int:
         raise AssertionError("the 1x1 mesh is not the single-device engine")
     del one, one_out, ref_out
     _, dd_head_ms = drive("tiled_dd_headline", CloneConfig(), src, mask, MG_LOOPS, headline,
-                          cpu="run", solver="multigrid_dd", engine=dd_engine(CloneConfig()))
+                          cpu="run", solver="multigrid_dd", engine=dd_engine(CloneConfig()),
+                          preps=0)
     print(f"tiled_dd at the headline ({card}): serve {dd_head_ms:.4f} ms/frame "
           f"({path_launches['tiled_dd_headline'][0]['rb_sweeps_tile'] / (2 * DD_TILES)
               / (MG_LOOPS + 1):g} cycles a frame); the single-card 'q' frame {q_head_ms:.4f}")
@@ -3601,7 +3679,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if (bh_b, bw_b) != BUCKET_HW or tuple(tight_b[2:]) != bbox:
             raise AssertionError(f"{bbox}: bucket {(bh_b, bw_b)}, tight {tight_b}")
-        check_counts("bucket_grown_headline", f"run, tight {bbox}", dict(K.LAUNCHES), 1)
+        check_counts("bucket_grown_headline", f"run, tight {bbox}", dict(K.LAUNCHES), 1, 1)
         sizes.append(dict(tight=bbox, changed=int((out_b.cpu().numpy() != dst).any(-1).sum())))
     if len(eng_bg._bases) != 1:
         raise AssertionError(f"three masks in one bucket left {len(eng_bg._bases)} bases")
@@ -3725,7 +3803,7 @@ def main() -> int:
             dst4k, srcs_, masks_, centers_, **kw))
         call_s = time.perf_counter() - t0
         if PATHS[path] is not None:
-            check_counts(path, "call", launches, 1)
+            check_counts(path, "call", launches, 1, 0)
         path_launches.setdefault(path, (launches, launches))
         run_outputs.setdefault(path, out)
         d_cpu = diff_max(out, TB.seamless_clone_batch_fused(dst4k, srcs_, masks_, centers_, **kw,
@@ -3904,7 +3982,7 @@ def main() -> int:
         out, launches = launches_of(lambda: fn(img, mask_, *args))
         path_launches.setdefault(path, (launches, launches))
         if PATHS[path] is not None:
-            check_counts(path, "call", launches, 1)
+            check_counts(path, "call", launches, 1, 0)
         ms = event_ms(lambda: fn(img, mask_, *args, to_numpy=False), EDIT_CALLS)
         prof = profile_frames(path, lambda: fn(img, mask_, *args, to_numpy=False), {},
                               frames=3, into=loop_profiles, brief=True)
@@ -4080,7 +4158,8 @@ def main() -> int:
         launches = dict(K.LAUNCHES)
         if rc != 0:
             raise AssertionError(f"cli_headline: the CLI returned {rc}")
-        check_counts("cli_headline", f"CLI (1 + {CLI_LOOPS} runs)", launches, 1 + CLI_LOOPS)
+        check_counts("cli_headline", f"CLI (1 + {CLI_LOOPS} runs)", launches, 1 + CLI_LOOPS,
+                     1 + CLI_LOOPS)
         path_launches.setdefault("cli_headline", (launches, launches))
         image = native.read_bmp(tmp / "cli" / "ucRGB_Output.bmp")
         result = native.read_yaml_mat(tmp / "cli" / "result.yml")
@@ -4200,7 +4279,7 @@ def main() -> int:
         launches = dict(K.LAUNCHES)
         if rc != 0:
             raise AssertionError(f"capi_headline: sc_tpu_run: {cdll.sc_tpu_last_error().decode()}")
-        check_counts("capi_headline", "in-process sc_tpu_run", launches, 1)
+        check_counts("capi_headline", "in-process sc_tpu_run", launches, 1, 1)
         path_launches.setdefault("capi_headline", (launches, launches))
         abi_run_ms = []
         for _ in range(5):
@@ -4264,7 +4343,7 @@ def main() -> int:
                              ("tiled_gspmd_fixed", CloneConfig(tol=TOL, mg_cycles=4),
                               "8K, mg_cycles=4")):
         eng_gs, ms = drive(path, cfg, src8, mask8, GSPMD_LOOPS, label, d_img=dst8, cpu=None,
-                           solver="multigrid_gspmd", engine=gspmd_engine(cfg))
+                           solver="multigrid_gspmd", engine=gspmd_engine(cfg), preps=0)
         serve, run = path_launches[path]
         cycles = run["rb_sweeps_tile"] // (2 * DD_TILES * GSPMD_PLAIN_LEVELS)
         want_cycles = cfg.mg_cycles
@@ -4570,6 +4649,7 @@ def main() -> int:
         if (any(rows[name]["launches_by_path"].values())
                 or any(rows[name]["run_launches_by_path"].values())):
             raise AssertionError(f"{name} was launched on a path: it is folded into {fused}")
+    rows["prep_mask"].update(launches=1, path="one a request: every run and timed_serve")
     rows["clamp_cast_paste_interleaved"]["launches"] = path_launches["unfolded"][1][
         "clamp_cast_paste"]
     rows["clamp_cast_paste_interleaved"]["path"] = "unfolded single-shot run"

@@ -35,11 +35,20 @@ seamlessClone-CUDA/seamlessClone_imp.cu:239-370):
 - ``dump_stages`` writes one clone's stages into ``debug_dir``; ``profile``
   is a ``torch.profiler`` context writing a Chrome trace; ``destroy`` drops
   the caches and the tensors the engine holds.
+- ``run`` and ``timed_serve`` prepare a 2-D u8 mask (or None, the full
+  mask) on the device: the raw mask uploaded, one ``prep_mask`` launch
+  (binarize, zero the 1-px border, the bbox), the bbox's four ints read
+  back for the ROI's placement (``place_roi``), all on a side stream the
+  engine owns, so an asynchronous ``run`` does not wait for the frames it
+  queued before. Any other mask takes ``native.prep_mask`` on the host
+  (``prepare_inputs``), as ``dump_stages`` and the tiled engine's mesh
+  frames do.
 - Under a profiler, ``run`` and ``timed_serve`` are each one
   ``engine.request`` span (the engine's request number and its configured
-  solver in ``args``) holding ``engine.prepare`` (validation, mask prep,
-  ``auto``, the cache lookups), ``engine.bases_build`` (a DST-basis miss),
-  ``engine.upload``, the frames' ``pipeline.*`` spans, ``engine.sync`` (the
+  solver in ``args``) holding ``engine.prepare`` (validation, mask prep
+  with its upload, ``auto``, the cache lookups), ``engine.bases_build`` (a
+  DST-basis miss), ``engine.upload`` (src, dst, a host-prepared mask), the
+  frames' ``pipeline.*`` spans, ``engine.sync`` (the
   host waiting on the card) and ``engine.finish``. ``timed_serve`` also
   puts the solver's V-cycles and host reads a timed frame
   (``solvers.multigrid.COUNTS``) into ``metrics["cycles_per_frame"]`` and
@@ -69,6 +78,7 @@ from seamlesscloneoptimization_tpu_torch import native, resolve_device
 from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
 from seamlesscloneoptimization_tpu_torch.core.trace import span
 from seamlesscloneoptimization_tpu_torch.models.pipeline import clone_pipeline, clone_roi
+from seamlesscloneoptimization_tpu_torch.ops import kernels as K
 from seamlesscloneoptimization_tpu_torch.ops.kernels import ru128
 from seamlesscloneoptimization_tpu_torch.solvers import (
     AUTO_CROSSOVER_PIXELS,
@@ -107,15 +117,12 @@ class BoundedCache(dict):
 
 def prepare_inputs(mask: np.ndarray, src_shape, dst_shape, center, bucket: int = 0,
                    return_tight: bool = False):
-    """Host-side mask prep: binarize + border-zero + bbox + ROI placement.
+    """Host-side mask prep: binarize + border-zero + bbox (``native.prep_mask``),
+    then the ROI's placement (``place_roi``).
 
     Returns None for an empty mask, else (prepared_mask, (x0, y0),
     (left, top), (bh, bw)) — plus, with ``return_tight``, (dy, dx,
-    tight_bh, tight_bw): the tight bbox inside the returned ROI. bucket > 0
-    rounds the ROI up to a multiple, placing the tight bbox inside it from
-    the feasibility interval (bucket inside src AND its paste target inside
-    dst, paste position preserved), or keeps the exact bbox when that
-    interval is empty.
+    tight_bh, tight_bw): the tight bbox inside the returned ROI.
     """
     if bucket < 0:
         raise ValueError(f"bbox_bucket must be >= 0, got {bucket}")
@@ -124,7 +131,21 @@ def prepare_inputs(mask: np.ndarray, src_shape, dst_shape, center, bucket: int =
         mask = mask[..., 0]
     if mask.shape != tuple(src_shape[:2]):
         raise ValueError(f"mask shape {mask.shape} != source {tuple(src_shape[:2])}")
-    m, (x0, y0, bw, bh) = native.prep_mask(mask)
+    m, bbox = native.prep_mask(mask)
+    placed = place_roi(bbox, src_shape, dst_shape, center, bucket, return_tight)
+    return None if placed is None else (m, *placed)
+
+
+def place_roi(bbox, src_shape, dst_shape, center, bucket: int = 0, return_tight: bool = False):
+    """The ROI of a prepared mask's bbox (x0, y0, bw, bh): None for an empty
+    bbox, else ((x0, y0), (left, top), (bh, bw)) — plus, with
+    ``return_tight``, (dy, dx, tight_bh, tight_bw). bucket > 0 rounds the
+    ROI up to a multiple, placing the tight bbox inside it from the
+    feasibility interval (bucket inside src AND its paste target inside dst,
+    paste position preserved), or keeps the exact bbox when that interval is
+    empty. Raises ValueError when the ROI leaves the destination.
+    """
+    x0, y0, bw, bh = bbox
     if bw == 0 or bh == 0:
         return None
     cx, cy = center
@@ -143,9 +164,9 @@ def prepare_inputs(mask: np.ndarray, src_shape, dst_shape, center, bucket: int =
         if lo_y <= hi_y and lo_x <= hi_x:
             dy = min(max((tb - bh) // 2, lo_y), hi_y)
             dx = min(max((tw - bw) // 2, lo_x), hi_x)
-            out = m, (x0 - dx, y0 - dy), (left - dx, top - dy), (tb, tw)
+            out = (x0 - dx, y0 - dy), (left - dx, top - dy), (tb, tw)
             return out + ((dy, dx, bh, bw),) if return_tight else out
-    out = m, (x0, y0), (left, top), (bh, bw)
+    out = (x0, y0), (left, top), (bh, bw)
     return out + ((0, 0, bh, bw),) if return_tight else out
 
 
@@ -195,6 +216,7 @@ class SeamlessClone:
         self._held: dict[int, Any] = {}  # id -> weakref of tensors THIS engine made
         self._last_out: torch.Tensor | None = None
         self._requests = 0  # run / timed_serve calls: engine.request's number
+        self._side: torch.cuda.Stream | None = None  # the mask prep's stream on the card
         self.metrics: dict[str, Any] = {}
 
     def _request_span(self):
@@ -244,14 +266,88 @@ class SeamlessClone:
         return bool(self.config.bucket_exact and self.config.bbox_bucket)
 
     def _prepare(self, mask, src, dst, center):
-        """``prepare_inputs`` with the config's bucket; in bucket_exact mode
-        the tight bbox inside the ROI comes fifth (``_unpack_prep``)."""
+        """``prepare_inputs`` with the config's bucket, on the host; in
+        bucket_exact mode the tight bbox inside the ROI comes fifth
+        (``_unpack_prep``). The callers that need the prepared mask on the
+        host keep it: ``dump_stages`` and the tiled engine's mesh frames."""
         if mask is None:
             mask = np.full(tuple(src.shape[:2]), 255, np.uint8)
         elif isinstance(mask, torch.Tensor):
             mask = mask.cpu().numpy()
         return prepare_inputs(mask, tuple(src.shape), tuple(dst.shape), center,
                               bucket=self.config.bbox_bucket, return_tight=self._bucket_exact())
+
+    @staticmethod
+    def _preps_on_device(mask) -> bool:
+        """The route of ``run``'s and ``timed_serve``'s mask prep, by the
+        input: None (the full mask) and a 2-D u8 mask, a host array or a
+        tensor, are prepared on the engine's device (``_prepare_request``);
+        any other mask (3-D, another dtype) by ``_prepare`` on the host,
+        where ``native.prep_mask`` compares it with 0 before any cast."""
+        return mask is None or (getattr(mask, "ndim", None) == 2 and _is_uint8(mask))
+
+    def _prepare_request(self, mask, src, dst, center):
+        """``_prepare`` for ``run`` and ``timed_serve``. On the device route
+        (``_preps_on_device``) the prepared mask is a tensor on the device
+        and only its bbox's four ints come to the host, for ``place_roi``;
+        otherwise ``_prepare``'s host array."""
+        if not self._preps_on_device(mask):
+            return self._prepare(mask, src, dst, center)
+        hw = tuple(src.shape[:2])
+        if mask is not None and tuple(mask.shape) != hw:
+            raise ValueError(f"mask shape {tuple(mask.shape)} != source {hw}")
+        m, bbox = self._device_prep(mask, hw)
+        placed = place_roi(bbox, tuple(src.shape), tuple(dst.shape), center,
+                           self.config.bbox_bucket, self._bucket_exact())
+        return None if placed is None else (m, *placed)
+
+    def _device_prep(self, mask, hw):
+        """(the prepared (H, W) u8 mask on the device, its bbox as four ints),
+        from one ``K.prep_mask`` (``_prep_kernel``). On the card the upload,
+        the kernel and the bbox's read run on the engine's side stream: the
+        read waits on that stream alone, not on frames still queued on the
+        current stream (``run`` is asynchronous; a tensor mask on the
+        engine's card waits for the current stream's queue first, which may
+        still write it), and the current stream waits on the side stream's event before
+        anything reads the mask."""
+        here = isinstance(mask, torch.Tensor) and mask.device == self._concrete_device()
+        if self.device.type != "cuda":
+            m, bbox = self._prep_kernel(mask, hw, here)
+            return self._track(m), bbox.tolist()
+        if self._side is None:  # made on first use
+            self._side = torch.cuda.Stream(device=self.device)
+        main, side = torch.cuda.current_stream(self.device), self._side
+        with torch.cuda.stream(side):
+            if here:
+                side.wait_stream(main)
+            m, bbox = self._prep_kernel(mask, hw, here)
+            done = side.record_event()
+            bbox = bbox.tolist()  # a copy on the side stream, then its sync
+        main.wait_event(done)
+        m.record_stream(main)  # made on the side stream, read on this one
+        return self._track(m), bbox
+
+    def _concrete_device(self) -> torch.device:
+        """The engine's device with its index: ``cuda`` is the current card."""
+        if self.device.type == "cuda" and self.device.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return self.device
+
+    def _prep_kernel(self, mask, hw, here: bool):
+        """``K.prep_mask`` in place on the engine's own copy of the mask (a
+        host mask uploaded, a tensor on another device, the CPU or another
+        card, copied; the full mask made on the device for None); a tensor
+        on the engine's device (``here``) is read where it lies and never
+        written."""
+        if here:
+            return K.prep_mask(mask.contiguous())
+        if mask is None:
+            m = torch.full(hw, 255, dtype=torch.uint8, device=self.device)
+        else:
+            if not isinstance(mask, torch.Tensor):
+                mask = torch.from_numpy(np.ascontiguousarray(mask))
+            m = mask.to(self.device, memory_format=torch.contiguous_format, copy=True)
+        return K.prep_mask(m, out=m)
 
     @staticmethod
     def _unpack_prep(prep):
@@ -309,7 +405,7 @@ class SeamlessClone:
             flags = self.config.flags if flags is None else flags
             with span("engine.prepare"):
                 self._validate(src, dst)
-                prep = self._prepare(mask, src, dst, center)
+                prep = self._prepare_request(mask, src, dst, center)
                 if prep is not None:
                     m, (x0, y0), (left, top), (bh, bw), tight = self._unpack_prep(prep)
                     if self._has_interior((bh, bw), tight):
@@ -325,7 +421,7 @@ class SeamlessClone:
                 dst_d = self._to_device(dst)
                 if dst_d is dst and not self.config.donate_dst:
                     dst_d = self._track(dst_d.clone())
-                m_d = self._upload(m)
+                m_d = self._to_device(m)
             out = clone_pipeline(src_d, dst_d, m_d, (x0, y0), (left, top), tight, **kw)
             with span("engine.finish"):
                 self._last_out = out
@@ -399,7 +495,7 @@ class SeamlessClone:
             flags = self.config.flags if flags is None else flags
             with span("engine.prepare"):
                 self._validate(src, dst)
-                prep = self._prepare(mask, src, dst, center)
+                prep = self._prepare_request(mask, src, dst, center)
                 if prep is None:
                     raise ValueError("empty mask")
                 m, (x0, y0), (left, top), (bh, bw), tight = self._unpack_prep(prep)
@@ -410,7 +506,7 @@ class SeamlessClone:
             with span("engine.upload"):
                 src_d = self._to_device(src)
                 buf = self._track(self._to_device(dst).permute(2, 0, 1).contiguous())
-                m_d = self._upload(m)
+                m_d = self._to_device(m)
 
             def frame():  # bucket_exact: the tight bbox rides along every frame
                 clone_pipeline(src_d, buf, m_d, (x0, y0), (left, top), tight,

@@ -87,6 +87,7 @@ SIGNATURES = {
                               (_P,) * 3 + (_I,) * 9 + (_L, _I, _L, _I, _P)),
     "postprocess_transposed": ("postprocess_transposed_launch",
                                (_P, _I, _I, _I, _P, _L, _L, _L, _I, _I, _P)),
+    "prep_mask": ("prep_mask_launch", (_P, _P, _P, _I, _I, _P)),
 }
 
 # kernels exported by another kernel's source: name -> that source's name

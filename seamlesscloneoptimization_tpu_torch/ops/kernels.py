@@ -46,6 +46,8 @@ wrapper                       replaces (pallas_kernels.py,
 ``rb_sweeps_tile``            ``rb_sweeps_tile_pallas`` (also on a window
                               of a larger array, read where it lies)
 ``postprocess_transposed``    ``postprocess_transposed_pallas`` (in place)
+``prep_mask``                 none: the JAX package preps the mask on the
+                              host (``native.prep_mask``)
 ============================  =============================================
 
 Each wrapper checks device, dtype, shape and layout, allocates its output
@@ -88,7 +90,7 @@ LAUNCHES = {"erode3": 0, "preprocess_rhs_t": 0, "transpose": 0,
             "mg_prolong_t": 0, "mg_down_t": 0, "mg_up_t": 0, "preprocess_rhs_q": 0,
             "mg_down_q": 0, "mg_up_q": 0, "mg_ud_q": 0, "mg_prolong_tq": 0,
             "clamp_cast_paste_q": 0, "to_quarters": 0, "from_quarters": 0, "mg_restrict_tq": 0, "rb_sweeps": 0,
-            "postprocess_transposed": 0, "rb_sweeps_tile": 0}
+            "postprocess_transposed": 0, "rb_sweeps_tile": 0, "prep_mask": 0}
 WINDOW_LAUNCHES = {"rb_sweeps_tile": 0}
 
 _MIXED_RULES = {"opencv": 0, "norm": 1}
@@ -158,6 +160,57 @@ def erode3(mask: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(mask)
     _launch("erode3", mask, mask.data_ptr(), out.data_ptr(), h, w)
     return out
+
+
+# ---------------------------------------------------------------------------
+# prep_mask
+# ---------------------------------------------------------------------------
+
+
+def prep_mask_plain(mask: torch.Tensor, out: torch.Tensor | None = None):
+    """``native.prep_mask`` in torch ops: any nonzero byte of the (H, W) u8
+    ``mask`` inside, the 1-px border zeroed, written as {0, 255} into
+    ``out`` (default a new tensor; it may be ``mask`` itself), and the int32
+    bbox (x0, y0, bw, bh) of what is inside, all 0 for an empty mask.
+    Returns (out, bbox)."""
+    inside = mask[1:-1, 1:-1] != 0
+    out = torch.empty_like(mask) if out is None else out
+    out.zero_()[1:-1, 1:-1].masked_fill_(inside, 255)
+    rows = torch.nonzero(inside.any(dim=1)).flatten()
+    if rows.numel() == 0:
+        return out, torch.zeros(4, dtype=torch.int32, device=mask.device)
+    cols = torch.nonzero(inside.any(dim=0)).flatten()
+    bbox = torch.stack([cols[0] + 1, rows[0] + 1, cols[-1] - cols[0] + 1, rows[-1] - rows[0] + 1])
+    return out, bbox.to(torch.int32)
+
+
+def prep_mask(mask: torch.Tensor, out: torch.Tensor | None = None):
+    """(H, W) u8 mask (any nonzero byte inside) -> ((H, W) u8 {0, 255} with
+    its 1-px border zeroed, int32 (x0, y0, bw, bh) on the same device), one
+    launch; equal to ``prep_mask_plain`` and to ``native.prep_mask``.
+    ``out`` (contiguous, 16-byte aligned) may be ``mask`` itself: the kernel
+    reads each 16-byte chunk before it writes it. A mask at an unaligned
+    address is read from an aligned copy."""
+    _require(mask, "mask", torch.uint8, 2)
+    if out is not None:
+        _require(out, "out", torch.uint8, 2)
+        _same_device(mask, out)
+        if out.shape != mask.shape:
+            raise ValueError(f"out {tuple(out.shape)} != mask {tuple(mask.shape)}")
+    if mask.device.type == "cpu":
+        return prep_mask_plain(mask, out)
+    h, w = mask.shape
+    if h * w >= (1 << 31) - 16:
+        raise ValueError(f"mask {h}x{w} has more than 2^31 - 17 pixels")
+    if out is None:
+        out = torch.empty_like(mask)
+    elif out.data_ptr() % 16:
+        raise ValueError("out must be 16-byte aligned")
+    if mask.data_ptr() % 16:
+        mask = mask.clone()
+    buf = torch.empty(9, dtype=torch.int32, device=mask.device)  # bbox, then scratch
+    _launch("prep_mask", mask, mask.data_ptr(), out.data_ptr(), buf.data_ptr(), h, w)
+    return out, buf[:4]
 
 
 # ---------------------------------------------------------------------------

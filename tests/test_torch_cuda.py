@@ -419,7 +419,8 @@ PER_AXIS_H = _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=1, transpose_pa
 
 def _serve_counts(cuda, cfg, src_hw, per_frame):
     """Serve 1 warm-up + 3 frames of a full-mask patch: launch counts per
-    frame as given, and the card within 1 of the CPU."""
+    frame as given, one prep_mask for the request, and the card within 1
+    of the CPU."""
     rng = np.random.default_rng(sum(src_hw))
     src = _u8(rng, src_hw + (3,))
     dst = _u8(rng, (src_hw[0] + 60, src_hw[1] + 80, 3))
@@ -428,7 +429,7 @@ def _serve_counts(cuda, cfg, src_hw, per_frame):
     K.reset_launches()
     out, ms = SeamlessClone(cfg, device=cuda).timed_serve(src, dst, mask, center, loops=3)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {k: v * 4 for k, v in per_frame.items()}
+    assert K.LAUNCHES == {k: v * 4 for k, v in per_frame.items()} | {"prep_mask": 1}
     assert ms > 0
     want, _ = SeamlessClone(cfg, device="cpu").timed_serve(src, dst, mask, center, loops=3)
     assert np.abs(out.cpu().numpy().astype(np.int16) - want.numpy()).max() <= 1
@@ -652,7 +653,7 @@ def test_serve_mg_t_tol_counts(cuda):
     n = K.LAUNCHES["mg_down_t"]
     assert n > 0 and n % 2 == 0
     assert K.LAUNCHES == _per_frame(erode3=1, preprocess_rhs_p=1, clamp_cast_paste=1,
-                                    mg_down_t=n, mg_up_t=n)
+                                    mg_down_t=n, mg_up_t=n, prep_mask=1)
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (300, 290)).numpy()
     assert np.abs(out.astype(np.int16) - want).max() <= 1
 
@@ -927,7 +928,7 @@ def test_serve_mg_q_tol_counts(cuda):
     assert n >= 3
     assert K.LAUNCHES == _per_frame(erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1,
                                     mg_down_q=1, mg_ud_q=n, mg_prolong_tq=n, mg_down_t=n,
-                                    mg_up_t=n)
+                                    mg_up_t=n, prep_mask=1)
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (300, 290)).numpy()
     assert np.abs(out.astype(np.int16) - want).max() <= 1
 
@@ -1124,7 +1125,7 @@ def test_serve_mg_q_coarse_tol_counts(cuda):
     n = K.LAUNCHES["mg_up_q"]
     assert n >= 1
     assert K.LAUNCHES == _per_frame(
-        erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1,
+        erode3=1, preprocess_rhs_q=1, clamp_cast_paste_q=1, prep_mask=1,
         **{k: n for k in ("mg_down_q", "mg_restrict_tq", "mg_prolong_tq", "mg_up_q",
                           "mg_down_t", "mg_up_t")})
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (300, 290)).numpy()
@@ -1264,7 +1265,7 @@ def test_new_routes_on_card_match_cpu(cuda, cfg):
     paste = ({"postprocess_transposed": 1} if cfg.use_pallas_postprocess
              and not cfg.use_pallas_preprocess and cfg.solver == "auto"
              else {"clamp_cast_paste": 1})
-    assert launches == _per_frame(**pre, **paste)
+    assert launches == _per_frame(**pre, **paste, prep_mask=1)
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (60, 50)).numpy()
     assert np.abs(out.astype(np.int16) - want).max() <= 1
 
@@ -1598,7 +1599,7 @@ def test_precision_engine_on_card(cuda, precision):
     torch.cuda.synchronize()
     assert K.LAUNCHES == _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=2,
                                     transpose_pair=3, unfold_transpose=2,
-                                    unfold_clamp_paste=1)
+                                    unfold_clamp_paste=1, prep_mask=1)
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (240, 180)).numpy()
     assert np.abs(out.cpu().numpy().astype(np.int16) - want).max() <= 1
 
@@ -1659,11 +1660,12 @@ def test_bucket_engine_on_card_matches_cpu(cuda, exact, flags):
     if exact:
         n = K.LAUNCHES["mg_down"]
         assert n >= 2 and K.LAUNCHES == _per_frame(erode3=1, preprocess_rhs_p=1,
-                                                   clamp_cast_paste=1, mg_down=n, mg_up=n)
+                                                   clamp_cast_paste=1, mg_down=n, mg_up=n,
+                                                   prep_mask=1)
     else:
         assert K.LAUNCHES == _per_frame(erode3=1, preprocess_rhs_t=1, fold_minor=2,
                                         transpose_pair=3, unfold_transpose=2,
-                                        unfold_clamp_paste=1)
+                                        unfold_clamp_paste=1, prep_mask=1)
     want = SeamlessClone(cfg, device="cpu").run(src, dst, mask, (450, 400)).numpy()
     assert np.abs(out.astype(np.int16) - want).max() <= 1
     served, _ = eng.timed_serve(src, dst, mask, (450, 400), loops=0)
@@ -1775,7 +1777,7 @@ def _cli_images(rng):
 
 def test_cli_on_card_equals_engine(cuda, tmp_path, capsys):
     """The CLI on cuda:0 (one warm-up and 2 timed runs: the pair chain's
-    kernels 3 times each), its BMP and result.yml bit-equal to the engine's
+    kernels and prep_mask 3 times each), its BMP and result.yml bit-equal to the engine's
     run on the card, within 1 of the CPU path."""
     from seamlesscloneoptimization_tpu_torch import native
     from seamlesscloneoptimization_tpu_torch.cli import main
@@ -1788,7 +1790,7 @@ def test_cli_on_card_equals_engine(cuda, tmp_path, capsys):
                  str(tmp_path / "mask.yml"), "300", "200", "0", "--loops", "2",
                  "--output-dir", str(tmp_path / "out")]) == 0
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {k: 3 * v for k, v in PAIR_CHAIN.items()}
+    assert K.LAUNCHES == {k: 3 * v for k, v in PAIR_CHAIN.items()} | {"prep_mask": 3}
     assert "patch size=298x198" in capsys.readouterr().out  # the bbox inside the zeroed frame
     image = native.read_bmp(tmp_path / "out" / "ucRGB_Output.bmp")
     want = SeamlessClone(CloneConfig(), device=cuda).run(src, dst, mask, (300, 200)).cpu().numpy()
@@ -2052,3 +2054,165 @@ def test_solver_counts_match_launches(cuda, mg_cycles):
         assert checks == 0 and eng.metrics["cycles_per_frame"] == mg_cycles
     assert 3 * eng.metrics["cycles_per_frame"] <= cycles
     assert 3 * eng.metrics["checks_per_frame"] <= checks
+
+
+# the mask prep on the card: prep_mask (no TPU counterpart) and the engine's
+# device-side prepare on a side stream
+
+
+def _prep_cases():
+    rng = np.random.default_rng(27)
+    headline, patch8k = (1552, 2400), (2802, 3802)
+    cases = {
+        "headline_full": np.full(headline, 255, np.uint8),
+        "headline_ellipse": _ellipse_mask(headline, (1550, 2398)),
+        "8k_full": np.full(patch8k, 255, np.uint8),
+        "8k_ellipse": _ellipse_mask(patch8k, (2000, 3001)),
+        "ellipse": _ellipse_mask((701, 803), (521, 601)),
+        "random_1pct": ((rng.random((333, 517)) < 0.01) * 128).astype(np.uint8),
+        "random_50pct": (rng.random((300, 401)) < 0.5).astype(np.uint8),
+        "empty": np.zeros((64, 80), np.uint8),
+        "border_only": np.pad(np.zeros((62, 77), np.uint8), 1, constant_values=9),
+        "single_pixel": np.pad(np.full((1, 1), 1, np.uint8), ((700, 11), (9, 3000))),
+    }
+    for w in list(range(3, 34)) + [2399, 3801]:
+        cases[f"width_{w}"] = _u8(rng, (37, w)) * (rng.random((37, w)) < 0.3)
+    return cases
+
+
+PREP_CASES = _prep_cases()
+
+
+@pytest.mark.parametrize("case", sorted(PREP_CASES))
+def test_prep_mask_matches_native(cuda, case):
+    """Mask bytes and bbox bit-equal to ``native.prep_mask``'s, 5 launches
+    each (the atomics must not change a bit), into a new tensor and in
+    place; the mask also read from views at byte offsets 1 .. 15."""
+    from seamlesscloneoptimization_tpu_torch import native
+
+    m = PREP_CASES[case]
+    want, want_bbox = native.prep_mask(m)
+    md = torch.from_numpy(m).to(cuda)
+    for _ in range(5):
+        K.reset_launches()
+        got, bbox = K.prep_mask(md)
+        assert K.LAUNCHES["prep_mask"] == 1
+        assert tuple(bbox.tolist()) == want_bbox
+        assert np.array_equal(got.cpu().numpy(), want)
+    assert torch.equal(md.cpu(), torch.from_numpy(m))  # the input is not written
+    own = md.clone()
+    got, bbox = K.prep_mask(own, out=own)
+    assert got is own and np.array_equal(own.cpu().numpy(), want)
+    assert tuple(bbox.tolist()) == want_bbox
+    if m.size <= 1 << 20:
+        buf = torch.zeros(m.size + 16, dtype=torch.uint8, device=cuda)
+        for off in range(1, 16):
+            view = buf[off : off + m.size].view(m.shape)
+            view.copy_(md)
+            got, bbox = K.prep_mask(view)
+            assert tuple(bbox.tolist()) == want_bbox, off
+            assert np.array_equal(got.cpu().numpy(), want), off
+
+
+def _prep_images(rng, src_hw=(300, 400), dst_hw=(360, 480)):
+    return _u8(rng, src_hw + (3,)), _u8(rng, dst_hw + (3,)), _ellipse_mask(src_hw, (281, 361))
+
+
+@pytest.mark.parametrize("cfg", [dict(), dict(flags=2), dict(bbox_bucket=128),
+                                 dict(bbox_bucket=128, bucket_exact=True),
+                                 dict(solver="multigrid")])
+def test_device_prep_equals_host_route(cuda, monkeypatch, cfg):
+    """``run`` and ``timed_serve`` with the mask prepared on the card: one
+    prep_mask a call, and outputs bit-equal to the host route's
+    (``native.prep_mask``, the prepared mask uploaded); a u8 mask tensor on
+    the card and ``mask=None`` the same, the caller's tensor unmodified."""
+    src, dst, mask = _prep_images(np.random.default_rng(28))
+    center = (240, 180)
+    config = CloneConfig(**cfg)
+    eng = SeamlessClone(config, device=cuda)
+    K.reset_launches()
+    run = eng.run(src, dst, mask, center).cpu().numpy()
+    assert K.LAUNCHES["prep_mask"] == 1
+    K.reset_launches()
+    served, _ = eng.timed_serve(src, dst, mask, center, loops=2)
+    assert K.LAUNCHES["prep_mask"] == 1
+    m_d = torch.from_numpy(mask).to(cuda)
+    m_d[0, :] = 7  # a border the prep zeroes: the caller's tensor must keep it
+    kept = m_d.clone()
+    by_tensor = eng.run(src, dst, m_d, center).cpu().numpy()
+    torch.cuda.synchronize()
+    assert torch.equal(m_d, kept)
+    full = eng.run(src, dst, None, center).cpu().numpy()
+    monkeypatch.setattr(SeamlessClone, "_preps_on_device", staticmethod(lambda m: False))
+    host = SeamlessClone(config, device=cuda)
+    K.reset_launches()
+    assert np.array_equal(run, host.run(src, dst, mask, center).cpu().numpy())
+    assert np.array_equal(served.cpu().numpy(),
+                          host.timed_serve(src, dst, mask, center, loops=2)[0].cpu().numpy())
+    assert K.LAUNCHES["prep_mask"] == 0
+    assert np.array_equal(by_tensor, run)
+    assert np.array_equal(full, host.run(src, dst, np.full(mask.shape, 255, np.uint8),
+                                         center).cpu().numpy())
+
+
+MASK_HOMES = ["cpu", "cuda", "cuda:0"] + (["cuda:1"] if torch.cuda.device_count() > 1 else [])
+
+
+@pytest.mark.parametrize("home", MASK_HOMES)
+def test_device_prep_mask_on_any_device(cuda, monkeypatch, home):
+    """A u8 mask tensor on the engine's card (``cuda`` or ``cuda:0`` for an
+    engine on ``cuda``) is read where it lies; one on the CPU or another
+    card is copied to the engine's card and prepared in place there. Every
+    way the output equals the host array's, and the caller's tensor keeps
+    its bytes."""
+    src, dst, mask = _prep_images(np.random.default_rng(30))
+    center = (240, 180)
+    eng = SeamlessClone(CloneConfig(), device=cuda)
+    want = eng.run(src, dst, mask, center).cpu().numpy()
+    m_t = torch.from_numpy(mask).to(home)
+    m_t[:, 0] = 9  # a border the prep zeroes
+    kept = m_t.clone()
+    calls = []
+    real = K.prep_mask
+
+    def spy(m, out=None):
+        calls.append((m, out))
+        return real(m, out)
+
+    monkeypatch.setattr(K, "prep_mask", spy)
+    got = eng.run(src, dst, m_t, center).cpu().numpy()
+    torch.cuda.synchronize()
+    (given, out), = calls
+    here = torch.device(home).type == "cuda" and torch.device(home).index in (None, 0)
+    assert given.device == torch.device("cuda", torch.cuda.current_device())
+    if here:
+        assert given is m_t and out is None
+    else:
+        assert out is given and given.data_ptr() != m_t.data_ptr()
+    assert np.array_equal(got, want)
+    assert torch.equal(m_t, kept)
+
+
+def test_run_prep_does_not_wait_for_queued_frames(cuda):
+    """Back-to-back ``run`` calls: the bbox read waits on the engine's side
+    stream only. With ~0.3 s of work queued on the current stream ahead of
+    it, ``run`` returns while that work still runs, and its output equals a
+    synchronised run's."""
+    rng = np.random.default_rng(29)
+    src, dst, mask = _prep_images(rng)
+    src_d, dst_d = torch.from_numpy(src).to(cuda), torch.from_numpy(dst).to(cuda)
+    eng = SeamlessClone(CloneConfig(), device=cuda)
+    want = eng.run(src_d, dst_d, mask, (240, 180)).cpu().numpy()  # warm: bases, build
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(1 << 28)
+    e.record()
+    e.synchronize()
+    cycles = int((1 << 28) * 300 / s.elapsed_time(e))  # ~300 ms of spinning
+    torch.cuda.synchronize()
+    main = torch.cuda.current_stream()
+    torch.cuda._sleep(cycles)
+    out = eng.run(src_d, dst_d, mask, (240, 180))
+    assert not main.query()  # the spin and the frame still queued: run did not wait
+    assert eng.metrics["bbox"] == (20, 10, 361, 281)
+    assert np.array_equal(out.cpu().numpy(), want)

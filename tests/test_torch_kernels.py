@@ -154,6 +154,7 @@ def test_cpu_twins_do_not_count_launches():
                              torch.zeros((3, 20, 30), dtype=torch.uint8), 1, 1)
     K.rb_sweeps_tile(gp[:, :18, :28].contiguous(), gp[:, :18, :28].contiguous(), 6, (-3, 5),
                      (12, 30))
+    K.prep_mask(m, out=m)
     assert set(K.LAUNCHES) == {"erode3", "preprocess_rhs_t", "transpose", "clamp_cast_paste",
                                "fold_minor", "unfold_minor", "transpose_pair",
                                "unfold_transpose", "unfold_clamp_paste", "preprocess_rhs_p",
@@ -162,7 +163,7 @@ def test_cpu_twins_do_not_count_launches():
                                "mg_up_q", "mg_ud_q", "mg_prolong_tq", "clamp_cast_paste_q",
                                "to_quarters",
                                "from_quarters", "mg_restrict_tq", "rb_sweeps",
-                               "postprocess_transposed", "rb_sweeps_tile"}
+                               "postprocess_transposed", "rb_sweeps_tile", "prep_mask"}
     assert set(K.LAUNCHES.values()) == {0}
 
 
