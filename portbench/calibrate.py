@@ -4,7 +4,7 @@
 
 In one process, for each seed: a short window of the cell's traffic on the
 program, the reference's answers to the sampled requests, and the numbers
-of ``harness.compare`` (the worst over the sample) for
+of the driver's ``compare`` (the worst over the sample) for
 
 - ``program``: the program as the configuration states it (the lower
   reading);
@@ -31,11 +31,9 @@ from portbench.traffic import Reservoir  # noqa: E402
 
 
 def controls(cell, samples, refs) -> dict:
-    """The controls' worst numbers on the sampled requests."""
+    """The controls' worst numbers on the sampled requests, each request
+    sent through the cell's driver again."""
     import torch
-
-    from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
-    from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone
 
     out = {"control_ref_tf32": harness.worst(harness.judge(
         cell, harness.references(cell, samples, "tf32"), refs))}
@@ -48,8 +46,8 @@ def controls(cell, samples, refs) -> dict:
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
         out["control_prog_tf32"] = harness.worst(harness.judge(cell, got, refs))
-    bf16 = SeamlessClone(CloneConfig(**{**cell.cfg["clone_config"], "precision": "default"}),
-                         device=cell.device)
+    bf16 = cell.driver.engine({**cell.cfg["clone_config"], "precision": "default"},
+                              cell.device)
     got = [cell.call(req, bf16)[0] for req, _ in samples]
     out["control_prog_bf16"] = harness.worst(harness.judge(cell, got, refs))
     bf16.destroy()

@@ -1,12 +1,13 @@
 """One run of one cell: set-up, the measured window (or the profiled
 requests), the check against the reference, the result line.
 
-What the window drives: each request is one call of the port's public
-``SeamlessClone(cfg).timed_serve(src, dst, mask, center, loops=F - 1,
-flags=...)`` followed by a synchronise, F chained frames (the warm-up frame
-and F - 1 timed ones) on the engine's own planar copy of the destination.
-``src`` and ``dst`` come from a pool of seeded pairs resident on the card,
-the mask is a host u8 array, as the API takes it. One client sends the
+What the window drives is the cell's driver (``drivers/<name>.py``, named
+by the traffic file's ``"driver"``, ``"serve"`` where it names none): the
+entry point a request goes through, its inputs, its reference and its
+comparison. ``drivers/serve.py``: each request is one call of the port's
+``SeamlessClone.timed_serve`` of F chained frames, then a synchronise;
+``drivers/run.py``: each request is F ``SeamlessClone.run`` calls, each
+into a new destination frame, then a synchronise. One client sends the
 requests back to back (a closed loop) until ``--seconds`` have passed; the
 window runs from the first request's call to the last one's return.
 """
@@ -20,12 +21,10 @@ import sys
 import time
 import traceback
 from dataclasses import dataclass, field
-
-import numpy as np
+from types import ModuleType
 
 from portbench import load, reference, trace
-from portbench.inputs import make_mask, make_pool
-from portbench.traffic import Request, Reservoir, Traffic
+from portbench.traffic import Reservoir, Traffic
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "seamlesscloneoptimization_tpu")
 
@@ -51,31 +50,17 @@ def card() -> dict:
     return {"smi_name": name, "power_limit_w": float(limit)}
 
 
-def center_of(cfg: dict) -> tuple[int, int]:
-    if cfg["center"] == "middle":
-        return cfg["dst_hw"][1] // 2, cfg["dst_hw"][0] // 2
-    return tuple(cfg["center"])
-
-
-def geometry(cfg: dict, mask: np.ndarray) -> dict:
-    """The cell's sizes (``geometry.py``): the ROI is the mask's bbox."""
-    import torch
-
-    _, (x0, y0, bw, bh) = reference.prep_mask(torch.from_numpy(mask))
-    left, top = reference.roi_placement((x0, y0, bw, bh), cfg["dst_hw"], center_of(cfg))
-    return {"c": 3, "bh": bh, "bw": bw, "h": bh - 2, "w": bw - 2, "path": cfg["path"],
-            "left": left, "top": top}
-
-
 @dataclass
 class Cell:
-    """A cell made ready: its files, inputs and engine."""
+    """A cell made ready: its files, driver, inputs and engine (the
+    driver's ``inputs`` give ``pool``, ``mask``, ``center`` and ``geom``)."""
 
     name: str
     cfg: dict
     traffic: Traffic
+    driver: ModuleType
     pool: list
-    mask: np.ndarray
+    mask: object
     center: tuple[int, int]
     geom: dict
     device: object
@@ -83,8 +68,8 @@ class Cell:
     times: dict = field(default_factory=dict)
 
     def mpix(self, frames: int) -> float:
-        """Interior megapixels that ``frames`` frames solve and paste."""
-        return frames * self.geom["h"] * self.geom["w"] * 1e-6
+        """Interior megapixels that ``frames`` frames complete."""
+        return self.driver.mpix(self, frames)
 
     def sync(self) -> None:
         import torch
@@ -92,24 +77,17 @@ class Cell:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def call(self, req: Request, engine=None):
-        """One request: (output image, seconds from the call to the sync)."""
-        src, dst = self.pool[req.pair]
-        t = time.perf_counter()
-        out, _ = (engine or self.engine).timed_serve(src, dst, self.mask, self.center,
-                                                     loops=req.frames - 1, flags=req.flags)
-        self.sync()
-        return out, time.perf_counter() - t
+    def call(self, req, engine=None):
+        """One request through the driver: (answer, seconds from the call to
+        the sync)."""
+        return self.driver.call(self, req, engine)
 
 
 def prepare(name: str, seed: int, device, cfg: dict | None = None, spec: dict | None = None,
             engine=None) -> Cell:
-    """Inputs, the engine (or ``engine``, kept warm) and its warm-up: one
-    request of each kind the traffic sends, on the traffic's shapes only."""
+    """The driver's inputs, engine (or ``engine``, kept warm) and warm-up."""
     import torch
 
-    from seamlesscloneoptimization_tpu_torch.core.config import CloneConfig
-    from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone
     from seamlesscloneoptimization_tpu_torch.ops import _build
 
     entry = load.cell(name)
@@ -123,15 +101,13 @@ def prepare(name: str, seed: int, device, cfg: dict | None = None, spec: dict | 
         times["build_s"] = time.perf_counter() - t
     t = time.perf_counter()
     tr = Traffic(spec, seed)
-    pool = make_pool(seed, tr.pool, cfg["src_hw"], cfg["dst_hw"], device)
-    mask = make_mask(spec["mask"], cfg["src_hw"], seed)
-    cell = Cell(name, cfg, tr, pool, mask, center_of(cfg), geometry(cfg, mask), device)
+    driver = load.driver(tr.driver)
+    cell = Cell(name, cfg, tr, driver, device=device, **driver.inputs(cfg, tr, seed, device))
     cell.sync()
     times["pool_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    cell.engine = engine or SeamlessClone(CloneConfig(**cfg["clone_config"]), device=device)
-    for flags, frames in tr.kinds:
-        cell.call(Request(-1, 0, flags, frames))
+    cell.engine = engine or driver.engine(cfg["clone_config"], device)
+    driver.warm(cell)
     times["warmup_s"] = time.perf_counter() - t
     cell.times = times
     return cell
@@ -206,37 +182,18 @@ def serve_traced(cell: Cell, sampler: Reservoir, tmpdir: str) -> tuple[dict, int
     return summary, cell.traffic.trace_requests, failed
 
 
-def compare(out, ref, geom: dict) -> dict:
-    """The numbers one request is judged by: the widest gap over the whole
-    image (grey levels; outside the ROI's interior the answer must equal the
-    destination), and over the solved interior the mean gap and the share
-    of values off by more than one level (%)."""
-    d = (out.to(ref.device).short() - ref.short()).abs()
-    t, l, h, w = geom["top"] + 1, geom["left"] + 1, geom["h"], geom["w"]
-    inner = d[t:t + h, l:l + w].double()
-    return {"max_abs_diff": int(d.max()), "mean_abs_diff": float(inner.mean()),
-            "pct_off_by_2": float((inner > 1).double().mean()) * 100.0}
-
-
 def references(cell: Cell, samples: list, precision: str = "float64") -> list:
     """The reference's answer to each sampled request (None where the
     program's never came), computed on the cell's device."""
-    import torch
-
     solver = reference.DstSolver(precision, cell.device)
-    mask = torch.from_numpy(cell.mask).to(cell.device)
-    out = []
-    for req, got in samples:
-        src, dst = cell.pool[req.pair]
-        out.append(None if got is None else reference.serve_request(
-            src, dst, mask, cell.center, req.flags, req.frames, solver))
-    return out
+    return [None if got is None else cell.driver.reference(cell, req, solver)
+            for req, got in samples]
 
 
 def judge(cell: Cell, outputs: list, refs: list) -> list:
-    """``compare`` of each answer with the reference's; None where an answer
-    never came."""
-    return [None if o is None or r is None else compare(o, r, cell.geom)
+    """The driver's ``compare`` of each answer with the reference's; None
+    where an answer never came."""
+    return [None if o is None or r is None else cell.driver.compare(o, r, cell.geom)
             for o, r in zip(outputs, refs)]
 
 

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from pathlib import Path
@@ -64,6 +65,14 @@ def _module(path: Path) -> ModuleType:
 def metric_reader(name: str) -> ModuleType:
     """``metrics/<name>.py``: ``read(summary) -> float | None``."""
     return _module(HERE / "metrics" / f"{name}.py")
+
+
+def driver(name: str) -> ModuleType:
+    """``drivers/<name>.py``: the entry point a cell's requests go through
+    (``drivers/__init__.py`` gives its functions)."""
+    if not name.isidentifier() or not (HERE / "drivers" / f"{name}.py").is_file():
+        raise KeyError(f"no driver {name!r} under {HERE / 'drivers'}")
+    return importlib.import_module(f"portbench.drivers.{name}")
 
 
 def kernel_costs() -> dict[str, ModuleType]:

@@ -1,7 +1,7 @@
 """Host time before a request reaches the card: from the harness's
-``portbench.request`` span's start to the request's first device op
-(``timed_serve``'s mask prep on the host, the buffer copy's and the mask
-upload's dispatch), the mean over the profiled requests, in ms."""
+``portbench.request`` span's start to the request's first device op (the
+first engine call's validation and the dispatch of its mask's upload), the
+mean over the profiled requests, in ms."""
 
 
 def read(s):

@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 
 from portbench import load
+from portbench.traffic import Traffic
 
 HERE = Path(__file__).resolve().parent
 BENCH = load.benchmark()
@@ -17,6 +18,7 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
 METRICS = BENCH["end_to_end"] + BENCH["per_layer"]
+DRIVER_FUNCTIONS = ("inputs", "engine", "warm", "call", "mpix", "reference", "compare")
 
 
 def test_top_level_keys_and_command():
@@ -53,7 +55,10 @@ def test_cell_files_load_by_name(cell):
     entry = load.cell(cell)
     cfg = load.config(entry["config"])
     assert cfg["name"] == entry["config"] and cfg["reduced"] == entry["config_entry"]["reduced"]
-    assert load.traffic(entry["traffic"])["block"]
+    traffic = Traffic(load.traffic(entry["traffic"]), 0)
+    assert traffic.block
+    driver = load.driver(traffic.driver)
+    assert all(callable(getattr(driver, f)) for f in DRIVER_FUNCTIONS)
     limits = load.limits(cell)["numbers"]
     assert limits and all(v["lower"] < v["limit"] < v["upper"] for v in limits.values())
     assert all(v["upper"] >= 3 * v["lower"] for v in limits.values())

@@ -131,7 +131,8 @@ def _frame_unchanged(monkeypatch):
 
 
 def _answer_altered(monkeypatch):
-    """Each frame's pasted interior two levels off where it is produced."""
+    """Each frame's pasted interior two levels off where it is produced: on
+    the serve loop's planar (C, H, W) buffer or ``run``'s (H, W, C) image."""
     from seamlesscloneoptimization_tpu_torch.core import engine
 
     real = engine.clone_pipeline
@@ -139,7 +140,8 @@ def _answer_altered(monkeypatch):
     def altered(src, dst, mask, bbox_xy, left_top, *a, bbox_hw, **k):
         out = real(src, dst, mask, bbox_xy, left_top, *a, bbox_hw=bbox_hw, **k)
         (left, top), (bh, bw) = left_top, bbox_hw
-        roi = out[:, top + 1:top + bh - 1, left + 1:left + bw - 1]
+        rows, cols = slice(top + 1, top + bh - 1), slice(left + 1, left + bw - 1)
+        roi = out[:, rows, cols] if k.get("planar_dst") else out[rows, cols, :]
         roi.copy_(roi.clamp(max=253) + 2)
         return out
 
@@ -147,11 +149,20 @@ def _answer_altered(monkeypatch):
 
 
 def _half_the_frames(monkeypatch):
+    """Half of a request's frames left out: ``timed_serve`` chains half of
+    its loops, and every second ``run`` returns its destination unchanged."""
     from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone
 
-    real = SeamlessClone.timed_serve
+    real_serve, real_run = SeamlessClone.timed_serve, SeamlessClone.run
+    runs = []
+
+    def run(self, src, dst, *a, **k):
+        runs.append(None)
+        return dst.clone() if len(runs) % 2 == 0 else real_run(self, src, dst, *a, **k)
+
     monkeypatch.setattr(SeamlessClone, "timed_serve",
-                        lambda self, *a, loops=20, **k: real(self, *a, loops=loops // 2, **k))
+                        lambda self, *a, loops=20, **k: real_serve(self, *a, loops=loops // 2, **k))
+    monkeypatch.setattr(SeamlessClone, "run", run)
 
 
 @pytest.mark.parametrize("cell_name", CELLS)

@@ -3,11 +3,20 @@
 
 A mix gives:
 
-- ``block``: the kinds of request in a block of requests, each
-  ``{"flags": clone flag, "frames": chained frames, "count": n}`` (a
-  request's frames are the warm-up frame and frames - 1 timed ones of one
-  ``timed_serve`` call); every block holds exactly these requests,
-  shuffled by the seed, so every seed sends the same mix in another order;
+- ``driver``: the entry point its requests go through,
+  ``drivers/<driver>.py`` (``"serve"`` where the mix gives none): ``serve``
+  sends each request as one ``timed_serve`` call of chained frames, ``run``
+  as back-to-back ``run`` calls, one a frame, each into a new destination;
+- ``request_kinds`` (``block`` in the mixes written before drivers, which
+  the serve driver alone reads): the kinds of request in a block of
+  requests, each ``{"flags": clone flag, "frames": frames, "count": n}``
+  (a request's frames as its driver counts them: serve's are the warm-up
+  frame and frames - 1 timed ones of one ``timed_serve`` call, run's its
+  ``run`` calls); every block holds exactly these requests, shuffled by the
+  seed, so every seed sends the same mix in another order. A mix with a
+  driver lists them under ``request_kinds``, so that a harness older than
+  the drivers, which reads ``block``, refuses it in its set-up instead of
+  sending its requests through ``timed_serve``;
 - ``mask``: ``"full"`` or an ellipse spec (``inputs.make_mask``);
 - ``pool``: how many seeded (src, dst) pairs live on the device; each
   request draws its pair from the seed;
@@ -42,11 +51,17 @@ class Request:
 
 class Traffic:
     def __init__(self, spec: dict, seed: int):
+        self.driver = spec.get("driver", "serve")
+        if ("block" in spec) == ("request_kinds" in spec):
+            raise ValueError(f"bad traffic spec {spec}: give one of block, request_kinds")
+        if "block" in spec and self.driver != "serve":
+            raise ValueError(f"the {self.driver} driver's kinds go under request_kinds")
+        kinds = spec["block"] if "block" in spec else spec["request_kinds"]
         self.pool = int(spec["pool"])
         self.mask = spec["mask"]
         self.sample = int(spec["sample"])
         self.trace_requests = int(spec["trace_requests"])
-        self.block = [(int(k["flags"]), int(k["frames"])) for k in spec["block"]
+        self.block = [(int(k["flags"]), int(k["frames"])) for k in kinds
                       for _ in range(int(k["count"]))]
         if self.pool < 1 or not self.block:
             raise ValueError(f"bad traffic spec {spec}")

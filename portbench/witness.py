@@ -13,8 +13,8 @@ mask and centre, one request of ``--frames`` chained frames in clone mode
   to F;
 - the reference's after k frames in float64, float32 and TF32
   (``reference.DstSolver``);
-- ``harness.compare`` of the program and of the float32 and TF32
-  references against the float64 reference at k = 1, 2, 4, 8, ..., F: if
+- the serve driver's ``compare`` of the program and of the float32 and
+  TF32 references against the float64 reference at k = 1, 2, 4, 8, ..., F: if
   the references split from each other as far as the program splits from
   them, the chain has no answer to hold the program to beyond its first
   frames;
@@ -35,6 +35,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from portbench import harness, load, reference  # noqa: E402
+from portbench.drivers.serve import compare  # noqa: E402
 
 
 def chain(src, dst, mask, center, flags, frames, solver) -> list:
@@ -62,10 +63,10 @@ def readings(name: str, seed: int, flags: int, frames: int, device: str, cfg=Non
         pair = {}
         for k in ks:
             r64 = refs["float64"][k - 1]
-            pair[k] = {"program": harness.compare(prog[k - 1], r64, cell.geom),
-                       "ref_float32": harness.compare(refs["float32"][k - 1], r64, cell.geom),
-                       "ref_tf32": harness.compare(refs["tf32"][k - 1], r64, cell.geom)}
-        steps = [harness.compare(prog[k], reference.serve_request(
+            pair[k] = {"program": compare(prog[k - 1], r64, cell.geom),
+                       "ref_float32": compare(refs["float32"][k - 1], r64, cell.geom),
+                       "ref_tf32": compare(refs["tf32"][k - 1], r64, cell.geom)}
+        steps = [compare(prog[k], reference.serve_request(
             src, prog[k - 1], mask, cell.center, flags, 1, solvers["float64"]), cell.geom)
             for k in range(1, frames)]
         pair["one_step_worst"] = harness.worst(steps) if steps else None
