@@ -23,7 +23,7 @@ import traceback
 from dataclasses import dataclass, field
 from types import ModuleType
 
-from portbench import load, reference, trace
+from portbench import load, reference, spans, trace
 from portbench.traffic import Reservoir, Traffic
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "seamlesscloneoptimization_tpu")
@@ -146,7 +146,9 @@ def serve(cell: Cell, seconds: float, sampler: Reservoir) -> dict:
 
 def serve_traced(cell: Cell, sampler: Reservoir, tmpdir: str) -> tuple[dict, int, int]:
     """``trace_requests`` requests under ``torch.profiler``, each in a
-    ``portbench.request`` span. Returns (summary, attempted, failed)."""
+    ``portbench.request`` span. Returns (summary, attempted, failed): the
+    summary is ``trace.summarize``'s, with the program's own spans and
+    counters (``spans.summarize_program``) under ``"program"``."""
     import os
 
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -156,6 +158,7 @@ def serve_traced(cell: Cell, sampler: Reservoir, tmpdir: str) -> tuple[dict, int
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cell.device.type == "cuda"
                                      else [])
     K.reset_launches()
+    counts = spans.program_counts()
     failed = frames = 0
     with profile(activities=acts) as prof:
         for i in range(cell.traffic.trace_requests):
@@ -170,7 +173,8 @@ def serve_traced(cell: Cell, sampler: Reservoir, tmpdir: str) -> tuple[dict, int
                 failed += 1
             sampler.offer((req, out))
     launches = dict(K.LAUNCHES)
-    path = os.path.join(tmpdir, "portbench_trace.json")
+    counts = spans.counts_delta(counts, spans.program_counts())
+    path = os.path.join(tmpdir, f"portbench_trace_{os.getpid()}.json")
     prof.export_chrome_trace(path)
     try:
         with open(path) as f:
@@ -179,6 +183,7 @@ def serve_traced(cell: Cell, sampler: Reservoir, tmpdir: str) -> tuple[dict, int
         os.unlink(path)
     summary = trace.summarize(events, frames, cell.geom, load.kernel_costs(), load.peaks(),
                               launches)
+    summary["program"] = spans.summarize_program(events, summary["requests"], frames, counts)
     return summary, cell.traffic.trace_requests, failed
 
 
@@ -284,6 +289,12 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device, t_start
         log("kernels vs bound:", json.dumps(summary["kernels"]))
         log("kernels without a cost file (us):", json.dumps(summary["unmatched"]))
         log("launches by kernel:", json.dumps({k: v for k, v in summary["launches"].items() if v}))
+        program = summary["program"]
+        log("program spans (us a request), idle by span (us), counters:", json.dumps(
+            {"spans": {k: v["us_per_request"] for k, v in program["spans"].items()},
+             "idle_by_span": {str(k): v for k, v in program["idle_by_span"].items()},
+             "counters": {k: v for k, v in program["counters"].items() if v}}))
+        log("device ops (us, count):", json.dumps(summary["device_ops"]))
     if cell.device.type == "cuda":
         device_info.update(card())
     result["checks"] = checks

@@ -2,25 +2,35 @@
 
 ``trace.summarize`` reads torch ops, runtime calls and device ops under the
 harness's ``portbench.request`` span. This module reads what the port adds
-inside it: its spans (``engine.*``, ``pipeline.*``, ``solver.*``; the port's
-``core/trace.py``) and its solver counter (``solvers.multigrid.COUNTS``).
+inside it, found by rule and not by a list, so that a span or a counter a
+later change adds to the port reaches the readers with no edit here:
+
+- its spans: every ``user_annotation`` span whose name holds a dot, less
+  the harness's own ``portbench.*`` (the port's ``core/trace.py`` names
+  them ``<layer>.<what>``: ``engine.*``, ``pipeline.*``, ``solver.*``);
+- its counters: every dict named ``COUNTS`` on a loaded module of the port
+  (``program_counts``), each key as ``<module below the package>.<key>``:
+  ``solvers.multigrid.COUNTS["cycles"]`` is ``solvers.multigrid.cycles``.
+  A dict that several modules import is read under each of their names.
+
 ``summarize_program(events, requests, frames, counters)`` returns
 
 - ``spans``: {span name: {"us", "count", "us_per_request"}};
 - ``idle_by_span``: {innermost program span open, or None: the device's
   idle us inside the window}, each idle piece named as ``trace`` names it
   by host event;
-- ``counters``: the ``COUNTS`` delta over the requests, or None where the
-  program has no such counter;
+- ``checks_in_frames_us``: the ``solver.check`` spans' us inside a
+  ``pipeline.frame``;
+- ``counters``: the counters' delta over the requests (``counts_delta``).
 
-and ``readings(program)`` the five per-layer numbers of ``READERS``, each
-None where its span or counter is absent (a program without them).
-``frames`` counts every frame of the requests, warm-up frames included.
+``harness.serve_traced`` puts it under the summary's ``"program"`` key,
+where the readers in ``metrics/`` find it. ``frames`` counts every frame of
+the requests, warm-up frames included.
 
-Run as a script, it profiles one cell's ``trace_requests`` requests as
-``harness.serve_traced`` does, with ``COUNTS`` read before and after, and
-prints one JSON line (the readings, the tables, the cell's per-layer
-metrics of ``metrics/`` and the breakdown):
+Run as a script, it profiles one cell's ``trace_requests`` requests through
+``harness.serve_traced`` and prints one JSON line (the program's readings,
+the tables, the cell's per-layer metrics, the device ops and the
+breakdown):
 
     python3 -m portbench.spans --workload <cell> --seed <n> [--out <file>]
 
@@ -29,19 +39,20 @@ from the root of a checkout that holds the port.
 
 from __future__ import annotations
 
-import importlib
+import sys
 
 from portbench import trace
 
-PREFIXES = ("engine.", "pipeline.", "solver.")
-REQUEST = "engine.request"
+PACKAGE = "seamlesscloneoptimization_tpu_torch"
+HARNESS = "portbench."
+PROGRAM_SOURCES = ("program_span", "program_counter")
 
 
 def program_spans(events: list) -> list:
-    """The program's spans: ``user_annotation`` events named with one of
-    ``PREFIXES``."""
+    """The program's spans: ``user_annotation`` events whose name holds a
+    dot, less the harness's own."""
     return [e for e in events if e.get("cat") == "user_annotation" and "dur" in e
-            and e.get("name", "").startswith(PREFIXES)]
+            and "." in e.get("name", "") and not e["name"].startswith(HARNESS)]
 
 
 def span_table(spans: list, requests: int) -> dict:
@@ -79,8 +90,14 @@ def idle_by_span(events: list, spans: list) -> dict:
     return {(None if k == "(no host event)" else k): v for k, v in idle.items()}
 
 
-def summarize_program(events: list, requests: int, frames: int,
-                      counters: dict | None) -> dict:
+def _checks_in_frames_us(spans: list) -> float:
+    """The ``solver.check`` spans' us that lie inside a ``pipeline.frame``."""
+    frames = [(e["ts"], e["ts"] + e["dur"]) for e in spans if e["name"] == "pipeline.frame"]
+    return sum(e["dur"] for e in spans if e["name"] == "solver.check"
+               and any(a <= e["ts"] and e["ts"] + e["dur"] <= b for a, b in frames))
+
+
+def summarize_program(events: list, requests: int, frames: int, counters: dict) -> dict:
     spans = program_spans(events)
     return {"requests": requests, "frames": frames,
             "spans": span_table(spans, requests),
@@ -89,109 +106,50 @@ def summarize_program(events: list, requests: int, frames: int,
             "counters": counters}
 
 
-def _checks_in_frames_us(spans: list) -> float:
-    """The ``solver.check`` spans' us that lie inside a ``pipeline.frame``."""
-    frames = [(e["ts"], e["ts"] + e["dur"]) for e in spans if e["name"] == "pipeline.frame"]
-    return sum(e["dur"] for e in spans if e["name"] == "solver.check"
-               and any(a <= e["ts"] and e["ts"] + e["dur"] <= b for a, b in frames))
+def program_counts() -> dict:
+    """A snapshot of every ``COUNTS`` dict on a loaded module of the port:
+    {"<module below the package>.<key>": value} for each numeric value."""
+    out = {}
+    for name, mod in list(sys.modules.items()):
+        if not name.startswith(PACKAGE + "."):
+            continue
+        counts = getattr(mod, "__dict__", {}).get("COUNTS")
+        if isinstance(counts, dict):
+            sub = name[len(PACKAGE) + 1:]
+            out.update({f"{sub}.{k}": v for k, v in counts.items()
+                        if isinstance(v, int | float) and not isinstance(v, bool)})
+    return out
 
 
-def _prep_ms_per_request(p: dict):
-    """``engine.prepare``'s ms a request: validation, mask prep, ``auto``
-    and the cache lookups on the host."""
-    row = p["spans"].get("engine.prepare")
-    return None if row is None or not p["requests"] else row["us"] / p["requests"] * 1e-3
+def counts_delta(before: dict, after: dict) -> dict:
+    """Each counter's growth from ``before`` to ``after``; a counter that
+    first appears in ``after`` (its module loaded meanwhile) from 0."""
+    return {k: v - before.get(k, 0) for k, v in after.items()}
 
 
-def _host_ms_per_frame(p: dict):
-    """The host's enqueue time a frame: ``pipeline.frame`` less the
-    ``solver.check`` waits inside it, in ms."""
-    row = p["spans"].get("pipeline.frame")
-    if row is None or not p["frames"]:
-        return None
-    return (row["us"] - p["checks_in_frames_us"]) / p["frames"] * 1e-3
+def readings(summary: dict) -> dict:
+    """Every per-layer metric that ``BENCHMARK.json`` takes from the
+    program's spans or counters, read from a summary, None where absent."""
+    from portbench import load
 
-
-def _per_frame(key: str):
-    def read(p: dict):
-        c = p["counters"]
-        return None if c is None or key not in c or not p["frames"] else c[key] / p["frames"]
-    return read
-
-
-def _idle_unattributed_pct(p: dict):
-    """% of the device's idle time with no program span below
-    ``engine.request`` open: under the request span alone, or outside it."""
-    idle = p["idle_by_span"]
-    total = sum(idle.values())
-    if REQUEST not in p["spans"] or total <= 0:
-        return None
-    return 100.0 * (idle.get(None, 0.0) + idle.get(REQUEST, 0.0)) / total
-
-
-READERS = {
-    "engine.prep_ms_per_request": _prep_ms_per_request,
-    "pipeline.host_ms_per_frame": _host_ms_per_frame,
-    "solver.cycles_per_frame": _per_frame("cycles"),
-    "solver.checks_per_frame": _per_frame("checks"),
-    "device.idle_unattributed_pct": _idle_unattributed_pct,
-}
-
-
-def readings(program: dict) -> dict:
-    return {name: read(program) for name, read in READERS.items()}
-
-
-def program_counts() -> dict | None:
-    """The program's ``solvers.multigrid.COUNTS``, or None where it has none."""
-    try:
-        mod = importlib.import_module("seamlesscloneoptimization_tpu_torch.solvers.multigrid")
-    except ImportError:
-        return None
-    return getattr(mod, "COUNTS", None)
+    return {m["name"]: load.metric_reader(m["name"]).read(summary)
+            for m in load.benchmark()["per_layer"] if m["source"] in PROGRAM_SOURCES}
 
 
 def profile_cell(name: str, seed: int, device, tmpdir: str, cfg: dict | None = None,
                  spec: dict | None = None) -> dict:
-    """One cell's traced requests, profiled as ``harness.serve_traced``
-    profiles them: {"summary": trace's, "program": ``summarize_program``'s,
+    """One cell's traced requests through ``harness.serve_traced``:
+    {"summary": its summary, "program": the summary's ``"program"``,
     "readings", "metrics": the cell's per-layer metrics}."""
-    import json
-    import os
-
-    from torch.profiler import ProfilerActivity, profile, record_function
-
     from portbench import harness, load
-    from seamlesscloneoptimization_tpu_torch.ops import kernels as K
+    from portbench.traffic import Reservoir
 
     cell = harness.prepare(name, seed, device, cfg, spec)
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cell.device.type == "cuda"
-                                     else [])
-    counts = program_counts()
-    before = None if counts is None else dict(counts)
-    K.reset_launches()
-    frames = 0
-    with profile(activities=acts) as prof:
-        for i in range(cell.traffic.trace_requests):
-            req = cell.traffic.request(i)
-            with record_function(trace.SPAN):
-                cell.call(req)
-            frames += req.frames
-    launches = dict(K.LAUNCHES)
-    delta = None if counts is None else {k: counts[k] - before[k] for k in before}
-    path = os.path.join(tmpdir, f"portbench_spans_{os.getpid()}.json")
-    prof.export_chrome_trace(path)
-    try:
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    finally:
-        os.unlink(path)
-    s = trace.summarize(events, frames, cell.geom, load.kernel_costs(), load.peaks(), launches)
-    program = summarize_program(events, s["requests"], frames, delta)
+    s, _, _ = harness.serve_traced(cell, Reservoir(cell.traffic.sample, seed), tmpdir)
     metrics = {m["name"]: load.metric_reader(m["name"]).read(s)
                for m in load.cell(name)["per_layer"]}
-    cell.engine.destroy()
-    return {"summary": s, "program": program, "readings": readings(program),
+    harness.free_program(cell)
+    return {"summary": s, "program": s["program"], "readings": readings(s),
             "metrics": metrics}
 
 
@@ -216,6 +174,7 @@ def main(argv=None) -> int:
                        "counters": r["program"]["counters"],
                        "window_us": s["window_us"], "busy_us": s["busy_us"],
                        "launches": {k: v for k, v in s["launches"].items() if v},
+                       "device_ops": s["device_ops"],
                        "breakdown": trace.breakdown(s)})
     print(line, flush=True)
     if args.out:

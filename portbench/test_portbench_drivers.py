@@ -207,3 +207,40 @@ def test_run_warm_up_holds_as_many_answers_as_the_window(monkeypatch):
     monkeypatch.setattr(SeamlessClone, "run", run)
     harness.prepare("headline-run", SEED, "cpu", _cfg("headline-run"), _spec("headline-run"))
     assert len(live) == (3 + 2) * 16 and max(most) == len(live)
+
+
+def test_dropin_driver_calls_the_api_on_host_arrays(monkeypatch):
+    """A drop-in request is one ``api.seamless_clone`` call on the host pool's
+    arrays, numpy out, through the API's cached engine; the answer is one
+    frame within a level of the float64 reference; ``destroy`` empties the
+    API's engine cache; a setting the API cannot take is refused."""
+    from seamlesscloneoptimization_tpu_torch import api
+
+    cell = harness.prepare("headline-dropin", SEED, "cpu", _cfg("headline-dropin"),
+                           _spec("headline-dropin"))
+    assert cell.driver is load.driver("dropin")
+    assert all(isinstance(a, np.ndarray) for pair in cell.pool for a in pair)
+    seen = []
+    real = api.seamless_clone
+    monkeypatch.setattr(api, "seamless_clone",
+                        lambda *a, **k: seen.append((a, k)) or real(*a, **k))
+    req = Request(0, 2, 1, 1)
+    out, dt = cell.call(req)
+    assert isinstance(out, np.ndarray) and out.shape == (*TINY["dst_hw"], 3) and dt > 0
+    (src, dst, mask, center, flags), kw = seen[0]
+    assert src is cell.pool[2][0] and dst is cell.pool[2][1] and mask is cell.mask
+    assert (center, flags) == (cell.center, 1) and kw["solver"] == "auto"
+    assert len(api._engines) == 1 and cell.engine.metrics.get("bbox") is not None
+    assert cell.engine.device_memory_bytes() > 0
+    ref = cell.driver.reference(cell, req, reference.DstSolver("float64", torch.device("cpu")))
+    assert cell.driver.compare(out, ref, cell.geom)["max_abs_diff"] <= 1
+    g = cell.geom
+    outside = np.ones(out.shape[:2], bool)
+    outside[g["top"] + 1:g["top"] + 1 + g["h"], g["left"] + 1:g["left"] + 1 + g["w"]] = False
+    assert np.array_equal(out[outside], cell.pool[2][1][outside])
+    cell.engine.destroy()
+    assert len(api._engines) == 0 and cell.engine.device_memory_bytes() == 0
+    with pytest.raises(ValueError):
+        cell.driver.engine({"precision": "default"}, cell.device)
+    with pytest.raises(ValueError):
+        cell.call(Request(0, 0, 1, 2))

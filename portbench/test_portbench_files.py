@@ -50,6 +50,12 @@ def test_names_units_and_keys():
     assert len({m["name"] for m in METRICS}) == len(METRICS)
 
 
+def test_per_layer_metrics_list_cells_that_report_what_they_move():
+    for m in BENCH["per_layer"]:
+        for cell in m["workloads"]:
+            assert m["moves"] in {e["name"] for e in load.cell(cell)["end_to_end"]}, (m, cell)
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_load_by_name(cell):
     entry = load.cell(cell)

@@ -3,7 +3,9 @@ trace whose answers are worked out below and on a trace recorded on the
 card; and the kernels' cost files at the cells' sizes."""
 
 import json
+import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 
@@ -168,3 +170,89 @@ def test_level_rule_is_the_multigrids(hw):
 
     want = [(h, w) for h, w, *_ in q_coarse_levels(*hw)]
     assert geometry.mg_q_coarse_levels(*hw) == want
+
+
+# -- a kernel belongs to the first cost file that counts the cell's geometry
+
+
+def _cost_file(names, paths, bytes_per_launch=3.35e6):
+    """A cost file whose count exists on ``paths`` alone (1 us a launch)."""
+    def cost(geom, launches):
+        return None if geom["path"] not in paths else (0.0, launches * bytes_per_launch)
+    return SimpleNamespace(NAMES=names, cost=cost)
+
+
+ERODE = "(anonymous namespace)::erode3_kernel<8>"
+
+
+@pytest.mark.parametrize("path,owner,bound_us", [
+    ("dst_pair", "a_first", 4.0),  # both count it: the first in name order
+    ("batch", "b_second", 4.0),  # the first has no count here
+    ("mg_q", "a_first", None),  # neither counts it: the first, without a bound
+])
+def test_a_kernel_goes_to_the_first_file_that_counts_the_geometry(path, owner, bound_us):
+    costs = {"b_second": _cost_file([r"\berode3_kernel\b"], ("dst_pair", "batch")),
+             "a_first": _cost_file([r"\berode3_kernel\b"], ("dst_pair",))}
+    ops = {ERODE: [10.0, 4, "kernel"], "other_kernel": [2.0, 1, "kernel"]}
+    table, unmatched = trace.kernel_table(ops, costs, {"path": path}, load.peaks())
+    want = None if bound_us is None else pytest.approx(bound_us)
+    assert table == {owner: {"us": 10.0, "launches": 4, "bound_us": want}}
+    assert unmatched == {"other_kernel": 2.0}
+
+
+def test_a_new_cost_file_takes_an_existing_kernel_on_its_own_path_alone():
+    """A later file for ``transpose_pair`` on a path of its own, beside the
+    repo's: the headline keeps every kernel where it was; on the new path
+    the new file owns the kernel and gives it a bound."""
+    doc = json.loads((HERE / "fixtures" / "headline_request.json").read_text())
+    s = trace.summarize(doc["traceEvents"], doc["frames"], doc["geom"], load.kernel_costs(),
+                        load.peaks(), doc["launches"])
+    new = {**load.kernel_costs(),
+           "zz_transpose_pair_batch": _cost_file([r"\btranspose_pair_(kernel|ragged)\b"],
+                                                 ("batch",))}
+    again = trace.summarize(doc["traceEvents"], doc["frames"], doc["geom"], new, load.peaks(),
+                            doc["launches"])
+    assert again["kernels"] == s["kernels"]
+    ops = {n: [us, k, "kernel"] for n, (us, k) in s["device_ops"].items()}
+    table, _ = trace.kernel_table(ops, new, {**doc["geom"], "path": "batch"}, load.peaks())
+    assert table["zz_transpose_pair_batch"]["launches"] == 48
+    assert table["zz_transpose_pair_batch"]["bound_us"] == pytest.approx(48.0)
+    assert "transpose_pair" not in table and table["erode3"]["bound_us"] is not None
+    assert table["fold_minor"]["bound_us"] is None  # the DST files count dst_pair alone
+
+
+def _cell_geometries() -> dict:
+    """Each cell's sizes as its driver takes them (every driver's geometry is
+    the serve driver's: the mask's bbox centred in the destination)."""
+    from portbench.drivers import serve
+    from portbench.inputs import make_mask
+
+    out = {}
+    for w in load.benchmark()["workloads"]:
+        cfg, spec = load.config(w["config"]), load.traffic(w["traffic"])
+        out[w["name"]] = serve.geometry(cfg, make_mask(spec["mask"], cfg["src_hw"], 0))
+    return out
+
+
+KERNEL_NAMES = json.loads((HERE / "fixtures" / "kernel_names.json").read_text())
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in load.benchmark()["workloads"]])
+def test_no_two_cost_files_count_one_kernel_at_a_cells_geometry(cell):
+    """Every device kernel name recorded in the cells' traced runs on the
+    card: at each cell's geometry at most one cost file both matches it and
+    counts it, so name order never decides between two counts."""
+    geom = _cell_geometries()[cell]
+    costs = load.kernel_costs()
+    counting = {k: [re.compile(p) for p in m.NAMES] for k, m in costs.items()
+                if m.cost(geom, 1) is not None}
+    names = sorted({n for names in KERNEL_NAMES["cells"].values() for n in names})
+    assert len(names) >= 20
+    for name in names:
+        owners = [k for k, pats in counting.items() if any(p.search(name) for p in pats)]
+        assert len(owners) <= 1, (name, owners)
+    # and each cell's own port kernels all find a counting file
+    own = [n for n in KERNEL_NAMES["cells"].get(cell, []) if not trace.GEMM.search(n)
+           and any(p.search(n) for m in costs.values() for p in map(re.compile, m.NAMES))]
+    for name in own:
+        assert any(p.search(name) for pats in counting.values() for p in pats), name

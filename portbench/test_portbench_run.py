@@ -150,7 +150,8 @@ def _answer_altered(monkeypatch):
 
 def _half_the_frames(monkeypatch):
     """Half of a request's frames left out: ``timed_serve`` chains half of
-    its loops, and every second ``run`` returns its destination unchanged."""
+    its loops, and every second ``run`` (the drop-in's too, its destination
+    a host array) returns its destination unchanged."""
     from seamlesscloneoptimization_tpu_torch.core.engine import SeamlessClone
 
     real_serve, real_run = SeamlessClone.timed_serve, SeamlessClone.run
@@ -158,7 +159,9 @@ def _half_the_frames(monkeypatch):
 
     def run(self, src, dst, *a, **k):
         runs.append(None)
-        return dst.clone() if len(runs) % 2 == 0 else real_run(self, src, dst, *a, **k)
+        if len(runs) % 2 == 0:
+            return torch.as_tensor(dst).clone()
+        return real_run(self, src, dst, *a, **k)
 
     monkeypatch.setattr(SeamlessClone, "timed_serve",
                         lambda self, *a, loops=20, **k: real_serve(self, *a, loops=loops // 2, **k))

@@ -16,8 +16,10 @@ in ``metrics/`` see:
 - ``device_ops``: {name: [us, count]} inside the window; ``gemm_us`` the
   part whose kernels are cuBLAS GEMMs;
 - ``kernels``: {port kernel: {us, launches, bound_us}} for each file under
-  ``kernels/`` whose names matched; ``bound_us`` is None where the file
-  has no count for this geometry;
+  ``kernels/`` that owns a device kernel (``kernel_owner``: the first file
+  whose names match and that counts this geometry, else the first whose
+  names match); ``bound_us`` is None where the file has no count for this
+  geometry;
 - ``unmatched``: {name: us} of non-GEMM kernels no file claims;
 - ``idle_by_host``: {host activity: us} of the device's idle gaps inside
   the window, each piece of a gap named by the deepest host event open
@@ -125,16 +127,26 @@ def _idle_by_host(gaps, host, w0: float, w1: float) -> dict:
     return idle
 
 
+def kernel_owner(name: str, n: int, costs: dict, compiled: dict, geom: dict) -> str | None:
+    """The cost file a device kernel belongs to: the first, in name order,
+    whose ``NAMES`` match and which counts this geometry (``cost`` not
+    None); where every matching file returns None, the first match; None
+    where no file matches. So a new path brings its own cost file for a
+    kernel that an existing file counts on another path."""
+    matches = [k for k, pats in compiled.items() if any(p.search(name) for p in pats)]
+    return next((k for k in matches if costs[k].cost(geom, n) is not None),
+                matches[0] if matches else None)
+
+
 def kernel_table(device_ops, costs: dict, geom: dict, peaks: dict) -> tuple[dict, dict]:
     """({port kernel: {us, launches, bound_us}}, {unclaimed non-GEMM kernel: us})."""
-    compiled = {k: [re.compile(p) for p in mod.NAMES] for k, mod in costs.items()}
+    compiled = {k: [re.compile(p) for p in costs[k].NAMES] for k in sorted(costs)}
     table: dict = {}
     unmatched: dict = {}
     for name, (us, n, cat) in device_ops.items():
         if cat != "kernel" or GEMM.search(name):
             continue
-        owner = next((k for k, pats in compiled.items() if any(p.search(name) for p in pats)),
-                     None)
+        owner = kernel_owner(name, n, costs, compiled, geom)
         if owner is None:
             unmatched[name] = unmatched.get(name, 0.0) + us
             continue
